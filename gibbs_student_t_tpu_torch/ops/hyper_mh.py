@@ -1,0 +1,225 @@
+"""The whole hyper-parameter MH block: kernel wrapper and plain version.
+
+Counterpart of ``gibbs_student_t_tpu/ops/pallas_hyper.py``. The
+reference's red-noise update is 10 sequential Metropolis steps on the
+b-marginalized likelihood (reference gibbs.py:80-111, 288-329), each
+paying a factorization. On the Schur path only the phi-varying block
+``S0 (v x v)`` changes with a proposal, through its diagonal.
+``hyper_mh`` runs the whole block for every chain in one launch of
+``csrc/hyper_mh.cu`` (replacing ``pallas_hyper.py::_hyper_kernel``):
+``S0`` is read once into shared memory, and each proposal's equilibrated
+matrix is built and factored in a second shared buffer; only the logdet
+and the quadratic form leave the recurrence. Two v x v float buffers per
+block bound the kernel at ``MAX_HYPER_V``; larger blocks take the
+closure path, :func:`hyper_mh_loop` with the ``chol_fused`` kernel as its
+factorization.
+
+Every varying phi block's log-precision is affine in the sampled hypers
+(powerlaw in log10_A and gamma, ecorr in each log10_ecorr), so a
+proposal's phi is ``log phi = K0 + sum_k K_k x[hyp_idx[k]]`` over
+constant rows (:func:`build_hyper_consts`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from gibbs_student_t_tpu_torch.models.pta import (
+    ConstBlock,
+    EcorrBlock,
+    ImproperBlock,
+    PowerlawBlock,
+)
+from gibbs_student_t_tpu_torch.ops.chol import chol_fused_plain
+from gibbs_student_t_tpu_torch.ops.white_mh import lnprior_sum, mh_loop
+
+LN10 = float(np.log(10.0))
+
+#: largest Schur block the kernel takes: 2 v^2 + (9 + nk) v floats of
+#: shared memory stay within a Hopper block's 227 KB up to v ~ 167
+MAX_HYPER_V = 160
+#: most hyper indices the kernel's by-value table takes
+MAX_HYPER_K = 16
+
+
+class HyperConsts(NamedTuple):
+    """Constants of one model's marginalized likelihood over a column
+    subset ``cols`` (the Schur varying block, or all m columns).
+
+    ``K`` (1 + nk, v): row 0 the constant part of log phi on the varying
+    columns, row 1+k the coefficient of ``x[hyp_idx[k]]``. ``phi_sel``
+    (v,): 1 where the column's phi varies with x. ``phiinv_static`` (v,):
+    the constant phiinv of static-phi columns inside the subset (zero for
+    improper columns). ``logdet_phi_static``: sum of log phi over all
+    static-phi columns of the model. ``specs`` (3, p): prior table."""
+
+    K: np.ndarray
+    hyp_idx: Tuple[int, ...]
+    phi_sel: np.ndarray
+    phiinv_static: np.ndarray
+    logdet_phi_static: float
+    specs: np.ndarray
+
+
+def build_hyper_consts(ma, cols) -> HyperConsts:
+    """Decompose ``models.pta.phiinv_logdet`` into affine-in-x form (float64,
+    cast to float32 at the end)."""
+    from gibbs_student_t_tpu_torch.models.signals import FYR
+
+    m = ma.m
+    s2 = float(ma.time_scale) ** 2
+    const_col = np.zeros(m)
+    has_phi = np.zeros(m, bool)
+    varying = np.zeros(m, bool)
+    coefs: dict[int, np.ndarray] = {}
+
+    def coef_row(idx):
+        if idx not in coefs:
+            coefs[idx] = np.zeros(m)
+        return coefs[idx]
+
+    for blk in ma.phi_blocks:
+        sl = slice(blk.start, blk.stop)
+        if isinstance(blk, ImproperBlock):
+            continue
+        if isinstance(blk, ConstBlock):
+            const_col[sl] = np.log(np.asarray(blk.phi, np.float64))
+            has_phi[sl] = True
+            continue
+        if isinstance(blk, PowerlawBlock):
+            freqs = np.asarray(blk.freqs, np.float64)
+            const_col[sl] = (-np.log(12.0 * np.pi ** 2)
+                             - 3.0 * np.log(FYR)
+                             + np.log(float(blk.df)) + np.log(s2))
+            gam_vec = np.log(FYR) - np.log(freqs)
+            if blk.idx_log10A >= 0:
+                coef_row(blk.idx_log10A)[sl] += 2.0 * LN10
+                varying[sl] = True
+            else:
+                const_col[sl] += 2.0 * LN10 * float(blk.const_log10A)
+            if blk.idx_gamma >= 0:
+                coef_row(blk.idx_gamma)[sl] += gam_vec
+                varying[sl] = True
+            else:
+                const_col[sl] += float(blk.const_gamma) * gam_vec
+            has_phi[sl] = True
+            continue
+        if isinstance(blk, EcorrBlock):
+            group = np.asarray(blk.col_group)
+            const_col[sl] += np.log(s2)
+            for g, idx in enumerate(blk.idx):
+                gcols = blk.start + np.flatnonzero(group == g)
+                if idx >= 0:
+                    coef_row(idx)[gcols] += 2.0 * LN10
+                    varying[gcols] = True
+                else:
+                    const_col[gcols] += 2.0 * LN10 * float(blk.const[g])
+            has_phi[sl] = True
+            continue
+        raise TypeError(f"unknown phi block {type(blk)}")
+
+    cols = np.asarray(cols, int)
+    hyp_idx = tuple(sorted(coefs))
+    K = np.zeros((1 + len(hyp_idx), len(cols)))
+    K[0] = np.where(varying[cols], const_col[cols], 0.0)
+    for k, idx in enumerate(hyp_idx):
+        K[1 + k] = coefs[idx][cols]
+    static = has_phi & ~varying
+    phiinv_static = np.where(static[cols], np.exp(-const_col[cols]), 0.0)
+    logdet_static = float(const_col[static].sum())
+    specs = np.asarray(ma.prior_specs, np.float32)[:, :3].T.copy()
+    kinds = set(np.unique(specs[0].astype(int)))
+    if not kinds <= {0, 1, 2}:
+        raise ValueError(f"unsupported prior kinds for fused MH: {kinds}")
+    return HyperConsts(K=K.astype(np.float32), hyp_idx=hyp_idx,
+                       phi_sel=varying[cols].astype(np.float32),
+                       phiinv_static=phiinv_static.astype(np.float32),
+                       logdet_phi_static=logdet_static, specs=specs)
+
+
+def hyper_ll_lp(q, S0, dS0, rt, base, K, sel, specs, hyp_idx,
+                jitter: float, factor=chol_fused_plain):
+    """(ll, lp) of proposals ``q (C, p)``: the marginalized likelihood on
+    the matrix block ``S0`` (non-finite -> -inf) and the full prior.
+    ``factor(S, rhs) -> (L, logdet, u)`` factors the equilibrated matrix."""
+    v = S0.shape[-1]
+    eye = torch.eye(v, dtype=torch.bool, device=S0.device)
+    lph = K[0]
+    for k, idx in enumerate(hyp_idx):
+        lph = lph + K[1 + k] * q[..., idx:idx + 1]
+    phiinv = sel * torch.exp(-lph)
+    d = dS0 + phiinv
+    isd = torch.rsqrt(d)
+    A = torch.where(eye, 1.0 + jitter,
+                    S0 * isd[..., :, None] * isd[..., None, :])
+    _, logdet_A, u = factor(A, rt * isd)
+    ll = base + 0.5 * ((u * u).sum(-1)
+                       - (logdet_A + torch.log(d).sum(-1))
+                       - (sel * lph).sum(-1))
+    ll = torch.where(torch.isfinite(ll), ll, -math.inf)
+    return ll, lnprior_sum(q, specs)
+
+
+def hyper_mh_loop(x, S0, dS0, rt, base, dx, logu, K, sel, specs, hyp_idx,
+                  jitter: float, factor=chol_fused_plain):
+    """The hyper MH block over precomputed draws in PyTorch: ``x (C, p)``,
+    ``S0 (C, v, v)``, ``dS0/rt (C, v)``, ``base (C,)``, ``dx (C, S, p)``,
+    ``logu (C, S)``; constants ``K (1+nk, v)``, ``sel (v,)``,
+    ``specs (3, p)``. ``factor`` factors each proposal's equilibrated
+    matrix: the plain recurrence by default (the kernel's plain version),
+    the ``chol_fused`` kernel on the closure path. Returns
+    ``(x_new, acc_rate (C,))``."""
+    return mh_loop(
+        lambda q: hyper_ll_lp(q, S0, dS0, rt, base, K, sel, specs, hyp_idx,
+                              jitter, factor), x, dx, logu)
+
+
+def hyper_mh(x, S0, dS0, rt, base, dx, logu, K, sel, specs, hyp_idx,
+             jitter: float):
+    """``(x_new, acc_rate)`` for the whole hyper MH block, one launch on a
+    CUDA device (``v <= MAX_HYPER_V``), the plain loop on the CPU. Shapes
+    as in :func:`hyper_mh_loop`; constants are float32 tensors on the
+    same device, ``hyp_idx`` the static ``HyperConsts.hyp_idx``."""
+    for t in (x, S0, dS0, rt, base, dx, logu, K, sel, specs):
+        if t.dtype != torch.float32:
+            raise ValueError(f"hyper_mh: float32 only, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError("hyper_mh: operands on different devices")
+    C, p = x.shape
+    v = S0.shape[-1]
+    S = dx.shape[-2]
+    nk = len(hyp_idx)
+    if (S0.shape != (C, v, v) or dS0.shape != (C, v) or rt.shape != (C, v)
+            or base.shape != (C,) or dx.shape != (C, S, p)
+            or logu.shape != (C, S) or K.shape != (1 + nk, v)
+            or sel.shape != (v,) or specs.shape != (3, p)):
+        raise ValueError("hyper_mh: inconsistent operand shapes")
+    if x.device.type == "cpu":
+        return hyper_mh_loop(x, S0, dS0, rt, base, dx, logu, K, sel, specs,
+                             hyp_idx, jitter)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"hyper_mh: no kernel for device {x.device}")
+    if v > MAX_HYPER_V or nk > MAX_HYPER_K:
+        raise ValueError(f"hyper_mh: v = {v} / nk = {nk} exceed the "
+                         f"kernel bounds ({MAX_HYPER_V}, {MAX_HYPER_K})")
+    from gibbs_student_t_tpu_torch.ops import _cuda
+
+    ops = [t.contiguous() for t in (x, S0, dS0, rt, base, dx, logu, K, sel,
+                                    specs)]
+    xo = torch.empty_like(ops[0])
+    acc = torch.empty((C,), dtype=x.dtype, device=x.device)
+    hi = _cuda.host_ints(hyp_idx)
+    if C:
+        _cuda.check(_cuda.lib().gst_hyper_mh(
+            *(_cuda.ptr(t) for t in ops), _cuda.addr(hi), nk,
+            _cuda.ptr(xo), _cuda.ptr(acc), C, v, p, S, float(jitter),
+            _cuda.stream(x.device)), "hyper_mh")
+        hyper_mh.launches += 1
+    return xo, acc
+
+
+hyper_mh.launches = 0

@@ -1,0 +1,225 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA device (and ``nvcc``, which builds the
+kernels at first use), is marked ``torch`` and skips on a host without
+CUDA. The file imports neither ``jax`` nor the JAX package and uses no
+conftest fixture, so it runs where only PyTorch is installed::
+
+    python -m pytest --noconftest -m torch tests/test_torch_kernels.py -q
+
+It covers what ``chip_smoke.py`` does not reach at the flagship shapes:
+the factor at the kernel's bound m = 160 (shared memory past the 48 KB
+default), failed pivots, the hyper kernel at its bound v = 160, and the
+closure path (the plain hyper loop with the factor kernel), which the
+sampler takes above that bound.
+
+Tolerances: kernel and plain version both compute in float32, in other
+summation orders. Factors, solves and logdets agree to rtol 1e-4 / atol
+1e-5 at condition number 30, the tolerance the CPU tests hold the plain
+versions to against the JAX package. The MH blocks take identical
+decisions on draws kept 1e-3 away from every tie (a float64 replay of
+the plain version moves any closer draw away, on the side of its
+decision) and agree on x to 1e-5 relative.
+
+The jump, state and tie helpers below are shared with the CPU tests that
+hold the plain MH blocks against the JAX package (test_torch_mh.py,
+test_torch_sweep.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gibbs_student_t_tpu_torch.data.demo import make_demo_model_arrays
+from gibbs_student_t_tpu_torch.models.pta import (
+    ndiag,
+    phiinv_logdet,
+    static_phi_columns,
+)
+from gibbs_student_t_tpu_torch.ops import chol, linalg
+from gibbs_student_t_tpu_torch.ops import hyper_mh as thyper
+from gibbs_student_t_tpu_torch.ops import white_mh as twhite
+from gibbs_student_t_tpu_torch.ops.tnt import tnt_products
+
+C = 64
+
+
+def spd(rng, B, m, cond=1e3):
+    """Batch of SPD float32 matrices with unit diagonal (the equilibrated
+    form every factorization of the sweep sees) and eigenvalues spread
+    over ``cond``."""
+    Q, _ = np.linalg.qr(rng.normal(size=(B, m, m)))
+    ev = np.exp(rng.uniform(0, np.log(cond), size=(B, m)))
+    S = np.einsum("bij,bj,bkj->bik", Q, ev, Q)
+    isd = 1.0 / np.sqrt(np.diagonal(S, axis1=1, axis2=2))
+    S = S * isd[:, :, None] * isd[:, None, :]
+    return (0.5 * (S + np.swapaxes(S, 1, 2))).astype(np.float32)
+
+
+def separate_ties(ll_lp64, x, dx, logu, margin=1e-3, push=1e-2):
+    """Replay the MH loop in float64 and move each logu whose decision lies
+    within ``margin`` of its delta to ``delta -/+ push`` — on the side of
+    the decision already taken, so the chain's path is unchanged."""
+    x = x.double()
+    dx = dx.double()
+    logu = logu.clone().double()
+    ll0, lp0 = ll_lp64(x)
+    for i in range(dx.shape[1]):
+        q = x + dx[:, i]
+        ll1, lp1 = ll_lp64(q)
+        delta = (ll1 + lp1) - (ll0 + lp0)
+        acc = delta > logu[:, i]
+        near = (delta - logu[:, i]).abs() < margin
+        logu[:, i] = torch.where(near & acc, delta - push,
+                                 torch.where(near, delta + push, logu[:, i]))
+        x = torch.where(acc[:, None], q, x)
+        ll0 = torch.where(acc, ll1, ll0)
+        lp0 = torch.where(acc, lp1, lp0)
+    return logu.float()
+
+
+def jumps(rng, ind, S, p, dense, scale):
+    if dense:
+        return (rng.normal(size=(C, S, p)) * scale).astype(np.float32)
+    dx = np.zeros((C, S, p), np.float32)
+    pick = rng.choice(ind, size=(C, S))
+    vals = rng.normal(size=(C, S)) * scale * rng.choice(
+        [0.1, 0.5, 1.0, 3.0, 10.0], size=(C, S))
+    np.put_along_axis(dx, pick[..., None], vals[..., None].astype(np.float32),
+                      axis=2)
+    return dx
+
+
+def near_posterior(rng, ma):
+    x = np.array([-7.5, 4.0, -14.0]) + rng.normal(0, [0.4, 0.5, 0.3],
+                                                  (C, 3))
+    z = (rng.random((C, ma.n)) < 0.05).astype(np.float32)
+    alpha = rng.gamma(2.0, 3.0, (C, ma.n)).astype(np.float32)
+    return x.astype(np.float32), (alpha ** z).astype(np.float32)
+
+
+def acc_counts(acc, S):
+    """Per-chain accept counts from accept rates (count / S)."""
+    return np.round(np.asarray(acc, np.float64) * S).astype(int)
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("m", [14, 60, 160])
+def test_chol_kernels_on_card(m):
+    dev = _cuda()
+    rng = np.random.default_rng(1 + m)
+    S = spd(rng, 256, m, cond=30.0)
+    S[3] = -S[3]                          # failed first pivot
+    S = torch.from_numpy(S).to(dev)
+    r = torch.from_numpy(rng.normal(size=(256, m)).astype(np.float32)).to(dev)
+    n_f, n_b = chol.chol_fused.launches, chol.tri_solve_T.launches
+    L, ld, u = chol.chol_fused(S, r)
+    x = chol.tri_solve_T(L, r)
+    torch.cuda.synchronize()
+    assert (chol.chol_fused.launches, chol.tri_solve_T.launches) == (
+        n_f + 1, n_b + 1)
+    Lp, ldp, up = chol.chol_fused_plain(S, r)
+    xp = chol.tri_solve_T_plain(Lp, r)
+    assert torch.isnan(ld[3]) and torch.isnan(ldp[3])
+    good = torch.arange(256, device=dev) != 3
+    for a, b in ((L, Lp), (ld, ldp), (u, up), (x, xp)):
+        torch.testing.assert_close(a[good], b[good], rtol=1e-4, atol=1e-5)
+    assert not torch.triu(L[good], 1).any()
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("dense", [False, True])
+def test_white_mh_kernel_on_card(dense):
+    dev = _cuda()
+    ma = make_demo_model_arrays()
+    rng = np.random.default_rng(51 + dense)
+    wc = twhite.build_white_consts(ma)
+    x, az = near_posterior(rng, ma)
+    b = (rng.normal(size=(C, ma.m)) * 0.05).astype(np.float32)
+    yred = ma.y.astype(np.float32)[None] - b @ ma.T.astype(np.float32).T
+    y2 = (yred * yred).astype(np.float32)
+    S = 20
+    dx = jumps(rng, ma.white_indices, S, 3, dense, 0.05)
+    tt = torch.from_numpy
+    logu = separate_ties(
+        lambda q: twhite.white_ll_lp(q, tt(az).double(), tt(y2).double(),
+                                     tt(wc.rows).double(), wc.var,
+                                     tt(wc.specs).double()),
+        tt(x), tt(dx), torch.log(tt(rng.random((C, S)).astype(np.float32))))
+    ops = [t.to(dev) for t in (tt(x), tt(az), tt(y2), tt(dx), logu,
+                               tt(wc.rows), tt(wc.specs))]
+    xk, ak = twhite.white_mh(*ops, wc.var)
+    xp, ap = twhite.white_mh_loop(*ops, wc.var)
+    nk = acc_counts(ak.cpu(), S)
+    np.testing.assert_array_equal(nk, acc_counts(ap.cpu(), S))
+    assert 0 < nk.sum() < C * S
+    torch.testing.assert_close(xk, xp, rtol=1e-5, atol=0.0)
+
+
+def hyper_operands(ma, rng):
+    """The hyper block's operands on a model's Schur split, built with the
+    port's own pieces: float64 model functions, float32 products and
+    elimination. Chain 0's block is made indefinite for every proposal
+    (an off-diagonal pair far beyond its diagonal)."""
+    x, az = near_posterior(rng, ma)
+    x64 = x.astype(np.float64)
+    nvec = az * np.stack([ndiag(ma, xx) for xx in x64]).astype(np.float32)
+    phiinv = np.stack([phiinv_logdet(ma, xx)[0] for xx in x64])
+    tt = torch.from_numpy
+    TNT, d, const = tnt_products(tt(ma.T.astype(np.float32)),
+                                 tt(ma.y.astype(np.float32)), tt(nvec))
+    smask = static_phi_columns(ma)
+    s_i, v_i = np.flatnonzero(smask), np.flatnonzero(~smask)
+    A = (TNT[:, s_i][:, :, s_i]
+         + torch.diag_embed(tt(phiinv[:, s_i].astype(np.float32))))
+    S0, rt, quad_s, logdetA = linalg.schur_eliminate(
+        A, TNT[:, s_i][:, :, v_i], TNT[:, v_i][:, :, v_i], d[:, s_i],
+        d[:, v_i], 1e-6)
+    hc = thyper.build_hyper_consts(ma, v_i)
+    base = const + 0.5 * (quad_s - logdetA) - 0.5 * hc.logdet_phi_static
+    dS0 = torch.diagonal(S0, dim1=-2, dim2=-1) + tt(hc.phiinv_static)
+    S0[0, 0, 1] = S0[0, 1, 0] = 1e15 * torch.sqrt(dS0[0, 0] * dS0[0, 1])
+    return (tt(x), S0, dS0, rt, base), hc
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("path", ["fused", "closure"])
+@pytest.mark.parametrize("components", [30, 80])
+def test_hyper_mh_kernel_on_card(components, path):
+    """v = 60 (the flagship) and v = 160 (the kernel's bound); ``closure``
+    is the plain loop factoring through the chol kernel, the sampler's
+    path above the bound."""
+    dev = _cuda()
+    ma = make_demo_model_arrays(components=components)
+    rng = np.random.default_rng(61 + components)
+    ops, hc = hyper_operands(ma, rng)
+    assert ops[1].shape[-1] == 2 * components
+    S = 10
+    tt = torch.from_numpy
+    dx = tt(jumps(rng, ma.hyper_indices, S, 3, True, 0.1))
+    consts = [tt(a) for a in (hc.K, hc.phi_sel, hc.specs)]
+    logu = separate_ties(
+        lambda q: thyper.hyper_ll_lp(
+            q, *(t.double() for t in ops[1:]),
+            *(t.double() for t in consts), hc.hyp_idx, 1e-6),
+        ops[0], dx, torch.log(tt(rng.random((C, S)).astype(np.float32))))
+    args = [t.to(dev) for t in (*ops, dx, logu, *consts)]
+    if path == "fused":
+        xk, ak = thyper.hyper_mh(*args, hc.hyp_idx, 1e-6)
+    else:
+        n_f = chol.chol_fused.launches
+        xk, ak = thyper.hyper_mh_loop(*args, hc.hyp_idx, 1e-6,
+                                      factor=chol.chol_fused)
+        assert chol.chol_fused.launches == n_f + S + 1
+    xp, ap = thyper.hyper_mh_loop(*args, hc.hyp_idx, 1e-6)
+    nk = acc_counts(ak.cpu(), S)
+    np.testing.assert_array_equal(nk, acc_counts(ap.cpu(), S))
+    assert nk[0] == 0                     # the indefinite chain rejects
+    assert 0 < nk.sum() < C * S
+    torch.testing.assert_close(xk, xp, rtol=1e-5, atol=0.0)

@@ -1,0 +1,158 @@
+"""The port's fused MH blocks (plain versions, CPU) against the JAX
+package's XLA loops, on operands from the flagship demo model.
+
+- white block: ``white_mh`` vs ``pallas_white.white_mh_loop_xla`` with the
+  same ``dx``/``logu``, one-hot and dense jumps;
+- hyper block: ``hyper_mh`` vs ``pallas_hyper.hyper_mh_loop_xla`` on the
+  Schur split of the flagship model, with a chain whose block is not
+  positive definite (every proposal must reject on both sides).
+
+Per-chain accept counts are equal and x agrees to 1e-5 relative, on
+fixtures whose decisions all sit more than 1e-3 from a tie
+(|delta - logu| > 1e-3, checked by a float64 replay that moves any closer
+logu away on the side of its decision). Both packages build the kernels'
+constant tables identically (bitwise).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gibbs_student_t_tpu.models.pta import ndiag, phiinv_logdet
+from gibbs_student_t_tpu.ops import linalg as jlin
+from gibbs_student_t_tpu.ops import pallas_hyper as jhyper
+from gibbs_student_t_tpu.ops import pallas_white as jwhite
+from gibbs_student_t_tpu.ops.tnt import tnt_products as jtnt
+from gibbs_student_t_tpu_torch.convert import model_arrays_from_fields
+from gibbs_student_t_tpu_torch.ops import hyper_mh as thyper
+from gibbs_student_t_tpu_torch.ops import white_mh as twhite
+from test_torch_host import _fields
+from test_torch_kernels import (
+    C,
+    acc_counts,
+    jumps,
+    near_posterior,
+    separate_ties,
+)
+
+# The suite runs in parallel workers and these tensors are small: one
+# PyTorch CPU thread per worker costs nothing here and leaves the other
+# cores to the other workers.
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("dense", [False, True])
+def test_white_block_vs_jax(demo_ma, dense):
+    ma = demo_ma
+    rng = np.random.default_rng(21 + dense)
+    wj = jwhite.build_white_consts(ma)
+    wt = twhite.build_white_consts(model_arrays_from_fields(_fields(ma)))
+    np.testing.assert_array_equal(wt.rows, wj.rows)
+    np.testing.assert_array_equal(wt.specs, wj.specs)
+    assert wt.var == wj.var
+    x, az = near_posterior(rng, ma)
+    b = (rng.normal(size=(C, ma.m)) * 0.05).astype(np.float32)
+    yred = (ma.y.astype(np.float32)[None]
+            - b @ ma.T.astype(np.float32).T).astype(np.float32)
+    y2 = yred * yred
+    S = 20
+    dx = jumps(rng, ma.white_indices, S, 3, dense, 0.05)
+    logu = np.log(rng.random((C, S))).astype(np.float32)
+    tt = torch.from_numpy
+    rows64, specs64 = tt(wt.rows).double(), tt(wt.specs).double()
+    logu = separate_ties(
+        lambda q: twhite.white_ll_lp(q, tt(az).double(), tt(y2).double(),
+                                     rows64, wt.var, specs64),
+        tt(x), tt(dx), tt(logu)).numpy()
+    xt, acct = twhite.white_mh(tt(x), tt(az), tt(y2), tt(dx), tt(logu),
+                               tt(wt.rows), tt(wt.specs), wt.var)
+    xj, accj = jwhite.white_mh_loop_xla(
+        jnp.asarray(x), jnp.asarray(az), jnp.asarray(y2), jnp.asarray(dx),
+        jnp.asarray(logu), wj.rows, wj.specs, wj.var)
+    np.testing.assert_array_equal(acc_counts(acct, S), acc_counts(accj, S))
+    assert 0 < acc_counts(acct, S).sum() < C * S
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=1e-5)
+    assert twhite.white_mh.launches == 0
+
+
+@pytest.fixture(scope="module")
+def hyper_operands(demo_ma):
+    """The hyper block's operands on the flagship model's Schur split,
+    built by the JAX package (tnt_products, schur_eliminate)."""
+    ma = demo_ma
+    rng = np.random.default_rng(31)
+    x, az = near_posterior(rng, ma)
+    T = jnp.asarray(ma.T, jnp.float32)
+    y = jnp.asarray(ma.y, jnp.float32)
+    nvec = jnp.asarray(az) * jax.vmap(lambda xx: ndiag(ma, xx, jnp))(
+        jnp.asarray(x)).astype(jnp.float32)
+    TNT, d, const = jax.vmap(lambda nv: jtnt(T, y, nv, None))(nvec)
+    s_i, v_i = np.arange(60, 74), np.arange(60)
+    phiinv = jax.vmap(lambda xx: phiinv_logdet(ma, xx, jnp)[0])(
+        jnp.asarray(x)).astype(jnp.float32)
+    A = TNT[:, s_i][:, :, s_i] + jax.vmap(jnp.diag)(phiinv[:, s_i])
+    S0, rt, quad_s, logdetA = jax.vmap(
+        lambda a, bm, c, rs, rv: jlin.schur_eliminate(a, bm, c, rs, rv,
+                                                      1e-6))(
+        A, TNT[:, s_i][:, :, v_i], TNT[:, v_i][:, :, v_i], d[:, s_i],
+        d[:, v_i])
+    hj = jhyper.build_hyper_consts(ma, v_i)
+    base = const + 0.5 * (quad_s - logdetA) - 0.5 * hj.logdet_phi_static
+    dS0 = jnp.diagonal(S0, axis1=-2, axis2=-1) + hj.phiinv_static
+    S0 = np.array(S0)
+    dS0 = np.array(dS0)
+    # chain 0: an off-diagonal pair far beyond its diagonal makes every
+    # proposal's equilibrated matrix indefinite (a negative second pivot)
+    S0[0, 0, 1] = S0[0, 1, 0] = 1e15 * np.sqrt(dS0[0, 0] * dS0[0, 1])
+    return dict(x=x, S0=S0, dS0=dS0, rt=np.array(rt),
+                base=np.array(base, np.float32), hj=hj, ma=ma, v_i=v_i)
+
+
+@pytest.mark.parametrize("dense", [False, True])
+def test_hyper_block_vs_jax(hyper_operands, dense):
+    o = hyper_operands
+    ma, hj = o["ma"], o["hj"]
+    ht = thyper.build_hyper_consts(model_arrays_from_fields(_fields(ma)),
+                                   o["v_i"])
+    for f in ("K", "phi_sel", "phiinv_static", "specs"):
+        np.testing.assert_array_equal(getattr(ht, f), getattr(hj, f))
+    assert ht.hyp_idx == hj.hyp_idx
+    assert ht.logdet_phi_static == hj.logdet_phi_static
+    rng = np.random.default_rng(41 + dense)
+    S = 10
+    dx = jumps(rng, ma.hyper_indices, S, 3, dense, 0.1)
+    logu = np.log(rng.random((C, S))).astype(np.float32)
+    tt = torch.from_numpy
+    ops = [tt(o[k]) for k in ("x", "S0", "dS0", "rt", "base")]
+    consts = (tt(ht.K), tt(ht.phi_sel), tt(ht.specs))
+    logu = separate_ties(
+        lambda q: thyper.hyper_ll_lp(
+            q, *(t.double() for t in ops[1:]),
+            *(t.double() for t in consts), ht.hyp_idx, 1e-6),
+        ops[0], tt(dx), tt(logu)).numpy()
+    xt, acct = thyper.hyper_mh(*ops, tt(dx), tt(logu), *consts, ht.hyp_idx,
+                               1e-6)
+    xj, accj = jhyper.hyper_mh_loop_xla(
+        *(jnp.asarray(o[k]) for k in ("x", "S0", "dS0", "rt", "base")),
+        jnp.asarray(dx), jnp.asarray(logu), hj.K, hj.phi_sel, hj.specs,
+        hj.hyp_idx, 1e-6)
+    nt, nj = acc_counts(acct, S), acc_counts(accj, S)
+    np.testing.assert_array_equal(nt, nj)
+    assert nt[0] == 0                               # non-PD chain rejects
+    np.testing.assert_array_equal(xt.numpy()[0], o["x"][0])
+    assert 0 < nt.sum() < C * S
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=1e-5)
+    assert thyper.hyper_mh.launches == 0
+
+
+def test_mh_wrappers_reject_other_devices():
+    x = torch.zeros(2, 3, device="meta")
+    with pytest.raises(RuntimeError):
+        twhite.white_mh(x, torch.zeros(2, 4, device="meta"),
+                        torch.zeros(2, 4, device="meta"),
+                        torch.zeros(2, 5, 3, device="meta"),
+                        torch.zeros(2, 5, device="meta"),
+                        torch.zeros(2, 4, device="meta"),
+                        torch.zeros(3, 3, device="meta"), ())
