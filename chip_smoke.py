@@ -9,7 +9,7 @@ Phases, each fatal on failure (non-zero exit, no final ``ok`` line):
    power limit as ``nvidia-smi`` reports them;
 2. build ``libgst_cuda.so`` from ``gibbs_student_t_tpu_torch/csrc`` with
    nvcc (sm_90a) and print the build seconds;
-3. kernel-vs-plain parity on the card: the four kernels' inputs are
+3. kernel-vs-plain parity on the card: the flagship kernels' inputs are
    captured from a sweep of the flagship run itself (demo pulsar,
    ``mixture``, 1024 chains), and each kernel is held against its plain
    PyTorch version on those inputs (the MH blocks' accept decisions also
@@ -25,10 +25,28 @@ Phases, each fatal on failure (non-zero exit, no final ``ok`` line):
 6. timings of each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (a yardstick only);
 7. torch.profiler over 20 flagship sweeps: device time per sweep, launches
-   per sweep and the device's idle share against phase 5's wall.
+   per sweep and the device's idle share against phase 5's wall;
+8. the 1e5-TOA stress path (``bench.py --stress``: 100,000 TOAs padded to
+   102,400, 64 chains, no adaptation, ``record="light"``): the Gram kernel
+   (tnt_batched) and the white kernel past shared memory held against
+   their plain versions and float64 on inputs captured from a stress
+   sweep, one stress sweep on the card against the CPU at 8 chains, the
+   stress run (10 + 20 sweeps; tnt_batched 1, white_mh 1, hyper_mh 1,
+   chol_fused 2, tri_solve_T 2 launches per sweep), the two kernels'
+   timings at the stress shapes and a profile of 10 stress sweeps;
+9. multiple-try Metropolis (K = 4): the white MTM kernel held against its
+   plain version and float64 on inputs captured from a sweep of the
+   flagship with MTM on the white block, that run (adapt 100 + 200
+   sweeps; white_mtm 1, white_mh 0, hyper_mh 1, chol_fused 2,
+   tri_solve_T 2 launches per sweep), one sweep with MTM on both blocks on
+   the card against the CPU at 64 chains, the same at 1024 chains (adapt
+   100 + 200 sweeps; white_mtm 1, chol_fused 23, tri_solve_T 2, white_mh
+   and hyper_mh 0 launches per sweep), and the kernel's timing.
 
-The last stdout lines are the ``kernels`` JSON line, the card line, and
-``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
+Launch counts are read per path: every count is set to 0 just before a
+run and read just after it. The last stdout lines are the ``kernels`` JSON
+line (all six kernels), the card line, and ``{"ok": true, "device":
+{...}}``. Details go to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -41,26 +59,52 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# launches of each kernel per sweep on the flagship path, and the TPU
-# kernel each one replaces
+# launches of each kernel per sweep on each path, and the TPU kernel each
+# one replaces
+_CHOL = "gibbs_student_t_tpu_torch/csrc/chol.cu"
+_WHITE = "gibbs_student_t_tpu_torch/csrc/white_mh.cu"
 KERNELS = {
+    # full_mtm: the Schur A-block and the b draw, plus the hyper MTM
+    # loop's 1 + 2 x 10 stacked factorizations (10 hyper steps)
     "chol_fused": dict(
-        per_sweep=2, source="gibbs_student_t_tpu_torch/csrc/chol.cu",
+        per_sweep={"flagship": 2, "stress": 2, "mtm": 2, "full_mtm": 23},
+        source=_CHOL,
         replaces="gibbs_student_t_tpu/ops/pallas_chol.py:81 _chol_kernel"),
     "tri_solve_T": dict(
-        per_sweep=2, source="gibbs_student_t_tpu_torch/csrc/chol.cu",
+        per_sweep={"flagship": 2, "stress": 2, "mtm": 2, "full_mtm": 2},
+        source=_CHOL,
         replaces="gibbs_student_t_tpu/ops/pallas_chol.py:117 _backsolve_kernel"),
     "white_mh": dict(
-        per_sweep=1, source="gibbs_student_t_tpu_torch/csrc/white_mh.cu",
+        per_sweep={"flagship": 1, "stress": 1, "mtm": 0, "full_mtm": 0},
+        source=_WHITE,
         replaces="gibbs_student_t_tpu/ops/pallas_white.py:322 _white_kernel"),
     "hyper_mh": dict(
-        per_sweep=1, source="gibbs_student_t_tpu_torch/csrc/hyper_mh.cu",
+        per_sweep={"flagship": 1, "stress": 1, "mtm": 1, "full_mtm": 0},
+        source="gibbs_student_t_tpu_torch/csrc/hyper_mh.cu",
         replaces="gibbs_student_t_tpu/ops/pallas_hyper.py:290 _hyper_kernel"),
+    "tnt_batched": dict(
+        per_sweep={"flagship": 0, "stress": 1, "mtm": 0, "full_mtm": 0},
+        source="gibbs_student_t_tpu_torch/csrc/tnt.cu",
+        replaces="gibbs_student_t_tpu/ops/pallas_tnt.py:53 _tnt_kernel"),
+    "white_mtm": dict(
+        per_sweep={"flagship": 0, "stress": 0, "mtm": 1, "full_mtm": 1},
+        source=_WHITE,
+        replaces="gibbs_student_t_tpu/ops/pallas_white.py:350 "
+                 "_white_mtm_kernel"),
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate
 FP32_FLOPS = 67e12             # H100 SXM float32 rate outside tensor cores
 NCHAINS = 1024
 ADAPT, MORE = 100, 200
+# the stress config of bench.py --stress, and its card-vs-CPU sweep size
+STRESS_N, STRESS_CHAINS, STRESS_WARM, STRESS_MORE = 100_000, 64, 10, 20
+STRESS_CPU_CHAINS = 8
+# at the stress shape, MH draws within this margin (in nats) of their
+# float64 decision are moved clear of it before decisions are compared: a
+# float32 log-likelihood summed over 1e5 TOAs is uncertain by far more
+# than the 1e-3 the flagship's 130 TOAs need
+STRESS_TIE_MARGIN = 0.1
+MTM_TRIES = 4
 # the stream hold before a timed loop: 5e7 cycles, at least 25 ms below the
 # H100's 1.98 GHz top SM clock
 SLEEP_CYCLES, SLEEP_MS = 50_000_000, 25.0
@@ -158,7 +202,8 @@ def main() -> None:
         from gibbs_student_t_tpu_torch.config import GibbsConfig
         from gibbs_student_t_tpu_torch.data.demo import make_demo_model_arrays
         from gibbs_student_t_tpu_torch.ops import _cuda, chol, hyper_mh, linalg
-        from gibbs_student_t_tpu_torch.ops import white_mh
+        from gibbs_student_t_tpu_torch.ops import tnt, white_mh
+        from gibbs_student_t_tpu_torch.testing import separate_ties
     except ImportError as exc:
         fail(f"the port's package is not importable here: {exc}")
 
@@ -190,15 +235,58 @@ def main() -> None:
     wrappers = {"chol_fused": (linalg, "chol_fused", chol.chol_fused),
                 "tri_solve_T": (linalg, "tri_solve_T", chol.tri_solve_T),
                 "white_mh": (tb, "white_mh", white_mh.white_mh),
-                "hyper_mh": (tb, "hyper_mh", hyper_mh.hyper_mh)}
+                "hyper_mh": (tb, "hyper_mh", hyper_mh.hyper_mh),
+                "tnt_batched": (tb, "tnt_batched", tnt.tnt_batched),
+                "white_mtm": (tb, "white_mtm", white_mh.white_mtm)}
     plains = {"chol_fused": chol.chol_fused_plain,
               "tri_solve_T": chol.tri_solve_T_plain,
               "white_mh": white_mh.white_mh_loop,
-              "hyper_mh": hyper_mh.hyper_mh_loop}
+              "hyper_mh": hyper_mh.hyper_mh_loop,
+              "tnt_batched": tnt.tnt_products,
+              "white_mtm": white_mh.white_mtm_loop}
 
     def reset_counts():
         for _, _, fn in wrappers.values():
             fn.launches = 0
+
+    launches_by_path = {}
+
+    def check_launches(path, sweeps):
+        """Every kernel's count since reset_counts() against its launches
+        per sweep on ``path`` x sweeps."""
+        counts = {n: w[2].launches for n, w in wrappers.items()}
+        launches_by_path[path] = counts
+        for name, meta in KERNELS.items():
+            want = meta["per_sweep"][path] * sweeps
+            if counts[name] != want:
+                fail(f"{name} launched {counts[name]} times in the {path} "
+                     f"run, expected {want}")
+        return counts
+
+    def capture(names, run):
+        """Run ``run()`` with the named wrappers replaced by recorders;
+        returns {(name, shape of the first operand): operands of the last
+        call of that shape}."""
+        got = {}
+
+        def recorder(name, fn):
+            def rec(*args):
+                got[(name, tuple(args[0].shape))] = tuple(
+                    a.clone() if torch.is_tensor(a) else a for a in args)
+                return fn(*args)
+            return rec
+
+        for name in names:
+            mod, attr, fn = wrappers[name]
+            setattr(mod, attr, recorder(name, fn))
+        try:
+            run()
+            torch.cuda.synchronize()
+        finally:
+            for name in names:
+                mod, attr, fn = wrappers[name]
+                setattr(mod, attr, fn)
+        return got
 
     # --- the flagship model ----------------------------------------------
     ma = make_demo_model_arrays()
@@ -210,32 +298,23 @@ def main() -> None:
           flush=True)
 
     # --- 3. capture the kernels' inputs from the main path, then parity ---
-    captured = {}
+    def run_capture(smp, seed, sweeps):
+        def run():
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            st = smp.init_state(seed=seed)
+            if smp.config.mh.adapt_cov:
+                st = smp._prop_cov_update(st)
+            for i in range(sweeps):
+                st = smp._sweep(st, smp._draw(gen, st), sweep=i)
+        return run
 
-    def recorder(name, fn):
-        def rec(*args):
-            # the last sweep's operands of each call shape are kept
-            captured[(name, tuple(args[0].shape))] = tuple(
-                a.clone() if torch.is_tensor(a) else a for a in args)
-            return fn(*args)
-        return rec
-
-    for name, (mod, attr, fn) in wrappers.items():
-        setattr(mod, attr, recorder(name, fn))
-    try:
-        gen = torch.Generator(device=dev).manual_seed(7)
-        st = sampler.init_state(seed=7)
-        st = sampler._prop_cov_update(st)
-        for i in range(5):
-            st = sampler._sweep(st, sampler._draw(gen, st), sweep=i)
-        torch.cuda.synchronize()
-    finally:
-        for name, (mod, attr, fn) in wrappers.items():
-            setattr(mod, attr, fn)
+    # the last sweep's operands of each call shape are kept
+    captured = capture(wrappers, run_capture(sampler, 7, 5))
     shapes = sorted(k for k in captured)
     print(f"# captured kernel inputs: {shapes}", flush=True)
-    for name in KERNELS:
-        if not any(k[0] == name for k in captured):
+    for name, meta in KERNELS.items():
+        if (meta["per_sweep"]["flagship"]
+                and not any(k[0] == name for k in captured)):
             fail(f"{name} was not reached by the sweep")
 
     def rel_err(a, b):
@@ -248,53 +327,66 @@ def main() -> None:
         return (float(d.max()), float((d / (1.0 + b.abs()[both])).max()),
                 mism)
 
-    parity = {}
-    for (name, shape), args in sorted(captured.items()):
-        fn = wrappers[name][2]
-        out_k = fn(*args)
+    def mh_parity(name, args):
+        """Kernel, plain version and the float64 plain version of an MH
+        block on the same operands: outputs and per-chain accept counts."""
+        out_k = wrappers[name][2](*args)
         out_p = plains[name](*args)
         torch.cuda.synchronize()
-        out_k = out_k if isinstance(out_k, tuple) else (out_k,)
-        out_p = out_p if isinstance(out_p, tuple) else (out_p,)
         errs = [rel_err(a, b) for a, b in zip(out_k, out_p)]
-        rec = {"shape": list(shape),
+        rec = {"shape": list(args[0].shape),
                "max_abs_err": max(e[0] for e in errs),
                "max_rel_err": max(e[1] for e in errs),
                "nonfinite_mismatch": sum(e[2] for e in errs)}
+        acc_k, acc_p = out_k[1], out_p[1]
+        steps = args[5 if name == "hyper_mh" else 3].shape[1]
+        # the float64 plain version is the referee for decisions the
+        # float32 likelihood cannot resolve (near-ties, ill-conditioned
+        # proposals)
+        args64 = tuple(a.double() if torch.is_tensor(a) else a
+                       for a in args)
+        x_64, acc_64 = plains[name](*args64)
+        # per-chain accept counts (rates x steps, rounded: a rate is
+        # count / steps, and torch may divide by multiplying with 1/steps)
+        n_k, n_p, n_64 = (torch.round(a.double() * steps).long()
+                          for a in (acc_k, acc_p, acc_64))
+        rec["accepts_kernel"] = int(n_k.sum())
+        rec["accepts_plain"] = int(n_p.sum())
+        rec["accepts_f64"] = int(n_64.sum())
+        rec["chains_acc_mismatch"] = int((n_k != n_p).sum())
+        rec["chains_kernel_vs_f64"] = int((n_k != n_64).sum())
+        rec["chains_plain_vs_f64"] = int((n_p != n_64).sum())
+        agree = n_k == n_64
+        rec["x_max_rel_err_vs_f64"] = rel_err(
+            out_k[0][agree], x_64[agree].float())[1]
+        # tolerance: the kernel's float32 decisions depart from the
+        # float64 referee on no more chains than the plain float32
+        # version's do (0 of 1024 at the flagship inputs in every
+        # reading so far), and x of every chain whose count agrees with
+        # the referee's matches the referee's x to 1e-4 relative
+        rec["ok"] = bool(
+            rec["chains_kernel_vs_f64"] <= rec["chains_plain_vs_f64"]
+            and rec["x_max_rel_err_vs_f64"] <= 1e-4)
+        return rec
+
+    parity = {}
+    for (name, shape), args in sorted(captured.items()):
         if name in ("white_mh", "hyper_mh"):
-            acc_k, acc_p = out_k[1], out_p[1]
-            steps = args[3].shape[1] if name == "white_mh" else args[5].shape[1]
-            # the float64 plain version is the referee for decisions the
-            # float32 likelihood cannot resolve (near-ties, ill-conditioned
-            # proposals)
-            args64 = tuple(a.double() if torch.is_tensor(a) else a
-                           for a in args)
-            x_64, acc_64 = plains[name](*args64)
-            # per-chain accept counts (rates x steps, rounded: a rate is
-            # count / steps, and torch may divide by multiplying with 1/steps)
-            n_k, n_p, n_64 = (torch.round(a.double() * steps).long()
-                              for a in (acc_k, acc_p, acc_64))
-            rec["accepts_kernel"] = int(n_k.sum())
-            rec["accepts_plain"] = int(n_p.sum())
-            rec["accepts_f64"] = int(n_64.sum())
-            rec["chains_acc_mismatch"] = int((n_k != n_p).sum())
-            rec["chains_kernel_vs_f64"] = int((n_k != n_64).sum())
-            rec["chains_plain_vs_f64"] = int((n_p != n_64).sum())
-            agree = n_k == n_64
-            rec["x_max_rel_err_vs_f64"] = rel_err(
-                out_k[0][agree], x_64[agree].float())[1]
-            # tolerance: the kernel's float32 decisions depart from the
-            # float64 referee on no more chains than the plain float32
-            # version's do (0 of 1024 at the flagship inputs in every
-            # reading so far), and x of every chain whose count agrees with
-            # the referee's matches the referee's x to 1e-4 relative
-            ok = (rec["chains_kernel_vs_f64"] <= rec["chains_plain_vs_f64"]
-                  and rec["x_max_rel_err_vs_f64"] <= 1e-4)
+            rec = mh_parity(name, args)
+            ok = rec["ok"]
         else:
+            out_k = wrappers[name][2](*args)
+            out_p = plains[name](*args)
+            torch.cuda.synchronize()
+            errs = [rel_err(a, b) for a, b in zip(out_k, out_p)]
+            rec = {"shape": list(shape),
+                   "max_abs_err": max(e[0] for e in errs),
+                   "max_rel_err": max(e[1] for e in errs),
+                   "nonfinite_mismatch": sum(e[2] for e in errs)}
             # tolerance: 1e-3 relative (|a-b| / (1+|b|)) on every output;
             # non-finite pattern (failed pivots) identical
             ok = rec["max_rel_err"] <= 1e-3 and rec["nonfinite_mismatch"] == 0
-        rec["ok"] = bool(ok)
+            rec["ok"] = bool(ok)
         parity.setdefault(name, []).append(rec)
         print(f"# parity {name} {list(shape)}: {json.dumps(rec)}", flush=True)
         if not ok:
@@ -309,19 +401,28 @@ def main() -> None:
     for i in range(3):
         st = small._sweep(st, small._draw(gen, st), sweep=i)
     dr = small._draw(gen, st)
-    out_g = small._sweep(st, dr, sweep=3)
-    to_cpu = lambda t: t.detach().cpu()  # noqa: E731
-    out_c = small_cpu._sweep(type(st)(*map(to_cpu, st)),
-                             type(dr)(*map(to_cpu, dr)), sweep=3)
-    nw, nh = cfg.mh.n_white_steps, cfg.mh.n_hyper_steps
-    agree = ((torch.round(to_cpu(out_g.acc_white) * nw)
-              == torch.round(out_c.acc_white * nw))
-             & (torch.round(to_cpu(out_g.acc_hyper) * nh)
-                == torch.round(out_c.acc_hyper * nh)))
-    sweep_cmp = {f: rel_err(to_cpu(getattr(out_g, f)),
-                            getattr(out_c, f))[:2]
-                 for f in ("x", "b")}
-    sweep_cmp["chains_acc_mismatch"] = int((~agree).sum())
+
+    def to_cpu(t):
+        return t.detach().cpu()
+
+    def card_vs_cpu(gpu, cpu, st, dr, sweep):
+        """One sweep of ``gpu`` (kernels) and of its CPU twin (plain
+        versions) from the same state and draws: x and b relative errors
+        and the number of chains whose accept counts differ."""
+        out_g = gpu._sweep(st, dr, sweep=sweep)
+        out_c = cpu._sweep(type(st)(*map(to_cpu, st)),
+                           type(dr)(*map(to_cpu, dr)), sweep=sweep)
+        nw, nh = gpu.config.mh.n_white_steps, gpu.config.mh.n_hyper_steps
+        agree = ((torch.round(to_cpu(out_g.acc_white) * nw)
+                  == torch.round(out_c.acc_white * nw))
+                 & (torch.round(to_cpu(out_g.acc_hyper) * nh)
+                    == torch.round(out_c.acc_hyper * nh)))
+        cmp = {f: rel_err(to_cpu(getattr(out_g, f)), getattr(out_c, f))[:2]
+               for f in ("x", "b")}
+        cmp["chains_acc_mismatch"] = int((~agree).sum())
+        return cmp
+
+    sweep_cmp = card_vs_cpu(small, small_cpu, st, dr, 3)
     print(f"# sweep card-vs-cpu (64 chains): {json.dumps(sweep_cmp)}",
           flush=True)
     report["sweep_card_vs_cpu"] = sweep_cmp
@@ -347,7 +448,7 @@ def main() -> None:
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     niter = ADAPT + MORE
-    launches = {n: w[2].launches for n, w in wrappers.items()}
+    launches = check_launches("flagship", niter)
     st = sampler.last_state
     finite = torch.ones(NCHAINS, dtype=torch.bool, device=dev)
     for f in ("x", "b", "alpha", "theta", "df"):
@@ -372,11 +473,6 @@ def main() -> None:
            "launches": launches}
     print(f"# flagship run: {json.dumps(run)}", flush=True)
     report["run"] = run
-    for name, meta in KERNELS.items():
-        want = meta["per_sweep"] * niter
-        if launches[name] != want:
-            fail(f"{name} launched {launches[name]} times in the run, "
-                 f"expected {want}")
     if share_finite != 1.0 or not run["records_finite"]:
         fail(f"non-finite chains after the run (finite share {share_finite})")
     if res.chain.shape != (MORE, NCHAINS, ma.nparam):
@@ -438,13 +534,23 @@ def main() -> None:
             B = L.numel() // (m * m)
             tri = m * (m + 1) // 2
             return f4 * (B * tri + 2 * B * m), B * m * m
-        if name == "white_mh":
-            x, az, y2, dx, lu, rows, specs, var = args
+        if name in ("white_mh", "white_mtm"):
+            # white_mtm: x, az, y2, dx, dxr, gumb, logu, rows, specs, var;
+            # 1 + S (2K - 1) likelihood evaluations
+            x, az, var = args[0], args[1], args[-1]
             C, p = x.shape
-            n, S = az.shape[1], dx.shape[1]
-            byts = f4 * (sum(t.numel() for t in (x, az, y2, dx, lu, rows,
-                                                  specs)) + C * p + C)
-            return byts, C * (S + 1) * n * (10 + 2 * len(var))
+            n, S = az.shape[1], args[3].shape[1]
+            evals = 1 + S * (2 * args[3].shape[2] - 1 if name == "white_mtm"
+                             else 1)
+            byts = f4 * (sum(t.numel() for t in args[:-1]) + C * p + C)
+            return byts, C * evals * n * (10 + 2 * len(var))
+        if name == "tnt_batched":
+            # T, y, nvec in; TNT (dense), d, const out; the lower triangle
+            # and d: C n (m (m + 1) / 2 + m) multiply-adds
+            T, nvec = args[0], args[2]
+            (n, m), C = T.shape, nvec.shape[0]
+            byts = f4 * (n * m + n + C * n + C * m * m + C * m + C)
+            return byts, 2 * C * n * (m * (m + 1) // 2 + m)
         if name == "hyper_mh":
             x, S0 = args[0], args[1]
             C, v = S0.shape[0], S0.shape[-1]
@@ -455,77 +561,368 @@ def main() -> None:
         raise KeyError(name)
 
     def library(name, args):
+        """(fn, its operands) of one PyTorch call computing the same
+        function, or None."""
         if name == "chol_fused":
-            return lambda S, r: torch.linalg.cholesky_ex(S)
+            return (lambda S, r: torch.linalg.cholesky_ex(S)), args[:2]
         if name == "tri_solve_T":
-            return lambda L, r: torch.linalg.solve_triangular(
-                L.transpose(-1, -2), r[..., None], upper=True)
+            return (lambda L, r: torch.linalg.solve_triangular(
+                L.transpose(-1, -2), r[..., None], upper=True)), args[:2]
+        if name == "tnt_batched":
+            # the batched product with the weighted basis materialised
+            T, w = args[0], 1.0 / args[2]
+            return (lambda T, w: torch.matmul(T.T, w[..., None] * T)), (T, w)
         return None
 
     timing = {}
-    kernels_line = []
-    for name, meta in KERNELS.items():
-        rows = []
-        for (nm, shape), args in sorted(captured.items()):
-            if nm != name:
-                continue
+
+    def time_captured(capt, path):
+        """Kernel, plain and library times and the bound of every captured
+        call shape, into ``timing``."""
+        for (name, shape), args in sorted(capt.items()):
             byts, flops = work(name, args)
             bound = max(byts / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
-            lib_fn = library(name, args)
-            rows.append(dict(
-                shape=list(shape),
+            lib = library(name, args)
+            row = dict(
+                path=path, shape=list(shape),
                 ms=timed(wrappers[name][2], args, 50),
                 plain_ms=timed(plains[name], args, 3, queue_ahead=False),
-                library_ms=(timed(lib_fn, args[:2], 50) if lib_fn
-                            else None),
+                library_ms=timed(lib[0], lib[1], 50) if lib else None,
                 bound_ms=bound,
                 bound_by="bytes" if byts / HBM_BYTES_PER_S
                 >= flops / FP32_FLOPS else "operations",
-                bytes=byts, flops=flops))
-            print(f"# time {name} {list(shape)}: {json.dumps(rows[-1])}",
+                bytes=byts, flops=flops)
+            timing.setdefault(name, []).append(row)
+            print(f"# time {name} {list(shape)}: {json.dumps(row)}",
                   flush=True)
-        timing[name] = rows
-        # one entry per kernel: the mean over the shapes of one sweep's
-        # launches (each shape is launched once per sweep)
+
+    time_captured(captured, "flagship")
+
+    # --- 7. where a flagship sweep's time goes (profiler) -----------------
+    def profile(path, smp, nsweeps, wall_ms):
+        """profile_sweeps on ``smp``, fatal when it sees no device time;
+        the idle share is taken against ``wall_ms``, the unprofiled wall
+        per sweep of the path's run (the profiler's own host overhead
+        stretches the profiled wall)."""
+        try:
+            prof = profile_sweeps(torch, smp, nsweeps)
+        except Exception as exc:  # noqa: BLE001
+            fail(f"the profiler did not trace the {path} sweeps: {exc!r}")
+        if prof["device_ms_per_sweep"] <= 0 or prof["launches_per_sweep"] <= 0:
+            fail(f"the profiler saw no device time in the {path} sweeps")
+        prof["idle_share"] = max(0.0, 1.0 - prof["device_ms_per_sweep"]
+                                 / wall_ms)
+        print(f"# profile {path} ({prof['sweeps']} sweeps, {smp.nchains} "
+              f"chains): device busy {prof['device_ms_per_sweep']:.4f} "
+              f"ms/sweep, {prof['launches_per_sweep']:.1f} launches/sweep; "
+              f"wall {wall_ms:.4f} ms/sweep unprofiled "
+              f"({prof['wall_ms_per_sweep']:.4f} profiled); idle share "
+              f"{prof['idle_share']:.4f}")
+        for row in prof["top"]:
+            print(f"#   {row['ms_per_sweep']:8.4f} ms/sweep "
+                  f"{row['calls_per_sweep']:6.1f} calls  {row['name'][:90]}")
+        return prof
+
+    report["profile"] = profile("flagship", sampler, 20,
+                                1e3 * run["timed_wall_s"] / MORE)
+
+    # --- 8. the 1e5-TOA stress path ---------------------------------------
+    t0 = time.perf_counter()
+    ma_s = make_demo_model_arrays(n=STRESS_N, components=30)
+    cfg_s = GibbsConfig(model="mixture", vary_df=True, theta_prior="beta")
+    stress = tb.TorchGibbs(ma_s, cfg_s, nchains=STRESS_CHAINS, device=dev,
+                           record="light")
+    stress_rep = report["stress"] = {
+        "model_build_s": time.perf_counter() - t0, "n": ma_s.n,
+        "n_padded": stress._n, "block_size": stress._block_size,
+        "chains": STRESS_CHAINS,
+        "white_staged": bool(_cuda.lib().gst_white_staged(
+            stress._n, ma_s.nparam, stress._white[0].shape[0]))}
+    print(f"# stress: {json.dumps(stress_rep)}", flush=True)
+    if stress._block_size is None or stress_rep["white_staged"]:
+        fail("the stress config did not take the blocked TNT path and the "
+             "device-memory white kernel")
+    # every kernel's operands at the stress shapes: B5 and B3 are held
+    # against their plain versions below, and all five are timed. B1, B2
+    # and B4 are held against theirs at the flagship shapes (phase 3)
+    captured_s = capture([n for n, k in KERNELS.items()
+                          if k["per_sweep"]["stress"]],
+                         run_capture(stress, 13, 3))
+    reached = sorted({k[0] for k in captured_s})
+    if reached != sorted(n for n, k in KERNELS.items()
+                         if k["per_sweep"]["stress"]):
+        fail(f"the stress sweep reached {reached}")
+
+    # B5 against its float32 plain version and float64: a float32 sum over
+    # 1e5 TOAs cannot meet a plain relative bound on entries that cancel,
+    # so each entry is held to 1e-4 of the same sum over absolute values
+    # (M = |T|^T w |T|, |T|^T |w y| for d, sum |log nvec| + y^2 w for the
+    # constant)
+    (T, y, nv, bs), = (a for k, a in captured_s.items()
+                       if k[0] == "tnt_batched")
+    out_k = tnt.tnt_batched(T, y, nv, bs)
+    out_p = tnt.tnt_products(T, y, nv, bs)
+    T64, y64, nv64 = T.double(), y.double(), nv.double()
+    out_64 = tnt.tnt_products(T64, y64, nv64, bs)
+    M, Md, _ = tnt.tnt_products(T64.abs(), y64.abs(), nv64, bs)
+    Mc = 0.5 * (torch.log(nv64).abs().sum(-1) + (y64 * y64 / nv64).sum(-1))
+    scales = (M, Md, Mc)
+
+    def scaled_err(out):
+        return max(float(((a.double() - b) / s_).abs().max())
+                   for a, b, s_ in zip(out, out_64, scales))
+
+    rec = {"shape": list(T.shape), "chains": int(nv.shape[0]),
+           "max_abs_err": max(rel_err(a, b)[0] for a, b in zip(out_k, out_p)),
+           "kernel_err_over_M": scaled_err(out_k),
+           "plain_err_over_M": scaled_err(out_p),
+           "symmetric": bool(torch.equal(out_k[0], out_k[0].transpose(1, 2)))}
+    rec["ok"] = (rec["kernel_err_over_M"] <= 1e-4
+                 and rec["plain_err_over_M"] <= 1e-4 and rec["symmetric"])
+    parity["tnt_batched"] = [rec]
+    print(f"# parity tnt_batched {rec['shape']}: {json.dumps(rec)}",
+          flush=True)
+    if not rec["ok"]:
+        fail("tnt_batched disagrees with float64 at the stress shape")
+
+    # B3 past shared memory. On the captured draws as they are (reported),
+    # then with every decision moved STRESS_TIE_MARGIN clear of its float64
+    # threshold (gated): kernel, plain version and float64 referee must
+    # then take the same decisions, as phase 3 requires
+    (wargs,) = (a for k, a in captured_s.items() if k[0] == "white_mh")
+    raw = mh_parity("white_mh", wargs)
+
+    def white_sep(args):
+        """The white block's logu with ties separated by a float64
+        replay."""
+        x, az, y2, dx, lu, rows, specs, var = args
+        a64 = [t.double() for t in (az, y2, rows, specs)]
+        return separate_ties(
+            lambda q: white_mh.white_ll_lp(q, *a64[:3], var, a64[3]),
+            x, dx, lu, margin=STRESS_TIE_MARGIN, push=2 * STRESS_TIE_MARGIN)
+
+    lu = wargs[4]
+    lu_sep = white_sep(wargs)
+    rec = mh_parity("white_mh", wargs[:4] + (lu_sep,) + wargs[5:])
+    rec["raw_draws"] = {k: raw[k] for k in (
+        "accepts_kernel", "accepts_plain", "accepts_f64",
+        "chains_kernel_vs_f64", "chains_plain_vs_f64")}
+    rec["draws_moved"] = int((lu_sep != lu).sum())
+    parity["white_mh"].append(rec)
+    print(f"# parity white_mh {rec['shape']} (n={wargs[1].shape[1]}): "
+          f"{json.dumps(rec)}", flush=True)
+    if not rec["ok"] or rec["chains_kernel_vs_f64"]:
+        fail("white_mh disagrees with its plain version at the stress shape")
+
+    # one stress sweep on the card vs the CPU (8 chains). At 1e5 TOAs the
+    # float32 hyper likelihood is ill-posed for some chains of an early
+    # state: its delta moves by nats to orders of magnitude, or turns
+    # non-finite, between the card's and the CPU's float32 operands (the
+    # TOA sums rounded in another order), so two correct float32 sweeps
+    # differ there. Each MH block's draws are therefore separated from
+    # ties by a float64 replay on the card's operands: each step's margin
+    # widens to 4x the largest departure of a float32 evaluation (on the
+    # card's operands and on the CPU's, captured from both sweeps) from the
+    # float64 delta, and a step where one of them is not finite and the
+    # float64 delta is (or the other way round) is forced to the float64
+    # decision. The counts of both are reported
+    s8 = tb.TorchGibbs(ma_s, cfg_s, nchains=STRESS_CPU_CHAINS, device=dev,
+                       record="light")
+    s8_cpu = tb.TorchGibbs(ma_s, cfg_s, nchains=STRESS_CPU_CHAINS,
+                           device="cpu", record="light")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    st = s8.init_state(seed=17)
+    for i in range(2):
+        st = s8._sweep(st, s8._draw(gen, st), sweep=i)
+    dr = s8._draw(gen, st)
+    st_c = type(st)(*map(to_cpu, st))
+
+    def both_operands(name, dr):
+        """The operands of ``name`` in the card's sweep and the CPU's."""
+        dr_c = type(dr)(*map(to_cpu, dr))
+        (g,) = capture([name], lambda: s8._sweep(st, dr, 2)).values()
+        (c,) = capture([name], lambda: s8_cpu._sweep(st_c, dr_c, 2)).values()
+        return g, c
+
+    def white_f(a, dtype):
+        a = [t.to(dtype) for t in (a[1], a[2], a[5], a[6])] + [a[7]]
+        return lambda q: white_mh.white_ll_lp(
+            q.to(a[0].device, dtype), a[0], a[1], a[2], a[4], a[3])
+
+    def hyper_f(a, dtype):
+        a = [t.to(dtype) if torch.is_tensor(t) else t for t in a]
+        return lambda q: hyper_mh.hyper_ll_lp(
+            q.to(a[1].device, dtype), *a[1:5], *a[7:10], *a[10:12])
+
+    sep = {}
+    for name, ev, ix, field in (("white_mh", white_f, (3, 4), "logu_w"),
+                                ("hyper_mh", hyper_f, (5, 6), "logu_h")):
+        g, c = both_operands(name, dr)
+        info = sep[name] = {}
+        lu = separate_ties(
+            ev(g, torch.float64), g[0], g[ix[0]], g[ix[1]],
+            margin=STRESS_TIE_MARGIN, push=2 * STRESS_TIE_MARGIN,
+            others=(ev(g, torch.float32), ev(c, torch.float32)), info=info)
+        info["moved"] = int((lu != g[ix[1]]).sum())
+        dr = dr._replace(**{field: lu})
+    cmp = stress_rep["sweep_card_vs_cpu"] = card_vs_cpu(s8, s8_cpu, st, dr,
+                                                        2)
+    cmp["separation"] = sep
+    # the float32 b draw's own spread: the same CPU sweep with the TOA sums
+    # taken in blocks of 5120 instead of 4096 (both pad to 102,400 TOAs)
+    s8_alt = tb.TorchGibbs(ma_s, cfg_s, nchains=STRESS_CPU_CHAINS,
+                           device="cpu", record="light", tnt_block_size=5120)
+    if s8_alt._n != s8_cpu._n:
+        fail("the two TOA block sizes pad the stress pulsar differently")
+    dr_c = type(dr)(*map(to_cpu, dr))
+    cmp["b_cpu_blocks_5120_vs_4096"] = rel_err(
+        s8_alt._sweep(st_c, dr_c, 2).b, s8_cpu._sweep(st_c, dr_c, 2).b)[:2]
+    print(f"# stress sweep card-vs-cpu ({STRESS_CPU_CHAINS} chains): "
+          f"{json.dumps(cmp)}", flush=True)
+    # tolerance: every chain's accept counts equal and x to 1e-4 relative,
+    # as phase 4. b is reported, not held, beside the spread of a float32
+    # b draw at 1e5 TOAs between two summation orders of the same sums on
+    # the CPU (b_cpu_blocks_5120_vs_4096)
+    if cmp["chains_acc_mismatch"] > 0 or cmp["x"][1] > 1e-4:
+        fail("one stress sweep on the card disagrees with the CPU")
+
+    # the stress run
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stress.sample(niter=STRESS_WARM, seed=1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = stress.sample(niter=STRESS_MORE, seed=1, state=stress.last_state,
+                        start_sweep=STRESS_WARM)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check_launches("stress", STRESS_WARM + STRESS_MORE)
+    st = stress.last_state
+    finite = all(bool(torch.isfinite(getattr(st, f)).all())
+                 for f in ("x", "b", "alpha", "theta", "df"))
+    srun = stress_rep["run"] = {
+        "sweeps": STRESS_WARM + STRESS_MORE, "timed_sweeps": STRESS_MORE,
+        "warm_wall_s": t1 - t0, "timed_wall_s": t2 - t1,
+        "ms_per_sweep": 1e3 * (t2 - t1) / STRESS_MORE,
+        "chain_sweeps_per_s": STRESS_CHAINS * STRESS_MORE / (t2 - t1),
+        "acc_white": float(res.stats["acc_white"].mean()),
+        "acc_hyper": float(res.stats["acc_hyper"].mean()),
+        "param_means": dict(zip(ma_s.param_names,
+                                map(float, res.chain.mean((0, 1))))),
+        "state_finite": finite,
+        "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches_by_path["stress"]}
+    print(f"# stress run: {json.dumps(srun)}", flush=True)
+    if (not finite or not np.isfinite(res.chain).all()
+            or res.chain.shape != (STRESS_MORE, STRESS_CHAINS, ma_s.nparam)
+            or res.bchain.size or res.zchain.size):
+        fail("the stress run's chains are not finite light records")
+    time_captured(captured_s, "stress")
+    stress_rep["profile"] = profile("stress", stress, 10,
+                                    srun["ms_per_sweep"])
+    del stress, s8, s8_cpu, s8_alt, captured_s, T64, y64, nv64, M, Md, out_64
+
+    # --- 9. multiple-try Metropolis ------------------------------------------
+    cfg_m = cfg.with_mtm(MTM_TRIES, blocks=("white",))
+    mtm = tb.TorchGibbs(ma, cfg_m, nchains=NCHAINS, device=dev)
+    captured_m = capture(["white_mtm"], run_capture(mtm, 19, 5))
+    if [k[0] for k in captured_m] != ["white_mtm"]:
+        fail(f"the MTM sweep reached {sorted(captured_m)}")
+    (margs,) = captured_m.values()
+    rec = mh_parity("white_mtm", margs)
+    parity["white_mtm"] = [rec]
+    print(f"# parity white_mtm {rec['shape']} (K={MTM_TRIES}): "
+          f"{json.dumps(rec)}", flush=True)
+    if not rec["ok"]:
+        fail("white_mtm disagrees with its plain version")
+
+    def mtm_run(smp, path, blocks):
+        """Adapt ADAPT sweeps, then MORE timed ones, of an MTM sampler at
+        the flagship; launch counts checked for ``path``."""
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        smp.sample(niter=ADAPT, seed=1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = smp.sample(niter=MORE, seed=1, state=smp.last_state,
+                         start_sweep=ADAPT)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check_launches(path, ADAPT + MORE)
+        ess_a = pooled_ess(res.chain[..., ia])
+        rec = report[f"{path}_run"] = {
+            "tries": MTM_TRIES, "blocks": list(blocks),
+            "sweeps": ADAPT + MORE, "adapt_wall_s": t1 - t0,
+            "timed_sweeps": MORE, "timed_wall_s": t2 - t1,
+            "ms_per_sweep": 1e3 * (t2 - t1) / MORE,
+            "chain_sweeps_per_s": NCHAINS * MORE / (t2 - t1),
+            "ess_log10A": ess_a, "ess_log10A_per_s": ess_a / (t2 - t1),
+            "acc_white": float(res.stats["acc_white"].mean()),
+            "acc_hyper": float(res.stats["acc_hyper"].mean()),
+            "param_means": dict(zip(ma.param_names,
+                                    map(float, res.chain.mean((0, 1))))),
+            "records_finite": bool(np.isfinite(res.chain).all()
+                                   and np.isfinite(res.bchain).all()),
+            "launches": launches_by_path[path]}
+        print(f"# {path} run: {json.dumps(rec)}", flush=True)
+        if not rec["records_finite"]:
+            fail(f"non-finite chains after the {path} run")
+        return rec
+
+    mtm_run(mtm, "mtm", ("white",))
+
+    # one sweep with MTM on both blocks, card vs CPU (64 chains)
+    cfg_f = cfg.with_mtm(MTM_TRIES)
+    full = tb.TorchGibbs(ma, cfg_f, nchains=64, device=dev)
+    full_cpu = tb.TorchGibbs(ma, cfg_f, nchains=64, device="cpu")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    st = full._prop_cov_update(full.init_state(seed=23))
+    for i in range(3):
+        st = full._sweep(st, full._draw(gen, st), sweep=i)
+    cmp = report["mtm_sweep_card_vs_cpu"] = card_vs_cpu(
+        full, full_cpu, st, full._draw(gen, st), 3)
+    print(f"# full-MTM sweep card-vs-cpu (64 chains): {json.dumps(cmp)}",
+          flush=True)
+    # tolerance as phase 4
+    if (cmp["chains_acc_mismatch"] > 0 or cmp["x"][1] > 1e-4
+            or cmp["b"][1] > 1e-3):
+        fail("one full-MTM sweep on the card disagrees with the CPU")
+    # the same at 1024 chains: each hyper step factors 4096 candidate and
+    # 3072 reference matrices through chol_fused
+    full = tb.TorchGibbs(ma, cfg_f, nchains=NCHAINS, device=dev)
+    frec = mtm_run(full, "full_mtm", ("white", "hyper"))
+    frec["profile"] = profile("full_mtm", full, 5, frec["ms_per_sweep"])
+    time_captured(captured_m, "mtm")
+
+    # --- the kernels line: one entry per kernel, launches summed over the
+    # four runs (per run in launches_by_path), times the mean over the
+    # call shapes the paths launch (each listed in per_shape)
+    kernels_line = []
+    for name, meta in KERNELS.items():
+        rows = timing[name]
         k = len(rows)
-        errs = [r["max_abs_err"] for r in parity[name]]
-        lib_ms = ([r["library_ms"] for r in rows]
-                  if rows[0]["library_ms"] is not None else None)
-        bound_by = max(rows, key=lambda r: r["bound_ms"])["bound_by"]
+        lib_ms = [r["library_ms"] for r in rows]
         kernels_line.append({
             "name": name, "route": "cuda", "source": meta["source"],
-            "replaces": meta["replaces"], "launches": launches[name],
-            "max_abs_err": max(errs),
+            "replaces": meta["replaces"],
+            "launches": sum(c[name] for c in launches_by_path.values()),
+            "launches_by_path": {p: c[name]
+                                 for p, c in launches_by_path.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in parity[name]),
             "ms": sum(r["ms"] for r in rows) / k,
             "plain_ms": sum(r["plain_ms"] for r in rows) / k,
             "bound_ms": sum(r["bound_ms"] for r in rows) / k,
-            "bound_by": bound_by,
-            "library_ms": None if lib_ms is None else sum(lib_ms) / k,
-            "shapes": [r["shape"] for r in rows]})
+            "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+            "library_ms": (None if None in lib_ms else sum(lib_ms) / k),
+            "per_shape": [{f: r[f] for f in ("path", "shape", "ms",
+                                             "plain_ms", "bound_ms",
+                                             "library_ms")}
+                          for r in rows]})
     report["timing"] = timing
     report["kernels"] = kernels_line
-
-    # --- 7. where a flagship sweep's time goes (profiler) -----------------
-    try:
-        prof = report["profile"] = profile_sweeps(torch, sampler, 20)
-    except Exception as exc:  # noqa: BLE001
-        fail(f"the profiler did not trace the flagship sweeps: {exc!r}")
-    if prof["device_ms_per_sweep"] <= 0 or prof["launches_per_sweep"] <= 0:
-        fail("the profiler saw no device time in the flagship sweeps")
-    # idle share against the unprofiled wall of phase 5 (the profiler's
-    # own host overhead stretches the profiled wall)
-    wall_ms = 1e3 * run["timed_wall_s"] / MORE
-    prof["idle_share"] = max(0.0, 1.0 - prof["device_ms_per_sweep"]
-                             / wall_ms)
-    print(f"# profile ({prof['sweeps']} sweeps, {NCHAINS} chains): "
-          f"device busy {prof['device_ms_per_sweep']:.4f} ms/sweep, "
-          f"{prof['launches_per_sweep']:.1f} launches/sweep; wall "
-          f"{wall_ms:.4f} ms/sweep unprofiled "
-          f"({prof['wall_ms_per_sweep']:.4f} profiled); idle share "
-          f"{prof['idle_share']:.4f}")
-    for row in prof["top"]:
-        print(f"#   {row['ms_per_sweep']:8.4f} ms/sweep "
-              f"{row['calls_per_sweep']:6.1f} calls  {row['name'][:90]}")
 
     try:
         os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -5,7 +5,7 @@ models, for NVIDIA Hopper GPUs.
 It stands beside the JAX package ``gibbs_student_t_tpu`` (the reference)
 and shares no code with it: the host layer (par/tim ingestion, timing
 model, signal algebra, ``ModelArrays``) is a numpy copy, and the sampler
-is plain PyTorch around four CUDA kernels written by hand for ``sm_90a``
+is plain PyTorch around six CUDA kernels written by hand for ``sm_90a``
 (``csrc/``, built at first use by ``ops/_cuda.py``).
 
 Layout:
@@ -13,9 +13,11 @@ Layout:
   models/    parameters, signal algebra, PTA seam, frozen ModelArrays
   backends/  ChainResult + the many-chain ``TorchGibbs`` sampler
   ops/       TNT products, preconditioned Cholesky algebra, the kernel
-             wrappers (chol, white_mh, hyper_mh) and their plain versions
+             wrappers (chol, tnt, white_mh, hyper_mh) and their plain
+             versions
   csrc/      the CUDA C++ kernels
   convert.py carries a JAX-side model/state (as numpy) into this package
+  testing.py float64 replays that keep MH decisions clear of float32 ties
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """

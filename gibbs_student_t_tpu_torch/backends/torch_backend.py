@@ -11,7 +11,12 @@ gibbs.py:342-385)::
 The white and hyper MH blocks each run as one kernel launch
 (ops/white_mh.py, ops/hyper_mh.py), the factorizations and vector
 back-substitutions go to the chol kernels (ops/chol.py, via
-ops/linalg.py), and the rest is plain PyTorch.
+ops/linalg.py), the TOA-blocked TNT reduction of large pulsars (the
+1e5-TOA stress path) to the Gram kernel (ops/tnt.py), and the rest is
+plain PyTorch. Under multiple-try Metropolis (``MHConfig.mtm_tries``) the
+white block runs as one launch of the white MTM kernel and the hyper
+block as the MTM loop over stacked factorizations through the chol
+kernel.
 
 A sweep is split into ``draws = self._draw(gen, state)``, which takes
 every random number the sweep needs from one ``torch.Generator``, and a
@@ -53,6 +58,7 @@ from gibbs_student_t_tpu_torch.ops.chol import chol_fused
 from gibbs_student_t_tpu_torch.ops.hyper_mh import (
     MAX_HYPER_V,
     build_hyper_consts,
+    hyper_ll_lp,
     hyper_mh,
     hyper_mh_loop,
 )
@@ -65,14 +71,23 @@ from gibbs_student_t_tpu_torch.ops.tnt import (
     auto_block_size,
     matvec_blocked,
     pad_rows,
+    tnt_batched,
     tnt_products,
 )
-from gibbs_student_t_tpu_torch.ops.white_mh import build_white_consts, white_mh
+from gibbs_student_t_tpu_torch.ops.white_mh import (
+    build_white_consts,
+    mtm_loop,
+    white_mh,
+    white_mtm,
+)
 
 LN10 = float(np.log(10.0))
 
 _RECORD_FIELDS = ("x", "b", "z", "theta", "alpha", "df", "pout",
                   "acc_white", "acc_hyper")
+#: record="light": the O(1)-per-sweep fields only (at the 1e5-TOA stress
+#: shape the per-TOA z, alpha and pout dominate the device-to-host bytes)
+_LIGHT_FIELDS = ("x", "theta", "df", "acc_white", "acc_hyper")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -103,7 +118,10 @@ class ChainState(NamedTuple):
 
 
 class SweepDraws(NamedTuple):
-    """Every random number of one sweep (see the module docstring)."""
+    """Every random number of one sweep (see the module docstring). A block
+    under multiple-try Metropolis (K tries) has ``dx`` of shape
+    ``(C, S, K, p)`` and its ``dxr``/``gumb`` fields set; otherwise those
+    are empty ``(C, 0)``."""
 
     dx_w: torch.Tensor      # (C, Sw, p) white jumps
     logu_w: torch.Tensor    # (C, Sw) white log-uniform accept draws
@@ -114,17 +132,29 @@ class SweepDraws(NamedTuple):
     u_z: torch.Tensor       # (C, n) uniforms of the z Bernoulli
     g_alpha: torch.Tensor   # (C, 2, n) Gamma(df/2), Gamma((1+df)/2)
     gumbel_df: torch.Tensor  # (C, df_max) Gumbel noise of the df draw
+    dxr_w: Optional[torch.Tensor] = None  # (C, Sw, K-1, p) MTM references
+    gumb_w: Optional[torch.Tensor] = None  # (C, Sw, K) MTM selection noise
+    dxr_h: Optional[torch.Tensor] = None  # (C, Sh, K-1, p)
+    gumb_h: Optional[torch.Tensor] = None  # (C, Sh, K)
 
 
 class TorchGibbs(SamplerBackend):
     """Many-chain Gibbs sampler; ``sample`` returns ``(niter, nchains, ...)``
-    chains recorded in full float32 (the JAX backend's ``record="full"``).
+    chains in float32.
 
     The path is the JAX backend's float32 one with its fused MH blocks:
     the Schur split of the phi-static columns when at least 8 exist,
-    b-draw block-factor reuse on that path,
-    population-covariance proposals and Robbins-Monro adaptation when the
-    config asks for them."""
+    b-draw block-factor reuse on that path, population-covariance
+    proposals, Robbins-Monro adaptation and multiple-try Metropolis when
+    the config asks for them.
+
+    ``tnt_block_size`` selects the TOA reduction as in ``JaxGibbs``:
+    ``None`` dense, an int for the TOA-blocked reduction (the TOA axis
+    zero-padded to a multiple of it; on the GPU one launch of the Gram
+    kernel), ``"auto"`` dense below 16384 TOAs and blocks of 4096 above.
+    ``record`` is ``"full"`` (every field of every sweep) or ``"light"``
+    (x, theta, df and the acceptance rates; the other chains come back
+    empty)."""
 
     supports_chains = True
 
@@ -133,11 +163,17 @@ class TorchGibbs(SamplerBackend):
     chunk_size = 100
 
     def __init__(self, ma: ModelArrays, config: GibbsConfig,
-                 nchains: int = 64, device=None):
+                 nchains: int = 64, device=None,
+                 tnt_block_size: int | str | None = "auto",
+                 record: str = "full"):
         super().__init__(ma, config)
-        if config.mh.mtm_tries >= 2:
-            raise NotImplementedError(
-                "multiple-try Metropolis is not ported yet")
+        if record not in ("full", "light"):
+            raise ValueError(f"record must be 'full' or 'light', got "
+                             f"{record!r}")
+        self.record = record
+        mh = config.mh
+        self._mtm = {blk: mh.mtm_tries >= 2 and blk in mh.mtm_blocks
+                     for blk in ("white", "hyper")}
         self.device = resolve_device(device)
         self.nchains = int(nchains)
         self.dtype = torch.float32
@@ -146,8 +182,8 @@ class TorchGibbs(SamplerBackend):
         def t(a, dtype=f32):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
-        # dense TNT below 16384 TOAs, TOA-blocked above (ops/tnt.py)
-        tnt_block_size = auto_block_size(ma.n)
+        if tnt_block_size == "auto":
+            tnt_block_size = auto_block_size(ma.n)
         self._block_size = tnt_block_size
         base_mask = None
         self._n_real = ma.n
@@ -234,7 +270,6 @@ class TorchGibbs(SamplerBackend):
             self._phi_consts.append((blk, const))
         self._pspin = (config.pspin * ma.time_scale
                        if config.pspin is not None else 1.0)
-        mh = config.mh
         self._scale_sizes = t(mh.scale_sizes)
         self._scale_cdf = t(np.cumsum(np.asarray(mh.scale_probs)) /
                             np.sum(mh.scale_probs))
@@ -370,6 +405,36 @@ class TorchGibbs(SamplerBackend):
                                     dtype=f32))
         return dx, logu
 
+    def _mtm_draws(self, gen, ind, nsteps: int, jump_scale, cov_chol=None):
+        """One MTM block's randomness (the JAX backend's ``_mtm_draws``):
+        per step K candidate jumps and K-1 reference jumps from the same
+        jump kernel as :meth:`_mh_draws`, K Gumbel selection draws and one
+        log-uniform. Returns ``(dx (C, S, K, p), dxr (C, S, K-1, p),
+        gumb (C, S, K), logu (C, S))``."""
+        K = self.config.mh.mtm_tries
+        C, p = self.nchains, self._ma.nparam
+        dev, f32 = self.device, self.dtype
+        dx, _ = self._mh_draws(gen, ind, nsteps * K, jump_scale, cov_chol)
+        dxr, _ = self._mh_draws(gen, ind, nsteps * (K - 1), jump_scale,
+                                cov_chol)
+        u = torch.rand((C, nsteps, K), generator=gen, device=dev, dtype=f32)
+        logu = torch.log(torch.rand((C, nsteps), generator=gen, device=dev,
+                                    dtype=f32))
+        return (dx.reshape(C, nsteps, K, p), dxr.reshape(C, nsteps, K - 1, p),
+                -torch.log(-torch.log(u)), logu)
+
+    def _block_draws(self, gen, blk: str, ind, nsteps: int, jump_scale,
+                     cov_chol):
+        """``(dx, logu, dxr, gumb)`` of one MH block, single- or
+        multiple-try (``dxr``/``gumb`` empty for single-try)."""
+        if self._mtm[blk]:
+            dx, dxr, gumb, logu = self._mtm_draws(gen, ind, nsteps,
+                                                  jump_scale, cov_chol)
+            return dx, logu, dxr, gumb
+        dx, logu = self._mh_draws(gen, ind, nsteps, jump_scale, cov_chol)
+        empty = dx.new_zeros((self.nchains, 0))
+        return dx, logu, empty, empty
+
     def _draw(self, gen, state: ChainState) -> SweepDraws:
         """All of one sweep's random numbers (see the module docstring)."""
         cfg, mh = self.config, self.config.mh
@@ -377,11 +442,11 @@ class TorchGibbs(SamplerBackend):
         dev, f32 = self.device, self.dtype
         cov = state.mh_cov_chol if mh.adapt_cov else None
         scale = torch.exp(state.mh_log_scale)
-        dx_w, logu_w = self._mh_draws(
-            gen, self._white_idx, mh.n_white_steps, scale[:, 0],
+        dx_w, logu_w, dxr_w, gumb_w = self._block_draws(
+            gen, "white", self._white_idx, mh.n_white_steps, scale[:, 0],
             None if cov is None else cov[:, 0])
-        dx_h, logu_h = self._mh_draws(
-            gen, self._hyper_idx, mh.n_hyper_steps, scale[:, 1],
+        dx_h, logu_h, dxr_h, gumb_h = self._block_draws(
+            gen, "hyper", self._hyper_idx, mh.n_hyper_steps, scale[:, 1],
             None if cov is None else cov[:, 1])
         xi = torch.randn((C, m), generator=gen, device=dev, dtype=f32)
         a, b = self._theta_shapes(state.z)
@@ -394,7 +459,7 @@ class TorchGibbs(SamplerBackend):
         ug = torch.rand((C, cfg.df_max), generator=gen, device=dev, dtype=f32)
         gumbel = -torch.log(-torch.log(ug))
         return SweepDraws(dx_w, logu_w, dx_h, logu_h, xi, g_theta, u_z,
-                          g_alpha, gumbel)
+                          g_alpha, gumbel, dxr_w, gumb_w, dxr_h, gumb_h)
 
     def _theta_shapes(self, z):
         """The Beta(a, b) shapes of the outlier-fraction conditional
@@ -460,13 +525,21 @@ class TorchGibbs(SamplerBackend):
         if self._white is not None:
             rows, wspecs, var = self._white
             yred = self._y - matvec_blocked(self._T, b, self._block_size)
-            x, acc_w = white_mh(x, az, yred * yred, draws.dx_w,
-                                draws.logu_w, rows, wspecs, var)
+            if self._mtm["white"]:
+                x, acc_w = white_mtm(x, az, yred * yred, draws.dx_w,
+                                     draws.dxr_w, draws.gumb_w, draws.logu_w,
+                                     rows, wspecs, var)
+            else:
+                x, acc_w = white_mh(x, az, yred * yred, draws.dx_w,
+                                    draws.logu_w, rows, wspecs, var)
         nvec = self._masked_nvec(x, az)
 
         # --- per-sweep inner products (reference gibbs.py:302-304) -----
-        TNT, d, const_white = tnt_products(self._T, self._y, nvec,
-                                           self._block_size)
+        if self._block_size is None:
+            TNT, d, const_white = tnt_products(self._T, self._y, nvec)
+        else:
+            TNT, d, const_white = tnt_batched(self._T, self._y, nvec,
+                                              self._block_size)
 
         # --- hyper MH block on the marginalized likelihood -------------
         acc_h = zeros
@@ -573,9 +646,22 @@ class TorchGibbs(SamplerBackend):
     def _hyper_block(self, x, Sh, rh, base, draws):
         """The hyper MH block on the matrix block ``Sh``: one kernel launch
         when ``v <= MAX_HYPER_V``, else the closure path (the plain loop
-        with the chol kernel as its factorization)."""
+        with the chol kernel as its factorization). Under multiple-try
+        Metropolis, the MTM loop whose each step factors the K candidates
+        and the K-1 references as one stacked batch through the chol
+        kernel (the JAX backend's closure ``_mtm_block``)."""
         hp, cfg = self._hyper, self.config
         dS0 = torch.diagonal(Sh, dim1=-2, dim2=-1) + hp["phiinv_static"]
+        if self._mtm["hyper"]:
+            def weight(q):
+                ll, lp = hyper_ll_lp(
+                    q, Sh[:, None], dS0[:, None], rh[:, None], base[:, None],
+                    hp["K"], hp["sel"], hp["specs"], hp["hyp_idx"],
+                    cfg.jitter, factor=chol_fused)
+                return ll + lp
+
+            return mtm_loop(weight, x, draws.dx_h, draws.dxr_h, draws.gumb_h,
+                            draws.logu_h)
         args = (x, Sh, dS0, rh, base, draws.dx_h, draws.logu_h, hp["K"],
                 hp["sel"], hp["specs"], hp["hyp_idx"], cfg.jitter)
         if hp["fused"]:
@@ -591,7 +677,8 @@ class TorchGibbs(SamplerBackend):
                start_sweep: int = 0) -> ChainResult:
         """Run ``niter`` sweeps for all chains and return every sweep's
         state (the state BEFORE sweeps ``start_sweep .. start_sweep +
-        niter - 1``, as the JAX backend records) in full float32.
+        niter - 1``, as the JAX backend records) in float32, every field
+        or, with ``record="light"``, the light ones.
 
         Records stay on the device for a chunk of ``chunk_size`` sweeps
         and then move to the host. With population-covariance proposals
@@ -604,32 +691,36 @@ class TorchGibbs(SamplerBackend):
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed) * 1000003 + int(start_sweep))
         mh = self.config.mh
-        host = {f: [] for f in _RECORD_FIELDS}
+        fields = _RECORD_FIELDS if self.record == "full" else _LIGHT_FIELDS
+        host = {f: [] for f in fields}
         done = 0
         while done < niter:
             length = min(self.chunk_size, niter - done)
             off = start_sweep + done
             if mh.adapt_cov and off < mh.adapt_until:
                 state = self._prop_cov_update(state)
-            recs = {f: [] for f in _RECORD_FIELDS}
+            recs = {f: [] for f in fields}
             for i in range(off, off + length):
-                for f in _RECORD_FIELDS:
+                for f in fields:
                     recs[f].append(getattr(state, f))
                 state = self._sweep(state, self._draw(gen, state), sweep=i)
-            for f in _RECORD_FIELDS:
+            for f in fields:
                 host[f].append(torch.stack(recs[f]).cpu().numpy())
             done += length
         self.last_state = state
         cols = {f: np.concatenate(v) for f, v in host.items()}
+        empty = np.zeros((0,), np.float32)
         for f in ("z", "alpha", "pout"):
-            cols[f] = cols[f][..., :self._n_real]
+            if f in cols:
+                cols[f] = cols[f][..., :self._n_real]
         return ChainResult(
-            chain=cols["x"], bchain=cols["b"], zchain=cols["z"],
-            thetachain=cols["theta"], alphachain=cols["alpha"],
-            poutchain=cols["pout"], dfchain=cols["df"],
+            chain=cols["x"], bchain=cols.get("b", empty),
+            zchain=cols.get("z", empty), thetachain=cols["theta"],
+            alphachain=cols.get("alpha", empty),
+            poutchain=cols.get("pout", empty), dfchain=cols["df"],
             stats={"acc_white": cols["acc_white"],
                    "acc_hyper": cols["acc_hyper"],
-                   "record_mode": np.asarray("full")})
+                   "record_mode": np.asarray(self.record)})
 
 
 def _norm_pdf(x, var):

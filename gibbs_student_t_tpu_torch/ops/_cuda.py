@@ -47,10 +47,12 @@ _SIGNATURES = {
                       _I, _I, _I, _I, _I, _P], _I),
     "gst_hyper_mh": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                       _P, _P, _I, _I, _I, _I, _F, _P], _I),
-    "gst_white_smem": ([_I, _I, _I], _Z),
+    "gst_white_mtm": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _P], _I),
+    "gst_white_staged": ([_I, _I, _I], _I),
+    "gst_tnt_batched": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "gst_tnt_workspace": ([_I, _I, _I], _Z),
 }
-#: dynamic shared memory one Hopper thread block may use (bytes)
-MAX_SMEM = 232448
 
 _lock = threading.Lock()
 _lib = None

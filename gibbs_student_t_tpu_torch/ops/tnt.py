@@ -8,12 +8,14 @@ same three reductions over the TOA axis (reference gibbs.py:302-311):
     c   = -1/2 (sum log N + y^T N^-1 y)     (scalar)
 
 with ``N = diag(nvec)``, per chain. ``T`` and ``y`` are shared by every
-chain and ``nvec`` is ``(C, n)``. The dense form is one batched product;
-the blocked form loops over TOA blocks so live memory per chain is
-``O(block x m)`` (the 1e5-TOA stress shape). No hand-written kernel sits
-here: the JAX package leaves the product to XLA on the main path, and the
-port leaves it to ``torch.matmul`` at full float32 (TF32 is off, see the
-package ``__init__``).
+chain and ``nvec`` is ``(C, n)``. The dense form (:func:`tnt_products`
+without a block size, the flagship's n = 130) is one batched product,
+left to ``torch.matmul`` at full float32 (TF32 is off, see the package
+``__init__``) as the JAX package leaves it to XLA. The TOA-blocked form
+(the 1e5-TOA stress path) is :func:`tnt_batched`: one launch of
+``csrc/tnt.cu`` on a CUDA device (replacing
+``gibbs_student_t_tpu/ops/pallas_tnt.py::_tnt_kernel``), and the blocked
+loop of :func:`tnt_products`, its plain version, on the CPU.
 """
 
 from __future__ import annotations
@@ -71,6 +73,52 @@ def tnt_products(T, y, nvec, block_size: Optional[int] = None):
         else:
             TNT, d, const = TNT + t, d + dd, const + c
     return TNT, d, const
+
+
+def tnt_batched(T, y, nvec, block_size: int):
+    """``(TNT, d, const_white)`` of the TOA-blocked reduction, shapes as in
+    :func:`tnt_products`, float32: one launch of the Gram kernel covering
+    every TOA block on a CUDA device (``w = 1/nvec`` on the way in, the
+    constant in PyTorch), the blocked :func:`tnt_products` on the CPU.
+    ``n`` must be a multiple of ``block_size`` (:func:`pad_rows`); padded
+    rows carry ``T = 0``, ``y = 0``, ``nvec = 1`` and add exactly zero."""
+    for t in (T, y, nvec):
+        if t.dtype != torch.float32:
+            raise ValueError(f"tnt_batched: float32 only, got {t.dtype}")
+        if t.device != nvec.device:
+            raise ValueError("tnt_batched: operands on different devices")
+    n, m = T.shape
+    C = nvec.shape[0]
+    if y.shape != (n,) or nvec.shape != (C, n):
+        raise ValueError("tnt_batched: inconsistent operand shapes")
+    if n % block_size != 0:
+        raise ValueError(
+            f"tnt_batched needs n ({n}) to be a multiple of block_size "
+            f"({block_size}); use pad_rows first")
+    if nvec.device.type == "cpu":
+        return tnt_products(T, y, nvec, block_size)
+    if nvec.device.type != "cuda":
+        raise RuntimeError(f"tnt_batched: no kernel for device {nvec.device}")
+    from gibbs_student_t_tpu_torch.ops import _cuda
+
+    w = 1.0 / nvec
+    const = -0.5 * (torch.log(nvec).sum(-1) + (y * y * w).sum(-1))
+    TNT = torch.empty((C, m, m), dtype=T.dtype, device=T.device)
+    d = torch.empty((C, m), dtype=T.dtype, device=T.device)
+    if C:
+        lib = _cuda.lib()
+        work = torch.empty((lib.gst_tnt_workspace(C, n, m),), dtype=T.dtype,
+                           device=T.device)
+        Tc, yc = T.contiguous(), y.contiguous()
+        _cuda.check(lib.gst_tnt_batched(
+            _cuda.ptr(Tc), _cuda.ptr(yc), _cuda.ptr(w), _cuda.ptr(work),
+            _cuda.ptr(TNT), _cuda.ptr(d), C, n, m,
+            _cuda.stream(T.device)), "tnt_batched")
+        tnt_batched.launches += 1
+    return TNT, d, const
+
+
+tnt_batched.launches = 0
 
 
 def matvec_blocked(T, b, block_size: Optional[int] = None):

@@ -1,4 +1,5 @@
-"""The whole white-noise MH block: kernel wrapper and plain version.
+"""The whole white-noise MH block, single-try and multiple-try: kernel
+wrappers and plain versions.
 
 Counterpart of ``gibbs_student_t_tpu/ops/pallas_white.py``. The
 reference's white-noise update is S = 20 sequential Metropolis steps
@@ -6,11 +7,13 @@ reference's white-noise update is S = 20 sequential Metropolis steps
 likelihood ``-1/2 (sum log N + sum (y-Tb)^2/N)`` with
 ``N = alpha^z * Nvec0(efac, equad)``. ``white_mh`` runs the whole block
 for every chain in one launch of ``csrc/white_mh.cu`` (replacing
-``pallas_white.py::_white_kernel``): its bound on the H100 (operations,
-narrowly over bytes) is under a microsecond, and its time goes to the
-sequential steps, so it stages the per-chain inputs in shared memory once
-and runs all steps there, one block per chain. The draws (``dx``, ``logu``) are
-inputs, so kernel and plain version consume the same random numbers.
+``pallas_white.py::_white_kernel``), and ``white_mtm`` the block under
+multiple-try Metropolis (replacing ``_white_mtm_kernel``). Their bound on
+the H100 at the flagship shape is under a microsecond, and their time goes
+to the sequential steps, so one block per chain runs all steps. The
+per-chain inputs are staged in shared memory where they fit and read from
+device memory past that (the 1e5-TOA stress path). The draws are inputs,
+so kernels and plain versions consume the same random numbers.
 
 Constant folding follows the JAX package: selection groups pinned to
 constants fold into a baseline variance row ``nv0``; each varying group
@@ -139,6 +142,38 @@ def mh_loop(ll_lp, x, dx, logu):
     return x, acc / S
 
 
+def mtm_loop(weight_fn, x, dx, dxr, gumb, logu):
+    """Multiple-try Metropolis (MTM(II), weight = posterior density) over
+    precomputed draws, the loop the white MTM kernel runs and the hyper
+    block's MTM path: ``weight_fn(q (C, J, p)) -> (C, J)`` log weights,
+    ``x (C, p)``, ``dx (C, S, K, p)`` candidate jumps, ``dxr
+    (C, S, K-1, p)`` reference jumps, ``gumb (C, S, K)`` Gumbel noise,
+    ``logu (C, S)``. Per step the K candidates ``x + dx`` are weighted, one
+    is selected by Gumbel-max (the first maximum wins), K-1 references
+    around it are weighted together with the current point, and the step
+    accepts where ``logsumexp(candidates) - logsumexp(references) > logu``;
+    a NaN delta (every weight -inf on both sides) never accepts. Returns
+    ``(x_new, acc_rate (C,))``."""
+    wx = weight_fn(x[:, None])[:, 0]
+    acc = torch.zeros_like(wx)
+    S = dx.shape[1]
+    for i in range(S):
+        cands = x[:, None] + dx[:, i]                       # (C, K, p)
+        lw = weight_fn(cands)
+        j = torch.argmax(lw + gumb[:, i], dim=-1, keepdim=True)
+        y = torch.gather(cands, 1, j[..., None].expand(-1, -1,
+                                                       x.shape[-1]))[:, 0]
+        lwy = torch.gather(lw, 1, j)[:, 0]
+        refs = y[:, None] + dxr[:, i]                       # (C, K-1, p)
+        lwr = torch.cat([weight_fn(refs), wx[:, None]], dim=-1)
+        delta = torch.logsumexp(lw, -1) - torch.logsumexp(lwr, -1)
+        accept = delta > logu[:, i]
+        x = torch.where(accept[:, None], y, x)
+        wx = torch.where(accept, lwy, wx)
+        acc = acc + accept.to(acc.dtype)
+    return x, acc / S
+
+
 def white_mh_loop(x, az, yred2, dx, logu, rows, specs, var):
     """The white MH block in plain PyTorch over precomputed draws:
     ``x (C, p)``, ``az/yred2 (C, n)``, ``dx (C, S, p)``, ``logu (C, S)``.
@@ -152,45 +187,97 @@ def white_mh(x, az, yred2, dx, logu, rows, specs, var):
     CUDA device, the plain loop on the CPU. Shapes as in
     :func:`white_mh_loop`; ``rows (R, n)``/``specs (3, p)`` float32 tensors
     on the same device, ``var`` the static ``WhiteConsts.var`` triples."""
-    for t in (x, az, yred2, dx, logu, rows, specs):
-        if t.dtype != torch.float32:
-            raise ValueError(f"white_mh: float32 only, got {t.dtype}")
-        if t.device != x.device:
-            raise ValueError("white_mh: operands on different devices")
+    _check_white("white_mh", x, az, yred2, (dx, logu), rows, specs)
     C, p = x.shape
     n = az.shape[-1]
     S = dx.shape[-2]
-    if (az.shape != (C, n) or yred2.shape != (C, n)
-            or dx.shape != (C, S, p) or logu.shape != (C, S)
-            or rows.shape[-1] != n or specs.shape != (3, p)):
-        raise ValueError("white_mh: inconsistent operand shapes")
+    if dx.shape != (C, S, p) or logu.shape != (C, S):
+        raise ValueError("white_mh: inconsistent draw shapes")
     if x.device.type == "cpu":
         return white_mh_loop(x, az, yred2, dx, logu, rows, specs, var)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"white_mh: no kernel for device {x.device}")
-    if len(var) > MAX_WHITE_VAR:
-        raise ValueError(f"white_mh: {len(var)} varying groups exceed "
-                         f"MAX_WHITE_VAR ({MAX_WHITE_VAR})")
-    from gibbs_student_t_tpu_torch.ops import _cuda
-
-    lib = _cuda.lib()
-    R = rows.shape[0]
-    if lib.gst_white_smem(n, p, R) > _cuda.MAX_SMEM:
-        raise ValueError(f"white_mh: n = {n} TOAs exceed the kernel's "
-                         "shared-memory staging")
-    xc, azc, y2c, dxc, luc, rc, sc = (
-        t.contiguous() for t in (x, az, yred2, dx, logu, rows, specs))
-    xo = torch.empty_like(xc)
+    _check_kernel("white_mh", x, var)
+    xo = torch.empty((C, p), dtype=x.dtype, device=x.device)
     acc = torch.empty((C,), dtype=x.dtype, device=x.device)
-    vt = _cuda.host_ints([k for trip in var for k in trip])
     if C:
-        _cuda.check(lib.gst_white_mh(
-            _cuda.ptr(xc), _cuda.ptr(azc), _cuda.ptr(y2c), _cuda.ptr(dxc),
-            _cuda.ptr(luc), _cuda.ptr(rc), _cuda.ptr(sc),
-            _cuda.addr(vt), len(var), _cuda.ptr(xo), _cuda.ptr(acc),
-            C, n, p, S, R, _cuda.stream(x.device)), "white_mh")
+        _launch("gst_white_mh", (x, az, yred2, dx, logu), rows, specs, var,
+                xo, acc, (C, n, p, S))
         white_mh.launches += 1
     return xo, acc
 
 
 white_mh.launches = 0
+
+
+def white_mtm_loop(x, az, yred2, dx, dxr, gumb, logu, rows, specs, var):
+    """The white block under multiple-try Metropolis in plain PyTorch:
+    ``x (C, p)``, ``az/yred2 (C, n)``, ``dx (C, S, K, p)``,
+    ``dxr (C, S, K-1, p)``, ``gumb (C, S, K)``, ``logu (C, S)``. Returns
+    ``(x_new, acc_rate (C,))``."""
+    def weight(q):
+        ll, lp = white_ll_lp(q, az[:, None], yred2[:, None], rows, var, specs)
+        return ll + lp
+
+    return mtm_loop(weight, x, dx, dxr, gumb, logu)
+
+
+def white_mtm(x, az, yred2, dx, dxr, gumb, logu, rows, specs, var):
+    """``(x_new, acc_rate)`` for the white block under multiple-try
+    Metropolis, one launch on a CUDA device, the plain loop on the CPU.
+    Shapes as in :func:`white_mtm_loop`; constants as in :func:`white_mh`."""
+    _check_white("white_mtm", x, az, yred2, (dx, dxr, gumb, logu), rows,
+                 specs)
+    C, p = x.shape
+    n = az.shape[-1]
+    S, K = dx.shape[1], dx.shape[2]
+    if (dx.shape != (C, S, K, p) or dxr.shape != (C, S, K - 1, p)
+            or gumb.shape != (C, S, K) or logu.shape != (C, S)):
+        raise ValueError("white_mtm: inconsistent draw shapes")
+    if x.device.type == "cpu":
+        return white_mtm_loop(x, az, yred2, dx, dxr, gumb, logu, rows, specs,
+                              var)
+    _check_kernel("white_mtm", x, var)
+    xo = torch.empty((C, p), dtype=x.dtype, device=x.device)
+    acc = torch.empty((C,), dtype=x.dtype, device=x.device)
+    if C:
+        _launch("gst_white_mtm", (x, az, yred2, dx, dxr, gumb, logu), rows,
+                specs, var, xo, acc, (C, n, p, S, K))
+        white_mtm.launches += 1
+    return xo, acc
+
+
+white_mtm.launches = 0
+
+
+def _check_white(name, x, az, yred2, draws, rows, specs):
+    for t in (x, az, yred2, *draws, rows, specs):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: float32 only, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name}: operands on different devices")
+    C, p = x.shape
+    n = az.shape[-1]
+    if (az.shape != (C, n) or yred2.shape != (C, n) or rows.shape[-1] != n
+            or specs.shape != (3, p)):
+        raise ValueError(f"{name}: inconsistent operand shapes")
+
+
+def _check_kernel(name, x, var):
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {x.device}")
+    if len(var) > MAX_WHITE_VAR:
+        raise ValueError(f"{name}: {len(var)} varying groups exceed "
+                         f"MAX_WHITE_VAR ({MAX_WHITE_VAR})")
+
+
+def _launch(entry, ops, rows, specs, var, xo, acc, dims):
+    """One launch of a white kernel: ``ops`` the per-chain operands in the
+    C entry's order, then the constants, the var table, the outputs, the
+    dimensions and R."""
+    from gibbs_student_t_tpu_torch.ops import _cuda
+
+    ops = [t.contiguous() for t in (*ops, rows, specs)]
+    vt = _cuda.host_ints([k for trip in var for k in trip])
+    _cuda.check(getattr(_cuda.lib(), entry)(
+        *(_cuda.ptr(t) for t in ops), _cuda.addr(vt), len(var),
+        _cuda.ptr(xo), _cuda.ptr(acc), *dims, rows.shape[0],
+        _cuda.stream(xo.device)), entry[4:])

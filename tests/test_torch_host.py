@@ -147,6 +147,10 @@ def _forbidden(mod: str) -> bool:
 def test_port_imports_no_jax():
     files = _port_files()
     assert len(files) > 15
+    scanned = {os.path.relpath(f, REPO) for f in files}
+    assert {"gibbs_student_t_tpu_torch/ops/tnt.py",
+            "gibbs_student_t_tpu_torch/ops/white_mh.py",
+            "gibbs_student_t_tpu_torch/testing.py"} <= scanned
     bad = []
     for path in files:
         with open(path) as fh:

@@ -11,15 +11,22 @@ It covers what ``chip_smoke.py`` does not reach at the flagship shapes:
 the factor at the kernel's bound m = 160 (shared memory past the 48 KB
 default), failed pivots, the hyper kernel at its bound v = 160, and the
 closure path (the plain hyper loop with the factor kernel), which the
-sampler takes above that bound.
+sampler takes above that bound; the white kernel past shared memory
+(n = 20,000 and 102,400, operands read from device memory), the white
+MTM kernel with dead weights, and the Gram kernel with padded rows and
+a chain count that is not a multiple of its chain tile.
 
 Tolerances: kernel and plain version both compute in float32, in other
 summation orders. Factors, solves and logdets agree to rtol 1e-4 / atol
 1e-5 at condition number 30, the tolerance the CPU tests hold the plain
 versions to against the JAX package. The MH blocks take identical
-decisions on draws kept 1e-3 away from every tie (a float64 replay of
-the plain version moves any closer draw away, on the side of its
-decision) and agree on x to 1e-5 relative.
+decisions on draws kept clear of every tie (a float64 replay of the plain
+version moves any closer draw away, on the side of its decision; 1e-3 at
+130 TOAs, 0.1 at 1e4-1e5 TOAs, where a float32 log-likelihood summed over
+the TOAs is itself uncertain by ~0.03) and agree on x to 1e-5 relative.
+The Gram kernel's TNT and d agree with a float64 evaluation to 1e-4 of
+the same sums taken over absolute values (M = |T|^T w |T|): a float32 sum
+over 1e4 TOAs cannot meet a plain relative bound on entries that cancel.
 
 The jump, state and tie helpers below are shared with the CPU tests that
 hold the plain MH blocks against the JAX package (test_torch_mh.py,
@@ -39,7 +46,9 @@ from gibbs_student_t_tpu_torch.models.pta import (
 from gibbs_student_t_tpu_torch.ops import chol, linalg
 from gibbs_student_t_tpu_torch.ops import hyper_mh as thyper
 from gibbs_student_t_tpu_torch.ops import white_mh as twhite
-from gibbs_student_t_tpu_torch.ops.tnt import tnt_products
+from gibbs_student_t_tpu_torch.ops import tnt as ttnt
+from gibbs_student_t_tpu_torch.ops.tnt import pad_rows, tnt_products
+from gibbs_student_t_tpu_torch.testing import separate_mtm_ties, separate_ties
 
 C = 64
 
@@ -54,28 +63,6 @@ def spd(rng, B, m, cond=1e3):
     isd = 1.0 / np.sqrt(np.diagonal(S, axis1=1, axis2=2))
     S = S * isd[:, :, None] * isd[:, None, :]
     return (0.5 * (S + np.swapaxes(S, 1, 2))).astype(np.float32)
-
-
-def separate_ties(ll_lp64, x, dx, logu, margin=1e-3, push=1e-2):
-    """Replay the MH loop in float64 and move each logu whose decision lies
-    within ``margin`` of its delta to ``delta -/+ push`` — on the side of
-    the decision already taken, so the chain's path is unchanged."""
-    x = x.double()
-    dx = dx.double()
-    logu = logu.clone().double()
-    ll0, lp0 = ll_lp64(x)
-    for i in range(dx.shape[1]):
-        q = x + dx[:, i]
-        ll1, lp1 = ll_lp64(q)
-        delta = (ll1 + lp1) - (ll0 + lp0)
-        acc = delta > logu[:, i]
-        near = (delta - logu[:, i]).abs() < margin
-        logu[:, i] = torch.where(near & acc, delta - push,
-                                 torch.where(near, delta + push, logu[:, i]))
-        x = torch.where(acc[:, None], q, x)
-        ll0 = torch.where(acc, ll1, ll0)
-        lp0 = torch.where(acc, lp1, lp0)
-    return logu.float()
 
 
 def jumps(rng, ind, S, p, dense, scale):
@@ -223,3 +210,132 @@ def test_hyper_mh_kernel_on_card(components, path):
     assert nk[0] == 0                     # the indefinite chain rejects
     assert 0 < nk.sum() < C * S
     torch.testing.assert_close(xk, xp, rtol=1e-5, atol=0.0)
+
+
+def white_operands(rng, n, C=C):
+    """White-block operands at ``n`` TOAs tiled from the flagship model's
+    (constant rows, az and yred^2 of a near-posterior state), the last 37
+    TOAs masked as padding. Returns ``(x, az, y2, rows, wc)``."""
+    ma = make_demo_model_arrays()
+    wc = twhite.build_white_consts(ma)
+    x, az = near_posterior(rng, ma)
+    b = (rng.normal(size=(C, ma.m)) * 0.05).astype(np.float32)
+    yred = ma.y.astype(np.float32)[None] - b @ ma.T.astype(np.float32).T
+    reps = -(-n // ma.n)
+    rows = np.tile(wc.rows, (1, reps))[:, :n].copy()
+    rows[1, n - 37:] = 0.0
+    az = np.tile(az, (1, reps))[:, :n]
+    y2 = (np.tile(yred, (1, reps))[:, :n] ** 2
+          * rng.uniform(0.5, 1.5, (C, n))).astype(np.float32)
+    return x, az, y2, rows, wc
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("n", [20000, 102400])
+def test_white_mh_kernel_past_shared_memory_on_card(n):
+    """The white block at sizes whose per-chain rows do not fit in shared
+    memory: the kernel reads them from device memory."""
+    dev = _cuda()
+    from gibbs_student_t_tpu_torch.ops import _cuda as cu
+
+    rng = np.random.default_rng(71 + n)
+    x, az, y2, rows, wc = white_operands(rng, n)
+    assert cu.lib().gst_white_staged(n, 3, rows.shape[0]) == 0
+    S = 20
+    dx = jumps(rng, [wc.var[0][1]], S, 3, False, 0.05)
+    tt = torch.from_numpy
+    logu = separate_ties(
+        lambda q: twhite.white_ll_lp(q, tt(az).double(), tt(y2).double(),
+                                     tt(rows).double(), wc.var,
+                                     tt(wc.specs).double()),
+        tt(x), tt(dx), torch.log(tt(rng.random((C, S)).astype(np.float32))),
+        margin=0.1, push=0.2)
+    ops = [t.to(dev) for t in (tt(x), tt(az), tt(y2), tt(dx), logu,
+                               tt(rows), tt(wc.specs))]
+    n0 = twhite.white_mh.launches
+    xk, ak = twhite.white_mh(*ops, wc.var)
+    xp, ap = twhite.white_mh_loop(*ops, wc.var)
+    assert twhite.white_mh.launches == n0 + 1
+    nk = acc_counts(ak.cpu(), S)
+    np.testing.assert_array_equal(nk, acc_counts(ap.cpu(), S))
+    assert 0 < nk.sum() < C * S
+    torch.testing.assert_close(xk, xp, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("dense", [False, True])
+def test_white_mtm_kernel_on_card(dense):
+    """K = 4 tries at the flagship shape. Chain 1 starts outside the prior
+    (every weight of every step -inf on both sides: a NaN delta, never an
+    accept); chains 2-5 propose only dead candidates at step 3."""
+    dev = _cuda()
+    ma = make_demo_model_arrays()
+    rng = np.random.default_rng(81 + dense)
+    wc = twhite.build_white_consts(ma)
+    x, az = near_posterior(rng, ma)
+    x[1, 0] = 50.0
+    b = (rng.normal(size=(C, ma.m)) * 0.05).astype(np.float32)
+    yred = ma.y.astype(np.float32)[None] - b @ ma.T.astype(np.float32).T
+    y2 = (yred * yred).astype(np.float32)
+    S, K = 20, 4
+    dx = jumps(rng, ma.white_indices, S * K, 3, dense, 0.05).reshape(
+        C, S, K, 3)
+    dx[2:6, 3, :, 0] = 100.0
+    dxr = jumps(rng, ma.white_indices, S * (K - 1), 3, dense, 0.05).reshape(
+        C, S, K - 1, 3)
+    tt = torch.from_numpy
+    gumb = -torch.log(-torch.log(tt(rng.random((C, S, K)).astype(
+        np.float32))))
+    logu = torch.log(tt(rng.random((C, S)).astype(np.float32)))
+    az64, y264 = tt(az).double(), tt(y2).double()
+    rows64, specs64 = tt(wc.rows).double(), tt(wc.specs).double()
+
+    def weight64(q):
+        ll, lp = twhite.white_ll_lp(q, az64[:, None], y264[:, None], rows64,
+                                    wc.var, specs64)
+        return ll + lp
+
+    gumb, logu = separate_mtm_ties(weight64, tt(x), tt(dx), tt(dxr), gumb,
+                                   logu)
+    ops = [t.to(dev) for t in (tt(x), tt(az), tt(y2), tt(dx), tt(dxr), gumb,
+                               logu, tt(wc.rows), tt(wc.specs))]
+    n0 = twhite.white_mtm.launches
+    xk, ak = twhite.white_mtm(*ops, wc.var)
+    xp, ap = twhite.white_mtm_loop(*ops, wc.var)
+    assert twhite.white_mtm.launches == n0 + 1
+    nk = acc_counts(ak.cpu(), S)
+    np.testing.assert_array_equal(nk, acc_counts(ap.cpu(), S))
+    assert nk[1] == 0 and float(xk[1, 0]) == 50.0
+    assert 0 < nk.sum() < C * S
+    torch.testing.assert_close(xk, xp, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("C_, n_real, block, m", [(5, 1000, 256, 12),
+                                                 (64, 20000, 4096, 74)])
+def test_tnt_kernel_on_card(C_, n_real, block, m):
+    """The Gram kernel on a padded TOA axis against the blocked plain
+    version and a float64 evaluation of the unpadded sums."""
+    dev = _cuda()
+    rng = np.random.default_rng(91 + m)
+    T = rng.normal(size=(n_real, m)).astype(np.float32)
+    y = rng.normal(size=n_real).astype(np.float32)
+    nvec = np.exp(rng.normal(0.0, 1.0, (C_, n_real))).astype(np.float32)
+    Tp, yp, n_pad = pad_rows(T, y, block)
+    assert n_pad > 0
+    nvp = np.concatenate([nvec, np.ones((C_, n_pad), np.float32)], 1)
+    ops = [torch.from_numpy(a).to(dev) for a in (Tp, yp, nvp)]
+    n0 = ttnt.tnt_batched.launches
+    TNT, d, const = ttnt.tnt_batched(*ops, block)
+    assert ttnt.tnt_batched.launches == n0 + 1
+    TNTp, dp, constp = tnt_products(*ops, block)
+    T64, y64, nv64 = (torch.from_numpy(a).double() for a in (T, y, nvec))
+    TNT64, d64, const64 = tnt_products(T64, y64, nv64)
+    M, Md, _ = tnt_products(T64.abs(), y64.abs(), nv64)
+    for a in (TNT, TNTp):
+        assert (a.cpu().double() - TNT64).abs().le(1e-4 * M).all()
+    for a in (d, dp):
+        assert (a.cpu().double() - d64).abs().le(1e-4 * Md).all()
+    torch.testing.assert_close(const.cpu().double(), const64, rtol=1e-6,
+                               atol=0.0)
+    assert torch.equal(TNT, TNT.transpose(-1, -2))

@@ -12,7 +12,15 @@ fixtures whose decisions all sit more than 1e-3 from a tie
 (|delta - logu| > 1e-3, checked by a float64 replay that moves any closer
 logu away on the side of its decision). Both packages build the kernels'
 constant tables identically (bitwise).
+
+The float64 replay itself (``testing.separate_ties``) is checked with a
+float32 evaluation beside it that is off by a known amount and not finite
+in part of the space: the float64 decisions are unchanged, the float32
+ones agree with them wherever its delta is finite, and every other draw
+is forced to an infinity.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -156,3 +164,40 @@ def test_mh_wrappers_reject_other_devices():
                         torch.zeros(2, 5, device="meta"),
                         torch.zeros(2, 4, device="meta"),
                         torch.zeros(3, 3, device="meta"), ())
+
+
+def test_separate_ties_moves_float32_decisions_out_of_reach():
+    rng = np.random.default_rng(5)
+    Cs, S = 256, 8
+    x = torch.from_numpy(rng.normal(size=(Cs, 2)))
+    dx = torch.from_numpy(rng.normal(size=(Cs, S, 2)))
+    logu = torch.from_numpy(np.log(rng.random((Cs, S)))).float()
+
+    def ll64(q):
+        q = q.double()
+        return -0.5 * (q * q).sum(-1), torch.zeros_like(q[:, 0])
+
+    def ll32(q):
+        """ll64 off by 0.3 q0, and -inf where q1 > 1.5"""
+        ll, lp = ll64(q)
+        ll = torch.where(q[:, 1] > 1.5, -math.inf, ll + 0.3 * q[:, 0])
+        return ll.float(), lp.float()
+
+    info = {}
+    lu = separate_ties(ll64, x, dx, logu, others=(ll32,), info=info)
+    assert info["forced"] > 0 and info["max_err"] > 0.3
+    plain = separate_ties(ll64, x, dx, logu)
+    assert (lu != logu).sum() > (plain != logu).sum()
+    w64, w32 = ll64(x)[0], ll32(x.float())[0].double()
+    for i in range(S):
+        q = x + dx[:, i]
+        d64 = ll64(q)[0] - w64
+        d32 = ll32(q.float())[0].double() - w32
+        acc = d64 > logu[:, i].double()
+        assert torch.equal(d64 > lu[:, i].double(), acc)
+        fin = torch.isfinite(d32)
+        assert torch.equal((d32 > lu[:, i].double())[fin], acc[fin])
+        assert torch.isinf(lu[:, i][~fin]).all()
+        x = torch.where(acc[:, None], q, x)
+        w64 = torch.where(acc, ll64(q)[0], w64)
+        w32 = torch.where(acc, ll32(q.float())[0].double(), w32)

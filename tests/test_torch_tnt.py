@@ -1,0 +1,147 @@
+"""The port's TOA-blocked TNT reduction and the sampler's stress-path
+options, against the JAX package (CPU).
+
+- ``ops.tnt.tnt_batched`` (on the CPU its plain version, the blocked
+  ``tnt_products``) against the Pallas TNT kernel
+  ``pallas_tnt.tnt_batched_pallas`` in interpret mode and its XLA oracle
+  ``tnt_batched_xla``, at 3 chains, n = 256, m = 12, blocks of 128, inputs
+  from a numpy seed: TNT and d within 1e-5 of the same sums taken over
+  absolute values (M = |T|^T w |T|; float32 sums in other orders),
+  the constant to 1e-6 relative;
+- the padded-rows contract: rows with T = 0, y = 0 and nvec = 1 change
+  TNT, d and the constant by no more than float32 reassociation (1e-6 of
+  M), and the port pads exactly as the JAX package;
+- ``TorchGibbs(tnt_block_size=128)`` on the demo model (130 TOAs padded to
+  256): one sweep equals the dense sweep fed the same state and draws, at
+  1e-4 relative on x and b with equal accept counts, and
+  ``record="light"`` records the light fields only.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gibbs_student_t_tpu.ops import pallas_tnt as jtnt
+from gibbs_student_t_tpu.ops.tnt import pad_rows as jpad_rows
+from gibbs_student_t_tpu_torch.backends.torch_backend import TorchGibbs
+from gibbs_student_t_tpu_torch.config import GibbsConfig
+from gibbs_student_t_tpu_torch.data.demo import make_demo_model_arrays
+from gibbs_student_t_tpu_torch.ops import tnt as ttnt
+
+torch.set_num_threads(1)
+
+
+def _inputs(seed, C=3, n=256, m=12):
+    rng = np.random.default_rng(seed)
+    T = rng.normal(size=(n, m)).astype(np.float32)
+    y = rng.normal(size=n).astype(np.float32)
+    nvec = np.exp(rng.normal(0.0, 1.0, (C, n))).astype(np.float32)
+    return T, y, nvec
+
+
+def _scale(T, y, nvec):
+    """(M, Md): TNT and d summed over absolute values, float64."""
+    M, Md, _ = ttnt.tnt_products(*(torch.from_numpy(np.abs(a)).double()
+                                   for a in (T, y, nvec)))
+    return M.numpy(), Md.numpy()
+
+
+def test_tnt_batched_vs_pallas_and_xla():
+    T, y, nvec = _inputs(5)
+    tt = torch.from_numpy
+    TNT, d, const = ttnt.tnt_batched(tt(T), tt(y), tt(nvec), 128)
+    assert ttnt.tnt_batched.launches == 0
+    M, Md = _scale(T, y, nvec)
+    refs = [jtnt.tnt_batched_pallas(jnp.asarray(T), jnp.asarray(y),
+                                    jnp.asarray(nvec), block_size=128,
+                                    interpret=True),
+            jtnt.tnt_batched_xla(jnp.asarray(T), jnp.asarray(y),
+                                 jnp.asarray(nvec), 128)]
+    for rT, rd, rc in refs:
+        assert (np.abs(TNT.numpy() - np.asarray(rT)) <= 1e-5 * M).all()
+        assert (np.abs(d.numpy() - np.asarray(rd)) <= 1e-5 * Md).all()
+        np.testing.assert_allclose(const.numpy(), np.asarray(rc), rtol=1e-6)
+
+
+def test_padded_rows_add_nothing():
+    T, y, nvec = _inputs(6, n=200)
+    Tp, yp, n_pad = ttnt.pad_rows(T, y, 128)
+    Tj, yj, nj = jpad_rows(T, y, 128)
+    assert n_pad == nj == 56
+    np.testing.assert_array_equal(Tp, Tj)
+    np.testing.assert_array_equal(yp, yj)
+    nvp = np.concatenate([nvec, np.ones((3, n_pad), np.float32)], 1)
+    tt = torch.from_numpy
+    padded = ttnt.tnt_batched(tt(Tp), tt(yp), tt(nvp), 128)
+    dense = ttnt.tnt_products(tt(T), tt(y), tt(nvec))
+    M, Md = _scale(T, y, nvec)
+    assert (np.abs(padded[0].numpy() - dense[0].numpy()) <= 1e-6 * M).all()
+    assert (np.abs(padded[1].numpy() - dense[1].numpy()) <= 1e-6 * Md).all()
+    np.testing.assert_allclose(padded[2].numpy(), dense[2].numpy(),
+                               rtol=1e-6)
+    with pytest.raises(ValueError, match="multiple"):
+        ttnt.tnt_batched(tt(T), tt(y), tt(nvec), 128)
+
+
+def _pad(t, n, value):
+    """The per-TOA state of the dense sampler padded to ``n`` TOAs."""
+    return torch.cat([t, torch.full(t.shape[:-1] + (n - t.shape[-1],),
+                                    value)], -1)
+
+
+def test_blocked_sweep_matches_dense():
+    ma = make_demo_model_arrays()
+    cfg = GibbsConfig(model="mixture", vary_df=True,
+                      theta_prior="beta").with_adapt(10, adapt_cov=True)
+    C = 16
+    dense = TorchGibbs(ma, cfg, nchains=C, device="cpu", tnt_block_size=None)
+    blocked = TorchGibbs(ma, cfg, nchains=C, device="cpu", tnt_block_size=128)
+    assert blocked._n == 256 and dense._n == ma.n == 130
+    gen = torch.Generator().manual_seed(4)
+    st = dense._prop_cov_update(dense.init_state(seed=4))
+    for i in range(3):
+        st = dense._sweep(st, dense._draw(gen, st), sweep=i)
+    n = ma.n
+    st_b = st._replace(z=_pad(st.z, 256, 0.0), alpha=_pad(st.alpha, 256, 1.0),
+                       pout=_pad(st.pout, 256, 0.0))
+    dr = blocked._draw(gen, st_b)
+    dr_d = dr._replace(u_z=dr.u_z[:, :n], g_alpha=dr.g_alpha[..., :n])
+    out_d = dense._sweep(st, dr_d, sweep=3)
+    out_b = blocked._sweep(st_b, dr, sweep=3)
+    for f in ("acc_white", "acc_hyper", "theta", "df"):
+        torch.testing.assert_close(getattr(out_b, f), getattr(out_d, f),
+                                   rtol=1e-4, atol=0.0)
+    assert 0 < float(out_d.acc_hyper.mean()) < 1
+    for f in ("x", "b"):
+        torch.testing.assert_close(getattr(out_b, f), getattr(out_d, f),
+                                   rtol=1e-4,
+                                   atol=1e-4 * float(getattr(out_d, f).abs()
+                                                     .max()))
+    assert torch.equal(out_b.z[:, :n], out_d.z)
+    assert not out_b.z[:, n:].any() and (out_b.alpha[:, n:] == 1.0).all()
+    torch.testing.assert_close(out_b.alpha[:, :n], out_d.alpha, rtol=1e-4,
+                               atol=0.0)
+
+
+def test_record_light():
+    ma = make_demo_model_arrays(components=5)
+    cfg = GibbsConfig(model="mixture", vary_df=True)
+    with pytest.raises(ValueError, match="record"):
+        TorchGibbs(ma, cfg, nchains=4, device="cpu", record="compact8")
+    s = TorchGibbs(ma, cfg, nchains=4, device="cpu", record="light",
+                   tnt_block_size=64)
+    res = s.sample(niter=5, seed=2)
+    assert res.chain.shape == (5, 4, ma.nparam)
+    assert res.thetachain.shape == res.dfchain.shape == (5, 4)
+    assert res.stats["acc_white"].shape == (5, 4)
+    for f in ("bchain", "zchain", "alphachain", "poutchain"):
+        assert getattr(res, f).size == 0, f
+    assert str(res.stats["record_mode"]) == "light"
+    assert np.isfinite(res.chain).all()
+    full = TorchGibbs(ma, cfg, nchains=4, device="cpu", tnt_block_size=64)
+    res_f = full.sample(niter=5, seed=2)
+    # the same run, recorded in full: the light fields are equal, and the
+    # per-TOA chains are trimmed back to the real TOAs
+    np.testing.assert_array_equal(res_f.chain, res.chain)
+    assert res_f.zchain.shape == (5, 4, ma.n)
