@@ -13,7 +13,10 @@ Phases, each fatal on failure (non-zero exit, no final ``ok`` line):
    captured from a sweep of the flagship run itself (demo pulsar,
    ``mixture``, 1024 chains), and each kernel is held against its plain
    PyTorch version on those inputs (the MH blocks' accept decisions also
-   against a float64 run of the plain version);
+   against a float64 run of the plain version); then the factor and the
+   hyper block in the launch forms the flagship does not take (a block
+   per matrix at m = v = 160, an odd size, 64 chains), and failed
+   factorizations among good ones that share their thread block;
 4. one deterministic sweep on the card against the same sweep on the CPU
    (plain versions), with identical state and draws: every chain's accept
    counts equal;
@@ -23,7 +26,9 @@ Phases, each fatal on failure (non-zero exit, no final ``ok`` line):
    (chol_fused 2, tri_solve_T 2, white_mh 1, hyper_mh 1), every chain
    must stay finite;
 6. timings of each kernel, its plain version and, where one PyTorch call
-   computes the same function, that call (a yardstick only);
+   computes the same function, that call (a yardstick only); the factor
+   and the hyper block also with every matrices-per-block count, at the
+   64-chain and m = 160 shapes, and beside the first design's times;
 7. torch.profiler over 20 flagship sweeps: device time per sweep, launches
    per sweep and the device's idle share against phase 5's wall;
 8. the 1e5-TOA stress path (``bench.py --stress``: 100,000 TOAs padded to
@@ -105,6 +110,14 @@ STRESS_CPU_CHAINS = 8
 # than the 1e-3 the flagship's 130 TOAs need
 STRESS_TIE_MARGIN = 0.1
 MTM_TRIES = 4
+# times of the first design of chol_fused (one 128-thread block per matrix)
+# and hyper_mh (one per chain), ms per launch by (kernel, batch, size), as
+# this script measured them on an NVIDIA H100 80GB HBM3 at 700.00 W before
+# the warp-level recurrence replaced it
+FIRST_DESIGN_MS = {
+    ("chol_fused", 4096, 60): 0.4920, ("chol_fused", 1024, 14): 0.01150,
+    ("chol_fused", 256, 60): 0.08115, ("chol_fused", 64, 14): 0.009384,
+    ("hyper_mh", 1024, 60): 2.181, ("hyper_mh", 64, 60): 0.9602}
 # the stream hold before a timed loop: 5e7 cycles, at least 25 ms below the
 # H100's 1.98 GHz top SM clock
 SLEEP_CYCLES, SLEEP_MS = 50_000_000, 25.0
@@ -393,9 +406,111 @@ def main() -> None:
             fail(f"{name} disagrees with its plain version at {shape}")
     report["parity"] = parity
 
-    # --- 4. one sweep on the card vs the same sweep on the CPU -----------
+    # --- 3b. the launch forms the flagship does not take --------------------
+    # 64 chains (the warp form at one matrix per block), m = v = 160 (the
+    # block form; demo pulsar with 80 Fourier components), and an odd size
+    # (4-byte copies): the leading 15 x 15 block of the 64-chain operands
     small = tb.TorchGibbs(ma, cfg, nchains=64, device=dev)
     small_cpu = tb.TorchGibbs(ma, cfg, nchains=64, device="cpu")
+    ma_w = make_demo_model_arrays(components=80)
+    wide = tb.TorchGibbs(ma_w, cfg, nchains=64, device=dev)
+    forms = ("chol_fused", "hyper_mh")
+    captured_f = {(n, "64 chains", shp): a for (n, shp), a in capture(
+        forms, run_capture(small, 5, 3)).items()}
+    captured_f.update({(n, "m=160", shp): a for (n, shp), a in capture(
+        forms, run_capture(wide, 5, 3)).items()})
+    (hargs,) = (a for k, a in captured_f.items()
+                if k[:2] == ("hyper_mh", "64 chains"))
+    odd = 15
+    captured_f[("hyper_mh", "odd", (64, odd))] = (
+        hargs[0], hargs[1][:, :odd, :odd].contiguous(),
+        *(t[:, :odd].contiguous() for t in hargs[2:4]), *hargs[4:7],
+        hargs[7][:, :odd].contiguous(), hargs[8][:odd].contiguous(),
+        *hargs[9:])
+    S15 = torch.cat([a[0].reshape(-1, 60, 60)[:, :odd, :odd]
+                     for k, a in captured.items()
+                     if k[0] == "chol_fused" and k[1][-1] == 60])
+    isd15 = torch.rsqrt(torch.diagonal(S15, dim1=-2, dim2=-1))
+    captured_f[("chol_fused", "odd", tuple(S15.shape))] = (
+        (S15 * isd15[:, :, None] * isd15[:, None, :]).contiguous(),
+        torch.ones_like(isd15))
+    seen = set()
+    for key, args in sorted(captured_f.items(), key=lambda kv: kv[0][:2]):
+        name = key[0]
+        m_ = args[0 if name == "chol_fused" else 1].shape[-1]
+        want = ("block" if m_ > chol.WARP_MAX_DIM else "warp")
+        form = (chol.launch_form(args[0].numel() // (m_ * m_), m_)
+                if name == "chol_fused"
+                else hyper_mh.launch_form(args[0].shape[0], m_))
+        if form[0] != want:
+            fail(f"{name} at {key[1:]} (size {m_}) takes the {form[0]} form")
+        seen.add((name, key[1]))
+        if name == "hyper_mh":
+            rec = mh_parity(name, args)
+        else:
+            out_k = chol.chol_fused(*args)
+            out_p = chol.chol_fused_plain(*args)
+            torch.cuda.synchronize()
+            errs = [rel_err(a, b) for a, b in zip(out_k, out_p)]
+            rec = {"max_abs_err": max(e[0] for e in errs),
+                   "max_rel_err": max(e[1] for e in errs),
+                   "nonfinite_mismatch": sum(e[2] for e in errs)}
+            # tolerance as in phase 3
+            rec["ok"] = bool(rec["max_rel_err"] <= 1e-3
+                             and rec["nonfinite_mismatch"] == 0)
+        rec["form"] = list(form)
+        rec["shape"] = [key[1], *key[2]]
+        parity.setdefault(name, []).append(rec)
+        print(f"# parity {name} {rec['shape']}: {json.dumps(rec)}",
+              flush=True)
+        if not rec["ok"]:
+            fail(f"{name} disagrees with its plain version at {key[1:]}")
+    if seen != {(n, f) for n in forms for f in ("64 chains", "m=160", "odd")}:
+        fail(f"the other launch forms reached only {sorted(seen)}")
+
+    # failed factorizations among good ones, several matrices a block: a
+    # negative first pivot, a negative pivot deeper in, and a zero last
+    # pivot give a non-finite logdet (NaN for the first two) for their own
+    # matrix only; every other matrix comes out bit for bit as it does in
+    # the batch without failures
+    (cargs,) = (a for k, a in captured.items()
+                if k[0] == "chol_fused" and k[1][-1] == 60)
+    S_ok = cargs[0].reshape(-1, 60, 60)
+    r_ok = cargs[1].reshape(-1, 60)
+    S_bad = S_ok.clone()
+    bad = [5, 1030, 2047]
+    S_bad[5] = -S_bad[5]
+    S_bad[1030, 40, 40] = -1.0
+    S_bad[1030, 40, :40] = 0.0
+    S_bad[1030, :40, 40] = 0.0
+    S_bad[2047, 59, 59] = 0.0
+    S_bad[2047, 59, :59] = 0.0
+    S_bad[2047, :59, 59] = 0.0
+    good = torch.ones(S_ok.shape[0], dtype=torch.bool, device=dev)
+    good[bad] = False
+    out_b = chol.chol_fused(S_bad, r_ok)
+    out_g = chol.chol_fused(S_ok, r_ok)
+    torch.cuda.synchronize()
+    nan_rec = {
+        "batch": list(S_bad.shape), "failed": bad,
+        "form": list(chol.launch_form(S_bad.shape[0], 60)),
+        "failed_logdet": [float(v) for v in out_b[1][bad]],
+        "others_finite": bool(all(torch.isfinite(t[good]).all()
+                                  for t in out_b)),
+        "others_bitwise_equal": bool(all(torch.equal(a[good], b[good])
+                                         for a, b in zip(out_b, out_g)))}
+    nan_rec["ok"] = bool(
+        torch.isnan(out_b[1][bad[:2]]).all()
+        and not torch.isfinite(out_b[1][bad]).any()
+        and nan_rec["others_finite"] and nan_rec["others_bitwise_equal"])
+    report["failed_pivots"] = nan_rec
+    print(f"# failed pivots among good matrices: {json.dumps(nan_rec)}",
+          flush=True)
+    if not nan_rec["ok"]:
+        fail("a failed factorization leaked out of its own matrix")
+    del S_bad, out_b, out_g, wide
+
+    # --- 4. one sweep on the card vs the same sweep on the CPU -----------
     gen = torch.Generator(device=dev).manual_seed(11)
     st = small._prop_cov_update(small.init_state(seed=11))
     for i in range(3):
@@ -575,16 +690,41 @@ def main() -> None:
         return None
 
     timing = {}
+    other_forms = report["other_forms"] = {}
 
-    def time_captured(capt, path):
+    def batch_size(name, args):
+        """(batch, matrix size) of a factor or hyper-block call."""
+        mat = args[0 if name == "chol_fused" else 1]
+        m_ = mat.shape[-1]
+        return mat.numel() // (m_ * m_), m_
+
+    def time_captured(capt, path, into=timing):
         """Kernel, plain and library times and the bound of every captured
-        call shape, into ``timing``."""
-        for (name, shape), args in sorted(capt.items()):
+        call shape, into ``into`` (``timing``: the shapes the four paths
+        launch). The factor and the hyper block also get the first
+        design's time at the same shape, where this script measured one,
+        and their time at every matrices-per-block count (0: a block per
+        matrix)."""
+        for (name, shape), args in sorted(capt.items(),
+                                          key=lambda kv: kv[0]):
             byts, flops = work(name, args)
             bound = max(byts / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
             lib = library(name, args)
+            extra = {}
+            if name in ("chol_fused", "hyper_mh"):
+                Bm = batch_size(name, args)
+                fn = wrappers[name][2]
+                mod = chol if name == "chol_fused" else hyper_mh
+                extra = {
+                    "first_design_ms": FIRST_DESIGN_MS.get((name, *Bm)),
+                    "form": list(mod.launch_form(*Bm)),
+                    "ms_by_per_block": {
+                        str(pb): timed(
+                            lambda *a, pb=pb: fn(*a, per_block=pb), args, 20)
+                        for pb in ((1, 2, 4, 8, 0)
+                                   if Bm[1] <= chol.WARP_MAX_DIM else ())}}
             row = dict(
-                path=path, shape=list(shape),
+                path=path, shape=list(shape), **extra,
                 ms=timed(wrappers[name][2], args, 50),
                 plain_ms=timed(plains[name], args, 3, queue_ahead=False),
                 library_ms=timed(lib[0], lib[1], 50) if lib else None,
@@ -592,11 +732,16 @@ def main() -> None:
                 bound_by="bytes" if byts / HBM_BYTES_PER_S
                 >= flops / FP32_FLOPS else "operations",
                 bytes=byts, flops=flops)
-            timing.setdefault(name, []).append(row)
+            into.setdefault(name, []).append(row)
             print(f"# time {name} {list(shape)}: {json.dumps(row)}",
                   flush=True)
 
     time_captured(captured, "flagship")
+    # the factor and the hyper block in their other launch forms (on no
+    # path of this script, so not in the kernels line)
+    time_captured({(k[0], (k[1], *k[2])): a for k, a in captured_f.items()
+                   if k[1] != "odd"}, "other forms", into=other_forms)
+    del captured_f
 
     # --- 7. where a flagship sweep's time goes (profiler) -----------------
     def profile(path, smp, nsweeps, wall_ms):
@@ -896,6 +1041,19 @@ def main() -> None:
     frec = mtm_run(full, "full_mtm", ("white", "hyper"))
     frec["profile"] = profile("full_mtm", full, 5, frec["ms_per_sweep"])
     time_captured(captured_m, "mtm")
+
+    # the redesigned kernels beside the first design and the library call
+    # (reported, not gated)
+    for name in ("chol_fused", "hyper_mh"):
+        for r in timing[name] + other_forms[name]:
+            first, lib_ms = r["first_design_ms"], r["library_ms"]
+            print(f"# {name} {r['shape']} ({r['path']}, {r['form']}): "
+                  f"{r['ms']:.4f} ms, {r['ms'] / r['bound_ms']:.1f}x its "
+                  f"bound"
+                  + (f", first design {first} ms ({first / r['ms']:.1f}x)"
+                     if first else "")
+                  + (f", library call {lib_ms:.4f} ms "
+                     f"({lib_ms / r['ms']:.2f}x)" if lib_ms else ""))
 
     # --- the kernels line: one entry per kernel, launches summed over the
     # four runs (per run in launches_by_path), times the mean over the

@@ -7,43 +7,114 @@
 // is ~m^3/3 flops against 4 m^2 bytes in and 4 m^2 bytes out, under 3
 // flops per byte at m = 60, far below the ~20 FP32 flops per byte where
 // the 67 TFLOP/s FP32 rate would take over from the 3.35 TB/s memory
-// rate. The design therefore reads S once and writes L once, coalesced,
-// and keeps the whole recurrence in shared memory: one thread block per
-// matrix (the TPU kernel's chains-on-lanes layout is a VPU artefact; on
-// Hopper a block per matrix gives many independent blocks per SM). What
-// it pays instead is a barrier per column (2m per matrix), which is the
-// latency the first version accepts; batching several matrices per block
-// is the later optimisation.
+// rate. So S is read once and L written once, and the recurrence stays in
+// shared memory.
+//
+// What held the first factor kernel back was neither: one 128-thread
+// block per matrix spent ~10^5 issue slots a matrix on the index
+// arithmetic of its trailing update (a division and a modulo per element
+// of the full square, half of it discarded), two block barriers per
+// column, and scalar 4-byte copies; it ran 18x over its byte bound and
+// behind the library factorization. Now (gst_common.cuh has the
+// recurrences):
+//
+// - m <= 64: one warp per matrix, up to eight matrices per block (the
+//   wrapper picks: four at the (4 x 1024, 60, 60) launch, whose 4,096
+//   warps the card holds almost all at once). The matrix is staged into
+//   its packed lower triangle with 16-byte loads (when m * m is a
+//   multiple of 4 and the tensors are 16-byte aligned, 4-byte otherwise),
+//   eight in flight per lane, that skip the quads above the diagonal (a
+//   quad's row and column come from one float multiply, not from a
+//   division: the copies were half the kernel's time while a chain of
+//   counters found them), factored by
+//   gst_chol_fwd_warp with the right-hand side as row m, and written back
+//   dense, zeros above the diagonal, with 16-byte stores. A matrix that
+//   fails (pivot <= 0) turns NaN in its own warp's triangle only; its
+//   block-mates share nothing with it.
+// - 64 < m <= 160: one block per matrix in a square with an odd row
+//   stride, gst_chol_fwd_block (a warp per row of the update, one barrier
+//   per column), rows copied with 16-byte accesses when m is a multiple
+//   of 4.
 #include "gst_common.cuh"
 
 namespace {
 
-__global__ void chol_fused_kernel(const float* __restrict__ S,
-                                  const float* __restrict__ r,
-                                  float* __restrict__ L,
-                                  float* __restrict__ u,
-                                  float* __restrict__ logdet, int m) {
+template <int NR, int VW>
+__global__ void __launch_bounds__(256)
+chol_fused_warp_kernel(const float* __restrict__ S,
+                       const float* __restrict__ r, float* __restrict__ L,
+                       float* __restrict__ u, float* __restrict__ logdet,
+                       int B, int m) {
   extern __shared__ float sm[];
-  float* A = sm;                 // m * m
-  float* rs = A + m * m;         // m
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t b = (size_t)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= (size_t)B) return;        // no block barrier anywhere below
+  float* P = sm + warp * gst_warp_floats(m);
+  float* rrow = P + gst_tri(m);
+  gst_stage_tri<VW>(S + b * m * m, m, P);
+  for (int k = lane; k < m; k += 32) rrow[k] = r[b * m + k];
+  __syncwarp();
+  float ld, quad;
+  gst_chol_fwd_warp<NR>(P, m, GstInPlace{P}, ld, quad);
+  gst_unstage_tri<VW>(P, m, L + b * m * m);
+  for (int k = lane; k < m; k += 32) u[b * m + k] = rrow[k];
+  if (lane == 0) logdet[b] = ld;
+}
+
+template <int VW>
+__global__ void __launch_bounds__(256)
+chol_fused_block_kernel(const float* __restrict__ S,
+                        const float* __restrict__ r, float* __restrict__ L,
+                        float* __restrict__ u, float* __restrict__ logdet,
+                        int m, int lda) {
+  extern __shared__ float sm[];
+  float* A = sm;                 // m * lda
+  float* rs = A + m * lda;       // m
   float* us = rs + m;            // m
-  float* col = us + m;           // m
-  float* racc = col + m;         // m
-  float* out2 = racc + m;        // 2
+  float* racc = us + m;          // m
+  float* dinv = racc + m;        // m
   const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
   const size_t b = blockIdx.x;
   const float* Sb = S + b * m * m;
-  for (int idx = tid; idx < m * m; idx += nt) A[idx] = Sb[idx];
+  for (int i = warp; i < m; i += nw) {
+    const float* src = Sb + i * m;
+    float* dst = A + i * lda;
+    if (VW == 4) {
+      for (int k = 4 * lane; k <= i; k += 128) {
+        const float4 v = *reinterpret_cast<const float4*>(src + k);
+        dst[k] = v.x;
+        dst[k + 1] = v.y;
+        dst[k + 2] = v.z;
+        dst[k + 3] = v.w;
+      }
+    } else {
+      for (int k = lane; k <= i; k += 32) dst[k] = src[k];
+    }
+  }
   for (int i = tid; i < m; i += nt) rs[i] = r[b * m + i];
-  __syncthreads();
-  gst_chol_fwd(A, m, m, rs, us, col, racc, out2);
+  float ld, quad;
+  gst_chol_fwd_block(A, m, lda, rs, us, racc, dinv, ld, quad);
   float* Lb = L + b * m * m;
-  for (int idx = tid; idx < m * m; idx += nt) {
-    const int i = idx / m, k = idx % m;
-    Lb[idx] = (k <= i) ? A[idx] : 0.f;
+  for (int i = warp; i < m; i += nw) {
+    const float* src = A + i * lda;
+    float* dst = Lb + i * m;
+    if (VW == 4) {
+      for (int k = 4 * lane; k < m; k += 128) {
+        float4 o;
+        o.x = k <= i ? src[k] * dinv[k] : 0.f;
+        o.y = k + 1 <= i ? src[k + 1] * dinv[k + 1] : 0.f;
+        o.z = k + 2 <= i ? src[k + 2] * dinv[k + 2] : 0.f;
+        o.w = k + 3 <= i ? src[k + 3] * dinv[k + 3] : 0.f;
+        *reinterpret_cast<float4*>(dst + k) = o;
+      }
+    } else {
+      for (int k = lane; k < m; k += 32)
+        dst[k] = k <= i ? src[k] * dinv[k] : 0.f;
+    }
   }
   for (int i = tid; i < m; i += nt) u[b * m + i] = us[i];
-  if (tid == 0) logdet[b] = out2[0];
+  if (tid == 0) logdet[b] = ld;
 }
 
 // L^T x = r, one warp per system: descending substitution with the
@@ -59,8 +130,10 @@ __global__ void tri_solve_T_kernel(const float* __restrict__ L,
   const int lane = threadIdx.x;
   const size_t b = blockIdx.x;
   const float* Lb = L + b * m * m;
+  const float inv_m = 1.0f / (float)m;
   for (int idx = lane; idx < m * m; idx += 32) {
-    const int i = idx / m, k = idx % m;
+    int i, k;
+    gst_flat_pos(idx, m, inv_m, i, k);
     if (k <= i) Ls[i * lda + k] = Lb[idx];
   }
   __syncwarp();
@@ -75,27 +148,71 @@ __global__ void tri_solve_T_kernel(const float* __restrict__ L,
   for (int i = lane; i < m; i += 32) x[b * m + i] = xs[i];
 }
 
+template <int NR, int VW>
+cudaError_t launch_warp(const float* S, const float* r, float* L, float* u,
+                        float* logdet, int B, int m, int per_block,
+                        cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)per_block * gst_warp_floats(m);
+  cudaError_t e = gst_smem_optin(chol_fused_warp_kernel<NR, VW>, smem);
+  if (e != cudaSuccess) return e;
+  const int blocks = (B + per_block - 1) / per_block;
+  chol_fused_warp_kernel<NR, VW><<<blocks, 32 * per_block, smem, stream>>>(
+      S, r, L, u, logdet, B, m);
+  return cudaGetLastError();
+}
+
+template <int VW>
+cudaError_t launch_warp_rows(const float* S, const float* r, float* L,
+                             float* u, float* logdet, int B, int m,
+                             int per_block, cudaStream_t stream) {
+  // rows 0..m over 32 lanes: the right-hand side is row m
+  if (m < 32)
+    return launch_warp<1, VW>(S, r, L, u, logdet, B, m, per_block, stream);
+  if (m < 64)
+    return launch_warp<2, VW>(S, r, L, u, logdet, B, m, per_block, stream);
+  return launch_warp<3, VW>(S, r, L, u, logdet, B, m, per_block, stream);
+}
+
+template <int VW>
+cudaError_t launch_block(const float* S, const float* r, float* L, float* u,
+                         float* logdet, int B, int m, cudaStream_t stream) {
+  const int lda = m | 1;
+  const size_t smem = sizeof(float) * ((size_t)m * lda + 4 * m);
+  cudaError_t e = gst_smem_optin(chol_fused_block_kernel<VW>, smem);
+  if (e != cudaSuccess) return e;
+  chol_fused_block_kernel<VW><<<B, 256, smem, stream>>>(S, r, L, u, logdet,
+                                                        m, lda);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory the factor kernel needs for an m x m system (bytes).
-size_t gst_chol_smem(int m) { return sizeof(float) * ((size_t)m * m + 4 * m + 2); }
-
+// per_block > 0: the warp form with that many matrices (warps) per block,
+// 1 <= per_block <= 8, m <= 64. per_block == 0: the block form, one
+// 256-thread block per matrix, m <= 160.
 int gst_chol_fused(const float* S, const float* r, float* L, float* u,
-                   float* logdet, int B, int m, void* stream) {
-  const size_t smem = gst_chol_smem(m);
-  cudaError_t e = gst_smem_optin(chol_fused_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int threads = m <= 64 ? 128 : 256;
-  chol_fused_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(S, r, L, u,
-                                                                logdet, m);
-  return (int)cudaGetLastError();
+                   float* logdet, int B, int m, int per_block, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (m < 1 || per_block < 0 || per_block > 8) return (int)cudaErrorInvalidValue;
+  if (per_block > 0) {
+    if (m > GST_WARP_MAX_M) return (int)cudaErrorInvalidValue;
+    const bool vec = ((m * m) & 3) == 0 && gst_aligned16(S, L);
+    return (int)(vec ? launch_warp_rows<4>(S, r, L, u, logdet, B, m,
+                                           per_block, st)
+                     : launch_warp_rows<1>(S, r, L, u, logdet, B, m,
+                                           per_block, st));
+  }
+  if (m > GST_BLOCK_MAX_M) return (int)cudaErrorInvalidValue;
+  const bool vec = (m & 3) == 0 && gst_aligned16(S, L);
+  return (int)(vec ? launch_block<4>(S, r, L, u, logdet, B, m, st)
+                   : launch_block<1>(S, r, L, u, logdet, B, m, st));
 }
 
 int gst_tri_solve_T(const float* L, const float* r, float* x, int B, int m,
                     void* stream) {
-  const int lda = (m % 2) ? m : m + 1;
+  const int lda = m | 1;
   const size_t smem = sizeof(float) * ((size_t)m * lda + m);
   cudaError_t e = gst_smem_optin(tri_solve_T_kernel, smem);
   if (e != cudaSuccess) return (int)e;

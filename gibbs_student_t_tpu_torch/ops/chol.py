@@ -6,8 +6,17 @@ Counterpart of ``gibbs_student_t_tpu/ops/pallas_chol.py``. Two kernels
 - ``chol_fused(S, rhs) -> (L, logdet, u)``: ``L L^T = S``, ``u = L^-1 rhs``,
   ``logdet = log det S``, for ``S (..., m, m)``. Replaces
   ``pallas_chol.py::_chol_kernel``. Bound on the H100 by bytes (S in, L
-  out); one thread block per matrix keeps the recurrence in shared memory
-  and touches device memory once each way.
+  out): under 3 flops per byte at m = 60. The first kernel (one 128-thread
+  block per matrix) was bound by neither bytes nor flops but by the
+  issue slots of its trailing update's index arithmetic and by two block
+  barriers per column, and lost to the library factorization. Now a
+  matrix of ``m <= WARP_MAX_DIM`` belongs to one warp, several matrices
+  share a block, the matrix sits in shared memory as its packed lower
+  triangle, and the recurrence (``csrc/gst_common.cuh
+  gst_chol_fwd_warp``) synchronises by ``__syncwarp`` and shuffles only;
+  larger matrices keep a block each with a warp per row of the update and
+  one barrier per column. :func:`launch_form` says which form a shape
+  takes.
 - ``tri_solve_T(L, rhs) -> x`` with ``L^T x = rhs``. Replaces
   ``pallas_chol.py::_backsolve_kernel``. Bound by bytes (L in); one warp
   per system, warp-shuffle column dots.
@@ -16,7 +25,8 @@ Each wrapper runs its plain PyTorch version (the same recurrence, batched)
 when the tensors lie on the CPU, launches its kernel when they lie on a
 CUDA device, and raises otherwise; it counts its launches in
 ``<wrapper>.launches``. A non-PD pivot gives NaN on every path (rsqrt of
-a negative), which callers turn into a rejection or a jitter escalation.
+a negative) for its own matrix only, which callers turn into a rejection
+or a jitter escalation.
 """
 
 from __future__ import annotations
@@ -27,6 +37,43 @@ import torch
 #: vectors) stays within the 227 KB a Hopper block may use up to m ~ 230;
 #: 160 is the JAX package's own bound (MAX_PALLAS_DIM).
 MAX_CHOL_DIM = 160
+#: largest m the warp form takes: rows 0..m (the right-hand side is row m)
+#: over a warp's lanes, at most three a lane
+WARP_MAX_DIM = 64
+#: most matrices (warps) of the warp form in one block
+MAX_PER_BLOCK = 8
+#: SMs of an H100, the card the launch forms are sized for
+SM_COUNT = 132
+
+
+def check_per_block(name, per_block, size):
+    """Raise unless ``per_block`` is a launch the kernels take for
+    matrices of ``size``: None (the wrapper decides), 0 (the block form)
+    or 1..MAX_PER_BLOCK warps of the warp form (size <= WARP_MAX_DIM)."""
+    if per_block is None or per_block == 0:
+        return
+    if not 1 <= per_block <= MAX_PER_BLOCK:
+        raise ValueError(f"{name}: per_block = {per_block} outside "
+                         f"0..{MAX_PER_BLOCK}")
+    if size > WARP_MAX_DIM:
+        raise ValueError(f"{name}: size {size} exceeds the warp form's "
+                         f"{WARP_MAX_DIM}; use per_block = 0")
+
+
+def launch_form(B, m):
+    """``(form, per_block)`` of the factor kernel's launch for ``B``
+    matrices of size ``m``: ``("warp", n)`` puts one matrix on each of
+    ``n`` warps of a block (m <= WARP_MAX_DIM), ``("block", 1)`` gives a
+    matrix a 256-thread block (m <= MAX_CHOL_DIM). Small batches take
+    fewer matrices per block, so that they still spread over the SMs."""
+    if not 1 <= m <= MAX_CHOL_DIM:
+        raise ValueError(f"chol_fused: m = {m} outside 1..{MAX_CHOL_DIM}")
+    if m > WARP_MAX_DIM:
+        return "block", 1
+    for per_block in (4, 2):
+        if B >= 2 * SM_COUNT * per_block:
+            return "warp", per_block
+    return "warp", 1
 
 
 def _check(name, mats, vecs, m):
@@ -70,11 +117,14 @@ def chol_fused_plain(S, rhs):
             u.reshape(rhs.shape))
 
 
-def chol_fused(S, rhs):
+def chol_fused(S, rhs, per_block=None):
     """``(L, logdet, u)`` for ``S (..., m, m)``, ``rhs (..., m)``, float32;
-    leading dims are flattened onto the kernel's batch (one launch)."""
+    leading dims are flattened onto the kernel's batch (one launch).
+    ``per_block`` overrides :func:`launch_form`'s matrices per block (0:
+    the block form), for measurements."""
     m = S.shape[-1]
     _check("chol_fused", S, rhs, m)
+    check_per_block("chol_fused", per_block, m)
     if S.device.type == "cpu":
         return chol_fused_plain(S, rhs)
     if S.device.type != "cuda":
@@ -91,9 +141,13 @@ def chol_fused(S, rhs):
     u = torch.empty_like(rc)
     ld = torch.empty((B,), dtype=S.dtype, device=S.device)
     if B:
+        if per_block is None:
+            form, per_block = launch_form(B, m)
+            per_block = per_block if form == "warp" else 0
         _cuda.check(_cuda.lib().gst_chol_fused(
             _cuda.ptr(Sc), _cuda.ptr(rc), _cuda.ptr(L), _cuda.ptr(u),
-            _cuda.ptr(ld), B, m, _cuda.stream(S.device)), "chol_fused")
+            _cuda.ptr(ld), B, m, per_block, _cuda.stream(S.device)),
+            "chol_fused")
         chol_fused.launches += 1
     return L.reshape(S.shape), ld.reshape(S.shape[:-2]), u.reshape(rhs.shape)
 

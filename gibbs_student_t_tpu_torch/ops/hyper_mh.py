@@ -6,13 +6,25 @@ b-marginalized likelihood (reference gibbs.py:80-111, 288-329), each
 paying a factorization. On the Schur path only the phi-varying block
 ``S0 (v x v)`` changes with a proposal, through its diagonal.
 ``hyper_mh`` runs the whole block for every chain in one launch of
-``csrc/hyper_mh.cu`` (replacing ``pallas_hyper.py::_hyper_kernel``):
-``S0`` is read once into shared memory, and each proposal's equilibrated
-matrix is built and factored in a second shared buffer; only the logdet
-and the quadratic form leave the recurrence. Two v x v float buffers per
-block bound the kernel at ``MAX_HYPER_V``; larger blocks take the
-closure path, :func:`hyper_mh_loop` with the ``chol_fused`` kernel as its
-factorization.
+``csrc/hyper_mh.cu`` (replacing ``pallas_hyper.py::_hyper_kernel``).
+
+On the H100 the kernel is bound by operations (S + 1 factorizations per
+chain against one read of ``S0``, ~60 flops per byte at v = 60). The
+first kernel, one 128-thread block per chain, was held back by latency
+instead: 1,320 block barriers per chain at v = 60, S = 10, integer
+divisions in the update and in the build of each proposal's matrix, and
+per-column scalar work on one thread. Now, for ``v <= WARP_MAX_DIM``, a
+warp owns a chain and several chains share a block: ``S0`` stays in shared
+memory as its packed lower triangle for the whole block of steps, a
+proposal's equilibrated matrix is never built (the recurrence,
+``csrc/gst_common.cuh gst_chol_fwd_warp``, forms each entry as it starts
+the entry's column and writes only the factor), the sums are warp
+shuffles, and after the constants are staged once per block the kernel has
+no block barrier. Larger blocks, up to ``MAX_HYPER_V`` (two v x v float
+buffers per thread block), keep a block per chain with one barrier per
+column; beyond that the sampler takes the closure path,
+:func:`hyper_mh_loop` with the ``chol_fused`` kernel as its factorization.
+:func:`launch_form` says which form a shape takes.
 
 Every varying phi block's log-precision is affine in the sampled hypers
 (powerlaw in log10_A and gamma, ecorr in each log10_ecorr), so a
@@ -34,16 +46,36 @@ from gibbs_student_t_tpu_torch.models.pta import (
     ImproperBlock,
     PowerlawBlock,
 )
-from gibbs_student_t_tpu_torch.ops.chol import chol_fused_plain
+from gibbs_student_t_tpu_torch.ops.chol import (
+    MAX_PER_BLOCK,
+    SM_COUNT,
+    WARP_MAX_DIM,
+    check_per_block,
+    chol_fused_plain,
+)
 from gibbs_student_t_tpu_torch.ops.white_mh import lnprior_sum, mh_loop
 
 LN10 = float(np.log(10.0))
 
-#: largest Schur block the kernel takes: 2 v^2 + (9 + nk) v floats of
-#: shared memory stay within a Hopper block's 227 KB up to v ~ 167
+#: largest Schur block the kernel takes: 2 v^2 + (11 + nk) v floats of
+#: shared memory stay within a Hopper block's 227 KB up to v ~ 165
 MAX_HYPER_V = 160
 #: most hyper indices the kernel's by-value table takes
 MAX_HYPER_K = 16
+
+
+def launch_form(C, v):
+    """``(form, per_block)`` of the hyper kernel's launch for ``C`` chains
+    on a ``v x v`` block: ``("warp", n)`` puts one chain on each of ``n``
+    warps of a block (v <= WARP_MAX_DIM), with ``n`` the chains an SM gets
+    when ``C`` is dealt over the card (1,024 chains: 8 a block, 128 blocks,
+    one wave; 64 chains: 64 one-warp blocks, an SM each);
+    ``("block", 1)`` gives a chain a 256-thread block (v <= MAX_HYPER_V)."""
+    if not 1 <= v <= MAX_HYPER_V:
+        raise ValueError(f"hyper_mh: v = {v} outside 1..{MAX_HYPER_V}")
+    if v > WARP_MAX_DIM:
+        return "block", 1
+    return "warp", min(MAX_PER_BLOCK, max(1, -(-C // SM_COUNT)))
 
 
 class HyperConsts(NamedTuple):
@@ -179,11 +211,13 @@ def hyper_mh_loop(x, S0, dS0, rt, base, dx, logu, K, sel, specs, hyp_idx,
 
 
 def hyper_mh(x, S0, dS0, rt, base, dx, logu, K, sel, specs, hyp_idx,
-             jitter: float):
+             jitter: float, per_block=None):
     """``(x_new, acc_rate)`` for the whole hyper MH block, one launch on a
     CUDA device (``v <= MAX_HYPER_V``), the plain loop on the CPU. Shapes
     as in :func:`hyper_mh_loop`; constants are float32 tensors on the
-    same device, ``hyp_idx`` the static ``HyperConsts.hyp_idx``."""
+    same device, ``hyp_idx`` the static ``HyperConsts.hyp_idx``.
+    ``per_block`` overrides :func:`launch_form`'s chains per block (0: the
+    block form), for measurements."""
     for t in (x, S0, dS0, rt, base, dx, logu, K, sel, specs):
         if t.dtype != torch.float32:
             raise ValueError(f"hyper_mh: float32 only, got {t.dtype}")
@@ -198,6 +232,7 @@ def hyper_mh(x, S0, dS0, rt, base, dx, logu, K, sel, specs, hyp_idx,
             or logu.shape != (C, S) or K.shape != (1 + nk, v)
             or sel.shape != (v,) or specs.shape != (3, p)):
         raise ValueError("hyper_mh: inconsistent operand shapes")
+    check_per_block("hyper_mh", per_block, v)
     if x.device.type == "cpu":
         return hyper_mh_loop(x, S0, dS0, rt, base, dx, logu, K, sel, specs,
                              hyp_idx, jitter)
@@ -214,10 +249,13 @@ def hyper_mh(x, S0, dS0, rt, base, dx, logu, K, sel, specs, hyp_idx,
     acc = torch.empty((C,), dtype=x.dtype, device=x.device)
     hi = _cuda.host_ints(hyp_idx)
     if C:
+        if per_block is None:
+            form, per_block = launch_form(C, v)
+            per_block = per_block if form == "warp" else 0
         _cuda.check(_cuda.lib().gst_hyper_mh(
             *(_cuda.ptr(t) for t in ops), _cuda.addr(hi), nk,
             _cuda.ptr(xo), _cuda.ptr(acc), C, v, p, S, float(jitter),
-            _cuda.stream(x.device)), "hyper_mh")
+            per_block, _cuda.stream(x.device)), "hyper_mh")
         hyper_mh.launches += 1
     return xo, acc
 

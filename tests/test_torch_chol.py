@@ -2,9 +2,12 @@
 preconditioned linear algebra around them, against the JAX package.
 
 - ``chol_fused`` / ``tri_solve_T`` against ``jnp.linalg.cholesky`` +
-  ``solve_triangular`` at m in {14, 60}, batch 64: rtol 1e-4 / atol 1e-5
+  ``solve_triangular`` at m in {14, 15, 60, 64, 65} (the sizes the
+  kernel's launch forms tell apart), batch 64: rtol 1e-4 / atol 1e-5
   on L, u and x, 1e-4 on logdet (float32, same inputs); a non-PD input
   gives a NaN logdet on both sides;
+- ``launch_form``: which form each (B, m) takes, every m up to the bound
+  takes one;
 - ``schur_eliminate(return_factor=True)``, ``robust_precond_draw`` and
   ``precond_quad_logdet`` against the JAX functions at 1e-4, on Sigma
   matrices built from the flagship demo model.
@@ -34,7 +37,7 @@ from test_torch_kernels import spd
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("m", [14, 60])
+@pytest.mark.parametrize("m", [14, 60, 15, 64, 65])
 def test_chol_and_backsolve_vs_jax(m):
     # condition number 30: the stated tolerances sit above float32
     # roundoff times the conditioning (cond 1e3 already moves u and x by
@@ -82,6 +85,27 @@ def test_chol_non_pd_gives_nan_both_sides():
                                rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("B, m, want", [
+    (4 * 1024, 60, ("warp", 4)), (3 * 1024, 60, ("warp", 4)),
+    (1024, 14, ("warp", 2)), (4 * 64, 60, ("warp", 1)),
+    (64, 14, ("warp", 1)), (1061, 64, ("warp", 4)), (1, 1, ("warp", 1)),
+    (1061, 65, ("block", 1)), (7, 160, ("block", 1))])
+def test_chol_launch_form(B, m, want):
+    assert chol.launch_form(B, m) == want
+
+
+def test_chol_launch_form_covers_every_size():
+    forms = {m: chol.launch_form(4096, m)
+             for m in range(1, chol.MAX_CHOL_DIM + 1)}
+    assert all(f == ("warp", 4) for m, f in forms.items()
+               if m <= chol.WARP_MAX_DIM)
+    assert all(f == ("block", 1) for m, f in forms.items()
+               if m > chol.WARP_MAX_DIM)
+    for m in (0, chol.MAX_CHOL_DIM + 1):
+        with pytest.raises(ValueError):
+            chol.launch_form(4096, m)
+
+
 def test_leading_dims_flatten():
     rng = np.random.default_rng(11)
     S = spd(rng, 12, 10).reshape(3, 4, 10, 10)
@@ -102,6 +126,11 @@ def test_wrappers_reject_bad_operands():
         chol.chol_fused(S, torch.zeros(2, 3))
     with pytest.raises(RuntimeError):
         chol.chol_fused(S.to("meta"), torch.zeros(2, 4, device="meta"))
+    for per_block in (-1, chol.MAX_PER_BLOCK + 1):
+        with pytest.raises(ValueError):
+            chol.chol_fused(S, torch.zeros(2, 4), per_block=per_block)
+    with pytest.raises(ValueError):      # the warp form stops at m = 64
+        chol.chol_fused(torch.eye(65)[None], torch.zeros(1, 65), per_block=4)
 
 
 @pytest.fixture(scope="module")

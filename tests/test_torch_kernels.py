@@ -8,8 +8,12 @@ conftest fixture, so it runs where only PyTorch is installed::
     python -m pytest --noconftest -m torch tests/test_torch_kernels.py -q
 
 It covers what ``chip_smoke.py`` does not reach at the flagship shapes:
-the factor at the kernel's bound m = 160 (shared memory past the 48 KB
-default), failed pivots, the hyper kernel at its bound v = 160, and the
+the factor in each of its launch forms (a warp per matrix with one, two
+and three rows a lane at m = 14/15, 60 and 64, 16-byte and 4-byte copies,
+a ragged last block; a block per matrix at m = 65 and at the bound
+m = 160, shared memory past the 48 KB default), failed pivots that must
+stay inside their own matrix, the hyper kernel at v = 14, 60, 64 and its
+bound v = 160, with 64 chains and with 1,027 (a ragged last block), and the
 closure path (the plain hyper loop with the factor kernel), which the
 sampler takes above that bound; the white kernel past shared memory
 (n = 20,000 and 102,400, operands read from device memory), the white
@@ -65,7 +69,7 @@ def spd(rng, B, m, cond=1e3):
     return (0.5 * (S + np.swapaxes(S, 1, 2))).astype(np.float32)
 
 
-def jumps(rng, ind, S, p, dense, scale):
+def jumps(rng, ind, S, p, dense, scale, C=C):
     if dense:
         return (rng.normal(size=(C, S, p)) * scale).astype(np.float32)
     dx = np.zeros((C, S, p), np.float32)
@@ -77,7 +81,7 @@ def jumps(rng, ind, S, p, dense, scale):
     return dx
 
 
-def near_posterior(rng, ma):
+def near_posterior(rng, ma, C=C):
     x = np.array([-7.5, 4.0, -14.0]) + rng.normal(0, [0.4, 0.5, 0.3],
                                                   (C, 3))
     z = (rng.random((C, ma.n)) < 0.05).astype(np.float32)
@@ -97,14 +101,19 @@ def _cuda():
 
 
 @pytest.mark.torch
-@pytest.mark.parametrize("m", [14, 60, 160])
+@pytest.mark.parametrize("m", [14, 15, 60, 64, 65, 160])
 def test_chol_kernels_on_card(m):
+    """Every launch form of the factor, at a batch whose last block is
+    ragged where several matrices share a block."""
     dev = _cuda()
     rng = np.random.default_rng(1 + m)
-    S = spd(rng, 256, m, cond=30.0)
+    B = 1061 if m <= chol.WARP_MAX_DIM else 259
+    form, per_block = chol.launch_form(B, m)
+    assert (form == "warp") == (m <= 64) and B % max(per_block, 2) == 1
+    S = spd(rng, B, m, cond=30.0)
     S[3] = -S[3]                          # failed first pivot
     S = torch.from_numpy(S).to(dev)
-    r = torch.from_numpy(rng.normal(size=(256, m)).astype(np.float32)).to(dev)
+    r = torch.from_numpy(rng.normal(size=(B, m)).astype(np.float32)).to(dev)
     n_f, n_b = chol.chol_fused.launches, chol.tri_solve_T.launches
     L, ld, u = chol.chol_fused(S, r)
     x = chol.tri_solve_T(L, r)
@@ -114,10 +123,45 @@ def test_chol_kernels_on_card(m):
     Lp, ldp, up = chol.chol_fused_plain(S, r)
     xp = chol.tri_solve_T_plain(Lp, r)
     assert torch.isnan(ld[3]) and torch.isnan(ldp[3])
-    good = torch.arange(256, device=dev) != 3
+    good = torch.arange(B, device=dev) != 3
     for a, b in ((L, Lp), (ld, ldp), (u, up), (x, xp)):
         torch.testing.assert_close(a[good], b[good], rtol=1e-4, atol=1e-5)
     assert not torch.triu(L[good], 1).any()
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("per_block", [1, 4, 8, 0])
+def test_chol_non_pd_stays_in_its_matrix_on_card(per_block):
+    """Matrices that fail (a negative first pivot, a negative pivot deeper
+    in, a zero pivot) among good ones that share their block: NaN logdet
+    for the failed ones alone, and the others equal to the plain version's
+    and to what they give in a batch without failures."""
+    dev = _cuda()
+    rng = np.random.default_rng(17)
+    m, B = 60, 37
+    S = spd(rng, B, m, cond=30.0)
+    clean = torch.from_numpy(S.copy()).to(dev)
+    S[3] = -S[3]
+    S[5, 40, 40] = -1.0
+    S[5, 40, :40] = S[5, :40, 40] = 0.0
+    S[12, 59, 59] = 0.0
+    S[12, 59, :59] = S[12, :59, 59] = 0.0
+    bad = [3, 5, 12]
+    S = torch.from_numpy(S).to(dev)
+    r = torch.from_numpy(rng.normal(size=(B, m)).astype(np.float32)).to(dev)
+    L, ld, u = chol.chol_fused(S, r, per_block=per_block)
+    Lc, ldc, uc = chol.chol_fused(clean, r, per_block=per_block)
+    Lp, ldp, up = chol.chol_fused_plain(S, r)
+    torch.cuda.synchronize()
+    good = torch.ones(B, dtype=torch.bool, device=dev)
+    good[bad] = False
+    assert not torch.isfinite(ld[~good]).any()
+    assert not torch.isfinite(ldp[~good]).any()
+    assert torch.isnan(ld[[3, 5]]).all()
+    for a, b, c in ((L, Lp, Lc), (ld, ldp, ldc), (u, up, uc)):
+        assert torch.isfinite(a[good]).all()
+        torch.testing.assert_close(a[good], b[good], rtol=1e-4, atol=1e-5)
+        assert torch.equal(a[good], c[good])
 
 
 @pytest.mark.torch
@@ -149,12 +193,12 @@ def test_white_mh_kernel_on_card(dense):
     torch.testing.assert_close(xk, xp, rtol=1e-5, atol=0.0)
 
 
-def hyper_operands(ma, rng):
+def hyper_operands(ma, rng, C=C):
     """The hyper block's operands on a model's Schur split, built with the
     port's own pieces: float64 model functions, float32 products and
     elimination. Chain 0's block is made indefinite for every proposal
     (an off-diagonal pair far beyond its diagonal)."""
-    x, az = near_posterior(rng, ma)
+    x, az = near_posterior(rng, ma, C)
     x64 = x.astype(np.float64)
     nvec = az * np.stack([ndiag(ma, xx) for xx in x64]).astype(np.float32)
     phiinv = np.stack([phiinv_logdet(ma, xx)[0] for xx in x64])
@@ -210,6 +254,48 @@ def test_hyper_mh_kernel_on_card(components, path):
     assert nk[0] == 0                     # the indefinite chain rejects
     assert 0 < nk.sum() < C * S
     torch.testing.assert_close(xk, xp, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("components, nchains", [(30, 1027), (7, 64),
+                                                 (32, 64), (32, 1027)])
+def test_hyper_mh_kernel_forms_on_card(components, nchains):
+    """The warp form beside the flagship's: a ragged last block (1,027
+    chains, 8 a block), one row a lane (v = 14) and three (v = 64, where
+    the right-hand-side row is a lane's third), and every chains-per-block
+    count giving the same decisions."""
+    dev = _cuda()
+    ma = make_demo_model_arrays(components=components)
+    rng = np.random.default_rng(67 + components + nchains)
+    ops, hc = hyper_operands(ma, rng, nchains)
+    v = ops[1].shape[-1]
+    assert v == 2 * components
+    assert thyper.launch_form(nchains, v) == (
+        "warp", 8 if nchains > 1000 else 1)
+    S = 10
+    tt = torch.from_numpy
+    dx = tt(jumps(rng, ma.hyper_indices, S, 3, True, 0.1, nchains))
+    consts = [tt(a) for a in (hc.K, hc.phi_sel, hc.specs)]
+    logu = separate_ties(
+        lambda q: thyper.hyper_ll_lp(
+            q, *(t.double() for t in ops[1:]),
+            *(t.double() for t in consts), hc.hyp_idx, 1e-6),
+        ops[0], dx,
+        torch.log(tt(rng.random((nchains, S)).astype(np.float32))))
+    args = [t.to(dev) for t in (*ops, dx, logu, *consts)]
+    n0 = thyper.hyper_mh.launches
+    xk, ak = thyper.hyper_mh(*args, hc.hyp_idx, 1e-6)
+    assert thyper.hyper_mh.launches == n0 + 1
+    xp, ap = thyper.hyper_mh_loop(*args, hc.hyp_idx, 1e-6)
+    nk = acc_counts(ak.cpu(), S)
+    np.testing.assert_array_equal(nk, acc_counts(ap.cpu(), S))
+    assert nk[0] == 0                     # the indefinite chain rejects
+    assert 0 < nk.sum() < nchains * S
+    torch.testing.assert_close(xk, xp, rtol=1e-5, atol=0.0)
+    for per_block in (1, 3, 8):
+        xv, av = thyper.hyper_mh(*args, hc.hyp_idx, 1e-6,
+                                 per_block=per_block)
+        assert torch.equal(xv, xk) and torch.equal(av, ak)
 
 
 def white_operands(rng, n, C=C):

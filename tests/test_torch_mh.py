@@ -4,8 +4,10 @@ package's XLA loops, on operands from the flagship demo model.
 - white block: ``white_mh`` vs ``pallas_white.white_mh_loop_xla`` with the
   same ``dx``/``logu``, one-hot and dense jumps;
 - hyper block: ``hyper_mh`` vs ``pallas_hyper.hyper_mh_loop_xla`` on the
-  Schur split of the flagship model, with a chain whose block is not
-  positive definite (every proposal must reject on both sides).
+  Schur split of the flagship model (v = 60) and of the same pulsar with
+  7 Fourier components (v = 14), 64 chains, with a chain whose block is
+  not positive definite (every proposal must reject on both sides);
+- ``hyper_mh.launch_form``: which form each (C, v) takes.
 
 Per-chain accept counts are equal and x agrees to 1e-5 relative, on
 fixtures whose decisions all sit more than 1e-3 from a tie
@@ -28,7 +30,14 @@ import numpy as np
 import pytest
 import torch
 
-from gibbs_student_t_tpu.models.pta import ndiag, phiinv_logdet
+from gibbs_student_t_tpu.data.demo import (
+    make_demo_model_arrays as jax_demo_model_arrays,
+)
+from gibbs_student_t_tpu.models.pta import (
+    ndiag,
+    phiinv_logdet,
+    static_phi_columns,
+)
 from gibbs_student_t_tpu.ops import linalg as jlin
 from gibbs_student_t_tpu.ops import pallas_hyper as jhyper
 from gibbs_student_t_tpu.ops import pallas_white as jwhite
@@ -85,11 +94,10 @@ def test_white_block_vs_jax(demo_ma, dense):
     assert twhite.white_mh.launches == 0
 
 
-@pytest.fixture(scope="module")
-def hyper_operands(demo_ma):
-    """The hyper block's operands on the flagship model's Schur split,
-    built by the JAX package (tnt_products, schur_eliminate)."""
-    ma = demo_ma
+def _hyper_operands(ma):
+    """The hyper block's operands on a model's Schur split (static-phi
+    columns eliminated, the red-noise columns left), built by the JAX
+    package (tnt_products, schur_eliminate)."""
     rng = np.random.default_rng(31)
     x, az = near_posterior(rng, ma)
     T = jnp.asarray(ma.T, jnp.float32)
@@ -97,7 +105,8 @@ def hyper_operands(demo_ma):
     nvec = jnp.asarray(az) * jax.vmap(lambda xx: ndiag(ma, xx, jnp))(
         jnp.asarray(x)).astype(jnp.float32)
     TNT, d, const = jax.vmap(lambda nv: jtnt(T, y, nv, None))(nvec)
-    s_i, v_i = np.arange(60, 74), np.arange(60)
+    smask = static_phi_columns(ma)
+    s_i, v_i = np.flatnonzero(smask), np.flatnonzero(~smask)
     phiinv = jax.vmap(lambda xx: phiinv_logdet(ma, xx, jnp)[0])(
         jnp.asarray(x)).astype(jnp.float32)
     A = TNT[:, s_i][:, :, s_i] + jax.vmap(jnp.diag)(phiinv[:, s_i])
@@ -118,10 +127,29 @@ def hyper_operands(demo_ma):
                 base=np.array(base, np.float32), hj=hj, ma=ma, v_i=v_i)
 
 
-@pytest.mark.parametrize("dense", [False, True])
-def test_hyper_block_vs_jax(hyper_operands, dense):
-    o = hyper_operands
+@pytest.fixture(scope="module")
+def hyper_operands(demo_ma):
+    """Operands by Fourier components: 30 is the flagship model (v = 60),
+    7 the same pulsar with v = 14; built on first use."""
+    cache = {}
+
+    def get(components):
+        if components not in cache:
+            cache[components] = _hyper_operands(
+                demo_ma if components == 30
+                else jax_demo_model_arrays(components=components))
+        return cache[components]
+    return get
+
+
+@pytest.mark.parametrize("dense, components", [
+    pytest.param(False, 30, id="False"), pytest.param(True, 30, id="True"),
+    pytest.param(False, 7, id="v14-False"),
+    pytest.param(True, 7, id="v14-True")])
+def test_hyper_block_vs_jax(hyper_operands, dense, components):
+    o = hyper_operands(components)
     ma, hj = o["ma"], o["hj"]
+    assert o["S0"].shape == (C, 2 * components, 2 * components)
     ht = thyper.build_hyper_consts(model_arrays_from_fields(_fields(ma)),
                                    o["v_i"])
     for f in ("K", "phi_sel", "phiinv_static", "specs"):
@@ -153,6 +181,24 @@ def test_hyper_block_vs_jax(hyper_operands, dense):
     assert 0 < nt.sum() < C * S
     np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=1e-5)
     assert thyper.hyper_mh.launches == 0
+
+
+@pytest.mark.parametrize("nchains, v, want", [
+    (1024, 60, ("warp", 8)), (64, 60, ("warp", 1)), (1027, 60, ("warp", 8)),
+    (300, 14, ("warp", 3)), (5000, 64, ("warp", 8)), (1, 1, ("warp", 1)),
+    (1024, 66, ("block", 1)), (64, 160, ("block", 1))])
+def test_hyper_launch_form(nchains, v, want):
+    assert thyper.launch_form(nchains, v) == want
+
+
+def test_hyper_launch_form_covers_every_size():
+    for v in range(1, thyper.MAX_HYPER_V + 1):
+        form, per_block = thyper.launch_form(1024, v)
+        assert form == ("warp" if v <= 64 else "block")
+        assert 1 <= per_block <= thyper.MAX_PER_BLOCK
+    for v in (0, thyper.MAX_HYPER_V + 1):
+        with pytest.raises(ValueError):
+            thyper.launch_form(1024, v)
 
 
 def test_mh_wrappers_reject_other_devices():

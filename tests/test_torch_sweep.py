@@ -16,8 +16,11 @@
   posterior means of the 3 parameters and of theta agree within 4
   Monte-Carlo standard errors (pooled ESS), and a two-sample KS test on
   chain-thinned draws gives p > 0.01.
-- the other three models (gaussian, t, vvh17): a few sweeps keep each
-  model's structure with every value finite.
+- the other three models (gaussian, t, vvh17): the same deterministic
+  sweep with the same fed draws and tolerances, from a state of the
+  model's structure (gaussian: z = 0, alpha = 1; t: z = 1; vvh17: the
+  uniform outlier density theta / pspin), and a few sampled sweeps that
+  keep each model's structure with every value finite.
 """
 
 import jax
@@ -64,8 +67,18 @@ def _norm_pdf(x, var):
 
 
 def test_one_sweep_matches_jax_stages(demo_ma):
-    ma = demo_ma
-    cfg = GibbsConfig(model="mixture", vary_df=True, theta_prior="beta")
+    _one_sweep_vs_jax_stages(demo_ma, "mixture")
+
+
+@pytest.mark.parametrize("model", ["gaussian", "t", "vvh17"])
+def test_one_sweep_matches_jax_stages_other_models(demo_ma, model):
+    _one_sweep_vs_jax_stages(demo_ma, model)
+
+
+def _one_sweep_vs_jax_stages(ma, model):
+    pspin = 0.005 if model == "vvh17" else None
+    cfg = GibbsConfig(model=model, vary_df=True, theta_prior="beta",
+                      pspin=pspin)
     sampler = TorchGibbs(model_arrays_from_fields(_fields(ma)), cfg,
                          nchains=C, device="cpu")
     rng = np.random.default_rng(77)
@@ -76,6 +89,10 @@ def test_one_sweep_matches_jax_stages(demo_ma):
     b = (rng.normal(size=(C, m)) * 0.05).astype(f32)
     z = (rng.random((C, n)) < 0.05).astype(f32)
     alpha = rng.gamma(2.0, 3.0, (C, n)).astype(f32)
+    if model == "gaussian":               # no outliers, no auxiliary scales
+        z, alpha = np.zeros_like(z), np.ones_like(alpha)
+    elif model == "t":                    # every TOA carries a scale
+        z = np.ones_like(z)
     df = rng.integers(1, 31, C).astype(f32)
     theta = np.full(C, 0.05, f32)
     T = ma.T.astype(f32)
@@ -148,14 +165,21 @@ def test_one_sweep_matches_jax_stages(demo_ma):
     x2n = np.asarray(x2, np.float64)
     resid = y.astype(np.float64)[None] - bj.astype(np.float64) @ T.T
     nvec0 = np.stack([ndiag(ma, xx, np) for xx in x2n])
-    th = g_theta[:, 0] / (g_theta[:, 0] + g_theta[:, 1])
-    top = th[:, None] * _norm_pdf(resid, alpha * nvec0)
-    q = top / (top + (1.0 - th[:, None]) * _norm_pdf(resid, nvec0))
-    q = np.where(np.isnan(q), 1.0, q)
-    near = np.abs(u_z - q) < 1e-3            # keep z draws clear of ties
-    u_z = np.where(near, np.where(u_z < q, q - 1e-2, q + 1e-2),
-                   u_z).astype(f32)
-    zn = (u_z < q).astype(np.float64)
+    if cfg.is_outlier_model:
+        th = g_theta[:, 0] / (g_theta[:, 0] + g_theta[:, 1])
+        if model == "vvh17":
+            top = np.broadcast_to(
+                (th / (pspin * float(ma.time_scale)))[:, None], resid.shape)
+        else:
+            top = th[:, None] * _norm_pdf(resid, alpha * nvec0)
+        q = top / (top + (1.0 - th[:, None]) * _norm_pdf(resid, nvec0))
+        q = np.where(np.isnan(q), 1.0, q)
+        near = np.abs(u_z - q) < 1e-3        # keep z draws clear of ties
+        u_z = np.where(near, np.where(u_z < q, q - 1e-2, q + 1e-2),
+                       u_z).astype(f32)
+        zn = (u_z < q).astype(np.float64)
+    else:                                 # theta, z and pout stay
+        th, q, zn = theta, np.zeros((C, n)), z.astype(np.float64)
     g = np.where(zn > 0.5, g_alpha[:, 1], g_alpha[:, 0])
     an = (resid ** 2 * zn / nvec0 + df[:, None]) / 2.0 / g
     an = np.where(zn.sum(-1, keepdims=True) >= 1.0, an, alpha)
@@ -187,6 +211,8 @@ def test_one_sweep_matches_jax_stages(demo_ma):
                                atol=1e-4 * np.abs(bj).max())
     np.testing.assert_allclose(out.theta.numpy(), th, rtol=1e-6)
     np.testing.assert_array_equal(out.z.numpy(), zn)
+    if cfg.is_outlier_model:              # both outcomes of the z draw occur
+        assert 0.0 < zn.mean() < 1.0, zn.mean()
     np.testing.assert_allclose(out.pout.numpy(), q, rtol=1e-3, atol=1e-4)
     np.testing.assert_allclose(out.alpha.numpy(), an, rtol=1e-3)
     np.testing.assert_array_equal(out.df.numpy(), dfn)
