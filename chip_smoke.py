@@ -28,7 +28,8 @@ Phases, each fatal on failure (non-zero exit, no final ``ok`` line):
 6. timings of each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (a yardstick only); the factor
    and the hyper block also with every matrices-per-block count, at the
-   64-chain and m = 160 shapes, and beside the first design's times;
+   64-chain and m = 160 shapes; the factor, the hyper block and the Gram
+   kernel (phase 8) beside their first design's times;
 7. torch.profiler over 20 flagship sweeps: device time per sweep, launches
    per sweep and the device's idle share against phase 5's wall;
 8. the 1e5-TOA stress path (``bench.py --stress``: 100,000 TOAs padded to
@@ -111,13 +112,17 @@ STRESS_CPU_CHAINS = 8
 STRESS_TIE_MARGIN = 0.1
 MTM_TRIES = 4
 # times of the first design of chol_fused (one 128-thread block per matrix)
-# and hyper_mh (one per chain), ms per launch by (kernel, batch, size), as
-# this script measured them on an NVIDIA H100 80GB HBM3 at 700.00 W before
-# the warp-level recurrence replaced it
+# and hyper_mh (one per chain), ms per launch by (kernel, batch, size), and
+# of tnt_batched (16 x 16 Gram tiles for 16 chains), by (kernel, chains,
+# TOAs, m), as this script measured them on an NVIDIA H100 80GB HBM3 at
+# 700.00 W before the redesigns replaced them
 FIRST_DESIGN_MS = {
     ("chol_fused", 4096, 60): 0.4920, ("chol_fused", 1024, 14): 0.01150,
     ("chol_fused", 256, 60): 0.08115, ("chol_fused", 64, 14): 0.009384,
-    ("hyper_mh", 1024, 60): 2.181, ("hyper_mh", 64, 60): 0.9602}
+    ("hyper_mh", 1024, 60): 2.181, ("hyper_mh", 64, 60): 0.9602,
+    ("tnt_batched", 64, 102400, 74): 3.351}
+# the redesigned kernels, reported beside their first design
+REDESIGNED = ("chol_fused", "hyper_mh", "tnt_batched")
 # the stream hold before a timed loop: 5e7 cycles, at least 25 ms below the
 # H100's 1.98 GHz top SM clock
 SLEEP_CYCLES, SLEEP_MS = 50_000_000, 25.0
@@ -711,7 +716,11 @@ def main() -> None:
             bound = max(byts / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
             lib = library(name, args)
             extra = {}
-            if name in ("chol_fused", "hyper_mh"):
+            if name == "tnt_batched":
+                T, nvec = args[0], args[2]
+                extra = {"first_design_ms": FIRST_DESIGN_MS.get(
+                    (name, nvec.shape[0], *T.shape))}
+            elif name in ("chol_fused", "hyper_mh"):
                 Bm = batch_size(name, args)
                 fn = wrappers[name][2]
                 mod = chol if name == "chol_fused" else hyper_mh
@@ -1044,10 +1053,11 @@ def main() -> None:
 
     # the redesigned kernels beside the first design and the library call
     # (reported, not gated)
-    for name in ("chol_fused", "hyper_mh"):
-        for r in timing[name] + other_forms[name]:
+    for name in REDESIGNED:
+        for r in timing[name] + other_forms.get(name, []):
             first, lib_ms = r["first_design_ms"], r["library_ms"]
-            print(f"# {name} {r['shape']} ({r['path']}, {r['form']}): "
+            form = f", {r['form']}" if "form" in r else ""
+            print(f"# {name} {r['shape']} ({r['path']}{form}): "
                   f"{r['ms']:.4f} ms, {r['ms'] / r['bound_ms']:.1f}x its "
                   f"bound"
                   + (f", first design {first} ms ({first / r['ms']:.1f}x)"

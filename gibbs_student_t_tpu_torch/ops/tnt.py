@@ -15,7 +15,10 @@ left to ``torch.matmul`` at full float32 (TF32 is off, see the package
 (the 1e5-TOA stress path) is :func:`tnt_batched`: one launch of
 ``csrc/tnt.cu`` on a CUDA device (replacing
 ``gibbs_student_t_tpu/ops/pallas_tnt.py::_tnt_kernel``), and the blocked
-loop of :func:`tnt_products`, its plain version, on the CPU.
+loop of :func:`tnt_products`, its plain version, on the CPU. The kernel
+computes the lower triangle of the weighted Gram of ``[T | y]`` as one
+product of the chains' weights with the pairs' basis products; the pair
+table is :func:`pair_index`.
 """
 
 from __future__ import annotations
@@ -39,6 +42,39 @@ def pad_rows(T: np.ndarray, y: np.ndarray,
     T_pad = np.concatenate([T, np.zeros((n_pad, T.shape[1]), T.dtype)])
     y_pad = np.concatenate([y, np.zeros(n_pad, y.dtype)])
     return T_pad, y_pad, n_pad
+
+
+#: pairs per tile of the Gram kernel (``TNT_BN`` in csrc/tnt.cu)
+PAIR_TILE = 128
+_DEVICE_PAIRS = {}
+
+
+def pair_index(m: int) -> np.ndarray:
+    """The pairs ``(i, j)``, ``i >= j``, of the lower triangle of the
+    ``(m + 1) x (m + 1)`` Gram of ``[T | y]``, row by row (pair
+    ``q = i (i + 1) / 2 + j``), as an int32 ``(2, Qpad)`` table: row 0 the
+    ``i``, row 1 the ``j``. ``Q = (m + 1)(m + 2) / 2`` is padded to a whole
+    number of tiles with ``(m, m)``, the ``y w y`` slot, which is in range
+    and whose sums the kernel drops, as it drops the padding's."""
+    i, j = np.tril_indices(m + 1)
+    pad = -len(i) % PAIR_TILE
+    return np.stack([np.concatenate([i, np.full(pad, m)]),
+                     np.concatenate([j, np.full(pad, m)])]).astype(np.int32)
+
+
+def _device_pair_index(m: int, device) -> torch.Tensor:
+    """:func:`pair_index` on ``device``, made once per ``(m, device)``."""
+    key = (m, str(device))
+    if key not in _DEVICE_PAIRS:
+        _DEVICE_PAIRS[key] = torch.from_numpy(pair_index(m)).to(device)
+    return _DEVICE_PAIRS[key]
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with its data on a 16-byte boundary (the kernel
+    copies T and y in 16-byte pieces)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _dense(T, y, nvec):
@@ -102,18 +138,21 @@ def tnt_batched(T, y, nvec, block_size: int):
     from gibbs_student_t_tpu_torch.ops import _cuda
 
     w = 1.0 / nvec
-    const = -0.5 * (torch.log(nvec).sum(-1) + (y * y * w).sum(-1))
+    # y^T N^-1 y as one matrix-vector product: a pass less over (C, n)
+    # than the plain version's elementwise product and sum
+    const = -0.5 * (torch.log(nvec).sum(-1) + torch.mv(w, y * y))
     TNT = torch.empty((C, m, m), dtype=T.dtype, device=T.device)
     d = torch.empty((C, m), dtype=T.dtype, device=T.device)
     if C:
         lib = _cuda.lib()
+        pairs = _device_pair_index(m, T.device)
         work = torch.empty((lib.gst_tnt_workspace(C, n, m),), dtype=T.dtype,
                            device=T.device)
-        Tc, yc = T.contiguous(), y.contiguous()
+        Tc, yc = _aligned16(T), _aligned16(y)
         _cuda.check(lib.gst_tnt_batched(
-            _cuda.ptr(Tc), _cuda.ptr(yc), _cuda.ptr(w), _cuda.ptr(work),
-            _cuda.ptr(TNT), _cuda.ptr(d), C, n, m,
-            _cuda.stream(T.device)), "tnt_batched")
+            _cuda.ptr(Tc), _cuda.ptr(yc), _cuda.ptr(w), _cuda.ptr(pairs),
+            pairs.shape[1], _cuda.ptr(work), _cuda.ptr(TNT), _cuda.ptr(d),
+            C, n, m, _cuda.stream(T.device)), "tnt_batched")
         tnt_batched.launches += 1
     return TNT, d, const
 

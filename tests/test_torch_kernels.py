@@ -17,8 +17,11 @@ bound v = 160, with 64 chains and with 1,027 (a ragged last block), and the
 closure path (the plain hyper loop with the factor kernel), which the
 sampler takes above that bound; the white kernel past shared memory
 (n = 20,000 and 102,400, operands read from device memory), the white
-MTM kernel with dead weights, and the Gram kernel with padded rows and
-a chain count that is not a multiple of its chain tile.
+MTM kernel with dead weights, and the Gram kernel with padded rows, at
+1, 2, 5, 7, 64 and 100 chains (the last two chain tiles of 64, one
+ragged), m = 3, 12, 74, 174 and 720 (past 710 the kernel takes its
+8-TOA tile), and TOA counts that leave its last TOA tile and its last
+TOA split short.
 
 Tolerances: kernel and plain version both compute in float32, in other
 summation orders. Factors, solves and logdets agree to rtol 1e-4 / atol
@@ -397,8 +400,16 @@ def test_white_mtm_kernel_on_card(dense):
 
 
 @pytest.mark.torch
-@pytest.mark.parametrize("C_, n_real, block, m", [(5, 1000, 256, 12),
-                                                 (64, 20000, 4096, 74)])
+@pytest.mark.parametrize("C_, n_real, block, m", [
+    (5, 1000, 256, 12),
+    (64, 20000, 4096, 74),
+    (1, 1000, 256, 12),      # one chain
+    (100, 5000, 1024, 74),   # two chain tiles, the second ragged
+    (7, 980, 30, 3),         # m = 3; n = 990, a short last TOA tile
+    (64, 8000, 4096, 174),   # 80 Fourier components: m = 174
+    (64, 3050, 100, 74),     # 97 TOA tiles: the last split short or empty
+    (2, 200, 64, 720),       # m past 710: the 8-TOA tile
+])
 def test_tnt_kernel_on_card(C_, n_real, block, m):
     """The Gram kernel on a padded TOA axis against the blocked plain
     version and a float64 evaluation of the unpadded sums."""

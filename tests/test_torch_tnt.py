@@ -11,6 +11,12 @@ options, against the JAX package (CPU).
 - the padded-rows contract: rows with T = 0, y = 0 and nvec = 1 change
   TNT, d and the constant by no more than float32 reassociation (1e-6 of
   M), and the port pads exactly as the JAX package;
+- the Gram kernel's pair map: ``pair_index(m)`` covers each ``(i, j)``,
+  ``i >= j``, of the ``(m + 1) x (m + 1)`` Gram of ``[T | y]`` exactly
+  once, in the order ``q = i (i + 1) / 2 + j``, padded with ``(m, m)``
+  only; the plain Gram gathered through the table and unpacked the way
+  the kernel's finishing pass unpacks it gives ``tnt_products``' TNT (its
+  lower triangle, mirrored) and d bit for bit;
 - ``TorchGibbs(tnt_block_size=128)`` on the demo model (130 TOAs padded to
   256): one sweep equals the dense sweep fed the same state and draws, at
   1e-4 relative on x and b with equal accept counts, and
@@ -82,6 +88,57 @@ def test_padded_rows_add_nothing():
                                rtol=1e-6)
     with pytest.raises(ValueError, match="multiple"):
         ttnt.tnt_batched(tt(T), tt(y), tt(nvec), 128)
+
+
+@pytest.mark.parametrize("m", [1, 3, 12, 74])
+def test_pair_index_covers_lower_triangle(m):
+    pairs = ttnt.pair_index(m)
+    Q = (m + 1) * (m + 2) // 2
+    assert pairs.dtype == np.int32 and pairs.shape[0] == 2
+    assert pairs.shape[1] % ttnt.PAIR_TILE == 0
+    assert pairs.shape[1] - Q < ttnt.PAIR_TILE
+    i, j = pairs[:, :Q].astype(np.int64)
+    assert (i >= j).all() and (j >= 0).all() and (i <= m).all()
+    assert len(set(zip(i.tolist(), j.tolist()))) == Q
+    np.testing.assert_array_equal(i * (i + 1) // 2 + j, np.arange(Q))
+    assert (pairs[:, Q:] == m).all()
+
+
+def _unpack(G, pairs, m):
+    """(TNT, d) from per-chain pair sums ``G (C, Qpad)``, as the kernel's
+    finishing pass writes them: pair (i, j) to TNT[i, j] and TNT[j, i] for
+    i < m, to d[j] for i = m; the (m, m) pair and the padding dropped."""
+    C = G.shape[0]
+    TNT = np.full((C, m, m), np.nan, np.float32)
+    d = np.full((C, m), np.nan, np.float32)
+    for q in range((m + 1) * (m + 2) // 2 - 1):
+        i, j = pairs[:, q]
+        if i < m:
+            TNT[:, i, j] = TNT[:, j, i] = G[:, q]
+        else:
+            d[:, j] = G[:, q]
+    return TNT, d
+
+
+@pytest.mark.parametrize("m", [3, 12])
+def test_pair_unpack_reproduces_tnt_products(m):
+    T, y, nvec = _inputs(8, C=4, n=256, m=m)
+    TNT, d, _ = (a.numpy() for a in ttnt.tnt_products(
+        torch.from_numpy(T), torch.from_numpy(y), torch.from_numpy(nvec),
+        128))
+    # the plain Gram of [T | y]: TNT in its top-left block, d in row m
+    G_full = np.zeros((4, m + 1, m + 1), np.float32)
+    G_full[:, :m, :m] = TNT
+    G_full[:, m, :m] = d
+    pairs = ttnt.pair_index(m)
+    G = G_full[:, pairs[0], pairs[1]]
+    TNT_u, d_u = _unpack(G, pairs, m)
+    low = np.tril(np.ones((m, m), bool))
+    np.testing.assert_array_equal(TNT_u[:, low], TNT[:, low])
+    np.testing.assert_array_equal(TNT_u, np.swapaxes(TNT_u, 1, 2))
+    np.testing.assert_array_equal(d_u, d)
+    M, _ = _scale(T, y, nvec)
+    assert (np.abs(TNT_u - TNT) <= 1e-6 * M).all()
 
 
 def _pad(t, n, value):
