@@ -47,12 +47,35 @@ Phases, each fatal on failure (non-zero exit, no final ``ok`` line):
    tri_solve_T 2 launches per sweep), one sweep with MTM on both blocks on
    the card against the CPU at 64 chains, the same at 1024 chains (adapt
    100 + 200 sweeps; white_mtm 1, chol_fused 23, tri_solve_T 2, white_mh
-   and hyper_mh 0 launches per sweep), and the kernel's timing.
+   and hyper_mh 0 launches per sweep), and the kernel's timing;
+10. the multi-pulsar ensemble (``EnsembleGibbs``, the grouped kernels):
+   a. the grouped white MH and hyper MH kernels held against their grouped
+      plain versions and float64 on inputs captured from a sweep of ens32
+      (32 demo pulsars of 130 - (i mod 3) 10 TOAs, 256 chains each, the
+      flagship's model), on the draws as they are and with every tie
+      separated by a float64 replay, and the factor and solves at the
+      ensemble's shapes; the hyper kernel also with warps of two
+      pulsars in one block (3 pulsars x 5 chains, 8 chains a block);
+   b. one ensemble sweep on the card against the CPU at 4 pulsars x 32
+      chains: every chain's accept counts equal;
+   c. the ens32 run (adapt 100 + 200 sweeps, ``record="light"``; grouped
+      white_mh 1, grouped hyper_mh 1, chol_fused 2, tri_solve_T 2,
+      tnt_batched 0 launches per sweep): every chain finite, padded rows
+      pinned, pulsar-chain-sweeps/s, ms per sweep and the median and
+      minimum over pulsars of ESS(log10_A)/s;
+   d. the MTM arm (8 pulsars x 128 chains, MTM on the white block, 20 + 20
+      sweeps): the grouped white MTM kernel against its plain version, its
+      launches (1 per sweep) and finite chains;
+   e. the grouped kernels' timings beside the same kernel launched
+      ungrouped on as many chains, the factor and solves at the ensemble's
+      shapes, and a profile of 20 ens32 sweeps.
 
 Launch counts are read per path: every count is set to 0 just before a
-run and read just after it. The last stdout lines are the ``kernels`` JSON
-line (all six kernels), the card line, and ``{"ok": true, "device":
-{...}}``. Details go to chiprun_out/chip_smoke.json.
+run and read just after it; a grouped launch counts on its wrapper's
+``launches_grouped``. The last stdout lines are the ``kernels`` JSON line
+(the six kernels and the three grouped forms), the card line, and
+``{"ok": true, "device": {...}}``. Details go to
+chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -69,35 +92,66 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # one replaces
 _CHOL = "gibbs_student_t_tpu_torch/csrc/chol.cu"
 _WHITE = "gibbs_student_t_tpu_torch/csrc/white_mh.cu"
+_HYPER = "gibbs_student_t_tpu_torch/csrc/hyper_mh.cu"
 KERNELS = {
     # full_mtm: the Schur A-block and the b draw, plus the hyper MTM
     # loop's 1 + 2 x 10 stacked factorizations (10 hyper steps)
     "chol_fused": dict(
-        per_sweep={"flagship": 2, "stress": 2, "mtm": 2, "full_mtm": 23},
+        per_sweep={"flagship": 2, "stress": 2, "mtm": 2, "full_mtm": 23,
+                   "ens32": 2, "ens_mtm": 2},
         source=_CHOL,
         replaces="gibbs_student_t_tpu/ops/pallas_chol.py:81 _chol_kernel"),
     "tri_solve_T": dict(
-        per_sweep={"flagship": 2, "stress": 2, "mtm": 2, "full_mtm": 2},
+        per_sweep={"flagship": 2, "stress": 2, "mtm": 2, "full_mtm": 2,
+                   "ens32": 2, "ens_mtm": 2},
         source=_CHOL,
         replaces="gibbs_student_t_tpu/ops/pallas_chol.py:117 _backsolve_kernel"),
     "white_mh": dict(
-        per_sweep={"flagship": 1, "stress": 1, "mtm": 0, "full_mtm": 0},
+        per_sweep={"flagship": 1, "stress": 1, "mtm": 0, "full_mtm": 0,
+                   "ens32": 0, "ens_mtm": 0},
         source=_WHITE,
         replaces="gibbs_student_t_tpu/ops/pallas_white.py:322 _white_kernel"),
     "hyper_mh": dict(
-        per_sweep={"flagship": 1, "stress": 1, "mtm": 1, "full_mtm": 0},
-        source="gibbs_student_t_tpu_torch/csrc/hyper_mh.cu",
+        per_sweep={"flagship": 1, "stress": 1, "mtm": 1, "full_mtm": 0,
+                   "ens32": 0, "ens_mtm": 0},
+        source=_HYPER,
         replaces="gibbs_student_t_tpu/ops/pallas_hyper.py:290 _hyper_kernel"),
     "tnt_batched": dict(
-        per_sweep={"flagship": 0, "stress": 1, "mtm": 0, "full_mtm": 0},
+        per_sweep={"flagship": 0, "stress": 1, "mtm": 0, "full_mtm": 0,
+                   "ens32": 0, "ens_mtm": 0},
         source="gibbs_student_t_tpu_torch/csrc/tnt.cu",
         replaces="gibbs_student_t_tpu/ops/pallas_tnt.py:53 _tnt_kernel"),
     "white_mtm": dict(
-        per_sweep={"flagship": 0, "stress": 0, "mtm": 1, "full_mtm": 1},
+        per_sweep={"flagship": 0, "stress": 0, "mtm": 1, "full_mtm": 1,
+                   "ens32": 0, "ens_mtm": 0},
         source=_WHITE,
         replaces="gibbs_student_t_tpu/ops/pallas_white.py:350 "
                  "_white_mtm_kernel"),
+    # the grouped forms: the same kernels with G pulsars' constants, one
+    # launch for every pulsar of the ensemble
+    "white_mh_grouped": dict(
+        per_sweep={"flagship": 0, "stress": 0, "mtm": 0, "full_mtm": 0,
+                   "ens32": 1, "ens_mtm": 0},
+        source=_WHITE,
+        replaces="gibbs_student_t_tpu/ops/pallas_white.py:482 "
+                 "white_mh_fused (G > 1)"),
+    "hyper_mh_grouped": dict(
+        per_sweep={"flagship": 0, "stress": 0, "mtm": 0, "full_mtm": 0,
+                   "ens32": 1, "ens_mtm": 1},
+        source=_HYPER,
+        replaces="gibbs_student_t_tpu/ops/pallas_hyper.py:371 "
+                 "hyper_mh_fused (G > 1)"),
+    "white_mtm_grouped": dict(
+        per_sweep={"flagship": 0, "stress": 0, "mtm": 0, "full_mtm": 0,
+                   "ens32": 0, "ens_mtm": 1},
+        source=_WHITE,
+        replaces="gibbs_student_t_tpu/ops/pallas_white.py:552 "
+                 "white_mtm_fused (G > 1)"),
 }
+# a grouped kernel's entry: the wrapper it shares with the single-model
+# launch; it counts on the wrapper's launches_grouped
+GROUPED = {"white_mh_grouped": "white_mh", "hyper_mh_grouped": "hyper_mh",
+           "white_mtm_grouped": "white_mtm"}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate
 FP32_FLOPS = 67e12             # H100 SXM float32 rate outside tensor cores
 NCHAINS = 1024
@@ -111,6 +165,13 @@ STRESS_CPU_CHAINS = 8
 # than the 1e-3 the flagship's 130 TOAs need
 STRESS_TIE_MARGIN = 0.1
 MTM_TRIES = 4
+# the ensemble (ens32): 32 demo pulsars (the seeds of
+# tools/ensemble_bench.py), 130 - (i mod 3) 10 TOAs (run_sims.py's rule
+# for unequal TOA counts at 130), 256 chains each; the MTM arm: 8 pulsars
+# of 128 chains, adapt 20 + 20 sweeps; the card-vs-CPU sweep: 4 x 32
+ENS_PULSARS, ENS_CHAINS = 32, 256
+ENS_MTM_PULSARS, ENS_MTM_CHAINS, ENS_MTM_SWEEPS = 8, 128, 20
+ENS_CPU_PULSARS, ENS_CPU_CHAINS = 4, 32
 # times of the first design of chol_fused (one 128-thread block per matrix)
 # and hyper_mh (one per chain), ms per launch by (kernel, batch, size), and
 # of tnt_batched (16 x 16 Gram tiles for 16 chains), by (kernel, chains,
@@ -221,7 +282,10 @@ def main() -> None:
         from gibbs_student_t_tpu_torch.data.demo import make_demo_model_arrays
         from gibbs_student_t_tpu_torch.ops import _cuda, chol, hyper_mh, linalg
         from gibbs_student_t_tpu_torch.ops import tnt, white_mh
-        from gibbs_student_t_tpu_torch.testing import separate_ties
+        from gibbs_student_t_tpu_torch.testing import (
+            separate_mtm_ties,
+            separate_ties,
+        )
     except ImportError as exc:
         fail(f"the port's package is not importable here: {exc}")
 
@@ -262,17 +326,27 @@ def main() -> None:
               "hyper_mh": hyper_mh.hyper_mh_loop,
               "tnt_batched": tnt.tnt_products,
               "white_mtm": white_mh.white_mtm_loop}
+    for name, base in GROUPED.items():
+        wrappers[name] = wrappers[base]
+        plains[name] = plains[base]
+
+    def count(name):
+        """Launches of kernel ``name`` since reset_counts()."""
+        return getattr(wrappers[name][2], "launches_grouped"
+                       if name in GROUPED else "launches")
 
     def reset_counts():
         for _, _, fn in wrappers.values():
             fn.launches = 0
+            if hasattr(fn, "launches_grouped"):
+                fn.launches_grouped = 0
 
     launches_by_path = {}
 
     def check_launches(path, sweeps):
         """Every kernel's count since reset_counts() against its launches
         per sweep on ``path`` x sweeps."""
-        counts = {n: w[2].launches for n, w in wrappers.items()}
+        counts = {n: count(n) for n in wrappers}
         launches_by_path[path] = counts
         for name, meta in KERNELS.items():
             want = meta["per_sweep"][path] * sweeps
@@ -282,27 +356,31 @@ def main() -> None:
         return counts
 
     def capture(names, run):
-        """Run ``run()`` with the named wrappers replaced by recorders;
-        returns {(name, shape of the first operand): operands of the last
-        call of that shape}."""
+        """Run ``run()`` with the named kernels' wrappers replaced by
+        recorders; returns {(name, shape of the first operand): operands
+        of the last call of that shape}. A call with a grouped first
+        operand (pulsars x chains) is the grouped kernel's."""
         got = {}
 
-        def recorder(name, fn):
+        def recorder(fn):
             def rec(*args):
-                got[(name, tuple(args[0].shape))] = tuple(
-                    a.clone() if torch.is_tensor(a) else a for a in args)
+                name = fn.__name__
+                if name + "_grouped" in GROUPED and args[0].dim() == 3:
+                    name += "_grouped"
+                if name in names:
+                    got[(name, tuple(args[0].shape))] = tuple(
+                        a.clone() if torch.is_tensor(a) else a for a in args)
                 return fn(*args)
             return rec
 
-        for name in names:
-            mod, attr, fn = wrappers[name]
-            setattr(mod, attr, recorder(name, fn))
+        targets = {wrappers[name][:2]: wrappers[name][2] for name in names}
+        for (mod, attr), fn in targets.items():
+            setattr(mod, attr, recorder(fn))
         try:
             run()
             torch.cuda.synchronize()
         finally:
-            for name in names:
-                mod, attr, fn = wrappers[name]
+            for (mod, attr), fn in targets.items():
                 setattr(mod, attr, fn)
         return got
 
@@ -345,10 +423,17 @@ def main() -> None:
         return (float(d.max()), float((d / (1.0 + b.abs()[both])).max()),
                 mism)
 
-    def mh_parity(name, args):
+    def mh_steps(name, args):
+        """The MH steps S of an MH block's operands."""
+        if name.startswith("hyper_mh"):
+            return args[5].shape[-2]
+        return args[3].shape[-3 if name.startswith("white_mtm") else -2]
+
+    def mh_parity(name, args, **kw):
         """Kernel, plain version and the float64 plain version of an MH
-        block on the same operands: outputs and per-chain accept counts."""
-        out_k = wrappers[name][2](*args)
+        block on the same operands: outputs and per-chain accept counts.
+        ``kw`` goes to the kernel's wrapper only."""
+        out_k = wrappers[name][2](*args, **kw)
         out_p = plains[name](*args)
         torch.cuda.synchronize()
         errs = [rel_err(a, b) for a, b in zip(out_k, out_p)]
@@ -357,7 +442,7 @@ def main() -> None:
                "max_rel_err": max(e[1] for e in errs),
                "nonfinite_mismatch": sum(e[2] for e in errs)}
         acc_k, acc_p = out_k[1], out_p[1]
-        steps = args[5 if name == "hyper_mh" else 3].shape[1]
+        steps = mh_steps(name, args)
         # the float64 plain version is the referee for decisions the
         # float32 likelihood cannot resolve (near-ties, ill-conditioned
         # proposals)
@@ -654,14 +739,16 @@ def main() -> None:
             B = L.numel() // (m * m)
             tri = m * (m + 1) // 2
             return f4 * (B * tri + 2 * B * m), B * m * m
-        if name in ("white_mh", "white_mtm"):
+        if name.startswith(("white_mh", "white_mtm")):
             # white_mtm: x, az, y2, dx, dxr, gumb, logu, rows, specs, var;
-            # 1 + S (2K - 1) likelihood evaluations
+            # 1 + S (2K - 1) likelihood evaluations. Grouped: every
+            # group's constant rows are read once
             x, az, var = args[0], args[1], args[-1]
-            C, p = x.shape
-            n, S = az.shape[1], args[3].shape[1]
-            evals = 1 + S * (2 * args[3].shape[2] - 1 if name == "white_mtm"
-                             else 1)
+            p = x.shape[-1]
+            C = x.numel() // p
+            n, S = az.shape[-1], mh_steps(name, args)
+            evals = 1 + S * (2 * args[3].shape[-2] - 1
+                             if name.startswith("white_mtm") else 1)
             byts = f4 * (sum(t.numel() for t in args[:-1]) + C * p + C)
             return byts, C * evals * n * (10 + 2 * len(var))
         if name == "tnt_batched":
@@ -671,12 +758,13 @@ def main() -> None:
             (n, m), C = T.shape, nvec.shape[0]
             byts = f4 * (n * m + n + C * n + C * m * m + C * m + C)
             return byts, 2 * C * n * (m * (m + 1) // 2 + m)
-        if name == "hyper_mh":
+        if name.startswith("hyper_mh"):
             x, S0 = args[0], args[1]
-            C, v = S0.shape[0], S0.shape[-1]
-            S = args[5].shape[1]
+            v = S0.shape[-1]
+            C = S0.numel() // (v * v)
+            S = mh_steps(name, args)
             byts = f4 * (sum(t.numel() for t in args[:10]) - C * v * v
-                         + C * v * (v + 1) // 2 + C * x.shape[1] + C)
+                         + C * v * (v + 1) // 2 + C * x.shape[-1] + C)
             return byts, C * (S + 1) * (v ** 3 / 3 + 4 * v * v)
         raise KeyError(name)
 
@@ -703,13 +791,24 @@ def main() -> None:
         m_ = mat.shape[-1]
         return mat.numel() // (m_ * m_), m_
 
+    def ungrouped(name, args):
+        """A grouped MH block's operands as one single-model launch on the
+        same total number of chains: the per-chain operands with their
+        (pulsar, chain) axes folded, the constants of the first pulsar."""
+        k = {"white_mh_grouped": 5, "white_mtm_grouped": 7,
+             "hyper_mh_grouped": 7}[name]
+        nconst = 3 if name == "hyper_mh_grouped" else 2
+        return (*(t.reshape(-1, *t.shape[2:]) for t in args[:k]),
+                *(t[0] for t in args[k:k + nconst]), *args[k + nconst:])
+
     def time_captured(capt, path, into=timing):
         """Kernel, plain and library times and the bound of every captured
-        call shape, into ``into`` (``timing``: the shapes the four paths
+        call shape, into ``into`` (``timing``: the shapes the paths
         launch). The factor and the hyper block also get the first
         design's time at the same shape, where this script measured one,
         and their time at every matrices-per-block count (0: a block per
-        matrix)."""
+        matrix); a grouped kernel gets the time of the same kernel
+        launched ungrouped on the same number of chains."""
         for (name, shape), args in sorted(capt.items(),
                                           key=lambda kv: kv[0]):
             byts, flops = work(name, args)
@@ -732,6 +831,9 @@ def main() -> None:
                             lambda *a, pb=pb: fn(*a, per_block=pb), args, 20)
                         for pb in ((1, 2, 4, 8, 0)
                                    if Bm[1] <= chol.WARP_MAX_DIM else ())}}
+            elif name in GROUPED:
+                extra = {"ungrouped_ms": timed(wrappers[name][2],
+                                               ungrouped(name, args), 50)}
             row = dict(
                 path=path, shape=list(shape), **extra,
                 ms=timed(wrappers[name][2], args, 50),
@@ -766,7 +868,8 @@ def main() -> None:
             fail(f"the profiler saw no device time in the {path} sweeps")
         prof["idle_share"] = max(0.0, 1.0 - prof["device_ms_per_sweep"]
                                  / wall_ms)
-        print(f"# profile {path} ({prof['sweeps']} sweeps, {smp.nchains} "
+        chains = " x ".join(map(str, smp._batch))
+        print(f"# profile {path} ({prof['sweeps']} sweeps, {chains} "
               f"chains): device busy {prof['device_ms_per_sweep']:.4f} "
               f"ms/sweep, {prof['launches_per_sweep']:.1f} launches/sweep; "
               f"wall {wall_ms:.4f} ms/sweep unprofiled "
@@ -1051,6 +1154,269 @@ def main() -> None:
     frec["profile"] = profile("full_mtm", full, 5, frec["ms_per_sweep"])
     time_captured(captured_m, "mtm")
 
+    # --- 10. the multi-pulsar ensemble ------------------------------------
+    del full, mtm, captured_m
+    from gibbs_student_t_tpu_torch.parallel import EnsembleGibbs
+
+    def ens_pulsars(count):
+        """Demo pulsars 100, 101, ... with 130 - (i mod 3) 10 TOAs each."""
+        return [make_demo_model_arrays(n=130 - (i % 3) * 10, components=30,
+                                       seed=100 + i) for i in range(count)]
+
+    def grouped_ll(name, a, dtype):
+        """``q (P C, p) -> (ll, lp)`` of a grouped MH block's operands
+        ``a`` in ``dtype``, the (pulsar, chain) axes folded."""
+        G, C, p = a[0].shape
+        if name.startswith("hyper"):
+            ops = ([t.to(dtype) for t in a[1:5]]
+                   + [t[:, None].to(dtype) for t in a[7:10]])
+
+            def f(q):
+                return hyper_mh.hyper_ll_lp(q, *ops, a[10], a[11])
+        else:
+            az, y2 = a[1].to(dtype), a[2].to(dtype)
+            rows, specs = (t[:, None].to(dtype) for t in a[-3:-1])
+
+            def f(q):
+                return white_mh.white_ll_lp(q, az, y2, rows, a[-1], specs)
+
+        def ll_lp(qf):
+            ll, lp = f(qf.to(a[0].device, dtype).reshape(G, C, p))
+            return ll.reshape(-1), lp.reshape(-1)
+        return ll_lp
+
+    def grouped_sep(name, a, others=(), info=None):
+        """A grouped single-try block's logu with its ties separated by a
+        float64 replay (phase 8's rule, margin 1e-3 as at 130 TOAs)."""
+        G, C, p = a[0].shape
+        dx, lu = (a[5], a[6]) if name.startswith("hyper") else (a[3], a[4])
+        S = dx.shape[-2]
+        return separate_ties(
+            grouped_ll(name, a, torch.float64), a[0].reshape(-1, p),
+            dx.reshape(-1, S, p), lu.reshape(-1, S), others=others,
+            info=info).reshape(G, C, S)
+
+    def grouped_mtm_sep(a):
+        """The grouped white MTM block's (gumb, logu) with selection and
+        accept ties separated by a float64 replay."""
+        x, az, y2, dx, dxr, gumb, lu, rows, specs, var = a
+        G, C, S, K, p = dx.shape
+        a64 = [t.double() for t in (az[..., None, :], y2[..., None, :],
+                                    rows[:, None, None], specs[:, None, None])]
+
+        def weight64(qf):
+            ll, lp = white_mh.white_ll_lp(qf.reshape(G, C, -1, p), *a64[:3],
+                                          var, a64[3])
+            return (ll + lp).reshape(G * C, -1)
+
+        gs, ls = separate_mtm_ties(
+            weight64, x.reshape(-1, p), dx.reshape(-1, S, K, p),
+            dxr.reshape(-1, S, K - 1, p), gumb.reshape(-1, S, K),
+            lu.reshape(-1, S))
+        return gs.reshape(G, C, S, K), ls.reshape(G, C, S)
+
+    def grouped_parity(name, args, sep_args, **kw):
+        """mh_parity on the captured draws (reported: over 8,192 chains a
+        float32 decision within roundoff of its threshold can go either
+        way between two summation orders) and on the draws with every tie
+        separated by a float64 replay (gated: kernel, plain version and
+        float64 referee take the same decisions, x as in phase 3)."""
+        raw = mh_parity(name, args, **kw)
+        rec = mh_parity(name, sep_args, **kw)
+        rec["raw_draws"] = {k: raw[k] for k in (
+            "ok", "accepts_kernel", "accepts_plain", "accepts_f64",
+            "chains_kernel_vs_f64", "chains_plain_vs_f64")}
+        rec["draws_moved"] = int(sum((a != b).sum() for a, b in zip(
+            args, sep_args) if torch.is_tensor(a)))
+        rec["ok"] = bool(rec["ok"] and rec["chains_kernel_vs_f64"] == 0
+                         and rec["chains_acc_mismatch"] == 0)
+        parity.setdefault(name, []).append(rec)
+        print(f"# parity {name} {rec['shape']}{' ' + str(kw) if kw else ''}"
+              f": {json.dumps(rec)}", flush=True)
+        if not rec["ok"]:
+            fail(f"{name} disagrees with its plain version at {rec['shape']}")
+
+    t0 = time.perf_counter()
+    cfg_e = GibbsConfig(model="mixture", vary_df=True,
+                        theta_prior="beta").with_adapt(ADAPT, adapt_cov=True)
+    ens = EnsembleGibbs(ens_pulsars(ENS_PULSARS), cfg_e, nchains=ENS_CHAINS,
+                        device=dev, record="light")
+    ens_rep = report["ens32"] = {
+        "model_build_s": time.perf_counter() - t0, "pulsars": ENS_PULSARS,
+        "chains": ENS_CHAINS, "n_toa": ens.n_toa.tolist(),
+        "n_padded": ens._n, "m": ens._ma.m, "p": ens._ma.nparam,
+        "schur": [len(i) for i in ens._schur],
+        "white_staged": bool(_cuda.lib().gst_white_staged(
+            ens._n, ens._ma.nparam, ens._white[0].shape[-2]))}
+    print(f"# ens32: {json.dumps(ens_rep)}", flush=True)
+    if (ens_rep["schur"] != [14, 60] or ens._n != 130
+            or not ens_rep["white_staged"]):
+        fail("the ens32 config is not the flagship's shape per pulsar")
+
+    # 10a. the grouped kernels and the factor and solves at the ensemble's
+    # shapes, on inputs captured from an ens32 sweep
+    ens_names = [n for n, k in KERNELS.items() if k["per_sweep"]["ens32"]]
+    captured_e = capture(ens_names, run_capture(ens, 7, 2))
+    if sorted({k[0] for k in captured_e}) != sorted(ens_names):
+        fail(f"the ens32 sweep reached {sorted(captured_e)}")
+    for (name, shape), args in sorted(captured_e.items()):
+        if name in GROUPED:
+            dx_i = 6 if name.startswith("hyper") else 4
+            grouped_parity(name, args, args[:dx_i] + (
+                grouped_sep(name, args),) + args[dx_i + 1:])
+            continue
+        out_k = wrappers[name][2](*args)
+        out_p = plains[name](*args)
+        torch.cuda.synchronize()
+        errs = [rel_err(a, b) for a, b in zip(out_k, out_p)]
+        rec = {"shape": list(shape), "path": "ens32",
+               "max_abs_err": max(e[0] for e in errs),
+               "max_rel_err": max(e[1] for e in errs),
+               "nonfinite_mismatch": sum(e[2] for e in errs)}
+        # tolerance as in phase 3
+        rec["ok"] = bool(rec["max_rel_err"] <= 1e-3
+                         and rec["nonfinite_mismatch"] == 0)
+        parity.setdefault(name, []).append(rec)
+        print(f"# parity {name} {list(shape)}: {json.dumps(rec)}", flush=True)
+        if not rec["ok"]:
+            fail(f"{name} disagrees with its plain version at {shape}")
+    # warps of two pulsars in one block: 3 pulsars x 5 chains,
+    # 8 chains a block
+    (hargs,) = (a for k, a in captured_e.items() if k[0] == "hyper_mh_grouped")
+    adv = (tuple(t[:3, :5].contiguous() for t in hargs[:7])
+           + tuple(t[:3].contiguous() for t in hargs[7:10]) + hargs[10:])
+    grouped_parity("hyper_mh_grouped", adv, adv[:6] + (
+        grouped_sep("hyper_mh_grouped", adv),) + adv[7:], per_block=8)
+
+    # 10b. one deterministic ensemble sweep on the card against the CPU
+    cpu_mas = ens_pulsars(ENS_CPU_PULSARS)
+    eg = EnsembleGibbs(cpu_mas, cfg_e, nchains=ENS_CPU_CHAINS, device=dev)
+    ec = EnsembleGibbs(cpu_mas, cfg_e, nchains=ENS_CPU_CHAINS, device="cpu")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    st = eg._prop_cov_update(eg.init_state(seed=29))
+    for i in range(3):
+        st = eg._sweep(st, eg._draw(gen, st), sweep=i)
+    dr = eg._draw(gen, st)
+    st_c = type(st)(*map(to_cpu, st))
+    sep = {}
+    for name, field in (("white_mh_grouped", "logu_w"),
+                        ("hyper_mh_grouped", "logu_h")):
+        dr_c = type(dr)(*map(to_cpu, dr))
+        (g,) = capture([name], lambda: eg._sweep(st, dr, 3)).values()
+        (c,) = capture([name], lambda: ec._sweep(st_c, dr_c, 3)).values()
+        info = sep[name] = {}
+        lu = grouped_sep(name, g, others=(
+            grouped_ll(name, g, torch.float32),
+            grouped_ll(name, c, torch.float32)), info=info)
+        info["moved"] = int((lu != getattr(dr, field)).sum())
+        dr = dr._replace(**{field: lu})
+    cmp = ens_rep["sweep_card_vs_cpu"] = card_vs_cpu(eg, ec, st, dr, 3)
+    cmp["separation"] = sep
+    print(f"# ensemble sweep card-vs-cpu ({ENS_CPU_PULSARS} x "
+          f"{ENS_CPU_CHAINS} chains): {json.dumps(cmp)}", flush=True)
+    # tolerance as phase 4, on draws clear of every float32 tie
+    if (cmp["chains_acc_mismatch"] > 0 or cmp["x"][1] > 1e-4
+            or cmp["b"][1] > 1e-3):
+        fail("one ensemble sweep on the card disagrees with the CPU")
+    del eg, ec
+
+    # 10c. the ens32 run: adapt 100 sweeps, then 200 timed
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ens.sample(niter=ADAPT, seed=1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = ens.sample(niter=MORE, seed=1, state=ens.last_state,
+                     start_sweep=ADAPT)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check_launches("ens32", ADAPT + MORE)
+    st = ens.last_state
+    P_, C_ = ENS_PULSARS, ENS_CHAINS
+    finite = torch.ones((P_, C_), dtype=torch.bool, device=dev)
+    for f in ("x", "b", "z", "alpha", "theta", "df"):
+        finite &= torch.isfinite(getattr(st, f).reshape(P_, C_, -1)).all(-1)
+    pad = ~ens._mask                                     # (P, 1, n)
+    pinned = bool((st.z.masked_select(pad) == 0).all()
+                  and (st.alpha.masked_select(pad) == 1).all())
+    ia_e = [i for i, nm in enumerate(ens._ma.param_names)
+            if "log10_A" in nm][0]
+    wall = t2 - t1
+    ess_e = np.array([pooled_ess(res.chain[:, p, :, ia_e])
+                      for p in range(P_)])
+    erun = ens_rep["run"] = {
+        "sweeps": ADAPT + MORE, "adapt_wall_s": t1 - t0,
+        "timed_sweeps": MORE, "timed_wall_s": wall,
+        "ms_per_sweep": 1e3 * wall / MORE,
+        "pulsar_chain_sweeps_per_s": P_ * C_ * MORE / wall,
+        "ess_log10A_per_s_median": float(np.median(ess_e) / wall),
+        "ess_log10A_per_s_min": float(ess_e.min() / wall),
+        "ess_log10A_per_s_by_pulsar": (ess_e / wall).tolist(),
+        "acc_white": float(res.stats["acc_white"].mean()),
+        "acc_hyper": float(res.stats["acc_hyper"].mean()),
+        "share_finite": float(finite.float().mean()),
+        "padded_rows_pinned": pinned,
+        "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches_by_path["ens32"]}
+    print(f"# ens32 run: {json.dumps(erun)}", flush=True)
+    print(f"# ens32: {P_ * C_ * MORE / wall:.1f} pulsar-chain-sweeps/s, "
+          f"{1e3 * wall / MORE:.4f} ms/sweep, ESS(log10_A)/s median "
+          f"{erun['ess_log10A_per_s_median']:.1f} min "
+          f"{erun['ess_log10A_per_s_min']:.1f} | {card}", flush=True)
+    if (erun["share_finite"] != 1.0 or not pinned
+            or res.chain.shape != (MORE, P_, C_, ens._ma.nparam)
+            or not np.isfinite(res.chain).all() or res.bchain.size):
+        fail("the ens32 run's chains are not finite light records with "
+             "their padded rows pinned")
+
+    # 10d. the MTM arm: 8 pulsars, the white block under MTM
+    cfg_em = GibbsConfig(
+        model="mixture", vary_df=True, theta_prior="beta").with_adapt(
+        ENS_MTM_SWEEPS, adapt_cov=True).with_mtm(MTM_TRIES, blocks=("white",))
+    ensm = EnsembleGibbs(ens_pulsars(ENS_MTM_PULSARS), cfg_em,
+                         nchains=ENS_MTM_CHAINS, device=dev, record="light")
+    captured_em = capture(["white_mtm_grouped"], run_capture(ensm, 19, 2))
+    (margs,) = captured_em.values()
+    gs, ls = grouped_mtm_sep(margs)
+    grouped_parity("white_mtm_grouped", margs, margs[:5] + (gs, ls)
+                   + margs[7:])
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ensm.sample(niter=ENS_MTM_SWEEPS, seed=1)
+    res = ensm.sample(niter=ENS_MTM_SWEEPS, seed=1, state=ensm.last_state,
+                      start_sweep=ENS_MTM_SWEEPS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    check_launches("ens_mtm", 2 * ENS_MTM_SWEEPS)
+    st = ensm.last_state
+    mfinite = all(bool(torch.isfinite(getattr(st, f)).all())
+                  for f in ("x", "b", "z", "alpha", "theta", "df"))
+    mrun = ens_rep["mtm_run"] = {
+        "pulsars": ENS_MTM_PULSARS, "chains": ENS_MTM_CHAINS,
+        "tries": MTM_TRIES, "sweeps": 2 * ENS_MTM_SWEEPS,
+        "wall_s": t1 - t0,
+        "acc_white": float(res.stats["acc_white"].mean()),
+        "state_finite": mfinite, "launches": launches_by_path["ens_mtm"]}
+    print(f"# ens MTM run: {json.dumps(mrun)}", flush=True)
+    if not mfinite or not np.isfinite(res.chain).all():
+        fail("the ensemble MTM run's chains are not finite")
+    del ensm
+
+    # 10e. timings at the ensemble's shapes and a profile of ens32 sweeps
+    time_captured(captured_e, "ens32")
+    time_captured(captured_em, "ens_mtm")
+    for name in GROUPED:
+        for r in timing[name]:
+            print(f"# {name} {r['shape']} ({r['path']}): {r['ms']:.4f} ms, "
+                  f"ungrouped on as many chains {r['ungrouped_ms']:.4f} ms "
+                  f"(grouped / ungrouped {r['ms'] / r['ungrouped_ms']:.3f}),"
+                  f" {r['ms'] / r['bound_ms']:.1f}x its bound", flush=True)
+    ens_rep["profile"] = profile("ens32", ens, 20, erun["ms_per_sweep"])
+    del ens, captured_e, captured_em
+
     # the redesigned kernels beside the first design and the library call
     # (reported, not gated)
     for name in REDESIGNED:
@@ -1066,8 +1432,8 @@ def main() -> None:
                      f"({lib_ms / r['ms']:.2f}x)" if lib_ms else ""))
 
     # --- the kernels line: one entry per kernel, launches summed over the
-    # four runs (per run in launches_by_path), times the mean over the
-    # call shapes the paths launch (each listed in per_shape)
+    # runs (per run in launches_by_path), times the mean over the call
+    # shapes the paths launch (each listed in per_shape)
     kernels_line = []
     for name, meta in KERNELS.items():
         rows = timing[name]
@@ -1086,8 +1452,9 @@ def main() -> None:
             "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": (None if None in lib_ms else sum(lib_ms) / k),
             "per_shape": [{f: r[f] for f in ("path", "shape", "ms",
-                                             "plain_ms", "bound_ms",
-                                             "library_ms")}
+                                             "ungrouped_ms", "plain_ms",
+                                             "bound_ms", "library_ms")
+                           if f in r}
                           for r in rows]})
     report["timing"] = timing
     report["kernels"] = kernels_line

@@ -29,6 +29,17 @@ draws are a uniform and Gumbel noise the sweep compares against.
 ``jax.random`` streams are not reproduced: the two samplers agree in
 law, not bitwise.
 
+Every sweep draws from the run's generator re-seeded with
+:func:`sweep_key` of ``(seed, sweep index)``, as the JAX backend keys
+each sweep by ``fold_in(key, sweep)``: a sweep's draws depend on neither
+the chunk it falls in nor ``start_sweep``, so N sweeps and N more from
+``last_state`` at ``start_sweep=N`` are the 2N unbroken sweeps.
+
+The stages are written over a leading batch shape: ``(C,)`` chains of
+one model here, ``(P, C)`` pulsars x chains in the ensemble
+(parallel/ensemble.py), whose model tensors carry a leading pulsar axis
+and broadcast against the state as ``(P, 1, ...)``.
+
 Entry points run on the GPU: ``device=None`` means ``"cuda"`` and raises
 when CUDA is absent; pass ``device="cpu"`` to run the kernels' plain
 versions (the tests do).
@@ -76,6 +87,7 @@ from gibbs_student_t_tpu_torch.ops.tnt import (
 )
 from gibbs_student_t_tpu_torch.ops.white_mh import (
     build_white_consts,
+    group_axes,
     mtm_loop,
     white_mh,
     white_mtm,
@@ -101,8 +113,43 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def sweep_key(seed: int, sweep: int) -> int:
+    """The 64-bit generator seed of sweep ``sweep`` of the run ``seed``:
+    the two packed into 64 bits and passed through the splitmix64
+    finalizer, a bijection, so distinct ``(seed, sweep)`` pairs give
+    distinct keys (both must lie in ``[0, 2**32)``). The mixing matters on
+    the CPU, whose Mersenne-Twister generator keeps only the key's low 32
+    bits: there, two pairs share a stream only by a hash collision."""
+    seed, sweep = int(seed), int(sweep)
+    if not (0 <= seed < 1 << 32 and 0 <= sweep < 1 << 32):
+        raise ValueError(f"seed ({seed}) and sweep ({sweep}) must lie in "
+                         f"[0, 2**32)")
+    z = (seed << 32) | sweep
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def _lift(v):
+    """A per-model constant as an operand of per-column ``(..., w)``
+    arithmetic: a number as it is, a ``(P, 1)`` tensor of per-pulsar
+    values as ``(P, 1, 1)``."""
+    return v[..., None] if torch.is_tensor(v) else v
+
+
+def _fill(x0, c):
+    """``c`` broadcast to ``x0``'s shape: a number (one model's constant)
+    or a ``(P, 1)`` tensor of per-pulsar constants."""
+    return c.expand_as(x0) if torch.is_tensor(c) else torch.full_like(
+        x0, float(c))
+
+
 class ChainState(NamedTuple):
-    """Batched sampler state, leading axis = chains."""
+    """Batched sampler state, leading axis = chains (``(P, C)`` leading
+    axes in the ensemble; shapes below are the solo sampler's)."""
 
     x: torch.Tensor             # (C, p) sampled parameters
     b: torch.Tensor             # (C, m) basis coefficients
@@ -253,21 +300,38 @@ class TorchGibbs(SamplerBackend):
                                logdet_static=float(hc.logdet_phi_static),
                                hyp_idx=hc.hyp_idx,
                                fused=len(cols) <= MAX_HYPER_V)
-        # per phi block, its device constant: a const block's phi, a
-        # powerlaw block's log frequencies, an ecorr block's column groups
+        # per phi block, its model constants: a const block's phi, a
+        # powerlaw block's log frequencies, log df and pinned values, an
+        # ecorr block's column groups and pinned values (numbers here;
+        # (P, 1, ...) tensors in the ensemble)
         self._phi_consts = []
         for blk in mm.phi_blocks:
             if isinstance(blk, ConstBlock):
-                const = t(blk.phi)
+                const = {"phi": t(blk.phi)}
             elif isinstance(blk, PowerlawBlock):
-                const = torch.log(t(blk.freqs))
+                const = {"logf": torch.log(t(blk.freqs)),
+                         "logdf": math.log(float(blk.df)),
+                         "log10A": float(blk.const_log10A),
+                         "gamma": float(blk.const_gamma)}
             elif isinstance(blk, EcorrBlock):
-                const = t(blk.col_group, torch.long)
+                const = {"group": t(blk.col_group, torch.long),
+                         "const": [float(c) for c in blk.const]}
             elif isinstance(blk, ImproperBlock):
-                const = None
+                const = {}
             else:
                 raise TypeError(f"unknown phi block {type(blk)}")
             self._phi_consts.append((blk, const))
+        self._efac_c = [float(c) for c in mm.efac_const]
+        self._equad_c = [float(c) for c in mm.equad_const]
+        # the statistical TOA count and the theta prior's pseudo-counts
+        # (numbers here; (P, 1) tensors in the ensemble)
+        self._nstat = float(self._n_real)
+        if config.theta_prior == "beta":
+            self._theta_prior = (self._nstat * config.outlier_mean,
+                                 self._nstat * (1.0 - config.outlier_mean))
+        else:
+            self._theta_prior = (1.0, 1.0)
+        self._batch = (self.nchains,)
         self._pspin = (config.pspin * ma.time_scale
                        if config.pspin is not None else 1.0)
         self._scale_sizes = t(mh.scale_sizes)
@@ -285,19 +349,19 @@ class TorchGibbs(SamplerBackend):
     # ------------------------------------------------------------------
 
     def _pvals(self, x, idxs, consts):
-        """(C, G) parameter-or-constant values per group."""
-        cols = [x[:, i] if i >= 0 else torch.full_like(x[:, 0], float(c))
+        """(..., G) parameter-or-constant values per group."""
+        cols = [x[..., i] if i >= 0 else _fill(x[..., 0], c)
                 for i, c in zip(idxs, consts)]
         return torch.stack(cols, dim=-1)
 
     def _ndiag(self, x):
-        """White-noise variances Nvec0(x) (scaled), (C, p) -> (C, n)."""
+        """White-noise variances Nvec0(x) (scaled), (..., p) -> (..., n)."""
         mm = self._ma
-        ef = self._pvals(x, mm.efac_idx, mm.efac_const)
+        ef = self._pvals(x, mm.efac_idx, self._efac_c)
         nv = ((ef[..., None] ** 2) * self._efac_masks
-              * self._sigma2).sum(-2)
+              * self._sigma2[..., None, :]).sum(-2)
         if len(mm.equad_idx):
-            eq = self._pvals(x, mm.equad_idx, mm.equad_const)
+            eq = self._pvals(x, mm.equad_idx, self._equad_c)
             scaled = 10.0 ** (2.0 * eq) * mm.time_scale ** 2
             nv = nv + (scaled[..., None] * self._equad_masks).sum(-2)
         return nv
@@ -307,33 +371,33 @@ class TorchGibbs(SamplerBackend):
         return nv if self._mask is None else torch.where(self._mask, nv, 1.0)
 
     def _phiinv(self, x):
-        """Prior precision diag phi^-1(x), (C, p) -> (C, m) (scaled; the
-        ``phiinv`` half of models/pta.py ``phiinv_logdet``)."""
-        C = x.shape[0]
+        """Prior precision diag phi^-1(x), (..., p) -> (..., m) (scaled;
+        the ``phiinv`` half of models/pta.py ``phiinv_logdet``)."""
+        batch = x.shape[:-1]
         s2 = self._ma.time_scale ** 2
         pieces = []
-        for blk, const in self._phi_consts:
+        for blk, k in self._phi_consts:
             if isinstance(blk, ImproperBlock):
-                pieces.append(x.new_zeros((C, blk.stop - blk.start)))
+                pieces.append(x.new_zeros(batch + (blk.stop - blk.start,)))
             elif isinstance(blk, ConstBlock):
-                pieces.append((1.0 / const).expand(C, -1))
+                pieces.append((1.0 / k["phi"]).expand(*batch, -1))
             elif isinstance(blk, PowerlawBlock):
-                la = (x[:, blk.idx_log10A] if blk.idx_log10A >= 0
-                      else torch.full_like(x[:, 0], blk.const_log10A))
-                ga = (x[:, blk.idx_gamma] if blk.idx_gamma >= 0
-                      else torch.full_like(x[:, 0], blk.const_gamma))
-                logphi = (2.0 * la[:, None] * LN10
+                la = (x[..., blk.idx_log10A] if blk.idx_log10A >= 0
+                      else _fill(x[..., 0], k["log10A"]))
+                ga = (x[..., blk.idx_gamma] if blk.idx_gamma >= 0
+                      else _fill(x[..., 0], k["gamma"]))
+                logphi = (2.0 * la[..., None] * LN10
                           - np.log(12.0 * np.pi ** 2)
-                          + (ga[:, None] - 3.0) * np.log(FYR)
-                          - ga[:, None] * const
-                          + math.log(float(blk.df)) + np.log(s2))
+                          + (ga[..., None] - 3.0) * np.log(FYR)
+                          - ga[..., None] * k["logf"]
+                          + _lift(k["logdf"]) + np.log(s2))
                 pieces.append(torch.exp(-logphi))
             else:
-                ec = self._pvals(x, blk.idx, blk.const)
+                ec = self._pvals(x, blk.idx, k["const"])
                 pieces.append(torch.exp(-(2.0 * ec * LN10 + np.log(s2))
-                                        [:, const]))
+                                        [..., k["group"]]))
         if not pieces:
-            return x.new_zeros((C, 0))
+            return x.new_zeros(batch + (0,))
         return torch.cat(pieces, dim=-1)
 
     # ------------------------------------------------------------------
@@ -383,25 +447,25 @@ class TorchGibbs(SamplerBackend):
         (C, p, p), the joint direction ``L @ xi`` of population-covariance
         proposals."""
         mh = self.config.mh
-        C, p = self.nchains, self._ma.nparam
+        B, p = self._batch, self._ma.nparam
         dev, f32 = self.device, self.dtype
         sigma = mh.sigma_per_param * len(ind) * jump_scale          # (C,)
-        u = torch.rand((C, nsteps), generator=gen, device=dev, dtype=f32)
+        u = torch.rand((*B, nsteps), generator=gen, device=dev, dtype=f32)
         k = torch.searchsorted(self._scale_cdf, u, right=True)
         scales = self._scale_sizes[k.clamp_(max=len(mh.scale_sizes) - 1)]
-        step = sigma[:, None] * scales                               # (C, S)
+        step = sigma[..., None] * scales                             # (C, S)
         if cov_chol is None:
-            pick = torch.randint(0, len(ind), (C, nsteps), generator=gen,
+            pick = torch.randint(0, len(ind), (*B, nsteps), generator=gen,
                                  device=dev)
-            jumps = torch.randn((C, nsteps), generator=gen, device=dev,
+            jumps = torch.randn((*B, nsteps), generator=gen, device=dev,
                                 dtype=f32) * step
-            dx = torch.zeros((C, nsteps, p), dtype=f32, device=dev)
-            dx.scatter_(2, ind[pick][..., None], jumps[..., None])
+            dx = torch.zeros((*B, nsteps, p), dtype=f32, device=dev)
+            dx.scatter_(-1, ind[pick][..., None], jumps[..., None])
         else:
-            xi = torch.randn((C, nsteps, p), generator=gen, device=dev,
+            xi = torch.randn((*B, nsteps, p), generator=gen, device=dev,
                              dtype=f32)
             dx = step[..., None] * torch.matmul(xi, cov_chol.transpose(-1, -2))
-        logu = torch.log(torch.rand((C, nsteps), generator=gen, device=dev,
+        logu = torch.log(torch.rand((*B, nsteps), generator=gen, device=dev,
                                     dtype=f32))
         return dx, logu
 
@@ -412,15 +476,16 @@ class TorchGibbs(SamplerBackend):
         log-uniform. Returns ``(dx (C, S, K, p), dxr (C, S, K-1, p),
         gumb (C, S, K), logu (C, S))``."""
         K = self.config.mh.mtm_tries
-        C, p = self.nchains, self._ma.nparam
+        B, p = self._batch, self._ma.nparam
         dev, f32 = self.device, self.dtype
         dx, _ = self._mh_draws(gen, ind, nsteps * K, jump_scale, cov_chol)
         dxr, _ = self._mh_draws(gen, ind, nsteps * (K - 1), jump_scale,
                                 cov_chol)
-        u = torch.rand((C, nsteps, K), generator=gen, device=dev, dtype=f32)
-        logu = torch.log(torch.rand((C, nsteps), generator=gen, device=dev,
+        u = torch.rand((*B, nsteps, K), generator=gen, device=dev, dtype=f32)
+        logu = torch.log(torch.rand((*B, nsteps), generator=gen, device=dev,
                                     dtype=f32))
-        return (dx.reshape(C, nsteps, K, p), dxr.reshape(C, nsteps, K - 1, p),
+        return (dx.reshape(*B, nsteps, K, p),
+                dxr.reshape(*B, nsteps, K - 1, p),
                 -torch.log(-torch.log(u)), logu)
 
     def _block_draws(self, gen, blk: str, ind, nsteps: int, jump_scale,
@@ -432,31 +497,32 @@ class TorchGibbs(SamplerBackend):
                                                   jump_scale, cov_chol)
             return dx, logu, dxr, gumb
         dx, logu = self._mh_draws(gen, ind, nsteps, jump_scale, cov_chol)
-        empty = dx.new_zeros((self.nchains, 0))
+        empty = dx.new_zeros((*self._batch, 0))
         return dx, logu, empty, empty
 
     def _draw(self, gen, state: ChainState) -> SweepDraws:
         """All of one sweep's random numbers (see the module docstring)."""
         cfg, mh = self.config, self.config.mh
-        C, n, m = self.nchains, self._n, self._ma.m
+        B, n, m = self._batch, self._n, self._ma.m
         dev, f32 = self.device, self.dtype
         cov = state.mh_cov_chol if mh.adapt_cov else None
         scale = torch.exp(state.mh_log_scale)
         dx_w, logu_w, dxr_w, gumb_w = self._block_draws(
-            gen, "white", self._white_idx, mh.n_white_steps, scale[:, 0],
-            None if cov is None else cov[:, 0])
+            gen, "white", self._white_idx, mh.n_white_steps, scale[..., 0],
+            None if cov is None else cov[..., 0, :, :])
         dx_h, logu_h, dxr_h, gumb_h = self._block_draws(
-            gen, "hyper", self._hyper_idx, mh.n_hyper_steps, scale[:, 1],
-            None if cov is None else cov[:, 1])
-        xi = torch.randn((C, m), generator=gen, device=dev, dtype=f32)
+            gen, "hyper", self._hyper_idx, mh.n_hyper_steps, scale[..., 1],
+            None if cov is None else cov[..., 1, :, :])
+        xi = torch.randn((*B, m), generator=gen, device=dev, dtype=f32)
         a, b = self._theta_shapes(state.z)
         g_theta = torch._standard_gamma(torch.stack([a, b], -1),
                                         generator=gen)
-        u_z = torch.rand((C, n), generator=gen, device=dev, dtype=f32)
+        u_z = torch.rand((*B, n), generator=gen, device=dev, dtype=f32)
         shape = torch.stack([state.df, state.df + 1.0], -1) / 2.0
         g_alpha = torch._standard_gamma(
-            shape[..., None].expand(C, 2, n).contiguous(), generator=gen)
-        ug = torch.rand((C, cfg.df_max), generator=gen, device=dev, dtype=f32)
+            shape[..., None].expand(*B, 2, n).contiguous(), generator=gen)
+        ug = torch.rand((*B, cfg.df_max), generator=gen, device=dev,
+                        dtype=f32)
         gumbel = -torch.log(-torch.log(ug))
         return SweepDraws(dx_w, logu_w, dx_h, logu_h, xi, g_theta, u_z,
                           g_alpha, gumbel, dxr_w, gumb_w, dxr_h, gumb_h)
@@ -464,42 +530,44 @@ class TorchGibbs(SamplerBackend):
     def _theta_shapes(self, z):
         """The Beta(a, b) shapes of the outlier-fraction conditional
         (reference gibbs.py:185-198) at the current indicators."""
-        cfg, n = self.config, float(self._n_real)
-        if cfg.theta_prior == "beta":
-            mk, k1mm = n * cfg.outlier_mean, n * (1.0 - cfg.outlier_mean)
-        else:
-            mk = k1mm = 1.0
+        mk, k1mm = self._theta_prior
         sz = z.sum(-1)
-        return sz + mk, n - sz + k1mm
+        return sz + mk, self._nstat - sz + k1mm
 
     def _prop_cov_update(self, state: ChainState) -> ChainState:
         """Re-estimate each block's proposal Cholesky from the chain
         population (shrunk toward its diagonal plus a tiny ridge); a
-        non-finite factor keeps the previous one."""
+        non-finite factor keeps the previous one. In the ensemble each
+        pulsar's population is its own (the JAX ensemble vmaps this over
+        pulsars)."""
         mh = self.config.mh
         x = state.x
-        C, p = x.shape
-        xm = x - x.mean(0)
-        cov = (xm.T @ xm) / max(C - 1, 1)
+        C, p = x.shape[-2:]
+        xm = x - x.mean(-2, keepdim=True)
+        cov = (xm.transpose(-1, -2) @ xm) / max(C - 1, 1)
         new = []
         for k, ind in enumerate((self._ma.white_indices,
                                  self._ma.hyper_indices)):
-            prev = state.mh_cov_chol[0, k]
+            prev = state.mh_cov_chol[..., 0, k, :, :]
             if len(ind) == 0:
                 new.append(prev)
                 continue
             it = torch.as_tensor(ind, device=x.device)
-            sub = cov[it][:, it]
-            dsub = torch.diag(torch.diagonal(sub))
+            sub = cov[..., it, :][..., it]
+            dsub = torch.diag_embed(torch.diagonal(sub, dim1=-2, dim2=-1))
             sub = (1.0 - mh.cov_shrinkage) * sub + mh.cov_shrinkage * dsub
-            sub = sub + (1e-8 * torch.diagonal(sub).mean()
+            ridge = torch.diagonal(sub, dim1=-2, dim2=-1).mean(-1)
+            sub = sub + (1e-8 * ridge[..., None, None]
                          * torch.eye(len(ind), dtype=x.dtype, device=x.device))
             L, _ = torch.linalg.cholesky_ex(sub)
-            Lk = torch.zeros((p, p), dtype=x.dtype, device=x.device)
-            Lk[it[:, None], it[None, :]] = L
-            new.append(torch.where(torch.isfinite(Lk).all(), Lk, prev))
-        stacked = torch.stack(new).expand(C, 2, p, p).clone()
-        return state._replace(mh_cov_chol=stacked)
+            Lk = torch.zeros(L.shape[:-2] + (p, p), dtype=x.dtype,
+                             device=x.device)
+            Lk[..., it[:, None], it[None, :]] = L
+            ok = torch.isfinite(Lk).all(-1).all(-1)
+            new.append(torch.where(ok[..., None, None], Lk, prev))
+        stacked = torch.stack(new, -3)
+        return state._replace(mh_cov_chol=stacked[..., None, :, :, :].expand(
+            *x.shape[:-1], 2, p, p).clone())
 
     # ------------------------------------------------------------------
     # the sweep
@@ -513,8 +581,8 @@ class TorchGibbs(SamplerBackend):
         cfg = self.config
         mm = self._ma
         mask = self._mask
-        C, n, m = self.nchains, self._n, mm.m
-        n_stat = float(self._n_real)
+        m = mm.m
+        n_stat = _lift(self._nstat)
         x, b, z, alpha, theta, df = (state.x, state.b, state.z, state.alpha,
                                      state.theta, state.df)
         zeros = torch.zeros_like(state.theta)
@@ -548,13 +616,13 @@ class TorchGibbs(SamplerBackend):
         if self._schur is not None and hp is not None:
             s_i, v_i = self._s_i, self._v_i
             ns = len(self._schur[0])
-            phiinv_s = self._phiinv(x)[:, s_i]   # x-independent
+            phiinv_s = self._phiinv(x)[..., s_i]   # x-independent
             TNT_s = TNT.index_select(-2, s_i)
             A = TNT_s.index_select(-1, s_i) + torch.diag_embed(phiinv_s)
             Bm = TNT_s.index_select(-1, v_i)
             Cv = TNT.index_select(-2, v_i).index_select(-1, v_i)
             S0, rt, quad_s, logdetA, (La, isd_a, U_B, u_s) = schur_eliminate(
-                A, Bm, Cv, d[:, s_i], d[:, v_i], cfg.jitter,
+                A, Bm, Cv, d[..., s_i], d[..., v_i], cfg.jitter,
                 return_factor=True)
             base = (const_white + 0.5 * (quad_s - logdetA)
                     - 0.5 * hp["logdet_static"])
@@ -563,14 +631,15 @@ class TorchGibbs(SamplerBackend):
             # block S_v = S0 + diag(phiinv_v) (escalating jitters) and
             # assemble the permuted full factor from the A-block pieces
             phiinv = self._phiinv(x)
-            Sv = S0 + torch.diag_embed(phiinv[:, v_i])
-            y_v, isd_v, _ = robust_precond_draw(Sv, rt, draws.xi[:, ns:],
+            Sv = S0 + torch.diag_embed(phiinv[..., v_i])
+            y_v, isd_v, _ = robust_precond_draw(Sv, rt, draws.xi[..., ns:],
                                                 jitters=jits)
             wty = torch.matmul(U_B, (isd_v * y_v)[..., None])[..., 0]
-            y_s = backward_solve(La, u_s + draws.xi[:, :ns] - wty)
-            b = torch.empty((C, m), dtype=x.dtype, device=x.device)
-            b[:, s_i] = y_s * isd_a
-            b[:, v_i] = y_v * isd_v
+            y_s = backward_solve(La, u_s + draws.xi[..., :ns] - wty)
+            b = torch.empty(x.shape[:-1] + (m,), dtype=x.dtype,
+                            device=x.device)
+            b[..., s_i] = y_s * isd_a
+            b[..., v_i] = y_v * isd_v
         else:
             if hp is not None:
                 base = const_white - 0.5 * hp["logdet_static"]
@@ -587,7 +656,7 @@ class TorchGibbs(SamplerBackend):
 
         # --- outlier fraction theta ~ Beta (reference gibbs.py:185-198)
         if cfg.is_outlier_model:
-            ga, gb = draws.g_theta[:, 0], draws.g_theta[:, 1]
+            ga, gb = draws.g_theta[..., 0], draws.g_theta[..., 1]
             theta = ga / (ga + gb)
 
         # --- outlier indicators z ~ Bernoulli (gibbs.py:201-226) --------
@@ -595,10 +664,10 @@ class TorchGibbs(SamplerBackend):
         if cfg.is_outlier_model:
             p_in = _norm_pdf(resid, nvec0)
             if cfg.model == "vvh17":
-                top = (theta / self._pspin)[:, None].expand_as(resid)
+                top = (theta / self._pspin)[..., None].expand_as(resid)
             else:
-                top = theta[:, None] * _norm_pdf(resid, alpha * nvec0)
-            bot = top + (1.0 - theta[:, None]) * p_in
+                top = theta[..., None] * _norm_pdf(resid, alpha * nvec0)
+            bot = top + (1.0 - theta[..., None]) * p_in
             q = top / bot
             q = torch.where(torch.isnan(q), 1.0, q)
             if mask is not None:
@@ -608,12 +677,14 @@ class TorchGibbs(SamplerBackend):
 
         # --- auxiliary scales alpha (gibbs.py:229-242) -------------------
         if cfg.vary_alpha:
-            top = (resid * resid * z / nvec0 + df[:, None]) / 2.0
-            g = torch.where(z > 0.5, draws.g_alpha[:, 1], draws.g_alpha[:, 0])
+            top = (resid * resid * z / nvec0 + df[..., None]) / 2.0
+            g = torch.where(z > 0.5, draws.g_alpha[..., 1, :],
+                            draws.g_alpha[..., 0, :])
             alpha_new = top / g
             if mask is not None:
                 alpha_new = torch.where(mask, alpha_new, 1.0)
-            alpha = torch.where((z.sum(-1) >= 1.0)[:, None], alpha_new, alpha)
+            alpha = torch.where((z.sum(-1) >= 1.0)[..., None], alpha_new,
+                                alpha)
 
         # --- degrees of freedom on the grid (gibbs.py:244-259) -----------
         if cfg.vary_df:
@@ -622,7 +693,7 @@ class TorchGibbs(SamplerBackend):
             if mask is not None:
                 terms = torch.where(mask, terms, 0.0)
             s = terms.sum(-1)
-            logp = (-(grid / 2.0) * s[:, None]
+            logp = (-(grid / 2.0) * s[..., None]
                     + n_stat * (grid / 2.0) * torch.log(grid / 2.0)
                     - n_stat * torch.special.gammaln(grid / 2.0))
             df = grid[torch.argmax(logp + draws.gumbel_df, dim=-1)]
@@ -653,11 +724,16 @@ class TorchGibbs(SamplerBackend):
         hp, cfg = self._hyper, self.config
         dS0 = torch.diagonal(Sh, dim1=-2, dim2=-1) + hp["phiinv_static"]
         if self._mtm["hyper"]:
+            # the constant tables broadcast over (chains, tries)
+            K, sel, specs = (group_axes(hp["K"], 2, 2),
+                             group_axes(hp["sel"], 1, 2),
+                             group_axes(hp["specs"], 2, 2))
+
             def weight(q):
                 ll, lp = hyper_ll_lp(
-                    q, Sh[:, None], dS0[:, None], rh[:, None], base[:, None],
-                    hp["K"], hp["sel"], hp["specs"], hp["hyp_idx"],
-                    cfg.jitter, factor=chol_fused)
+                    q, Sh[..., None, :, :], dS0[..., None, :],
+                    rh[..., None, :], base[..., None], K, sel, specs,
+                    hp["hyp_idx"], cfg.jitter, factor=chol_fused)
                 return ll + lp
 
             return mtm_loop(weight, x, draws.dx_h, draws.dxr_h, draws.gumb_h,
@@ -683,13 +759,27 @@ class TorchGibbs(SamplerBackend):
         Records stay on the device for a chunk of ``chunk_size`` sweeps
         and then move to the host. With population-covariance proposals
         the proposal factors are re-estimated at chunk boundaries while
-        the sweep index is below ``adapt_until``."""
-        if niter < 1:
-            raise ValueError(f"niter must be >= 1, got {niter}")
+        the sweep index is below ``adapt_until``. Sweep ``i`` draws from
+        the generator seeded with ``sweep_key(seed, i)``, so a
+        run resumed from ``last_state`` at ``start_sweep`` continues the
+        unbroken run bitwise when both cut their chunks at the same
+        sweeps."""
         if state is None:
             state = self.init_state(x0, seed=seed)
+        cols = self._run(niter, seed, state, start_sweep)
+        for f in ("z", "alpha", "pout"):
+            if f in cols:
+                cols[f] = cols[f][..., :self._n_real]
+        return self._result(cols)
+
+    def _run(self, niter: int, seed: int, state: ChainState,
+             start_sweep: int) -> dict:
+        """The chunked loop of :meth:`sample` from ``state``: the recorded
+        fields as host arrays ``(niter, *batch, ...)``; ``last_state`` is
+        set."""
+        if niter < 1:
+            raise ValueError(f"niter must be >= 1, got {niter}")
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed) * 1000003 + int(start_sweep))
         mh = self.config.mh
         fields = _RECORD_FIELDS if self.record == "full" else _LIGHT_FIELDS
         host = {f: [] for f in fields}
@@ -703,16 +793,17 @@ class TorchGibbs(SamplerBackend):
             for i in range(off, off + length):
                 for f in fields:
                     recs[f].append(getattr(state, f))
-                state = self._sweep(state, self._draw(gen, state), sweep=i)
+                draws = self._draw(gen.manual_seed(sweep_key(seed, i)),
+                                   state)
+                state = self._sweep(state, draws, sweep=i)
             for f in fields:
                 host[f].append(torch.stack(recs[f]).cpu().numpy())
             done += length
         self.last_state = state
-        cols = {f: np.concatenate(v) for f, v in host.items()}
+        return {f: np.concatenate(v) for f, v in host.items()}
+
+    def _result(self, cols: dict) -> ChainResult:
         empty = np.zeros((0,), np.float32)
-        for f in ("z", "alpha", "pout"):
-            if f in cols:
-                cols[f] = cols[f][..., :self._n_real]
         return ChainResult(
             chain=cols["x"], bchain=cols.get("b", empty),
             zchain=cols.get("z", empty), thetachain=cols["theta"],

@@ -9,6 +9,10 @@ feed both packages the same model and state::
     fields = {f.name: getattr(ma, f.name) for f in dataclasses.fields(ma)}
     fields["phi_blocks"] = [dataclasses.asdict(b) for b in ma.phi_blocks]
     ma_t = model_arrays_from_fields(fields)
+
+A stacked ensemble model (``parallel.ensemble.stack_model_arrays`` of
+either package, every data field with a leading pulsar axis) and an
+ensemble state with leading ``(P, C)`` axes cross the same way.
 """
 
 from __future__ import annotations
@@ -27,14 +31,20 @@ from gibbs_student_t_tpu_torch.models.pta import (
 )
 
 
+def _num(v):
+    """A block's scalar data field as a float, or, stacked over pulsars,
+    as an array."""
+    return float(v) if np.ndim(v) == 0 else np.array(v)
+
+
 def _phi_block(d: Mapping):
     """One frozen phi block from its field dict; the kind is read off the
     fields each block type alone carries."""
     if "freqs" in d:
         return PowerlawBlock(int(d["start"]), int(d["stop"]),
-                             np.asarray(d["freqs"]), float(d["df"]),
-                             int(d["idx_log10A"]), float(d["const_log10A"]),
-                             int(d["idx_gamma"]), float(d["const_gamma"]))
+                             np.array(d["freqs"]), _num(d["df"]),
+                             int(d["idx_log10A"]), _num(d["const_log10A"]),
+                             int(d["idx_gamma"]), _num(d["const_gamma"]))
     if "col_group" in d:
         return EcorrBlock(int(d["start"]), int(d["stop"]),
                           tuple(int(g) for g in d["col_group"]),
@@ -74,10 +84,11 @@ def model_arrays_from_fields(fields: Mapping) -> ModelArrays:
 def chain_state_from_arrays(arrays: Mapping, device=None,
                             dtype=torch.float32):
     """The port's batched ``ChainState`` from a mapping of numpy arrays
-    with a leading chain axis (a JAX ``ChainState._asdict()`` after
-    ``jax.device_get``). Missing adaptation fields get their defaults:
-    zero log-scales and an empty covariance factor. ``device=None`` means
-    ``"cuda"`` and raises when CUDA is absent, as ``TorchGibbs`` does."""
+    with a leading chain axis, or ``(P, C)`` axes for an ensemble (a JAX
+    ``ChainState._asdict()`` after ``jax.device_get``). Missing adaptation
+    fields get their defaults: zero log-scales and an empty covariance
+    factor. ``device=None`` means ``"cuda"`` and raises when CUDA is
+    absent, as ``TorchGibbs`` does."""
     from gibbs_student_t_tpu_torch.backends.torch_backend import (
         ChainState,
         resolve_device,
@@ -88,7 +99,7 @@ def chain_state_from_arrays(arrays: Mapping, device=None,
     def t(a):
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
-    C = np.asarray(arrays["x"]).shape[0]
+    batch = np.asarray(arrays["x"]).shape[:-1]
     ls = arrays.get("mh_log_scale")
     cov = arrays.get("mh_cov_chol")
     return ChainState(
@@ -97,8 +108,10 @@ def chain_state_from_arrays(arrays: Mapping, device=None,
         df=t(arrays["df"]), pout=t(arrays["pout"]),
         acc_white=t(arrays["acc_white"]), acc_hyper=t(arrays["acc_hyper"]),
         # an unbatched (2,) default (the JAX NamedTuple's) is per chain
-        mh_log_scale=(t(np.broadcast_to(ls, (C, 2))) if ls is not None
-                      else torch.zeros((C, 2), dtype=dtype, device=device)),
+        mh_log_scale=(t(np.broadcast_to(ls, (*batch, 2))) if ls is not None
+                      else torch.zeros((*batch, 2), dtype=dtype,
+                                       device=device)),
         mh_cov_chol=(t(cov) if cov is not None and np.size(cov)
-                     else torch.zeros((C, 0), dtype=dtype, device=device)),
+                     else torch.zeros((*batch, 0), dtype=dtype,
+                                      device=device)),
     )

@@ -32,13 +32,24 @@
 // right-hand-side row) as it starts the entry's column, and writes only
 // the factor. The per-column log phi / exp / rsqrt / log work is two
 // columns a lane, the three sums are warp shuffles, lane 0 decides the
-// accept and a shuffle broadcasts it. K, sel and the prior table are
-// staged once per block; after that barrier the kernel has none.
+// accept and a shuffle broadcasts it. Each warp stages its chain's K, sel
+// and prior table beside its own buffers ((1 + nk) v + v + 3p floats, under
+// 1 KB at v = 60), so the kernel has no block barrier at all.
 // For 64 < v <= 160 a block still owns a chain, with gst_chol_fwd_block
 // (a warp per row of the update, one barrier per column) and a row-wise
 // build of A. Two v x v buffers bound v: MAX_HYPER_V = 160 (~213 KB of the
 // 227 KB a block may use); above it the sampler takes the closure path
 // through the chol kernel.
+//
+// Grouped form. The kernel takes the constants of G models (K (G, 1+nk, v),
+// sel (G, v), specs (G, 3, p)) and Cg chains per group, group-major: chain
+// c reads its group's at g = c / Cg. This replaces hyper_mh_fused at G > 1
+// (pallas_hyper.py:371, the multi-pulsar ensemble's per-pulsar constants);
+// a single model passes Cg = C and every chain reads group 0. In the warp
+// form a block's warps may hold chains of two or more groups (Cg need not
+// be a multiple of the chains per block), which is why each warp stages its
+// own chain's constants. What bounds the grouped form is what bounds the
+// single one: one warp's latency through S + 1 factorizations.
 #include "gst_common.cuh"
 
 #define GST_HYPER_MAXK 16
@@ -60,9 +71,15 @@ __host__ __device__ inline int hyper_warp_floats(int v, int p) {
 }
 
 struct HyperWarp {
-  const float *K, *sel, *sp;     // per block
-  float *S0p, *Lp, *dS0, *rt, *isd, *sx, *sq;   // per warp
+  const float *K, *sel, *sp;     // the chain's group's constants
+  float *S0p, *Lp, *dS0, *rt, *isd, *sx, *sq;
 };
+
+// Floats of shared memory a warp's copy of its group's constants takes: K,
+// sel and the prior table, rounded to keep the next buffer 16-byte aligned.
+__host__ __device__ inline int hyper_const_floats(int v, int p, int nk) {
+  return ((2 + nk) * v + 3 * p + 3) & ~3;
+}
 
 // Entry (i, j) of a proposal's equilibrated matrix, and its right-hand side
 // in row v. Branchless, and every load lands inside the chain's shared
@@ -122,25 +139,26 @@ hyper_mh_warp_kernel(const float* __restrict__ x,
                      const float* __restrict__ sel,
                      const float* __restrict__ specs, GstHypIdx hi,
                      float* __restrict__ xo, float* __restrict__ acc, int C,
-                     int v, int p, int S, float jitter) {
+                     int Cg, int v, int p, int S, float jitter) {
   extern __shared__ float sm[];
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int nconst = ((2 + hi.n) * v + 3 * p + 3) & ~3;
-  float* Ks = sm;                          // (1 + nk) * v
-  float* sels = Ks + (1 + hi.n) * v;       // v
-  float* sps = sels + v;                   // 3 * p
-  for (int i = tid; i < (1 + hi.n) * v; i += nt) Ks[i] = K[i];
-  for (int i = tid; i < v; i += nt) sels[i] = sel[i];
-  for (int i = tid; i < 3 * p; i += nt) sps[i] = specs[i];
-  __syncthreads();                         // the kernel's only block barrier
   const size_t c = (size_t)blockIdx.x * (nt >> 5) + warp;
   if (c >= (size_t)C) return;
+  const size_t g = c / Cg;
+  const int nconst = hyper_const_floats(v, p, hi.n);
+  float* Ks = sm + warp * (nconst + hyper_warp_floats(v, p));  // (1 + nk) v
+  float* sels = Ks + (1 + hi.n) * v;                           // v
+  float* sps = sels + v;                                       // 3 * p
+  for (int i = lane; i < (1 + hi.n) * v; i += 32)
+    Ks[i] = K[g * (1 + hi.n) * v + i];
+  for (int i = lane; i < v; i += 32) sels[i] = sel[g * v + i];
+  for (int i = lane; i < 3 * p; i += 32) sps[i] = specs[g * 3 * p + i];
   HyperWarp w;
   w.K = Ks;
   w.sel = sels;
   w.sp = sps;
-  w.S0p = sm + nconst + warp * hyper_warp_floats(v, p);
+  w.S0p = Ks + nconst;
   w.Lp = w.S0p + gst_tri(v);
   w.dS0 = w.Lp + gst_warp_floats(v);
   w.rt = w.dS0 + v;
@@ -234,9 +252,13 @@ hyper_mh_block_kernel(const float* __restrict__ x,
                       const float* __restrict__ K,
                       const float* __restrict__ sel,
                       const float* __restrict__ specs, GstHypIdx hi,
-                      float* __restrict__ xo, float* __restrict__ acc, int v,
-                      int lda, int p, int S, float jitter) {
+                      float* __restrict__ xo, float* __restrict__ acc, int Cg,
+                      int v, int lda, int p, int S, float jitter) {
   extern __shared__ float sm[];
+  const size_t g = (size_t)blockIdx.x / Cg;
+  K += g * (1 + hi.n) * v;
+  sel += g * v;
+  specs += g * 3 * p;
   HyperSmem s;
   s.S0 = sm;                     // v * v (lower triangle used)
   s.A = s.S0 + v * v;            // v * lda
@@ -313,16 +335,15 @@ cudaError_t launch_warp(const float* x, const float* S0, const float* dS0,
                         const float* rt, const float* base, const float* dx,
                         const float* logu, const float* K, const float* sel,
                         const float* specs, const GstHypIdx& hi, float* xo,
-                        float* acc, int C, int v, int p, int S, float jitter,
-                        int per_block, cudaStream_t stream) {
-  const int nconst = ((2 + hi.n) * v + 3 * p + 3) & ~3;
-  const size_t smem = sizeof(float) * ((size_t)nconst + (size_t)per_block *
-                                       hyper_warp_floats(v, p));
+                        float* acc, int C, int Cg, int v, int p, int S,
+                        float jitter, int per_block, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)per_block *
+                      (hyper_const_floats(v, p, hi.n) + hyper_warp_floats(v, p));
   cudaError_t e = gst_smem_optin(hyper_mh_warp_kernel<NR, VW>, smem);
   if (e != cudaSuccess) return e;
   const int blocks = (C + per_block - 1) / per_block;
   hyper_mh_warp_kernel<NR, VW><<<blocks, 32 * per_block, smem, stream>>>(
-      GST_HYPER_ARGS, C, v, p, S, jitter);
+      GST_HYPER_ARGS, C, Cg, v, p, S, jitter);
   return cudaGetLastError();
 }
 
@@ -331,15 +352,15 @@ cudaError_t launch_block(const float* x, const float* S0, const float* dS0,
                          const float* rt, const float* base, const float* dx,
                          const float* logu, const float* K, const float* sel,
                          const float* specs, const GstHypIdx& hi, float* xo,
-                         float* acc, int C, int v, int p, int S, float jitter,
-                         cudaStream_t stream) {
+                         float* acc, int C, int Cg, int v, int p, int S,
+                         float jitter, cudaStream_t stream) {
   const int lda = v | 1;
   const size_t smem = sizeof(float) * ((size_t)v * v + (size_t)v * lda +
                                        (size_t)(10 + hi.n) * v + 5 * p);
   cudaError_t e = gst_smem_optin(hyper_mh_block_kernel<VW>, smem);
   if (e != cudaSuccess) return e;
-  hyper_mh_block_kernel<VW><<<C, 256, smem, stream>>>(GST_HYPER_ARGS, v, lda,
-                                                      p, S, jitter);
+  hyper_mh_block_kernel<VW><<<C, 256, smem, stream>>>(GST_HYPER_ARGS, Cg, v,
+                                                      lda, p, S, jitter);
   return cudaGetLastError();
 }
 
@@ -348,6 +369,8 @@ cudaError_t launch_block(const float* x, const float* S0, const float* dS0,
 extern "C" {
 
 // hyp_host: nk ints in host memory, the x-indices the K rows multiply.
+// C chains in groups of Cg (C a multiple of Cg): K (C / Cg, 1 + nk, v),
+// sel (C / Cg, v), specs (C / Cg, 3, p).
 // per_block > 0: the warp form with that many chains (warps) per block,
 // 1 <= per_block <= 8, v <= 64. per_block == 0: the block form, one
 // 256-thread block per chain, v <= 160.
@@ -355,9 +378,10 @@ int gst_hyper_mh(const float* x, const float* S0, const float* dS0,
                  const float* rt, const float* base, const float* dx,
                  const float* logu, const float* K, const float* sel,
                  const float* specs, const int* hyp_host, int nk, float* xo,
-                 float* acc, int C, int v, int p, int S, float jitter,
+                 float* acc, int C, int Cg, int v, int p, int S, float jitter,
                  int per_block, void* stream) {
-  if (nk > GST_HYPER_MAXK || v < 1 || per_block < 0 || per_block > 8)
+  if (nk > GST_HYPER_MAXK || v < 1 || per_block < 0 || per_block > 8 ||
+      Cg < 1 || C % Cg)
     return (int)cudaErrorInvalidValue;
   GstHypIdx hi;
   hi.n = nk;
@@ -367,7 +391,7 @@ int gst_hyper_mh(const float* x, const float* S0, const float* dS0,
     if (v > GST_WARP_MAX_M) return (int)cudaErrorInvalidValue;
     const bool vec = ((v * v) & 3) == 0 && gst_aligned16(S0);
 #define GST_HYPER_WARP(NR, VW)                                                \
-  launch_warp<NR, VW>(GST_HYPER_ARGS, C, v, p, S, jitter, per_block, st)
+  launch_warp<NR, VW>(GST_HYPER_ARGS, C, Cg, v, p, S, jitter, per_block, st)
     cudaError_t e;
     if (v < 32)
       e = vec ? GST_HYPER_WARP(1, 4) : GST_HYPER_WARP(1, 1);
@@ -380,8 +404,10 @@ int gst_hyper_mh(const float* x, const float* S0, const float* dS0,
   }
   if (v > GST_BLOCK_MAX_M) return (int)cudaErrorInvalidValue;
   const bool vec = (v & 3) == 0 && gst_aligned16(S0);
-  return (int)(vec ? launch_block<4>(GST_HYPER_ARGS, C, v, p, S, jitter, st)
-                   : launch_block<1>(GST_HYPER_ARGS, C, v, p, S, jitter, st));
+  return (int)(vec ? launch_block<4>(GST_HYPER_ARGS, C, Cg, v, p, S, jitter,
+                                     st)
+                   : launch_block<1>(GST_HYPER_ARGS, C, Cg, v, p, S, jitter,
+                                     st));
 }
 
 }  // extern "C"

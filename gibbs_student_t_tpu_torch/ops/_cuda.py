@@ -44,11 +44,11 @@ _SIGNATURES = {
     "gst_chol_fused": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "gst_tri_solve_T": ([_P, _P, _P, _I, _I, _P], _I),
     "gst_white_mh": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
-                      _I, _I, _I, _I, _I, _P], _I),
+                      _I, _I, _I, _I, _I, _I, _P], _I),
     "gst_hyper_mh": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                      _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
+                      _P, _P, _I, _I, _I, _I, _I, _F, _I, _P], _I),
     "gst_white_mtm": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _P], _I),
+                       _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "gst_white_staged": ([_I, _I, _I], _I),
     "gst_tnt_batched": ([_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
                         _I),

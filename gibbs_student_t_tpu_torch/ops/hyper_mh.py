@@ -19,8 +19,8 @@ memory as its packed lower triangle for the whole block of steps, a
 proposal's equilibrated matrix is never built (the recurrence,
 ``csrc/gst_common.cuh gst_chol_fwd_warp``, forms each entry as it starts
 the entry's column and writes only the factor), the sums are warp
-shuffles, and after the constants are staged once per block the kernel has
-no block barrier. Larger blocks, up to ``MAX_HYPER_V`` (two v x v float
+shuffles, each warp stages its chain's constants, and the kernel has no
+block barrier. Larger blocks, up to ``MAX_HYPER_V`` (two v x v float
 buffers per thread block), keep a block per chain with one barrier per
 column; beyond that the sampler takes the closure path,
 :func:`hyper_mh_loop` with the ``chol_fused`` kernel as its factorization.
@@ -30,6 +30,15 @@ Every varying phi block's log-precision is affine in the sampled hypers
 (powerlaw in log10_A and gamma, ecorr in each log10_ecorr), so a
 proposal's phi is ``log phi = K0 + sum_k K_k x[hyp_idx[k]]`` over
 constant rows (:func:`build_hyper_consts`).
+
+The wrapper takes one model's constants (``K (1 + nk, v)``, ``sel (v,)``,
+``specs (3, p)``) or, in grouped form, G models' (``(G, 1 + nk, v)``,
+``(G, v)``, ``(G, 3, p)``) with the chains as ``(G, C, ...)``: the
+multi-pulsar ensemble's per-pulsar constants (replacing
+``hyper_mh_fused`` at G > 1). A grouped launch is the same kernel over the
+G x C chains, each reading its group's constants, and counts on
+``hyper_mh.launches_grouped``; the plain version takes the group axis as
+a batch axis.
 """
 
 from __future__ import annotations
@@ -53,7 +62,11 @@ from gibbs_student_t_tpu_torch.ops.chol import (
     check_per_block,
     chol_fused_plain,
 )
-from gibbs_student_t_tpu_torch.ops.white_mh import lnprior_sum, mh_loop
+from gibbs_student_t_tpu_torch.ops.white_mh import (
+    group_axes,
+    lnprior_sum,
+    mh_loop,
+)
 
 LN10 = float(np.log(10.0))
 
@@ -176,13 +189,14 @@ def build_hyper_consts(ma, cols) -> HyperConsts:
 def hyper_ll_lp(q, S0, dS0, rt, base, K, sel, specs, hyp_idx,
                 jitter: float, factor=chol_fused_plain):
     """(ll, lp) of proposals ``q (C, p)``: the marginalized likelihood on
-    the matrix block ``S0`` (non-finite -> -inf) and the full prior.
+    the matrix block ``S0`` (non-finite -> -inf) and the full prior; the
+    constant tables broadcast against ``q``'s leading axes.
     ``factor(S, rhs) -> (L, logdet, u)`` factors the equilibrated matrix."""
     v = S0.shape[-1]
     eye = torch.eye(v, dtype=torch.bool, device=S0.device)
-    lph = K[0]
+    lph = K[..., 0, :]
     for k, idx in enumerate(hyp_idx):
-        lph = lph + K[1 + k] * q[..., idx:idx + 1]
+        lph = lph + K[..., 1 + k, :] * q[..., idx:idx + 1]
     phiinv = sel * torch.exp(-lph)
     d = dS0 + phiinv
     isd = torch.rsqrt(d)
@@ -201,10 +215,13 @@ def hyper_mh_loop(x, S0, dS0, rt, base, dx, logu, K, sel, specs, hyp_idx,
     """The hyper MH block over precomputed draws in PyTorch: ``x (C, p)``,
     ``S0 (C, v, v)``, ``dS0/rt (C, v)``, ``base (C,)``, ``dx (C, S, p)``,
     ``logu (C, S)``; constants ``K (1+nk, v)``, ``sel (v,)``,
-    ``specs (3, p)``. ``factor`` factors each proposal's equilibrated
-    matrix: the plain recurrence by default (the kernel's plain version),
-    the ``chol_fused`` kernel on the closure path. Returns
-    ``(x_new, acc_rate (C,))``."""
+    ``specs (3, p)``, or grouped, chains ``(G, C, ...)`` with ``K
+    (G, 1+nk, v)``, ``sel (G, v)``, ``specs (G, 3, p)``. ``factor`` factors
+    each proposal's equilibrated matrix: the plain recurrence by default
+    (the kernel's plain version), the ``chol_fused`` kernel on the closure
+    path. Returns ``(x_new, acc_rate (C,))``."""
+    K, sel, specs = (group_axes(K, 2, 1), group_axes(sel, 1, 1),
+                     group_axes(specs, 2, 1))
     return mh_loop(
         lambda q: hyper_ll_lp(q, S0, dS0, rt, base, K, sel, specs, hyp_idx,
                               jitter, factor), x, dx, logu)
@@ -215,22 +232,25 @@ def hyper_mh(x, S0, dS0, rt, base, dx, logu, K, sel, specs, hyp_idx,
     """``(x_new, acc_rate)`` for the whole hyper MH block, one launch on a
     CUDA device (``v <= MAX_HYPER_V``), the plain loop on the CPU. Shapes
     as in :func:`hyper_mh_loop`; constants are float32 tensors on the
-    same device, ``hyp_idx`` the static ``HyperConsts.hyp_idx``.
-    ``per_block`` overrides :func:`launch_form`'s chains per block (0: the
-    block form), for measurements."""
+    same device (grouped as in :func:`hyper_mh_loop`), ``hyp_idx`` the
+    static ``HyperConsts.hyp_idx``. ``per_block`` overrides
+    :func:`launch_form`'s chains per block (0: the block form), for
+    measurements."""
     for t in (x, S0, dS0, rt, base, dx, logu, K, sel, specs):
         if t.dtype != torch.float32:
             raise ValueError(f"hyper_mh: float32 only, got {t.dtype}")
         if t.device != x.device:
             raise ValueError("hyper_mh: operands on different devices")
-    C, p = x.shape
+    B, p = tuple(x.shape[:-1]), x.shape[-1]
     v = S0.shape[-1]
     S = dx.shape[-2]
     nk = len(hyp_idx)
-    if (S0.shape != (C, v, v) or dS0.shape != (C, v) or rt.shape != (C, v)
-            or base.shape != (C,) or dx.shape != (C, S, p)
-            or logu.shape != (C, S) or K.shape != (1 + nk, v)
-            or sel.shape != (v,) or specs.shape != (3, p)):
+    groups = B[:1] if K.dim() == 3 else ()
+    if (len(B) != 1 + len(groups) or S0.shape != (*B, v, v)
+            or dS0.shape != (*B, v) or rt.shape != (*B, v)
+            or base.shape != B or dx.shape != (*B, S, p)
+            or logu.shape != (*B, S) or K.shape != (*groups, 1 + nk, v)
+            or sel.shape != (*groups, v) or specs.shape != (*groups, 3, p)):
         raise ValueError("hyper_mh: inconsistent operand shapes")
     check_per_block("hyper_mh", per_block, v)
     if x.device.type == "cpu":
@@ -246,18 +266,23 @@ def hyper_mh(x, S0, dS0, rt, base, dx, logu, K, sel, specs, hyp_idx,
     ops = [t.contiguous() for t in (x, S0, dS0, rt, base, dx, logu, K, sel,
                                     specs)]
     xo = torch.empty_like(ops[0])
-    acc = torch.empty((C,), dtype=x.dtype, device=x.device)
+    acc = torch.empty(B, dtype=x.dtype, device=x.device)
     hi = _cuda.host_ints(hyp_idx)
+    C = math.prod(B)
     if C:
         if per_block is None:
             form, per_block = launch_form(C, v)
             per_block = per_block if form == "warp" else 0
         _cuda.check(_cuda.lib().gst_hyper_mh(
             *(_cuda.ptr(t) for t in ops), _cuda.addr(hi), nk,
-            _cuda.ptr(xo), _cuda.ptr(acc), C, v, p, S, float(jitter),
+            _cuda.ptr(xo), _cuda.ptr(acc), C, B[-1], v, p, S, float(jitter),
             per_block, _cuda.stream(x.device)), "hyper_mh")
-        hyper_mh.launches += 1
+        if groups:
+            hyper_mh.launches_grouped += 1
+        else:
+            hyper_mh.launches += 1
     return xo, acc
 
 
 hyper_mh.launches = 0
+hyper_mh.launches_grouped = 0

@@ -79,8 +79,21 @@ def _aligned16(t: torch.Tensor) -> torch.Tensor:
 
 def _dense(T, y, nvec):
     w = 1.0 / nvec                                  # (C, n)
-    Tw = T * w[..., :, None]                        # (C, n, m)
-    TNT = torch.matmul(T.transpose(-1, -2), Tw)     # (C, m, m)
+    if T.dim() == 3:
+        # one basis per pulsar, T (P, n, m), y (P, 1, n), nvec (P, C, n):
+        # the weighted basis is built transposed, (P, C, m, n), so that
+        # its chains fold into the rows of one product per pulsar with T
+        # (a broadcast batch would copy T once per chain). That product is
+        # (T w)^T T, whose transpose (a view) is T^T (T w) with the same
+        # products as the single-model form below
+        P, C, n = nvec.shape
+        m = T.shape[-1]
+        TwT = T.transpose(-1, -2)[:, None] * w[..., None, :]
+        TNT = torch.matmul(TwT.reshape(P, C * m, n), T).reshape(
+            P, C, m, m).transpose(-1, -2)
+    else:
+        Tw = T * w[..., :, None]                    # (C, n, m)
+        TNT = torch.matmul(T.transpose(-1, -2), Tw)  # (C, m, m)
     d = torch.matmul(y * w, T)                      # (C, m)
     const = -0.5 * (torch.log(nvec).sum(-1) + (y * y * w).sum(-1))
     return TNT, d, const
@@ -88,7 +101,9 @@ def _dense(T, y, nvec):
 
 def tnt_products(T, y, nvec, block_size: Optional[int] = None):
     """``(TNT, d, const_white)`` for every chain: ``T (n, m)``, ``y (n,)``,
-    ``nvec (C, n)`` -> ``(C, m, m)``, ``(C, m)``, ``(C,)``.
+    ``nvec (C, n)`` -> ``(C, m, m)``, ``(C, m)``, ``(C,)``; or, dense, one
+    basis per pulsar of an ensemble: ``T (P, n, m)``, ``y (P, 1, n)``,
+    ``nvec (P, C, n)`` -> ``(P, C, m, m)``, ``(P, C, m)``, ``(P, C)``.
 
     ``block_size=None`` is the dense path; with a block size the TOA axis
     (an exact multiple, see :func:`pad_rows`) is reduced block by block,
@@ -162,11 +177,14 @@ tnt_batched.launches = 0
 
 def matvec_blocked(T, b, block_size: Optional[int] = None):
     """``T @ b`` for batched ``b (C, m)`` -> ``(C, n)``, optionally row-blocked
-    (same padding contract as :func:`tnt_products`)."""
+    (same padding contract as :func:`tnt_products`); with one basis per
+    pulsar, ``T (P, n, m)`` and ``b (P, C, m)`` -> ``(P, C, n)``, one
+    product per pulsar."""
     if block_size is None:
-        return torch.matmul(b, T.transpose(0, 1))
-    n = T.shape[0]
-    return torch.cat([torch.matmul(b, T[k:k + block_size].transpose(0, 1))
+        return torch.matmul(b, T.transpose(-1, -2))
+    n = T.shape[-2]
+    return torch.cat([torch.matmul(b, T[..., k:k + block_size, :]
+                                   .transpose(-1, -2))
                       for k in range(0, n, block_size)], dim=-1)
 
 

@@ -15,6 +15,15 @@ per-chain inputs are staged in shared memory where they fit and read from
 device memory past that (the 1e5-TOA stress path). The draws are inputs,
 so kernels and plain versions consume the same random numbers.
 
+Each takes one model's constants (``rows (R, n)``, ``specs (3, p)``) or,
+in grouped form, G models' (``rows (G, R, n)``, ``specs (G, 3, p)``)
+with the chains as ``(G, C, ...)``: the multi-pulsar ensemble's
+per-pulsar constants (replacing ``white_mh_fused`` / ``white_mtm_fused``
+at G > 1). A grouped launch is the same kernel over the G x C chains,
+each reading its group's constants, and counts on the wrapper's
+``launches_grouped``; the plain versions take the group axis as a batch
+axis.
+
 Constant folding follows the JAX package: selection groups pinned to
 constants fold into a baseline variance row ``nv0``; each varying group
 keeps its basis row and an in-kernel coefficient,
@@ -104,19 +113,31 @@ def _lnprior_cols(q, kind, a, b):
 
 
 def lnprior_sum(q, specs):
-    """Sum of the log-priors of ``q (..., p)`` over the ``(3, p)`` table."""
-    return _lnprior_cols(q, specs[0], specs[1], specs[2]).sum(-1)
+    """Sum of the log-priors of ``q (..., p)`` over the ``(..., 3, p)``
+    table."""
+    return _lnprior_cols(q, specs[..., 0, :], specs[..., 1, :],
+                         specs[..., 2, :]).sum(-1)
+
+
+def group_axes(table, base_ndim: int, extra: int):
+    """A constant table as an operand of plain arithmetic over the chain
+    axis and ``extra - 1`` more: a single model's ``base_ndim``-dim table
+    as it is, a grouped ``(G, ...)`` one as ``(G, 1, ..., 1, ...)``."""
+    if table.dim() == base_ndim:
+        return table
+    return table.reshape(table.shape[:1] + (1,) * extra + table.shape[1:])
 
 
 def white_ll_lp(q, az, yred2, rows, var, specs):
     """(ll, lp) of proposals ``q (C, p)``: the white conditional
-    likelihood (reference gibbs.py:262-284) and the full prior."""
-    nd = rows[0]
+    likelihood (reference gibbs.py:262-284) and the full prior; ``rows``
+    and ``specs`` broadcast against ``q``'s leading axes."""
+    nd = rows[..., 0, :]
     for vkind, idx, slot in var:
         val = q[..., idx:idx + 1]
         c = val * val if vkind == 0 else torch.exp(2.0 * LN10 * val)
-        nd = nd + c * rows[slot]
-    rmask = rows[1]
+        nd = nd + c * rows[..., slot, :]
+    rmask = rows[..., 1, :]
     nv = rmask * (az * nd) + (1.0 - rmask)
     ll = -0.5 * (torch.log(nv) + yred2 / nv).sum(-1)
     return ll, lnprior_sum(q, specs)
@@ -154,21 +175,21 @@ def mtm_loop(weight_fn, x, dx, dxr, gumb, logu):
     accepts where ``logsumexp(candidates) - logsumexp(references) > logu``;
     a NaN delta (every weight -inf on both sides) never accepts. Returns
     ``(x_new, acc_rate (C,))``."""
-    wx = weight_fn(x[:, None])[:, 0]
+    wx = weight_fn(x[..., None, :])[..., 0]
     acc = torch.zeros_like(wx)
-    S = dx.shape[1]
+    S = dx.shape[-3]
     for i in range(S):
-        cands = x[:, None] + dx[:, i]                       # (C, K, p)
+        cands = x[..., None, :] + dx[..., i, :, :]           # (C, K, p)
         lw = weight_fn(cands)
-        j = torch.argmax(lw + gumb[:, i], dim=-1, keepdim=True)
-        y = torch.gather(cands, 1, j[..., None].expand(-1, -1,
-                                                       x.shape[-1]))[:, 0]
-        lwy = torch.gather(lw, 1, j)[:, 0]
-        refs = y[:, None] + dxr[:, i]                       # (C, K-1, p)
-        lwr = torch.cat([weight_fn(refs), wx[:, None]], dim=-1)
+        j = torch.argmax(lw + gumb[..., i, :], dim=-1, keepdim=True)
+        y = torch.gather(cands, -2, j[..., None].expand(
+            *j.shape, x.shape[-1]))[..., 0, :]
+        lwy = torch.gather(lw, -1, j)[..., 0]
+        refs = y[..., None, :] + dxr[..., i, :, :]           # (C, K-1, p)
+        lwr = torch.cat([weight_fn(refs), wx[..., None]], dim=-1)
         delta = torch.logsumexp(lw, -1) - torch.logsumexp(lwr, -1)
-        accept = delta > logu[:, i]
-        x = torch.where(accept[:, None], y, x)
+        accept = delta > logu[..., i]
+        x = torch.where(accept[..., None], y, x)
         wx = torch.where(accept, lwy, wx)
         acc = acc + accept.to(acc.dtype)
     return x, acc / S
@@ -176,8 +197,10 @@ def mtm_loop(weight_fn, x, dx, dxr, gumb, logu):
 
 def white_mh_loop(x, az, yred2, dx, logu, rows, specs, var):
     """The white MH block in plain PyTorch over precomputed draws:
-    ``x (C, p)``, ``az/yred2 (C, n)``, ``dx (C, S, p)``, ``logu (C, S)``.
+    ``x (C, p)``, ``az/yred2 (C, n)``, ``dx (C, S, p)``, ``logu (C, S)``;
+    grouped, ``(G, C, ...)`` with ``rows (G, R, n)``, ``specs (G, 3, p)``.
     Returns ``(x_new, acc_rate (C,))``."""
+    rows, specs = group_axes(rows, 2, 1), group_axes(specs, 2, 1)
     return mh_loop(lambda q: white_ll_lp(q, az, yred2, rows, var, specs),
                    x, dx, logu)
 
@@ -186,35 +209,41 @@ def white_mh(x, az, yred2, dx, logu, rows, specs, var):
     """``(x_new, acc_rate)`` for the whole white MH block, one launch on a
     CUDA device, the plain loop on the CPU. Shapes as in
     :func:`white_mh_loop`; ``rows (R, n)``/``specs (3, p)`` float32 tensors
-    on the same device, ``var`` the static ``WhiteConsts.var`` triples."""
-    _check_white("white_mh", x, az, yred2, (dx, logu), rows, specs)
-    C, p = x.shape
-    n = az.shape[-1]
-    S = dx.shape[-2]
-    if dx.shape != (C, S, p) or logu.shape != (C, S):
+    on the same device (``(G, R, n)``/``(G, 3, p)`` grouped), ``var`` the
+    static ``WhiteConsts.var`` triples."""
+    B = _check_white("white_mh", x, az, yred2, (dx, logu), rows, specs)
+    p, n, S = x.shape[-1], az.shape[-1], dx.shape[-2]
+    if dx.shape != (*B, S, p) or logu.shape != (*B, S):
         raise ValueError("white_mh: inconsistent draw shapes")
     if x.device.type == "cpu":
         return white_mh_loop(x, az, yred2, dx, logu, rows, specs, var)
     _check_kernel("white_mh", x, var)
-    xo = torch.empty((C, p), dtype=x.dtype, device=x.device)
-    acc = torch.empty((C,), dtype=x.dtype, device=x.device)
-    if C:
+    xo = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    acc = torch.empty(B, dtype=x.dtype, device=x.device)
+    if x.numel():
         _launch("gst_white_mh", (x, az, yred2, dx, logu), rows, specs, var,
-                xo, acc, (C, n, p, S))
-        white_mh.launches += 1
+                xo, acc, B, (n, p, S))
+        if len(B) == 2:
+            white_mh.launches_grouped += 1
+        else:
+            white_mh.launches += 1
     return xo, acc
 
 
 white_mh.launches = 0
+white_mh.launches_grouped = 0
 
 
 def white_mtm_loop(x, az, yred2, dx, dxr, gumb, logu, rows, specs, var):
     """The white block under multiple-try Metropolis in plain PyTorch:
     ``x (C, p)``, ``az/yred2 (C, n)``, ``dx (C, S, K, p)``,
-    ``dxr (C, S, K-1, p)``, ``gumb (C, S, K)``, ``logu (C, S)``. Returns
-    ``(x_new, acc_rate (C,))``."""
+    ``dxr (C, S, K-1, p)``, ``gumb (C, S, K)``, ``logu (C, S)``; grouped
+    as in :func:`white_mh_loop`. Returns ``(x_new, acc_rate (C,))``."""
+    rows, specs = group_axes(rows, 2, 2), group_axes(specs, 2, 2)
+
     def weight(q):
-        ll, lp = white_ll_lp(q, az[:, None], yred2[:, None], rows, var, specs)
+        ll, lp = white_ll_lp(q, az[..., None, :], yred2[..., None, :], rows,
+                             var, specs)
         return ll + lp
 
     return mtm_loop(weight, x, dx, dxr, gumb, logu)
@@ -224,41 +253,49 @@ def white_mtm(x, az, yred2, dx, dxr, gumb, logu, rows, specs, var):
     """``(x_new, acc_rate)`` for the white block under multiple-try
     Metropolis, one launch on a CUDA device, the plain loop on the CPU.
     Shapes as in :func:`white_mtm_loop`; constants as in :func:`white_mh`."""
-    _check_white("white_mtm", x, az, yred2, (dx, dxr, gumb, logu), rows,
-                 specs)
-    C, p = x.shape
-    n = az.shape[-1]
-    S, K = dx.shape[1], dx.shape[2]
-    if (dx.shape != (C, S, K, p) or dxr.shape != (C, S, K - 1, p)
-            or gumb.shape != (C, S, K) or logu.shape != (C, S)):
+    B = _check_white("white_mtm", x, az, yred2, (dx, dxr, gumb, logu),
+                     rows, specs)
+    p, n = x.shape[-1], az.shape[-1]
+    S, K = dx.shape[-3], dx.shape[-2]
+    if (dx.shape != (*B, S, K, p) or dxr.shape != (*B, S, K - 1, p)
+            or gumb.shape != (*B, S, K) or logu.shape != (*B, S)):
         raise ValueError("white_mtm: inconsistent draw shapes")
     if x.device.type == "cpu":
         return white_mtm_loop(x, az, yred2, dx, dxr, gumb, logu, rows, specs,
                               var)
     _check_kernel("white_mtm", x, var)
-    xo = torch.empty((C, p), dtype=x.dtype, device=x.device)
-    acc = torch.empty((C,), dtype=x.dtype, device=x.device)
-    if C:
+    xo = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    acc = torch.empty(B, dtype=x.dtype, device=x.device)
+    if x.numel():
         _launch("gst_white_mtm", (x, az, yred2, dx, dxr, gumb, logu), rows,
-                specs, var, xo, acc, (C, n, p, S, K))
-        white_mtm.launches += 1
+                specs, var, xo, acc, B, (n, p, S, K))
+        if len(B) == 2:
+            white_mtm.launches_grouped += 1
+        else:
+            white_mtm.launches += 1
     return xo, acc
 
 
 white_mtm.launches = 0
+white_mtm.launches_grouped = 0
 
 
 def _check_white(name, x, az, yred2, draws, rows, specs):
+    """Dtypes, devices and shapes of a white block's operands; returns the
+    chains' batch shape, ``(C,)`` or, grouped, ``(G, C)``."""
     for t in (x, az, yred2, *draws, rows, specs):
         if t.dtype != torch.float32:
             raise ValueError(f"{name}: float32 only, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name}: operands on different devices")
-    C, p = x.shape
+    B, p = tuple(x.shape[:-1]), x.shape[-1]
     n = az.shape[-1]
-    if (az.shape != (C, n) or yred2.shape != (C, n) or rows.shape[-1] != n
-            or specs.shape != (3, p)):
+    groups = B[:1] if rows.dim() == 3 else ()
+    if (len(B) != 1 + len(groups) or az.shape != (*B, n)
+            or yred2.shape != (*B, n) or rows.shape[:-2] != groups
+            or rows.shape[-1] != n or specs.shape != (*groups, 3, p)):
         raise ValueError(f"{name}: inconsistent operand shapes")
+    return B
 
 
 def _check_kernel(name, x, var):
@@ -269,15 +306,17 @@ def _check_kernel(name, x, var):
                          f"MAX_WHITE_VAR ({MAX_WHITE_VAR})")
 
 
-def _launch(entry, ops, rows, specs, var, xo, acc, dims):
+def _launch(entry, ops, rows, specs, var, xo, acc, batch, dims):
     """One launch of a white kernel: ``ops`` the per-chain operands in the
     C entry's order, then the constants, the var table, the outputs, the
-    dimensions and R."""
+    chains and chains per group (``batch`` ``(C,)``: one group of C;
+    ``(G, C)``: G groups of C, group-major, as the contiguous operands lie),
+    the dimensions and R."""
     from gibbs_student_t_tpu_torch.ops import _cuda
 
     ops = [t.contiguous() for t in (*ops, rows, specs)]
     vt = _cuda.host_ints([k for trip in var for k in trip])
     _cuda.check(getattr(_cuda.lib(), entry)(
         *(_cuda.ptr(t) for t in ops), _cuda.addr(vt), len(var),
-        _cuda.ptr(xo), _cuda.ptr(acc), *dims, rows.shape[0],
-        _cuda.stream(xo.device)), entry[4:])
+        _cuda.ptr(xo), _cuda.ptr(acc), math.prod(batch), batch[-1], *dims,
+        rows.shape[-2], _cuda.stream(xo.device)), entry[4:])

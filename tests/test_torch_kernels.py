@@ -436,3 +436,146 @@ def test_tnt_kernel_on_card(C_, n_real, block, m):
     torch.testing.assert_close(const.cpu().double(), const64, rtol=1e-6,
                                atol=0.0)
     assert torch.equal(TNT, TNT.transpose(-1, -2))
+
+
+def group_models(ns, components=30, seed0=100):
+    """Pulsars with different constants for the grouped kernels: TOA
+    counts ``ns`` padded to the largest with masked rows, TOA errors
+    scaled by 1, 1.25, 1.5, ..."""
+    import dataclasses
+
+    from gibbs_student_t_tpu_torch.parallel.ensemble import pad_model_arrays
+
+    mas = [make_demo_model_arrays(n=n, components=components, seed=seed0 + g)
+           for g, n in enumerate(ns)]
+    return pad_model_arrays([
+        dataclasses.replace(ma, sigma2=ma.sigma2 * (1.0 + 0.25 * g))
+        for g, ma in enumerate(mas)])
+
+
+def grouped_white_operands(rng, mas, C, S, K=None):
+    """The white block's (or, with ``K``, the white MTM block's) grouped
+    operands, ``(G, C, ...)``, with the float64 tie separation done per
+    group. Returns ``(ops, rows, specs, var)``."""
+    tt = torch.from_numpy
+    per = []
+    for ma in mas:
+        wc = twhite.build_white_consts(ma, ma.row_mask)
+        x, az = near_posterior(rng, ma, C)
+        b = (rng.normal(size=(C, ma.m)) * 0.05).astype(np.float32)
+        yred = ma.y.astype(np.float32)[None] - b @ ma.T.astype(np.float32).T
+        y2 = (yred * yred).astype(np.float32)
+        lu = torch.log(tt(rng.random((C, S)).astype(np.float32)))
+        a64 = [tt(a).double() for a in (az, y2, wc.rows, wc.specs)]
+        if K is None:
+            dx = tt(jumps(rng, ma.white_indices, S, 3, True, 0.05, C=C))
+            lu = separate_ties(
+                lambda q, a64=a64, wc=wc: twhite.white_ll_lp(
+                    q, *a64[:3], wc.var, a64[3]), tt(x), dx, lu)
+            per.append((tt(x), tt(az), tt(y2), dx, lu, wc))
+            continue
+        dx = tt(jumps(rng, ma.white_indices, S * K, 3, True, 0.05,
+                      C=C).reshape(C, S, K, 3))
+        dxr = tt(jumps(rng, ma.white_indices, S * (K - 1), 3, True, 0.05,
+                       C=C).reshape(C, S, K - 1, 3))
+        gumb = -torch.log(-torch.log(tt(rng.random((C, S, K)).astype(
+            np.float32))))
+
+        def weight64(q, a64=a64, wc=wc):
+            ll, lp = twhite.white_ll_lp(q, a64[0][:, None], a64[1][:, None],
+                                        a64[2], wc.var, a64[3])
+            return ll + lp
+
+        gumb, lu = separate_mtm_ties(weight64, tt(x), dx, dxr, gumb, lu)
+        per.append((tt(x), tt(az), tt(y2), dx, dxr, gumb, lu, wc))
+    ops = [torch.stack(f) for f in list(zip(*per))[:-1]]
+    wcs = [p[-1] for p in per]
+    assert all(wc.var == wcs[0].var for wc in wcs)
+    return (ops, tt(np.stack([wc.rows for wc in wcs])),
+            tt(np.stack([wc.specs for wc in wcs])), wcs[0].var)
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("mtm", [False, True])
+@pytest.mark.parametrize("G_, C_", [(3, 5), (4, 64), (1, 64)])
+def test_grouped_white_kernels_on_card(mtm, G_, C_):
+    """The grouped white MH and white MTM kernels (G pulsars' constants,
+    an odd number of chains per group among them) against their grouped
+    plain versions; a one-group launch gives the single-model launch's
+    values bit for bit."""
+    dev = _cuda()
+    rng = np.random.default_rng(101 + G_ + mtm)
+    mas = group_models([130 - 10 * (g % 3) for g in range(G_)])
+    S = 20
+    ops, rows, specs, var = grouped_white_operands(
+        rng, mas, C_, S, K=4 if mtm else None)
+    if G_ > 1:
+        assert not torch.equal(rows[0], rows[1])
+    *ops, rows, specs = [t.to(dev) for t in (*ops, rows, specs)]
+    fn = twhite.white_mtm if mtm else twhite.white_mh
+    plain = twhite.white_mtm_loop if mtm else twhite.white_mh_loop
+    n0, g0 = fn.launches, fn.launches_grouped
+    xk, ak = fn(*ops, rows, specs, var)
+    assert (fn.launches, fn.launches_grouped) == (n0, g0 + 1)
+    assert xk.shape == (G_, C_, 3) and ak.shape == (G_, C_)
+    xp, ap = plain(*ops, rows, specs, var)
+    nk = acc_counts(ak.cpu(), S)
+    np.testing.assert_array_equal(nk, acc_counts(ap.cpu(), S))
+    assert 0 < nk.sum() < G_ * C_ * S
+    torch.testing.assert_close(xk, xp, rtol=1e-5, atol=1e-6)
+    # each group's chains alone, through the single-model launch
+    for g in range(G_):
+        xs, as_ = fn(*(t[g] for t in ops), rows[g], specs[g], var)
+        assert torch.equal(xs, xk[g]) and torch.equal(as_, ak[g])
+    assert fn.launches == n0 + G_
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("components", [30, 7, 80])
+@pytest.mark.parametrize("per_block", [None, 1, 3, 8, 0])
+def test_grouped_hyper_kernel_on_card(components, per_block):
+    """The grouped hyper kernel with G = 3 pulsars' constants and 5 chains
+    a group, so that with several warps a block (per_block 3 or 8) warps of
+    two groups share a block, against the grouped plain version
+    (v = 60 and 14 in the warp form, v = 160 in the block form). Each
+    group's chains through the single-model launch give the same values
+    bit for bit."""
+    dev = _cuda()
+    v = 2 * components
+    if per_block not in (None, 0) and v > chol.WARP_MAX_DIM:
+        pytest.skip("the warp form takes v <= 64")
+    rng = np.random.default_rng(111 + components)
+    mas = [make_demo_model_arrays(n=n, components=components, seed=40 + g)
+           for g, n in enumerate((130, 120, 110))]
+    G_, C_, S = 3, 5, 10
+    tt = torch.from_numpy
+    per = []
+    for ma in mas:
+        ops, hc = hyper_operands(ma, rng, C_)
+        consts = [tt(a) for a in (hc.K, hc.phi_sel, hc.specs)]
+        dx = tt(jumps(rng, ma.hyper_indices, S, 3, True, 0.1, C=C_))
+        logu = separate_ties(
+            lambda q, ops=ops, consts=consts, hc=hc: thyper.hyper_ll_lp(
+                q, *(t.double() for t in ops[1:]),
+                *(t.double() for t in consts), hc.hyp_idx, 1e-6),
+            ops[0], dx, torch.log(tt(rng.random((C_, S)).astype(
+                np.float32))))
+        per.append((*ops, dx, logu, *consts))
+    hyp_idx = hc.hyp_idx
+    args = [torch.stack(f).to(dev) for f in zip(*per)]
+    assert args[1].shape == (G_, C_, v, v)
+    assert not torch.equal(args[7][0], args[7][1])
+    g0, n0 = thyper.hyper_mh.launches_grouped, thyper.hyper_mh.launches
+    xk, ak = thyper.hyper_mh(*args, hyp_idx, 1e-6, per_block=per_block)
+    assert thyper.hyper_mh.launches_grouped == g0 + 1
+    xp, ap = thyper.hyper_mh_loop(*args, hyp_idx, 1e-6)
+    nk = acc_counts(ak.cpu(), S)
+    np.testing.assert_array_equal(nk, acc_counts(ap.cpu(), S))
+    assert (nk[:, 0] == 0).all()          # each group's indefinite chain
+    assert 0 < nk.sum() < G_ * C_ * S
+    torch.testing.assert_close(xk, xp, rtol=1e-5, atol=1e-6)
+    for g in range(G_):
+        xs, as_ = thyper.hyper_mh(*(t[g] for t in args), hyp_idx, 1e-6,
+                                  per_block=per_block)
+        assert torch.equal(xs, xk[g]) and torch.equal(as_, ak[g])
+    assert thyper.hyper_mh.launches == n0 + G_
