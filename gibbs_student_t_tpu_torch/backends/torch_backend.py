@@ -447,7 +447,7 @@ class TorchGibbs(SamplerBackend):
         (C, p, p), the joint direction ``L @ xi`` of population-covariance
         proposals."""
         mh = self.config.mh
-        B, p = self._batch, self._ma.nparam
+        B, p = tuple(jump_scale.shape), self._ma.nparam
         dev, f32 = self.device, self.dtype
         sigma = mh.sigma_per_param * len(ind) * jump_scale          # (C,)
         u = torch.rand((*B, nsteps), generator=gen, device=dev, dtype=f32)
@@ -476,7 +476,7 @@ class TorchGibbs(SamplerBackend):
         log-uniform. Returns ``(dx (C, S, K, p), dxr (C, S, K-1, p),
         gumb (C, S, K), logu (C, S))``."""
         K = self.config.mh.mtm_tries
-        B, p = self._batch, self._ma.nparam
+        B, p = tuple(jump_scale.shape), self._ma.nparam
         dev, f32 = self.device, self.dtype
         dx, _ = self._mh_draws(gen, ind, nsteps * K, jump_scale, cov_chol)
         dxr, _ = self._mh_draws(gen, ind, nsteps * (K - 1), jump_scale,
@@ -497,13 +497,16 @@ class TorchGibbs(SamplerBackend):
                                                   jump_scale, cov_chol)
             return dx, logu, dxr, gumb
         dx, logu = self._mh_draws(gen, ind, nsteps, jump_scale, cov_chol)
-        empty = dx.new_zeros((*self._batch, 0))
+        empty = dx.new_zeros((*jump_scale.shape, 0))
         return dx, logu, empty, empty
 
     def _draw(self, gen, state: ChainState) -> SweepDraws:
-        """All of one sweep's random numbers (see the module docstring)."""
+        """All of one sweep's random numbers (see the module docstring), at
+        the state's batch shape: the sampler's own, or, in the serving
+        slot pool, one tenant's ``(C_t,)`` chains (it reads ``z``, ``df``,
+        ``mh_log_scale`` and ``mh_cov_chol`` of ``state``)."""
         cfg, mh = self.config, self.config.mh
-        B, n, m = self._batch, self._n, self._ma.m
+        B, n, m = tuple(state.df.shape), self._n, self._ma.m
         dev, f32 = self.device, self.dtype
         cov = state.mh_cov_chol if mh.adapt_cov else None
         scale = torch.exp(state.mh_log_scale)
@@ -591,23 +594,12 @@ class TorchGibbs(SamplerBackend):
         az = alpha ** z
         acc_w = zeros
         if self._white is not None:
-            rows, wspecs, var = self._white
             yred = self._y - matvec_blocked(self._T, b, self._block_size)
-            if self._mtm["white"]:
-                x, acc_w = white_mtm(x, az, yred * yred, draws.dx_w,
-                                     draws.dxr_w, draws.gumb_w, draws.logu_w,
-                                     rows, wspecs, var)
-            else:
-                x, acc_w = white_mh(x, az, yred * yred, draws.dx_w,
-                                    draws.logu_w, rows, wspecs, var)
+            x, acc_w = self._white_block(x, az, yred * yred, draws)
         nvec = self._masked_nvec(x, az)
 
         # --- per-sweep inner products (reference gibbs.py:302-304) -----
-        if self._block_size is None:
-            TNT, d, const_white = tnt_products(self._T, self._y, nvec)
-        else:
-            TNT, d, const_white = tnt_batched(self._T, self._y, nvec,
-                                              self._block_size)
+        TNT, d, const_white = self._tnt(nvec)
 
         # --- hyper MH block on the marginalized likelihood -------------
         acc_h = zeros
@@ -701,11 +693,7 @@ class TorchGibbs(SamplerBackend):
         # --- Robbins-Monro jump-scale adaptation --------------------------
         mh_ls = state.mh_log_scale
         if cfg.mh.adapt_until > 0:
-            if sweep is None:
-                raise ValueError("MHConfig.adapt_until > 0 needs the sweep "
-                                 "index; drive the sampler through sample()")
-            eta = ((sweep + 1.0) ** (-cfg.mh.adapt_decay)
-                   if sweep < cfg.mh.adapt_until else 0.0)
+            eta = self._rm_step(sweep)
             target = (cfg.mh.cov_target_accept if cfg.mh.adapt_cov
                       else cfg.mh.target_accept)
             mh_ls = mh_ls + eta * (torch.stack([acc_w, acc_h], -1) - target)
@@ -713,6 +701,34 @@ class TorchGibbs(SamplerBackend):
         return ChainState(x=x, b=b, z=z, alpha=alpha, theta=theta, df=df,
                           pout=pout, acc_white=acc_w, acc_hyper=acc_h,
                           mh_log_scale=mh_ls, mh_cov_chol=state.mh_cov_chol)
+
+    def _white_block(self, x, az, yred2, draws):
+        """The white MH block, ``(x_new, acc_rate)``: one launch of the
+        white MH kernel, or of the white MTM kernel under multiple-try
+        Metropolis."""
+        rows, wspecs, var = self._white
+        if self._mtm["white"]:
+            return white_mtm(x, az, yred2, draws.dx_w, draws.dxr_w,
+                             draws.gumb_w, draws.logu_w, rows, wspecs, var)
+        return white_mh(x, az, yred2, draws.dx_w, draws.logu_w, rows, wspecs,
+                        var)
+
+    def _tnt(self, nvec):
+        """``(TNT, d, const_white)`` of the sweep: the dense product, or the
+        Gram kernel over the TOA blocks."""
+        if self._block_size is None:
+            return tnt_products(self._T, self._y, nvec)
+        return tnt_batched(self._T, self._y, nvec, self._block_size)
+
+    def _rm_step(self, sweep):
+        """The Robbins-Monro step size of sweep ``sweep`` (a number, 0
+        once the sweep index reaches ``adapt_until``)."""
+        mh = self.config.mh
+        if sweep is None:
+            raise ValueError("MHConfig.adapt_until > 0 needs the sweep "
+                             "index; drive the sampler through sample()")
+        return ((sweep + 1.0) ** (-mh.adapt_decay)
+                if sweep < mh.adapt_until else 0.0)
 
     def _hyper_block(self, x, Sh, rh, base, draws):
         """The hyper MH block on the matrix block ``Sh``: one kernel launch

@@ -58,15 +58,35 @@
 //   in a fixed order, so the result does not depend on scheduling. It
 //   unpacks pair q to TNT[c, i, j] and TNT[c, j, i] (the same float, so TNT
 //   is exactly symmetric) or to d[c, j] for i = m.
+//
+// The lanes form (gst_tnt_lanes) replaces gibbs_student_t_tpu/ops/
+// pallas_tnt.py::tnt_lanes_pallas, the serving slot pool's reduction: one
+// basis per group of 16 lanes, every group in ONE launch (the JAX entry
+// launches once per group). A block then owns the 16 chains of one group
+// (BM = 16): its group index picks the basis T + g nT m and y + g nT, and
+// its 128 threads keep 2 x 8 patches (chains 2ty, 2ty + 1; the same pairs
+// as above), so a block never spans two bases. At the pool's shape (1,024
+// lanes, 130 TOAs, m = 74) it does 0.76 GFLOP, 0.011 ms at the FP32 rate
+// against 0.008 ms for its bytes: bound by operations too. Each group's
+// basis is stored padded to nT rows (a multiple of 4, so every group's span
+// starts on a 16-byte boundary); only the first n rows are read.
 #include <algorithm>
 
 #include "gst_common.cuh"
 
-#define TNT_BM 64        // chains per block (the M tile)
+#define TNT_BM 64        // chains per block (the M tile), one basis
+#define TNT_BM_LANES 16  // chains per block of the lanes form: one group
 #define TNT_BN 128       // pairs per block (the N tile); ops/tnt.py PAIR_TILE
-#define TNT_WS 68        // row stride, in floats, of the [TOA][chain] W tile
 #define TNT_THREADS 128  // 8 chain groups x 16 pair groups
 static_assert(TNT_THREADS == TNT_BN, "a thread builds one column of P");
+
+// Row stride, in floats, of the [TOA][chain] W tile of BM chains: 68 for
+// 64 chains (4 mod 32, conflict-free 16-byte stores), 20 for 16 (a
+// quarter-warp's eight stores cover the 32 banks once).
+template <int BM>
+__host__ __device__ constexpr int tnt_ws() {
+  return BM + 4;
+}
 
 namespace {
 
@@ -111,13 +131,13 @@ __device__ __forceinline__ void tnt_stage_x(float* xs,
 }
 
 // Slot s = threadIdx.x + 128 r of the W tile is (TOA s % BK, chains
-// 4 (s / BK) .. + 3): BK / 8 slots per thread, 4 floats each.
-template <int BK>
-__device__ __forceinline__ void tnt_load_w(float (&wr)[BK / 8][4],
+// 4 (s / BK) .. + 3): BK BM / 512 slots per thread, 4 floats each.
+template <int BK, int BM>
+__device__ __forceinline__ void tnt_load_w(float (&wr)[BK * BM / 512][4],
                                            const float* __restrict__ w,
                                            int c0, int C, int t0, int n) {
 #pragma unroll
-  for (int r = 0; r < BK / 8; ++r) {
+  for (int r = 0; r < BK * BM / 512; ++r) {
     const int s = threadIdx.x + TNT_THREADS * r;
     const int t = t0 + s % BK, cq = c0 + 4 * (s / BK);
 #pragma unroll
@@ -127,13 +147,13 @@ __device__ __forceinline__ void tnt_load_w(float (&wr)[BK / 8][4],
   }
 }
 
-template <int BK>
-__device__ __forceinline__ void tnt_store_w(float* wt,
-                                            const float (&wr)[BK / 8][4]) {
+template <int BK, int BM>
+__device__ __forceinline__ void tnt_store_w(
+    float* wt, const float (&wr)[BK * BM / 512][4]) {
 #pragma unroll
-  for (int r = 0; r < BK / 8; ++r) {
+  for (int r = 0; r < BK * BM / 512; ++r) {
     const int s = threadIdx.x + TNT_THREADS * r;
-    *reinterpret_cast<float4*>(wt + (s % BK) * TNT_WS + 4 * (s / BK)) =
+    *reinterpret_cast<float4*>(wt + (s % BK) * tnt_ws<BM>() + 4 * (s / BK)) =
         make_float4(wr[r][0], wr[r][1], wr[r][2], wr[r][3]);
   }
 }
@@ -149,65 +169,92 @@ __device__ __forceinline__ void tnt_build_p(float* ps, const float* xs,
     ps[k * TNT_BN + threadIdx.x] = xs[oi + k * si] * xs[oj + k * sj];
 }
 
+// The block-local chain of a thread's patch row i: for 64 chains, rows
+// 4ty .. 4ty + 3 and 32 + 4ty .. + 3; for 16, rows 2ty and 2ty + 1.
+template <int BM>
+__device__ __forceinline__ int tnt_row(int i, int ty) {
+  if (BM == TNT_BM) return i < 4 ? 4 * ty + i : 28 + 4 * ty + i;
+  return 2 * ty + i;
+}
+
 // acc[i][j] += sum over the tile's TOAs of W[k][chain i] P[k][pair j].
-template <int BK>
-__device__ __forceinline__ void tnt_mma(float (&acc)[8][8], const float* wt,
-                                        const float* ps, int tx, int ty) {
+template <int BK, int BM>
+__device__ __forceinline__ void tnt_mma(float (&acc)[BM / 8][8],
+                                        const float* wt, const float* ps,
+                                        int tx, int ty) {
+  constexpr int WS = tnt_ws<BM>();
 #pragma unroll 8
   for (int k = 0; k < BK; ++k) {
-    const float4 a0 =
-        *reinterpret_cast<const float4*>(wt + k * TNT_WS + 4 * ty);
-    const float4 a1 =
-        *reinterpret_cast<const float4*>(wt + k * TNT_WS + 32 + 4 * ty);
+    float a[BM / 8];
+    if constexpr (BM == TNT_BM) {
+      const float4 a0 = *reinterpret_cast<const float4*>(wt + k * WS + 4 * ty);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(wt + k * WS + 32 + 4 * ty);
+      a[0] = a0.x, a[1] = a0.y, a[2] = a0.z, a[3] = a0.w;
+      a[4] = a1.x, a[5] = a1.y, a[6] = a1.z, a[7] = a1.w;
+    } else {
+      const float2 a0 = *reinterpret_cast<const float2*>(wt + k * WS + 2 * ty);
+      a[0] = a0.x, a[1] = a0.y;
+    }
     const float4 b0 =
         *reinterpret_cast<const float4*>(ps + k * TNT_BN + 4 * tx);
     const float4 b1 =
         *reinterpret_cast<const float4*>(ps + k * TNT_BN + 64 + 4 * tx);
-    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
     const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < BM / 8; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
   }
 }
 
 // part[z][c][q] = the split z's sum over its TOAs of w[c, t] X[t, i_q]
-// X[t, j_q], for the block's 64 chains and 128 pairs, in the phases above.
-template <int BK>
+// X[t, j_q], for the block's BM chains and 128 pairs, in the phases above.
+// In the lanes form (BM = 16) chains c0 .. c0 + 15 share the basis of group
+// c0 / cg, which starts at T + g nT m and y + g nT; the single-basis form
+// (BM = 64) reads T and y as they are.
+template <int BK, int BM>
 __global__ void __launch_bounds__(TNT_THREADS)
 tnt_pairs_kernel(const float* __restrict__ T, const float* __restrict__ y,
                  const float* __restrict__ w, const int* __restrict__ pairs,
                  float* __restrict__ part, int C, int n, int m, int qpad,
-                 int tiles_per_split) {
+                 int tiles_per_split, int cg, int nT) {
+  static_assert(BK * BM % 512 == 0, "whole W slots per thread");
+  constexpr int WS = tnt_ws<BM>();
   extern __shared__ float4 sm4[];
   const int xstage = BK * (m + 1);
   float* xs0 = reinterpret_cast<float*>(sm4);  // 2 x [T span | y]
   float* ps0 = xs0 + 2 * xstage;               // 2 x BK x TNT_BN products
-  float* wt0 = ps0 + 2 * BK * TNT_BN;          // 2 x BK x TNT_WS weights
+  float* wt0 = ps0 + 2 * BK * TNT_BN;          // 2 x BK x WS weights
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * TNT_BN, c0 = blockIdx.y * TNT_BM;
+  const int q0 = blockIdx.x * TNT_BN, c0 = blockIdx.y * BM;
+  if constexpr (BM != TNT_BM) {
+    // the lanes form: the block's group picks its basis
+    const size_t g = (size_t)(c0 / cg);
+    T += g * nT * m;
+    y += g * nT;
+  }
   const int pi = pairs[q0 + tid], pj = pairs[qpad + q0 + tid];
   const int oi = pi < m ? pi : BK * m, si = pi < m ? m : 1;
   const int oj = pj < m ? pj : BK * m, sj = pj < m ? m : 1;
   const int ntile = (n + BK - 1) / BK;
   const int tb = blockIdx.z * tiles_per_split;
   const int te = min(ntile, tb + tiles_per_split);
-  float acc[8][8] = {};
-  float wr[BK / 8][4];
+  float acc[BM / 8][8] = {};
+  float wr[BK * BM / 512][4];
   if (tb < te) {
     // tile tb built and stored; tile tb + 1's X arrived, its W in registers
     tnt_stage_x<BK>(xs0, T, y, tb * BK, n, m);
     tnt_cp_commit();
-    tnt_load_w<BK>(wr, w, c0, C, tb * BK, n);
+    tnt_load_w<BK, BM>(wr, w, c0, C, tb * BK, n);
     tnt_cp_wait<0>();
     __syncthreads();
-    tnt_store_w<BK>(wt0, wr);
+    tnt_store_w<BK, BM>(wt0, wr);
     tnt_build_p<BK>(ps0, xs0, oi, si, oj, sj);
     if (tb + 1 < te) {
       tnt_stage_x<BK>(xs0 + xstage, T, y, (tb + 1) * BK, n, m);
       tnt_cp_commit();
-      tnt_load_w<BK>(wr, w, c0, C, (tb + 1) * BK, n);
+      tnt_load_w<BK, BM>(wr, w, c0, C, (tb + 1) * BK, n);
     }
     tnt_cp_wait<0>();
     __syncthreads();
@@ -221,18 +268,19 @@ tnt_pairs_kernel(const float* __restrict__ T, const float* __restrict__ y,
         tnt_stage_x<BK>(xs0 + b * xstage, T, y, (tile + 2) * BK, n, m);
         tnt_cp_commit();
       }
-      tnt_store_w<BK>(wt0 + (b ^ 1) * BK * TNT_WS, wr);
-      if (tile + 2 < te) tnt_load_w<BK>(wr, w, c0, C, (tile + 2) * BK, n);
+      tnt_store_w<BK, BM>(wt0 + (b ^ 1) * BK * WS, wr);
+      if (tile + 2 < te)
+        tnt_load_w<BK, BM>(wr, w, c0, C, (tile + 2) * BK, n);
       tnt_build_p<BK>(ps0 + (b ^ 1) * BK * TNT_BN, xs0 + (b ^ 1) * xstage, oi,
                       si, oj, sj);
     }
-    tnt_mma<BK>(acc, wt0 + b * BK * TNT_WS, ps0 + b * BK * TNT_BN, tx, ty);
+    tnt_mma<BK, BM>(acc, wt0 + b * BK * WS, ps0 + b * BK * TNT_BN, tx, ty);
     tnt_cp_wait<0>();
     __syncthreads();
   }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int c = c0 + (i < 4 ? 4 * ty + i : 28 + 4 * ty + i);
+  for (int i = 0; i < BM / 8; ++i) {
+    const int c = c0 + tnt_row<BM>(i, ty);
     if (c >= C) continue;
     float* out = part + ((size_t)blockIdx.z * C + c) * qpad + q0;
     *reinterpret_cast<float4*>(out + 4 * tx) =
@@ -275,13 +323,15 @@ int tnt_qpad(int m) {
   return (q + TNT_BN - 1) / TNT_BN * TNT_BN;
 }
 
-size_t tnt_smem(int bk, int m) {
-  return sizeof(float) * (size_t)bk * 2 * ((m + 1) + TNT_BN + TNT_WS);
+size_t tnt_smem(int bk, int bm, int m) {
+  return sizeof(float) * (size_t)bk * 2 * ((m + 1) + TNT_BN + bm + 4);
 }
 
-// The TOA tile: 32 where its shared memory fits (m up to 710 in 227 KB),
-// else 8 (m up to 3,434); 0 when neither fits.
-int tnt_bk(int m) {
+// The TOA tile for BM chains a block: 32 where its shared memory fits (for
+// 64 chains, m up to 710 in 227 KB), else 8 (m up to 3,434); 0 when neither
+// fits, or when only 8 does and the block has 16 chains (the lanes form's
+// W tile then leaves threads without a slot).
+int tnt_bk(int bm, int m) {
   static int optin = 0;
   if (!optin) {
     int dev = 0;
@@ -290,14 +340,25 @@ int tnt_bk(int m) {
                                dev) != cudaSuccess)
       optin = 48 * 1024;
   }
-  if (tnt_smem(32, m) <= (size_t)optin) return 32;
-  if (tnt_smem(8, m) <= (size_t)optin) return 8;
+  if (tnt_smem(32, bm, m) <= (size_t)optin) return 32;
+  if (bm == TNT_BM && tnt_smem(8, bm, m) <= (size_t)optin) return 8;
   return 0;
 }
 
-// Opt the kernel of tile bk into its shared memory and return the number of
-// TOA splits that fills the card in one wave (at least 1, at most one tile
-// per split).
+template <int BK, int BM>
+cudaError_t tnt_occupancy(int m, int* per_sm) {
+  const size_t smem = tnt_smem(BK, BM, m);
+  cudaError_t e = gst_smem_optin(tnt_pairs_kernel<BK, BM>, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, tnt_pairs_kernel<BK, BM>, TNT_THREADS, smem);
+  return e;
+}
+
+// Opt the kernel of tile bk and BM chains a block into its shared memory
+// and return the number of TOA splits that fills the card in one wave (at
+// least 1, at most one tile per split).
+template <int BM>
 cudaError_t tnt_prepare(int bk, int C, int n, int m, int* splits) {
   static int sms = 0;
   if (!sms) {
@@ -307,25 +368,55 @@ cudaError_t tnt_prepare(int bk, int C, int n, int m, int* splits) {
         cudaSuccess)
       sms = 132;
   }
-  const size_t smem = tnt_smem(bk, m);
   int per_sm = 0;
-  cudaError_t e;
-  if (bk == 32) {
-    e = gst_smem_optin(tnt_pairs_kernel<32>, smem);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, tnt_pairs_kernel<32>, TNT_THREADS, smem);
-  } else {
-    e = gst_smem_optin(tnt_pairs_kernel<8>, smem);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, tnt_pairs_kernel<8>, TNT_THREADS, smem);
-  }
+  cudaError_t e = bk == 32 ? tnt_occupancy<32, BM>(m, &per_sm)
+                           : tnt_occupancy<8, TNT_BM>(m, &per_sm);
   if (e != cudaSuccess) return e;
-  const int tiles = tnt_qpad(m) / TNT_BN * ((C + TNT_BM - 1) / TNT_BM);
+  const int tiles = tnt_qpad(m) / TNT_BN * ((C + BM - 1) / BM);
   const int ntile = (n + bk - 1) / bk;
   *splits = std::max(1, std::min(ntile, std::max(1, per_sm) * sms / tiles));
   return cudaSuccess;
+}
+
+// One call: the pairs kernel over the splits, then the unpack kernel. cg is
+// the chains per basis (C for one basis) and nT the rows of each basis.
+template <int BM>
+int tnt_run(const float* T, const float* y, const float* w, const int* pairs,
+            int npairs, float* work, float* tnt, float* d, int C, int n,
+            int nT, int cg, int m, void* stream) {
+  const int bk = tnt_bk(BM, m), qpad = tnt_qpad(m);
+  if (!bk || npairs != qpad || !gst_aligned16(T, y))
+    return (int)cudaErrorInvalidValue;
+  int splits = 0;
+  cudaError_t e = tnt_prepare<BM>(bk, C, n, m, &splits);
+  if (e != cudaSuccess) return (int)e;
+  const int ntile = (n + bk - 1) / bk;
+  const int per = (ntile + splits - 1) / splits;
+  const dim3 grid(qpad / TNT_BN, (C + BM - 1) / BM, splits);
+  const size_t smem = tnt_smem(bk, BM, m);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bk == 32)
+    tnt_pairs_kernel<32, BM><<<grid, TNT_THREADS, smem, s>>>(
+        T, y, w, pairs, work, C, n, m, qpad, per, cg, nT);
+  else
+    tnt_pairs_kernel<8, TNT_BM><<<grid, TNT_THREADS, smem, s>>>(
+        T, y, w, pairs, work, C, n, m, qpad, per, cg, nT);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const size_t total = (size_t)C * ((m + 1) * (m + 2) / 2 - 1);
+  const int fblocks = (int)std::min<size_t>((total + 255) / 256, 4096);
+  if (fblocks)
+    tnt_unpack_kernel<<<fblocks, 256, 0, s>>>(work, pairs, tnt, d, C, m, qpad,
+                                              splits);
+  return (int)cudaGetLastError();
+}
+
+template <int BM>
+size_t tnt_workspace(int C, int n, int m) {
+  const int bk = tnt_bk(BM, m);
+  int splits = 0;
+  if (!bk || tnt_prepare<BM>(bk, C, n, m, &splits) != cudaSuccess) return 0;
+  return (size_t)splits * C * tnt_qpad(m);
 }
 
 }  // namespace
@@ -335,10 +426,7 @@ extern "C" {
 // Floats of device workspace gst_tnt_batched needs at this shape (0 when
 // the shape is out of the kernel's reach; gst_tnt_batched then fails).
 size_t gst_tnt_workspace(int C, int n, int m) {
-  const int bk = tnt_bk(m);
-  int splits = 0;
-  if (!bk || tnt_prepare(bk, C, n, m, &splits) != cudaSuccess) return 0;
-  return (size_t)splits * C * tnt_qpad(m);
+  return tnt_workspace<TNT_BM>(C, n, m);
 }
 
 // T (n, m), 16-byte aligned, and y (n), 16-byte aligned, shared; w (C, n)
@@ -348,31 +436,28 @@ size_t gst_tnt_workspace(int C, int n, int m) {
 int gst_tnt_batched(const float* T, const float* y, const float* w,
                     const int* pairs, int npairs, float* work, float* tnt,
                     float* d, int C, int n, int m, void* stream) {
-  const int bk = tnt_bk(m), qpad = tnt_qpad(m);
-  if (!bk || npairs != qpad || !gst_aligned16(T, y))
+  return tnt_run<TNT_BM>(T, y, w, pairs, npairs, work, tnt, d, C, n, n, C,
+                         m, stream);
+}
+
+// Floats of device workspace gst_tnt_lanes needs for B lanes (0 when the
+// shape is out of the lanes kernel's reach; gst_tnt_lanes then fails).
+size_t gst_tnt_lanes_workspace(int B, int n, int m) {
+  return tnt_workspace<TNT_BM_LANES>(B, n, m);
+}
+
+// The lanes form: B lanes in groups of 16, group g with its own basis, T
+// (B / 16, nT, m) and y (B / 16, nT), 16-byte aligned, nT a multiple of 4
+// and at least n (rows past n are not read); w (B, n) = 1/nvec. Writes tnt
+// (B, m, m) and d (B, m); `work` holds gst_tnt_lanes_workspace(B, n, m)
+// floats.
+int gst_tnt_lanes(const float* T, const float* y, const float* w,
+                  const int* pairs, int npairs, float* work, float* tnt,
+                  float* d, int B, int n, int nT, int m, void* stream) {
+  if (B % TNT_BM_LANES || nT % 4 || nT < n)
     return (int)cudaErrorInvalidValue;
-  int splits = 0;
-  cudaError_t e = tnt_prepare(bk, C, n, m, &splits);
-  if (e != cudaSuccess) return (int)e;
-  const int ntile = (n + bk - 1) / bk;
-  const int per = (ntile + splits - 1) / splits;
-  const dim3 grid(qpad / TNT_BN, (C + TNT_BM - 1) / TNT_BM, splits);
-  const size_t smem = tnt_smem(bk, m);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (bk == 32)
-    tnt_pairs_kernel<32><<<grid, TNT_THREADS, smem, s>>>(T, y, w, pairs, work,
-                                                         C, n, m, qpad, per);
-  else
-    tnt_pairs_kernel<8><<<grid, TNT_THREADS, smem, s>>>(T, y, w, pairs, work,
-                                                        C, n, m, qpad, per);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const size_t total = (size_t)C * ((m + 1) * (m + 2) / 2 - 1);
-  const int fblocks = (int)std::min<size_t>((total + 255) / 256, 4096);
-  if (fblocks)
-    tnt_unpack_kernel<<<fblocks, 256, 0, s>>>(work, pairs, tnt, d, C, m, qpad,
-                                              splits);
-  return (int)cudaGetLastError();
+  return tnt_run<TNT_BM_LANES>(T, y, w, pairs, npairs, work, tnt, d, B, n,
+                               nT, TNT_BM_LANES, m, stream);
 }
 
 }  // extern "C"

@@ -53,6 +53,9 @@ _SIGNATURES = {
     "gst_tnt_batched": ([_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
                         _I),
     "gst_tnt_workspace": ([_I, _I, _I], _Z),
+    "gst_tnt_lanes": ([_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+                      _I),
+    "gst_tnt_lanes_workspace": ([_I, _I, _I], _Z),
 }
 
 _lock = threading.Lock()

@@ -21,6 +21,12 @@ Counterpart of ``gibbs_student_t_tpu/ops/pallas_chol.py``. Two kernels
   ``pallas_chol.py::_backsolve_kernel``. Bound by bytes (L in); one warp
   per system, warp-shuffle column dots.
 
+``chol_fused_lanes`` and ``tri_solve_T_lanes`` are the serving slot
+pool's entries to the same two kernels (replacing ``pallas_chol.py::
+chol_fused_lanes`` and ``::tri_solve_T_lanes``): they check the lanes'
+``gid`` contract (``ops/lanes.py``) and launch the kernel once for every
+lane.
+
 Each wrapper runs its plain PyTorch version (the same recurrence, batched)
 when the tensors lie on the CPU, launches its kernel when they lie on a
 CUDA device, and raises otherwise; it counts its launches in
@@ -32,6 +38,8 @@ or a jitter escalation.
 from __future__ import annotations
 
 import torch
+
+from gibbs_student_t_tpu_torch.ops.lanes import check_lanes_gid
 
 #: largest m the factor kernel takes: its shared memory (4 m^2 bytes plus
 #: vectors) stays within the 227 KB a Hopper block may use up to m ~ 230;
@@ -122,15 +130,26 @@ def chol_fused(S, rhs, per_block=None):
     leading dims are flattened onto the kernel's batch (one launch).
     ``per_block`` overrides :func:`launch_form`'s matrices per block (0:
     the block form), for measurements."""
+    out, launched = _chol_fused("chol_fused", S, rhs, per_block)
+    chol_fused.launches += launched
+    return out
+
+
+chol_fused.launches = 0
+
+
+def _chol_fused(name, S, rhs, per_block=None):
+    """``((L, logdet, u), launches)`` of one factor call: the plain version
+    on the CPU, one launch of the factor kernel on a CUDA device."""
     m = S.shape[-1]
-    _check("chol_fused", S, rhs, m)
-    check_per_block("chol_fused", per_block, m)
+    _check(name, S, rhs, m)
+    check_per_block(name, per_block, m)
     if S.device.type == "cpu":
-        return chol_fused_plain(S, rhs)
+        return chol_fused_plain(S, rhs), 0
     if S.device.type != "cuda":
-        raise RuntimeError(f"chol_fused: no kernel for device {S.device}")
+        raise RuntimeError(f"{name}: no kernel for device {S.device}")
     if m > MAX_CHOL_DIM:
-        raise ValueError(f"chol_fused: m = {m} exceeds MAX_CHOL_DIM "
+        raise ValueError(f"{name}: m = {m} exceeds MAX_CHOL_DIM "
                          f"({MAX_CHOL_DIM})")
     from gibbs_student_t_tpu_torch.ops import _cuda
 
@@ -146,13 +165,25 @@ def chol_fused(S, rhs, per_block=None):
             per_block = per_block if form == "warp" else 0
         _cuda.check(_cuda.lib().gst_chol_fused(
             _cuda.ptr(Sc), _cuda.ptr(rc), _cuda.ptr(L), _cuda.ptr(u),
-            _cuda.ptr(ld), B, m, per_block, _cuda.stream(S.device)),
-            "chol_fused")
-        chol_fused.launches += 1
-    return L.reshape(S.shape), ld.reshape(S.shape[:-2]), u.reshape(rhs.shape)
+            _cuda.ptr(ld), B, m, per_block, _cuda.stream(S.device)), name)
+    return ((L.reshape(S.shape), ld.reshape(S.shape[:-2]),
+             u.reshape(rhs.shape)), int(B > 0))
 
 
-chol_fused.launches = 0
+def chol_fused_lanes(S, rhs, gid):
+    """Serve-lanes entry of :func:`chol_fused` (the JAX package's
+    ``pallas_chol.py::chol_fused_lanes``): ``S (B, m, m)`` / ``rhs (B, m)``
+    per-lane operands under the slot pool's tile-uniform ``gid`` contract
+    (``ops/lanes.py``). The factor is per-lane already (matrices ride the
+    lane batch), so the entry checks the contract and makes one launch of
+    the factor kernel, counted on ``chol_fused_lanes.launches``."""
+    check_lanes_gid(S, gid, "chol_fused_lanes")
+    out, launched = _chol_fused("chol_fused_lanes", S, rhs)
+    chol_fused_lanes.launches += launched
+    return out
+
+
+chol_fused_lanes.launches = 0
 
 
 def tri_solve_T_plain(L, rhs):
@@ -171,14 +202,25 @@ def tri_solve_T_plain(L, rhs):
 def tri_solve_T(L, rhs):
     """``x`` with ``L^T x = rhs`` for lower-triangular ``L (..., m, m)``
     (as from :func:`chol_fused`), float32."""
+    x, launched = _tri_solve_T("tri_solve_T", L, rhs)
+    tri_solve_T.launches += launched
+    return x
+
+
+tri_solve_T.launches = 0
+
+
+def _tri_solve_T(name, L, rhs):
+    """``(x, launches)`` of one back-solve call: the plain version on the
+    CPU, one launch of the back-solve kernel on a CUDA device."""
     m = L.shape[-1]
-    _check("tri_solve_T", L, rhs, m)
+    _check(name, L, rhs, m)
     if L.device.type == "cpu":
-        return tri_solve_T_plain(L, rhs)
+        return tri_solve_T_plain(L, rhs), 0
     if L.device.type != "cuda":
-        raise RuntimeError(f"tri_solve_T: no kernel for device {L.device}")
+        raise RuntimeError(f"{name}: no kernel for device {L.device}")
     if m > MAX_CHOL_DIM:
-        raise ValueError(f"tri_solve_T: m = {m} exceeds MAX_CHOL_DIM "
+        raise ValueError(f"{name}: m = {m} exceeds MAX_CHOL_DIM "
                          f"({MAX_CHOL_DIM})")
     from gibbs_student_t_tpu_torch.ops import _cuda
 
@@ -189,9 +231,18 @@ def tri_solve_T(L, rhs):
     if B:
         _cuda.check(_cuda.lib().gst_tri_solve_T(
             _cuda.ptr(Lc), _cuda.ptr(rc), _cuda.ptr(x), B, m,
-            _cuda.stream(L.device)), "tri_solve_T")
-        tri_solve_T.launches += 1
-    return x.reshape(rhs.shape)
+            _cuda.stream(L.device)), name)
+    return x.reshape(rhs.shape), int(B > 0)
 
 
-tri_solve_T.launches = 0
+def tri_solve_T_lanes(L, rhs, gid):
+    """Serve-lanes entry of :func:`tri_solve_T` (the JAX package's
+    ``pallas_chol.py::tri_solve_T_lanes``; see :func:`chol_fused_lanes`
+    for the ``gid`` contract), counted on ``tri_solve_T_lanes.launches``."""
+    check_lanes_gid(L, gid, "tri_solve_T_lanes")
+    x, launched = _tri_solve_T("tri_solve_T_lanes", L, rhs)
+    tri_solve_T_lanes.launches += launched
+    return x
+
+
+tri_solve_T_lanes.launches = 0

@@ -38,7 +38,11 @@ multi-pulsar ensemble's per-pulsar constants (replacing
 ``hyper_mh_fused`` at G > 1). A grouped launch is the same kernel over the
 G x C chains, each reading its group's constants, and counts on
 ``hyper_mh.launches_grouped``; the plain version takes the group axis as
-a batch axis.
+a batch axis. ``hyper_mh_lanes`` is the serving slot pool's entry:
+per-lane operands and constants under the lanes' ``gid`` contract
+(``ops/lanes.py``), one grouped launch with 16 lanes a group (replacing
+the Pallas core of ``linalg.py::_fused_hyper_lanes_dispatcher``), counted
+on ``hyper_mh.launches_lanes``.
 """
 
 from __future__ import annotations
@@ -61,6 +65,12 @@ from gibbs_student_t_tpu_torch.ops.chol import (
     WARP_MAX_DIM,
     check_per_block,
     chol_fused_plain,
+)
+from gibbs_student_t_tpu_torch.ops.lanes import (
+    check_lanes_gid,
+    flat_lanes,
+    lane_tiles,
+    lead_dims,
 )
 from gibbs_student_t_tpu_torch.ops.white_mh import (
     group_axes,
@@ -236,11 +246,29 @@ def hyper_mh(x, S0, dS0, rt, base, dx, logu, K, sel, specs, hyp_idx,
     static ``HyperConsts.hyp_idx``. ``per_block`` overrides
     :func:`launch_form`'s chains per block (0: the block form), for
     measurements."""
+    out, launched = _hyper_mh("hyper_mh", x, S0, dS0, rt, base, dx, logu, K,
+                              sel, specs, hyp_idx, jitter, per_block)
+    if K.dim() == 3:
+        hyper_mh.launches_grouped += launched
+    else:
+        hyper_mh.launches += launched
+    return out
+
+
+hyper_mh.launches = 0
+hyper_mh.launches_grouped = 0
+hyper_mh.launches_lanes = 0
+
+
+def _hyper_mh(name, x, S0, dS0, rt, base, dx, logu, K, sel, specs, hyp_idx,
+              jitter, per_block=None):
+    """``((x_new, acc_rate), launches)`` of one hyper block call: the plain
+    loop on the CPU, one launch of the hyper kernel on a CUDA device."""
     for t in (x, S0, dS0, rt, base, dx, logu, K, sel, specs):
         if t.dtype != torch.float32:
-            raise ValueError(f"hyper_mh: float32 only, got {t.dtype}")
+            raise ValueError(f"{name}: float32 only, got {t.dtype}")
         if t.device != x.device:
-            raise ValueError("hyper_mh: operands on different devices")
+            raise ValueError(f"{name}: operands on different devices")
     B, p = tuple(x.shape[:-1]), x.shape[-1]
     v = S0.shape[-1]
     S = dx.shape[-2]
@@ -251,15 +279,15 @@ def hyper_mh(x, S0, dS0, rt, base, dx, logu, K, sel, specs, hyp_idx,
             or base.shape != B or dx.shape != (*B, S, p)
             or logu.shape != (*B, S) or K.shape != (*groups, 1 + nk, v)
             or sel.shape != (*groups, v) or specs.shape != (*groups, 3, p)):
-        raise ValueError("hyper_mh: inconsistent operand shapes")
-    check_per_block("hyper_mh", per_block, v)
+        raise ValueError(f"{name}: inconsistent operand shapes")
+    check_per_block(name, per_block, v)
     if x.device.type == "cpu":
         return hyper_mh_loop(x, S0, dS0, rt, base, dx, logu, K, sel, specs,
-                             hyp_idx, jitter)
+                             hyp_idx, jitter), 0
     if x.device.type != "cuda":
-        raise RuntimeError(f"hyper_mh: no kernel for device {x.device}")
+        raise RuntimeError(f"{name}: no kernel for device {x.device}")
     if v > MAX_HYPER_V or nk > MAX_HYPER_K:
-        raise ValueError(f"hyper_mh: v = {v} / nk = {nk} exceed the "
+        raise ValueError(f"{name}: v = {v} / nk = {nk} exceed the "
                          f"kernel bounds ({MAX_HYPER_V}, {MAX_HYPER_K})")
     from gibbs_student_t_tpu_torch.ops import _cuda
 
@@ -276,13 +304,47 @@ def hyper_mh(x, S0, dS0, rt, base, dx, logu, K, sel, specs, hyp_idx,
         _cuda.check(_cuda.lib().gst_hyper_mh(
             *(_cuda.ptr(t) for t in ops), _cuda.addr(hi), nk,
             _cuda.ptr(xo), _cuda.ptr(acc), C, B[-1], v, p, S, float(jitter),
-            per_block, _cuda.stream(x.device)), "hyper_mh")
-        if groups:
-            hyper_mh.launches_grouped += 1
-        else:
-            hyper_mh.launches += 1
-    return xo, acc
+            per_block, _cuda.stream(x.device)), name)
+    return (xo, acc), int(C > 0)
 
 
-hyper_mh.launches = 0
-hyper_mh.launches_grouped = 0
+def _hyper_lanes_operands(x, S0, dS0, rt, base, dx, logu, K, sel, specs,
+                          gid):
+    """The lanes entry's operands as the grouped block takes them: the
+    per-lane ones as ``(B/16, 16, ...)`` tiles, the constants of each
+    tile's first lane ``(B/16, ...)``."""
+    lead = lead_dims(x, 1, "hyper_mh_lanes")
+    check_lanes_gid(flat_lanes(x, lead), gid, "hyper_mh_lanes")
+    ops = [lane_tiles(t, lead) for t in (x, S0, dS0, rt, base, dx, logu)]
+    consts = [lane_tiles(t, lead)[:, 0] for t in (K, sel, specs)]
+    return ops + consts
+
+
+def hyper_mh_lanes_plain(x, S0, dS0, rt, base, dx, logu, K, sel, specs, gid,
+                         hyp_idx, jitter: float):
+    """The plain version of :func:`hyper_mh_lanes`: the grouped plain loop
+    on the tiles, one row of constants per tile."""
+    ops = _hyper_lanes_operands(x, S0, dS0, rt, base, dx, logu, K, sel,
+                                specs, gid)
+    xo, acc = hyper_mh_loop(*ops, hyp_idx, jitter)
+    return xo.reshape(x.shape), acc.reshape(x.shape[:-1])
+
+
+def hyper_mh_lanes(x, S0, dS0, rt, base, dx, logu, K, sel, specs, gid,
+                   hyp_idx, jitter: float):
+    """The serving slot pool's hyper MH block (the Pallas core of the JAX
+    package's ``linalg.py::_fused_hyper_lanes_dispatcher``): per-lane
+    operands ``x (B, p)``, ``S0 (B, v, v)``, ``dS0/rt (B, v)``, ``base
+    (B,)``, ``dx (B, S, p)``, ``logu (B, S)`` and per-lane constants ``K
+    (B, 1 + nk, v)``, ``sel (B, v)``, ``specs (B, 3, p)``, each with its
+    lanes flat or as ``(B/16, 16, ...)`` tiles, under the tile-uniform
+    ``gid (B,)`` contract (``ops/lanes.py``). One row of constants per
+    16-lane tile is read, and the block is one grouped launch of the hyper
+    kernel with the 16 lanes of a tile as one group's chains, counted on
+    ``hyper_mh.launches_lanes``; on the CPU, :func:`hyper_mh_lanes_plain`.
+    Returns ``(x_new, acc_rate)`` in ``x``'s layout."""
+    ops = _hyper_lanes_operands(x, S0, dS0, rt, base, dx, logu, K, sel,
+                                specs, gid)
+    (xo, acc), launched = _hyper_mh("hyper_mh_lanes", *ops, hyp_idx, jitter)
+    hyper_mh.launches_lanes += launched
+    return xo.reshape(x.shape), acc.reshape(x.shape[:-1])

@@ -18,7 +18,9 @@ left to ``torch.matmul`` at full float32 (TF32 is off, see the package
 loop of :func:`tnt_products`, its plain version, on the CPU. The kernel
 computes the lower triangle of the weighted Gram of ``[T | y]`` as one
 product of the chains' weights with the pairs' basis products; the pair
-table is :func:`pair_index`.
+table is :func:`pair_index`. :func:`tnt_lanes` is the serving slot pool's
+reduction, one basis per 16-lane group and one launch for every group
+(replacing ``pallas_tnt.py::tnt_lanes_pallas``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,13 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from gibbs_student_t_tpu_torch.ops.lanes import (
+    check_lanes_gid,
+    flat_lanes,
+    lane_tiles,
+    lead_dims,
+)
 
 
 def pad_rows(T: np.ndarray, y: np.ndarray,
@@ -173,6 +182,100 @@ def tnt_batched(T, y, nvec, block_size: int):
 
 
 tnt_batched.launches = 0
+
+
+def _tnt_lanes_operands(T, y, nvec, gid):
+    """``(T_g (G, nT, m), y_g (G, nT), nvec (G, 16, n), lead)``: the basis
+    of each tile's first lane and the lanes as tiles."""
+    lead = lead_dims(nvec, 1, "tnt_lanes")
+    check_lanes_gid(flat_lanes(nvec, lead), gid, "tnt_lanes")
+    for t in (T, y, nvec):
+        if t.dtype != torch.float32:
+            raise ValueError(f"tnt_lanes: float32 only, got {t.dtype}")
+        if t.device != nvec.device:
+            raise ValueError("tnt_lanes: operands on different devices")
+    nv = lane_tiles(nvec, lead)
+    Tg = lane_tiles(T, lead)[:, 0]
+    yg = lane_tiles(y, lead)[:, 0]
+    G, _, n = nv.shape
+    nT = Tg.shape[-2]
+    if Tg.shape[0] != G or yg.shape != (G, nT) or n > nT:
+        raise ValueError("tnt_lanes: inconsistent operand shapes")
+    return Tg, yg, nv
+
+
+def tnt_lanes_plain(T, y, nvec, gid):
+    """The plain version of :func:`tnt_lanes`: the dense per-basis product
+    of :func:`tnt_products` (the ensemble's) on the first ``n`` rows of
+    each tile's basis, which on the CPU gives each group the solo
+    sampler's products bit for bit (tests/test_torch_lanes.py)."""
+    Tg, yg, nv = _tnt_lanes_operands(T, y, nvec, gid)
+    n, m = nv.shape[-1], Tg.shape[-1]
+    TNT, d, const = tnt_products(Tg[:, :n], yg[:, None, :n], nv)
+    lanes = nvec.shape[:-1]
+    return (TNT.reshape(*lanes, m, m), d.reshape(*lanes, m),
+            const.reshape(lanes))
+
+
+def tnt_lanes(T, y, nvec, gid):
+    """``(TNT, d, const_white)`` for the serving slot pool's lanes, one
+    basis per 16-lane group (the JAX package's ``pallas_tnt.py::
+    tnt_lanes_pallas``): per-lane ``T (B, nT, m)``, ``y (B, nT)`` and
+    ``nvec (B, n)``, ``n <= nT``, each with its lanes flat or as
+    ``(B/16, 16, ...)`` tiles, under the tile-uniform ``gid (B,)``
+    contract (``ops/lanes.py``), so the basis of a tile's first lane is
+    the tile's. The first ``n`` rows of the basis are reduced; the pool
+    stores each group's basis padded to a multiple of 32 rows once, at
+    admission (the ``pad_rows`` contract: zero rows past ``n``). Returns
+    ``(B, m, m)``, ``(B, m)``, ``(B,)`` in ``nvec``'s lane layout.
+
+    On a CUDA device: one launch of the Gram kernel's lanes form for every
+    group (``csrc/tnt.cu gst_tnt_lanes``; the JAX entry launches once per
+    group), counted on ``tnt_lanes.launches``, with the constant in
+    PyTorch. On the CPU, :func:`tnt_lanes_plain`."""
+    if nvec.device.type == "cpu":
+        return tnt_lanes_plain(T, y, nvec, gid)
+    Tg, yg, nv = _tnt_lanes_operands(T, y, nvec, gid)
+    if nvec.device.type != "cuda":
+        raise RuntimeError(f"tnt_lanes: no kernel for device {nvec.device}")
+    from gibbs_student_t_tpu_torch.ops import _cuda
+
+    G, C, n = nv.shape
+    nT, m = Tg.shape[-2:]
+    if nT % 4:
+        # each group's basis must start on a 16-byte boundary; the pool's
+        # bases are stored padded, so only a caller's own operands pay this
+        pad = -nT % 4
+        Tg = torch.cat([Tg, Tg.new_zeros(G, pad, m)], 1)
+        yg = torch.cat([yg, yg.new_zeros(G, pad)], 1)
+        nT += pad
+    Tg, yg = _aligned16(Tg), _aligned16(yg)
+    w = (1.0 / nv).contiguous()
+    y2 = yg[:, :n] * yg[:, :n]
+    const = -0.5 * (torch.log(nv).sum(-1)
+                    + torch.matmul(w, y2[..., None])[..., 0])
+    B = G * C
+    TNT = torch.empty((B, m, m), dtype=T.dtype, device=T.device)
+    d = torch.empty((B, m), dtype=T.dtype, device=T.device)
+    if B:
+        lib = _cuda.lib()
+        pairs = _device_pair_index(m, T.device)
+        ws = lib.gst_tnt_lanes_workspace(B, n, m)
+        if not ws:
+            raise ValueError(f"tnt_lanes: m = {m} is past the lanes "
+                             f"kernel's reach")
+        work = torch.empty((ws,), dtype=T.dtype, device=T.device)
+        _cuda.check(lib.gst_tnt_lanes(
+            _cuda.ptr(Tg), _cuda.ptr(yg), _cuda.ptr(w), _cuda.ptr(pairs),
+            pairs.shape[1], _cuda.ptr(work), _cuda.ptr(TNT), _cuda.ptr(d),
+            B, n, nT, m, _cuda.stream(T.device)), "tnt_lanes")
+        tnt_lanes.launches += 1
+    lanes = nvec.shape[:-1]
+    return (TNT.reshape(*lanes, m, m), d.reshape(*lanes, m),
+            const.reshape(lanes))
+
+
+tnt_lanes.launches = 0
 
 
 def matvec_blocked(T, b, block_size: Optional[int] = None):

@@ -24,6 +24,12 @@ each reading its group's constants, and counts on the wrapper's
 ``launches_grouped``; the plain versions take the group axis as a batch
 axis.
 
+``white_mh_lanes`` is the serving slot pool's entry: per-lane operands
+and constants under the lanes' ``gid`` contract (``ops/lanes.py``), one
+grouped launch with 16 lanes a group (replacing the Pallas arm of
+``pallas_white.py::make_white_block_lanes``), counted on
+``white_mh.launches_lanes``.
+
 Constant folding follows the JAX package: selection groups pinned to
 constants fold into a baseline variance row ``nv0``; each varying group
 keeps its basis row and an in-kernel coefficient,
@@ -39,6 +45,13 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from gibbs_student_t_tpu_torch.ops.lanes import (
+    check_lanes_gid,
+    flat_lanes,
+    lane_tiles,
+    lead_dims,
+)
 
 LN10 = float(np.log(10.0))
 _LOG_2PI = float(np.log(2.0 * np.pi))
@@ -232,6 +245,58 @@ def white_mh(x, az, yred2, dx, logu, rows, specs, var):
 
 white_mh.launches = 0
 white_mh.launches_grouped = 0
+white_mh.launches_lanes = 0
+
+
+def _white_lanes_operands(x, az, yred2, dx, logu, rows, specs, gid):
+    """The lanes entry's operands as the grouped block takes them: the
+    per-lane ones as ``(B/16, 16, ...)`` tiles, the constants of each
+    tile's first lane ``(B/16, ...)``."""
+    lead = lead_dims(x, 1, "white_mh_lanes")
+    check_lanes_gid(flat_lanes(x, lead), gid, "white_mh_lanes")
+    ops = [lane_tiles(t, lead) for t in (x, az, yred2, dx, logu)]
+    rows_g, specs_g = (lane_tiles(t, lead)[:, 0] for t in (rows, specs))
+    return ops, rows_g, specs_g
+
+
+def white_mh_lanes_plain(x, az, yred2, dx, logu, rows, specs, gid, var):
+    """The plain version of :func:`white_mh_lanes`: the grouped plain loop
+    on the tiles, one row of constants per tile (any float dtype)."""
+    ops, rows_g, specs_g = _white_lanes_operands(
+        x, az, yred2, dx, logu, rows, specs, gid)
+    xo, acc = white_mh_loop(*ops, rows_g, specs_g, var)
+    return xo.reshape(x.shape), acc.reshape(x.shape[:-1])
+
+
+def white_mh_lanes(x, az, yred2, dx, logu, rows, specs, gid, var):
+    """The serving slot pool's white MH block (the Pallas arm of the JAX
+    package's ``pallas_white.py::make_white_block_lanes``): per-lane
+    operands, ``x (B, p)``, ``az/yred2 (B, n)``, ``dx (B, S, p)``, ``logu
+    (B, S)``, and per-lane constants ``rows (B, R, n)``, ``specs (B, 3,
+    p)``, each with its lanes flat or as ``(B/16, 16, ...)`` tiles, under
+    the tile-uniform ``gid (B,)`` contract (``ops/lanes.py``). One row of
+    constants per 16-lane tile is read (the JAX entry's ``[::16]``), and
+    the block is one grouped launch of the white kernel with the 16 lanes
+    of a tile as one group's chains, counted on
+    ``white_mh.launches_lanes``; on the CPU, :func:`white_mh_lanes_plain`.
+    Returns ``(x_new, acc_rate)`` in ``x``'s layout."""
+    ops, rows_g, specs_g = _white_lanes_operands(
+        x, az, yred2, dx, logu, rows, specs, gid)
+    B = _check_white("white_mh_lanes", *ops[:3], ops[3:], rows_g, specs_g)
+    S, p = dx.shape[-2], x.shape[-1]
+    if ops[3].shape != (*B, S, p) or ops[4].shape != (*B, S):
+        raise ValueError("white_mh_lanes: inconsistent draw shapes")
+    if x.device.type == "cpu":
+        xo, acc = white_mh_loop(*ops, rows_g, specs_g, var)
+        return xo.reshape(x.shape), acc.reshape(x.shape[:-1])
+    _check_kernel("white_mh_lanes", x, var)
+    xo = torch.empty(ops[0].shape, dtype=x.dtype, device=x.device)
+    acc = torch.empty(B, dtype=x.dtype, device=x.device)
+    if x.numel():
+        _launch("gst_white_mh", ops, rows_g, specs_g, var, xo, acc, B,
+                (az.shape[-1], x.shape[-1], dx.shape[-2]))
+        white_mh.launches_lanes += 1
+    return xo.reshape(x.shape), acc.reshape(x.shape[:-1])
 
 
 def white_mtm_loop(x, az, yred2, dx, dxr, gumb, logu, rows, specs, var):

@@ -63,6 +63,54 @@ BLOCK_DATA_FIELDS = {
 }
 
 
+#: the sampler attributes that hold one model's numbers, stacked with a
+#: leading pulsar axis in the ensemble (see ``EnsembleGibbs.__init__``)
+GROUPED_ATTRS = ("_y", "_sigma2", "_T", "_efac_masks", "_equad_masks",
+                 "_mask", "_efac_c", "_equad_c", "_nstat", "_theta_prior",
+                 "_phi_consts", "_white", "_hyper")
+
+
+def _model_leaves(stacked, one):
+    """``(stacked tensor, its one-model value)`` pairs of a grouped
+    attribute and a solo sampler's: tensors and numbers, walked through
+    lists, tuples and dicts; structure (an ecorr block's column groups,
+    static tables, flags) is skipped."""
+    if torch.is_tensor(stacked):
+        yield stacked, one
+    elif isinstance(stacked, (list, tuple)):
+        for a, b in zip(stacked, one):
+            yield from _model_leaves(a, b)
+    elif isinstance(stacked, dict):
+        for key, a in stacked.items():
+            if key != "group":
+                yield from _model_leaves(a, one[key])
+
+
+def check_kernel_structure(s: TorchGibbs, t0: TorchGibbs) -> None:
+    """Raise ``ValueError`` unless ``s`` shares with ``t0`` the structure
+    the grouped sweep and kernels need: one Schur split, one set of
+    white-noise variance groups, one set of hyper indices."""
+    if (s._schur is None) != (t0._schur is None) or (
+            s._schur is not None and not all(
+                np.array_equal(a, b) for a, b in zip(s._schur, t0._schur))):
+        raise ValueError(
+            "pulsars split their phi-static columns differently "
+            "(static_phi_columns); the grouped sweep needs one "
+            "Schur split for every pulsar")
+    if (s._white is None) != (t0._white is None) or (
+            s._white is not None and s._white[2] != t0._white[2]):
+        raise ValueError(
+            "pulsars have different white-noise variance groups "
+            "(WhiteConsts.var); the grouped white kernel needs one")
+    if (s._hyper is None) != (t0._hyper is None) or (
+            s._hyper is not None
+            and s._hyper["hyp_idx"] != t0._hyper["hyp_idx"]):
+        raise ValueError(
+            "pulsars have different hyper indices "
+            "(HyperConsts.hyp_idx); the grouped hyper kernel needs "
+            "one")
+
+
 def _localize_names(ma: ModelArrays) -> ModelArrays:
     """Strip the pulsar-name prefix from the parameter names, so that every
     pulsar's structure is the same and the models can stack."""
@@ -252,28 +300,8 @@ class EnsembleGibbs(TorchGibbs):
                     const[key] = nums([k[key] for k in ks])
             self._phi_consts.append((blk, const))
 
-        # the structure every pulsar must share with the grouped kernels
         for s in solos[1:]:
-            if (s._schur is None) != (t0._schur is None) or (
-                    s._schur is not None and not all(
-                        np.array_equal(a, b)
-                        for a, b in zip(s._schur, t0._schur))):
-                raise ValueError(
-                    "pulsars split their phi-static columns differently "
-                    "(static_phi_columns); the grouped sweep needs one "
-                    "Schur split for every pulsar")
-            if (s._white is None) != (t0._white is None) or (
-                    s._white is not None and s._white[2] != t0._white[2]):
-                raise ValueError(
-                    "pulsars have different white-noise variance groups "
-                    "(WhiteConsts.var); the grouped white kernel needs one")
-            if (s._hyper is None) != (t0._hyper is None) or (
-                    s._hyper is not None
-                    and s._hyper["hyp_idx"] != t0._hyper["hyp_idx"]):
-                raise ValueError(
-                    "pulsars have different hyper indices "
-                    "(HyperConsts.hyp_idx); the grouped hyper kernel needs "
-                    "one")
+            check_kernel_structure(s, t0)
         self._schur = t0._schur
         if self._schur is not None:
             self._s_i, self._v_i = t0._s_i, t0._v_i
@@ -293,6 +321,19 @@ class EnsembleGibbs(TorchGibbs):
                     [h["phiinv_static"] for h in hs])[:, None],
                 logdet_static=nums([h["logdet_static"] for h in hs]),
                 hyp_idx=t0._hyper["hyp_idx"], fused=t0._hyper["fused"])
+
+    def write_pulsar(self, p: int, solo: TorchGibbs) -> None:
+        """Overwrite pulsar ``p``'s model tensors in place with ``solo``'s
+        (a sampler of the same structure, :func:`check_kernel_structure`),
+        as the constructor stacked them: the serving slot pool admits a
+        tenant this way, into tensors allocated once."""
+        for name in GROUPED_ATTRS:
+            for dst, src in _model_leaves(getattr(self, name),
+                                          getattr(solo, name)):
+                if torch.is_tensor(src):
+                    dst[p].copy_(src)
+                else:
+                    dst[p].fill_(float(src))
 
     def init_state(self, seed: int = 0) -> ChainState:
         """Batched state with leading ``(P, C)`` axes: pulsar ``p``'s from

@@ -1,0 +1,406 @@
+"""The slot pool on one GPU: every lane a chain, tenants in 16-lane groups.
+
+Counterpart of ``gibbs_student_t_tpu/serve/pool.py``. A :class:`SlotPool`
+owns ``nlanes`` lanes, each an independent chain, and serves several
+tenants (different models, seeds, chain counts and sweep budgets) in one
+sweep: every MH block is one kernel launch for every lane, whatever
+tenant owns it. Tenants are admitted into whole groups of
+``LANES_GROUP`` = 16 lanes, so each aligned 16-lane tile belongs to one
+tenant (the tile-uniform ``gid`` contract of ``ops/lanes.py``).
+
+The state is held as ``(G, 16, ...)``, G = nlanes / 16 groups, and each
+group's model and MH constants as ``(G, 1, ...)``: the ensemble's layout
+(``parallel/ensemble.py``) with one "pulsar" per group, so the sweep is
+the ensemble's. Its MH blocks and TOA reduction go to the lanes entries:
+``white_mh_lanes``, ``hyper_mh_lanes`` (the grouped kernels with 16
+chains a group) and ``tnt_lanes`` (the Gram kernel, one basis per group);
+the factorizations and solves to ``chol_fused`` and ``tri_solve_T``, as on
+the solo path (so does the JAX pool). Admission writes the tenant's model
+into its groups' slices of tensors allocated once at construction; no
+kernel is built or rebuilt per tenant (the eager counterpart of the JAX
+pool's one compiled program).
+
+Randomness: a tenant's draws for its tenant-local sweep ``i`` come from
+the pool's generator seeded with ``sweep_key(seed, i)`` and are drawn at
+the tenant's own chain count, by the same calls in the same order as
+``TorchGibbs._draw``, then written into its lanes. They depend neither on
+its lanes nor on its neighbours, so a tenant alone in the pool is the
+solo sampler: ``TorchGibbs.sample`` with the same seed
+(tests/test_torch_serve.py). The JAX pool gives the same guarantee with
+per-chain philox keys; per-chain keys (so that a chain's draws also stop
+depending on ``nchains``) are left for later.
+
+Lanes not owned by a tenant's chains (free groups, and the pad lanes of a
+tenant whose chain count is not a multiple of 16) are frozen at the end
+of each quantum, bitwise: their state is the quantum's starting state.
+A tenant's pad lanes start as copies of its chain 0 (finite, discarded).
+
+Not ported from the JAX pool: buffer donation and the device scatter of
+admissions (``GST_SERVE_SCATTER``), the adaptive block-gate operand, the
+wire-dtype record tiers, telemetry, recycling, and heterogeneous pools
+(tenants with fewer TOAs than the pool). Like the JAX pool it refuses
+population-covariance adaptation; it also refuses multiple-try
+Metropolis, which the lanes entries do not cover.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from gibbs_student_t_tpu_torch.backends.torch_backend import (
+    _LIGHT_FIELDS,
+    _RECORD_FIELDS,
+    ChainState,
+    SweepDraws,
+    TorchGibbs,
+    resolve_device,
+    sweep_key,
+)
+from gibbs_student_t_tpu_torch.config import GibbsConfig
+from gibbs_student_t_tpu_torch.models.pta import ModelArrays
+from gibbs_student_t_tpu_torch.ops.hyper_mh import hyper_mh_lanes
+from gibbs_student_t_tpu_torch.ops.lanes import LANES_GROUP
+from gibbs_student_t_tpu_torch.ops.tnt import tnt_lanes
+from gibbs_student_t_tpu_torch.ops.white_mh import white_mh_lanes
+from gibbs_student_t_tpu_torch.parallel.ensemble import (
+    EnsembleGibbs,
+    _localize_names,
+)
+
+#: gid of lanes no tenant owns (whole free groups)
+FREE_GID = -1
+#: each group's basis is stored padded to a multiple of this many TOAs
+#: (the Gram kernel's TOA tile)
+BASIS_ROWS = 32
+#: the state fields ``TorchGibbs._draw`` reads
+_DRAW_FIELDS = ("z", "df", "mh_log_scale", "mh_cov_chol")
+
+
+class TenantSlot:
+    """Book-keeping of one admitted tenant (host side)."""
+
+    def __init__(self, tenant_id: int, lanes: np.ndarray, nchains: int,
+                 niter: int, start_sweep: int, seed: int):
+        self.tenant_id = tenant_id
+        self.lanes = lanes            # (ceil(nchains/16)*16,) lane indices
+        self.nchains = nchains        # real chains; lanes[nchains:] pad
+        self.niter = niter
+        self.start_sweep = start_sweep
+        self.done_sweeps = 0          # tenant-local sweeps served so far
+        self.seed = seed
+
+    @property
+    def chain_lanes(self) -> np.ndarray:
+        return self.lanes[:self.nchains]
+
+    @property
+    def groups(self) -> np.ndarray:
+        return self.lanes[::LANES_GROUP] // LANES_GROUP
+
+    @property
+    def remaining(self) -> int:
+        return self.niter - self.done_sweeps
+
+
+def _rows(lanes: np.ndarray, device):
+    """A slice when ``lanes`` are consecutive (a view, no copy), else an
+    index tensor on ``device``."""
+    lo = int(lanes[0])
+    if np.array_equal(lanes, np.arange(lo, lo + len(lanes))):
+        return slice(lo, lo + len(lanes))
+    return torch.as_tensor(lanes, dtype=torch.long, device=device)
+
+
+def _flat(t):
+    """A ``(G, 16, ...)`` lane tensor as ``(B, ...)`` (a view)."""
+    return t.view(t.shape[0] * t.shape[1], *t.shape[2:])
+
+
+class _LaneSampler(EnsembleGibbs):
+    """The pool's sweep: the ensemble's over G groups of 16 lanes, with
+    the white and hyper MH blocks and the TOA reduction taken by the
+    lanes entries, and the Robbins-Monro step per lane."""
+
+    def __init__(self, template: ModelArrays, config: GibbsConfig,
+                 ngroups: int, device):
+        super().__init__([template] * ngroups, config,
+                         nchains=LANES_GROUP, device=device)
+        self._pulsar_backends = None
+        G, n, m = ngroups, self._n, self._ma.m
+        # each group's basis and residuals padded once to whole TOA tiles;
+        # the sweep reads the first n rows through views
+        nT = -(-n // BASIS_ROWS) * BASIS_ROWS
+        self._T_pad = self._T.new_zeros((G, 1, nT, m))
+        self._T_pad[:, 0, :n] = self._T
+        self._y_pad = self._y.new_zeros((G, 1, nT))
+        self._y_pad[..., :n] = self._y
+        self._T = self._T_pad[:, 0, :n]
+        self._y = self._y_pad[..., :n]
+        self.gid = torch.full((G, LANES_GROUP), FREE_GID, dtype=torch.int32,
+                              device=self.device)
+        self.eta = None             # (quantum, G, 16, 1) while adapting
+
+    @staticmethod
+    def _per_lane(t):
+        """A per-group ``(G, ...)`` constant as a per-lane ``(G, 16, ...)``
+        operand: a broadcast view, no copy."""
+        return t[:, None].expand(t.shape[0], LANES_GROUP, *t.shape[1:])
+
+    def _white_block(self, x, az, yred2, draws):
+        rows, specs, var = self._white
+        return white_mh_lanes(
+            x, az, yred2, draws.dx_w, draws.logu_w, self._per_lane(rows),
+            self._per_lane(specs), _flat(self.gid), var)
+
+    def _tnt(self, nvec):
+        return tnt_lanes(self._T_pad.expand(-1, LANES_GROUP, -1, -1),
+                         self._y_pad.expand(-1, LANES_GROUP, -1), nvec,
+                         _flat(self.gid))
+
+    def _hyper_block(self, x, Sh, rh, base, draws):
+        hp = self._hyper
+        if not hp["fused"]:
+            return super()._hyper_block(x, Sh, rh, base, draws)
+        dS0 = torch.diagonal(Sh, dim1=-2, dim2=-1) + hp["phiinv_static"]
+        return hyper_mh_lanes(
+            x, Sh, dS0, rh, base, draws.dx_h, draws.logu_h,
+            *(self._per_lane(hp[k]) for k in ("K", "sel", "specs")),
+            _flat(self.gid), hp["hyp_idx"], self.config.jitter)
+
+    def _rm_step(self, sweep):
+        # sweep is the step within the quantum; each lane's step size was
+        # taken at its tenant's own sweep index (SlotPool._eta_table)
+        return self.eta[sweep]
+
+
+class SlotPool:
+    """``nlanes`` single-chain lanes behind one sweep.
+
+    ``quantum`` is the scheduling granularity in sweeps: every
+    :meth:`run_quantum` advances all lanes by that many sweeps (tenants'
+    budgets are multiples of it). ``template_ma`` fixes the pool's model
+    structure: TOA count, basis size, parameter structure, Schur split,
+    noise groups and prior kinds; tenants must match it (the server
+    validates at admission). ``record`` is ``"full"`` or ``"light"`` as in
+    ``TorchGibbs``. ``device`` as in ``TorchGibbs``: CUDA unless the
+    caller asks for the CPU."""
+
+    def __init__(self, template_ma: ModelArrays, config: GibbsConfig,
+                 nlanes: int = 1024, quantum: int = 25,
+                 group: int = LANES_GROUP, device=None,
+                 record: str = "full"):
+        device = resolve_device(device)
+        if group % LANES_GROUP:
+            raise ValueError(
+                f"group ({group}) must be a multiple of {LANES_GROUP}: the "
+                "lanes kernels need per-lane constants uniform within "
+                f"every aligned {LANES_GROUP}-lane tile")
+        if nlanes < group or nlanes % group:
+            raise ValueError(f"nlanes ({nlanes}) must be a positive "
+                             f"multiple of the admission group ({group})")
+        if quantum < 1:
+            raise ValueError(f"quantum must be >= 1, got {quantum}")
+        if config.mh.adapt_cov:
+            raise ValueError(
+                "the serve slot pool does not support population-"
+                "covariance adaptation (adapt_cov): proposal factors "
+                "couple chains across one tenant's population, which "
+                "has no lane-local form")
+        if config.mh.mtm_tries >= 2:
+            raise ValueError(
+                "the serve slot pool runs single-try MH blocks; multiple-"
+                "try Metropolis has no lanes form")
+        if record not in ("full", "light"):
+            raise ValueError(f"record must be 'full' or 'light', got "
+                             f"{record!r}")
+        tmpl = _localize_names(template_ma)
+        if tmpl.row_mask is not None:
+            raise ValueError("template_ma must be an unpadded model "
+                             "(its n defines the pool TOA axis)")
+        self.nlanes, self.quantum, self.group = nlanes, quantum, group
+        self.record, self.config, self.device = record, config, device
+        self.template_ma = tmpl
+        self.n_pool = tmpl.n
+        G = nlanes // LANES_GROUP
+        self.sampler = _LaneSampler(tmpl, config, G, device)
+        # the draws of every tenant, at its own chain count (_draw reads
+        # only structure and the state, which the pool's tenants share
+        # with the template), and the lanes' first state: the template's
+        self.drawer = TorchGibbs(tmpl, config, nchains=nlanes,
+                                 device=device, tnt_block_size=None,
+                                 record=record)
+        self.fields = _RECORD_FIELDS if record == "full" else _LIGHT_FIELDS
+        flat = self.drawer.init_state(seed=0)
+        self.state = ChainState(*(t.reshape(G, LANES_GROUP, *t.shape[1:])
+                                  for t in flat))
+        self._gen = torch.Generator(device=device)
+        # one sweep's draws for every lane, allocated once: the tenants'
+        # draws are written into their lanes each sweep. Lanes no tenant
+        # draws for keep finite values (a rejected MH step, theta 1/2)
+        shapes = self.drawer._draw(self._gen.manual_seed(0), flat)
+        self._draws = SweepDraws(*(
+            torch.full((G, LANES_GROUP, *t.shape[1:]),
+                       1.0 if name in ("g_theta", "g_alpha") else 0.0,
+                       dtype=t.dtype, device=device)
+            for name, t in zip(SweepDraws._fields, shapes)))
+        # host-authoritative lane flags, uploaded at the next quantum
+        self._active_np = np.zeros(nlanes, bool)
+        self._gid_np = np.full(nlanes, FREE_GID, np.int32)
+        self._active = torch.zeros((G, LANES_GROUP), dtype=torch.bool,
+                                   device=device)
+        self._dirty = True
+        self._slots: Dict[int, TenantSlot] = {}
+        self._next_sweep: Dict[int, int] = {}
+        # each tenant's chain lanes: a slice, or an index tensor when its
+        # groups are not consecutive
+        self._rows: Dict[int, object] = {}
+
+    # ------------------------------------------------------------------
+    # lane writes
+    # ------------------------------------------------------------------
+
+    def write_tenant(self, slot: TenantSlot, backend: TorchGibbs,
+                     state: ChainState) -> None:
+        """Admit a tenant into its lanes: its model into its groups' slices
+        of the model tensors, its chains' state into its lanes (pad lanes:
+        copies of chain 0), its lanes marked active and owned.
+        ``backend`` is a ``TorchGibbs`` of the tenant's model on the pool's
+        device, its structure already checked against the template; its
+        numbers are copied, the pool keeps no reference to it."""
+        lanes, k = slot.lanes, slot.nchains
+        for g in slot.groups:
+            self.sampler.write_pulsar(int(g), backend)
+        idx = torch.as_tensor(lanes, dtype=torch.long, device=self.device)
+        for f, val in zip(ChainState._fields, state):
+            val = val.to(self.device)
+            if len(lanes) > k:
+                val = torch.cat([val, val[:1].expand(len(lanes) - k,
+                                                     *val.shape[1:])])
+            _flat(getattr(self.state, f)).index_copy_(0, idx, val)
+        self._active_np[lanes[:k]] = True
+        self._active_np[lanes[k:]] = False
+        self._gid_np[lanes] = slot.tenant_id
+        self._dirty = True
+        self._slots[slot.tenant_id] = slot
+        self._next_sweep[slot.tenant_id] = slot.start_sweep
+        self._rows[slot.tenant_id] = _rows(slot.chain_lanes, self.device)
+
+    def evict(self, slot: TenantSlot) -> None:
+        """Free a tenant's lanes: inactive, their groups free. Their model
+        and state stay parked (frozen) until an admission overwrites
+        them."""
+        self._active_np[slot.lanes] = False
+        self._gid_np[slot.lanes] = FREE_GID
+        self._dirty = True
+        for d in (self._slots, self._next_sweep, self._rows):
+            d.pop(slot.tenant_id, None)
+
+    def tenant_state(self, slot: TenantSlot) -> ChainState:
+        """The tenant's current chain state: ``(nchains, ...)`` tensors on
+        the pool's device (copies), e.g. to resume it in ``TorchGibbs``
+        or in another pool at ``start_sweep``."""
+        idx = torch.as_tensor(slot.chain_lanes, dtype=torch.long,
+                              device=self.device)
+        return ChainState(*(_flat(f).index_select(0, idx)
+                            for f in self.state))
+
+    # ------------------------------------------------------------------
+    # the quantum
+    # ------------------------------------------------------------------
+
+    def _upload(self) -> None:
+        if self._dirty:
+            G = self.nlanes // LANES_GROUP
+            self._active.copy_(torch.from_numpy(self._active_np).reshape(
+                G, LANES_GROUP))
+            self.sampler.gid.copy_(torch.from_numpy(self._gid_np).reshape(
+                G, LANES_GROUP))
+            self._dirty = False
+
+    def _eta_table(self):
+        """``(quantum, G, 16, 1)`` Robbins-Monro step sizes: each lane's at
+        its tenant's sweep index (0 where no tenant's chain runs)."""
+        table = np.zeros((self.quantum, self.nlanes), np.float32)
+        for tid, slot in self._slots.items():
+            i0 = self._next_sweep[tid]
+            for j in range(self.quantum):
+                table[j, slot.chain_lanes] = self.drawer._rm_step(i0 + j)
+        return torch.from_numpy(table).to(self.device).reshape(
+            self.quantum, -1, LANES_GROUP, 1)
+
+    def _write_draws(self, st: ChainState, step: int) -> None:
+        """Every resident tenant's draws of its sweep ``step`` of this
+        quantum, drawn at its chain count and written into its lanes."""
+        for tid, slot in self._slots.items():
+            rows = self._rows[tid]
+            if isinstance(rows, slice):
+                view = {f: _flat(getattr(st, f))[rows] for f in _DRAW_FIELDS}
+            else:
+                view = {f: _flat(getattr(st, f)).index_select(0, rows)
+                        for f in _DRAW_FIELDS}
+            st_t = ChainState(**{f: view.get(f) for f in ChainState._fields})
+            i = self._next_sweep[tid] + step
+            dr = self.drawer._draw(
+                self._gen.manual_seed(sweep_key(slot.seed, i)), st_t)
+            for buf, val in zip(self._draws, dr):
+                if isinstance(rows, slice):
+                    _flat(buf)[rows].copy_(val)
+                else:
+                    _flat(buf).index_copy_(0, rows, val)
+
+    def run_quantum(self) -> Dict[str, torch.Tensor]:
+        """Advance every lane by ``quantum`` sweeps and return the records:
+        ``{field: (quantum, G, 16, ...)}`` device tensors, the state before
+        each sweep (as ``TorchGibbs.sample`` records). Lanes no tenant's
+        chain owns end the quantum as they began it."""
+        self._upload()
+        smp = self.sampler
+        if self.config.mh.adapt_until > 0:
+            smp.eta = self._eta_table()
+        start = st = self.state
+        recs = {f: [] for f in self.fields}
+        for j in range(self.quantum):
+            for f in self.fields:
+                recs[f].append(getattr(st, f))
+            self._write_draws(st, j)
+            st = smp._sweep(st, self._draws, sweep=j)
+        if not self._active_np.all():
+            st = ChainState(*(
+                torch.where(self._active.reshape(
+                    self._active.shape + (1,) * (new.dim() - 2)), new, old)
+                for new, old in zip(st, start)))
+        self.state = st
+        for tid in self._next_sweep:
+            self._next_sweep[tid] += self.quantum
+        return {f: torch.stack(v) for f, v in recs.items()}
+
+    # ------------------------------------------------------------------
+    # records
+    # ------------------------------------------------------------------
+
+    def materialize(self, recs: Dict[str, torch.Tensor]) -> dict:
+        """A quantum's records on the host: ``{field: (nlanes, rows,
+        ...)}`` numpy arrays (the JAX pool's lane-major layout)."""
+        out = {}
+        for f, t in recs.items():
+            a = t.cpu().numpy()
+            out[f] = np.swapaxes(a.reshape(a.shape[0], self.nlanes,
+                                           *a.shape[3:]), 0, 1)
+        return out
+
+    def tenant_records(self, host: dict, slot: TenantSlot) -> dict:
+        """One tenant's slice of a materialized quantum: ``{field: (rows,
+        nchains, ...)}`` (copies)."""
+        return {f: np.ascontiguousarray(np.swapaxes(a[slot.chain_lanes],
+                                                    0, 1))
+                for f, a in host.items()}
+
+    def result(self, cols: dict):
+        """A ``ChainResult`` from a tenant's records ``{field: (niter,
+        nchains, ...)}``, as ``TorchGibbs.sample`` returns it."""
+        res = self.drawer._result(cols)
+        res.stats["n_toa"] = np.asarray([self.n_pool])
+        return res

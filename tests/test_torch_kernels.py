@@ -21,7 +21,11 @@ MTM kernel with dead weights, and the Gram kernel with padded rows, at
 1, 2, 5, 7, 64 and 100 chains (the last two chain tiles of 64, one
 ragged), m = 3, 12, 74, 174 and 720 (past 710 the kernel takes its
 8-TOA tile), and TOA counts that leave its last TOA tile and its last
-TOA split short.
+TOA split short. Then the serving slot pool's lanes entries: the Gram
+kernel's lanes form (one basis per 16-lane group) at 2 to 64 groups,
+m = 3 to 174, with padded bases and flat operands; the white and hyper
+lanes blocks, each group bit for bit its single-model launch; the factor
+and back-solve lanes entries, bit for bit the plain entries.
 
 Tolerances: kernel and plain version both compute in float32, in other
 summation orders. Factors, solves and logdets agree to rtol 1e-4 / atol
@@ -54,6 +58,7 @@ from gibbs_student_t_tpu_torch.ops import chol, linalg
 from gibbs_student_t_tpu_torch.ops import hyper_mh as thyper
 from gibbs_student_t_tpu_torch.ops import white_mh as twhite
 from gibbs_student_t_tpu_torch.ops import tnt as ttnt
+from gibbs_student_t_tpu_torch.ops.lanes import LANES_GROUP
 from gibbs_student_t_tpu_torch.ops.tnt import pad_rows, tnt_products
 from gibbs_student_t_tpu_torch.testing import separate_mtm_ties, separate_ties
 
@@ -579,3 +584,162 @@ def test_grouped_hyper_kernel_on_card(components, per_block):
                                   per_block=per_block)
         assert torch.equal(xs, xk[g]) and torch.equal(as_, ak[g])
     assert thyper.hyper_mh.launches == n0 + G_
+
+
+# --- the serving lanes entries --------------------------------------------
+
+def _gid_tiles(G_):
+    return torch.arange(G_, dtype=torch.int32).repeat_interleave(
+        LANES_GROUP)
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("G_, n, nT, m, flat", [
+    (64, 130, 160, 74, False), (3, 90, 96, 10, False),
+    (5, 2000, 2016, 174, False), (2, 33, 33, 3, True)])
+def test_tnt_lanes_kernel_on_card(G_, n, nT, m, flat):
+    """The Gram kernel's lanes form (one basis per 16-lane group, one
+    launch for every group) against its plain version and a float64
+    evaluation of each group's sums (1e-4 of the sums over absolute
+    values, as the single-basis kernel), with the pool's padded bases
+    (nT > n rows, the rows past n unread) and with flat per-lane operands
+    whose TOA count is not a multiple of 4 (the wrapper pads a copy)."""
+    dev = _cuda()
+    rng = np.random.default_rng(131 + m)
+    B = G_ * LANES_GROUP
+    Tg = np.zeros((G_, nT, m), np.float32)
+    Tg[:, :n] = rng.normal(size=(G_, n, m))
+    yg = np.zeros((G_, nT), np.float32)
+    yg[:, :n] = rng.normal(size=(G_, n))
+    nvec = np.exp(rng.normal(0.0, 1.0, (B, n))).astype(np.float32)
+    tt = torch.from_numpy
+    if flat:
+        ops = (tt(np.repeat(Tg, LANES_GROUP, 0)),
+               tt(np.repeat(yg, LANES_GROUP, 0)), tt(nvec))
+    else:
+        ops = (tt(Tg)[:, None].expand(G_, LANES_GROUP, nT, m),
+               tt(yg)[:, None].expand(G_, LANES_GROUP, nT),
+               tt(nvec).reshape(G_, LANES_GROUP, n))
+    gid = _gid_tiles(G_)
+    n0 = ttnt.tnt_lanes.launches
+    out = ttnt.tnt_lanes(*(t.to(dev) for t in ops), gid.to(dev))
+    assert ttnt.tnt_lanes.launches == n0 + 1
+    outp = ttnt.tnt_lanes(*ops, gid)
+    T64, y64 = tt(Tg[:, :n]).double(), tt(yg[:, :n]).double()
+    nv64 = tt(nvec).double().reshape(G_, LANES_GROUP, n)
+    TNT64, d64, const64 = tnt_products(T64, y64[:, None], nv64)
+    M, Md, _ = tnt_products(T64.abs(), y64.abs()[:, None], nv64)
+    lead = 1 if flat else 2
+    for o in (out, outp):
+        TNT, d, const = (t.cpu().double().reshape(G_, LANES_GROUP,
+                                                  *t.shape[lead:])
+                         for t in o)
+        assert (TNT - TNT64).abs().le(1e-4 * M).all()
+        assert (d - d64).abs().le(1e-4 * Md).all()
+        torch.testing.assert_close(const, const64, rtol=1e-6, atol=0.0)
+    assert torch.equal(out[0], out[0].transpose(-1, -2))
+
+
+@pytest.mark.torch
+def test_white_mh_lanes_on_card():
+    """The white block's lanes form: 4 groups of 16 lanes, each group's
+    own model, against the grouped plain version; it is the grouped
+    launch at 16 chains a group, so each group's lanes alone through the
+    single-model launch give the same values bit for bit."""
+    dev = _cuda()
+    rng = np.random.default_rng(141)
+    G_, S = 4, 20
+    mas = group_models([130 - 10 * (g % 3) for g in range(G_)])
+    ops, rows, specs, var = grouped_white_operands(rng, mas, LANES_GROUP, S)
+    *ops, rows, specs = [t.to(dev) for t in (*ops, rows, specs)]
+    flat = [t.reshape(-1, *t.shape[2:]) for t in ops]
+    lanes_c = [t.repeat_interleave(LANES_GROUP, 0) for t in (rows, specs)]
+    n0 = twhite.white_mh.launches_lanes
+    xk, ak = twhite.white_mh_lanes(*flat, *lanes_c, _gid_tiles(G_).to(dev),
+                                   var)
+    assert twhite.white_mh.launches_lanes == n0 + 1
+    xp, ap = twhite.white_mh_loop(*ops, rows, specs, var)
+    nk = acc_counts(ak.cpu(), S)
+    np.testing.assert_array_equal(nk, acc_counts(ap.reshape(-1).cpu(), S))
+    assert 0 < nk.sum() < G_ * LANES_GROUP * S
+    torch.testing.assert_close(xk, xp.reshape(xk.shape), rtol=1e-5,
+                               atol=1e-6)
+    xk, ak = xk.reshape(G_, LANES_GROUP, -1), ak.reshape(G_, LANES_GROUP)
+    for g in range(G_):
+        xs, as_ = twhite.white_mh(*(t[g] for t in ops), rows[g], specs[g],
+                                  var)
+        assert torch.equal(xs, xk[g]) and torch.equal(as_, ak[g])
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("components", [30, 7])
+def test_hyper_mh_lanes_on_card(components):
+    """The hyper block's lanes form: 3 groups of 16 lanes, each group's
+    own model (v = 60 and 14), against the grouped plain version, and bit
+    for bit each group's lanes through the single-model launch."""
+    dev = _cuda()
+    rng = np.random.default_rng(151 + components)
+    mas = [make_demo_model_arrays(components=components, seed=60 + g)
+           for g in range(3)]
+    S = 10
+    tt = torch.from_numpy
+    per = []
+    for ma in mas:
+        ops, hc = hyper_operands(ma, rng, LANES_GROUP)
+        consts = [tt(a) for a in (hc.K, hc.phi_sel, hc.specs)]
+        dx = tt(jumps(rng, ma.hyper_indices, S, 3, True, 0.1,
+                      C=LANES_GROUP))
+        logu = separate_ties(
+            lambda q, ops=ops, consts=consts, hc=hc: thyper.hyper_ll_lp(
+                q, *(t.double() for t in ops[1:]),
+                *(t.double() for t in consts), hc.hyp_idx, 1e-6),
+            ops[0], dx, torch.log(tt(rng.random((LANES_GROUP, S)).astype(
+                np.float32))))
+        per.append((*ops, dx, logu, *consts))
+    hyp_idx = hc.hyp_idx
+    args = [torch.stack(f).to(dev) for f in zip(*per)]
+    lanes = ([t.reshape(-1, *t.shape[2:]) for t in args[:7]]
+             + [t.repeat_interleave(LANES_GROUP, 0) for t in args[7:]])
+    n0 = thyper.hyper_mh.launches_lanes
+    xk, ak = thyper.hyper_mh_lanes(*lanes, _gid_tiles(3).to(dev), hyp_idx,
+                                   1e-6)
+    assert thyper.hyper_mh.launches_lanes == n0 + 1
+    xp, ap = thyper.hyper_mh_loop(*args, hyp_idx, 1e-6)
+    nk = acc_counts(ak.cpu(), S).reshape(3, LANES_GROUP)
+    np.testing.assert_array_equal(nk, acc_counts(ap.cpu(), S))
+    assert (nk[:, 0] == 0).all()          # each group's indefinite chain
+    assert 0 < nk.sum() < 3 * LANES_GROUP * S
+    torch.testing.assert_close(xk, xp.reshape(xk.shape), rtol=1e-5,
+                               atol=1e-6)
+    xk, ak = xk.reshape(3, LANES_GROUP, -1), ak.reshape(3, LANES_GROUP)
+    for g in range(3):
+        xs, as_ = thyper.hyper_mh(*(t[g] for t in args), hyp_idx, 1e-6)
+        assert torch.equal(xs, xk[g]) and torch.equal(as_, ak[g])
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("m", [14, 60])
+def test_chol_lanes_on_card(m):
+    """``chol_fused_lanes`` / ``tri_solve_T_lanes`` are the factor and
+    back-solve kernels behind the gid contract: bit for bit the plain
+    entries' launches, each counted on its own wrapper."""
+    dev = _cuda()
+    rng = np.random.default_rng(161 + m)
+    B = 1024
+    S = torch.from_numpy(spd(rng, B, m, cond=30.0)).to(dev)
+    r = torch.from_numpy(rng.normal(size=(B, m)).astype(np.float32)).to(dev)
+    gid = _gid_tiles(B // LANES_GROUP).to(dev)
+    counts = (chol.chol_fused.launches, chol.tri_solve_T.launches,
+              chol.chol_fused_lanes.launches, chol.tri_solve_T_lanes.launches)
+    L, ld, u = chol.chol_fused_lanes(S, r, gid)
+    x = chol.tri_solve_T_lanes(L, u, gid)
+    assert (chol.chol_fused.launches, chol.tri_solve_T.launches,
+            chol.chol_fused_lanes.launches,
+            chol.tri_solve_T_lanes.launches) == (
+        counts[0], counts[1], counts[2] + 1, counts[3] + 1)
+    Lr, ldr, ur = chol.chol_fused(S, r)
+    xr = chol.tri_solve_T(Lr, ur)
+    for a, b in ((L, Lr), (ld, ldr), (u, ur), (x, xr)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="admission group"):
+        chol.chol_fused_lanes(S[:24], r[:24], gid[:24])
