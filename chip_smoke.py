@@ -28,8 +28,9 @@ Phases, each fatal on failure (non-zero exit, no final ``ok`` line):
 6. timings of each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (a yardstick only); the factor
    and the hyper block also with every matrices-per-block count, at the
-   64-chain and m = 160 shapes; the factor, the hyper block and the Gram
-   kernel (phase 8) beside their first design's times;
+   64-chain and m = 160 shapes; the factor, the back-solve, the hyper
+   block and the Gram kernels (phases 8 and 11e) beside their first
+   design's times;
 7. torch.profiler over 20 flagship sweeps: device time per sweep, launches
    per sweep and the device's idle share against phase 5's wall;
 8. the 1e5-TOA stress path (``bench.py --stress``: 100,000 TOAs padded to
@@ -45,9 +46,10 @@ Phases, each fatal on failure (non-zero exit, no final ``ok`` line):
    flagship with MTM on the white block, that run (adapt 100 + 200
    sweeps; white_mtm 1, white_mh 0, hyper_mh 1, chol_fused 2,
    tri_solve_T 2 launches per sweep), one sweep with MTM on both blocks on
-   the card against the CPU at 64 chains, the same at 1024 chains (adapt
-   100 + 200 sweeps; white_mtm 1, chol_fused 23, tri_solve_T 2, white_mh
-   and hyper_mh 0 launches per sweep), and the kernel's timing;
+   the card against the CPU at 64 chains (with b at the next four sweeps
+   reported beside it), the same at 1024 chains (adapt 100 + 200 sweeps;
+   white_mtm 1, chol_fused 23, tri_solve_T 2, white_mh and hyper_mh 0
+   launches per sweep), and the kernel's timing;
 10. the multi-pulsar ensemble (``EnsembleGibbs``, the grouped kernels):
    a. the grouped white MH and hyper MH kernels held against their grouped
       plain versions and float64 on inputs captured from a sweep of ens32
@@ -250,18 +252,25 @@ POOL_TENANTS, POOL_CHAINS = 8, 256
 POOL_PAD_CHAINS, POOL_PAD_SWEEPS = 40, 100
 POOL_CPU_LANES, POOL_CPU_CHAINS = 64, 32
 POOL_PROFILE_QUANTA = 4
-# times of the first design of chol_fused (one 128-thread block per matrix)
-# and hyper_mh (one per chain), ms per launch by (kernel, batch, size), and
-# of tnt_batched (16 x 16 Gram tiles for 16 chains), by (kernel, chains,
-# TOAs, m), as this script measured them on an NVIDIA H100 80GB HBM3 at
-# 700.00 W before the redesigns replaced them
+# times of the first design of chol_fused (one 128-thread block per matrix),
+# hyper_mh (one per chain) and tri_solve_T (one 32-thread block per
+# system), ms per launch by (kernel, batch, size); of tnt_batched (16 x 16
+# Gram tiles for 16 chains), by (kernel, chains, TOAs, m); and of tnt_lanes
+# (the 64-chain pair product at 16 chains a block, then an unpack kernel),
+# by (kernel, groups, TOAs, m); as this script measured them on an NVIDIA
+# H100 80GB HBM3 at 700.00 W before the redesigns replaced them
 FIRST_DESIGN_MS = {
     ("chol_fused", 4096, 60): 0.4920, ("chol_fused", 1024, 14): 0.01150,
     ("chol_fused", 256, 60): 0.08115, ("chol_fused", 64, 14): 0.009384,
     ("hyper_mh", 1024, 60): 2.181, ("hyper_mh", 64, 60): 0.9602,
-    ("tnt_batched", 64, 102400, 74): 3.351}
+    ("tnt_batched", 64, 102400, 74): 3.351,
+    ("tri_solve_T", 1024, 60): 0.02697, ("tri_solve_T", 1024, 14): 0.007304,
+    ("tri_solve_T", 64, 60): 0.02619, ("tri_solve_T", 64, 14): 0.006847,
+    ("tri_solve_T", 8192, 60): 0.1735, ("tri_solve_T", 8192, 14): 0.01668,
+    ("tnt_lanes", 64, 130, 74): 0.1503}
 # the redesigned kernels, reported beside their first design
-REDESIGNED = ("chol_fused", "hyper_mh", "tnt_batched")
+REDESIGNED = ("chol_fused", "hyper_mh", "tnt_batched", "tri_solve_T",
+              "tnt_lanes")
 # the stream hold before a timed loop: 5e7 cycles, at least 25 ms below the
 # H100's 1.98 GHz top SM clock
 SLEEP_CYCLES, SLEEP_MS = 50_000_000, 25.0
@@ -922,8 +931,9 @@ def main() -> None:
     other_forms = report["other_forms"] = {}
 
     def batch_size(name, args):
-        """(batch, matrix size) of a factor or hyper-block call."""
-        mat = args[0 if name == "chol_fused" else 1]
+        """(batch, matrix size) of a factor, back-solve or hyper-block
+        call."""
+        mat = args[1 if name == "hyper_mh" else 0]
         m_ = mat.shape[-1]
         return mat.numel() // (m_ * m_), m_
 
@@ -955,6 +965,16 @@ def main() -> None:
                 T, nvec = args[0], args[2]
                 extra = {"first_design_ms": FIRST_DESIGN_MS.get(
                     (name, nvec.shape[0], *T.shape))}
+            elif name == "tri_solve_T":
+                extra = {"first_design_ms": FIRST_DESIGN_MS.get(
+                    (name, *batch_size(name, args)))}
+            elif name == "tnt_lanes":
+                T_l, nv_l = args[0], args[2]
+                extra = {
+                    "first_design_ms": FIRST_DESIGN_MS.get(
+                        (name, nv_l.shape[0], nv_l.shape[-1],
+                         T_l.shape[-1])),
+                    "form": tnt.lanes_form(nv_l.shape[0], T_l.shape[-1])}
             elif name in ("chol_fused", "hyper_mh"):
                 Bm = batch_size(name, args)
                 fn = wrappers[name][2]
@@ -1278,8 +1298,20 @@ def main() -> None:
     st = full._prop_cov_update(full.init_state(seed=23))
     for i in range(3):
         st = full._sweep(st, full._draw(gen, st), sweep=i)
+    dr = full._draw(gen, st)
     cmp = report["mtm_sweep_card_vs_cpu"] = card_vs_cpu(
-        full, full_cpu, st, full._draw(gen, st), 3)
+        full, full_cpu, st, dr, 3)
+    # the spread of the b reading, reported beside the gate: the same
+    # comparison at the next four sweeps of the card's chain. b is drawn
+    # through the factor of an equilibrated matrix whose conditioning moves
+    # from state to state, and float32 differences between the card's and
+    # the CPU's inputs to it grow with that conditioning
+    cmp["b_next_sweeps"] = []
+    for i in range(4, 8):
+        st = full._sweep(st, dr, sweep=i - 1)
+        dr = full._draw(gen, st)
+        cmp["b_next_sweeps"].append(
+            card_vs_cpu(full, full_cpu, st, dr, i)["b"][1])
     print(f"# full-MTM sweep card-vs-cpu (64 chains): {json.dumps(cmp)}",
           flush=True)
     # tolerance as phase 4
@@ -1759,17 +1791,20 @@ def main() -> None:
                                                       st, dr, 0)
     cmp["separation"] = sep
     # the float32 b draw's own spread on these models: the same CPU sweep
-    # with each group's TOA sums taken in blocks of 32 over its padded basis
-    # (unit nvec on the padded TOAs) instead of in one product
+    # with each group's TOA sums taken in blocks of 32 over its basis padded
+    # with zero rows (unit nvec on the padded TOAs) instead of in one product
     smp_c = pc.sampler
     dr_c = type(dr)(*map(to_cpu, dr))
 
     def tnt_blocks(nvec):
         G_, C_, n_ = nvec.shape
-        nv = torch.cat([nvec, nvec.new_ones(G_, C_,
-                                             smp_c._T_pad.shape[-2] - n_)], -1)
-        outs = [tnt.tnt_products(smp_c._T_pad[g, 0], smp_c._y_pad[g, 0],
-                                 nv[g], 32) for g in range(G_)]
+        pad = -n_ % 32
+        nv = torch.cat([nvec, nvec.new_ones(G_, C_, pad)], -1)
+        Tp = torch.cat([smp_c._T, smp_c._T.new_zeros(
+            G_, pad, smp_c._T.shape[-1])], 1)
+        yp = torch.cat([smp_c._y, smp_c._y.new_zeros(G_, 1, pad)], -1)
+        outs = [tnt.tnt_products(Tp[g], yp[g, 0], nv[g], 32)
+                for g in range(G_)]
         return tuple(torch.stack(o) for o in zip(*outs))
 
     b_one = smp_c._sweep(st_c, dr_c, 0).b

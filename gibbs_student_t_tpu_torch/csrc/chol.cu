@@ -35,6 +35,19 @@
 //   stride, gst_chol_fwd_block (a warp per row of the update, one barrier
 //   per column), rows copied with 16-byte accesses when m is a multiple
 //   of 4.
+//
+// The back-solve L^T x = r reads 2 m (m + 1) bytes of L for m^2 flops:
+// bytes again. Its first kernel (one 32-thread block per system, the full
+// square staged by 4-byte loads with a division each, then a shuffle-tree
+// dot product, a lane-0 divide that read r from device memory and a
+// __syncwarp per step) ran 9-11x over that bound and lost to
+// solve_triangular at 8,192 systems. Now it is B1's warp form turned
+// around: a warp per system, GST_SOLVE_PER_BLOCK a block, the triangle
+// staged by asynchronous copies that are all in flight at once, and the
+// substitution in its column form with r in registers
+// (tri_solve_T_kernel). The systems a block change its time little (2 %
+// at most from 1 to 8 at every shape the sampler gives it, on an H100), so
+// the count is fixed.
 #include "gst_common.cuh"
 
 namespace {
@@ -117,35 +130,82 @@ chol_fused_block_kernel(const float* __restrict__ S,
   if (tid == 0) logdet[b] = ld;
 }
 
-// L^T x = r, one warp per system: descending substitution with the
-// column dot product of each step reduced by warp shuffles. L is staged
-// in shared memory with an odd row stride so the column walk of a step
-// hits 32 distinct banks.
-__global__ void tri_solve_T_kernel(const float* __restrict__ L,
-                                   const float* __restrict__ r,
-                                   float* __restrict__ x, int m, int lda) {
-  extern __shared__ float sm[];
-  float* Ls = sm;                // m * lda
-  float* xs = Ls + m * lda;      // m
-  const int lane = threadIdx.x;
-  const size_t b = blockIdx.x;
+// L^T x = r, one warp per system, several systems a block: the column
+// (axpy) form of the descending substitution, with the right-hand side in
+// registers. Lane l owns r[l], r[l + 32], ... (NS = ceil(m / 32) of them,
+// five at m = 160), those diagonal entries and their reciprocals. Step j
+// (descending): the owner of r[j] forms x_j = r_j / L_jj (correctly
+// rounded, as the plain version divides, from the reciprocal and one
+// correction: no divide on the chain), one shuffle gives it to the warp,
+// and every lane subtracts L[j, k] x_j from its r_k, k < j, reading row j
+// of L from shared memory (contiguous, so the lanes' loads hit 32 banks);
+// x_j takes r_j's register. No reduction and no barrier sit in the chain:
+// a multiply, two FMAs, a shuffle and an FMA a step. L is staged as its
+// lower triangle with each row on a 16-byte boundary (gst_ptri), by
+// asynchronous copies that are all in flight at once: 16 bytes a lane
+// where the rows of L are 16-byte aligned (VW = 4), else 4; a row's last
+// copy may carry up to three floats past the diagonal, which nothing
+// reads. The warps of a block share nothing, so a NaN factor gives a NaN
+// x in its own system only.
+template <int NS, int VW>
+__global__ void __launch_bounds__(256)
+tri_solve_T_kernel(const float* __restrict__ L, const float* __restrict__ r,
+                   float* __restrict__ x, int B, int m) {
+  extern __shared__ float4 sm4[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t b = (size_t)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= (size_t)B) return;        // no block barrier anywhere below
+  float* P = reinterpret_cast<float*>(sm4) + warp * gst_ptri(m);
   const float* Lb = L + b * m * m;
-  const float inv_m = 1.0f / (float)m;
-  for (int idx = lane; idx < m * m; idx += 32) {
-    int i, k;
-    gst_flat_pos(idx, m, inv_m, i, k);
-    if (k <= i) Ls[i * lda + k] = Lb[idx];
+  for (int i = 0, off = 0; i < m; off += (i + 4) & ~3, ++i) {
+    for (int k = VW * lane; k <= i; k += 32 * VW) {
+      if (VW == 4)
+        gst_cp16(P + off + k, Lb + i * m + k);
+      else
+        gst_cp4(P + off + k, Lb + i * m + k);
+    }
   }
+  gst_cp_commit();
+  float rr[NS], dg[NS], inv[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int k = lane + 32 * s;
+    rr[s] = k < m ? r[b * m + k] : 0.f;
+  }
+  gst_cp_wait<0>();
   __syncwarp();
-  for (int j = m - 1; j >= 0; --j) {
-    float part = 0.f;
-    for (int i = j + 1 + lane; i < m; i += 32) part += Ls[i * lda + j] * xs[i];
-    for (int off = 16; off > 0; off >>= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, off);
-    if (lane == 0) xs[j] = (r[b * m + j] - part) / Ls[j * lda + j];
-    __syncwarp();
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int k = lane + 32 * s;
+    dg[s] = k < m ? P[gst_ptri(k) + k] : 1.f;
+    inv[s] = 1.0f / dg[s];
   }
-  for (int i = lane; i < m; i += 32) x[b * m + i] = xs[i];
+  int off = gst_ptri(m - 1);         // offset of row j
+#pragma unroll
+  for (int sj = NS - 1; sj >= 0; --sj) {
+    const int base = 32 * sj;
+    if (base >= m) continue;         // warp-uniform
+    for (int jj = min(31, m - 1 - base); jj >= 0; --jj) {
+      const int j = base + jj;
+      const float* row = P + off;
+      // r_j / L_jj, the correctly rounded quotient: the product with the
+      // reciprocal and one correction by its residual (two FMAs)
+      const float q = rr[sj] * inv[sj];
+      const float xo = fmaf(fmaf(-q, dg[sj], rr[sj]), inv[sj], q);
+      const float xj = __shfl_sync(GST_FULL_MASK, xo, jj);
+#pragma unroll
+      for (int s = 0; s < sj; ++s)
+        rr[s] = fmaf(-row[lane + 32 * s], xj, rr[s]);
+      const float a = row[min(lane + base, j)];
+      rr[sj] = lane < jj ? fmaf(-a, xj, rr[sj]) : (lane == jj ? xj : rr[sj]);
+      off -= (j + 3) & ~3;           // row j - 1 takes j floats, rounded
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int k = lane + 32 * s;
+    if (k < m) x[b * m + k] = rr[s];
+  }
 }
 
 template <int NR, int VW>
@@ -185,6 +245,33 @@ cudaError_t launch_block(const float* S, const float* r, float* L, float* u,
   return cudaGetLastError();
 }
 
+// systems (warps) a back-solve block: four triangles of m = 160 take
+// 205 KB, inside the 227 KB a block may opt into
+constexpr int GST_SOLVE_PER_BLOCK = 4;
+static_assert(sizeof(float) * GST_SOLVE_PER_BLOCK * gst_ptri(GST_BLOCK_MAX_M)
+                  <= 227 * 1024,
+              "a back-solve block's triangles must fit in shared memory");
+
+template <int NS, int VW>
+cudaError_t launch_solve_vw(const float* L, const float* r, float* x, int B,
+                            int m, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * (size_t)GST_SOLVE_PER_BLOCK * gst_ptri(m);
+  cudaError_t e = gst_smem_optin(tri_solve_T_kernel<NS, VW>, smem);
+  if (e != cudaSuccess) return e;
+  const int blocks = (B + GST_SOLVE_PER_BLOCK - 1) / GST_SOLVE_PER_BLOCK;
+  tri_solve_T_kernel<NS, VW>
+      <<<blocks, 32 * GST_SOLVE_PER_BLOCK, smem, stream>>>(L, r, x, B, m);
+  return cudaGetLastError();
+}
+
+template <int NS>
+cudaError_t launch_solve(bool vec, const float* L, const float* r, float* x,
+                         int B, int m, cudaStream_t stream) {
+  return vec ? launch_solve_vw<NS, 4>(L, r, x, B, m, stream)
+             : launch_solve_vw<NS, 1>(L, r, x, B, m, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -210,14 +297,21 @@ int gst_chol_fused(const float* S, const float* r, float* L, float* u,
                    : launch_block<1>(S, r, L, u, logdet, B, m, st));
 }
 
+// m <= 160.
 int gst_tri_solve_T(const float* L, const float* r, float* x, int B, int m,
                     void* stream) {
-  const int lda = m | 1;
-  const size_t smem = sizeof(float) * ((size_t)m * lda + m);
-  cudaError_t e = gst_smem_optin(tri_solve_T_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  tri_solve_T_kernel<<<B, 32, smem, (cudaStream_t)stream>>>(L, r, x, m, lda);
-  return (int)cudaGetLastError();
+  if (m < 1 || m > GST_BLOCK_MAX_M) return (int)cudaErrorInvalidValue;
+  if (!B) return (int)cudaSuccess;
+  const bool vec = (m & 3) == 0 && gst_aligned16(L);
+  const int ns = (m + 31) / 32;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (ns) {
+    case 1: return (int)launch_solve<1>(vec, L, r, x, B, m, st);
+    case 2: return (int)launch_solve<2>(vec, L, r, x, B, m, st);
+    case 3: return (int)launch_solve<3>(vec, L, r, x, B, m, st);
+    case 4: return (int)launch_solve<4>(vec, L, r, x, B, m, st);
+    default: return (int)launch_solve<5>(vec, L, r, x, B, m, st);
+  }
 }
 
 }  // extern "C"

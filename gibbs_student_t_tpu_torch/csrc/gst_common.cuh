@@ -1,6 +1,7 @@
 // Device helpers shared by the port's kernels (chol.cu, white_mh.cu,
-// hyper_mh.cu): the Cholesky recurrence in its two forms, block sums and
-// the prior table. Built with IEEE logf/expf/rsqrtf semantics (no
+// hyper_mh.cu, tnt.cu): the Cholesky recurrence in its two forms, the
+// triangle layouts and their staging, asynchronous copies, warp and block
+// sums and the prior table. Built with IEEE logf/expf/rsqrtf semantics (no
 // --use_fast_math): a non-PD pivot must give NaN, an out-of-bounds prior
 // -inf, and an MH accept compares `delta > logu` so NaN rejects.
 //
@@ -71,6 +72,39 @@ __device__ __host__ __forceinline__ int gst_tri(int i) {
 // the packed triangle (row m is the right-hand side), rounded up to 4.
 __device__ __host__ __forceinline__ int gst_warp_floats(int m) {
   return (gst_tri(m + 1) + 3) & ~3;
+}
+
+// Offset of row i in a lower triangle whose rows start on 16-byte
+// boundaries (row r takes r + 1 floats rounded up to 4); gst_ptri(m) is the
+// floats of the whole m x m triangle.
+__device__ __host__ __forceinline__ constexpr int gst_ptri(int i) {
+  const int q = i >> 2;
+  return 8 * q * (q + 1) + (i & 3) * 4 * (q + 1);
+}
+
+// Asynchronous 16- and 4-byte copies from device to shared memory (the
+// 16-byte form zero-fills past `bytes`), their commit and their wait.
+__device__ __forceinline__ void gst_cp16(float* dst, const float* src,
+                                         int bytes = 16) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void gst_cp4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void gst_cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void gst_cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Sum of `v` over the warp, the same bits on every lane.

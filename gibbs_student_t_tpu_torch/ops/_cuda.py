@@ -39,6 +39,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _Z = ctypes.c_size_t
+_L = ctypes.c_longlong
 # name -> (argtypes, restype)
 _SIGNATURES = {
     "gst_chol_fused": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
@@ -53,9 +54,8 @@ _SIGNATURES = {
     "gst_tnt_batched": ([_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
                         _I),
     "gst_tnt_workspace": ([_I, _I, _I], _Z),
-    "gst_tnt_lanes": ([_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
-                      _I),
-    "gst_tnt_lanes_workspace": ([_I, _I, _I], _Z),
+    "gst_tnt_lanes": ([_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _L, _L,
+                       _I, _P], _I),
 }
 
 _lock = threading.Lock()

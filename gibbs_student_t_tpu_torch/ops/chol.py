@@ -18,8 +18,12 @@ Counterpart of ``gibbs_student_t_tpu/ops/pallas_chol.py``. Two kernels
   one barrier per column. :func:`launch_form` says which form a shape
   takes.
 - ``tri_solve_T(L, rhs) -> x`` with ``L^T x = rhs``. Replaces
-  ``pallas_chol.py::_backsolve_kernel``. Bound by bytes (L in); one warp
-  per system, warp-shuffle column dots.
+  ``pallas_chol.py::_backsolve_kernel``. Bound by bytes (L in). A warp
+  per system, four systems a block, L staged as its lower triangle by
+  asynchronous copies that are all in flight at once, and the
+  substitution in its column form: the right-hand side stays in
+  registers, and each step forms x_j = r_j / L_jj without a divide,
+  hands it to the warp by one shuffle and does one FMA a lane.
 
 ``chol_fused_lanes`` and ``tri_solve_T_lanes`` are the serving slot
 pool's entries to the same two kernels (replacing ``pallas_chol.py::
@@ -201,7 +205,8 @@ def tri_solve_T_plain(L, rhs):
 
 def tri_solve_T(L, rhs):
     """``x`` with ``L^T x = rhs`` for lower-triangular ``L (..., m, m)``
-    (as from :func:`chol_fused`), float32."""
+    (as from :func:`chol_fused`; the entries above the diagonal are not
+    read), float32."""
     x, launched = _tri_solve_T("tri_solve_T", L, rhs)
     tri_solve_T.launches += launched
     return x

@@ -19,8 +19,10 @@ loop of :func:`tnt_products`, its plain version, on the CPU. The kernel
 computes the lower triangle of the weighted Gram of ``[T | y]`` as one
 product of the chains' weights with the pairs' basis products; the pair
 table is :func:`pair_index`. :func:`tnt_lanes` is the serving slot pool's
-reduction, one basis per 16-lane group and one launch for every group
-(replacing ``pallas_tnt.py::tnt_lanes_pallas``).
+reduction, one basis per 16-lane group and one launch of a kernel of its
+own for every group (replacing ``pallas_tnt.py::tnt_lanes_pallas``): it
+cuts the Gram into the 16 x 16 tiles of :func:`lanes_tiles` and writes
+TNT, d and the constant straight from the sums.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from gibbs_student_t_tpu_torch.ops.chol import SM_COUNT
 from gibbs_student_t_tpu_torch.ops.lanes import (
     check_lanes_gid,
     flat_lanes,
@@ -77,6 +80,50 @@ def _device_pair_index(m: int, device) -> torch.Tensor:
     if key not in _DEVICE_PAIRS:
         _DEVICE_PAIRS[key] = torch.from_numpy(pair_index(m)).to(device)
     return _DEVICE_PAIRS[key]
+
+
+#: rows and columns of a Gram tile of the lanes kernel (``TNT_LT``)
+LANES_TILE = 16
+#: most tiles a block of the lanes kernel takes (``TNT_LANES_MAX_PER_BLOCK``)
+LANES_MAX_PER_BLOCK = 4
+_DEVICE_TILES = {}
+
+
+def lanes_tiles(m: int) -> np.ndarray:
+    """The 16 x 16 tiles ``(I0, J0)``, ``I0 >= J0``, that cover the lower
+    triangle of the ``(m + 1) x (m + 1)`` Gram of ``[T | y]``, row by row,
+    as an int32 ``(2, R (R + 1) / 2)`` table of their first row and column,
+    ``R = ceil((m + 1) / 16)``. Each pair ``(i, j)``, ``i >= j``, lies in
+    exactly one tile; the lanes kernel writes it to TNT (and its mirror,
+    the same float) or, for ``i = m``, to d, and drops ``(m, m)`` and the
+    padding (tests/test_torch_tnt.py)."""
+    R = -(-(m + 1) // LANES_TILE)
+    I, J = np.tril_indices(R)
+    return (np.stack([I, J]) * LANES_TILE).astype(np.int32)
+
+
+def lanes_form(G: int, m: int) -> int:
+    """Tiles per block of the lanes kernel for ``G`` groups at size ``m``:
+    the most (up to :data:`LANES_MAX_PER_BLOCK` and the group's tile
+    count; fewer restagings of each group's basis) that still gives every
+    SM of the card a block. At the pool's shape on an H100, one tile a
+    block takes 1.8x the time of four (PERF.md)."""
+    if m < 1:
+        raise ValueError(f"tnt_lanes: m = {m} < 1")
+    ntiles = lanes_tiles(m).shape[1]
+    for per_block in (4, 2):
+        if (per_block <= ntiles
+                and G * -(-ntiles // per_block) >= SM_COUNT):
+            return per_block
+    return 1
+
+
+def _device_lanes_tiles(m: int, device) -> torch.Tensor:
+    """:func:`lanes_tiles` on ``device``, made once per ``(m, device)``."""
+    key = (m, str(device))
+    if key not in _DEVICE_TILES:
+        _DEVICE_TILES[key] = torch.from_numpy(lanes_tiles(m)).to(device)
+    return _DEVICE_TILES[key]
 
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
@@ -225,14 +272,14 @@ def tnt_lanes(T, y, nvec, gid):
     ``(B/16, 16, ...)`` tiles, under the tile-uniform ``gid (B,)``
     contract (``ops/lanes.py``), so the basis of a tile's first lane is
     the tile's. The first ``n`` rows of the basis are reduced; the pool
-    stores each group's basis padded to a multiple of 32 rows once, at
-    admission (the ``pad_rows`` contract: zero rows past ``n``). Returns
+    stores each group's basis at ``n`` rows, once, at admission. Returns
     ``(B, m, m)``, ``(B, m)``, ``(B,)`` in ``nvec``'s lane layout.
 
-    On a CUDA device: one launch of the Gram kernel's lanes form for every
-    group (``csrc/tnt.cu gst_tnt_lanes``; the JAX entry launches once per
-    group), counted on ``tnt_lanes.launches``, with the constant in
-    PyTorch. On the CPU, :func:`tnt_lanes_plain`."""
+    On a CUDA device: one launch of the lanes kernel for every group
+    (``csrc/tnt.cu gst_tnt_lanes``; the JAX entry launches once per
+    group), which forms ``w = 1/nvec`` and writes TNT (both triangles, the
+    same float in each), d and the constant; counted on
+    ``tnt_lanes.launches``. On the CPU, :func:`tnt_lanes_plain`."""
     if nvec.device.type == "cpu":
         return tnt_lanes_plain(T, y, nvec, gid)
     Tg, yg, nv = _tnt_lanes_operands(T, y, nvec, gid)
@@ -241,34 +288,25 @@ def tnt_lanes(T, y, nvec, gid):
     from gibbs_student_t_tpu_torch.ops import _cuda
 
     G, C, n = nv.shape
-    nT, m = Tg.shape[-2:]
-    if nT % 4:
-        # each group's basis must start on a 16-byte boundary; the pool's
-        # bases are stored padded, so only a caller's own operands pay this
-        pad = -nT % 4
-        Tg = torch.cat([Tg, Tg.new_zeros(G, pad, m)], 1)
-        yg = torch.cat([yg, yg.new_zeros(G, pad)], 1)
-        nT += pad
-    Tg, yg = _aligned16(Tg), _aligned16(yg)
-    w = (1.0 / nv).contiguous()
-    y2 = yg[:, :n] * yg[:, :n]
-    const = -0.5 * (torch.log(nv).sum(-1)
-                    + torch.matmul(w, y2[..., None])[..., 0])
+    m = Tg.shape[-1]
+    # each basis is read as rows of m floats from its group's offset: a
+    # broadcast or strided group axis needs no copy
+    if Tg.stride()[1:] != (m, 1):
+        Tg = Tg.contiguous()
+    if yg.stride(1) != 1:
+        yg = yg.contiguous()
+    nv = nv.contiguous()
     B = G * C
     TNT = torch.empty((B, m, m), dtype=T.dtype, device=T.device)
     d = torch.empty((B, m), dtype=T.dtype, device=T.device)
+    const = torch.empty((B,), dtype=T.dtype, device=T.device)
     if B:
-        lib = _cuda.lib()
-        pairs = _device_pair_index(m, T.device)
-        ws = lib.gst_tnt_lanes_workspace(B, n, m)
-        if not ws:
-            raise ValueError(f"tnt_lanes: m = {m} is past the lanes "
-                             f"kernel's reach")
-        work = torch.empty((ws,), dtype=T.dtype, device=T.device)
-        _cuda.check(lib.gst_tnt_lanes(
-            _cuda.ptr(Tg), _cuda.ptr(yg), _cuda.ptr(w), _cuda.ptr(pairs),
-            pairs.shape[1], _cuda.ptr(work), _cuda.ptr(TNT), _cuda.ptr(d),
-            B, n, nT, m, _cuda.stream(T.device)), "tnt_lanes")
+        tiles = _device_lanes_tiles(m, T.device)
+        _cuda.check(_cuda.lib().gst_tnt_lanes(
+            _cuda.ptr(Tg), _cuda.ptr(yg), _cuda.ptr(nv), _cuda.ptr(tiles),
+            tiles.shape[1], _cuda.ptr(TNT), _cuda.ptr(d), _cuda.ptr(const),
+            B, n, m, Tg.stride(0), yg.stride(0), lanes_form(G, m),
+            _cuda.stream(T.device)), "tnt_lanes")
         tnt_lanes.launches += 1
     lanes = nvec.shape[:-1]
     return (TNT.reshape(*lanes, m, m), d.reshape(*lanes, m),

@@ -72,9 +72,6 @@ from gibbs_student_t_tpu_torch.parallel.ensemble import (
 
 #: gid of lanes no tenant owns (whole free groups)
 FREE_GID = -1
-#: each group's basis is stored padded to a multiple of this many TOAs
-#: (the Gram kernel's TOA tile)
-BASIS_ROWS = 32
 #: the state fields ``TorchGibbs._draw`` reads
 _DRAW_FIELDS = ("z", "df", "mh_log_scale", "mh_cov_chol")
 
@@ -129,16 +126,7 @@ class _LaneSampler(EnsembleGibbs):
         super().__init__([template] * ngroups, config,
                          nchains=LANES_GROUP, device=device)
         self._pulsar_backends = None
-        G, n, m = ngroups, self._n, self._ma.m
-        # each group's basis and residuals padded once to whole TOA tiles;
-        # the sweep reads the first n rows through views
-        nT = -(-n // BASIS_ROWS) * BASIS_ROWS
-        self._T_pad = self._T.new_zeros((G, 1, nT, m))
-        self._T_pad[:, 0, :n] = self._T
-        self._y_pad = self._y.new_zeros((G, 1, nT))
-        self._y_pad[..., :n] = self._y
-        self._T = self._T_pad[:, 0, :n]
-        self._y = self._y_pad[..., :n]
+        G = ngroups
         self.gid = torch.full((G, LANES_GROUP), FREE_GID, dtype=torch.int32,
                               device=self.device)
         self.eta = None             # (quantum, G, 16, 1) while adapting
@@ -156,8 +144,8 @@ class _LaneSampler(EnsembleGibbs):
             self._per_lane(specs), _flat(self.gid), var)
 
     def _tnt(self, nvec):
-        return tnt_lanes(self._T_pad.expand(-1, LANES_GROUP, -1, -1),
-                         self._y_pad.expand(-1, LANES_GROUP, -1), nvec,
+        return tnt_lanes(self._T[:, None].expand(-1, LANES_GROUP, -1, -1),
+                         self._y.expand(-1, LANES_GROUP, -1), nvec,
                          _flat(self.gid))
 
     def _hyper_block(self, x, Sh, rh, base, draws):

@@ -22,10 +22,13 @@ MTM kernel with dead weights, and the Gram kernel with padded rows, at
 ragged), m = 3, 12, 74, 174 and 720 (past 710 the kernel takes its
 8-TOA tile), and TOA counts that leave its last TOA tile and its last
 TOA split short. Then the serving slot pool's lanes entries: the Gram
-kernel's lanes form (one basis per 16-lane group) at 2 to 64 groups,
-m = 3 to 174, with padded bases and flat operands; the white and hyper
-lanes blocks, each group bit for bit its single-model launch; the factor
-and back-solve lanes entries, bit for bit the plain entries.
+kernel's lanes form (one basis per 16-lane group) at 1 to 64 groups,
+n = 1 to 2,000 and m = 3 to 174, with padded bases and flat operands,
+each group the same floats in every tiles-per-block launch as alone; the
+white and hyper lanes blocks, each group bit for bit its single-model
+launch; the factor and back-solve lanes entries, bit for bit the plain
+entries. The back-solve alone at m = 1 to 160, at batches ragged against
+its four systems a block, with failed factors in a block of good ones.
 
 Tolerances: kernel and plain version both compute in float32, in other
 summation orders. Factors, solves and logdets agree to rtol 1e-4 / atol
@@ -596,14 +599,24 @@ def _gid_tiles(G_):
 @pytest.mark.torch
 @pytest.mark.parametrize("G_, n, nT, m, flat", [
     (64, 130, 160, 74, False), (3, 90, 96, 10, False),
-    (5, 2000, 2016, 174, False), (2, 33, 33, 3, True)])
+    (5, 2000, 2016, 174, False), (2, 33, 33, 3, True),
+    (1, 130, 160, 74, False), (3, 1, 4, 17, False), (2, 31, 31, 15, True),
+    (3, 32, 36, 16, False), (3, 32, 32, 31, False), (2, 33, 35, 32, True)])
 def test_tnt_lanes_kernel_on_card(G_, n, nT, m, flat):
     """The Gram kernel's lanes form (one basis per 16-lane group, one
     launch for every group) against its plain version and a float64
     evaluation of each group's sums (1e-4 of the sums over absolute
     values, as the single-basis kernel), with the pool's padded bases
-    (nT > n rows, the rows past n unread) and with flat per-lane operands
-    whose TOA count is not a multiple of 4 (the wrapper pads a copy)."""
+    (nT > n rows, the rows past n unread), with flat per-lane operands
+    whose TOA count is not a multiple of 4, at one group, at n = 1, 31,
+    32 and 33 TOAs, at m = 15 and 16 and at 31 and 32 (the Gram of
+    [T | y] just filling and just crossing its 16 x 16 tiles), and with
+    TOAs past shared memory (n = 2000 at m = 174: chunks of TOAs, the
+    last one short). The constant is held to 1e-6 of the sum of its
+    terms' sizes, |log nvec| + y^2 / nvec, and, past one TOA, to 1e-6 of
+    itself: over a single TOA its two terms can cancel, so that no float32
+    evaluation, the plain one included, meets a bound relative to the
+    result."""
     dev = _cuda()
     rng = np.random.default_rng(131 + m)
     B = G_ * LANES_GROUP
@@ -629,6 +642,7 @@ def test_tnt_lanes_kernel_on_card(G_, n, nT, m, flat):
     nv64 = tt(nvec).double().reshape(G_, LANES_GROUP, n)
     TNT64, d64, const64 = tnt_products(T64, y64[:, None], nv64)
     M, Md, _ = tnt_products(T64.abs(), y64.abs()[:, None], nv64)
+    Mc = 0.5 * (nv64.log().abs() + y64[:, None] ** 2 / nv64).sum(-1)
     lead = 1 if flat else 2
     for o in (out, outp):
         TNT, d, const = (t.cpu().double().reshape(G_, LANES_GROUP,
@@ -636,8 +650,76 @@ def test_tnt_lanes_kernel_on_card(G_, n, nT, m, flat):
                          for t in o)
         assert (TNT - TNT64).abs().le(1e-4 * M).all()
         assert (d - d64).abs().le(1e-4 * Md).all()
-        torch.testing.assert_close(const, const64, rtol=1e-6, atol=0.0)
+        assert (const - const64).abs().le(1e-6 * Mc).all()
+        if n > 1:
+            torch.testing.assert_close(const, const64, rtol=1e-6, atol=0.0)
     assert torch.equal(out[0], out[0].transpose(-1, -2))
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("m, groups", [(74, (4, 32, 64)), (16, (4, 600))])
+def test_tnt_lanes_forms_on_card(m, groups):
+    """The lanes kernel at group counts that take each tiles-per-block
+    launch (``lanes_form``): every group gives the same floats as when it
+    is launched alone, so a tile's sums do not depend on the block it
+    shares."""
+    dev = _cuda()
+    rng = np.random.default_rng(171 + m)
+    n = 130
+    assert len({ttnt.lanes_form(G_, m) for G_ in groups}) == len(groups)
+    for G_ in groups:
+        tt = torch.from_numpy
+        T = tt(rng.normal(size=(G_, 1, n, m)).astype(np.float32)).to(dev)
+        y = tt(rng.normal(size=(G_, 1, n)).astype(np.float32)).to(dev)
+        nvec = tt(np.exp(rng.normal(0.0, 1.0, (G_, LANES_GROUP, n))).astype(
+            np.float32)).to(dev)
+        gid = _gid_tiles(G_).to(dev)
+        out = ttnt.tnt_lanes(T.expand(-1, LANES_GROUP, -1, -1),
+                             y.expand(-1, LANES_GROUP, -1), nvec, gid)
+        for g in sorted({0, G_ // 2, G_ - 1}):
+            alone = ttnt.tnt_lanes(
+                T[g:g + 1].expand(-1, LANES_GROUP, -1, -1),
+                y[g:g + 1].expand(-1, LANES_GROUP, -1), nvec[g:g + 1],
+                gid[:LANES_GROUP])
+            assert all(torch.equal(a[g:g + 1], b)
+                       for a, b in zip(out, alone))
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("m", [1, 14, 31, 32, 33, 60, 64, 65, 160])
+def test_tri_solve_T_kernel_on_card(m):
+    """The back-solve at batches ragged against its four systems a block
+    (and one of fewer systems than a block) against its plain version
+    (rtol 1e-4 / atol 1e-5, as the factor): one register slot a lane at
+    m <= 32, five at m = 160, 16-byte and 4-byte staging (m a multiple of
+    4 or not). A NaN factor and one with a zero pivot share a block with
+    good ones: their x is not finite, the others' x equals what they give
+    alone."""
+    dev = _cuda()
+    rng = np.random.default_rng(181 + m)
+    for B in (8 * 37 + 5 if m <= 64 else 37, 3):
+        S = spd(rng, B, m, cond=30.0)
+        r = torch.from_numpy(rng.normal(size=(B, m)).astype(
+            np.float32)).to(dev)
+        L = torch.from_numpy(np.linalg.cholesky(S.astype(np.float64)).astype(
+            np.float32)).to(dev)
+        bad = [1, 2]
+        Lb = L.clone()
+        Lb[1, m // 2, 0] = float("nan")
+        Lb[2, m - 1, m - 1] = 0.0
+        good = torch.ones(B, dtype=torch.bool, device=dev)
+        good[bad] = False
+        xp = chol.tri_solve_T_plain(L, r)
+        n0 = chol.tri_solve_T.launches
+        x = chol.tri_solve_T(Lb, r)
+        assert chol.tri_solve_T.launches == n0 + 1
+        torch.testing.assert_close(x[good], xp[good], rtol=1e-4, atol=1e-5)
+        assert not torch.isfinite(x[bad]).all(-1).any()
+        x_clean = chol.tri_solve_T(L, r)
+        assert torch.equal(x[good], x_clean[good])
+        for b in (0, B - 1):
+            alone = chol.tri_solve_T(L[b:b + 1], r[b:b + 1])
+            assert torch.equal(alone[0], x_clean[b])
 
 
 @pytest.mark.torch

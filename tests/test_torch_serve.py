@@ -168,7 +168,7 @@ def _buffers(pool):
     tensors = [t for name in GROUPED_ATTRS
                for t, _ in _model_leaves(getattr(smp, name),
                                          getattr(smp, name))]
-    tensors += [smp._T_pad, smp._y_pad, smp.gid, pool._active,
+    tensors += [smp.gid, pool._active,
                 *pool._draws]
     return [t.data_ptr() for t in tensors]
 

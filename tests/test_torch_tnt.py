@@ -11,6 +11,10 @@ options, against the JAX package (CPU).
 - the padded-rows contract: rows with T = 0, y = 0 and nvec = 1 change
   TNT, d and the constant by no more than float32 reassociation (1e-6 of
   M), and the port pads exactly as the JAX package;
+- the lanes kernel's tile table: ``lanes_tiles(m)`` covers each pair of
+  the lower triangle of the Gram of ``[T | y]`` exactly once, its store
+  rule writes every TNT and d entry exactly once, and gives
+  ``tnt_products``' values from the plain Gram; ``lanes_form``;
 - the Gram kernel's pair map: ``pair_index(m)`` covers each ``(i, j)``,
   ``i >= j``, of the ``(m + 1) x (m + 1)`` Gram of ``[T | y]`` exactly
   once, in the order ``q = i (i + 1) / 2 + j``, padded with ``(m, m)``
@@ -118,6 +122,98 @@ def _unpack(G, pairs, m):
         else:
             d[:, j] = G[:, q]
     return TNT, d
+
+
+def _lanes_writes(m):
+    """Where the lanes kernel writes each sum of each tile of
+    ``lanes_tiles(m)``: ``{("tnt", i, j) | ("d", j) | ("const",): [(i, j)
+    pairs of the Gram]}``, by its store rule: (i, j), i, j < m, to
+    TNT[i, j] and, off the diagonal tiles, TNT[j, i]; (m, j) to d[j];
+    every other (i, j) of the 16 x 16 tile ((m, m), the padding, and the
+    upper half of a diagonal tile's row m) nowhere."""
+    tiles = ttnt.lanes_tiles(m)
+    out = {}
+    for I0, J0 in tiles.T.tolist():
+        for i in range(I0, I0 + ttnt.LANES_TILE):
+            for j in range(J0, J0 + ttnt.LANES_TILE):
+                if i < m and j < m:
+                    out.setdefault(("tnt", i, j), []).append((i, j))
+                    if I0 != J0:
+                        out.setdefault(("tnt", j, i), []).append((i, j))
+                elif i == m and j < m:
+                    out.setdefault(("d", j), []).append((i, j))
+    return out
+
+
+@pytest.mark.parametrize("m", [1, 3, 14, 15, 16, 31, 32, 74, 174])
+def test_lanes_tiles_cover_lower_triangle(m):
+    """The lanes kernel's tile table covers each pair (i, j), i >= j, of
+    the (m + 1) x (m + 1) Gram exactly once, and its store rule writes
+    every TNT entry and every d entry exactly once."""
+    tiles = ttnt.lanes_tiles(m)
+    R = -(-(m + 1) // ttnt.LANES_TILE)
+    assert tiles.dtype == np.int32 and tiles.shape == (2, R * (R + 1) // 2)
+    I0, J0 = tiles.astype(np.int64)
+    assert (I0 >= J0).all() and (tiles % ttnt.LANES_TILE == 0).all()
+    assert I0[-1] == J0[-1] and I0[-1] <= m < I0[-1] + ttnt.LANES_TILE
+    owner = {}
+    for k, (a, b) in enumerate(zip(I0.tolist(), J0.tolist())):
+        for i in range(a, min(a + ttnt.LANES_TILE, m + 1)):
+            for j in range(b, min(b + ttnt.LANES_TILE, i + 1)):
+                owner.setdefault((i, j), []).append(k)
+    assert sorted(owner) == sorted(zip(*np.tril_indices(m + 1)))
+    assert all(len(v) == 1 for v in owner.values())
+    writes = _lanes_writes(m)
+    want = ([("tnt", i, j) for i in range(m) for j in range(m)]
+            + [("d", j) for j in range(m)])
+    assert sorted(writes) == sorted(want)
+    assert all(len(v) == 1 for v in writes.values())
+    # a TNT entry's sum is its own pair's or its mirror's: the same float
+    assert all({tuple(sorted(p, reverse=True)) for p in v} == {
+        (max(k[1:]), min(k[1:]))} for k, v in writes.items()
+        if k[0] == "tnt")
+
+
+@pytest.mark.parametrize("G, m, want", [
+    (64, 74, 4), (32, 74, 2), (4, 74, 1), (32, 174, 4), (1, 3, 1),
+    (600, 3, 1), (600, 16, 2)])
+def test_lanes_form(G, m, want):
+    """Tiles a block: the most (at most the group's tiles) that leaves
+    every SM a block."""
+    assert ttnt.lanes_form(G, m) == want
+    ntiles = ttnt.lanes_tiles(m).shape[1]
+    pb = ttnt.lanes_form(G, m)
+    assert 1 <= pb <= min(ttnt.LANES_MAX_PER_BLOCK, ntiles)
+    if pb > 1:
+        assert G * -(-ntiles // pb) >= ttnt.SM_COUNT
+
+
+@pytest.mark.parametrize("m", [3, 16])
+def test_lanes_writes_reproduce_tnt_products(m):
+    """The plain Gram of [T | y] written through the lanes kernel's store
+    rule gives ``tnt_products``' TNT (its lower triangle, mirrored, so
+    exactly symmetric) and d."""
+    T, y, nvec = _inputs(9, C=2, n=64, m=m)
+    tt = torch.from_numpy
+    TNT, d, _ = (a.numpy() for a in ttnt.tnt_products(
+        tt(T), tt(y), tt(nvec)))
+    X = np.concatenate([T, y[:, None]], 1)
+    G_full = np.einsum("ti,ct,tj->cij", X, 1.0 / nvec, X).astype(np.float32)
+    G_full[:, :m, :m] = np.tril(TNT) + np.swapaxes(np.tril(TNT, -1), 1, 2)
+    G_full[:, m, :m] = d
+    out_t = np.full((2, m, m), np.nan, np.float32)
+    out_d = np.full((2, m), np.nan, np.float32)
+    for key, pairs in _lanes_writes(m).items():
+        (i, j), = pairs
+        v = G_full[:, max(i, j), min(i, j)]
+        if key[0] == "tnt":
+            out_t[:, key[1], key[2]] = v
+        else:
+            out_d[:, key[1]] = v
+    low = np.tril(np.ones((m, m), bool))
+    np.testing.assert_array_equal(out_t[:, low], TNT[:, low])
+    np.testing.assert_array_equal(out_t, np.swapaxes(out_t, 1, 2))
+    np.testing.assert_array_equal(out_d, d)
 
 
 @pytest.mark.parametrize("m", [3, 12])
