@@ -29,15 +29,17 @@ Phases, each fatal on failure (non-zero exit, no final ``ok`` line):
    computes the same function, that call (a yardstick only); the factor
    and the hyper block also with every matrices-per-block count, at the
    64-chain and m = 160 shapes; the factor, the back-solve, the hyper
-   block and the Gram kernels (phases 8 and 11e) beside their first
-   design's times;
+   block, the Gram kernels (phases 8 and 11e) and the white MH and MTM
+   kernels (with their launch form; phases 8, 9, 10e and 11e too) beside
+   their first design's times;
 7. torch.profiler over 20 flagship sweeps: device time per sweep, launches
    per sweep and the device's idle share against phase 5's wall;
 8. the 1e5-TOA stress path (``bench.py --stress``: 100,000 TOAs padded to
-   102,400, 64 chains, no adaptation, ``record="light"``): the Gram kernel
-   (tnt_batched) and the white kernel past shared memory held against
-   their plain versions and float64 on inputs captured from a stress
-   sweep, one stress sweep on the card against the CPU at 8 chains, the
+   102,400, 64 chains, no adaptation, ``record="light"``): the white
+   kernels' launch form there (a thread-block cluster a chain, the slices
+   in shared memory), the Gram kernel (tnt_batched) and the white kernel
+   held against their plain versions and float64 on inputs captured from
+   a stress sweep, one stress sweep on the card against the CPU at 8 chains, the
    stress run (10 + 20 sweeps; tnt_batched 1, white_mh 1, hyper_mh 1,
    chol_fused 2, tri_solve_T 2 launches per sweep), the two kernels'
    timings at the stress shapes and a profile of 10 stress sweeps;
@@ -50,7 +52,8 @@ Phases, each fatal on failure (non-zero exit, no final ``ok`` line):
    reported beside it), the same at 1024 chains (adapt 100 + 200 sweeps;
    white_mtm 1, chol_fused 23, tri_solve_T 2, white_mh and hyper_mh 0
    launches per sweep), and the kernel's timing;
-10. the multi-pulsar ensemble (``EnsembleGibbs``, the grouped kernels):
+10. the multi-pulsar ensemble (``EnsembleGibbs``, the grouped kernels;
+   ens32's white kernels must take their warp form, a warp a chain):
    a. the grouped white MH and hyper MH kernels held against their grouped
       plain versions and float64 on inputs captured from a sweep of ens32
       (32 demo pulsars of 130 - (i mod 3) 10 TOAs, 256 chains each, the
@@ -267,10 +270,17 @@ FIRST_DESIGN_MS = {
     ("tri_solve_T", 1024, 60): 0.02697, ("tri_solve_T", 1024, 14): 0.007304,
     ("tri_solve_T", 64, 60): 0.02619, ("tri_solve_T", 64, 14): 0.006847,
     ("tri_solve_T", 8192, 60): 0.1735, ("tri_solve_T", 8192, 14): 0.01668,
-    ("tnt_lanes", 64, 130, 74): 0.1503}
+    ("tnt_lanes", 64, 130, 74): 0.1503,
+    # white_mh and white_mtm (a block per chain), by (kernel, chains, TOAs)
+    ("white_mh", 1024, 130): 0.04089, ("white_mh", 64, 102400): 1.375,
+    ("white_mh_grouped", 8192, 130): 0.2698,
+    ("white_mh_lanes", 1024, 130): 0.04696,
+    ("white_mtm", 1024, 130): 0.2502,
+    ("white_mtm_grouped", 1024, 130): 0.2713}
 # the redesigned kernels, reported beside their first design
 REDESIGNED = ("chol_fused", "hyper_mh", "tnt_batched", "tri_solve_T",
-              "tnt_lanes")
+              "tnt_lanes", "white_mh", "white_mh_grouped", "white_mh_lanes",
+              "white_mtm", "white_mtm_grouped")
 # the stream hold before a timed loop: 5e7 cycles, at least 25 ms below the
 # H100's 1.98 GHz top SM clock
 SLEEP_CYCLES, SLEEP_MS = 50_000_000, 25.0
@@ -993,6 +1003,12 @@ def main() -> None:
             elif name in LANES:
                 extra = {"ensemble_form_ms": timed(
                     wrappers[LANES[name]][2], ensemble_form(name, args), 50)}
+            if name.startswith("white"):
+                x_, n_ = args[0], args[1].shape[-1]
+                chains = x_.numel() // x_.shape[-1]
+                extra["first_design_ms"] = FIRST_DESIGN_MS.get(
+                    (name, chains, n_))
+                extra["form"] = list(white_mh.white_form(n_, x_.shape[-1]))
             row = dict(
                 path=path, shape=list(shape), **extra,
                 ms=timed(wrappers[name][2], args, 50),
@@ -1052,12 +1068,13 @@ def main() -> None:
         "model_build_s": time.perf_counter() - t0, "n": ma_s.n,
         "n_padded": stress._n, "block_size": stress._block_size,
         "chains": STRESS_CHAINS,
-        "white_staged": bool(_cuda.lib().gst_white_staged(
-            stress._n, ma_s.nparam, stress._white[0].shape[0]))}
+        "white_form": white_mh.white_form(stress._n, ma_s.nparam)._asdict()}
     print(f"# stress: {json.dumps(stress_rep)}", flush=True)
-    if stress._block_size is None or stress_rep["white_staged"]:
+    wf = stress_rep["white_form"]
+    if (stress._block_size is None or wf["form"] != "cluster"
+            or wf["cluster"] < 2 or not wf["on_chip"]):
         fail("the stress config did not take the blocked TNT path and the "
-             "device-memory white kernel")
+             "white kernels' cluster form with the slices on chip")
     # every kernel's operands at the stress shapes: B5 and B3 are held
     # against their plain versions below, and all five are timed. B1, B2
     # and B4 are held against theirs at the flagship shapes (phase 3)
@@ -1417,12 +1434,12 @@ def main() -> None:
         "chains": ENS_CHAINS, "n_toa": ens.n_toa.tolist(),
         "n_padded": ens._n, "m": ens._ma.m, "p": ens._ma.nparam,
         "schur": [len(i) for i in ens._schur],
-        "white_staged": bool(_cuda.lib().gst_white_staged(
-            ens._n, ens._ma.nparam, ens._white[0].shape[-2]))}
+        "white_form": white_mh.white_form(ens._n, ens._ma.nparam)._asdict()}
     print(f"# ens32: {json.dumps(ens_rep)}", flush=True)
     if (ens_rep["schur"] != [14, 60] or ens._n != 130
-            or not ens_rep["white_staged"]):
-        fail("the ens32 config is not the flagship's shape per pulsar")
+            or ens_rep["white_form"]["form"] != "warp"):
+        fail("the ens32 config is not the flagship's shape per pulsar, or "
+             "its white kernels do not take the warp form")
 
     # 10a. the grouped kernels and the factor and solves at the ensemble's
     # shapes, on inputs captured from an ens32 sweep

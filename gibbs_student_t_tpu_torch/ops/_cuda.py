@@ -50,7 +50,8 @@ _SIGNATURES = {
                       _P, _P, _I, _I, _I, _I, _I, _F, _I, _P], _I),
     "gst_white_mtm": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _P], _I),
-    "gst_white_staged": ([_I, _I, _I], _I),
+    "gst_white_form": ([_I, _I, _P], _I),
+    "gst_white_check": ([_P, _P, _P, _I, _P], _I),
     "gst_tnt_batched": ([_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
                         _I),
     "gst_tnt_workspace": ([_I, _I, _I], _Z),

@@ -8,12 +8,15 @@ likelihood ``-1/2 (sum log N + sum (y-Tb)^2/N)`` with
 ``N = alpha^z * Nvec0(efac, equad)``. ``white_mh`` runs the whole block
 for every chain in one launch of ``csrc/white_mh.cu`` (replacing
 ``pallas_white.py::_white_kernel``), and ``white_mtm`` the block under
-multiple-try Metropolis (replacing ``_white_mtm_kernel``). Their bound on
-the H100 at the flagship shape is under a microsecond, and their time goes
-to the sequential steps, so one block per chain runs all steps. The
-per-chain inputs are staged in shared memory where they fit and read from
-device memory past that (the 1e5-TOA stress path). The draws are inputs,
-so kernels and plain versions consume the same random numbers.
+multiple-try Metropolis (replacing ``_white_mtm_kernel``). Their time goes
+to the chain's sequential likelihood evaluations (at least ~46 issued
+instructions a TOA and point, most of them the accurate ``logf`` and the
+IEEE quotient), each a pass over the TOAs that serves up to four points
+at once. Two launch forms (:func:`white_form`): a warp per chain with its
+TOAs in registers or the warp's shared memory (every 130-TOA path), and
+past ``n = 1024`` a thread-block cluster per chain, each block holding a
+slice of the TOAs (the 1e5-TOA stress path). The draws are inputs, so
+kernels and plain versions consume the same random numbers.
 
 Each takes one model's constants (``rows (R, n)``, ``specs (3, p)``) or,
 in grouped form, G models' (``rows (G, R, n)``, ``specs (G, 3, p)``)
@@ -58,6 +61,40 @@ _LOG_2PI = float(np.log(2.0 * np.pi))
 
 #: most varying white-noise groups the kernel takes (its by-value table)
 MAX_WHITE_VAR = 8
+
+
+class WhiteForm(NamedTuple):
+    """How the white kernels launch at a shape (``csrc/white_mh.cu``).
+
+    ``form``: ``"warp"`` (a warp per chain) or ``"cluster"`` (a cluster of
+    ``cluster`` blocks per chain); ``on_chip``: the chain's operands are
+    held in registers or shared memory (False: the cluster form reads its
+    slices from device memory); ``toas``: TOAs a lane keeps in registers
+    (warp form; 0 for the warp's shared slice) or a block's slice (cluster
+    form). The kernels' constants, the same at every shape:
+    ``crossover``, the largest n of the warp form (``GST_WHITE_CROSSOVER``;
+    above it a chain spans a thread-block cluster), and ``tries_pass``, the
+    most points one likelihood pass evaluates (``GST_WHITE_NP``: the MTM
+    kernel takes K tries in passes of this many)."""
+
+    form: str
+    cluster: int
+    on_chip: bool
+    toas: int
+    crossover: int
+    tries_pass: int
+
+
+def white_form(n: int, p: int) -> WhiteForm:
+    """The launch form of ``white_mh``/``white_mtm`` at ``n`` TOAs and
+    ``p`` parameters on the current CUDA device (builds the kernels)."""
+    from gibbs_student_t_tpu_torch.ops import _cuda
+
+    out = _cuda.host_ints([0] * 6)
+    _cuda.check(_cuda.lib().gst_white_form(int(n), int(p), _cuda.addr(out)),
+                "white_form")
+    return WhiteForm("cluster" if out[0] else "warp", out[1], bool(out[2]),
+                     *out[3:])
 
 
 class WhiteConsts(NamedTuple):

@@ -315,7 +315,7 @@ def white_operands(rng, n, C=C):
     TOAs masked as padding. Returns ``(x, az, y2, rows, wc)``."""
     ma = make_demo_model_arrays()
     wc = twhite.build_white_consts(ma)
-    x, az = near_posterior(rng, ma)
+    x, az = near_posterior(rng, ma, C)
     b = (rng.normal(size=(C, ma.m)) * 0.05).astype(np.float32)
     yred = ma.y.astype(np.float32)[None] - b @ ma.T.astype(np.float32).T
     reps = -(-n // ma.n)
@@ -330,14 +330,14 @@ def white_operands(rng, n, C=C):
 @pytest.mark.torch
 @pytest.mark.parametrize("n", [20000, 102400])
 def test_white_mh_kernel_past_shared_memory_on_card(n):
-    """The white block at sizes whose per-chain rows do not fit in shared
-    memory: the kernel reads them from device memory."""
+    """The white block at sizes whose per-chain rows do not fit in one
+    block's shared memory: a chain spans a thread-block cluster, each
+    block holding its slice of the TOAs."""
     dev = _cuda()
-    from gibbs_student_t_tpu_torch.ops import _cuda as cu
-
     rng = np.random.default_rng(71 + n)
     x, az, y2, rows, wc = white_operands(rng, n)
-    assert cu.lib().gst_white_staged(n, 3, rows.shape[0]) == 0
+    form = twhite.white_form(n, 3)
+    assert form.form == "cluster" and form.cluster > 1 and form.on_chip
     S = 20
     dx = jumps(rng, [wc.var[0][1]], S, 3, False, 0.05)
     tt = torch.from_numpy
@@ -405,6 +405,259 @@ def test_white_mtm_kernel_on_card(dense):
     assert nk[1] == 0 and float(xk[1, 0]) == 50.0
     assert 0 < nk.sum() < C * S
     torch.testing.assert_close(xk, xp, rtol=1e-5, atol=0.0)
+
+
+def white_case(rng, dev, n, C=C, S=20, K=None, nparam=3, edit=None):
+    """A white block's (or, with ``K``, a white MTM block's) operands at
+    ``n`` TOAs (:func:`white_operands`) on the card, every draw kept clear
+    of its float64 decision (1e-3 at 130 TOAs, 0.1 above, where a float32
+    sum over the TOAs is itself uncertain by ~0.03). ``nparam`` pads the
+    parameter vector with uniform-prior parameters the block never moves;
+    ``edit(x, dx, rows, y2)`` changes the numpy operands in place before
+    the draws are separated. Returns ``(ops, var)``, ``ops`` in the
+    wrapper's order."""
+    x, az, y2, rows, wc = white_operands(rng, n, C)
+    specs = wc.specs
+    if nparam > 3:
+        x = np.concatenate([x, np.zeros((C, nparam - 3), np.float32)], 1)
+        extra = np.tile(np.array([[0.0], [-1.0], [1.0]], np.float32),
+                        (1, nparam - 3))
+        specs = np.concatenate([specs, extra], 1)
+    p = x.shape[1]
+    wi = [v[1] for v in wc.var]
+    if K is None:
+        dx = jumps(rng, wi, S, p, False, 0.05, C=C)
+    else:
+        live = (np.arange(p) < 3).astype(np.float32)
+        dx = jumps(rng, wi, S * K, p, True, 0.05, C=C).reshape(
+            C, S, K, p) * live
+        dxr = jumps(rng, wi, S * (K - 1), p, True, 0.05, C=C).reshape(
+            C, S, K - 1, p) * live
+    if edit is not None:
+        edit(x, dx, rows, y2)
+    margin = 1e-3 if n <= 130 else 0.1
+    tt = torch.from_numpy
+    x_, az_, y2_, rows_, specs_ = (tt(np.ascontiguousarray(a)).to(dev)
+                                   for a in (x, az, y2, rows, specs))
+    a64 = [t.double() for t in (az_, y2_, rows_, specs_)]
+    if K is None:
+        dx = tt(dx).to(dev)
+        logu = separate_ties(
+            lambda q: twhite.white_ll_lp(q, *a64[:3], wc.var, a64[3]), x_,
+            dx, torch.log(tt(rng.random((C, S)).astype(np.float32))).to(dev),
+            margin=margin, push=2 * margin)
+        return [x_, az_, y2_, dx, logu, rows_, specs_], wc.var
+    dx, dxr = tt(dx).to(dev), tt(dxr).to(dev)
+    gumb = -torch.log(-torch.log(tt(rng.random((C, S, K)).astype(
+        np.float32)))).to(dev)
+    logu = torch.log(tt(rng.random((C, S)).astype(np.float32))).to(dev)
+
+    def weight64(q):
+        ll, lp = twhite.white_ll_lp(q, a64[0][:, None], a64[1][:, None],
+                                    a64[2], wc.var, a64[3])
+        return ll + lp
+
+    gumb, logu = separate_mtm_ties(weight64, x_, dx, dxr, gumb, logu,
+                                   margin=margin, push=2 * margin)
+    return [x_, az_, y2_, dx, dxr, gumb, logu, rows_, specs_], wc.var
+
+
+def check_white(ops, var, mtm, S=20, active=True):
+    """One launch of the white MH (or MTM) kernel against its plain
+    version and its float64 plain version: equal accept counts on every
+    chain, x within 1e-5 relative; returns the kernel's accept counts."""
+    fn = twhite.white_mtm if mtm else twhite.white_mh
+    plain = twhite.white_mtm_loop if mtm else twhite.white_mh_loop
+    n0 = fn.launches
+    xk, ak = fn(*ops, var)
+    assert fn.launches == n0 + 1
+    xp, ap = plain(*ops, var)
+    x64, a64 = plain(*(t.double() for t in ops), var)
+    nk = acc_counts(ak.cpu(), S)
+    np.testing.assert_array_equal(nk, acc_counts(ap.cpu(), S))
+    np.testing.assert_array_equal(nk, acc_counts(a64.cpu(), S))
+    if active:
+        assert 0 < nk.sum() < nk.size * S
+    torch.testing.assert_close(xk, xp, rtol=1e-5, atol=0.0, equal_nan=True)
+    return nk
+
+
+def white_constant(n, name):
+    """``n`` as given, or, as ``"<name>"`` or ``"<name> + 1"``, the white
+    kernels' constant ``name`` of :class:`white_mh.WhiteForm` (plus one),
+    read from the built kernels."""
+    if isinstance(n, int):
+        return n
+    base = getattr(twhite.white_form(130, 3), name)
+    return base + 1 if n.endswith("+ 1") else base
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("mtm", [False, True])
+@pytest.mark.parametrize("n", [130, "crossover", "crossover + 1", 20000,
+                               50001, 102400])
+def test_white_kernels_across_forms_on_card(n, mtm):
+    """The white MH and white MTM (K = 4) kernels on either side of the
+    crossover between the warp form (a warp a chain) and the cluster form
+    (a thread-block cluster a chain), at the flagship's 130 TOAs, at the
+    stress path's 102,400 and at 50,001 (no multiple of a cluster's blocks
+    x 32, a ragged last slice), against the plain and float64 versions."""
+    dev = _cuda()
+    n = white_constant(n, "crossover")
+    form = twhite.white_form(n, 3)
+    want = "warp" if n <= form.crossover else "cluster"
+    assert form.form == want and form.on_chip
+    rng = np.random.default_rng(91 + n + mtm)
+    ops, var = white_case(rng, dev, n, K=4 if mtm else None)
+    check_white(ops, var, mtm)
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("mtm", [False, True])
+def test_white_cluster_from_device_memory_on_card(mtm):
+    """Past the TOAs eight blocks can stage (two blocks an SM), the
+    cluster form reads each block's slice from device memory: the same
+    kernel, the same decisions."""
+    dev = _cuda()
+    n = 120_000
+    form = twhite.white_form(n, 3)
+    assert form.form == "cluster" and form.cluster == 8
+    assert not form.on_chip
+    rng = np.random.default_rng(95 + mtm)
+    ops, var = white_case(rng, dev, n, C=16, K=4 if mtm else None)
+    check_white(ops, var, mtm)
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("n", [130, 20000])
+@pytest.mark.parametrize("K", [2, 4, "tries_pass + 1"])
+def test_white_mtm_tries_on_card(K, n):
+    """The white MTM kernel at K = 2, 4 and one try past a pass (the
+    candidates then take two passes) in both forms."""
+    dev = _cuda()
+    K = white_constant(K, "tries_pass")
+    rng = np.random.default_rng(97 + K + n)
+    ops, var = white_case(rng, dev, n, K=K)
+    check_white(ops, var, True)
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("mtm", [False, True])
+@pytest.mark.parametrize("n", [130, 20000])
+def test_white_kernels_edge_cases_on_card(n, mtm):
+    """In both forms: a NaN proposal (chain 0, step 2: never accepted), a
+    chain outside its prior (chain 1: every weight -inf, never an accept),
+    an all -inf MTM step (chains 2-5, step 3: every candidate outside the
+    prior; the step keeps x), and fully masked TOAs (every row masked and
+    y^2 = 0: ll = 0 exactly, decisions from the prior alone)."""
+    dev = _cuda()
+    rng = np.random.default_rng(99 + n + mtm)
+
+    def edges(x, dx, rows, y2):
+        dx[0, 2] = np.nan
+        x[1, 0] = 50.0
+        if mtm:
+            dx[2:6, 3, :, 0] = 100.0
+
+    ops, var = white_case(rng, dev, n, K=4 if mtm else None, edit=edges)
+    nk = check_white(ops, var, mtm)
+    assert nk[1] == 0
+    xk, _ = (twhite.white_mtm if mtm else twhite.white_mh)(*ops, var)
+    assert torch.isfinite(xk).all() and torch.equal(xk[1], ops[0][1])
+
+    def masked(x, dx, rows, y2):
+        rows[1] = 0.0
+        y2[:] = 0.0
+
+    ops, var = white_case(rng, dev, n, K=4 if mtm else None, edit=masked)
+    check_white(ops, var, mtm, active=False)
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("mtm", [False, True])
+def test_white_grouped_cluster_on_card(mtm):
+    """The grouped cluster form: 3 groups of 5 chains at 20,000 TOAs, each
+    group its own constant rows, against the grouped plain version; each
+    group alone through the single-model launch gives the same values bit
+    for bit."""
+    dev = _cuda()
+    rng = np.random.default_rng(103 + mtm)
+    G_, C_, n = 3, 5, 20000
+    per = [white_case(rng, dev, n, C=C_, K=4 if mtm else None,
+                      edit=lambda x, dx, rows, y2, g=g: rows[0].__imul__(
+                          1.0 + 0.25 * g))
+           for g in range(G_)]
+    var = per[0][1]
+    k = 7 if mtm else 5
+    ops = [torch.stack([o[0][i] for o in per]) for i in range(k + 2)]
+    fn = twhite.white_mtm if mtm else twhite.white_mh
+    plain = twhite.white_mtm_loop if mtm else twhite.white_mh_loop
+    g0 = fn.launches_grouped
+    xk, ak = fn(*ops, var)
+    assert fn.launches_grouped == g0 + 1
+    xp, ap = plain(*ops, var)
+    np.testing.assert_array_equal(acc_counts(ak.cpu(), 20),
+                                  acc_counts(ap.cpu(), 20))
+    torch.testing.assert_close(xk, xp, rtol=1e-5, atol=1e-6)
+    for g in range(G_):
+        xs, as_ = fn(*(t[g] for t in ops), var)
+        assert torch.equal(xs, xk[g]) and torch.equal(as_, ak[g])
+
+
+@pytest.mark.torch
+def test_white_quotient_on_card():
+    """The white kernels' quotient, written out so a chunk's quotients
+    interleave, equals `/` bit for bit wherever the kernels take it (both
+    operands in [2^-60, 2^61), y2 may be 0), on random exponents and
+    mantissas across that window and at its edges."""
+    dev = _cuda()
+    from gibbs_student_t_tpu_torch.ops import _cuda as cu
+
+    rng = np.random.default_rng(109)
+    n = 1 << 24
+    d = np.ldexp(rng.uniform(1.0, 2.0, n), rng.integers(-60, 61, n))
+    y = np.ldexp(rng.uniform(1.0, 2.0, n), rng.integers(-60, 61, n))
+    y[rng.random(n) < 1 / 16] = 0.0
+    edge = np.array([2.0 ** -60, 2.0 ** 61 * (1 - 2.0 ** -24), 1.0,
+                     1.0 + 2.0 ** -23])
+    d[:4], y[4:8] = edge, edge
+    dt = torch.from_numpy(d.astype(np.float32)).to(dev)
+    yt = torch.from_numpy(y.astype(np.float32)).to(dev)
+    out = torch.empty((2, n), dtype=torch.float32, device=dev)
+    cu.check(cu.lib().gst_white_check(cu.ptr(dt), cu.ptr(yt), cu.ptr(out),
+                                      n, cu.stream(dev)), "white_check")
+    q_mine, q_ref = out[0].cpu().numpy(), out[1].cpu().numpy()
+    np.testing.assert_array_equal(q_mine.view(np.uint32),
+                                  q_ref.view(np.uint32))
+
+
+@pytest.mark.torch
+def test_white_refused_launch_raises_on_card():
+    """A cluster launch the card refuses (12,000 parameters: the block's
+    slot, 6 p + 32 floats, exceeds a block's shared memory) raises instead
+    of returning unwritten outputs."""
+    dev = _cuda()
+    rng = np.random.default_rng(107)
+    ops, var = white_case(rng, dev, 20000, C=4, S=2, nparam=12000)
+    with pytest.raises(RuntimeError, match="white_mh"):
+        twhite.white_mh(*ops, var)
+
+
+@pytest.mark.torch
+def test_white_cluster_form_holds_many_parameters_on_card():
+    """The cluster form's warps share one slot a block (x, the prior table
+    and a pass's coefficients: 6 p + 32 floats), so the stress shape's
+    slices stay staged far past its p = 3; at 40 parameters both kernels
+    run in that form against their plain versions."""
+    dev = _cuda()
+    for nparam in (3, 40, 400):
+        form = twhite.white_form(102400, nparam)
+        assert form.form == "cluster" and form.cluster == 8 and form.on_chip
+    rng = np.random.default_rng(111)
+    for mtm in (False, True):
+        ops, var = white_case(rng, dev, 102400, C=8, K=4 if mtm else None,
+                              nparam=40)
+        check_white(ops, var, mtm)
 
 
 @pytest.mark.torch
@@ -505,7 +758,7 @@ def grouped_white_operands(rng, mas, C, S, K=None):
 
 @pytest.mark.torch
 @pytest.mark.parametrize("mtm", [False, True])
-@pytest.mark.parametrize("G_, C_", [(3, 5), (4, 64), (1, 64)])
+@pytest.mark.parametrize("G_, C_", [(3, 5), (2, 16), (4, 64), (1, 64)])
 def test_grouped_white_kernels_on_card(mtm, G_, C_):
     """The grouped white MH and white MTM kernels (G pulsars' constants,
     an odd number of chains per group among them) against their grouped

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Time the PyTorch/CUDA port's factor, back-solve, hyper-block and Gram
-kernels of one checkout, to compare two versions of the kernels on the
-same card.
+"""Time the PyTorch/CUDA port's factor, back-solve, hyper-block, Gram and
+white-block kernels of one checkout, to compare two versions of the
+kernels on the same card.
 
     python3 tools/torch_kernel_ab.py [--root DIR] [--label NAME]
+                                     [--only NAME,...]
+                                     [--white-sweep [--sweep-n N,...]]
 
 ``--root`` is the directory holding the ``gibbs_student_t_tpu_torch``
 package to time (default: the checkout this script lies in). One process
@@ -21,10 +23,30 @@ stress config's ``tnt_batched`` (a demo pulsar of 100,000 TOAs padded to
 102,400, 30 components, 64 chains: T is 102,400 x 74); ens32's
 ``tri_solve_T`` (32 demo pulsars x 256 chains: 8,192 systems at 60 and
 14); and the serving pool's ``tnt_lanes`` (1024 lanes of 4 tenants, the
-serving bench's models: 64 groups x 16 lanes, 130 TOAs, m = 74).
-Times are CUDA-event milliseconds per launch over 50 launches queued
-behind a sleep kernel, so the host's launch rate stays out of them. Prints
-one JSON line; needs a CUDA device.
+serving bench's models: 64 groups x 16 lanes, 130 TOAs, m = 74). The
+white kernels at every path's shape: ``white_mh`` at the flagship (1024 x
+130) and stress (64 x 102,400) shapes and grouped at ens32 (32 x 256),
+``white_mtm`` (K = 4) at 1024 chains and grouped at the ensemble's MTM arm
+(8 demo pulsars x 128 chains), ``white_mh_lanes`` at the pool's; with
+the checkout's launch form where it reports one, and with its issue
+bound: the instructions the white likelihood needs a TOA and point (the
+accurate ``logf`` and the IEEE quotient counted in the SASS of probe
+kernels, plus the formula's own arithmetic) over the card's issue rate.
+``--only`` times the named kernels alone.
+
+``--white-sweep`` times instead ``white_mh`` and ``white_mtm`` (K = 4,
+and K = 8 at 130 TOAs) on synthetic operands tiled from the demo pulsar
+at n = 130, 256, 1,000, 4,096, 11,000, 20,000 and 102,400 TOAs and 64
+and 1,024 chains (and 8,192 at 130; ``--sweep-n`` lists other n): the
+sweep that places the crossover between the white kernels' warp and
+cluster forms when run on checkouts that differ only in
+``GST_WHITE_CROSSOVER``. A shape a checkout's kernel refuses is reported
+with ``ms`` null.
+
+Times are CUDA-event milliseconds per launch over 50 launches (20 for a
+launch over 1e8 TOA-evaluations) queued behind a sleep kernel, so the
+host's launch rate stays out of them. Prints one JSON line; needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -36,11 +58,86 @@ import subprocess
 import sys
 
 
+# Three kernels alike but for one operation: the white likelihood's
+# logarithm and quotient are each the difference of their kernel's
+# instructions from the first's.
+_PROBE = r"""
+extern "C" __global__ void probe_base(const float* a, const float* b,
+                                      float* o) {
+  const int i = threadIdx.x;
+  o[i] = a[i] + b[i];
+}
+extern "C" __global__ void probe_log(const float* a, const float* b,
+                                     float* o) {
+  const int i = threadIdx.x;
+  o[i] = logf(a[i]) + b[i];
+}
+extern "C" __global__ void probe_quot(const float* a, const float* b,
+                                      float* o) {
+  const int i = threadIdx.x;
+  o[i] = b[i] / a[i] + a[i];
+}
+"""
+
+
+def function_instructions(root):
+    """Instructions issued for the accurate ``logf`` and the IEEE quotient
+    ``/`` of one float32 on this card, as nvcc compiles them for sm_90a:
+    ``{"logf": n, "quotient": n}``, each counted in the SASS
+    (``cuobjdump -sass``) of a probe kernel with that one operation, less
+    the same kernel without it, up to the kernel's ``EXIT`` and without
+    the code a branch skips to reach the quotient's rare exact path (a
+    call). ``None`` where ``nvcc`` or ``cuobjdump`` is missing."""
+    import re
+    import shutil
+
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    nvcc = shutil.which("nvcc") or os.path.join(cuda, "bin", "nvcc")
+    tool = shutil.which("cuobjdump") or os.path.join(cuda, "bin",
+                                                     "cuobjdump")
+    if not (os.path.exists(nvcc) and os.path.exists(tool)):
+        return None
+    out = os.path.join(root, "gibbs_student_t_tpu_torch", "_build",
+                       "probe")
+    os.makedirs(out, exist_ok=True)
+    src, cubin = os.path.join(out, "probe.cu"), os.path.join(out,
+                                                             "probe.cubin")
+    with open(src, "w") as fh:
+        fh.write(_PROBE)
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-O3", "-cubin", src, "-o", cubin], check=True)
+    sass = subprocess.run([tool, "-sass", cubin], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {}
+    for func in sass.split("Function : ")[1:]:
+        ins = [(int(a, 16), t.strip()) for a, t in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
+        end = next(a for a, t in ins if t.split()[-1] == "EXIT"
+                   and not t.startswith("@"))
+        skip = []
+        for a, t in ins:
+            m = re.search(r"\bBRA\s+(?:\S+,\s+)?`?\(?(?:0x)?([0-9a-f]+)",
+                          t)
+            tgt = int(m.group(1), 16) if m else a
+            if a < tgt <= end and any(a < x < tgt and "CALL" in u
+                                      for x, u in ins):
+                skip.append((a, tgt))
+        counts[func.split("\n", 1)[0].strip()] = sum(
+            1 for a, t in ins if a <= end and not t.startswith("NOP")
+            and not any(lo < a < hi for lo, hi in skip))
+    base = counts["probe_base"]
+    return {"logf": counts["probe_log"] - base,
+            "quotient": counts["probe_quot"] - base}
+
+
 def main() -> None:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=here)
     ap.add_argument("--label", default=None)
+    ap.add_argument("--only", default=None)
+    ap.add_argument("--white-sweep", action="store_true")
+    ap.add_argument("--sweep-n", default=None)
     opts = ap.parse_args()
     root = os.path.abspath(opts.root)
     sys.path.insert(0, root)
@@ -57,6 +154,7 @@ def main() -> None:
         make_reference_pta,
     )
     from gibbs_student_t_tpu_torch.ops import chol, hyper_mh, linalg, tnt
+    from gibbs_student_t_tpu_torch.ops import white_mh
     from gibbs_student_t_tpu_torch.parallel import EnsembleGibbs
     from gibbs_student_t_tpu_torch.serve import ChainServer, TenantRequest
     from gibbs_student_t_tpu_torch.serve import pool as serve_pool
@@ -71,7 +169,10 @@ def main() -> None:
                "tri_solve_T": (linalg, chol.tri_solve_T),
                "hyper_mh": (tb, hyper_mh.hyper_mh),
                "tnt_batched": (tb, tnt.tnt_batched),
-               "tnt_lanes": (serve_pool, tnt.tnt_lanes)}
+               "tnt_lanes": (serve_pool, tnt.tnt_lanes),
+               "white_mh": (tb, white_mh.white_mh),
+               "white_mtm": (tb, white_mh.white_mtm),
+               "white_mh_lanes": (serve_pool, white_mh.white_mh_lanes)}
 
     def capture(run, names):
         """The operands of the last call of each kernel in ``names``, by
@@ -108,10 +209,15 @@ def main() -> None:
                                                     components=components),
                              cfg, nchains=nchains, device=dev)
 
-    def ens32():
+    def solo_mtm():
+        return tb.TorchGibbs(make_demo_model_arrays(components=30),
+                             cfg.with_mtm(4, blocks=("white",)),
+                             nchains=1024, device=dev)
+
+    def ens32(npsr=32, nchains=256, cfg=cfg):
         mas = [make_demo_model_arrays(n=130 - (i % 3) * 10, components=30,
-                                      seed=100 + i) for i in range(32)]
-        return EnsembleGibbs(mas, cfg, nchains=256, device=dev,
+                                      seed=100 + i) for i in range(npsr)]
+        return EnsembleGibbs(mas, cfg, nchains=nchains, device=dev,
                              record="light")
 
     def pool_step():
@@ -136,12 +242,57 @@ def main() -> None:
 
     cases = (
         ("solo 30 x 1024", lambda: sweeps(solo(30, 1024, 130)),
-         ("chol_fused", "tri_solve_T", "hyper_mh")),
+         ("chol_fused", "tri_solve_T", "hyper_mh", "white_mh")),
         ("solo 80 x 64", lambda: sweeps(solo(80, 64, 130)),
          ("chol_fused", "hyper_mh")),
-        ("stress", lambda: sweeps(solo(30, 64, 100_000)), ("tnt_batched",)),
-        ("ens32", lambda: sweeps(ens32(), 2), ("tri_solve_T",)),
-        ("pool1024", pool_step, ("tnt_lanes",)))
+        ("mtm 30 x 1024", lambda: sweeps(solo_mtm()), ("white_mtm",)),
+        ("stress", lambda: sweeps(solo(30, 64, 100_000)),
+         ("tnt_batched", "white_mh")),
+        ("ens32", lambda: sweeps(ens32(), 2), ("tri_solve_T", "white_mh")),
+        ("ens mtm 8 x 128", lambda: sweeps(ens32(
+            8, 128, cfg.with_mtm(4, blocks=("white",))), 2), ("white_mtm",)),
+        ("pool1024", pool_step, ("tnt_lanes", "white_mh_lanes")))
+    if opts.only:
+        keep = set(opts.only.split(","))
+        cases = tuple((c, mk, tuple(n for n in names if n in keep))
+                      for c, mk, names in cases
+                      if any(n in keep for n in names))
+
+    fn_ins = function_instructions(root)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    max_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+
+    def per_point(R):
+        """The least instructions a TOA and point of the white likelihood
+        needs: ``logf`` and the quotient, one FMA a varying group (R - 2),
+        ``az`` and ``rm`` applied (a multiply and an FMA), the two terms
+        added and added into the sum. It leaves out the loads, the per-TOA
+        ``1 - rm`` and the reduction, so it is a floor whatever the form."""
+        if fn_ins is None:
+            return None
+        return fn_ins["logf"] + fn_ins["quotient"] + (R - 2) + 4
+
+    def issue_bound(x, n, dx, mtm, R):
+        """The least time the card's issue slots allow for a white block:
+        its TOA-point evaluations (1 + S, or 1 + S (2K - 1) under MTM, a
+        chain) times :func:`per_point` instructions, over 4 schedulers x 32
+        lanes a cycle on every SM at the card's top SM clock."""
+        if fn_ins is None:
+            return None
+        chains = x.numel() // x.shape[-1]
+        S = dx.shape[-3] if mtm else dx.shape[-2]
+        evals = 1 + S * (2 * dx.shape[-2] - 1 if mtm else 1)
+        return (chains * n * evals * per_point(R)
+                / (sms * 128 * max_mhz * 1e6) * 1e3)
+
+    def form(n, p):
+        """The white kernels' launch form at (n, p), where the checkout's
+        package reports one."""
+        probe = getattr(white_mh, "white_form", None)
+        return list(probe(n, p)) if probe else None
 
     def timed(fn, args, reps=50):
         for _ in range(3):
@@ -157,14 +308,83 @@ def main() -> None:
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps
 
+    def white_sweep():
+        """``white_mh`` and ``white_mtm`` on synthetic operands: the demo
+        pulsar's white constants, az and yred^2 tiled to n TOAs."""
+        import numpy as np
+
+        ma = make_demo_model_arrays(components=30)
+        wc = white_mh.build_white_consts(ma)
+        rng = np.random.default_rng(7)
+        rows_ = []
+        ns = ([int(v) for v in opts.sweep_n.split(",")] if opts.sweep_n
+              else [130, 256, 1000, 4096, 11000, 20000, 102400])
+        shapes = [(n, C) for n in ns for C in (64, 1024)] + (
+            [(130, 8192)] if 130 in ns else [])
+        for n, C in shapes:
+            reps = -(-n // ma.n)
+            t = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                          dtype=torch.float32, device=dev)
+            rows = t(np.tile(wc.rows, (1, reps))[:, :n])
+            az = t(rng.gamma(4.0, 0.25, (C, n)))
+            y2 = t(np.tile(ma.y ** 2, (C, reps))[:, :n]
+                   * rng.uniform(0.5, 1.5, (C, n)))
+            x = t(np.array([-7.5, 4.0, -14.0])
+                  + rng.normal(0, [0.4, 0.5, 0.3], (C, 3)))
+            specs = t(wc.specs)
+            S = 20
+            for K in (None, 4, 8):
+                if K == 8 and n != 130:
+                    continue
+                if K is None:
+                    fn = white_mh.white_mh
+                    args = (x, az, y2, t(rng.normal(0, 0.02, (C, S, 3))),
+                            t(np.log(rng.random((C, S)))), rows, specs,
+                            wc.var)
+                    evals = 1 + S
+                else:
+                    fn = white_mh.white_mtm
+                    args = (x, az, y2, t(rng.normal(0, 0.02, (C, S, K, 3))),
+                            t(rng.normal(0, 0.02, (C, S, K - 1, 3))),
+                            t(rng.gumbel(size=(C, S, K))),
+                            t(np.log(rng.random((C, S)))), rows, specs,
+                            wc.var)
+                    evals = 1 + S * (2 * K - 1)
+                try:
+                    ms = timed(fn, args, 20 if C * n * evals > 1e8 else 50)
+                except RuntimeError as exc:
+                    ms = None
+                    print(f"# {fn.__name__} ({C}, {n}, K={K}): {exc}",
+                          file=sys.stderr)
+                rows_.append({"kernel": fn.__name__, "chains": C, "n": n,
+                              "K": K, "form": form(n, 3), "ms": ms,
+                              "issue_bound_ms": issue_bound(
+                                  x, n, args[3], K is not None,
+                                  rows.shape[-2])})
+                torch.cuda.synchronize()
+            del az, y2
+            torch.cuda.empty_cache()
+        return rows_
+
     rows = []
-    for case, make, names in cases:
+    if opts.white_sweep:
+        rows = white_sweep()
+    for case, make, names in () if opts.white_sweep else cases:
         for (name, shape), args in sorted(capture(make(), names).items()):
-            rows.append({"kernel": name, "case": case, "shape": list(shape),
-                         "ms": timed(kernels[name][1], args)})
+            row = {"kernel": name, "case": case, "shape": list(shape),
+                   "ms": timed(kernels[name][1], args)}
+            if name.startswith("white"):
+                row["form"] = form(args[1].shape[-1], args[0].shape[-1])
+                row["issue_bound_ms"] = issue_bound(
+                    args[0], args[1].shape[-1], args[3], name == "white_mtm",
+                    args[-4].shape[-2] if name == "white_mh_lanes"
+                    else args[-3].shape[-2])
+            rows.append(row)
         torch.cuda.empty_cache()
     print(json.dumps({"label": opts.label or root, "card": card,
-                      "rows": rows}), flush=True)
+                      "function_instructions": fn_ins,
+                      "per_point": per_point(3), "sms": sms,
+                      "max_sm_mhz": max_mhz, "rows": rows}), flush=True)
 
 
 if __name__ == "__main__":
