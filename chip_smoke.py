@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, each fatal on failure (non-zero exit, no final ``ok`` line):
+Phases, each fatal on failure (non-zero exit, no final ``ok`` line). The
+exit status is 0 exactly when the ``ok`` line is printed: a failed check
+exits 1 through ``fail`` before it, and so does an uncaught exception.
 
 1. device and card: CUDA must be present; prints the card's name and
    power limit as ``nvidia-smi`` reports them;
@@ -20,11 +22,13 @@ Phases, each fatal on failure (non-zero exit, no final ``ok`` line):
 4. one deterministic sweep on the card against the same sweep on the CPU
    (plain versions), with identical state and draws: every chain's accept
    counts equal;
-5. the flagship run through ``TorchGibbs.sample``: 1024 chains, adapt 100
-   sweeps with population-covariance proposals, then 200 more; every
-   kernel's launch count must equal its launches per sweep x sweeps
-   (chol_fused 2, tri_solve_T 2, white_mh 1, hyper_mh 1), every chain
-   must stay finite;
+5. the flagship run through ``TorchGibbs.sample`` (``record="full"``):
+   1024 chains, adapt 100 sweeps with population-covariance proposals,
+   then 200 more; every kernel's launch count must equal its launches per
+   sweep x sweeps plus its launches per chunk x chunks (chol_fused 2 a
+   sweep and 1 a chunk, the telemetry's chunk-end log-posterior;
+   tri_solve_T 2, white_mh 1, hyper_mh 1 a sweep), every chain must stay
+   finite;
 6. timings of each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (a yardstick only); the factor
    and the hyper block also with every matrices-per-block count, at the
@@ -41,13 +45,15 @@ Phases, each fatal on failure (non-zero exit, no final ``ok`` line):
    held against their plain versions and float64 on inputs captured from
    a stress sweep, one stress sweep on the card against the CPU at 8 chains, the
    stress run (10 + 20 sweeps; tnt_batched 1, white_mh 1, hyper_mh 1,
-   chol_fused 2, tri_solve_T 2 launches per sweep), the two kernels'
-   timings at the stress shapes and a profile of 10 stress sweeps;
+   chol_fused 2, tri_solve_T 2 launches per sweep, tnt_batched 1 and
+   chol_fused 1 per chunk), the two kernels' timings at the stress shapes
+   and a profile of 10 stress sweeps;
 9. multiple-try Metropolis (K = 4): the white MTM kernel held against its
    plain version and float64 on inputs captured from a sweep of the
    flagship with MTM on the white block, that run (adapt 100 + 200
-   sweeps; white_mtm 1, white_mh 0, hyper_mh 1, chol_fused 2,
-   tri_solve_T 2 launches per sweep), one sweep with MTM on both blocks on
+   sweeps, ``record="full"``; white_mtm 1, white_mh 0, hyper_mh 1,
+   chol_fused 2, tri_solve_T 2 launches per sweep, chol_fused 1 per
+   chunk), one sweep with MTM on both blocks on
    the card against the CPU at 64 chains (with b at the next four sweeps
    reported beside it), the same at 1024 chains (adapt 100 + 200 sweeps;
    white_mtm 1, chol_fused 23, tri_solve_T 2, white_mh and hyper_mh 0
@@ -65,12 +71,13 @@ Phases, each fatal on failure (non-zero exit, no final ``ok`` line):
       chains: every chain's accept counts equal;
    c. the ens32 run (adapt 100 + 200 sweeps, ``record="light"``; grouped
       white_mh 1, grouped hyper_mh 1, chol_fused 2, tri_solve_T 2,
-      tnt_batched 0 launches per sweep): every chain finite, padded rows
+      tnt_batched 0 launches per sweep, chol_fused 1 per 50-sweep
+      chunk): every chain finite, padded rows
       pinned, pulsar-chain-sweeps/s, ms per sweep and the median and
       minimum over pulsars of ESS(log10_A)/s;
    d. the MTM arm (8 pulsars x 128 chains, MTM on the white block, 20 + 20
       sweeps): the grouped white MTM kernel against its plain version, its
-      launches (1 per sweep) and finite chains;
+      launches (1 per sweep; chol_fused 1 per chunk) and finite chains;
    e. the grouped kernels' timings beside the same kernel launched
       ungrouped on as many chains, the factor and solves at the ensemble's
       shapes, and a profile of 20 ens32 sweeps;
@@ -103,8 +110,39 @@ Phases, each fatal on failure (non-zero exit, no final ``ok`` line):
       grouped launch on the same 1,024 chains, B5-L beside the ensemble's
       matmul per basis.
 
+12. the sampling surface of ``TorchGibbs`` and ``EnsembleGibbs`` at the
+   flagship (1024 chains, from phase 5's state):
+   a. the factor kernel in its block form at (1024, 74), as the
+      telemetry's chunk-end log-posterior launches it, against its plain
+      version and timed; ``lnlikelihood`` (the factor at (1, 74)) on the
+      card against the CPU at 8 points (rtol 1e-5); the launches and
+      device time the telemetry adds a sweep and a chunk;
+   b. 200 sweeps at ``record="compact8"``, ``"compact"`` and ``"full"``
+      from one seed, in turns twice: x, theta, df, z and the acceptance
+      rates bitwise equal, b and alpha within one bfloat16 step, pout
+      within 1/510 (compact8) or one float16 step (compact); each tier's
+      wall per sweep, bytes a chunk and the host's time to turn a chunk
+      back into float32 arrays;
+   c. ``record_thin=5``: its rows bitwise rows 5k of the full run;
+   d. telemetry on and off: chains bitwise equal, the accept sums equal
+      to the records' to 1e-5, every log-posterior finite, the wall with
+      it on and off (two of each);
+   e. recovery: NaN in x and b of 5 chains and alpha = 0 on every TOA of
+      2 more: ``diverged_mask`` flags exactly those 7,
+      ``sample(reinit_diverged=True)`` re-draws 7, every other chain is
+      bitwise the run without the injection, every chain finite at the
+      end;
+   f. ``sample_until`` (check every 100 sweeps, at most 1000; its first
+      100 sweeps adapt): sweeps taken, split-R-hat, ESS(log10_A)/s, its
+      first 100 rows bitwise a plain ``sample``'s; the runs of b-f are
+      the ``sample`` column of the launch counts (the flagship's launches
+      per sweep, and per chunk of the telemetry-on runs); then the
+      ensemble's ``sample_until`` on 4 pulsars x 32 chains at compact8:
+      its telemetry (4, 32), ``n_toa`` and R-hat (4, p).
+
 Launch counts are read per path: every count is set to 0 just before a
-run and read just after it; a grouped launch counts on its wrapper's
+run and read just after it; a count is launches per sweep x sweeps plus
+launches per chunk x chunks; a grouped launch counts on its wrapper's
 ``launches_grouped``, a lanes launch of the white or hyper block on its
 ``launches_lanes``. The last stdout lines are the ``kernels`` JSON line
 (the six kernels, the three grouped forms and the five lanes entries),
@@ -130,10 +168,15 @@ _WHITE = "gibbs_student_t_tpu_torch/csrc/white_mh.cu"
 _HYPER = "gibbs_student_t_tpu_torch/csrc/hyper_mh.cu"
 KERNELS = {
     # full_mtm: the Schur A-block and the b draw, plus the hyper MTM
-    # loop's 1 + 2 x 10 stacked factorizations (10 hyper steps)
+    # loop's 1 + 2 x 10 stacked factorizations (10 hyper steps); per
+    # chunk: the telemetry's chunk-end log-posterior, one factorization of
+    # the full m x m Sigma (and, on the stress path, one Gram launch) on
+    # every path that samples through TorchGibbs._run (the pool does not)
     "chol_fused": dict(
         per_sweep={"flagship": 2, "stress": 2, "mtm": 2, "full_mtm": 23,
                    "ens32": 2, "ens_mtm": 2, "pool": 2},
+        per_chunk={"flagship": 1, "stress": 1, "mtm": 1, "full_mtm": 1,
+                   "ens32": 1, "ens_mtm": 1, "pool": 0},
         source=_CHOL,
         replaces="gibbs_student_t_tpu/ops/pallas_chol.py:81 _chol_kernel"),
     "tri_solve_T": dict(
@@ -154,6 +197,7 @@ KERNELS = {
     "tnt_batched": dict(
         per_sweep={"flagship": 0, "stress": 1, "mtm": 0, "full_mtm": 0,
                    "ens32": 0, "ens_mtm": 0, "pool": 0},
+        per_chunk={"stress": 1},
         source="gibbs_student_t_tpu_torch/csrc/tnt.cu",
         replaces="gibbs_student_t_tpu/ops/pallas_tnt.py:53 _tnt_kernel"),
     "white_mtm": dict(
@@ -217,6 +261,9 @@ KERNELS = {
         replaces="gibbs_student_t_tpu/ops/pallas_chol.py:291 "
                  "tri_solve_T_lanes"),
 }
+# phase 12's runs (the "sample" column of launches_by_path) sweep the
+# flagship's model and config: they launch the flagship's kernels
+SAME_AS = {"sample": "flagship"}
 # a grouped kernel's entry: the wrapper it shares with the single-model
 # launch; it counts on the wrapper's launches_grouped
 GROUPED = {"white_mh_grouped": "white_mh", "hyper_mh_grouped": "hyper_mh",
@@ -255,6 +302,11 @@ POOL_TENANTS, POOL_CHAINS = 8, 256
 POOL_PAD_CHAINS, POOL_PAD_SWEEPS = 40, 100
 POOL_CPU_LANES, POOL_CPU_CHAINS = 64, 32
 POOL_PROFILE_QUANTA = 4
+# phase 12 (the sampling surface): sweeps of each record-tier run, the
+# recovery runs' chunk (two chunks a run), sample_until's check interval
+# and its most sweeps
+TIER_SWEEPS, RECOVERY_CHUNK = 200, 10
+UNTIL_CHECK, UNTIL_MAX = 100, 1000
 # times of the first design of chol_fused (one 128-thread block per matrix),
 # hyper_mh (one per chain) and tri_solve_T (one 32-thread block per
 # system), ms per launch by (kernel, batch, size); of tnt_batched (16 x 16
@@ -298,28 +350,6 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def pooled_ess(chains, c: float = 5.0) -> float:
-    """Effective sample size of ``(niter, nchains)`` draws: each chain's
-    draws discounted by its integrated autocorrelation time (FFT
-    autocorrelation, Sokal window ``c``), summed over chains."""
-    import numpy as np
-
-    x = np.asarray(chains, np.float64)
-    n = x.shape[0]
-    x = x - x.mean(0)
-    f = np.fft.rfft(x, n=2 * n, axis=0)
-    acf = np.fft.irfft(f * np.conj(f), axis=0)[:n]
-    a0 = acf[0]
-    dead = a0 <= 0
-    acf = acf / np.where(dead, 1.0, a0)
-    tau = 2.0 * np.cumsum(acf, axis=0) - 1.0
-    window = np.arange(n)[:, None] >= c * tau
-    idx = np.where(window.any(0), np.argmax(window, 0), n - 1)
-    taus = np.maximum(tau[idx, np.arange(x.shape[1])], 1.0)
-    taus = np.where(dead, 1.0, taus)
-    return float((n / taus).sum())
 
 
 def profile_sweeps(torch, sampler, nsweeps: int) -> dict:
@@ -392,6 +422,9 @@ def main() -> None:
         from gibbs_student_t_tpu_torch.data.demo import make_demo_model_arrays
         from gibbs_student_t_tpu_torch.ops import _cuda, chol, hyper_mh, linalg
         from gibbs_student_t_tpu_torch.ops import tnt, white_mh
+        from gibbs_student_t_tpu_torch.parallel.diagnostics import (
+            effective_sample_size,
+        )
         from gibbs_student_t_tpu_torch.serve import pool as serve_pool
         from gibbs_student_t_tpu_torch.testing import (
             separate_mtm_ties,
@@ -469,17 +502,26 @@ def main() -> None:
 
     launches_by_path = {}
 
-    def check_launches(path, sweeps):
+    def check_launches(path, sweeps, chunks):
         """Every kernel's count since reset_counts() against its launches
-        per sweep on ``path`` x sweeps."""
+        per sweep on ``path`` x sweeps plus its launches per chunk x
+        chunks (the telemetry's chunk-end log-posterior)."""
         counts = {n: count(n) for n in wrappers}
         launches_by_path[path] = counts
+        base = SAME_AS.get(path, path)
         for name, meta in KERNELS.items():
-            want = meta["per_sweep"][path] * sweeps
+            per_sweep = meta["per_sweep"][base]
+            per_chunk = meta.get("per_chunk", {}).get(base, 0)
+            want = per_sweep * sweeps + per_chunk * chunks
             if counts[name] != want:
                 fail(f"{name} launched {counts[name]} times in the {path} "
-                     f"run, expected {want}")
+                     f"run, expected {per_sweep} x {sweeps} sweeps + "
+                     f"{per_chunk} x {chunks} chunks = {want}")
         return counts
+
+    def chunks_of(smp, *niters):
+        """Chunks of ``smp.sample`` calls of ``niters`` sweeps each."""
+        return sum(-(-n // smp.chunk_size) for n in niters)
 
     def capture(names, run):
         """Run ``run()`` with the named kernels' wrappers replaced by
@@ -514,7 +556,9 @@ def main() -> None:
     ma = make_demo_model_arrays()
     cfg = GibbsConfig(model="mixture", vary_df=True,
                       theta_prior="beta").with_adapt(ADAPT, adapt_cov=True)
-    sampler = tb.TorchGibbs(ma, cfg, nchains=NCHAINS, device=dev)
+    # record="full": phase 5 holds the recorded b finite
+    sampler = tb.TorchGibbs(ma, cfg, nchains=NCHAINS, device=dev,
+                            record="full")
     print(f"# flagship: n={ma.n} m={ma.m} p={ma.nparam} chains={NCHAINS} "
           f"schur={len(sampler._schur[0])}+{len(sampler._schur[1])}",
           flush=True)
@@ -779,7 +823,8 @@ def main() -> None:
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     niter = ADAPT + MORE
-    launches = check_launches("flagship", niter)
+    launches = check_launches("flagship", niter,
+                              chunks_of(sampler, ADAPT, MORE))
     st = sampler.last_state
     finite = torch.ones(NCHAINS, dtype=torch.bool, device=dev)
     for f in ("x", "b", "alpha", "theta", "df"):
@@ -787,7 +832,7 @@ def main() -> None:
         finite &= torch.isfinite(v.reshape(NCHAINS, -1)).all(-1)
     share_finite = float(finite.float().mean())
     ia = [i for i, nm in enumerate(ma.param_names) if "log10_A" in nm][0]
-    ess_a = pooled_ess(res.chain[..., ia])
+    ess_a = effective_sample_size(res.chain[..., ia])
     run = {"sweeps": niter, "adapt_wall_s": t1 - t0, "timed_sweeps": MORE,
            "timed_wall_s": t2 - t1,
            "chain_sweeps_per_s": NCHAINS * MORE / (t2 - t1),
@@ -1231,7 +1276,8 @@ def main() -> None:
                         start_sweep=STRESS_WARM)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    check_launches("stress", STRESS_WARM + STRESS_MORE)
+    check_launches("stress", STRESS_WARM + STRESS_MORE,
+                   chunks_of(stress, STRESS_WARM, STRESS_MORE))
     st = stress.last_state
     finite = all(bool(torch.isfinite(getattr(st, f)).all())
                  for f in ("x", "b", "alpha", "theta", "df"))
@@ -1259,7 +1305,9 @@ def main() -> None:
 
     # --- 9. multiple-try Metropolis ------------------------------------------
     cfg_m = cfg.with_mtm(MTM_TRIES, blocks=("white",))
-    mtm = tb.TorchGibbs(ma, cfg_m, nchains=NCHAINS, device=dev)
+    # record="full": mtm_run holds the recorded b finite
+    mtm = tb.TorchGibbs(ma, cfg_m, nchains=NCHAINS, device=dev,
+                        record="full")
     captured_m = capture(["white_mtm"], run_capture(mtm, 19, 5))
     if [k[0] for k in captured_m] != ["white_mtm"]:
         fail(f"the MTM sweep reached {sorted(captured_m)}")
@@ -1284,8 +1332,8 @@ def main() -> None:
                          start_sweep=ADAPT)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        check_launches(path, ADAPT + MORE)
-        ess_a = pooled_ess(res.chain[..., ia])
+        check_launches(path, ADAPT + MORE, chunks_of(smp, ADAPT, MORE))
+        ess_a = effective_sample_size(res.chain[..., ia])
         rec = report[f"{path}_run"] = {
             "tries": MTM_TRIES, "blocks": list(blocks),
             "sweeps": ADAPT + MORE, "adapt_wall_s": t1 - t0,
@@ -1337,7 +1385,8 @@ def main() -> None:
         fail("one full-MTM sweep on the card disagrees with the CPU")
     # the same at 1024 chains: each hyper step factors 4096 candidate and
     # 3072 reference matrices through chol_fused
-    full = tb.TorchGibbs(ma, cfg_f, nchains=NCHAINS, device=dev)
+    full = tb.TorchGibbs(ma, cfg_f, nchains=NCHAINS, device=dev,
+                         record="full")
     frec = mtm_run(full, "full_mtm", ("white", "hyper"))
     frec["profile"] = profile("full_mtm", full, 5, frec["ms_per_sweep"])
     time_captured(captured_m, "mtm")
@@ -1520,7 +1569,7 @@ def main() -> None:
                      start_sweep=ADAPT)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    check_launches("ens32", ADAPT + MORE)
+    check_launches("ens32", ADAPT + MORE, chunks_of(ens, ADAPT, MORE))
     st = ens.last_state
     P_, C_ = ENS_PULSARS, ENS_CHAINS
     finite = torch.ones((P_, C_), dtype=torch.bool, device=dev)
@@ -1532,7 +1581,7 @@ def main() -> None:
     ia_e = [i for i, nm in enumerate(ens._ma.param_names)
             if "log10_A" in nm][0]
     wall = t2 - t1
-    ess_e = np.array([pooled_ess(res.chain[:, p, :, ia_e])
+    ess_e = np.array([effective_sample_size(res.chain[:, p, :, ia_e])
                       for p in range(P_)])
     erun = ens_rep["run"] = {
         "sweeps": ADAPT + MORE, "adapt_wall_s": t1 - t0,
@@ -1578,7 +1627,8 @@ def main() -> None:
                       start_sweep=ENS_MTM_SWEEPS)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    check_launches("ens_mtm", 2 * ENS_MTM_SWEEPS)
+    check_launches("ens_mtm", 2 * ENS_MTM_SWEEPS,
+                   chunks_of(ensm, ENS_MTM_SWEEPS, ENS_MTM_SWEEPS))
     st = ensm.last_state
     mfinite = all(bool(torch.isfinite(getattr(st, f)).all())
                   for f in ("x", "b", "z", "alpha", "theta", "df"))
@@ -1949,7 +1999,7 @@ def main() -> None:
         tb.tnt_products = tnt_products
     wall = time.perf_counter() - t0
     sweeps = srv.quanta * POOL_QUANTUM
-    check_launches("pool", sweeps)
+    check_launches("pool", sweeps, 0)
     summ = srv.summary()
     want_busy = (sum(budgets) * POOL_CHAINS
                  + POOL_PAD_SWEEPS * POOL_PAD_CHAINS)
@@ -2048,6 +2098,299 @@ def main() -> None:
                   f"(lanes / ensemble {r['ms'] / r['ensemble_form_ms']:.3f})"
                   f", {r['ms'] / r['bound_ms']:.1f}x its bound", flush=True)
     del captured_p, captured_lc
+
+    # --- 12. the sampling surface on the card (flagship, 1024 chains) -------
+    from gibbs_student_t_tpu_torch.obs.telemetry import (
+        telemetry_init,
+        telemetry_update,
+    )
+    from gibbs_student_t_tpu_torch.parallel.diagnostics import ess_per_param
+
+    srep = report["sample"] = {}
+    st0 = sampler.last_state            # after phase 5's ADAPT + MORE sweeps
+    s0 = ADAPT + MORE                   # past adapt_until: factors frozen
+
+    # 12a. B1's block form at (1024, 74), as the telemetry's chunk-end
+    # log-posterior launches it, against its plain version (phase 3's
+    # tolerance), and timed; lnlikelihood (B1 at (1, 74)) on the card
+    # against the same call on the CPU at 8 points
+    form74 = chol.launch_form(NCHAINS, ma.m)
+    if form74 != ("block", 1):
+        fail(f"B1 at ({NCHAINS}, {ma.m}) takes the {form74} form")
+    captured_lp = capture(["chol_fused"],
+                          lambda: sampler._logpost_chain(st0))
+    key74 = ("chol_fused", (NCHAINS, ma.m, ma.m))
+    if list(captured_lp) != [key74]:
+        fail(f"the log-posterior launched {sorted(captured_lp)}")
+    args74 = captured_lp[key74]
+    out_k = chol.chol_fused(*args74)
+    out_p = chol.chol_fused_plain(*args74)
+    torch.cuda.synchronize()
+    errs = [rel_err(a, b) for a, b in zip(out_k, out_p)]
+    rec = {"shape": list(key74[1]), "form": list(form74),
+           "max_abs_err": max(e[0] for e in errs),
+           "max_rel_err": max(e[1] for e in errs),
+           "nonfinite_mismatch": sum(e[2] for e in errs)}
+    # tolerance: 1e-3 relative on every output, the non-finite pattern
+    # identical (phase 3)
+    rec["ok"] = bool(rec["max_rel_err"] <= 1e-3
+                     and rec["nonfinite_mismatch"] == 0)
+    parity["chol_fused"].append(rec)
+    print(f"# parity chol_fused {rec['shape']} (log-posterior): "
+          f"{json.dumps(rec)}", flush=True)
+    if not rec["ok"]:
+        fail(f"chol_fused disagrees with its plain version at {key74[1]}")
+    time_captured(captured_lp, "sample")
+    del captured_lp, args74, out_k, out_p
+    lnl_cpu = tb.TorchGibbs(ma, cfg, nchains=8, device="cpu")
+    lnl = []
+    for c in range(8):
+        pt = [getattr(st0, f)[c].cpu().numpy() for f in ("x", "z", "alpha")]
+        lnl.append((sampler.lnlikelihood(*pt), lnl_cpu.lnlikelihood(*pt)))
+    lnl = np.asarray(lnl)
+    lnl_rel = float(np.max(np.abs(lnl[:, 0] - lnl[:, 1])
+                           / np.abs(lnl[:, 1])))
+    srep["lnlikelihood"] = {"card_cpu": lnl.tolist(), "max_rel": lnl_rel}
+    print(f"# lnlikelihood card vs cpu (8 points): max rel {lnl_rel:.3e}",
+          flush=True)
+    # tolerance: float32 roundoff, rtol 1e-5
+    if not np.isfinite(lnl).all() or lnl_rel > 1e-5:
+        fail("lnlikelihood on the card disagrees with the CPU")
+
+    # what the telemetry adds: its per-sweep update and its per-chunk
+    # log-posterior, profiled here (outside the counted runs below)
+    tl0 = telemetry_init(sampler._batch, dev)
+    up = profile_calls(torch, lambda: telemetry_update(tl0, st0), 20)
+    lp = profile_calls(torch, lambda: sampler._logpost_chain(st0), 3)
+
+    # the runs of 12b-f: one seed, from the phase-5 state, counted as the
+    # "sample" path (sweeps, and chunks of telemetry-on runs)
+    reset_counts()
+    tally = {"sweeps": 0, "chunks": 0}
+
+    def run_from(niter, record="full", seed=5, state=st0, start=s0,
+                 **kw):
+        """``(sampler, result, wall s)`` of one ``sample`` call of a fresh
+        flagship sampler."""
+        smp = tb.TorchGibbs(ma, cfg, nchains=NCHAINS, device=dev,
+                            record=record, **{k: v for k, v in kw.items()
+                                              if k != "reinit_diverged"})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = smp.sample(niter=niter, seed=seed, state=state,
+                         start_sweep=start,
+                         reinit_diverged=kw.get("reinit_diverged", False))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tally["sweeps"] += niter
+        tally["chunks"] += chunks_of(smp, niter) if smp.telemetry else 0
+        return smp, res, wall
+
+    # 12b. the record tiers: the exact fields bitwise equal, the cast ones
+    # within their wire precision; run in turns (walls of both turns),
+    # and the host's time to turn one chunk's pulled records back into
+    # float32 arrays
+    tiers = {}
+    for record in ("compact8", "compact", "full", "full", "compact",
+                   "compact8"):
+        smp, res, wall = run_from(TIER_SWEEPS, record)
+        tiers[record] = (smp, res)
+        rep = srep.setdefault(f"tier_{record}", {"ms_per_sweep": []})
+        rep["ms_per_sweep"].append(1e3 * wall / TIER_SWEEPS)
+    for record, (smp, _) in tiers.items():
+        one = tb.record_tuple(st0, smp._record_fields, smp._record_casts)
+        pulled = tb._HostCopy(
+            [t.expand(smp.chunk_size, *t.shape).contiguous() for t in one],
+            torch.cuda.Stream(dev)).wait()
+        t0 = time.perf_counter()
+        smp._materialize(pulled)
+        per_row = sum(t.numel() * t.element_size() for t in one)
+        srep[f"tier_{record}"].update(
+            bytes_per_row=per_row, bytes_per_chunk=per_row * smp.chunk_size,
+            host_materialize_ms_per_chunk=1e3 * (time.perf_counter() - t0))
+    f_res = tiers["full"][1]
+    exact = ("chain", "thetachain", "dfchain", "zchain")
+    for record in ("compact8", "compact"):
+        c_res = tiers[record][1]
+        same = all(np.array_equal(getattr(c_res, k), getattr(f_res, k))
+                   for k in exact) and all(
+            np.array_equal(c_res.stats[k], f_res.stats[k])
+            for k in ("acc_white", "acc_hyper"))
+        # one bfloat16 step: 2^-7 of the magnitude; pout: half a uint8
+        # level (1/510) or one float16 step (2^-10 of the magnitude, 2^-24
+        # below the normal range)
+        bf = max(float(np.max(np.abs(getattr(c_res, k) - getattr(f_res, k))
+                              / np.maximum(np.abs(getattr(f_res, k)),
+                                           1e-30)))
+                 for k in ("bchain", "alphachain"))
+        dp = np.abs(c_res.poutchain - f_res.poutchain)
+        pout_ok = bool((dp <= (1.0 / 510 + 1e-7 if record == "compact8"
+                               else np.abs(f_res.poutchain) * 2.0 ** -10
+                               + 2.0 ** -24)).all())
+        srep[f"tier_{record}"].update(
+            exact_fields_bitwise=same, b_alpha_max_rel=bf,
+            pout_max_abs=float(dp.max()), pout_ok=pout_ok)
+        if not (same and bf <= 2.0 ** -7 and pout_ok):
+            fail(f"record={record!r} departs from record='full' beyond its "
+                 "wire precision")
+    tier_lines = [
+        f"{r} {np.round(t['ms_per_sweep'], 4).tolist()} ms/sweep "
+        f"{t['bytes_per_chunk'] / 1e6:.2f} MB/chunk, host materialize "
+        f"{t['host_materialize_ms_per_chunk']:.1f} ms/chunk"
+        for r, t in ((r, srep[f"tier_{r}"])
+                     for r in ("compact8", "compact", "full"))]
+    print("# record tiers (200 sweeps from one state, two turns): "
+          + "; ".join(tier_lines) + f" | {card}", flush=True)
+
+    # 12c. thinning: row k of record_thin=5 is row 5k, bitwise
+    _, t_res, _ = run_from(TIER_SWEEPS, record_thin=5)
+    thin_ok = t_res.chain.shape[0] == TIER_SWEEPS // 5 and all(
+        np.array_equal(getattr(t_res, k), getattr(f_res, k)[::5])
+        for k in ("chain", "bchain", "zchain", "alphachain", "poutchain",
+                  "thetachain", "dfchain"))
+    srep["thin_rows_bitwise"] = bool(thin_ok)
+    if not thin_ok:
+        fail("record_thin=5 rows are not rows 5k of the unthinned run")
+
+    # 12d. telemetry: chains bitwise with it off; accept sums against the
+    # records (rows hold the PRE-sweep state: shifted by one, plus the
+    # final state); the launches it adds; the wall with it on and off
+    f_smp = tiers["full"][0]
+    walls = {"on": [], "off": []}
+    for rep in range(2):
+        for key, tele in (("off", False), ("on", True)):
+            smp, res, wall = run_from(TIER_SWEEPS, telemetry=tele)
+            walls[key].append(1e3 * wall / TIER_SWEEPS)
+            if key == "off" and rep == 0:
+                off_res = res
+    tele_bitwise = all(np.array_equal(getattr(off_res, k), getattr(f_res, k))
+                       for k in ("chain", "bchain", "zchain", "alphachain",
+                                 "poutchain", "thetachain", "dfchain"))
+    acc_rel = 0.0
+    for blk in ("white", "hyper"):
+        rec_acc = f_res.stats[f"acc_{blk}"].astype(np.float64)
+        want = (rec_acc[1:].sum(0) + getattr(
+            f_smp.last_state, f"acc_{blk}").cpu().numpy()) / TIER_SWEEPS
+        got = f_res.stats[f"tele_accept_{blk}"]
+        acc_rel = max(acc_rel, float(np.max(np.abs(got - want)
+                                            / np.maximum(want, 1e-30))))
+    lp_finite = bool(np.isfinite(f_res.stats["tele_logpost"]).all())
+    srep["telemetry"] = {
+        "chains_bitwise_on_off": tele_bitwise,
+        "accept_max_rel_vs_records": acc_rel,
+        "logpost_finite": lp_finite,
+        "launches_per_sweep": up["launches_per_sweep"],
+        "device_ms_per_sweep": up["device_ms_per_sweep"],
+        "launches_per_chunk": lp["launches_per_sweep"],
+        "device_ms_per_chunk": lp["device_ms_per_sweep"],
+        "ms_per_sweep_on": walls["on"], "ms_per_sweep_off": walls["off"]}
+    print(f"# telemetry: +{up['launches_per_sweep']:.1f} launches/sweep "
+          f"({up['device_ms_per_sweep']:.4f} ms device), "
+          f"+{lp['launches_per_sweep']:.1f} launches/chunk "
+          f"({lp['device_ms_per_sweep']:.4f} ms device); wall on "
+          f"{walls['on']} off {walls['off']} ms/sweep | {card}", flush=True)
+    # tolerance: the accept sums to float32 roundoff (1e-5 relative)
+    if not (tele_bitwise and acc_rel <= 1e-5 and lp_finite):
+        fail("telemetry changed the chains, or its sums or log-posterior "
+             "are wrong")
+
+    # 12e. recovery: NaN in x and b of 5 chains, alpha = 0 on every TOA of
+    # 2 more (a lone alpha = 0 heals in its first sweep: the alpha draw
+    # replaces it); exactly those 7 are flagged and re-drawn at the first
+    # chunk boundary, every other chain runs bitwise as without them
+    dead_xb, dead_a = [3, 100, 511, 777, 1000], [42, 900]
+    x_i, b_i, a_i = st0.x.clone(), st0.b.clone(), st0.alpha.clone()
+    x_i[dead_xb] = float("nan")
+    b_i[dead_xb] = float("nan")
+    a_i[dead_a] = 0.0
+    injected = st0._replace(x=x_i, b=b_i, alpha=a_i)
+    flagged = np.flatnonzero(sampler.diverged_mask(injected))
+    want_dead = sorted(dead_xb + dead_a)
+    kw = dict(seed=9, chunk_size=RECOVERY_CHUNK, reinit_diverged=True)
+    smp_i, r_inj, _ = run_from(2 * RECOVERY_CHUNK, state=injected, **kw)
+    smp_c, r_cln, _ = run_from(2 * RECOVERY_CHUNK, **kw)
+    keep = np.setdiff1d(np.arange(NCHAINS), want_dead)
+    keep_t = torch.as_tensor(keep, device=dev)
+    healthy_bitwise = all(
+        np.array_equal(getattr(r_inj, k)[:, keep], getattr(r_cln, k)[:, keep])
+        for k in ("chain", "bchain", "zchain", "alphachain", "poutchain",
+                  "thetachain", "dfchain")) and all(
+        torch.equal(a[keep_t], b[keep_t])
+        for a, b in zip(smp_i.last_state, smp_c.last_state))
+    end_finite = not smp_i.diverged_mask(smp_i.last_state).any()
+    srep["recovery"] = {
+        "flagged": flagged.tolist(),
+        "n_reinits": int(r_inj.stats["n_reinits"]),
+        "n_reinits_clean": int(r_cln.stats["n_reinits"]),
+        "healthy_bitwise": healthy_bitwise, "all_finite_at_end": end_finite}
+    print(f"# recovery: {json.dumps(srep['recovery'])}", flush=True)
+    if (flagged.tolist() != want_dead or srep["recovery"]["n_reinits"] != 7
+            or srep["recovery"]["n_reinits_clean"] != 0
+            or not healthy_bitwise or not end_finite):
+        fail("divergence recovery did not re-draw exactly the injected "
+             "chains, or touched the healthy ones")
+
+    # 12f. sample_until at the flagship (its first ADAPT sweeps adapt),
+    # checks every UNTIL_CHECK sweeps; its first rows are a plain
+    # sample's of the same length
+    smp_u = tb.TorchGibbs(ma, cfg, nchains=NCHAINS, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r_u = smp_u.sample_until(rhat_target=1.01, max_sweeps=UNTIL_MAX,
+                             check_every=UNTIL_CHECK, seed=13)
+    torch.cuda.synchronize()
+    wall_u = time.perf_counter() - t0
+    n_u = r_u.chain.shape[0]
+    tally["sweeps"] += n_u
+    tally["chunks"] += sum(chunks_of(smp_u, UNTIL_CHECK)
+                           for _ in range(n_u // UNTIL_CHECK))
+    _, r_p, _ = run_from(UNTIL_CHECK, record="compact8", seed=13,
+                         state=None, start=0)
+    first_bitwise = all(
+        np.array_equal(getattr(r_u, k)[:UNTIL_CHECK], getattr(r_p, k))
+        for k in ("chain", "bchain", "zchain", "alphachain", "poutchain",
+                  "thetachain", "dfchain"))
+    window = r_u.chain[n_u // 2:]
+    ess_u = ess_per_param(window)
+    srep["sample_until"] = {
+        "sweeps": n_u, "wall_s": wall_u,
+        "converged": bool(r_u.stats["converged"]),
+        "rhat": r_u.stats["rhat"].tolist(),
+        "ess_window": ess_u.tolist(),
+        "ess_log10A_per_s": float(ess_u[ia] / wall_u),
+        "first_rows_bitwise": first_bitwise}
+    print(f"# sample_until (check every {UNTIL_CHECK}, max {UNTIL_MAX}): "
+          f"{n_u} sweeps in {wall_u:.2f} s, converged "
+          f"{srep['sample_until']['converged']}, split-R-hat "
+          f"{np.round(r_u.stats['rhat'], 4).tolist()}, ESS(log10_A)/s "
+          f"{srep['sample_until']['ess_log10A_per_s']:.1f} | {card}",
+          flush=True)
+    if not first_bitwise or r_u.stats["rhat_history"].shape[0] != (
+            n_u // UNTIL_CHECK):
+        fail("sample_until's rows are not a plain sample's")
+    check_launches("sample", tally["sweeps"], tally["chunks"])
+
+    # the ensemble's sample_until: 4 pulsars x 32 chains, compact8
+    ens_u = EnsembleGibbs(ens_pulsars(4), cfg_e, nchains=32, device=dev)
+    r_e = ens_u.sample_until(rhat_target=1.05, max_sweeps=4 * UNTIL_CHECK,
+                             check_every=UNTIL_CHECK, seed=3)
+    ens_ok = (int(r_e.stats["tele_sweeps"]) == r_e.chain.shape[0]
+              and r_e.stats["tele_logpost"].shape == (4, 32)
+              and np.isfinite(r_e.stats["tele_logpost"]).all()
+              and not r_e.stats["tele_diverged"].any()
+              and np.array_equal(r_e.stats["n_toa"], ens_u.n_toa)
+              and r_e.stats["rhat"].shape == (4, ma.nparam)
+              and str(r_e.stats["record_mode"]) == "compact8"
+              and np.isfinite(r_e.chain).all())
+    srep["ensemble_sample_until"] = {
+        "sweeps": r_e.chain.shape[0],
+        "converged": bool(r_e.stats["converged"]),
+        "rhat_max": float(r_e.stats["rhat"].max()),
+        "n_toa": r_e.stats["n_toa"].tolist(), "ok": bool(ens_ok)}
+    print(f"# ensemble sample_until: "
+          f"{json.dumps(srep['ensemble_sample_until'])}", flush=True)
+    if not ens_ok:
+        fail("the ensemble's sample_until result is malformed")
 
     # the redesigned kernels beside the first design and the library call
     # (reported, not gated)

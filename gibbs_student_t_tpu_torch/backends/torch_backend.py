@@ -40,6 +40,14 @@ one model here, ``(P, C)`` pulsars x chains in the ensemble
 (parallel/ensemble.py), whose model tensors carry a leading pulsar axis
 and broadcast against the state as ``(P, 1, ...)``.
 
+The chunked loop follows ``JaxGibbs.sample``: records stay on the
+device for a chunk and cross to the host in narrow wire dtypes
+(``record="compact8"`` by default), every ``record_thin``-th sweep is
+recorded, the in-run telemetry (obs/telemetry.py) rides each chunk,
+numerically dead chains can be re-drawn at chunk boundaries
+(``reinit_diverged``), and ``sample_until`` samples until split-R-hat
+(and optionally ESS) clears a target.
+
 Entry points run on the GPU: ``device=None`` means ``"cuda"`` and raises
 when CUDA is absent; pass ``device="cpu"`` to run the kernels' plain
 versions (the tests do).
@@ -49,12 +57,17 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from gibbs_student_t_tpu_torch.backends.base import ChainResult, SamplerBackend
+from gibbs_student_t_tpu_torch.backends.base import (
+    META_STATS,
+    ChainResult,
+    SamplerBackend,
+)
 from gibbs_student_t_tpu_torch.config import GibbsConfig
 from gibbs_student_t_tpu_torch.models.pta import (
     ConstBlock,
@@ -65,6 +78,14 @@ from gibbs_student_t_tpu_torch.models.pta import (
     static_phi_columns,
 )
 from gibbs_student_t_tpu_torch.models.signals import FYR
+from gibbs_student_t_tpu_torch.obs.telemetry import (
+    Telemetry,
+    TelemetryAccumulator,
+    combine_tele_stats,
+    state_bad,
+    telemetry_init,
+    telemetry_update,
+)
 from gibbs_student_t_tpu_torch.ops.chol import chol_fused
 from gibbs_student_t_tpu_torch.ops.hyper_mh import (
     MAX_HYPER_V,
@@ -75,6 +96,7 @@ from gibbs_student_t_tpu_torch.ops.hyper_mh import (
 )
 from gibbs_student_t_tpu_torch.ops.linalg import (
     backward_solve,
+    precond_quad_logdet,
     robust_precond_draw,
     schur_eliminate,
 )
@@ -88,6 +110,7 @@ from gibbs_student_t_tpu_torch.ops.tnt import (
 from gibbs_student_t_tpu_torch.ops.white_mh import (
     build_white_consts,
     group_axes,
+    lnprior_sum,
     mtm_loop,
     white_mh,
     white_mtm,
@@ -100,6 +123,273 @@ _RECORD_FIELDS = ("x", "b", "z", "theta", "alpha", "df", "pout",
 #: record="light": the O(1)-per-sweep fields only (at the 1e5-TOA stress
 #: shape the per-TOA z, alpha and pout dominate the device-to-host bytes)
 _LIGHT_FIELDS = ("x", "theta", "df", "acc_white", "acc_hyper")
+
+# record="compact": device->host transport dtypes for the bulky recorded
+# fields (jax_backend.py's ``_COMPACT_CASTS``). z is exactly 0/1 so it is
+# bit-packed (8 indicators per byte, lossless); pout is a probability
+# (float16 keeps ~3 decimal digits); b/alpha need float32 *range* (alpha
+# spans many decades) so bfloat16. Host arrays are float32 again: the
+# narrow dtypes exist only between the device and the host.
+_PACKBITS = "packbits"
+_U8PROB = "u8prob"
+
+_COMPACT_CASTS = {"z": _PACKBITS, "pout": torch.float16,
+                  "b": torch.bfloat16, "alpha": torch.bfloat16}
+
+# record="compact8": compact plus pout quantized to uint8 (levels of
+# 1/255), the JAX package's default tier
+_COMPACT8_CASTS = dict(_COMPACT_CASTS, pout=_U8PROB)
+
+_BIT_WEIGHTS = tuple(1 << k for k in range(8))
+
+
+def _pack_bits(a):
+    """Little-endian bit-pack a 0/1 tensor along its last axis: (..., n)
+    -> (..., ceil(n/8)) uint8, in int32 arithmetic (CUDA has no uint32
+    sum). Lossless for the z indicator chains; the host restores them
+    with :func:`_unpack_bits`. A NaN indicator (a dead chain) has no
+    defined integer value, here as in the JAX package."""
+    n = a.shape[-1]
+    pad = (-n) % 8
+    b = a.to(torch.int32)
+    if pad:
+        b = torch.nn.functional.pad(b, (0, pad))
+    b = b.reshape(*b.shape[:-1], (n + pad) // 8, 8)
+    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=a.device)
+    return (b * w).sum(-1, dtype=torch.int32).to(torch.uint8)
+
+
+def _unpack_bits(h, n):
+    """Host-side inverse of ``_pack_bits``: (..., ceil(n/8)) uint8 ->
+    (..., n) float32 of exact 0/1 values."""
+    bits = np.unpackbits(np.asarray(h, np.uint8), axis=-1,
+                         bitorder="little")
+    return bits[..., :n].astype(np.float32)
+
+
+def record_tuple(st, fields, casts):
+    """Records in wire dtypes: ``getattr(st, f)`` for each field, cast on
+    the device by ``casts`` (``_COMPACT_CASTS`` / ``_COMPACT8_CASTS``, or
+    empty). Shared by ``TorchGibbs`` and the ensemble, which applies it
+    to a chunk's stacked rows: the casts are elementwise, so casting the
+    stacked chunk once gives each row's bits and costs a launch a chunk
+    instead of one a sweep. Rounding as ``astype`` in the JAX package:
+    to nearest even; uint8 pout as ``clamp(round(v * 255), 0, 255)``
+    (``torch.round`` rounds half to even, as ``jnp.round``); a NaN pout
+    has no defined uint8, on either side."""
+    out = []
+    for f in fields:
+        v = getattr(st, f)
+        c = casts.get(f) if casts else None
+        if c is _PACKBITS:
+            v = _pack_bits(v)
+        elif c is _U8PROB:
+            v = torch.clamp(torch.round(v * 255.0), 0, 255).to(torch.uint8)
+        elif c is not None:
+            v = v.to(c)
+        out.append(v)
+    return tuple(out)
+
+
+class _HostCopy:
+    """Tensors on their way to the host: on a CUDA device, copied with
+    ``non_blocking=True`` into pinned host memory on ``stream`` (ordered
+    after the work that produced them), with an event recorded after the
+    copies; on the CPU they are the host tensors already. :meth:`wait`
+    returns the host tensors once the copy is complete. The device
+    tensors are held until then, so their memory is not reused while
+    the copy reads it."""
+
+    def __init__(self, tensors, stream=None):
+        self._src, self._event = list(tensors), None
+        if stream is None:
+            self._host = self._src
+            return
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
+        with torch.cuda.stream(stream):
+            self._host = [
+                torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+                    t, non_blocking=True) for t in self._src]
+            self._event = torch.cuda.Event()
+            self._event.record(stream)
+
+    def wait(self):
+        if self._event is not None:
+            self._event.synchronize()
+        self._src = None
+        return self._host
+
+
+def chunked_sweep_loop(state, niter, chunk_size, start_sweep,
+                       step_fn, flush_fn, reinit_fn=None, n_reinits=0,
+                       pre_chunk_fn=None, pre_chunk_until=0):
+    """The chunk-orchestration loop shared by ``TorchGibbs`` and
+    ``EnsembleGibbs`` (the JAX package's ``chunked_sweep_loop``, without
+    its spool snapshot hook).
+
+    ``step_fn(state, offset, length) -> (state, recs)`` advances one
+    chunk; ``flush_fn(recs, chunk_state, sweep_end, n_reinits)`` moves a
+    chunk's records to the host; ``reinit_fn(state, sweep_end) -> (state,
+    n_bad)``, when given, repairs diverged chains at each chunk boundary.
+    ``pre_chunk_fn(state) -> state``, when given, runs before each chunk
+    whose offset is below ``pre_chunk_until`` (the population-covariance
+    re-estimation, MHConfig.adapt_cov). Without ``reinit_fn`` flushes are
+    deferred: chunk k+1's sweeps are issued before chunk k's records are
+    read, so the pull overlaps the next chunk's work. With it, flushes
+    are sequential (the divergence scan needs each post-chunk state).
+    Returns ``(state, n_reinits)``."""
+    done = 0
+    pending = None
+    while done < niter:
+        length = min(chunk_size, niter - done)
+        if pre_chunk_fn is not None and start_sweep + done < pre_chunk_until:
+            state = pre_chunk_fn(state)
+        state, recs = step_fn(state, start_sweep + done, length)
+        done += length
+        if reinit_fn is not None:
+            state, n_bad = reinit_fn(state, start_sweep + done)
+            n_reinits += n_bad
+            flush_fn(recs, state, start_sweep + done, n_reinits)
+        else:
+            if pending is not None:
+                flush_fn(*pending, n_reinits)
+            pending = (recs, state, start_sweep + done)
+    if pending is not None:
+        flush_fn(*pending, n_reinits)
+    return state, n_reinits
+
+
+def _ess_per_param(window):
+    """(p,) total effective sample size per parameter over a
+    (rows, nchains, p) window (all chains pooled)."""
+    from gibbs_student_t_tpu_torch.parallel.diagnostics import ess_per_param
+
+    return ess_per_param(window)
+
+
+def _rhat_per_param(window):
+    """(p,) split-R-hat per parameter over a (rows, nchains, p) window."""
+    from gibbs_student_t_tpu_torch.parallel.diagnostics import split_rhat
+
+    return np.array([split_rhat(window[..., pi])
+                     for pi in range(window.shape[-1])])
+
+
+def _sample_until_loop(sample_fn, last_state_fn, record_thin, rhat_of,
+                       rhat_target, max_sweeps, check_every, min_sweeps,
+                       state, ess_of=None, min_ess=None):
+    """The convergence-stopping loop behind ``TorchGibbs.sample_until``
+    and ``EnsembleGibbs.sample_until`` (the JAX package's
+    ``_sample_until_loop`` without its spool mode): segments of
+    ``check_every`` sweeps until ``rhat_of`` (computed on the second half
+    of the accumulated rows) clears ``rhat_target`` everywhere, and (when
+    ``min_ess`` is set) ``ess_of`` reports at least ``min_ess`` effective
+    samples for EVERY parameter in the same window.
+
+    ``sample_fn(length, state, start_sweep) -> ChainResult`` runs one
+    segment; segments are concatenated, with per-call ``n_reinits``
+    summed and the ``tele_*`` stats merged by ``combine_tele_stats``."""
+    if check_every % record_thin or (check_every // record_thin) < 8:
+        raise ValueError(
+            "check_every must be a multiple of record_thin covering "
+            ">= 8 recorded rows, or the split-R-hat window degenerates"
+            f" (got {check_every} at record_thin={record_thin})")
+    if max_sweeps < 1:
+        raise ValueError(f"max_sweeps must be >= 1, got {max_sweeps}")
+    if max_sweeps % record_thin:
+        # fail now, not at the final partial segment after hours of work
+        raise ValueError(
+            f"max_sweeps ({max_sweeps}) must be a multiple of "
+            f"record_thin ({record_thin})")
+    segments = []
+    history = []
+    ess_history = []
+    tele_segs = []  # per-segment tele_* stats (sweep-weighted merge below)
+    done = 0
+    converged = False
+
+    def window_of(segs, total_rows):
+        """Rows [total_rows//2:] without re-concatenating the full
+        history every check (only the tail segments that overlap)."""
+        start = total_rows // 2
+        out, r0 = [], 0
+        for s in segs:
+            r1 = r0 + s.shape[0]
+            if r1 > start:
+                out.append(s[max(0, start - r0):])
+            r0 = r1
+        return np.concatenate(out)
+
+    while done < max_sweeps:
+        length = min(check_every, max_sweeps - done)
+        res = sample_fn(length, state, done)
+        state = last_state_fn()
+        done += length
+        tele_segs.append({k: v for k, v in res.stats.items()
+                          if k.startswith("tele_")})
+        segments.append(res)
+        total_rows = sum(s.chain.shape[0] for s in segments)
+        # second half of the accumulated run: the usual split-R-hat
+        # convention folds early-transient sweeps out of the window
+        window = window_of([s.chain for s in segments], total_rows)
+        rhat = rhat_of(window)
+        history.append(rhat)
+        ess = None
+        if min_ess is not None:
+            ess = ess_of(window)
+            ess_history.append(ess)
+        if done >= max(min_sweeps, 2 * check_every) and (
+                rhat < rhat_target).all() and (
+                min_ess is None or (ess >= min_ess).all()):
+            converged = True
+            break
+    cols = {}
+    for f in dataclasses.fields(ChainResult):
+        if f.name == "stats":
+            continue
+        arrs = [getattr(s, f.name) for s in segments]
+        cols[f.name] = (np.concatenate(arrs) if arrs[0].size else arrs[0])
+    stats = {}
+    for k in segments[0].stats:
+        v0 = segments[0].stats[k]
+        if k.startswith("tele_"):
+            continue  # merged below with sweep-count weighting
+        if k == "n_reinits":
+            # per-call counters: the run's total is the sum
+            stats[k] = np.asarray(sum(int(s.stats[k]) for s in segments))
+        elif k in META_STATS or np.ndim(v0) == 0:
+            stats[k] = v0
+        else:
+            stats[k] = np.concatenate([s.stats[k] for s in segments])
+    out = ChainResult(**cols, stats=stats)
+    out.stats.update(combine_tele_stats(tele_segs))
+    out.stats["rhat_history"] = np.stack(history)
+    out.stats["rhat"] = history[-1]
+    if ess_history:
+        out.stats["ess_history"] = np.stack(ess_history)
+        out.stats["ess"] = ess_history[-1]
+    out.stats["converged"] = np.asarray(converged)
+    return out
+
+
+def merge_reinit(state, bad, fresh, batch_ndim: int):
+    """Replace the ``bad``-masked entries of ``state`` (a bool of its
+    ``batch_ndim`` leading batch axes) with ``fresh`` draws; healthy
+    entries stay bitwise identical.
+
+    The adapted MH jump scales (and population-covariance proposal
+    factors) survive re-init: a chain diverges in its x/b/alpha state,
+    not its (bounded) step sizes, and Robbins-Monro may already be
+    frozen — a zeroed scale would silently run the rest of the sampling
+    un-adapted."""
+    fresh = fresh._replace(mh_log_scale=state.mh_log_scale,
+                           mh_cov_chol=state.mh_cov_chol)
+    mask = torch.as_tensor(np.asarray(bad, bool), device=state.x.device)
+    return type(state)(*(
+        torch.where(mask.reshape(mask.shape + (1,) * (cur.dim()
+                                                      - batch_ndim)),
+                    fr, cur)
+        for cur, fr in zip(state, fresh)))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -199,25 +489,59 @@ class TorchGibbs(SamplerBackend):
     ``None`` dense, an int for the TOA-blocked reduction (the TOA axis
     zero-padded to a multiple of it; on the GPU one launch of the Gram
     kernel), ``"auto"`` dense below 16384 TOAs and blocks of 4096 above.
-    ``record`` is ``"full"`` (every field of every sweep) or ``"light"``
-    (x, theta, df and the acceptance rates; the other chains come back
-    empty)."""
+
+    ``record`` picks the recording tier, as in ``JaxGibbs``:
+    ``"compact8"`` (the default) records every field but moves the bulky
+    ones to the host in narrow wire dtypes, cast on the device — z
+    bit-packed 8 to a byte (exact), pout as uint8 (steps of 1/255), b and
+    alpha as bfloat16 — and hands back float32 host arrays; ``"compact"``
+    keeps pout at float16; ``"full"`` moves everything in float32, bit
+    for bit; ``"light"`` records only x, theta, df and the acceptance
+    rates (the other chains come back empty). x, theta, df, z and the
+    acceptance rates are exact in every tier. ``record_thin=t`` records
+    the state before sweeps 0, t, 2t, ...: every sweep still runs with its
+    own key, so row k of a thinned run is bitwise row k·t of an unthinned
+    one; ``chunk_size`` (sweeps a chunk: records move to the host, and
+    population-covariance proposals are re-estimated, at chunk
+    boundaries) must be a multiple of t.
+
+    ``telemetry`` (default on) carries the in-run ``Telemetry`` counters
+    through each chunk (obs/telemetry.py): per-block accept sums, the
+    per-chain non-finite counters and the chunk-end log-posterior, pulled
+    with the records; run-level aggregates land in ``ChainResult.stats``
+    under ``tele_*`` keys. Updates never touch the generator: chains are
+    bitwise the same either way."""
 
     supports_chains = True
 
-    #: sweeps per chunk: records move to the host, and population-
-    #: covariance proposals are re-estimated, at chunk boundaries
-    chunk_size = 100
-
     def __init__(self, ma: ModelArrays, config: GibbsConfig,
-                 nchains: int = 64, device=None,
+                 nchains: int = 64, device=None, chunk_size: int = 100,
                  tnt_block_size: int | str | None = "auto",
-                 record: str = "full"):
+                 record: str = "compact8", record_thin: int = 1,
+                 telemetry: bool = True):
         super().__init__(ma, config)
-        if record not in ("full", "light"):
-            raise ValueError(f"record must be 'full' or 'light', got "
-                             f"{record!r}")
-        self.record = record
+        if record not in ("full", "compact", "compact8", "light"):
+            raise ValueError("record must be 'full', 'compact', "
+                             f"'compact8' or 'light', got {record!r}")
+        if chunk_size < 1:
+            raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+        if record_thin < 1:
+            raise ValueError(f"record_thin must be >= 1, got {record_thin}")
+        if chunk_size % record_thin:
+            raise ValueError(
+                f"chunk_size ({chunk_size}) must be a multiple of "
+                f"record_thin ({record_thin}) so chunk boundaries land "
+                "on recorded sweeps")
+        self.record_mode = record
+        self.chunk_size = int(chunk_size)
+        self.record_thin = int(record_thin)
+        self.telemetry = bool(telemetry)
+        self._record_fields = (_LIGHT_FIELDS if record == "light"
+                               else _RECORD_FIELDS)
+        # the port runs float32 only, so the wire casts are always active
+        self._record_casts = {"compact": _COMPACT_CASTS,
+                              "compact8": _COMPACT8_CASTS}.get(record, {})
+        self._pull_stream = None
         mh = config.mh
         self._mtm = {blk: mh.mtm_tries >= 2 and blk in mh.mtm_blocks
                      for blk in ("white", "hyper")}
@@ -321,6 +645,9 @@ class TorchGibbs(SamplerBackend):
             else:
                 raise TypeError(f"unknown phi block {type(blk)}")
             self._phi_consts.append((blk, const))
+        # the prior table (kind, a, b) x p of the log-posterior's lnprior
+        # (a (P, 3, p) stack in the ensemble)
+        self._prior_specs = t(np.asarray(mm.prior_specs)[:, :3].T)
         self._efac_c = [float(c) for c in mm.efac_const]
         self._equad_c = [float(c) for c in mm.equad_const]
         # the statistical TOA count and the theta prior's pseudo-counts
@@ -370,17 +697,20 @@ class TorchGibbs(SamplerBackend):
         nv = az * self._ndiag(x)
         return nv if self._mask is None else torch.where(self._mask, nv, 1.0)
 
-    def _phiinv(self, x):
+    def _phiinv(self, x, logdet: bool = False):
         """Prior precision diag phi^-1(x), (..., p) -> (..., m) (scaled;
-        the ``phiinv`` half of models/pta.py ``phiinv_logdet``)."""
+        models/pta.py ``phiinv_logdet``); with ``logdet``, the pair
+        ``(phiinv, logdet phi)``, logdet of the batch shape."""
         batch = x.shape[:-1]
         s2 = self._ma.time_scale ** 2
-        pieces = []
+        pieces, logdets = [], []
         for blk, k in self._phi_consts:
             if isinstance(blk, ImproperBlock):
                 pieces.append(x.new_zeros(batch + (blk.stop - blk.start,)))
             elif isinstance(blk, ConstBlock):
                 pieces.append((1.0 / k["phi"]).expand(*batch, -1))
+                if logdet:
+                    logdets.append(torch.log(k["phi"]).sum(-1))
             elif isinstance(blk, PowerlawBlock):
                 la = (x[..., blk.idx_log10A] if blk.idx_log10A >= 0
                       else _fill(x[..., 0], k["log10A"]))
@@ -392,13 +722,67 @@ class TorchGibbs(SamplerBackend):
                           - ga[..., None] * k["logf"]
                           + _lift(k["logdf"]) + np.log(s2))
                 pieces.append(torch.exp(-logphi))
+                if logdet:
+                    logdets.append(logphi.sum(-1))
             else:
                 ec = self._pvals(x, blk.idx, k["const"])
-                pieces.append(torch.exp(-(2.0 * ec * LN10 + np.log(s2))
-                                        [..., k["group"]]))
-        if not pieces:
-            return x.new_zeros(batch + (0,))
-        return torch.cat(pieces, dim=-1)
+                logphi = (2.0 * ec * LN10 + np.log(s2))[..., k["group"]]
+                pieces.append(torch.exp(-logphi))
+                if logdet:
+                    logdets.append(logphi.sum(-1))
+        phiinv = (torch.cat(pieces, dim=-1) if pieces
+                  else x.new_zeros(batch + (0,)))
+        if not logdet:
+            return phiinv
+        total = x.new_zeros(batch)
+        for ld in logdets:
+            total = total + ld
+        return phiinv, total
+
+    def _marginal_ll(self, x, az):
+        """The marginalized log-likelihood of the hyper block at ``x
+        (..., p)`` and ``alpha**z`` ``az (..., n)``, batch shape out (the
+        JAX backend's ``lnlikelihood`` math): one TNT reduction and one
+        factorization of the full ``(m, m)`` Sigma through the chol
+        kernel."""
+        nvec = self._masked_nvec(x, az)
+        TNT, d, const_white = self._tnt(nvec)
+        phiinv, logdet_phi = self._phiinv(x, logdet=True)
+        Sigma = TNT + torch.diag_embed(phiinv)
+        quad, logdet_sigma = precond_quad_logdet(Sigma, d, self.config.jitter)
+        return const_white + 0.5 * (quad - logdet_sigma - logdet_phi)
+
+    def _logpost_chain(self, state: ChainState) -> torch.Tensor:
+        """Every chain's marginalized log-posterior at its current z and
+        alpha (:meth:`_marginal_ll` plus the log-prior), -inf where it is
+        not finite: the telemetry's chunk-end ``logpost`` (the JAX
+        backend's ``_logpost_chain``, batched over the chains)."""
+        lp = (self._marginal_ll(state.x, state.alpha ** state.z)
+              + lnprior_sum(state.x, group_axes(self._prior_specs, 2, 1)))
+        return torch.where(torch.isfinite(lp), lp, -math.inf)
+
+    def lnlikelihood(self, x, z=None, alpha=None) -> float:
+        """Single-point marginalized log-likelihood (the JAX backend's
+        ``lnlikelihood``, for parity checks against the NumPy oracle): z
+        defaults to zeros and alpha to ones over the real TOAs, both
+        padded with (0, 1) over the padding rows; -inf where the value is
+        not finite."""
+        dev, f32 = self.device, self.dtype
+
+        def vec(a, fill):
+            a = (torch.full((self._n_real,), fill, dtype=f32, device=dev)
+                 if a is None else torch.as_tensor(np.asarray(a, np.float32),
+                                                   device=dev))
+            pad = self._n - self._n_real
+            if pad:
+                a = torch.cat([a, torch.full((pad,), fill, dtype=f32,
+                                             device=dev)])
+            return a
+
+        x = torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        z, alpha = vec(z, 0.0), vec(alpha, 1.0)
+        ll = float(self._marginal_ll(x[None], (alpha ** z)[None])[0])
+        return ll if math.isfinite(ll) else -math.inf
 
     # ------------------------------------------------------------------
     # state and draws
@@ -766,68 +1150,220 @@ class TorchGibbs(SamplerBackend):
 
     def sample(self, x0: Optional[np.ndarray] = None, niter: int = 1000,
                seed: int = 0, state: Optional[ChainState] = None,
-               start_sweep: int = 0) -> ChainResult:
-        """Run ``niter`` sweeps for all chains and return every sweep's
-        state (the state BEFORE sweeps ``start_sweep .. start_sweep +
-        niter - 1``, as the JAX backend records) in float32, every field
-        or, with ``record="light"``, the light ones.
+               start_sweep: int = 0,
+               reinit_diverged: bool = False) -> ChainResult:
+        """Run ``niter`` sweeps for all chains and return the recorded
+        rows (the state BEFORE sweeps ``start_sweep, start_sweep + t, ...``
+        for ``record_thin=t``, as the JAX backend records) as float32 host
+        arrays, in the tier ``record`` names.
 
-        Records stay on the device for a chunk of ``chunk_size`` sweeps
-        and then move to the host. With population-covariance proposals
-        the proposal factors are re-estimated at chunk boundaries while
-        the sweep index is below ``adapt_until``. Sweep ``i`` draws from
-        the generator seeded with ``sweep_key(seed, i)``, so a
-        run resumed from ``last_state`` at ``start_sweep`` continues the
-        unbroken run bitwise when both cut their chunks at the same
-        sweeps."""
+        Records stay on the device for a chunk of ``chunk_size`` sweeps,
+        are cast to their wire dtypes there and then copied to the host;
+        chunk k's copy runs on a side stream while chunk k+1's sweeps are
+        issued (the JAX backend's double-buffered flush). With
+        population-covariance proposals the proposal factors are
+        re-estimated at chunk boundaries while the sweep index is below
+        ``adapt_until``. Sweep ``i`` draws from the generator seeded with
+        ``sweep_key(seed, i)``, so a run resumed from ``last_state`` at
+        ``start_sweep`` continues the unbroken run bitwise when both cut
+        their chunks at the same sweeps. ``reinit_diverged`` re-draws
+        numerically dead chains (:meth:`diverged_mask`) from the prior at
+        chunk boundaries, with the count in ``stats['n_reinits']``; its
+        flushes are sequential (the scan needs each post-chunk state)."""
+        self._check_run(niter, start_sweep)
         if state is None:
             state = self.init_state(x0, seed=seed)
-        cols = self._run(niter, seed, state, start_sweep)
-        for f in ("z", "alpha", "pout"):
-            if f in cols:
-                cols[f] = cols[f][..., :self._n_real]
-        return self._result(cols)
+        cols, stats = self._run(niter, seed, state, start_sweep,
+                                reinit_diverged)
+        res = self._to_result({f: self._trim(f, a) for f, a in cols.items()})
+        res.stats.update(stats)
+        return res
 
-    def _run(self, niter: int, seed: int, state: ChainState,
-             start_sweep: int) -> dict:
-        """The chunked loop of :meth:`sample` from ``state``: the recorded
-        fields as host arrays ``(niter, *batch, ...)``; ``last_state`` is
-        set."""
+    def _check_run(self, niter: int, start_sweep: int) -> None:
         if niter < 1:
             raise ValueError(f"niter must be >= 1, got {niter}")
+        if niter % self.record_thin:
+            raise ValueError(f"niter ({niter}) must be a multiple of "
+                             f"record_thin ({self.record_thin})")
+        if start_sweep % self.record_thin:
+            raise ValueError(
+                f"start_sweep ({start_sweep}) must land on a recorded "
+                f"sweep (multiple of record_thin={self.record_thin})")
+
+    def _run(self, niter: int, seed: int, state: ChainState,
+             start_sweep: int, reinit_diverged: bool = False):
+        """The chunked loop of :meth:`sample` from ``state``: ``(cols,
+        stats)``, the recorded fields as float32 host arrays ``(rows,
+        *batch, ...)`` (per-TOA fields at the padded length) and the run's
+        ``n_reinits`` and ``tele_*`` stats; ``last_state`` is set."""
         gen = torch.Generator(device=self.device)
         mh = self.config.mh
-        fields = _RECORD_FIELDS if self.record == "full" else _LIGHT_FIELDS
-        host = {f: [] for f in fields}
-        done = 0
-        while done < niter:
-            length = min(self.chunk_size, niter - done)
-            off = start_sweep + done
-            if mh.adapt_cov and off < mh.adapt_until:
-                state = self._prop_cov_update(state)
-            recs = {f: [] for f in fields}
-            for i in range(off, off + length):
-                for f in fields:
-                    recs[f].append(getattr(state, f))
-                draws = self._draw(gen.manual_seed(sweep_key(seed, i)),
-                                   state)
-                state = self._sweep(state, draws, sweep=i)
-            for f in fields:
-                host[f].append(torch.stack(recs[f]).cpu().numpy())
-            done += length
-        self.last_state = state
-        return {f: np.concatenate(v) for f, v in host.items()}
+        thin = self.record_thin
+        fields = self._record_fields
+        if self.device.type == "cuda" and self._pull_stream is None:
+            self._pull_stream = torch.cuda.Stream(self.device)
+        # the run's host arrays, filled chunk by chunk: a chunk's pinned
+        # buffers go back to the allocator once copied, so pinned memory
+        # stays at two chunks however long the run
+        cols = {}
+        filled = [0]
+        tele_acc = TelemetryAccumulator() if self.telemetry else None
 
-    def _result(self, cols: dict) -> ChainResult:
+        def step(st, offset, length):
+            rows = {f: [] for f in fields}
+            tl = (telemetry_init(self._batch, self.device, self.dtype)
+                  if self.telemetry else None)
+            for i in range(offset, offset + length):
+                if (i - offset) % thin == 0:
+                    for f in fields:
+                        rows[f].append(getattr(st, f))
+                st = self._sweep(st, self._draw(
+                    gen.manual_seed(sweep_key(seed, i)), st), sweep=i)
+                if tl is not None:
+                    tl = telemetry_update(tl, st)
+            recs = record_tuple(
+                SimpleNamespace(**{f: torch.stack(v)
+                                   for f, v in rows.items()}),
+                fields, self._record_casts)
+            if tl is not None:
+                tl = tl._replace(logpost=self._logpost_chain(st))
+                recs = recs + tuple(tl)
+            return st, _HostCopy(recs, self._pull_stream)
+
+        def flush(pull, chunk_state, sweep_end, n_reinits):
+            host = pull.wait()
+            if tele_acc is not None:
+                tele_acc.add(Telemetry(*(t.numpy()
+                                         for t in host[len(fields):])))
+            r0 = filled[0]
+            for f, a in zip(fields, self._materialize(host[:len(fields)])):
+                if f not in cols:
+                    cols[f] = np.empty((niter // thin,) + a.shape[1:],
+                                       a.dtype)
+                cols[f][r0:r0 + len(a)] = a
+            filled[0] = r0 + len(a)
+
+        state, n_reinits = chunked_sweep_loop(
+            state, niter, self.chunk_size, start_sweep, step_fn=step,
+            flush_fn=flush, pre_chunk_fn=self._prop_cov_update,
+            pre_chunk_until=mh.adapt_until if mh.adapt_cov else 0,
+            reinit_fn=((lambda st, end: self._reinit_diverged(
+                st, seed=seed + 7919 * end)) if reinit_diverged else None))
+        self.last_state = state
+        stats = {}
+        if reinit_diverged:
+            stats["n_reinits"] = np.asarray(n_reinits)
+        if tele_acc is not None:
+            stats.update(tele_acc.stats())
+        return cols, stats
+
+    def sample_until(self, rhat_target: float = 1.01,
+                     max_sweeps: int = 20000, check_every: int = 500,
+                     seed: int = 0,
+                     x0: Optional[np.ndarray] = None,
+                     state: Optional[ChainState] = None,
+                     min_sweeps: int = 0,
+                     min_ess: Optional[float] = None,
+                     **sample_kwargs) -> ChainResult:
+        """Sample until every parameter's split-R-hat across the chain
+        axis drops below ``rhat_target`` (checked every ``check_every``
+        sweeps over the second half of the accumulated rows), or
+        ``max_sweeps`` is reached (the JAX backend's ``sample_until``).
+
+        ``min_ess`` adds the complementary criterion: the pooled window
+        must also hold at least that many effective samples of EVERY
+        parameter. The result carries the R-hat trajectory in
+        ``stats['rhat_history']`` ((checks, p)), the final values in
+        ``stats['rhat']`` (plus ``stats['ess']``/``ess_history`` when
+        ``min_ess`` is set), and ``stats['converged']``; segments are
+        concatenated, ``n_reinits`` summed and the ``tele_*`` stats
+        merged. Extra kwargs (``reinit_diverged``) pass through to
+        :meth:`sample`; ``check_every`` must be a multiple of
+        ``record_thin`` covering at least 8 recorded rows. The segments
+        are ``sample`` calls resumed at their start sweeps, so the rows
+        are those of one ``sample`` call of the same length when the
+        chunks are cut at the same sweeps."""
+        def sample_fn(length, st, start):
+            return self.sample(x0=x0 if start == 0 else None,
+                               niter=length, seed=seed, state=st,
+                               start_sweep=start, **sample_kwargs)
+
+        return _sample_until_loop(
+            sample_fn, lambda: self.last_state, self.record_thin,
+            _rhat_per_param, rhat_target, max_sweeps, check_every,
+            min_sweeps, state, ess_of=_ess_per_param, min_ess=min_ess)
+
+    # ------------------------------------------------------------------
+    # divergence recovery
+    # ------------------------------------------------------------------
+
+    def diverged_mask(self, state: ChainState) -> np.ndarray:
+        """Boolean mask of numerically dead chains, of the batch shape
+        (:func:`obs.telemetry.state_bad`: a non-finite x, b, theta, alpha
+        or df, or an alpha <= 0). Computed on the device; only the mask
+        crosses to the host.
+
+        The reference's failure handling is purely local (SVD->QR
+        fallback, -inf on Cholesky failure, NaN clamps); a chain whose
+        state still goes non-finite stays dead forever. With a population
+        of chains, chain-level recovery is cheap: detect here,
+        re-initialize in ``sample``."""
+        return state_bad(state, len(self._batch)).cpu().numpy()
+
+    def _reinit_diverged(self, state: ChainState, seed: int):
+        """``(state, n_bad)``: dead chains replaced with fresh prior draws
+        (``init_state(seed=seed)``); healthy chains untouched bitwise."""
+        bad = self.diverged_mask(state)
+        n_bad = int(bad.sum())
+        if n_bad == 0:
+            return state, 0
+        return merge_reinit(state, bad, self.init_state(seed=seed),
+                            batch_ndim=len(self._batch)), n_bad
+
+    # ------------------------------------------------------------------
+    # records on the host
+    # ------------------------------------------------------------------
+
+    def _materialize(self, host):
+        """Undo the wire casts: host tensors in wire dtypes -> float32
+        numpy arrays, as a ``record="full"`` run returns them. The packed z
+        unpacks to the sampler's padded TOA count (in the ensemble, the
+        largest pulsar's: the JAX ensemble passes it as ``n_last``)."""
+        out = []
+        for f, h in zip(self._record_fields, host):
+            c = self._record_casts.get(f)
+            if c is _PACKBITS:
+                out.append(_unpack_bits(h.numpy(), self._n))
+            elif c is _U8PROB:
+                out.append(h.numpy().astype(np.float32) / 255.0)
+            elif c is not None:
+                out.append(h.float().numpy())
+            else:
+                out.append(h.numpy())
+        return out
+
+    def _trim(self, field: str, arr: np.ndarray) -> np.ndarray:
+        """Cut TOA padding (block padding and/or a pre-padded model's
+        suffix rows) back off the recorded per-TOA chains."""
+        if self._n != self._n_real and field in ("z", "alpha", "pout"):
+            return arr[..., :self._n_real]
+        return arr
+
+    def _to_result(self, cols: dict) -> ChainResult:
         empty = np.zeros((0,), np.float32)
+        stats = {k: v for k, v in cols.items() if k.startswith("acc_")}
+        # the tier is discoverable downstream: host arrays are float32
+        # either way, so the dtype alone cannot tell a ~2-3-digit b/alpha
+        # chain from a bit-exact one
+        stats["record_mode"] = np.asarray(self.record_mode)
+        if self.record_thin != 1:
+            stats["record_thin"] = np.asarray(self.record_thin)
         return ChainResult(
             chain=cols["x"], bchain=cols.get("b", empty),
             zchain=cols.get("z", empty), thetachain=cols["theta"],
             alphachain=cols.get("alpha", empty),
             poutchain=cols.get("pout", empty), dfchain=cols["df"],
-            stats={"acc_white": cols["acc_white"],
-                   "acc_hyper": cols["acc_hyper"],
-                   "record_mode": np.asarray(self.record)})
+            stats=stats)
 
 
 def _norm_pdf(x, var):

@@ -36,6 +36,9 @@ from gibbs_student_t_tpu_torch.backends.base import ChainResult, SamplerBackend
 from gibbs_student_t_tpu_torch.backends.torch_backend import (
     ChainState,
     TorchGibbs,
+    _ess_per_param,
+    _rhat_per_param,
+    _sample_until_loop,
     resolve_device,
 )
 from gibbs_student_t_tpu_torch.config import GibbsConfig
@@ -67,7 +70,7 @@ BLOCK_DATA_FIELDS = {
 #: leading pulsar axis in the ensemble (see ``EnsembleGibbs.__init__``)
 GROUPED_ATTRS = ("_y", "_sigma2", "_T", "_efac_masks", "_equad_masks",
                  "_mask", "_efac_c", "_equad_c", "_nstat", "_theta_prior",
-                 "_phi_consts", "_white", "_hyper")
+                 "_phi_consts", "_white", "_hyper", "_prior_specs")
 
 
 def _model_leaves(stacked, one):
@@ -229,20 +232,25 @@ class EnsembleGibbs(TorchGibbs):
     Each pulsar keeps its own parameter vector and chain population: its
     model and MH constants ride the sweep with a leading pulsar axis,
     population-covariance proposals are estimated per pulsar, and each MH
-    block is one grouped kernel launch for all pulsars. ``record`` is
-    ``"full"`` or ``"light"`` as in ``TorchGibbs``; records move to the
-    host every ``chunk_size`` sweeps. The TOA reduction is dense (the JAX
-    ensemble builds its template with ``tnt_block_size=None``). ``device``
-    as in ``TorchGibbs``: CUDA unless the caller asks for the CPU."""
+    block is one grouped kernel launch for all pulsars. ``record``,
+    ``record_thin`` and ``telemetry`` as in ``TorchGibbs`` (the JAX
+    ensemble's same options): records move to the host every
+    ``chunk_size`` sweeps in the tier's wire dtypes, the per-TOA fields
+    at the padded length, and the ``tele_*`` stats have leading ``(P,
+    C)`` axes (the log-posterior per pulsar and chain).
+    ``sample(reinit_diverged=True)``, :meth:`diverged_mask` (over ``(P,
+    C)``) and :meth:`sample_until` (every pulsar's every parameter must
+    clear the target) follow the JAX ensemble. The TOA reduction is
+    dense (the JAX ensemble builds its template with
+    ``tnt_block_size=None``). ``device`` as in ``TorchGibbs``: CUDA unless
+    the caller asks for the CPU."""
 
     def __init__(self, mas: Sequence[ModelArrays], config: GibbsConfig,
                  nchains: int = 64, device=None, chunk_size: int = 50,
-                 record: str = "full"):
+                 record: str = "compact8", record_thin: int = 1,
+                 telemetry: bool = True):
         device = resolve_device(device)
-        if chunk_size < 1:
-            raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
         self.npulsars = len(mas)
-        self.chunk_size = int(chunk_size)
         # the pulsars' real TOA counts, before padding to the maximum
         self.n_toa = np.array([
             int(np.asarray(ma.row_mask).sum()) if ma.row_mask is not None
@@ -252,14 +260,19 @@ class EnsembleGibbs(TorchGibbs):
         # one solo sampler per pulsar: each builds its pulsar's tensors
         # and draws its initial state; the ensemble stacks them
         solos = [TorchGibbs(ma_p, config, nchains=nchains, device=device,
-                            tnt_block_size=None, record=record)
+                            chunk_size=chunk_size, tnt_block_size=None,
+                            record=record, record_thin=record_thin,
+                            telemetry=telemetry)
                  for ma_p in per_pulsar]
         self._pulsar_backends = solos
         SamplerBackend.__init__(self, self.stacked, config)
         t0 = solos[0]
-        for name in ("record", "_mtm", "device", "nchains", "dtype",
-                     "_block_size", "_ma", "_n", "_pspin", "_scale_sizes",
-                     "_scale_cdf", "_white_idx", "_hyper_idx", "_df_grid"):
+        for name in ("record_mode", "_record_fields", "_record_casts",
+                     "chunk_size", "record_thin", "telemetry",
+                     "_pull_stream", "_mtm", "device", "nchains", "dtype",
+                     "_block_size", "_ma", "_n", "_pspin",
+                     "_scale_sizes", "_scale_cdf", "_white_idx",
+                     "_hyper_idx", "_df_grid"):
             setattr(self, name, getattr(t0, name))
         self._batch = (self.npulsars, self.nchains)
         self.last_state: Optional[ChainState] = None
@@ -282,6 +295,7 @@ class EnsembleGibbs(TorchGibbs):
         self._equad_c = [nums([s._equad_c[g] for s in solos])
                          for g in range(len(t0._equad_c))]
         self._nstat = nums([s._nstat for s in solos])
+        self._prior_specs = stack("_prior_specs")
         self._theta_prior = tuple(nums([s._theta_prior[k] for s in solos])
                                   for k in range(2))
         self._phi_consts = []
@@ -345,16 +359,58 @@ class EnsembleGibbs(TorchGibbs):
 
     def sample(self, niter: int, seed: int = 0,
                state: Optional[ChainState] = None,
-               start_sweep: int = 0) -> ChainResult:
+               start_sweep: int = 0,
+               reinit_diverged: bool = False) -> ChainResult:
         """Run ``niter`` sweeps for every (pulsar, chain) population from
         ``state`` (default: :meth:`init_state` at ``seed``); records as
         ``TorchGibbs.sample`` keeps them, with the pulsar axis after the
         sweep axis and the per-TOA fields at the padded length. Sweep
         ``i`` draws from the generator seeded by ``(seed, i)``, so a run
         resumed at ``start_sweep`` from ``last_state`` continues the
-        unbroken run bitwise."""
+        unbroken run bitwise. ``reinit_diverged`` re-draws numerically
+        dead (pulsar, chain) populations from the prior at chunk
+        boundaries (count in ``stats['n_reinits']``)."""
+        self._check_run(niter, start_sweep)
         if state is None:
             state = self.init_state(seed)
-        res = self._result(self._run(niter, seed, state, start_sweep))
+        cols, stats = self._run(niter, seed, state, start_sweep,
+                                reinit_diverged)
+        res = self._to_result(cols)
         res.stats["n_toa"] = self.n_toa
+        res.stats.update(stats)
         return res
+
+    def sample_until(self, rhat_target: float = 1.01,
+                     max_sweeps: int = 20000, check_every: int = 500,
+                     seed: int = 0, state: Optional[ChainState] = None,
+                     min_sweeps: int = 0,
+                     min_ess: Optional[float] = None,
+                     **sample_kwargs) -> ChainResult:
+        """Ensemble convergence stopping: sample until EVERY pulsar's
+        every parameter clears ``rhat_target`` (split-R-hat over that
+        pulsar's chain axis) and, with ``min_ess``, holds that many
+        pooled effective samples. Same loop and result semantics as
+        ``TorchGibbs.sample_until``; the R-hat arrays in stats are shaped
+        (npulsars, p)."""
+        def rhat_of(window):
+            # window: (rows, npulsars, nchains, p) -> (npulsars, p)
+            return np.array([_rhat_per_param(window[:, pl])
+                             for pl in range(window.shape[1])])
+
+        def ess_of(window):
+            return np.array([_ess_per_param(window[:, pl])
+                             for pl in range(window.shape[1])])
+
+        def sample_fn(length, st, start):
+            return self.sample(niter=length, seed=seed, state=st,
+                               start_sweep=start, **sample_kwargs)
+
+        return _sample_until_loop(
+            sample_fn, lambda: self.last_state, self.record_thin, rhat_of,
+            rhat_target, max_sweeps, check_every, min_sweeps, state,
+            ess_of=ess_of, min_ess=min_ess)
+
+    def lnlikelihood(self, x, z=None, alpha=None) -> float:
+        raise NotImplementedError(
+            "an ensemble has one likelihood per pulsar: call lnlikelihood "
+            "on that pulsar's TorchGibbs")

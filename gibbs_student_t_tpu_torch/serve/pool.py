@@ -389,6 +389,6 @@ class SlotPool:
     def result(self, cols: dict):
         """A ``ChainResult`` from a tenant's records ``{field: (niter,
         nchains, ...)}``, as ``TorchGibbs.sample`` returns it."""
-        res = self.drawer._result(cols)
+        res = self.drawer._to_result(cols)
         res.stats["n_toa"] = np.asarray([self.n_pool])
         return res

@@ -27,11 +27,21 @@ JAX package (CPU).
   Monte-Carlo standard errors and KS p > 0.01;
 - the sampled result: ``(niter, P, C, ...)`` shapes, ``select_pulsar``
   trimming to ``n_toa``, padded rows pinned (z = 0, alpha = 1, pout = 0),
-  every value finite.
+  every value finite;
+- the sampling surface (as tests/test_parallel.py holds the JAX
+  ensemble's): compact and compact8 against full (exact fields bitwise,
+  b/alpha within half a bfloat16 step, pout within 1/510 or half a
+  float16 step, padded rows pinned), ``record_thin`` rows bitwise the
+  unthinned run's, telemetry on and off bitwise with ``(P, C)``
+  aggregates and each pulsar's log-posterior its solo sampler's,
+  ``diverged_mask`` over ``(P, C)`` equal to JAX's with reinit leaving
+  healthy populations bitwise, and ``sample_until`` with ``(P, p)`` R-hat
+  whose rows are a plain ``sample``'s.
 """
 
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -564,3 +574,147 @@ def test_sampled_result(record):
         assert int(rp.stats["n_toa"]) == n_p
         assert (r.zchain[:, p, :, n_p:] == 0).all()
         assert (r.alphachain[:, p, :, n_p:] == 1).all()
+
+
+# --- the sampling surface: record tiers, thinning, recovery, telemetry -------
+
+def _ens(record="full", **kw):
+    kw.setdefault("chunk_size", 5)
+    return EnsembleGibbs([_port(ma) for ma in _jax_pulsars()], _cfg(),
+                         nchains=4, device="cpu", record=record, **kw)
+
+
+def test_ensemble_compact_tiers_against_full():
+    runs = {mode: _ens(mode).sample(10, seed=5)
+            for mode in ("full", "compact", "compact8")}
+    f = runs["full"]
+    assert f.zchain.shape == (10, 3, 4, max(NS))
+    for mode in ("compact", "compact8"):
+        c = runs[mode]
+        assert str(c.stats["record_mode"]) == mode
+        for name in ("chain", "thetachain", "dfchain", "zchain"):
+            np.testing.assert_array_equal(getattr(c, name),
+                                          getattr(f, name), err_msg=name)
+        for k in ("acc_white", "acc_hyper", "n_toa"):
+            np.testing.assert_array_equal(c.stats[k], f.stats[k])
+        for name in ("bchain", "alphachain"):
+            a, w = getattr(c, name), getattr(f, name)
+            assert (np.abs(a - w) <= np.abs(w) * 2.0 ** -8).all(), name
+        tol = (0.5 / 255 + 1e-7 if mode == "compact8"
+               else np.abs(f.poutchain) * 2.0 ** -11 + 2.0 ** -25)
+        assert (np.abs(c.poutchain - f.poutchain) <= tol).all()
+        # padded rows come back pinned through the packed z and the casts
+        for p, n_p in enumerate(NS):
+            assert (c.zchain[:, p, :, n_p:] == 0).all()
+            assert (c.alphachain[:, p, :, n_p:] == 1).all()
+            assert c.select_pulsar(p).zchain.shape == (10, 4, n_p)
+
+
+def test_ensemble_record_thin_and_telemetry():
+    full = _ens("full", chunk_size=6).sample(12, seed=3)
+    e = _ens("full", chunk_size=6, record_thin=3)
+    thin = e.sample(12, seed=3)
+    for name in ("chain", "bchain", "zchain", "alphachain", "poutchain",
+                 "thetachain", "dfchain"):
+        np.testing.assert_array_equal(getattr(thin, name),
+                                      getattr(full, name)[::3], err_msg=name)
+    assert int(thin.stats["record_thin"]) == 3
+    with pytest.raises(ValueError, match="record_thin"):
+        _ens(chunk_size=5, record_thin=3)
+    with pytest.raises(ValueError, match="record_thin"):
+        e.sample(10, seed=3)
+    # telemetry: (P, C) aggregates, chains bitwise with it off
+    off = _ens("full", chunk_size=6, telemetry=False).sample(12, seed=3)
+    for f in dataclasses.fields(off):
+        if f.name != "stats":
+            np.testing.assert_array_equal(getattr(full, f.name),
+                                          getattr(off, f.name))
+    assert int(full.stats["tele_sweeps"]) == 12
+    for k in ("tele_accept_white", "tele_logpost", "tele_diverged"):
+        assert full.stats[k].shape == (3, 4), k
+    assert np.isfinite(full.stats["tele_logpost"]).all()
+    # the log-posterior per (pulsar, chain) is each pulsar's own: the
+    # solo sampler of the pulsar's padded model on its slice of the state
+    st = e.last_state
+    lp = e._logpost_chain(st)
+    for p, solo in enumerate(e._pulsar_backends):
+        np.testing.assert_allclose(
+            lp[p].numpy(),
+            solo._logpost_chain(_pulsar_state(st, p)).numpy(), rtol=1e-5)
+    with pytest.raises(NotImplementedError):
+        e.lnlikelihood(st.x[0, 0].numpy())
+
+
+def _pulsar_state(st, p):
+    """Pulsar ``p``'s slice of an ensemble state."""
+    return type(st)(*(t[p] for t in st))
+
+
+def test_ensemble_diverged_mask_matches_jax_and_reinit():
+    jmas = _jax_pulsars()
+    je = jens.EnsembleGibbs(jmas, JaxConfig(model="mixture", vary_df=True,
+                                            theta_prior="beta"),
+                            nchains=4, record="full", unroll=False,
+                            telemetry=False)
+    jst = je.init_state(seed=0)
+    arrays = {f: np.array(getattr(jst, f)) for f in jst._fields}
+    arrays["x"][0, 1, 0] = np.nan
+    arrays["b"][1, 2, 3] = np.inf
+    arrays["alpha"][2, 3, 1] = 0.0
+    arrays["df"][2, 0] = np.nan
+    e = _ens()
+    state = chain_state_from_arrays(arrays, device="cpu")
+    ours = e.diverged_mask(state)
+    theirs = np.asarray(je.diverged_mask(jst._replace(
+        **{f: jnp.asarray(v) for f, v in arrays.items()})))
+    assert ours.shape == (3, 4)
+    np.testing.assert_array_equal(ours, theirs)
+    assert ours.sum() == 4
+    # the same injections into a port state: exactly those populations
+    # are re-drawn, every other one stays bitwise, the scales survive
+    good = e.init_state(seed=0)
+    broken = good._replace(**{f: getattr(good, f).clone()
+                              for f in ("x", "b", "alpha", "df")})
+    broken.x[0, 1, 0] = float("nan")
+    broken.b[1, 2, 3] = float("inf")
+    broken.alpha[2, 3, 1] = 0.0
+    broken.df[2, 0] = float("nan")
+    np.testing.assert_array_equal(e.diverged_mask(broken), ours)
+    fixed, n_bad = e._reinit_diverged(broken, seed=9)
+    assert n_bad == 4 and not e.diverged_mask(fixed).any()
+    fresh = e.init_state(seed=9)
+    for f, a, g, fr in zip(good._fields, fixed, broken, fresh):
+        for p in range(3):
+            for c in range(4):
+                want = fr if ours[p, c] and f != "mh_log_scale" else g
+                assert torch.equal(a[p, c], want[p, c]), (f, p, c)
+    x = good.x.clone()
+    x[1, 3] = float("nan")
+    res = e.sample(10, seed=1, state=good._replace(x=x),
+                   reinit_diverged=True)
+    assert int(res.stats["n_reinits"]) == 1
+    assert not e.diverged_mask(e.last_state).any()
+
+
+def test_ensemble_sample_until():
+    e = _ens("compact8", chunk_size=8)
+    res = e.sample_until(rhat_target=1.5, max_sweeps=48, check_every=16,
+                         seed=2)
+    total = res.chain.shape[0]
+    assert total % 16 == 0 and 32 <= total <= 48
+    assert res.stats["rhat"].shape == (3, 3)
+    assert res.stats["rhat_history"].shape == (total // 16, 3, 3)
+    np.testing.assert_array_equal(res.stats["n_toa"], NS)
+    assert int(res.stats["tele_sweeps"]) == total
+    assert res.stats["tele_logpost"].shape == (3, 4)
+    plain = _ens("compact8", chunk_size=8).sample(total, seed=2)
+    for f in dataclasses.fields(plain):
+        if f.name != "stats":
+            np.testing.assert_array_equal(getattr(res, f.name),
+                                          getattr(plain, f.name))
+    res2 = e.sample_until(rhat_target=10.0, max_sweeps=32, check_every=16,
+                          seed=2, min_ess=1e9)
+    assert not bool(res2.stats["converged"])
+    assert res2.stats["ess"].shape == (3, 3)
+    with pytest.raises(ValueError, match="check_every"):
+        e.sample_until(check_every=4, max_sweeps=32)

@@ -150,7 +150,11 @@ def test_port_imports_no_jax():
     scanned = {os.path.relpath(f, REPO) for f in files}
     assert {"gibbs_student_t_tpu_torch/ops/tnt.py",
             "gibbs_student_t_tpu_torch/ops/white_mh.py",
-            "gibbs_student_t_tpu_torch/testing.py"} <= scanned
+            "gibbs_student_t_tpu_torch/testing.py",
+            "gibbs_student_t_tpu_torch/parallel/diagnostics.py",
+            "gibbs_student_t_tpu_torch/obs/telemetry.py",
+            "gibbs_student_t_tpu_torch/obs/health.py",
+            "gibbs_student_t_tpu_torch/analysis.py"} <= scanned
     bad = []
     for path in files:
         with open(path) as fh:

@@ -29,6 +29,10 @@ white and hyper lanes blocks, each group bit for bit its single-model
 launch; the factor and back-solve lanes entries, bit for bit the plain
 entries. The back-solve alone at m = 1 to 160, at batches ragged against
 its four systems a block, with failed factors in a block of good ones.
+The factor in its block form at (1024, 74) and (1, 74), the shapes the
+sampler's chunk-end log-posterior and ``lnlikelihood`` launch; the
+record wire casts (``record_tuple``) on the card, bit for bit the CPU's
+after the pinned-memory copy.
 
 Tolerances: kernel and plain version both compute in float32, in other
 summation orders. Factors, solves and logdets agree to rtol 1e-4 / atol
@@ -44,13 +48,16 @@ over 1e4 TOAs cannot meet a plain relative bound on entries that cancel.
 
 The jump, state and tie helpers below are shared with the CPU tests that
 hold the plain MH blocks against the JAX package (test_torch_mh.py,
-test_torch_sweep.py).
+test_torch_sweep.py), the wire-state helpers with test_torch_sample.py.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from gibbs_student_t_tpu_torch.backends import torch_backend as tb
 from gibbs_student_t_tpu_torch.data.demo import make_demo_model_arrays
 from gibbs_student_t_tpu_torch.models.pta import (
     ndiag,
@@ -1078,3 +1085,81 @@ def test_chol_lanes_on_card(m):
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="admission group"):
         chol.chol_fused_lanes(S[:24], r[:24], gid[:24])
+
+
+# --- the sampling surface: the log-posterior's factor, the wire casts ---
+
+def bits(a):
+    """The raw bits of a host array or CPU tensor, for bitwise equality
+    (bfloat16 has no numpy dtype, so tensors go through int16)."""
+    if torch.is_tensor(a):
+        if a.dtype in (torch.bfloat16, torch.float16):
+            return a.view(torch.int16).numpy()
+        return a.numpy()
+    a = np.asarray(a)
+    return a.view(np.int16) if str(a.dtype) in ("bfloat16", "float16") else a
+
+
+def wire_state(rng, n):
+    """A (3, 4)-batch record state of ``n`` TOAs: z 0/1, pout with exact
+    uint8 half-steps (float32 v with v * 255 = k + 1/2), b and alpha
+    spanning many decades, float16 and bfloat16 ties included."""
+    shape = (3, 4, n)
+    z = (rng.random(shape) < 0.4).astype(np.float32)
+    cand = []
+    for k in range(255):
+        v = np.float32((k + 0.5) / 255.0)
+        for u in (np.nextafter(v, np.float32(0)), v,
+                  np.nextafter(v, np.float32(1))):
+            if np.float32(u) * np.float32(255.0) == np.float32(k + 0.5):
+                cand.append(u)
+    cand = np.asarray(cand, np.float32)
+    assert cand.size > 50          # the half-steps are really there
+    pout = rng.random(shape).astype(np.float32)
+    take = rng.random(shape) < 0.5
+    pout[take] = rng.choice(cand, size=int(take.sum()))
+    pout.flat[:2] = (0.0, 1.0)
+    b = (rng.normal(size=shape) * 10.0 ** rng.uniform(-6, 3, shape)).astype(
+        np.float32)
+    # bfloat16 ties: 8 significant bits, then exactly half a step
+    b.flat[:3] = np.array([1 + 2 ** -8, 1 + 3 * 2 ** -8, -(1 + 2 ** -8)],
+                          np.float32)
+    alpha = (10.0 ** rng.uniform(-3, 6, shape)).astype(np.float32)
+    return dict(x=rng.normal(size=(3, 4, 3)).astype(np.float32), b=b, z=z,
+                theta=rng.random((3, 4)).astype(np.float32), alpha=alpha,
+                df=rng.integers(1, 31, (3, 4)).astype(np.float32), pout=pout,
+                acc_white=rng.random((3, 4)).astype(np.float32),
+                acc_hyper=rng.random((3, 4)).astype(np.float32))
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("B", [1024, 1])
+def test_chol_block_form_at_74_on_card(B):
+    dev = _cuda()
+    assert chol.launch_form(B, 74) == ("block", 1)
+    rng = np.random.default_rng(B)
+    S = torch.from_numpy(spd(rng, B, 74, cond=30.0)).to(dev)
+    r = torch.from_numpy(rng.normal(size=(B, 74)).astype(np.float32)).to(dev)
+    n0 = chol.chol_fused.launches
+    L, ld, u = chol.chol_fused(S, r)
+    torch.cuda.synchronize()
+    assert chol.chol_fused.launches == n0 + 1
+    for a, b in zip((L, ld, u), chol.chol_fused_plain(S, r)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.torch
+def test_record_casts_on_card_equal_cpu():
+    dev = _cuda()
+    st = wire_state(np.random.default_rng(9), 130)
+    fields = tb._RECORD_FIELDS
+    S = dataclasses.make_dataclass("S", fields)
+    for casts in (tb._COMPACT_CASTS, tb._COMPACT8_CASTS):
+        cpu = tb.record_tuple(S(**{f: torch.from_numpy(st[f])
+                                   for f in fields}), fields, casts)
+        card = tb.record_tuple(S(**{f: torch.from_numpy(st[f]).to(dev)
+                                    for f in fields}), fields, casts)
+        host = tb._HostCopy(card, torch.cuda.Stream(dev)).wait()
+        for f, a, b in zip(fields, host, cpu):
+            assert a.dtype == b.dtype and a.is_pinned(), f
+            np.testing.assert_array_equal(bits(a), bits(b), err_msg=f)

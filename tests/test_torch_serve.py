@@ -75,9 +75,10 @@ def demo():
 
 
 def _solo(ma, cfg, niter, nchains, seed, chunk, **kw):
+    # record="full": the pool records every field in float32, so the solo
+    # run it is held against must too
     smp = TorchGibbs(ma, cfg, nchains=nchains, device="cpu",
-                     tnt_block_size=None)
-    smp.chunk_size = chunk
+                     chunk_size=chunk, tnt_block_size=None, record="full")
     return smp.sample(niter=niter, seed=seed, **kw), smp
 
 

@@ -281,7 +281,7 @@ def test_record_light():
     ma = make_demo_model_arrays(components=5)
     cfg = GibbsConfig(model="mixture", vary_df=True)
     with pytest.raises(ValueError, match="record"):
-        TorchGibbs(ma, cfg, nchains=4, device="cpu", record="compact8")
+        TorchGibbs(ma, cfg, nchains=4, device="cpu", record="compact16")
     s = TorchGibbs(ma, cfg, nchains=4, device="cpu", record="light",
                    tnt_block_size=64)
     res = s.sample(niter=5, seed=2)
@@ -292,7 +292,8 @@ def test_record_light():
         assert getattr(res, f).size == 0, f
     assert str(res.stats["record_mode"]) == "light"
     assert np.isfinite(res.chain).all()
-    full = TorchGibbs(ma, cfg, nchains=4, device="cpu", tnt_block_size=64)
+    full = TorchGibbs(ma, cfg, nchains=4, device="cpu", tnt_block_size=64,
+                      record="full")
     res_f = full.sample(niter=5, seed=2)
     # the same run, recorded in full: the light fields are equal, and the
     # per-TOA chains are trimmed back to the real TOAs
