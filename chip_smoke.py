@@ -139,6 +139,41 @@ exits 1 through ``fail`` before it, and so does an uncaught exception.
       per sweep, and per chunk of the telemetry-on runs); then the
       ensemble's ``sample_until`` on 4 pulsars x 32 chains at compact8:
       its telemetry (4, 32), ``n_toa`` and R-hat (4, p).
+13. resumable runs and the drivers (``sample(spool_dir=)``, utils/spool.py,
+   gibbs_student_t_tpu_torch/drivers), in a temporary directory removed
+   at the end:
+   a. the solo spool at the flagship (1024 chains, adapt 100 with
+      population-covariance proposals, chunk 100, compact8): 300 sweeps
+      in memory, then spooled: the spooled run bitwise the in-memory one
+      (every recorded field and stat, the last state, the checkpoint); a
+      run killed at sweep 200 (a torn row and one orphan chunk appended
+      to every spool file) and resumed from its checkpoint equals the
+      unbroken spooled run; ``record_thin=5`` killed at 100 (a torn row
+      and an orphan chunk of 20 thinned rows) and resumed gives rows 5k
+      of the in-memory run; a resume with another ``record`` or
+      ``record_thin`` is refused; 3 dead chains re-drawn under
+      ``reinit_diverged`` in memory, spooled, and spooled, killed and
+      resumed: the same rows, checkpoint and ``n_reinits``; two spooled
+      10-sweep chunks unprofiled, profiled, unprofiled;
+   b. the ensemble's spool on ens32's pulsars (256 chains each,
+      ``record="light"``, chunk 10): killed at sweep 20 and resumed, it
+      equals the unbroken run of 40 sweeps, and ``select_pulsar`` keeps
+      each pulsar's TOA count;
+   c. the ensemble's ``sample_until`` with a spool on 4 x 32 chains: the
+      rows of phase 12's in-memory ``sample_until``, each spooled once;
+   d. the drivers on the card: ``drivers.simulate_data``, then
+      ``drivers.run_sims`` over the five models on both twins (1024 chains,
+      200 sweeps, burn 100, with ``--telemetry-dir`` and ``--ledger``): 10
+      trees of ``(100, 1024, 3)`` chains, every array finite, a ``chunk``
+      event a chunk, one ledger record on the ``cuda`` platform; then
+      ``--ensemble 8 --nchains 128 --models beta --trace-dir``: 8 trees of
+      130 - (i mod 3) 10 TOAs and a Chrome trace with the sweep's
+      ``gibbs/hyper_mh`` spans;
+   e. the spool's cost: the walls a sweep of (a)'s runs in turns, the MB
+      written and MB/s of ``ChainSpool.append`` (rows and checkpoint),
+      the profile's idle share against the unprofiled wall, and the
+      phase's seconds. Launches are checked on the paths ``spool`` (a),
+      ``spool_ens`` (b, c), ``drivers`` and ``drivers_ens`` (d).
 
 Launch counts are read per path: every count is set to 0 just before a
 run and read just after it; a count is launches per sweep x sweeps plus
@@ -262,8 +297,12 @@ KERNELS = {
                  "tri_solve_T_lanes"),
 }
 # phase 12's runs (the "sample" column of launches_by_path) sweep the
-# flagship's model and config: they launch the flagship's kernels
-SAME_AS = {"sample": "flagship"}
+# flagship's model and config: they launch the flagship's kernels; so do
+# phase 13's solo spool runs ("spool") and the driver's five models
+# ("drivers": the reference's model of a simulated 130-TOA pulsar, the
+# flagship's shapes), and its ensemble runs launch ens32's grouped kernels
+SAME_AS = {"sample": "flagship", "spool": "flagship", "spool_ens": "ens32",
+           "drivers": "flagship", "drivers_ens": "ens32"}
 # a grouped kernel's entry: the wrapper it shares with the single-model
 # launch; it counts on the wrapper's launches_grouped
 GROUPED = {"white_mh_grouped": "white_mh", "hyper_mh_grouped": "hyper_mh",
@@ -307,6 +346,11 @@ POOL_PROFILE_QUANTA = 4
 # and its most sweeps
 TIER_SWEEPS, RECOVERY_CHUNK = 200, 10
 UNTIL_CHECK, UNTIL_MAX = 100, 1000
+# phase 13 (resumable runs and the drivers): the solo spool's sweeps and
+# chunk; the drivers' sweeps and burn-in rows, and their ensemble
+SPOOL_SWEEPS, SPOOL_CHUNK, PROFILE_CHUNK = 300, 100, 10
+DRIVER_SWEEPS, DRIVER_BURN = 200, 100
+DRIVER_ENS, DRIVER_ENS_CHAINS = 8, 128
 # times of the first design of chol_fused (one 128-thread block per matrix),
 # hyper_mh (one per chain) and tri_solve_T (one 32-thread block per
 # system), ms per launch by (kernel, batch, size); of tnt_batched (16 x 16
@@ -390,8 +434,11 @@ def profile_calls(torch, fn, ncalls: int) -> dict:
     launches = 0
     for ev in prof.key_averages():
         # device-side events only (kernels, memcpy/memset): the CPU ops
-        # that launched them carry the same device time again
-        if ev.device_type != DeviceType.CUDA:
+        # that launched them carry the same device time again, and so do
+        # the sweep's named spans (record_function), which the profiler
+        # mirrors onto the device timeline
+        if ev.device_type != DeviceType.CUDA or getattr(
+                ev, "is_user_annotation", False):
             continue
         dt = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
@@ -2391,6 +2438,427 @@ def main() -> None:
           f"{json.dumps(srep['ensemble_sample_until'])}", flush=True)
     if not ens_ok:
         fail("the ensemble's sample_until result is malformed")
+
+    # --- 13. resumable runs and the drivers ------------------------------
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from gibbs_student_t_tpu_torch.drivers import run_sims as drv_run
+    from gibbs_student_t_tpu_torch.drivers import simulate_data as drv_sim
+    from gibbs_student_t_tpu_torch.obs.ledger import read_ledger
+    from gibbs_student_t_tpu_torch.obs.metrics import read_events
+    from gibbs_student_t_tpu_torch.utils import spool as spool_mod
+    from gibbs_student_t_tpu_torch.utils.spoolfile import spool_info
+
+    t13 = time.perf_counter()
+    rrep = report["resume"] = {}
+    tmp = tempfile.mkdtemp(prefix="gst_chip_smoke_")
+    chains = ("chain", "bchain", "zchain", "alphachain", "poutchain",
+              "thetachain", "dfchain")
+
+    def eq(u, v):
+        """Bitwise equal arrays (a NaN of a dead chain equal to itself)."""
+        u, v = np.asarray(u), np.asarray(v)
+        return np.array_equal(u, v, equal_nan=u.dtype.kind == "f")
+
+    def same(a, b):
+        """Every recorded field and every stat bitwise equal."""
+        return (all(eq(getattr(a, f), getattr(b, f)) for f in chains)
+                and sorted(a.stats) == sorted(b.stats)
+                and all(eq(a.stats[k], b.stats[k]) for k in a.stats))
+
+    def same_rows(a, b):
+        """Every recorded field and the accept rates bitwise equal."""
+        return all(eq(getattr(a, f), getattr(b, f)) for f in chains) and all(
+            eq(a.stats[k], b.stats[k]) for k in ("acc_white", "acc_hyper"))
+
+    def same_state(s1, s2):
+        return all(torch.equal(u, v.to(u.device)) for u, v in zip(s1, s2))
+
+    def append_orphans(d, rows):
+        """A kill after a chunk's rows were written and before its
+        checkpoint: ``rows`` orphan rows and a torn partial row on every
+        spool file of ``d``."""
+        for name in os.listdir(d):
+            if name.endswith(".spool"):
+                path = os.path.join(d, name)
+                dtype, shape, _, _ = spool_info(path)
+                with open(path, "ab") as fh:
+                    fh.write(np.full((rows,) + shape, 7.0, dtype).tobytes())
+                    fh.write(b"\x00\x01\x02")
+
+    # the spool's host cost: seconds in ChainSpool.append (rows and
+    # checkpoint written) and the bytes of the rows
+    spool_io = {"s": 0.0, "bytes": 0, "appends": 0}
+    plain_append = spool_mod.ChainSpool.append
+
+    def timed_append(self, records, *args, **kw):
+        t0 = time.perf_counter()
+        plain_append(self, records, *args, **kw)
+        spool_io["s"] += time.perf_counter() - t0
+        spool_io["bytes"] += sum(a.nbytes for a in records.values())
+        spool_io["appends"] += 1
+
+    spool_mod.ChainSpool.append = timed_append
+    try:
+        # 13a. the solo spool at the flagship: 1024 chains, adapt 100 with
+        # population-covariance proposals, chunk 100, compact8
+        reset_counts()
+        tally = {"sweeps": 0, "chunks": 0}
+
+        def solo(**kw):
+            return tb.TorchGibbs(ma, cfg, nchains=NCHAINS, device=dev,
+                                 chunk_size=SPOOL_CHUNK, **kw)
+
+        def run(smp, niter, **kw):
+            """``(result, wall s)`` of one ``sample`` call."""
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = smp.sample(niter=niter, seed=21, **kw)
+            torch.cuda.synchronize()
+            tally["sweeps"] += niter
+            tally["chunks"] += chunks_of(smp, niter)
+            return res, time.perf_counter() - t0
+
+        walls = {"memory": [], "spool": []}
+        spooled, in_memory = [], []
+        for turn, kind in enumerate(("memory", "spool")):
+            smp = solo()
+            d = os.path.join(tmp, f"solo_{turn}")
+            res, wall = run(smp, SPOOL_SWEEPS,
+                            spool_dir=d if kind == "spool" else None)
+            walls[kind].append(1e3 * wall / SPOOL_SWEEPS)
+            (spooled if kind == "spool" else in_memory).append(
+                (smp, res, d))
+        io_runs = dict(spool_io)
+        m_smp, m_res, _ = in_memory[0]
+        s_smp, s_res, s_dir = spooled[0]
+        ck_state, ck_sweep, ck_seed = spool_mod.load_spool_state(s_dir)
+        solo_ok = {
+            "spooled_equals_in_memory": same(s_res, m_res),
+            "last_state_equal": same_state(s_smp.last_state,
+                                           m_smp.last_state),
+            "checkpoint_is_last_state": (
+                same_state(ck_state, m_smp.last_state)
+                and (ck_sweep, ck_seed) == (SPOOL_SWEEPS, 21))}
+
+        # killed: 200 sweeps spooled, then a torn row and one whole orphan
+        # chunk on every file; resumed from its checkpoint for 100 more
+        k_dir = os.path.join(tmp, "killed")
+        run(solo(), SPOOL_SWEEPS - SPOOL_CHUNK, spool_dir=k_dir)
+        append_orphans(k_dir, SPOOL_CHUNK)
+        st_k, sw_k, sd_k = spool_mod.load_spool_state(k_dir)
+        k_smp = solo()
+        k_res, _ = run(k_smp, SPOOL_CHUNK, state=st_k, start_sweep=sw_k,
+                       spool_dir=k_dir)
+        solo_ok["killed_resumes_to_unbroken"] = bool(
+            sw_k == SPOOL_SWEEPS - SPOOL_CHUNK and sd_k == 21
+            and same_rows(k_res, s_res)
+            and same_state(k_smp.last_state, s_smp.last_state))
+
+        # record_thin=5: a chunk spooled, then a whole orphan chunk of
+        # thinned rows and a torn row, a chunk more: rows 5k of the
+        # unthinned run. The kill falls on the unbroken run's chunk
+        # boundary: inside the adaptation window the proposal covariance
+        # is re-estimated at chunk boundaries, so a resume mid-chunk would
+        # continue another chain
+        t_dir = os.path.join(tmp, "thin")
+        run(solo(record_thin=5), SPOOL_CHUNK, spool_dir=t_dir)
+        append_orphans(t_dir, SPOOL_CHUNK // 5)
+        st_t, sw_t, _ = spool_mod.load_spool_state(t_dir)
+        t_res, _ = run(solo(record_thin=5), SPOOL_CHUNK, state=st_t,
+                       start_sweep=sw_t, spool_dir=t_dir)
+        solo_ok["thinned_rows_bitwise"] = bool(
+            t_res.chain.shape[0] == 2 * SPOOL_CHUNK // 5 and all(
+                np.array_equal(getattr(t_res, f),
+                               getattr(m_res, f)[:2 * SPOOL_CHUNK:5])
+                for f in chains) and int(t_res.stats["record_thin"]) == 5)
+
+        # a resume that changes the recording is refused (before any row
+        # is written: the spool stays as it was)
+        refused = []
+        for kw in ({"record": "full"}, {"record_thin": 5}):
+            try:
+                run(solo(**kw), 5, state=st_k, start_sweep=sw_k,
+                    spool_dir=k_dir)
+            except ValueError as exc:
+                # raised by the chunk's flush: its sweeps were launched
+                tally["sweeps"] += 5
+                tally["chunks"] += 1
+                refused.append(str(exc)[:80])
+        solo_ok["mismatched_resume_refused"] = len(refused) == 2 and same_rows(
+            spool_mod.load_spool(k_dir), s_res)
+
+        # n_reinits: 3 dead chains at sweep 300, two chunks of 10 sweeps
+        # with reinit_diverged, in memory and spooled, and spooled killed
+        # after the first chunk and resumed
+        st300 = m_smp.last_state
+        x_d, a_d = st300.x.clone(), st300.alpha.clone()
+        x_d[[1, NCHAINS // 2]] = float("nan")
+        a_d[NCHAINS - 1] = 0.0                  # every TOA of the chain
+        dead = st300._replace(x=x_d, alpha=a_d)
+        rkw = dict(state=dead, start_sweep=SPOOL_SWEEPS, reinit_diverged=True)
+        rs = {}
+        for kind in ("memory", "spool"):
+            smp = tb.TorchGibbs(ma, cfg, nchains=NCHAINS, device=dev,
+                                chunk_size=RECOVERY_CHUNK)
+            d = os.path.join(tmp, "reinit") if kind == "spool" else None
+            rs[kind] = (smp, run(smp, 2 * RECOVERY_CHUNK, spool_dir=d,
+                                 **rkw)[0])
+        ck_r, _, _ = spool_mod.load_spool_state(os.path.join(tmp, "reinit"))
+        d2 = os.path.join(tmp, "reinit_killed")
+        run(tb.TorchGibbs(ma, cfg, nchains=NCHAINS, device=dev,
+                          chunk_size=RECOVERY_CHUNK), RECOVERY_CHUNK,
+            spool_dir=d2, **rkw)
+        st_r, sw_r, _ = spool_mod.load_spool_state(d2)
+        rk_res, _ = run(tb.TorchGibbs(ma, cfg, nchains=NCHAINS, device=dev,
+                                      chunk_size=RECOVERY_CHUNK),
+                        RECOVERY_CHUNK, state=st_r, start_sweep=sw_r,
+                        spool_dir=d2, reinit_diverged=True)
+        n_re = int(rs["memory"][1].stats["n_reinits"])
+        solo_ok["reinit_spooled_equals_in_memory"] = bool(
+            n_re == 3 and same(rs["spool"][1], rs["memory"][1])
+            and same_state(ck_r, rs["memory"][0].last_state))
+        solo_ok["reinit_count_carried_over_resume"] = bool(
+            int(rk_res.stats["n_reinits"]) == n_re
+            and same_rows(rk_res, rs["memory"][1]))
+
+        # 13e. a spooled run of two 10-sweep chunks from the state at sweep
+        # 300, unprofiled, profiled, unprofiled: the idle share is taken
+        # against the unprofiled wall, as every other profile's
+        p_smp = tb.TorchGibbs(ma, cfg, nchains=NCHAINS, device=dev,
+                              chunk_size=PROFILE_CHUNK)
+        p_runs = iter(range(3))
+
+        def p_call():
+            p_smp.sample(niter=2 * PROFILE_CHUNK, seed=21, state=st300,
+                         start_sweep=SPOOL_SWEEPS,
+                         spool_dir=os.path.join(tmp, f"prof_{next(p_runs)}"))
+
+        p_walls = []
+        for i in range(3):
+            if i == 1:
+                prof = profile_calls(torch, p_call, 1)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p_call()
+                torch.cuda.synchronize()
+                p_walls.append(1e3 * (time.perf_counter() - t0))
+            tally["sweeps"] += 2 * PROFILE_CHUNK
+            tally["chunks"] += 2
+        check_launches("spool", tally["sweeps"], tally["chunks"])
+        rrep["solo"] = solo_ok
+        print(f"# spool, solo (flagship, {NCHAINS} chains, chunk "
+              f"{SPOOL_CHUNK}): {json.dumps(solo_ok)}; refused: {refused}",
+              flush=True)
+        if not all(solo_ok.values()):
+            fail("a spooled or resumed solo run departs from the in-memory "
+                 "run")
+        row_bytes = io_runs["bytes"] / SPOOL_SWEEPS
+        p_wall = sum(p_walls) / len(p_walls)
+        prof_idle = 1.0 - prof["device_ms_per_sweep"] / p_wall
+        cost = rrep["cost"] = {
+            "ms_per_sweep_memory": walls["memory"],
+            "ms_per_sweep_spool": walls["spool"],
+            "row_bytes": row_bytes,
+            "spool_mb": io_runs["bytes"] / 1e6,
+            "spool_append_s": io_runs["s"],
+            "spool_mb_per_s": io_runs["bytes"] / 1e6 / io_runs["s"],
+            "append_ms_per_chunk": 1e3 * io_runs["s"] / io_runs["appends"],
+            "profile_ms_per_sweep_wall": p_wall / (2 * PROFILE_CHUNK),
+            "profile_ms_per_sweep_walls": [w / (2 * PROFILE_CHUNK)
+                                           for w in p_walls],
+            "profile_ms_per_sweep_profiled": (prof["wall_ms_per_sweep"]
+                                              / (2 * PROFILE_CHUNK)),
+            "profile_ms_per_sweep_device": (prof["device_ms_per_sweep"]
+                                            / (2 * PROFILE_CHUNK)),
+            "profile_idle": prof_idle}
+
+        rrep["solo_s"] = time.perf_counter() - t13
+        t13b = time.perf_counter()
+
+        # 13b. the ensemble's spool: ens32's pulsars, 256 chains each,
+        # light records, chunk 10; killed at sweep 20 and resumed
+        reset_counts()
+        tally = {"sweeps": 0, "chunks": 0}
+
+        def ens_run(e, niter, **kw):
+            res = e.sample(niter=niter, seed=7, **kw)
+            tally["sweeps"] += niter
+            tally["chunks"] += chunks_of(e, niter)
+            return res
+
+        # one sampler for the three runs: a run reads nothing of the
+        # sampler's earlier runs
+        e_smp = EnsembleGibbs(ens_pulsars(ENS_PULSARS), cfg_e,
+                              nchains=ENS_CHAINS, device=dev, record="light",
+                              chunk_size=RECOVERY_CHUNK)
+        e_ref = ens_run(e_smp, 4 * RECOVERY_CHUNK)
+        e_dir = os.path.join(tmp, "ens32")
+        ens_run(e_smp, 2 * RECOVERY_CHUNK, spool_dir=e_dir)
+        append_orphans(e_dir, RECOVERY_CHUNK)
+        st_e, sw_e, _ = spool_mod.load_spool_state(e_dir)
+        e_res = ens_run(e_smp, 2 * RECOVERY_CHUNK, state=st_e,
+                        start_sweep=sw_e, spool_dir=e_dir)
+        n_toa = e_smp.n_toa
+        ens_ok = {
+            "killed_resumes_to_unbroken": bool(
+                sw_e == 2 * RECOVERY_CHUNK and same_rows(e_res, e_ref)
+                and e_res.chain.shape == (4 * RECOVERY_CHUNK, ENS_PULSARS,
+                                          ENS_CHAINS, ma.nparam)),
+            "select_pulsar_keeps_toas": bool(
+                len(set(n_toa.tolist())) == 3 and all(
+                    int(e_res.select_pulsar(i).stats["n_toa"]) == n_toa[i]
+                    for i in range(ENS_PULSARS)))}
+
+        # 13c. sample_until with a spool on 4 x 32 chains: the rows of the
+        # in-memory sample_until above, once each
+        ens_u2 = EnsembleGibbs(ens_pulsars(4), cfg_e, nchains=32, device=dev)
+        u_dir = os.path.join(tmp, "until")
+        r_us = ens_u2.sample_until(rhat_target=1.05,
+                                   max_sweeps=4 * UNTIL_CHECK,
+                                   check_every=UNTIL_CHECK, seed=3,
+                                   spool_dir=u_dir)
+        n_us = r_us.chain.shape[0]
+        tally["sweeps"] += n_us
+        tally["chunks"] += (n_us // UNTIL_CHECK) * chunks_of(ens_u2,
+                                                            UNTIL_CHECK)
+        ens_ok["until_rows_once"] = bool(
+            spool_info(os.path.join(u_dir, "x.spool"))[3] == n_us
+            and int(r_us.stats["tele_sweeps"]) == n_us
+            and same_rows(r_us, r_e))
+        check_launches("spool_ens", tally["sweeps"], tally["chunks"])
+        rrep["ensemble"] = ens_ok
+        print(f"# spool, ensemble (ens32's pulsars x {ENS_CHAINS} chains, "
+              f"killed at sweep {sw_e}; sample_until 4 x 32, {n_us} "
+              f"sweeps): {json.dumps(ens_ok)}", flush=True)
+        if not all(ens_ok.values()):
+            fail("a spooled or resumed ensemble run departs from the "
+                 "in-memory run")
+        del e_ref, e_res, e_smp
+        rrep["ensemble_s"] = time.perf_counter() - t13b
+
+        # 13d. the drivers on the card: simulate, then the five models on
+        # both twins, then an 8-pulsar ensemble
+        simd = os.path.join(tmp, "sim")
+        tele_d = os.path.join(tmp, "tele")
+        trace_d = os.path.join(tmp, "trace")
+        ledger_p = os.path.join(tmp, "ledger.jsonl")
+        common = ["--thetas", "0.1", "--seed", "5", "--simdir", simd,
+                  "--niter", str(DRIVER_SWEEPS), "--burn",
+                  str(DRIVER_BURN)]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            drv_sim.main(["--theta", "0.1", "--seed", "5", "--outdir",
+                          simd])
+        sim_dirs = out.getvalue().split()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            drv_run.main(common + [
+                "--device", "cuda", "--nchains", str(NCHAINS),
+                "--outdirs", os.path.join(tmp, "o1"),
+                os.path.join(tmp, "o2"),
+                "--telemetry-dir", tele_d, "--ledger", ledger_p])
+        drv_wall = time.perf_counter() - t0
+        n_cfg = 5 * 2
+        check_launches("drivers", n_cfg * DRIVER_SWEEPS,
+                       n_cfg * -(-DRIVER_SWEEPS // 100))
+        trees = out.getvalue().split()
+        shapes_ok = len(trees) == n_cfg
+        finite = True
+        for tree in trees:
+            for f in chains:
+                a = np.load(os.path.join(tree, f + ".npy"))
+                finite &= bool(np.isfinite(a).all())
+                if f == "chain":
+                    shapes_ok &= a.shape == (DRIVER_SWEEPS - DRIVER_BURN,
+                                             NCHAINS, 3)
+        events = read_events(tele_d)
+        ledger_recs = read_ledger(ledger_p)
+        drv = rrep["drivers"] = {
+            "simulated": sim_dirs, "trees": len(trees),
+            "chain_shapes_ok": bool(shapes_ok), "all_finite": finite,
+            "chunk_events": sum(e["event"] == "chunk" for e in events),
+            "ledger_records": len(ledger_recs),
+            "ledger_platform": [r.get("platform") for r in ledger_recs],
+            "wall_s": drv_wall,
+            "ms_per_sweep": 1e3 * drv_wall / (n_cfg * DRIVER_SWEEPS)}
+        # the trace: a torch.profiler capture of a whole config's sampling
+        # (obs/tracing.py) costs ~6 s a 200-sweep config at the flagship
+        # (the profiler's processing and export of ~460k events), so one
+        # config, the ensemble's, is traced
+        reset_counts()
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            drv_run.main(common + [
+                "--device", "cuda", "--ensemble", str(DRIVER_ENS),
+                "--nchains", str(DRIVER_ENS_CHAINS), "--models", "beta",
+                "--outdirs", os.path.join(tmp, "e1"),
+                os.path.join(tmp, "e2"), "--trace-dir", trace_d,
+                "--ledger", ""])
+        drv["ensemble_wall_s"] = time.perf_counter() - t0
+        check_launches("drivers_ens", DRIVER_SWEEPS,
+                       -(-DRIVER_SWEEPS // 50))
+        traces = [f for f in os.listdir(trace_d) if f.endswith(".json")]
+        drv["traces"] = len(traces)
+        drv["trace_mb"] = sum(os.path.getsize(os.path.join(trace_d, f))
+                              for f in traces) / 1e6
+        spans = 0
+        for f in traces:
+            with open(os.path.join(trace_d, f), "rb") as fh:
+                spans += fh.read().count(b'"gibbs/hyper_mh"')
+        drv["trace_hyper_spans"] = spans
+        e_trees = out.getvalue().split()
+        drv["ensemble_toas"] = [
+            int(np.load(os.path.join(t, "zchain.npy")).shape[-1])
+            for t in e_trees]
+        drv["ensemble_ok"] = bool(
+            len(e_trees) == DRIVER_ENS
+            and drv["ensemble_toas"] == [130 - (i % 3) * 10
+                                         for i in range(DRIVER_ENS)])
+        print(f"# drivers: {json.dumps(drv)}", flush=True)
+        if not (len(sim_dirs) == 2 and drv["trees"] == n_cfg and shapes_ok
+                and finite and drv["chunk_events"] == n_cfg * -(
+                    -DRIVER_SWEEPS // 100)
+                and drv["traces"] == 1 and spans >= DRIVER_SWEEPS
+                and drv["ledger_records"] == 1
+                and drv["ledger_platform"] == ["cuda"]
+                and drv["ensemble_ok"]):
+            fail("the drivers' run on the card is malformed")
+    finally:
+        spool_mod.ChainSpool.append = plain_append
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 13e. the spool's cost lines
+    print(f"# spool cost (flagship, {NCHAINS} chains, compact8, chunk "
+          f"{SPOOL_CHUNK}, {SPOOL_SWEEPS} sweeps, in turns memory/spool): "
+          f"in memory "
+          f"{np.round(cost['ms_per_sweep_memory'], 4).tolist()} ms/sweep, "
+          f"spooled {np.round(cost['ms_per_sweep_spool'], 4).tolist()} "
+          f"ms/sweep; {cost['row_bytes'] / 1e6:.3f} MB a row, "
+          f"{cost['spool_mb']:.1f} MB written at "
+          f"{cost['spool_mb_per_s']:.1f} MB/s "
+          f"({cost['append_ms_per_chunk']:.1f} ms a chunk with the "
+          f"checkpoint) | {card}", flush=True)
+    print(f"# spool profile (2 spooled chunks of {PROFILE_CHUNK} sweeps): "
+          f"wall {cost['profile_ms_per_sweep_wall']:.4f} ms/sweep unprofiled "
+          f"(the mean of "
+          f"{np.round(cost['profile_ms_per_sweep_walls'], 4).tolist()}; "
+          f"{cost['profile_ms_per_sweep_profiled']:.4f} profiled), device "
+          f"{cost['profile_ms_per_sweep_device']:.4f} ms/sweep, idle share "
+          f"{cost['profile_idle']:.4f} | {card}", flush=True)
+    rrep["seconds"] = time.perf_counter() - t13
+    print(f"# phase 13: {rrep['seconds']:.1f} s (solo spool "
+          f"{rrep['solo_s']:.1f} s, ensemble spool {rrep['ensemble_s']:.1f} "
+          f"s, drivers {drv['wall_s']:.1f} s, the traced ensemble driver "
+          f"{drv['ensemble_wall_s']:.1f} s with a {drv['trace_mb']:.1f} MB "
+          f"trace)", flush=True)
 
     # the redesigned kernels beside the first design and the library call
     # (reported, not gated)

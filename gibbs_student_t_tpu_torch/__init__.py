@@ -16,6 +16,12 @@ Layout:
              wrappers (chol, tnt, white_mh, hyper_mh) and their plain
              versions
   csrc/      the CUDA C++ kernels
+  parallel/  the multi-pulsar ensemble and the chain diagnostics
+  obs/       telemetry, chain health, metrics registry, run ledger, traces
+  serve/     the serving slot pool and its serial server
+  utils/     checkpoints, the chain spool (resumable runs), timing
+  drivers/   ``python -m gibbs_student_t_tpu_torch.drivers.simulate_data``
+             and ``.drivers.run_sims``, the experiment drivers
   convert.py carries a JAX-side model/state (as numpy) into this package
   testing.py float64 replays that keep MH decisions clear of float32 ties
 

@@ -82,12 +82,13 @@ class ChainResult:
         real counts ride along as ``stats['n_toa']``, and the slice cuts
         the padded suffix back off the per-TOA chains here — saved trees
         are ``(niter, nchains, n_i)``, exactly the reference's per-pulsar
-        layout (reference run_sims.py:118-124)."""
-        fields = {
-            f.name: getattr(self, f.name)[:, i]
-            for f in dataclasses.fields(self)
-            if f.name not in ("stats",)
-        }
+        layout (reference run_sims.py:118-124). A chain the run did not
+        record (``record="light"``: empty) stays empty."""
+        fields = {}
+        for f in dataclasses.fields(self):
+            if f.name != "stats":
+                arr = getattr(self, f.name)
+                fields[f.name] = arr[:, i] if arr.size else arr
         stats = {}
         for k, v in self.stats.items():
             if k.startswith(TELE_PREFIX):

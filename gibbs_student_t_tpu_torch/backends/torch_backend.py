@@ -86,6 +86,7 @@ from gibbs_student_t_tpu_torch.obs.telemetry import (
     telemetry_init,
     telemetry_update,
 )
+from gibbs_student_t_tpu_torch.obs.tracing import block_span, host_span
 from gibbs_student_t_tpu_torch.ops.chol import chol_fused
 from gibbs_student_t_tpu_torch.ops.hyper_mh import (
     MAX_HYPER_V,
@@ -224,20 +225,24 @@ def chunked_sweep_loop(state, niter, chunk_size, start_sweep,
                        step_fn, flush_fn, reinit_fn=None, n_reinits=0,
                        pre_chunk_fn=None, pre_chunk_until=0):
     """The chunk-orchestration loop shared by ``TorchGibbs`` and
-    ``EnsembleGibbs`` (the JAX package's ``chunked_sweep_loop``, without
-    its spool snapshot hook).
+    ``EnsembleGibbs`` (the JAX package's ``chunked_sweep_loop``).
 
     ``step_fn(state, offset, length) -> (state, recs)`` advances one
     chunk; ``flush_fn(recs, chunk_state, sweep_end, n_reinits)`` moves a
-    chunk's records to the host; ``reinit_fn(state, sweep_end) -> (state,
-    n_bad)``, when given, repairs diverged chains at each chunk boundary.
+    chunk's records to the host (to memory or to a spool);
+    ``reinit_fn(state, sweep_end) -> (state, n_bad)``, when given, repairs
+    diverged chains at each chunk boundary, counting from ``n_reinits``.
     ``pre_chunk_fn(state) -> state``, when given, runs before each chunk
     whose offset is below ``pre_chunk_until`` (the population-covariance
     re-estimation, MHConfig.adapt_cov). Without ``reinit_fn`` flushes are
     deferred: chunk k+1's sweeps are issued before chunk k's records are
     read, so the pull overlaps the next chunk's work. With it, flushes
     are sequential (the divergence scan needs each post-chunk state).
-    Returns ``(state, n_reinits)``."""
+    The JAX loop's ``snapshot_fn`` (a copy of a deferred flush's state
+    before donated buffers are reused) has no counterpart: no sweep
+    writes a state tensor in place, and a spooled run's chunk-end state
+    rides the chunk's own host copy (``TorchGibbs._run``). Returns
+    ``(state, n_reinits)``."""
     done = 0
     pending = None
     while done < niter:
@@ -277,18 +282,22 @@ def _rhat_per_param(window):
 
 def _sample_until_loop(sample_fn, last_state_fn, record_thin, rhat_of,
                        rhat_target, max_sweeps, check_every, min_sweeps,
-                       state, ess_of=None, min_ess=None):
+                       state, spool_mode=False, ess_of=None, min_ess=None):
     """The convergence-stopping loop behind ``TorchGibbs.sample_until``
     and ``EnsembleGibbs.sample_until`` (the JAX package's
-    ``_sample_until_loop`` without its spool mode): segments of
-    ``check_every`` sweeps until ``rhat_of`` (computed on the second half
-    of the accumulated rows) clears ``rhat_target`` everywhere, and (when
-    ``min_ess`` is set) ``ess_of`` reports at least ``min_ess`` effective
-    samples for EVERY parameter in the same window.
+    ``_sample_until_loop``): segments of ``check_every`` sweeps until
+    ``rhat_of`` (computed on the second half of the accumulated rows)
+    clears ``rhat_target`` everywhere, and (when ``min_ess`` is set)
+    ``ess_of`` reports at least ``min_ess`` effective samples for EVERY
+    parameter in the same window.
 
     ``sample_fn(length, state, start_sweep) -> ChainResult`` runs one
-    segment; segments are concatenated, with per-call ``n_reinits``
-    summed and the ``tele_*`` stats merged by ``combine_tele_stats``."""
+    segment. In ``spool_mode`` every segment appends to one spool and its
+    result is the reloaded full history (utils/spool.py), so only the
+    latest is kept, with its cumulative counters; otherwise segments are
+    concatenated, with per-call ``n_reinits`` summed. Either way the
+    ``tele_*`` stats of the segments are merged by
+    ``combine_tele_stats``."""
     if check_every % record_thin or (check_every // record_thin) < 8:
         raise ValueError(
             "check_every must be a multiple of record_thin covering "
@@ -320,6 +329,7 @@ def _sample_until_loop(sample_fn, last_state_fn, record_thin, rhat_of,
             r0 = r1
         return np.concatenate(out)
 
+    res = None
     while done < max_sweeps:
         length = min(check_every, max_sweeps - done)
         res = sample_fn(length, state, done)
@@ -327,11 +337,14 @@ def _sample_until_loop(sample_fn, last_state_fn, record_thin, rhat_of,
         done += length
         tele_segs.append({k: v for k, v in res.stats.items()
                           if k.startswith("tele_")})
-        segments.append(res)
-        total_rows = sum(s.chain.shape[0] for s in segments)
         # second half of the accumulated run: the usual split-R-hat
         # convention folds early-transient sweeps out of the window
-        window = window_of([s.chain for s in segments], total_rows)
+        if spool_mode:
+            window = res.chain[res.chain.shape[0] // 2:]
+        else:
+            segments.append(res)
+            total_rows = sum(s.chain.shape[0] for s in segments)
+            window = window_of([s.chain for s in segments], total_rows)
         rhat = rhat_of(window)
         history.append(rhat)
         ess = None
@@ -343,25 +356,32 @@ def _sample_until_loop(sample_fn, last_state_fn, record_thin, rhat_of,
                 min_ess is None or (ess >= min_ess).all()):
             converged = True
             break
-    cols = {}
-    for f in dataclasses.fields(ChainResult):
-        if f.name == "stats":
-            continue
-        arrs = [getattr(s, f.name) for s in segments]
-        cols[f.name] = (np.concatenate(arrs) if arrs[0].size else arrs[0])
-    stats = {}
-    for k in segments[0].stats:
-        v0 = segments[0].stats[k]
-        if k.startswith("tele_"):
-            continue  # merged below with sweep-count weighting
-        if k == "n_reinits":
-            # per-call counters: the run's total is the sum
-            stats[k] = np.asarray(sum(int(s.stats[k]) for s in segments))
-        elif k in META_STATS or np.ndim(v0) == 0:
-            stats[k] = v0
-        else:
-            stats[k] = np.concatenate([s.stats[k] for s in segments])
-    out = ChainResult(**cols, stats=stats)
+    if spool_mode:
+        out = res  # already the full history, cumulative counters
+    else:
+        cols = {}
+        for f in dataclasses.fields(ChainResult):
+            if f.name == "stats":
+                continue
+            arrs = [getattr(s, f.name) for s in segments]
+            cols[f.name] = (np.concatenate(arrs) if arrs[0].size
+                            else arrs[0])
+        stats = {}
+        for k in segments[0].stats:
+            v0 = segments[0].stats[k]
+            if k.startswith("tele_"):
+                continue  # merged below with sweep-count weighting
+            if k == "n_reinits":
+                # per-call counters: the run's total is the sum
+                stats[k] = np.asarray(sum(int(s.stats[k])
+                                          for s in segments))
+            elif k in META_STATS or np.ndim(v0) == 0:
+                stats[k] = v0
+            else:
+                stats[k] = np.concatenate([s.stats[k] for s in segments])
+        out = ChainResult(**cols, stats=stats)
+    # a spooled segment's tele_* stats cover only that call's chunks, so
+    # the merge is the same in both modes
     out.stats.update(combine_tele_stats(tele_segs))
     out.stats["rhat_history"] = np.stack(history)
     out.stats["rhat"] = history[-1]
@@ -510,7 +530,10 @@ class TorchGibbs(SamplerBackend):
     per-chain non-finite counters and the chunk-end log-posterior, pulled
     with the records; run-level aggregates land in ``ChainResult.stats``
     under ``tele_*`` keys. Updates never touch the generator: chains are
-    bitwise the same either way."""
+    bitwise the same either way. ``metrics`` (an
+    ``obs.metrics.MetricsRegistry``) receives one ``chunk`` event per
+    flushed chunk of a telemetry-on run
+    (``TelemetryAccumulator.emit_chunk``)."""
 
     supports_chains = True
 
@@ -518,7 +541,7 @@ class TorchGibbs(SamplerBackend):
                  nchains: int = 64, device=None, chunk_size: int = 100,
                  tnt_block_size: int | str | None = "auto",
                  record: str = "compact8", record_thin: int = 1,
-                 telemetry: bool = True):
+                 telemetry: bool = True, metrics=None):
         super().__init__(ma, config)
         if record not in ("full", "compact", "compact8", "light"):
             raise ValueError("record must be 'full', 'compact', "
@@ -536,6 +559,7 @@ class TorchGibbs(SamplerBackend):
         self.chunk_size = int(chunk_size)
         self.record_thin = int(record_thin)
         self.telemetry = bool(telemetry)
+        self.metrics = metrics
         self._record_fields = (_LIGHT_FIELDS if record == "light"
                                else _RECORD_FIELDS)
         # the port runs float32 only, so the wire casts are always active
@@ -977,13 +1001,15 @@ class TorchGibbs(SamplerBackend):
         # --- white MH block (reference gibbs.py:114-143) ---------------
         az = alpha ** z
         acc_w = zeros
-        if self._white is not None:
-            yred = self._y - matvec_blocked(self._T, b, self._block_size)
-            x, acc_w = self._white_block(x, az, yred * yred, draws)
-        nvec = self._masked_nvec(x, az)
+        with block_span("gibbs/white_mh"):
+            if self._white is not None:
+                yred = self._y - matvec_blocked(self._T, b, self._block_size)
+                x, acc_w = self._white_block(x, az, yred * yred, draws)
+            nvec = self._masked_nvec(x, az)
 
         # --- per-sweep inner products (reference gibbs.py:302-304) -----
-        TNT, d, const_white = self._tnt(nvec)
+        with block_span("gibbs/tnt_reduction"):
+            TNT, d, const_white = self._tnt(nvec)
 
         # --- hyper MH block on the marginalized likelihood -------------
         acc_h = zeros
@@ -1002,28 +1028,33 @@ class TorchGibbs(SamplerBackend):
                 return_factor=True)
             base = (const_white + 0.5 * (quad_s - logdetA)
                     - 0.5 * hp["logdet_static"])
-            x, acc_h = self._hyper_block(x, S0, rt, base, draws)
+            with block_span("gibbs/hyper_mh"):
+                x, acc_h = self._hyper_block(x, S0, rt, base, draws)
             # b draw with block-factor reuse: factor only the phi-varying
             # block S_v = S0 + diag(phiinv_v) (escalating jitters) and
             # assemble the permuted full factor from the A-block pieces
-            phiinv = self._phiinv(x)
-            Sv = S0 + torch.diag_embed(phiinv[..., v_i])
-            y_v, isd_v, _ = robust_precond_draw(Sv, rt, draws.xi[..., ns:],
-                                                jitters=jits)
-            wty = torch.matmul(U_B, (isd_v * y_v)[..., None])[..., 0]
-            y_s = backward_solve(La, u_s + draws.xi[..., :ns] - wty)
-            b = torch.empty(x.shape[:-1] + (m,), dtype=x.dtype,
-                            device=x.device)
-            b[..., s_i] = y_s * isd_a
-            b[..., v_i] = y_v * isd_v
+            with block_span("gibbs/b_draw"):
+                phiinv = self._phiinv(x)
+                Sv = S0 + torch.diag_embed(phiinv[..., v_i])
+                y_v, isd_v, _ = robust_precond_draw(
+                    Sv, rt, draws.xi[..., ns:], jitters=jits)
+                wty = torch.matmul(U_B, (isd_v * y_v)[..., None])[..., 0]
+                y_s = backward_solve(La, u_s + draws.xi[..., :ns] - wty)
+                b = torch.empty(x.shape[:-1] + (m,), dtype=x.dtype,
+                                device=x.device)
+                b[..., s_i] = y_s * isd_a
+                b[..., v_i] = y_v * isd_v
         else:
             if hp is not None:
                 base = const_white - 0.5 * hp["logdet_static"]
-                x, acc_h = self._hyper_block(x, TNT, d, base, draws)
-            phiinv = self._phiinv(x)
-            Sigma = TNT + torch.diag_embed(phiinv)
-            y, isd, _ = robust_precond_draw(Sigma, d, draws.xi, jitters=jits)
-            b = y * isd
+                with block_span("gibbs/hyper_mh"):
+                    x, acc_h = self._hyper_block(x, TNT, d, base, draws)
+            with block_span("gibbs/b_draw"):
+                phiinv = self._phiinv(x)
+                Sigma = TNT + torch.diag_embed(phiinv)
+                y, isd, _ = robust_precond_draw(Sigma, d, draws.xi,
+                                                jitters=jits)
+                b = y * isd
 
         resid = self._y - matvec_blocked(self._T, b, self._block_size)
         nvec0 = self._ndiag(x)
@@ -1150,7 +1181,7 @@ class TorchGibbs(SamplerBackend):
 
     def sample(self, x0: Optional[np.ndarray] = None, niter: int = 1000,
                seed: int = 0, state: Optional[ChainState] = None,
-               start_sweep: int = 0,
+               start_sweep: int = 0, spool_dir: Optional[str] = None,
                reinit_diverged: bool = False) -> ChainResult:
         """Run ``niter`` sweeps for all chains and return the recorded
         rows (the state BEFORE sweeps ``start_sweep, start_sweep + t, ...``
@@ -1169,15 +1200,50 @@ class TorchGibbs(SamplerBackend):
         their chunks at the same sweeps. ``reinit_diverged`` re-draws
         numerically dead chains (:meth:`diverged_mask`) from the prior at
         chunk boundaries, with the count in ``stats['n_reinits']``; its
-        flushes are sequential (the scan needs each post-chunk state)."""
+        flushes are sequential (the scan needs each post-chunk state).
+
+        With ``spool_dir``, each chunk's float32 rows go to the spool
+        files of that directory and its chunk-end state to its checkpoint
+        (utils/spool.py) instead of memory, and the result is the spool
+        reloaded (the whole spooled history) with this call's telemetry.
+        A killed run resumes with ``load_spool_state(spool_dir)`` ->
+        ``sample(state=, start_sweep=, spool_dir=)``: ``start_sweep > 0``
+        appends to the spool after cutting any rows past ``start_sweep``,
+        and ``n_reinits`` counts on from ``run_stats.json``. Without
+        ``reinit_diverged`` the chunk-end state is copied to the host with
+        the chunk's records, so the checkpoint adds no synchronization;
+        with it, the checkpoint is the state after the re-draw."""
         self._check_run(niter, start_sweep)
         if state is None:
             state = self.init_state(x0, seed=seed)
+        spool = self._open_spool(spool_dir, seed, start_sweep)
         cols, stats = self._run(niter, seed, state, start_sweep,
-                                reinit_diverged)
-        res = self._to_result({f: self._trim(f, a) for f, a in cols.items()})
+                                reinit_diverged, spool=spool)
+        if spool is not None:
+            from gibbs_student_t_tpu_torch.utils.spool import load_spool
+
+            res = load_spool(spool_dir)
+        else:
+            res = self._to_result({f: self._trim(f, a)
+                                   for f, a in cols.items()})
         res.stats.update(stats)
         return res
+
+    def _open_spool(self, spool_dir, seed: int, start_sweep: int,
+                    extra_meta=None):
+        """The run's ``ChainSpool`` (None without ``spool_dir``): a
+        resume (``start_sweep > 0``) appends, after cutting the rows
+        past ``start_sweep``."""
+        if spool_dir is None:
+            return None
+        from gibbs_student_t_tpu_torch.utils.spool import ChainSpool
+
+        resume = start_sweep > 0
+        return ChainSpool(spool_dir, seed, resume=resume,
+                          resume_at=start_sweep if resume else None,
+                          record_mode=self.record_mode,
+                          record_thin=self.record_thin,
+                          extra_meta=extra_meta)
 
     def _check_run(self, niter: int, start_sweep: int) -> None:
         if niter < 1:
@@ -1191,11 +1257,13 @@ class TorchGibbs(SamplerBackend):
                 f"sweep (multiple of record_thin={self.record_thin})")
 
     def _run(self, niter: int, seed: int, state: ChainState,
-             start_sweep: int, reinit_diverged: bool = False):
+             start_sweep: int, reinit_diverged: bool = False, spool=None):
         """The chunked loop of :meth:`sample` from ``state``: ``(cols,
         stats)``, the recorded fields as float32 host arrays ``(rows,
-        *batch, ...)`` (per-TOA fields at the padded length) and the run's
-        ``n_reinits`` and ``tele_*`` stats; ``last_state`` is set."""
+        *batch, ...)`` (per-TOA fields at the padded length; none when the
+        rows go to ``spool``, a ``ChainSpool``, instead, cut to the real
+        TOAs by :meth:`_trim`) and the run's ``n_reinits`` and ``tele_*``
+        stats; ``last_state`` is set."""
         gen = torch.Generator(device=self.device)
         mh = self.config.mh
         thin = self.record_thin
@@ -1208,6 +1276,16 @@ class TorchGibbs(SamplerBackend):
         cols = {}
         filled = [0]
         tele_acc = TelemetryAccumulator() if self.telemetry else None
+        n_tele = len(Telemetry._fields) if self.telemetry else 0
+        # a spooled run's chunk-end state rides the chunk's host copy,
+        # ordered after the chunk on the pull stream, so the checkpoint
+        # waits for nothing the deferred flush does not; under
+        # reinit_diverged the flush checkpoints the re-drawn state
+        # itself (flushes are sequential there)
+        state_in_pull = spool is not None and not reinit_diverged
+        # a resumed spool's re-init count goes on from the interrupted run
+        n_reinits0 = (int(spool.load_run_stats().get("n_reinits", 0))
+                      if spool is not None and start_sweep > 0 else 0)
 
         def step(st, offset, length):
             rows = {f: [] for f in fields}
@@ -1228,27 +1306,48 @@ class TorchGibbs(SamplerBackend):
             if tl is not None:
                 tl = tl._replace(logpost=self._logpost_chain(st))
                 recs = recs + tuple(tl)
+            if state_in_pull:
+                recs = recs + tuple(st)
             return st, _HostCopy(recs, self._pull_stream)
 
         def flush(pull, chunk_state, sweep_end, n_reinits):
             host = pull.wait()
+            k = len(fields)
             if tele_acc is not None:
-                tele_acc.add(Telemetry(*(t.numpy()
-                                         for t in host[len(fields):])))
+                summary = tele_acc.add(Telemetry(*(
+                    t.numpy() for t in host[k:k + n_tele])))
+                if self.metrics is not None:
+                    tele_acc.emit_chunk(self.metrics, sweep_end, summary)
+            rows = self._materialize(host[:k])
+            if spool is not None:
+                with host_span("gibbs/spool_append"):
+                    spool.append(
+                        {f: self._trim(f, a) for f, a in zip(fields, rows)},
+                        (type(chunk_state)(*host[k + n_tele:])
+                         if state_in_pull else chunk_state), sweep_end,
+                        run_stats=({"n_reinits": n_reinits}
+                                   if reinit_diverged else None))
+                return
             r0 = filled[0]
-            for f, a in zip(fields, self._materialize(host[:len(fields)])):
+            for f, a in zip(fields, rows):
                 if f not in cols:
                     cols[f] = np.empty((niter // thin,) + a.shape[1:],
                                        a.dtype)
                 cols[f][r0:r0 + len(a)] = a
             filled[0] = r0 + len(a)
 
-        state, n_reinits = chunked_sweep_loop(
-            state, niter, self.chunk_size, start_sweep, step_fn=step,
-            flush_fn=flush, pre_chunk_fn=self._prop_cov_update,
-            pre_chunk_until=mh.adapt_until if mh.adapt_cov else 0,
-            reinit_fn=((lambda st, end: self._reinit_diverged(
-                st, seed=seed + 7919 * end)) if reinit_diverged else None))
+        try:
+            state, n_reinits = chunked_sweep_loop(
+                state, niter, self.chunk_size, start_sweep, step_fn=step,
+                flush_fn=flush, pre_chunk_fn=self._prop_cov_update,
+                pre_chunk_until=mh.adapt_until if mh.adapt_cov else 0,
+                reinit_fn=((lambda st, end: self._reinit_diverged(
+                    st, seed=seed + 7919 * end)) if reinit_diverged
+                    else None),
+                n_reinits=n_reinits0)
+        finally:
+            if spool is not None:
+                spool.close()
         self.last_state = state
         stats = {}
         if reinit_diverged:
@@ -1277,8 +1376,10 @@ class TorchGibbs(SamplerBackend):
         ``stats['rhat']`` (plus ``stats['ess']``/``ess_history`` when
         ``min_ess`` is set), and ``stats['converged']``; segments are
         concatenated, ``n_reinits`` summed and the ``tele_*`` stats
-        merged. Extra kwargs (``reinit_diverged``) pass through to
-        :meth:`sample`; ``check_every`` must be a multiple of
+        merged. Extra kwargs (``spool_dir``, ``reinit_diverged``) pass
+        through to :meth:`sample`; with ``spool_dir`` the segments append
+        to one spool and the result is the reloaded full history, its
+        counters cumulative. ``check_every`` must be a multiple of
         ``record_thin`` covering at least 8 recorded rows. The segments
         are ``sample`` calls resumed at their start sweeps, so the rows
         are those of one ``sample`` call of the same length when the
@@ -1291,7 +1392,9 @@ class TorchGibbs(SamplerBackend):
         return _sample_until_loop(
             sample_fn, lambda: self.last_state, self.record_thin,
             _rhat_per_param, rhat_target, max_sweeps, check_every,
-            min_sweeps, state, ess_of=_ess_per_param, min_ess=min_ess)
+            min_sweeps, state,
+            spool_mode=bool(sample_kwargs.get("spool_dir")),
+            ess_of=_ess_per_param, min_ess=min_ess)
 
     # ------------------------------------------------------------------
     # divergence recovery

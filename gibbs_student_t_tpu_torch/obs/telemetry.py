@@ -20,9 +20,10 @@ never touch the generator, so chains with telemetry on are bitwise the
 chains with it off.
 
 The host half (``TelemetryAccumulator``, ``combine_tele_stats``,
-``tele_stats_of``, ``TELE_PREFIX``) is a numpy copy of the JAX module's.
-Its ``emit_chunk`` (per-chunk events into a metrics registry) is not part
-of this package: the metrics registry (obs/metrics.py) is not ported.
+``tele_stats_of``, ``TELE_PREFIX``) is a numpy copy of the JAX module's;
+``TelemetryAccumulator.emit_chunk`` writes each drained chunk into a
+metrics registry (obs/metrics.py) when the sampler has one
+(``TorchGibbs(metrics=...)``).
 """
 
 from __future__ import annotations
@@ -146,6 +147,24 @@ class TelemetryAccumulator:
             "logpost_min": (round(float(finite_lp.min()), 3)
                             if finite_lp.size else None),
         }
+
+    def emit_chunk(self, registry, sweep_end: int,
+                   chunk_summary: Dict[str, object]) -> None:
+        """One ``chunk`` event (the summary :meth:`add` returned, at the
+        sweep the chunk ends on) and the run counters and gauges it
+        moves: ``sweeps_total`` (chain-sweeps), ``nonfinite_sweeps_total``,
+        ``diverged_chains``, ``accept_white``, ``accept_hyper``."""
+        nchains = int(np.asarray(self._acc_w).size)
+        registry.counter("sweeps_total").inc(
+            chunk_summary["sweeps"] * nchains)
+        registry.counter("nonfinite_sweeps_total").inc(
+            chunk_summary["nonfinite_sweeps"])
+        registry.gauge("diverged_chains").set(
+            chunk_summary["diverged_chains"])
+        for blk in ("white", "hyper"):
+            registry.gauge(f"accept_{blk}").set(
+                chunk_summary[f"acc_{blk}"])
+        registry.emit("chunk", sweep_end=sweep_end, **chunk_summary)
 
     @property
     def empty(self) -> bool:

@@ -240,15 +240,19 @@ class EnsembleGibbs(TorchGibbs):
     C)`` axes (the log-posterior per pulsar and chain).
     ``sample(reinit_diverged=True)``, :meth:`diverged_mask` (over ``(P,
     C)``) and :meth:`sample_until` (every pulsar's every parameter must
-    clear the target) follow the JAX ensemble. The TOA reduction is
-    dense (the JAX ensemble builds its template with
-    ``tnt_block_size=None``). ``device`` as in ``TorchGibbs``: CUDA unless
-    the caller asks for the CPU."""
+    clear the target) follow the JAX ensemble, and so does
+    ``sample(spool_dir=)``: spool rows are ``(rows, P, C, ...)`` at the
+    padded TOA length, and the spool's ``meta.json`` keeps the pulsars'
+    real TOA counts, so a reloaded result's ``select_pulsar`` cuts the
+    padding as the in-memory result's does. The TOA reduction is dense
+    (the JAX ensemble builds its template with ``tnt_block_size=None``).
+    ``device`` as in ``TorchGibbs`` (CUDA unless the caller asks for the
+    CPU), and so is ``metrics``."""
 
     def __init__(self, mas: Sequence[ModelArrays], config: GibbsConfig,
                  nchains: int = 64, device=None, chunk_size: int = 50,
                  record: str = "compact8", record_thin: int = 1,
-                 telemetry: bool = True):
+                 telemetry: bool = True, metrics=None):
         device = resolve_device(device)
         self.npulsars = len(mas)
         # the pulsars' real TOA counts, before padding to the maximum
@@ -275,6 +279,7 @@ class EnsembleGibbs(TorchGibbs):
                      "_hyper_idx", "_df_grid"):
             setattr(self, name, getattr(t0, name))
         self._batch = (self.npulsars, self.nchains)
+        self.metrics = metrics
         self.last_state: Optional[ChainState] = None
 
         def stack(name, *lead):
@@ -359,7 +364,7 @@ class EnsembleGibbs(TorchGibbs):
 
     def sample(self, niter: int, seed: int = 0,
                state: Optional[ChainState] = None,
-               start_sweep: int = 0,
+               start_sweep: int = 0, spool_dir: Optional[str] = None,
                reinit_diverged: bool = False) -> ChainResult:
         """Run ``niter`` sweeps for every (pulsar, chain) population from
         ``state`` (default: :meth:`init_state` at ``seed``); records as
@@ -369,16 +374,29 @@ class EnsembleGibbs(TorchGibbs):
         resumed at ``start_sweep`` from ``last_state`` continues the
         unbroken run bitwise. ``reinit_diverged`` re-draws numerically
         dead (pulsar, chain) populations from the prior at chunk
-        boundaries (count in ``stats['n_reinits']``)."""
+        boundaries (count in ``stats['n_reinits']``). ``spool_dir`` as in
+        ``TorchGibbs.sample``."""
         self._check_run(niter, start_sweep)
         if state is None:
             state = self.init_state(seed)
+        spool = self._open_spool(spool_dir, seed, start_sweep,
+                                 extra_meta={"n_toa": self.n_toa.tolist()})
         cols, stats = self._run(niter, seed, state, start_sweep,
-                                reinit_diverged)
-        res = self._to_result(cols)
+                                reinit_diverged, spool=spool)
+        if spool is not None:
+            from gibbs_student_t_tpu_torch.utils.spool import load_spool
+
+            res = load_spool(spool_dir)
+        else:
+            res = self._to_result(cols)
         res.stats["n_toa"] = self.n_toa
         res.stats.update(stats)
         return res
+
+    def _trim(self, field: str, arr: np.ndarray) -> np.ndarray:
+        """The ensemble's rows keep the padded TOA axis (``select_pulsar``
+        cuts each pulsar's padding by ``stats['n_toa']``)."""
+        return arr
 
     def sample_until(self, rhat_target: float = 1.01,
                      max_sweeps: int = 20000, check_every: int = 500,
@@ -408,6 +426,7 @@ class EnsembleGibbs(TorchGibbs):
         return _sample_until_loop(
             sample_fn, lambda: self.last_state, self.record_thin, rhat_of,
             rhat_target, max_sweeps, check_every, min_sweeps, state,
+            spool_mode=bool(sample_kwargs.get("spool_dir")),
             ess_of=ess_of, min_ess=min_ess)
 
     def lnlikelihood(self, x, z=None, alpha=None) -> float:

@@ -368,7 +368,7 @@ def test_sample_until_converges_and_matches_plain_run(small):
                                   res.stats["rhat_history"])
 
 
-def test_sample_until_min_ess_and_validation(small):
+def test_sample_until_min_ess_and_validation(small, tmp_path):
     _, ma = small
     s = _sampler(ma, chunk_size=8)
     res = s.sample_until(rhat_target=10.0, max_sweeps=32, check_every=16,
@@ -391,5 +391,8 @@ def test_sample_until_min_ess_and_validation(small):
         thin.sample_until(check_every=14, max_sweeps=32)
     with pytest.raises(ValueError, match="max_sweeps"):
         thin.sample_until(check_every=16, max_sweeps=33)
-    with pytest.raises(TypeError):
-        s.sample_until(check_every=16, max_sweeps=32, spool_dir="x")
+    # spool_dir passes through: the spooled segments give the same rows
+    res3 = s.sample_until(rhat_target=10.0, max_sweeps=64, check_every=16,
+                          seed=4, min_ess=2.0,
+                          spool_dir=str(tmp_path / "spool"))
+    assert np.array_equal(res3.chain, res2.chain)
