@@ -104,8 +104,9 @@ exits 1 through ``fail`` before it, and so does an uncaught exception.
       sweep, no dense TNT product, no ungrouped or ensemble-form MH
       launch): results finite and shaped, inactive lanes frozen at every
       quantum, every group freed; busy chain-sweeps/s, occupancy, and
-      from a profile of 4 full quanta the launches that draw the tenants'
-      numbers and the device's idle share;
+      from a profile of 4 full quanta the launches that draw the lanes'
+      numbers (beside the parent's generator draws, a set a tenant) and
+      the device's idle share;
    e. the lanes kernels' timings, B3-L and B4-L beside the ensemble's
       grouped launch on the same 1,024 chains, B5-L beside the ensemble's
       matmul per basis.
@@ -174,13 +175,32 @@ exits 1 through ``fail`` before it, and so does an uncaught exception.
       the profile's idle share against the unprofiled wall, and the
       phase's seconds. Launches are checked on the paths ``spool`` (a),
       ``spool_ens`` (b, c), ``drivers`` and ``drivers_ens`` (d).
+14. per-chain draws (ops/rng.py, the draw kernel D1 ``csrc/draws.cu``),
+   which every path above launched once a sweep:
+   a. D1 against its plain version on each path's operands (captured in
+      phases 3, 8, 9, 10 and 11: the flagship's 1024 chains, stress 64 x
+      102,400 TOAs, full MTM, ens32's 32 x 256, pool1024's lanes), the
+      plain version on the card and on the CPU: uniforms bit for bit,
+      the share of other values that differ and their largest distance
+      in ulps, and the gammas accepted at another attempt;
+   b. independence on the card: the flagship's chains 0-15 drawn alone,
+      and the batch permuted, give their draws bit for bit; a pool tenant
+      in the first groups and behind a neighbour gives the same records;
+   c. card against CPU: 5 flagship sweeps (64 chains) from one state,
+      each side drawing its own numbers from the same seed, every sweep
+      held as phase 4 holds one;
+   d. costs: the draws' launches and device time a sweep beside the
+      parent's generator draws on the flagship, stress, ens32 and
+      pool1024, each path's launches a sweep then and now, and D1's time
+      beside its bound, its plain version and the generator draws.
 
 Launch counts are read per path: every count is set to 0 just before a
 run and read just after it; a count is launches per sweep x sweeps plus
 launches per chunk x chunks; a grouped launch counts on its wrapper's
 ``launches_grouped``, a lanes launch of the white or hyper block on its
 ``launches_lanes``. The last stdout lines are the ``kernels`` JSON line
-(the six kernels, the three grouped forms and the five lanes entries),
+(the six kernels, the three grouped forms, the five lanes entries and the
+draw kernel),
 the card line, and
 ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json.
@@ -189,6 +209,7 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -295,7 +316,18 @@ KERNELS = {
         source=_CHOL,
         replaces="gibbs_student_t_tpu/ops/pallas_chol.py:291 "
                  "tri_solve_T_lanes"),
+    # D1, the per-chain draws: one launch a sweep on every path (the pool's
+    # for every lane). It has no Pallas counterpart: the JAX sweep draws
+    # with jax.random, keyed by fold_in(chain key, sweep), inside its XLA
+    # program
+    "sweep_draws": dict(
+        per_sweep={"flagship": 1, "stress": 1, "mtm": 1, "full_mtm": 1,
+                   "ens32": 1, "ens_mtm": 1, "pool": 1},
+        source="gibbs_student_t_tpu_torch/csrc/draws.cu",
+        replaces="none: the jax.random draws XLA fuses into the sweep, "
+                 "gibbs_student_t_tpu/backends/jax_backend.py:1907"),
 }
+DRAWS = "sweep_draws"
 # phase 12's runs (the "sample" column of launches_by_path) sweep the
 # flagship's model and config: they launch the flagship's kernels; so do
 # phase 13's solo spool runs ("spool") and the driver's five models
@@ -311,6 +343,10 @@ GROUPED = {"white_mh_grouped": "white_mh", "hyper_mh_grouped": "hyper_mh",
 LANES = {"white_mh_lanes": "white_mh", "hyper_mh_lanes": "hyper_mh"}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate
 FP32_FLOPS = 67e12             # H100 SXM float32 rate outside tensor cores
+FP64_FLOPS = 34e12             # H100 SXM float64 rate outside tensor cores
+# phase 14 (per-chain draws): the 14c card-vs-CPU sweeps, the profiled
+# draw calls a path, and the stress chains the CPU plain version draws
+DRAW_SWEEPS, DRAW_PROFILE_CALLS, DRAW_CPU_STRESS_CHAINS = 5, 10, 4
 NCHAINS = 1024
 ADAPT, MORE = 100, 200
 # the stress config of bench.py --stress, and its card-vs-CPU sweep size
@@ -399,20 +435,85 @@ def card_line() -> str:
 def profile_sweeps(torch, sampler, nsweeps: int) -> dict:
     """Device time by kernel over ``nsweeps`` steady-state sweeps of the
     flagship sampler (torch.profiler, CUDA activity), the wall time of the
-    same window, and the device's idle share within it."""
-    gen = torch.Generator(device=sampler.device).manual_seed(3)
+    same window, and the device's idle share within it. The sweep indices
+    are one device tensor made before the window, as ``TorchGibbs._run``
+    makes a chunk's."""
+    keys = sampler._chain_keys(3)
+    sweeps = torch.arange(500, 503 + nsweeps, device=sampler.device)
     st = sampler.init_state(seed=3)
     for i in range(3):
-        st = sampler._sweep(st, sampler._draw(gen, st), sweep=500 + i)
+        st = sampler._sweep(st, sampler._draw(keys, sweeps[i], st),
+                            sweep=500 + i)
     torch.cuda.synchronize()
-    box = [st, 500]
+    box = [st, 3]
 
     def sweep():
-        box[0] = sampler._sweep(box[0], sampler._draw(gen, box[0]),
-                                sweep=box[1])
+        box[0] = sampler._sweep(box[0], sampler._draw(
+            keys, sweeps[box[1]], box[0]), sweep=500 + box[1])
         box[1] += 1
 
     return profile_calls(torch, sweep, nsweeps)
+
+
+def legacy_draw(torch, smp, gen, state):
+    """One sweep's draws as the port made them before its draws were keyed
+    per chain: every field from one ``torch.Generator`` (``torch.rand``,
+    ``randn``, ``randint``, ``_standard_gamma``), at the state's batch
+    shape, the same fields as ``TorchGibbs._draw``. Phase 14 times it
+    beside the draw kernel; nothing in the port calls it."""
+    cfg, mh = smp.config, smp.config.mh
+    B, n, m, p = tuple(state.df.shape), smp._n, smp._ma.m, smp._ma.nparam
+    dev, f32 = state.df.device, torch.float32
+
+    def mh_draws(ind, nsteps, jump_scale, cov_chol):
+        sigma = mh.sigma_per_param * len(ind) * jump_scale
+        u = torch.rand((*B, nsteps), generator=gen, device=dev, dtype=f32)
+        k = torch.searchsorted(smp._scale_cdf, u, right=True)
+        step = sigma[..., None] * smp._scale_sizes[
+            k.clamp_(max=len(mh.scale_sizes) - 1)]
+        if cov_chol is None:
+            pick = torch.randint(0, len(ind), (*B, nsteps), generator=gen,
+                                 device=dev)
+            jumps = torch.randn((*B, nsteps), generator=gen, device=dev,
+                                dtype=f32) * step
+            dx = torch.zeros((*B, nsteps, p), dtype=f32, device=dev)
+            dx.scatter_(-1, ind[pick][..., None], jumps[..., None])
+        else:
+            xi = torch.randn((*B, nsteps, p), generator=gen, device=dev,
+                             dtype=f32)
+            dx = step[..., None] * torch.matmul(xi, cov_chol.transpose(-1,
+                                                                       -2))
+        logu = torch.log(torch.rand((*B, nsteps), generator=gen,
+                                    device=dev, dtype=f32))
+        return dx, logu
+
+    def block(blk, ind, nsteps, jump_scale, cov_chol):
+        if not smp._mtm[blk]:
+            return mh_draws(ind, nsteps, jump_scale, cov_chol)
+        K = mh.mtm_tries
+        dx, _ = mh_draws(ind, nsteps * K, jump_scale, cov_chol)
+        dxr, _ = mh_draws(ind, nsteps * (K - 1), jump_scale, cov_chol)
+        u = torch.rand((*B, nsteps, K), generator=gen, device=dev, dtype=f32)
+        logu = torch.log(torch.rand((*B, nsteps), generator=gen, device=dev,
+                                    dtype=f32))
+        return dx, dxr, -torch.log(-torch.log(u)), logu
+
+    cov = state.mh_cov_chol if mh.adapt_cov else None
+    scale = torch.exp(state.mh_log_scale)
+    out = [block("white", smp._white_idx, mh.n_white_steps, scale[..., 0],
+                 None if cov is None else cov[..., 0, :, :]),
+           block("hyper", smp._hyper_idx, mh.n_hyper_steps, scale[..., 1],
+                 None if cov is None else cov[..., 1, :, :])]
+    out.append(torch.randn((*B, m), generator=gen, device=dev, dtype=f32))
+    a, b = smp._theta_shapes(state.z)
+    out.append(torch._standard_gamma(torch.stack([a, b], -1), generator=gen))
+    out.append(torch.rand((*B, n), generator=gen, device=dev, dtype=f32))
+    shape = torch.stack([state.df, state.df + 1.0], -1) / 2.0
+    out.append(torch._standard_gamma(
+        shape[..., None].expand(*B, 2, n).contiguous(), generator=gen))
+    ug = torch.rand((*B, cfg.df_max), generator=gen, device=dev, dtype=f32)
+    out.append(-torch.log(-torch.log(ug)))
+    return out
 
 
 def profile_calls(torch, fn, ncalls: int) -> dict:
@@ -468,7 +569,7 @@ def main() -> None:
         from gibbs_student_t_tpu_torch.config import GibbsConfig
         from gibbs_student_t_tpu_torch.data.demo import make_demo_model_arrays
         from gibbs_student_t_tpu_torch.ops import _cuda, chol, hyper_mh, linalg
-        from gibbs_student_t_tpu_torch.ops import tnt, white_mh
+        from gibbs_student_t_tpu_torch.ops import rng, tnt, white_mh
         from gibbs_student_t_tpu_torch.parallel.diagnostics import (
             effective_sample_size,
         )
@@ -530,6 +631,8 @@ def main() -> None:
     plains["chol_fused_lanes"] = lambda S, r, gid: chol.chol_fused_plain(S, r)
     plains["tri_solve_T_lanes"] = lambda L, r, gid: chol.tri_solve_T_plain(
         L, r)
+    wrappers[DRAWS] = (tb, DRAWS, rng.sweep_draws)
+    plains[DRAWS] = rng.sweep_draws_plain
 
     def counter(name):
         """(object, attribute) of kernel ``name``'s launch count."""
@@ -578,14 +681,14 @@ def main() -> None:
         got = {}
 
         def recorder(fn):
-            def rec(*args):
+            def rec(*args, **kw):
                 name = fn.__name__
                 if name + "_grouped" in GROUPED and args[0].dim() == 3:
                     name += "_grouped"
                 if name in names:
                     got[(name, tuple(args[0].shape))] = tuple(
                         a.clone() if torch.is_tensor(a) else a for a in args)
-                return fn(*args)
+                return fn(*args, **kw)
             return rec
 
         targets = {wrappers[name][:2]: wrappers[name][2] for name in names}
@@ -611,22 +714,43 @@ def main() -> None:
           flush=True)
 
     # --- 3. capture the kernels' inputs from the main path, then parity ---
+    def keyed(smp, seed, nsweeps):
+        """``(keys, sweeps)``: the chain keys of ``smp``'s run ``seed`` and
+        sweep indices 0 .. nsweeps - 1 on the device (``TorchGibbs._run``'s
+        draw operands)."""
+        return (smp._chain_keys(seed),
+                torch.arange(nsweeps, device=smp.device))
+
     def run_capture(smp, seed, sweeps):
         def run():
-            gen = torch.Generator(device=dev).manual_seed(seed)
+            keys, sw = keyed(smp, seed, sweeps)
             st = smp.init_state(seed=seed)
             if smp.config.mh.adapt_cov:
                 st = smp._prop_cov_update(st)
             for i in range(sweeps):
-                st = smp._sweep(st, smp._draw(gen, st), sweep=i)
+                st = smp._sweep(st, smp._draw(keys, sw[i], st), sweep=i)
         return run
 
+    # the draw kernel's operands of each path, for phase 14
+    draw_args = {}
+
+    def split_draws(capt, path):
+        """``capt`` without the draw kernel's operands, which go to
+        ``draw_args[path]`` (phase 14 holds the kernel to its plain
+        version)."""
+        for k in [k for k in capt if k[0] == DRAWS]:
+            draw_args[path] = capt.pop(k)
+        if path not in draw_args:
+            fail(f"the {path} sweep did not reach the draw kernel")
+        return capt
+
     # the last sweep's operands of each call shape are kept
-    captured = capture(wrappers, run_capture(sampler, 7, 5))
+    captured = split_draws(capture(wrappers, run_capture(sampler, 7, 5)),
+                           "flagship")
     shapes = sorted(k for k in captured)
     print(f"# captured kernel inputs: {shapes}", flush=True)
     for name, meta in KERNELS.items():
-        if (meta["per_sweep"]["flagship"]
+        if (meta["per_sweep"]["flagship"] and name != DRAWS
                 and not any(k[0] == name for k in captured)):
             fail(f"{name} was not reached by the sweep")
 
@@ -818,11 +942,11 @@ def main() -> None:
     del S_bad, out_b, out_g, wide
 
     # --- 4. one sweep on the card vs the same sweep on the CPU -----------
-    gen = torch.Generator(device=dev).manual_seed(11)
+    keys, sw = keyed(small, 11, 4)
     st = small._prop_cov_update(small.init_state(seed=11))
     for i in range(3):
-        st = small._sweep(st, small._draw(gen, st), sweep=i)
-    dr = small._draw(gen, st)
+        st = small._sweep(st, small._draw(keys, sw[i], st), sweep=i)
+    dr = small._draw(keys, sw[3], st)
 
     def to_cpu(t):
         return t.detach().cpu()
@@ -1170,12 +1294,12 @@ def main() -> None:
     # every kernel's operands at the stress shapes: B5 and B3 are held
     # against their plain versions below, and all five are timed. B1, B2
     # and B4 are held against theirs at the flagship shapes (phase 3)
-    captured_s = capture([n for n, k in KERNELS.items()
-                          if k["per_sweep"]["stress"]],
-                         run_capture(stress, 13, 3))
+    captured_s = split_draws(capture([n for n, k in KERNELS.items()
+                                      if k["per_sweep"]["stress"]],
+                                     run_capture(stress, 13, 3)), "stress")
     reached = sorted({k[0] for k in captured_s})
     if reached != sorted(n for n, k in KERNELS.items()
-                         if k["per_sweep"]["stress"]):
+                         if k["per_sweep"]["stress"] and n != DRAWS):
         fail(f"the stress sweep reached {reached}")
 
     # B5 against its float32 plain version and float64: a float32 sum over
@@ -1255,11 +1379,11 @@ def main() -> None:
                        record="light")
     s8_cpu = tb.TorchGibbs(ma_s, cfg_s, nchains=STRESS_CPU_CHAINS,
                            device="cpu", record="light")
-    gen = torch.Generator(device=dev).manual_seed(17)
+    keys, sw = keyed(s8, 17, 3)
     st = s8.init_state(seed=17)
     for i in range(2):
-        st = s8._sweep(st, s8._draw(gen, st), sweep=i)
-    dr = s8._draw(gen, st)
+        st = s8._sweep(st, s8._draw(keys, sw[i], st), sweep=i)
+    dr = s8._draw(keys, sw[2], st)
     st_c = type(st)(*map(to_cpu, st))
 
     def both_operands(name, dr):
@@ -1348,7 +1472,8 @@ def main() -> None:
     time_captured(captured_s, "stress")
     stress_rep["profile"] = profile("stress", stress, 10,
                                     srun["ms_per_sweep"])
-    del stress, s8, s8_cpu, s8_alt, captured_s, T64, y64, nv64, M, Md, out_64
+    # the stress sampler stays for phase 14's draw costs
+    del s8, s8_cpu, s8_alt, captured_s, T64, y64, nv64, M, Md, out_64
 
     # --- 9. multiple-try Metropolis ------------------------------------------
     cfg_m = cfg.with_mtm(MTM_TRIES, blocks=("white",))
@@ -1406,11 +1531,11 @@ def main() -> None:
     cfg_f = cfg.with_mtm(MTM_TRIES)
     full = tb.TorchGibbs(ma, cfg_f, nchains=64, device=dev)
     full_cpu = tb.TorchGibbs(ma, cfg_f, nchains=64, device="cpu")
-    gen = torch.Generator(device=dev).manual_seed(23)
+    keys, sw = keyed(full, 23, 8)
     st = full._prop_cov_update(full.init_state(seed=23))
     for i in range(3):
-        st = full._sweep(st, full._draw(gen, st), sweep=i)
-    dr = full._draw(gen, st)
+        st = full._sweep(st, full._draw(keys, sw[i], st), sweep=i)
+    dr = full._draw(keys, sw[3], st)
     cmp = report["mtm_sweep_card_vs_cpu"] = card_vs_cpu(
         full, full_cpu, st, dr, 3)
     # the spread of the b reading, reported beside the gate: the same
@@ -1421,7 +1546,7 @@ def main() -> None:
     cmp["b_next_sweeps"] = []
     for i in range(4, 8):
         st = full._sweep(st, dr, sweep=i - 1)
-        dr = full._draw(gen, st)
+        dr = full._draw(keys, sw[i], st)
         cmp["b_next_sweeps"].append(
             card_vs_cpu(full, full_cpu, st, dr, i)["b"][1])
     print(f"# full-MTM sweep card-vs-cpu (64 chains): {json.dumps(cmp)}",
@@ -1436,6 +1561,7 @@ def main() -> None:
                          record="full")
     frec = mtm_run(full, "full_mtm", ("white", "hyper"))
     frec["profile"] = profile("full_mtm", full, 5, frec["ms_per_sweep"])
+    split_draws(capture([DRAWS], run_capture(full, 23, 1)), "full_mtm")
     time_captured(captured_m, "mtm")
 
     # --- 10. the multi-pulsar ensemble ------------------------------------
@@ -1471,13 +1597,18 @@ def main() -> None:
 
     def grouped_sep(name, a, others=(), info=None):
         """A grouped single-try block's logu with its ties separated by a
-        float64 replay (phase 8's rule, margin 1e-3 as at 130 TOAs)."""
+        float64 replay (phase 8's rule, margin 1e-3 as at 130 TOAs),
+        widened where the float32 block on the same operands (and on
+        ``others``' operands) departs from it, and forced to the float64
+        decision where float32 rounds a proposal onto a prior bound or
+        off it (``testing.separate_ties``)."""
         G, C, p = a[0].shape
         dx, lu = (a[5], a[6]) if name.startswith("hyper") else (a[3], a[4])
         S = dx.shape[-2]
         return separate_ties(
             grouped_ll(name, a, torch.float64), a[0].reshape(-1, p),
-            dx.reshape(-1, S, p), lu.reshape(-1, S), others=others,
+            dx.reshape(-1, S, p), lu.reshape(-1, S),
+            others=(grouped_ll(name, a, torch.float32), *others),
             info=info).reshape(G, C, S)
 
     def grouped_mtm_sep(a):
@@ -1540,7 +1671,9 @@ def main() -> None:
     # 10a. the grouped kernels and the factor and solves at the ensemble's
     # shapes, on inputs captured from an ens32 sweep
     ens_names = [n for n, k in KERNELS.items() if k["per_sweep"]["ens32"]]
-    captured_e = capture(ens_names, run_capture(ens, 7, 2))
+    captured_e = split_draws(capture(ens_names, run_capture(ens, 7, 2)),
+                             "ens32")
+    ens_names.remove(DRAWS)
     if sorted({k[0] for k in captured_e}) != sorted(ens_names):
         fail(f"the ens32 sweep reached {sorted(captured_e)}")
     for (name, shape), args in sorted(captured_e.items()):
@@ -1576,11 +1709,11 @@ def main() -> None:
     cpu_mas = ens_pulsars(ENS_CPU_PULSARS)
     eg = EnsembleGibbs(cpu_mas, cfg_e, nchains=ENS_CPU_CHAINS, device=dev)
     ec = EnsembleGibbs(cpu_mas, cfg_e, nchains=ENS_CPU_CHAINS, device="cpu")
-    gen = torch.Generator(device=dev).manual_seed(29)
+    keys, sw = keyed(eg, 29, 4)
     st = eg._prop_cov_update(eg.init_state(seed=29))
     for i in range(3):
-        st = eg._sweep(st, eg._draw(gen, st), sweep=i)
-    dr = eg._draw(gen, st)
+        st = eg._sweep(st, eg._draw(keys, sw[i], st), sweep=i)
+    dr = eg._draw(keys, sw[3], st)
     st_c = type(st)(*map(to_cpu, st))
     sep = {}
     for name, field in (("white_mh_grouped", "logu_w"),
@@ -1590,8 +1723,7 @@ def main() -> None:
         (c,) = capture([name], lambda: ec._sweep(st_c, dr_c, 3)).values()
         info = sep[name] = {}
         lu = grouped_sep(name, g, others=(
-            grouped_ll(name, g, torch.float32),
-            grouped_ll(name, c, torch.float32)), info=info)
+            grouped_ll(name, c, torch.float32),), info=info)
         info["moved"] = int((lu != getattr(dr, field)).sum())
         dr = dr._replace(**{field: lu})
     cmp = ens_rep["sweep_card_vs_cpu"] = card_vs_cpu(eg, ec, st, dr, 3)
@@ -1700,7 +1832,8 @@ def main() -> None:
                   f"(grouped / ungrouped {r['ms'] / r['ungrouped_ms']:.3f}),"
                   f" {r['ms'] / r['bound_ms']:.1f}x its bound", flush=True)
     ens_rep["profile"] = profile("ens32", ens, 20, erun["ms_per_sweep"])
-    del ens, captured_e, captured_em
+    # the ens32 sampler stays for phase 14's draw costs
+    del captured_e, captured_em
 
     # --- 11. the serving slot pool (pool1024) --------------------------------
     from gibbs_student_t_tpu_torch.data.demo import (
@@ -1777,7 +1910,8 @@ def main() -> None:
         cap.submit(TenantRequest(ma=tenant_mas[i], niter=2,
                                  nchains=POOL_CHAINS, seed=200 + i))
     cap.step()
-    captured_p = capture(pool_names, cap.step)
+    captured_p = split_draws(capture(pool_names + [DRAWS], cap.step),
+                             "pool")
     if sorted({k[0] for k in captured_p}) != sorted(pool_names):
         fail(f"the pool sweep reached {sorted(captured_p)}")
     del cap
@@ -1883,8 +2017,8 @@ def main() -> None:
     for pl in (pg, pc):
         pl._upload()
     st = pg.state
-    pg._write_draws(st, 0)
-    dr = type(pg._draws)(*(t.clone() for t in pg._draws))
+    dr = pg._lane_draws(st, pg._lane_sweep)
+    dr = type(dr)(*(t.clone() for t in dr))
     st_c = type(st)(*map(to_cpu, st))
     sep = {}
     for name, field in (("white_mh_lanes", "logu_w"),
@@ -1897,8 +2031,7 @@ def main() -> None:
         ga, ca = lanes_grouped(name, g), lanes_grouped(name, c)
         info = sep[name] = {}
         lu = grouped_sep(gname, ga, others=(
-            grouped_ll(gname, ga, torch.float32),
-            grouped_ll(gname, ca, torch.float32)), info=info)
+            grouped_ll(gname, ca, torch.float32),), info=info)
         info["moved"] = int((lu != getattr(dr, field)).sum())
         dr = dr._replace(**{field: lu})
     cmp = pool_rep["sweep_card_vs_cpu"] = card_vs_cpu(pg.sampler, pc.sampler,
@@ -1938,30 +2071,29 @@ def main() -> None:
     del pg, pc, smp_c
 
     # 11c. a tenant of 256 chains against the solo sampler on the card: the
-    # same state and the same draws (the pool draws them itself, from the
-    # tenant's seed and sweep), one deterministic sweep, ties separated
+    # same state and the same draws (the pool draws them itself, from its
+    # lanes' keys and sweeps), one deterministic sweep, ties separated
     solo = tb.TorchGibbs(tenant_mas[0], cfg_p, nchains=POOL_CHAINS,
                          device=dev, tnt_block_size=None)
     other = tb.TorchGibbs(tenant_mas[1], cfg_p, nchains=POOL_CHAINS,
                           device=dev, tnt_block_size=None)
     ps = SlotPool(template, cfg_p, nlanes=2 * POOL_CHAINS, quantum=1,
                   device=dev)
-    gen = torch.Generator(device=dev)
     seed_s, i_s = 400, 3
+    keys, sw = keyed(solo, seed_s, i_s + 1)
     st = solo.init_state(seed=seed_s)
     for i in range(i_s):
-        st = solo._sweep(st, solo._draw(
-            gen.manual_seed(tb.sweep_key(seed_s, i)), st), sweep=i)
+        st = solo._sweep(st, solo._draw(keys, sw[i], st), sweep=i)
     ps.write_tenant(TenantSlot(0, np.arange(POOL_CHAINS), POOL_CHAINS, 1, 0,
                                401), other, other.init_state(seed=401))
     ps.write_tenant(TenantSlot(1, np.arange(POOL_CHAINS, 2 * POOL_CHAINS),
                                POOL_CHAINS, 1, i_s, seed_s), solo, st)
     ps._upload()
-    ps._write_draws(ps.state, 0)
-    dr = solo._draw(gen.manual_seed(tb.sweep_key(seed_s, i_s)), st)
+    pdr = ps._lane_draws(ps.state, ps._lane_sweep)
+    dr = solo._draw(keys, sw[i_s], st)
     mine = slice(POOL_CHAINS, 2 * POOL_CHAINS)
     draws_equal = all(torch.equal(lanes_flat(b)[mine], d)
-                      for b, d in zip(ps._draws, dr))
+                      for b, d in zip(pdr, dr))
     sep = {}
     gt = POOL_CHAINS // LANES_GROUP
     for name, lname, ev, ix, field in (
@@ -1969,7 +2101,7 @@ def main() -> None:
             ("hyper_mh", "hyper_mh_lanes", hyper_f, (5, 6), "logu_h")):
         (a_s,) = capture([name], lambda: solo._sweep(st, dr, i_s)).values()
         (a_p,) = capture([lname], lambda: ps.sampler._sweep(
-            ps.state, ps._draws, 0)).values()
+            ps.state, pdr, 0)).values()
         gname = lname.replace("lanes", "grouped")
         a_t = tuple(t[gt:] if torch.is_tensor(t) else t
                     for t in lanes_grouped(lname, a_p))
@@ -1980,9 +2112,9 @@ def main() -> None:
                     grouped_ll(gname, a_t, torch.float32)), info=info)
         info["moved"] = int((lu != getattr(dr, field)).sum())
         dr = dr._replace(**{field: lu})
-        lanes_flat(getattr(ps._draws, field))[mine] = lu
+        lanes_flat(getattr(pdr, field))[mine] = lu
     out_s = solo._sweep(st, dr, i_s)
-    out_p = ps.sampler._sweep(ps.state, ps._draws, 0)
+    out_p = ps.sampler._sweep(ps.state, pdr, 0)
     nw, nh = cfg_p.mh.n_white_steps, cfg_p.mh.n_hyper_steps
     agree = ((torch.round(lanes_flat(out_p.acc_white)[mine] * nw)
               == torch.round(out_s.acc_white * nw))
@@ -2079,9 +2211,38 @@ def main() -> None:
         fail("the pool1024 run's results, frozen lanes, launches or "
              "bookkeeping are wrong")
 
+    legacy_gen = torch.Generator(device=dev)
+    legacy_bufs = {}
+
+    def legacy_pool_draws(pl):
+        """The pool's draws as the parent made them: for each resident
+        tenant, the generator re-seeded, its chains' draws made at its
+        chain count from its lanes' state (a view: its lanes are
+        consecutive here) and copied into its lanes of buffers allocated
+        once."""
+        flat = [lanes_flat(getattr(pl.state, f))
+                for f in ("z", "df", "mh_log_scale", "mh_cov_chol")]
+        for tid, slot in pl._slots.items():
+            lo = int(slot.chain_lanes[0])
+            rows = slice(lo, lo + slot.nchains)
+            st_t = tb.ChainState(
+                x=None, b=None, z=flat[0][rows], alpha=None, theta=None,
+                df=flat[1][rows], pout=None, acc_white=None, acc_hyper=None,
+                mh_log_scale=flat[2][rows], mh_cov_chol=flat[3][rows])
+            dr = legacy_draw(torch, pl.drawer,
+                             legacy_gen.manual_seed(1000 + tid), st_t)
+            vals = [t for d in dr
+                    for t in (d if isinstance(d, tuple) else (d,))]
+            if id(pl) not in legacy_bufs:
+                legacy_bufs[id(pl)] = [
+                    torch.empty((pl.nlanes, *t.shape[1:]), dtype=t.dtype,
+                                device=dev) for t in vals]
+            for buf, val in zip(legacy_bufs[id(pl)], vals):
+                buf[rows].copy_(val)
+
     # the profiled window: 4 tenants of 256 chains fill the pool; a quantum
     # to warm up, 4 timed, then 4 under the profiler; and the draws of one
-    # sweep (every resident tenant's) profiled alone
+    # sweep (every lane's) profiled alone, beside the parent's draws
     q_prof = POOL_PROFILE_QUANTA
     psrv = ChainServer(template, cfg_p, nlanes=POOL_LANES,
                        quantum=POOL_QUANTUM, record="light", device=dev)
@@ -2098,9 +2259,20 @@ def main() -> None:
     wall_q = 1e3 * (time.perf_counter() - t0) / q_prof
     try:
         # the draws first, while the tenants are resident (they leave with
-        # the last profiled quantum)
+        # the last profiled quantum): one draw-kernel call for every lane,
+        # and the parent's generator draws, a set for each tenant written
+        # into its lanes (phase 14d)
+        ppl = psrv.pool
         prof_d = profile_calls(
-            torch, lambda: psrv.pool._write_draws(psrv.pool.state, 0), 10)
+            torch, lambda: ppl._lane_draws(ppl.state, ppl._lane_sweep),
+            DRAW_PROFILE_CALLS)
+        prof_l = profile_calls(torch, lambda: legacy_pool_draws(ppl),
+                               DRAW_PROFILE_CALLS)
+        # and their times (events, behind the stream hold), for phase 14
+        pool_draw_ms = {
+            "ms": timed(lambda: ppl._lane_draws(ppl.state, ppl._lane_sweep),
+                        (), 20),
+            "legacy_ms": timed(lambda: legacy_pool_draws(ppl), (), 20)}
         prof = profile_calls(torch, psrv.step, q_prof)
     except Exception as exc:  # noqa: BLE001
         fail(f"the profiler did not trace the pool: {exc!r}")
@@ -2114,14 +2286,18 @@ def main() -> None:
         "idle_share": max(0.0, 1.0 - prof["device_ms_per_sweep"] / wall_q),
         "draw_launches_per_sweep": prof_d["launches_per_sweep"],
         "draw_device_ms_per_sweep": prof_d["device_ms_per_sweep"],
+        "legacy_draw_launches_per_sweep": prof_l["launches_per_sweep"],
+        "legacy_draw_device_ms_per_sweep": prof_l["device_ms_per_sweep"],
         "top": [dict(r, ms_per_sweep=r["ms_per_sweep"] / POOL_QUANTUM,
                      calls_per_sweep=r["calls_per_sweep"] / POOL_QUANTUM)
                 for r in prof["top"]]}
     print(f"# profile pool1024 ({q_prof} quanta, 4 x {POOL_CHAINS} chains): "
           f"device busy {pprof['device_ms_per_sweep']:.4f} ms/sweep, "
           f"{pprof['launches_per_sweep']:.1f} launches/sweep of which "
-          f"{pprof['draw_launches_per_sweep']:.1f} draw the tenants' "
-          f"numbers; wall {pprof['wall_ms_per_sweep']:.4f} ms/sweep "
+          f"{pprof['draw_launches_per_sweep']:.1f} draw the lanes' "
+          f"numbers (the generator draws a tenant at a time: "
+          f"{pprof['legacy_draw_launches_per_sweep']:.1f}); wall "
+          f"{pprof['wall_ms_per_sweep']:.4f} ms/sweep "
           f"unprofiled; idle share {pprof['idle_share']:.4f}")
     for row in pprof["top"]:
         print(f"#   {row['ms_per_sweep']:8.4f} ms/sweep "
@@ -2859,6 +3035,313 @@ def main() -> None:
           f"s, drivers {drv['wall_s']:.1f} s, the traced ensemble driver "
           f"{drv['ensemble_wall_s']:.1f} s with a {drv['trace_mb']:.1f} MB "
           f"trace)", flush=True)
+
+    # --- 14. per-chain draws ----------------------------------------------
+    t14 = time.perf_counter()
+    drep = report["draws"] = {}
+
+    def f32_ulps(a, b):
+        """Per-element distance of two float32 tensors in ulps (the
+        distance of their bit patterns; same-sign values)."""
+        return (a.contiguous().view(torch.int32).long()
+                - b.contiguous().view(torch.int32).long()).abs()
+
+    def draw_cmp(table, va, vb):
+        """Two sets of raw draws (``DrawTable.views``; ``vb`` the
+        reference) field kind by kind: uniforms bitwise; for the other
+        kinds the values that differ and the largest distance in ulps; a
+        gamma more than one ulp away is counted as accepted at another
+        Marsaglia-Tsang attempt (its value is then unrelated)."""
+        rec = {"values": 0, "uniform_bitwise": True, "differ": 0,
+               "max_ulps": 0, "gamma_other_attempt": 0,
+               "nonfinite_mismatch": 0, "max_abs_err": 0.0}
+        for f in table.fields:
+            a, b = va[f.name].reshape(-1), vb[f.name].reshape(-1)
+            fa, fb = torch.isfinite(a), torch.isfinite(b)
+            rec["values"] += a.numel()
+            rec["nonfinite_mismatch"] += int((fa != fb).sum())
+            both = fa & fb
+            a, b = a[both], b[both]
+            if a.numel():
+                rec["max_abs_err"] = max(rec["max_abs_err"],
+                                         float((a - b).abs().max()))
+            if f.kind == rng.UNIFORM:
+                rec["uniform_bitwise"] &= bool(torch.equal(a, b))
+                continue
+            u = f32_ulps(a, b)
+            if f.kind == rng.GAMMA:
+                far = u > 1
+                rec["gamma_other_attempt"] += int(far.sum())
+                u = torch.where(far, torch.zeros_like(u), u)
+            rec["differ"] += int((u > 0).sum())
+            rec["max_ulps"] = max(rec["max_ulps"],
+                                  int(u.max()) if u.numel() else 0)
+        rec["share_differ"] = rec["differ"] / max(rec["values"], 1)
+        # tolerance: uniforms bit for bit (exact arithmetic); the float64
+        # transcendentals' float32 results equal but for at most 1e-4 of
+        # them, one ulp apart, and no gamma accepted at another attempt
+        rec["ok"] = bool(rec["uniform_bitwise"]
+                         and rec["nonfinite_mismatch"] == 0
+                         and rec["max_ulps"] <= 1
+                         and rec["share_differ"] <= 1e-4
+                         and rec["gamma_other_attempt"] == 0)
+        return rec
+
+    # 14a. the draw kernel against its plain version on every path's
+    # operands (captured in phases 3, 8, 9, 10 and 11): the plain version
+    # on the card, and on the CPU (the CPU tests' numbers; at stress on
+    # the first DRAW_CPU_STRESS_CHAINS chains)
+    drep["parity"] = []
+    for path in ("flagship", "stress", "full_mtm", "ens32", "pool"):
+        keys_d, sw_d, sh_d, tab_d = draw_args[path]
+        bshape = tuple(keys_d.shape[:-1])
+        B = math.prod(bshape)
+        out_k = rng.sweep_draws(keys_d, sw_d, sh_d, tab_d)
+        out_p = rng.sweep_draws_plain(keys_d, sw_d, sh_d, tab_d)
+        torch.cuda.synchronize()
+        vk = tab_d.views(out_k, (B,))
+        rec = {"path": path, "shape": list(bshape), "width": tab_d.width,
+               "fields": [f.name for f in tab_d.fields],
+               "vs_plain": draw_cmp(tab_d, vk, tab_d.views(out_p, (B,)))}
+        Bc = DRAW_CPU_STRESS_CHAINS if path == "stress" else B
+        kc, shc = keys_d.reshape(B, 2)[:Bc], sh_d.reshape(B, -1)[:Bc]
+        swc = sw_d.reshape(-1)[:Bc] if sw_d.numel() > 1 else sw_d
+        vc = tab_d.views(rng.sweep_draws_plain(
+            kc.cpu(), swc.cpu(), shc.cpu(), tab_d), (Bc,))
+        rec["vs_cpu_plain"] = draw_cmp(
+            tab_d, {k: v[:Bc].cpu() for k, v in vk.items()}, vc)
+        rec["cpu_chains"] = Bc
+        rec["max_abs_err"] = rec["vs_plain"]["max_abs_err"]
+        rec["ok"] = rec["vs_plain"]["ok"] and rec["vs_cpu_plain"]["ok"]
+        drep["parity"].append(rec)
+        print(f"# parity {DRAWS} {path} {list(bshape)} x {tab_d.width}: "
+              f"{json.dumps(rec)}", flush=True)
+        if not rec["ok"]:
+            fail(f"the draw kernel disagrees with its plain version on the "
+                 f"{path} path")
+    parity[DRAWS] = drep["parity"]
+    del out_k, out_p, vk, vc
+
+    # 14b. a chain's draws depend only on (seed, chain, sweep) on the card:
+    # the flagship's chains 0-15 drawn alone and the batch permuted give
+    # the same raw draws bit for bit; the 16-chain sampler's SweepDraws
+    # beside the 1024-chain sampler's rows (the covariance jumps go
+    # through L @ xi, a batched product, and are reported)
+    st_f = sampler.last_state
+    keys_f = sampler._chain_keys(1)
+    sw7 = torch.tensor(7, device=dev)
+    tab_f = sampler._table
+    a_f, b_f = sampler._theta_shapes(st_f.z)
+    sh_f = torch.stack([a_f, b_f, st_f.df / 2.0, (st_f.df + 1.0) / 2.0], -1)
+    raw_all = tab_f.views(rng.sweep_draws(keys_f, sw7, sh_f, tab_f),
+                          (NCHAINS,))
+    raw_16 = tab_f.views(rng.sweep_draws(keys_f[:16], sw7, sh_f[:16],
+                                         tab_f), (16,))
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(
+        NCHAINS)).to(dev)
+    raw_perm = tab_f.views(rng.sweep_draws(keys_f[perm], sw7, sh_f[perm],
+                                           tab_f), (NCHAINS,))
+    smp16 = tb.TorchGibbs(ma, cfg, nchains=16, device=dev)
+    d_all = sampler._draw(keys_f, sw7, st_f)
+    d_16 = smp16._draw(keys_f[:16], sw7,
+                       type(st_f)(*(t[:16] for t in st_f)))
+    ind = drep["independence"] = {
+        "subset_bitwise": all(torch.equal(raw_all[k][:16], raw_16[k])
+                              for k in raw_all),
+        "permuted_bitwise": all(torch.equal(raw_all[k][perm], raw_perm[k])
+                                for k in raw_all),
+        "sweep_draws_fields_bitwise": {
+            f: bool(torch.equal(a[:16], b))
+            for f, a, b in zip(d_all._fields, d_all, d_16) if a.numel()},
+        "sweep_draws_max_rel_err": max(
+            rel_err(a[:16], b)[1] for a, b in zip(d_all, d_16)
+            if a.numel())}
+    del raw_all, raw_16, raw_perm, d_all, d_16, smp16
+
+    # a pool tenant (32 chains) in the first two groups and, behind a
+    # neighbour of 32 chains, in the last two: its records bit for bit
+    def placed(first):
+        srv2 = ChainServer(template, cfg_p, nlanes=POOL_CPU_LANES, quantum=5,
+                           record="full", device=dev)
+        reqs = [TenantRequest(ma=tenant_mas[2], niter=10, nchains=32,
+                              seed=77),
+                TenantRequest(ma=tenant_mas[3], niter=10, nchains=32,
+                              seed=78)]
+        hs = [srv2.submit(r) for r in (reqs if first else reqs[::-1])]
+        srv2.run()
+        return hs[0 if first else 1].result()
+
+    r_a, r_b = placed(True), placed(False)
+    exact = ("chain", "zchain", "thetachain", "dfchain")
+    ind["pool_placements"] = {
+        **{f: bool(np.array_equal(getattr(r_a, f), getattr(r_b, f)))
+           for f in exact + ("bchain", "alphachain", "poutchain")},
+        **{k: bool(np.array_equal(r_a.stats[k], r_b.stats[k]))
+           for k in ("acc_white", "acc_hyper")}}
+    print(f"# draws independence: {json.dumps(ind)}", flush=True)
+    # tolerance: the raw draws bit for bit; the tenant's x, z, theta, df
+    # and accept rates bit for bit at both placements (b, alpha and pout
+    # reported)
+    if not (ind["subset_bitwise"] and ind["permuted_bitwise"]
+            and all(ind["pool_placements"][f] for f in exact
+                    + ("acc_white", "acc_hyper"))):
+        fail("a chain's draws depend on more than (seed, chain, sweep)")
+    del r_a, r_b
+
+    # 14c. card against CPU end to end: DRAW_SWEEPS flagship sweeps (64
+    # chains) from one state, each side drawing its own numbers from the
+    # same seed; each sweep of the card's trajectory is held as phase 4
+    # holds one, from a state 3 sweeps in, as phase 4's (from the prior
+    # draws of the initial state the b draw's factor amplifies float32
+    # differences past 1e-3: C-3)
+    keys_g, sw_g = keyed(small, 31, 3 + DRAW_SWEEPS)
+    keys_c, sw_c = keyed(small_cpu, 31, 3 + DRAW_SWEEPS)
+    st = small._prop_cov_update(small.init_state(seed=31))
+    for i in range(3):
+        st = small._sweep(st, small._draw(keys_g, sw_g[i], st), sweep=i)
+    e2e = drep["card_vs_cpu"] = []
+    for i in range(3, 3 + DRAW_SWEEPS):
+        st_c = type(st)(*map(to_cpu, st))
+        dr_g = small._draw(keys_g, sw_g[i], st)
+        dr_c = small_cpu._draw(keys_c, sw_c[i], st_c)
+        row = {"sweep": i, "draws_max_rel_err": {
+            f: rel_err(to_cpu(a), b)[1]
+            for f, a, b in zip(dr_g._fields, dr_g, dr_c) if a.numel()},
+            "draws_bitwise": {
+            f: bool(torch.equal(to_cpu(a), b))
+            for f, a, b in zip(dr_g._fields, dr_g, dr_c) if a.numel()}}
+        out_g = small._sweep(st, dr_g, sweep=i)
+        out_c = small_cpu._sweep(st_c, dr_c, sweep=i)
+        nw, nh = cfg.mh.n_white_steps, cfg.mh.n_hyper_steps
+        agree = ((torch.round(to_cpu(out_g.acc_white) * nw)
+                  == torch.round(out_c.acc_white * nw))
+                 & (torch.round(to_cpu(out_g.acc_hyper) * nh)
+                    == torch.round(out_c.acc_hyper * nh)))
+        row["chains_acc_mismatch"] = int((~agree).sum())
+        for f in ("x", "b"):
+            row[f] = rel_err(to_cpu(getattr(out_g, f)), getattr(out_c, f))[:2]
+        e2e.append(row)
+        st = out_g
+    print(f"# draws card-vs-cpu ({DRAW_SWEEPS} flagship sweeps, 64 chains): "
+          f"{json.dumps(e2e)}", flush=True)
+    # tolerance as phase 4, at every sweep
+    if any(r["chains_acc_mismatch"] or r["x"][1] > 1e-4 or r["b"][1] > 1e-3
+           for r in e2e):
+        fail("the card's sweeps disagree with the CPU's on their own draws")
+
+    # 14d. costs: the draws of one sweep (the kernel and its glue) against
+    # the parent's generator draws of the same fields, launches and device
+    # time profiled, and the kernel's time beside its bound, its plain
+    # version and (as the yardstick) the parent's draws; the pool's were
+    # measured with its tenants resident (phase 11d)
+    def draw_work(args):
+        """(bytes, float64 operations) of one draw-kernel call: keys,
+        sweep indices and shapes read once, every value written once; the
+        operations of each value's formula with a transcendental counted
+        as one and a gamma at one attempt (the first accepts > 95 % of
+        the time), a lower bound on the work."""
+        keys_d, sw_d, sh_d, tab_d = args
+        B = keys_d.numel() // 2
+        per = {rng.UNIFORM: 2, rng.NORMAL: 7, rng.LOG_UNIFORM: 3,
+               rng.GUMBEL: 4, rng.GAMMA: 25}
+        byts = (8 * keys_d.numel() + 8 * sw_d.numel() + 4 * sh_d.numel()
+                + 4 * B * tab_d.width)
+        return byts, B * sum(per[f.kind] * f.count for f in tab_d.fields)
+
+    def draw_row(path, args, extra):
+        byts, flops = draw_work(args)
+        return dict(
+            path=path, shape=list(args[0].shape[:-1]),
+            ms=timed(rng.sweep_draws, args, 50),
+            plain_ms=timed(rng.sweep_draws_plain, args, 3,
+                           queue_ahead=False),
+            bound_ms=max(byts / HBM_BYTES_PER_S, flops / FP64_FLOPS) * 1e3,
+            bound_by="bytes" if byts / HBM_BYTES_PER_S
+            >= flops / FP64_FLOPS else "operations",
+            bytes=byts, flops=flops, **extra)
+
+    costs = drep["costs"] = {}
+    for path, smp, st_p, prof_total, wall_ms in (
+            ("flagship", sampler, sampler.last_state, report["profile"],
+             1e3 * report["run"]["timed_wall_s"] / MORE),
+            ("stress", stress, stress.last_state, stress_rep["profile"],
+             stress_rep["run"]["ms_per_sweep"]),
+            ("ens32", ens, ens.last_state, ens_rep["profile"],
+             ens_rep["run"]["ms_per_sweep"])):
+        keys_p = smp._chain_keys(1)
+        sw_p = torch.tensor(9, device=dev)
+        gen_p = torch.Generator(device=dev).manual_seed(9)
+        new = profile_calls(torch, lambda: smp._draw(keys_p, sw_p, st_p),
+                            DRAW_PROFILE_CALLS)
+        old = profile_calls(torch, lambda: legacy_draw(torch, smp, gen_p,
+                                                       st_p),
+                            DRAW_PROFILE_CALLS)
+        extra = {"library_ms": timed(
+            lambda: legacy_draw(torch, smp, gen_p, st_p), (), 20)}
+        if path == "stress":
+            # the parent's alpha gammas alone (the stress path's bulk)
+            a_sh = (torch.stack([st_p.df, st_p.df + 1.0], -1) / 2.0)[
+                ..., None].expand(*st_p.df.shape, 2, smp._n).contiguous()
+            extra["standard_gamma_ms"] = timed(
+                lambda: torch._standard_gamma(a_sh, generator=gen_p), (), 20)
+            extra["alpha_gammas"] = a_sh.numel()
+            del a_sh
+        row = draw_row(path, draw_args[path], extra)
+        timing.setdefault(DRAWS, []).append(row)
+        costs[path] = {
+            "draw_launches_per_sweep": new["launches_per_sweep"],
+            "draw_device_ms_per_sweep": new["device_ms_per_sweep"],
+            "legacy_draw_launches_per_sweep": old["launches_per_sweep"],
+            "legacy_draw_device_ms_per_sweep": old["device_ms_per_sweep"],
+            "sweep_launches_per_sweep": prof_total["launches_per_sweep"],
+            "sweep_launches_before": prof_total["launches_per_sweep"]
+            - new["launches_per_sweep"] + old["launches_per_sweep"],
+            "sweep_device_ms_per_sweep": prof_total["device_ms_per_sweep"],
+            "sweep_wall_ms_per_sweep": wall_ms}
+        print(f"# time {DRAWS} {row['shape']} ({path}): {json.dumps(row)}",
+              flush=True)
+    pp = pool_rep["profile"]
+    row = draw_row("pool", draw_args["pool"], {
+        "library_ms": pool_draw_ms["legacy_ms"],
+        "draws_ms": pool_draw_ms["ms"]})
+    timing.setdefault(DRAWS, []).append(row)
+    print(f"# time {DRAWS} {row['shape']} (pool): {json.dumps(row)}",
+          flush=True)
+    costs["pool"] = {
+        "draw_launches_per_sweep": pp["draw_launches_per_sweep"],
+        "draw_device_ms_per_sweep": pp["draw_device_ms_per_sweep"],
+        "legacy_draw_launches_per_sweep":
+            pp["legacy_draw_launches_per_sweep"],
+        "legacy_draw_device_ms_per_sweep":
+            pp["legacy_draw_device_ms_per_sweep"],
+        "sweep_launches_per_sweep": pp["launches_per_sweep"],
+        "sweep_launches_before": pp["launches_per_sweep"]
+        - pp["draw_launches_per_sweep"]
+        + pp["legacy_draw_launches_per_sweep"],
+        "sweep_device_ms_per_sweep": pp["device_ms_per_sweep"],
+        "sweep_wall_ms_per_sweep": pp["wall_ms_per_sweep"],
+        "busy_chain_sweeps_per_s": prun["busy_chain_sweeps_per_s"],
+        "run_ms_per_sweep": prun["ms_per_sweep"]}
+    for path, c in costs.items():
+        print(f"# draw cost {path}: {c['draw_launches_per_sweep']:.1f} "
+              f"launches, {c['draw_device_ms_per_sweep']:.4f} device ms a "
+              f"sweep (generator draws: "
+              f"{c['legacy_draw_launches_per_sweep']:.1f} launches, "
+              f"{c['legacy_draw_device_ms_per_sweep']:.4f} ms); the sweep "
+              f"{c['sweep_launches_per_sweep']:.1f} launches (with the "
+              f"generator draws {c['sweep_launches_before']:.1f}), device "
+              f"{c['sweep_device_ms_per_sweep']:.4f} ms, wall "
+              f"{c['sweep_wall_ms_per_sweep']:.4f} ms | {card}", flush=True)
+    for r in timing[DRAWS]:
+        print(f"# {DRAWS} {r['path']} {r['shape']}: {r['ms']:.4f} ms, "
+              f"{r['ms'] / r['bound_ms']:.1f}x its {r['bound_by']} bound "
+              f"({r['bound_ms']:.5f} ms), plain {r['plain_ms']:.3f} ms, "
+              f"generator draws {r['library_ms']:.4f} ms"
+              + (f", _standard_gamma alone {r['standard_gamma_ms']:.4f} ms"
+                 if "standard_gamma_ms" in r else ""), flush=True)
+    drep["seconds"] = time.perf_counter() - t14
+    print(f"# phase 14: {drep['seconds']:.1f} s", flush=True)
+    del stress, ens
 
     # the redesigned kernels beside the first design and the library call
     # (reported, not gated)

@@ -18,22 +18,31 @@ white block runs as one launch of the white MTM kernel and the hyper
 block as the MTM loop over stacked factorizations through the chol
 kernel.
 
-A sweep is split into ``draws = self._draw(gen, state)``, which takes
-every random number the sweep needs from one ``torch.Generator``, and a
-deterministic ``state = self._sweep(state, draws, sweep)``, so tests can
-feed both this sampler and the JAX stages the same numbers. Two draws
-depend on values the sweep itself produces, and are drawn for both
-outcomes: the alpha update's Gamma((z + df)/2) comes as a pair of
-gammas (for z = 0 and z = 1) selected by the new z, and the z and df
-draws are a uniform and Gumbel noise the sweep compares against.
-``jax.random`` streams are not reproduced: the two samplers agree in
-law, not bitwise.
+A sweep is split into ``draws = self._draw(keys, sweep, state)``, which
+makes every random number the sweep needs, and a deterministic ``state =
+self._sweep(state, draws, sweep)``, so tests can feed both this sampler
+and the JAX stages the same numbers. Two draws depend on values the sweep
+itself produces, and are drawn for both outcomes: the alpha update's
+Gamma((z + df)/2) comes as a pair of gammas (for z = 0 and z = 1)
+selected by the new z, and the z and df draws are a uniform and Gumbel
+noise the sweep compares against. ``jax.random`` streams are not
+reproduced: the two samplers agree in law, not bitwise.
 
-Every sweep draws from the run's generator re-seeded with
-:func:`sweep_key` of ``(seed, sweep index)``, as the JAX backend keys
-each sweep by ``fold_in(key, sweep)``: a sweep's draws depend on neither
-the chunk it falls in nor ``start_sweep``, so N sweeps and N more from
-``last_state`` at ``start_sweep=N`` are the 2N unbroken sweeps.
+The draws are keyed per chain, as the JAX backend keys chain k with
+``random.split(PRNGKey(seed), nchains)[k]`` and folds the sweep index in
+each sweep: ``keys`` holds each chain's Philox key words
+(``ops/rng.chain_key(seed, k)``, built once a run), ``sweep`` is the sweep
+index as a device tensor, and every number is one Philox block at
+counters (element, attempt, field tag, sweep) under the chain's key
+(ops/rng.py). One launch of the draw kernel (``ops/rng.sweep_draws``, D1)
+writes every field; the glue here turns its uniforms into the scale
+mixture's step sizes and coordinate picks, scatters the jumps and takes
+``L @ xi`` for covariance proposals. So chain k's numbers depend only on
+(seed, k, sweep): not on the chunk a sweep falls in, nor on
+``start_sweep``, ``nchains`` or the chain's position in the batch, and a
+card run and a CPU run of one seed draw the same numbers (to a float64
+ulp of libm). N sweeps and N more from ``last_state`` at
+``start_sweep=N`` are the 2N unbroken sweeps.
 
 The stages are written over a leading batch shape: ``(C,)`` chains of
 one model here, ``(P, C)`` pulsars x chains in the ensemble
@@ -87,6 +96,7 @@ from gibbs_student_t_tpu_torch.obs.telemetry import (
     telemetry_update,
 )
 from gibbs_student_t_tpu_torch.obs.tracing import block_span, host_span
+from gibbs_student_t_tpu_torch.ops import rng
 from gibbs_student_t_tpu_torch.ops.chol import chol_fused
 from gibbs_student_t_tpu_torch.ops.hyper_mh import (
     MAX_HYPER_V,
@@ -101,6 +111,7 @@ from gibbs_student_t_tpu_torch.ops.linalg import (
     robust_precond_draw,
     schur_eliminate,
 )
+from gibbs_student_t_tpu_torch.ops.rng import sweep_draws
 from gibbs_student_t_tpu_torch.ops.tnt import (
     auto_block_size,
     matvec_blocked,
@@ -423,26 +434,6 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-_MASK64 = (1 << 64) - 1
-
-
-def sweep_key(seed: int, sweep: int) -> int:
-    """The 64-bit generator seed of sweep ``sweep`` of the run ``seed``:
-    the two packed into 64 bits and passed through the splitmix64
-    finalizer, a bijection, so distinct ``(seed, sweep)`` pairs give
-    distinct keys (both must lie in ``[0, 2**32)``). The mixing matters on
-    the CPU, whose Mersenne-Twister generator keeps only the key's low 32
-    bits: there, two pairs share a stream only by a hash collision."""
-    seed, sweep = int(seed), int(sweep)
-    if not (0 <= seed < 1 << 32 and 0 <= sweep < 1 << 32):
-        raise ValueError(f"seed ({seed}) and sweep ({sweep}) must lie in "
-                         f"[0, 2**32)")
-    z = (seed << 32) | sweep
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return z ^ (z >> 31)
-
-
 def _lift(v):
     """A per-model constant as an operand of per-column ``(..., w)``
     arithmetic: a number as it is, a ``(P, 1)`` tensor of per-pulsar
@@ -529,7 +520,7 @@ class TorchGibbs(SamplerBackend):
     through each chunk (obs/telemetry.py): per-block accept sums, the
     per-chain non-finite counters and the chunk-end log-posterior, pulled
     with the records; run-level aggregates land in ``ChainResult.stats``
-    under ``tele_*`` keys. Updates never touch the generator: chains are
+    under ``tele_*`` keys. Updates draw no random number: chains are
     bitwise the same either way. ``metrics`` (an
     ``obs.metrics.MetricsRegistry``) receives one ``chunk`` event per
     flushed chunk of a telemetry-on run
@@ -692,6 +683,7 @@ class TorchGibbs(SamplerBackend):
         self._hyper_idx = t(mm.hyper_indices, torch.long)
         self._df_grid = torch.arange(1, config.df_max + 1, dtype=f32,
                                      device=dev)
+        self._table = self._draw_table()
         self.last_state: Optional[ChainState] = None
 
     # ------------------------------------------------------------------
@@ -713,7 +705,11 @@ class TorchGibbs(SamplerBackend):
               * self._sigma2[..., None, :]).sum(-2)
         if len(mm.equad_idx):
             eq = self._pvals(x, mm.equad_idx, self._equad_c)
-            scaled = 10.0 ** (2.0 * eq) * mm.time_scale ** 2
+            # 10^(2 eq) as exp(2 ln10 eq), the white kernels' form: the
+            # CPU's vectorized pow rounds some inputs otherwise than its
+            # scalar loop, so a chain's variance would depend on its
+            # position in the batch
+            scaled = torch.exp(2.0 * LN10 * eq) * mm.time_scale ** 2
             nv = nv + (scaled[..., None] * self._equad_masks).sum(-2)
         return nv
 
@@ -848,95 +844,118 @@ class TorchGibbs(SamplerBackend):
             acc_white=full((c,), 0.0), acc_hyper=full((c,), 0.0),
             mh_log_scale=full((c, 2), 0.0), mh_cov_chol=cov0)
 
-    def _mh_draws(self, gen, ind, nsteps: int, jump_scale, cov_chol=None):
-        """One MH block's randomness for every chain: ``(dx (C, S, p),
-        logu (C, S))``. One random coordinate per step with the discrete
-        scale mixture (reference gibbs.py:91-97), or, with ``cov_chol``
-        (C, p, p), the joint direction ``L @ xi`` of population-covariance
-        proposals."""
+    def _draw_table(self) -> rng.DrawTable:
+        """The raw fields of one sweep's draws: per MH block the
+        scale-mixture uniforms, the coordinate-pick uniforms and jump
+        normals (or, under population-covariance proposals, the p normals
+        of each joint direction), under multiple-try Metropolis the same
+        again for the K-1 reference jumps and the Gumbel selection noise,
+        and the log-uniforms; then the b draw's normals, the theta gammas
+        (shape columns 0 and 1), the z uniforms, the alpha gammas (columns
+        2 and 3, n each) and the df Gumbel noise."""
+        mh, p = self.config.mh, self._ma.nparam
+        fields = []
+        for blk, S in (("white", mh.n_white_steps),
+                       ("hyper", mh.n_hyper_steps)):
+            K = mh.mtm_tries if self._mtm[blk] else 1
+            for suffix, ns in (("", S * K),) + (
+                    (("_ref", S * (K - 1)),) if K > 1 else ()):
+                fields.append(rng.DrawField(f"{blk}_scale{suffix}",
+                                            rng.UNIFORM, (ns,)))
+                if mh.adapt_cov:
+                    fields.append(rng.DrawField(f"{blk}_jump{suffix}",
+                                                rng.NORMAL, (ns, p)))
+                else:
+                    fields += [rng.DrawField(f"{blk}_pick{suffix}",
+                                             rng.UNIFORM, (ns,)),
+                               rng.DrawField(f"{blk}_jump{suffix}",
+                                             rng.NORMAL, (ns,))]
+            if K > 1:
+                fields.append(rng.DrawField(f"{blk}_gumbel", rng.GUMBEL,
+                                            (S, K)))
+            fields.append(rng.DrawField(f"{blk}_logu", rng.LOG_UNIFORM,
+                                        (S,)))
+        n = self._n
+        fields += [rng.DrawField("xi", rng.NORMAL, (self._ma.m,)),
+                   rng.DrawField("g_theta", rng.GAMMA, (2,), col=0, per=1),
+                   rng.DrawField("u_z", rng.UNIFORM, (n,)),
+                   rng.DrawField("g_alpha", rng.GAMMA, (2, n), col=2,
+                                 per=n),
+                   rng.DrawField("gumbel_df", rng.GUMBEL,
+                                 (self.config.df_max,))]
+        return rng.DrawTable(fields)
+
+    def _jumps(self, raw, blk, suffix, ind, jump_scale, cov_chol):
+        """``dx (..., ns, p)``: one MH jump set from its raw fields
+        (``{blk}_scale{suffix}``, ``_pick``, ``_jump``; ``suffix`` is
+        ``_ref`` for the MTM reference jumps). One random coordinate
+        per step with the discrete scale mixture (reference
+        gibbs.py:91-97): the step size from the uniform's bin of the
+        mixture's CDF, the coordinate ``floor(u * len(ind))`` (exact in
+        float64 on the 2^-24 grid of the uniforms); or, with ``cov_chol
+        (..., p, p)``, the joint direction ``L @ xi`` of
+        population-covariance proposals."""
         mh = self.config.mh
-        B, p = tuple(jump_scale.shape), self._ma.nparam
-        dev, f32 = self.device, self.dtype
-        sigma = mh.sigma_per_param * len(ind) * jump_scale          # (C,)
-        u = torch.rand((*B, nsteps), generator=gen, device=dev, dtype=f32)
-        k = torch.searchsorted(self._scale_cdf, u, right=True)
+        sigma = mh.sigma_per_param * len(ind) * jump_scale
+        k = torch.searchsorted(self._scale_cdf, raw[f"{blk}_scale{suffix}"],
+                               right=True)
         scales = self._scale_sizes[k.clamp_(max=len(mh.scale_sizes) - 1)]
-        step = sigma[..., None] * scales                             # (C, S)
-        if cov_chol is None:
-            pick = torch.randint(0, len(ind), (*B, nsteps), generator=gen,
-                                 device=dev)
-            jumps = torch.randn((*B, nsteps), generator=gen, device=dev,
-                                dtype=f32) * step
-            dx = torch.zeros((*B, nsteps, p), dtype=f32, device=dev)
-            dx.scatter_(-1, ind[pick][..., None], jumps[..., None])
-        else:
-            xi = torch.randn((*B, nsteps, p), generator=gen, device=dev,
-                             dtype=f32)
-            dx = step[..., None] * torch.matmul(xi, cov_chol.transpose(-1, -2))
-        logu = torch.log(torch.rand((*B, nsteps), generator=gen, device=dev,
-                                    dtype=f32))
-        return dx, logu
+        step = sigma[..., None] * scales                         # (..., ns)
+        jump = raw[f"{blk}_jump{suffix}"]
+        if cov_chol is not None:
+            return step[..., None] * torch.matmul(
+                jump, cov_chol.transpose(-1, -2))
+        pick = (raw[f"{blk}_pick{suffix}"].double() * len(ind)).long()
+        jumps = jump * step
+        dx = step.new_zeros(step.shape + (self._ma.nparam,))
+        return dx.scatter_(-1, ind[pick][..., None], jumps[..., None])
 
-    def _mtm_draws(self, gen, ind, nsteps: int, jump_scale, cov_chol=None):
-        """One MTM block's randomness (the JAX backend's ``_mtm_draws``):
-        per step K candidate jumps and K-1 reference jumps from the same
-        jump kernel as :meth:`_mh_draws`, K Gumbel selection draws and one
-        log-uniform. Returns ``(dx (C, S, K, p), dxr (C, S, K-1, p),
-        gumb (C, S, K), logu (C, S))``."""
-        K = self.config.mh.mtm_tries
-        B, p = tuple(jump_scale.shape), self._ma.nparam
-        dev, f32 = self.device, self.dtype
-        dx, _ = self._mh_draws(gen, ind, nsteps * K, jump_scale, cov_chol)
-        dxr, _ = self._mh_draws(gen, ind, nsteps * (K - 1), jump_scale,
-                                cov_chol)
-        u = torch.rand((*B, nsteps, K), generator=gen, device=dev, dtype=f32)
-        logu = torch.log(torch.rand((*B, nsteps), generator=gen, device=dev,
-                                    dtype=f32))
-        return (dx.reshape(*B, nsteps, K, p),
-                dxr.reshape(*B, nsteps, K - 1, p),
-                -torch.log(-torch.log(u)), logu)
-
-    def _block_draws(self, gen, blk: str, ind, nsteps: int, jump_scale,
-                     cov_chol):
+    def _block_draws(self, raw, blk: str, ind, jump_scale, cov_chol):
         """``(dx, logu, dxr, gumb)`` of one MH block, single- or
-        multiple-try (``dxr``/``gumb`` empty for single-try)."""
-        if self._mtm[blk]:
-            dx, dxr, gumb, logu = self._mtm_draws(gen, ind, nsteps,
-                                                  jump_scale, cov_chol)
-            return dx, logu, dxr, gumb
-        dx, logu = self._mh_draws(gen, ind, nsteps, jump_scale, cov_chol)
-        empty = dx.new_zeros((*jump_scale.shape, 0))
-        return dx, logu, empty, empty
+        multiple-try (the JAX backend's ``_mtm_draws``: per step K
+        candidate jumps and K-1 reference jumps from the same jump kernel,
+        K Gumbel selection draws and one log-uniform; ``dxr``/``gumb``
+        empty for single-try)."""
+        logu = raw[blk + "_logu"]
+        dx = self._jumps(raw, blk, "", ind, jump_scale, cov_chol)
+        if not self._mtm[blk]:
+            empty = dx.new_zeros((*jump_scale.shape, 0))
+            return dx, logu, empty, empty
+        B, p = tuple(jump_scale.shape), self._ma.nparam
+        gumb = raw[blk + "_gumbel"]
+        S, K = gumb.shape[-2:]
+        dxr = self._jumps(raw, blk, "_ref", ind, jump_scale, cov_chol)
+        return (dx.reshape(*B, S, K, p), logu,
+                dxr.reshape(*B, S, K - 1, p), gumb)
 
-    def _draw(self, gen, state: ChainState) -> SweepDraws:
-        """All of one sweep's random numbers (see the module docstring), at
-        the state's batch shape: the sampler's own, or, in the serving
-        slot pool, one tenant's ``(C_t,)`` chains (it reads ``z``, ``df``,
-        ``mh_log_scale`` and ``mh_cov_chol`` of ``state``)."""
-        cfg, mh = self.config, self.config.mh
-        B, n, m = tuple(state.df.shape), self._n, self._ma.m
-        dev, f32 = self.device, self.dtype
+    def _draw(self, keys, sweep, state: ChainState, out=None) -> SweepDraws:
+        """All of one sweep's random numbers (see the module docstring) for
+        the chains keyed ``keys (*batch, 2)`` (int64 words from
+        ``ops.rng.chain_key``) at ``sweep`` (an int64 device tensor: one
+        index, or one a chain), at the state's batch shape: the sampler's
+        own, a subset of its chains, or the serving pool's lanes (it reads
+        ``z``, ``df``, ``mh_log_scale`` and ``mh_cov_chol`` of ``state``).
+        One launch of the draw kernel writes the raw fields (into ``out``
+        when given); ``out`` and the fields' views stay valid until the
+        next call that writes the same buffer."""
+        mh = self.config.mh
+        B = tuple(state.df.shape)
+        a, b = self._theta_shapes(state.z)
+        df = state.df
+        shapes = torch.stack([a, b, df / 2.0, (df + 1.0) / 2.0], -1)
+        raw = self._table.views(
+            sweep_draws(keys, sweep, shapes, self._table, out=out), B)
         cov = state.mh_cov_chol if mh.adapt_cov else None
         scale = torch.exp(state.mh_log_scale)
         dx_w, logu_w, dxr_w, gumb_w = self._block_draws(
-            gen, "white", self._white_idx, mh.n_white_steps, scale[..., 0],
+            raw, "white", self._white_idx, scale[..., 0],
             None if cov is None else cov[..., 0, :, :])
         dx_h, logu_h, dxr_h, gumb_h = self._block_draws(
-            gen, "hyper", self._hyper_idx, mh.n_hyper_steps, scale[..., 1],
+            raw, "hyper", self._hyper_idx, scale[..., 1],
             None if cov is None else cov[..., 1, :, :])
-        xi = torch.randn((*B, m), generator=gen, device=dev, dtype=f32)
-        a, b = self._theta_shapes(state.z)
-        g_theta = torch._standard_gamma(torch.stack([a, b], -1),
-                                        generator=gen)
-        u_z = torch.rand((*B, n), generator=gen, device=dev, dtype=f32)
-        shape = torch.stack([state.df, state.df + 1.0], -1) / 2.0
-        g_alpha = torch._standard_gamma(
-            shape[..., None].expand(*B, 2, n).contiguous(), generator=gen)
-        ug = torch.rand((*B, cfg.df_max), generator=gen, device=dev,
-                        dtype=f32)
-        gumbel = -torch.log(-torch.log(ug))
-        return SweepDraws(dx_w, logu_w, dx_h, logu_h, xi, g_theta, u_z,
-                          g_alpha, gumbel, dxr_w, gumb_w, dxr_h, gumb_h)
+        return SweepDraws(dx_w, logu_w, dx_h, logu_h, raw["xi"],
+                          raw["g_theta"], raw["u_z"], raw["g_alpha"],
+                          raw["gumbel_df"], dxr_w, gumb_w, dxr_h, gumb_h)
 
     def _theta_shapes(self, z):
         """The Beta(a, b) shapes of the outlier-fraction conditional
@@ -1194,13 +1213,14 @@ class TorchGibbs(SamplerBackend):
         issued (the JAX backend's double-buffered flush). With
         population-covariance proposals the proposal factors are
         re-estimated at chunk boundaries while the sweep index is below
-        ``adapt_until``. Sweep ``i`` draws from the generator seeded with
-        ``sweep_key(seed, i)``, so a run resumed from ``last_state`` at
-        ``start_sweep`` continues the unbroken run bitwise when both cut
-        their chunks at the same sweeps. ``reinit_diverged`` re-draws
-        numerically dead chains (:meth:`diverged_mask`) from the prior at
-        chunk boundaries, with the count in ``stats['n_reinits']``; its
-        flushes are sequential (the scan needs each post-chunk state).
+        ``adapt_until``. Chain k's draws at sweep ``i`` are keyed by
+        ``(seed, k, i)`` (the module docstring), so a run resumed from
+        ``last_state`` at ``start_sweep`` continues the unbroken run
+        bitwise when both cut their chunks at the same sweeps.
+        ``reinit_diverged`` re-draws numerically dead chains
+        (:meth:`diverged_mask`) from the prior at chunk boundaries, with
+        the count in ``stats['n_reinits']``; its flushes are sequential
+        (the scan needs each post-chunk state).
 
         With ``spool_dir``, each chunk's float32 rows go to the spool
         files of that directory and its chunk-end state to its checkpoint
@@ -1264,8 +1284,9 @@ class TorchGibbs(SamplerBackend):
         rows go to ``spool``, a ``ChainSpool``, instead, cut to the real
         TOAs by :meth:`_trim`) and the run's ``n_reinits`` and ``tele_*``
         stats; ``last_state`` is set."""
-        gen = torch.Generator(device=self.device)
         mh = self.config.mh
+        keys = self._chain_keys(seed)
+        rng.check_counter("the last sweep index", start_sweep + niter - 1)
         thin = self.record_thin
         fields = self._record_fields
         if self.device.type == "cuda" and self._pull_stream is None:
@@ -1291,12 +1312,15 @@ class TorchGibbs(SamplerBackend):
             rows = {f: [] for f in fields}
             tl = (telemetry_init(self._batch, self.device, self.dtype)
                   if self.telemetry else None)
-            for i in range(offset, offset + length):
-                if (i - offset) % thin == 0:
+            # the chunk's sweep indices on the device: sweep i reads its
+            # own element, a view (no launch)
+            sweeps = torch.arange(offset, offset + length, device=self.device)
+            for j, i in enumerate(range(offset, offset + length)):
+                if j % thin == 0:
                     for f in fields:
                         rows[f].append(getattr(st, f))
-                st = self._sweep(st, self._draw(
-                    gen.manual_seed(sweep_key(seed, i)), st), sweep=i)
+                st = self._sweep(st, self._draw(keys, sweeps[j], st),
+                                 sweep=i)
                 if tl is not None:
                     tl = telemetry_update(tl, st)
             recs = record_tuple(
@@ -1355,6 +1379,15 @@ class TorchGibbs(SamplerBackend):
         if tele_acc is not None:
             stats.update(tele_acc.stats())
         return cols, stats
+
+    def _chain_keys(self, seed: int) -> torch.Tensor:
+        """``(*batch, 2)`` key words of the run ``seed``'s chains on the
+        device: the batch's chains numbered in row-major order (chain k
+        of the solo sampler is k; pulsar p's chain c of an ensemble of C
+        chains a pulsar is ``p * C + c``, as the JAX ensemble splits its
+        keys pulsar-major)."""
+        idx = np.arange(math.prod(self._batch)).reshape(self._batch)
+        return rng.chain_keys(seed, idx, device=self.device)
 
     def sample_until(self, rhat_target: float = 1.01,
                      max_sweeps: int = 20000, check_every: int = 500,

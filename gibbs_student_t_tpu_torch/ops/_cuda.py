@@ -12,6 +12,9 @@ together, then linked once.
 ``--use_fast_math`` is deliberately absent: the MH kernels' reject
 semantics (a non-PD pivot gives NaN, NaN never accepts, an out-of-bounds
 prior is -inf) rest on IEEE ``logf``/``expf``/``rsqrtf`` behaviour.
+``SOURCE_FLAGS`` adds a file's own flags: ``draws.cu`` is built with
+``-fmad=false``, so that its float64 arithmetic rounds each operation as
+the plain PyTorch version on the CPU does.
 
 Every C entry returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises when that is non-zero. Nothing here is imported or
@@ -34,6 +37,8 @@ BUILD = os.path.join(_PKG, "_build")
 LIB_NAME = "libgst_cuda.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: extra nvcc flags of one source file, by its name
+SOURCE_FLAGS = {"draws.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,6 +62,7 @@ _SIGNATURES = {
     "gst_tnt_workspace": ([_I, _I, _I], _Z),
     "gst_tnt_lanes": ([_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _L, _L,
                        _I, _P], _I),
+    "gst_sweep_draws": ([_P, _P, _I, _P, _I, _P, _P, _I, _L, _P], _I),
 }
 
 _lock = threading.Lock()
@@ -71,6 +77,7 @@ def _sources():
 
 def _hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for path in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as fh:
@@ -103,7 +110,8 @@ def build(force: bool = False) -> str:
     nvcc = _nvcc()
     objs = [os.path.join(BUILD, os.path.basename(src)[:-3] + ".o")
             for src in _sources()]
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+    cmds = [[nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(os.path.basename(src), ()),
+             "-c", src, "-o", obj]
             for src, obj in zip(_sources(), objs)]
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)

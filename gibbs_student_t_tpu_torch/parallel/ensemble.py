@@ -276,7 +276,7 @@ class EnsembleGibbs(TorchGibbs):
                      "_pull_stream", "_mtm", "device", "nchains", "dtype",
                      "_block_size", "_ma", "_n", "_pspin",
                      "_scale_sizes", "_scale_cdf", "_white_idx",
-                     "_hyper_idx", "_df_grid"):
+                     "_hyper_idx", "_df_grid", "_table"):
             setattr(self, name, getattr(t0, name))
         self._batch = (self.npulsars, self.nchains)
         self.metrics = metrics
@@ -369,10 +369,12 @@ class EnsembleGibbs(TorchGibbs):
         """Run ``niter`` sweeps for every (pulsar, chain) population from
         ``state`` (default: :meth:`init_state` at ``seed``); records as
         ``TorchGibbs.sample`` keeps them, with the pulsar axis after the
-        sweep axis and the per-TOA fields at the padded length. Sweep
-        ``i`` draws from the generator seeded by ``(seed, i)``, so a run
-        resumed at ``start_sweep`` from ``last_state`` continues the
-        unbroken run bitwise. ``reinit_diverged`` re-draws numerically
+        sweep axis and the per-TOA fields at the padded length. Pulsar
+        p's chain c draws at sweep ``i`` from its own key, ``(seed, p * C
+        + c, i)`` (the JAX ensemble splits its keys pulsar-major), in one
+        launch of the draw kernel for every pulsar, so a run resumed at
+        ``start_sweep`` from ``last_state`` continues the unbroken run
+        bitwise. ``reinit_diverged`` re-draws numerically
         dead (pulsar, chain) populations from the prior at chunk
         boundaries (count in ``stats['n_reinits']``). ``spool_dir`` as in
         ``TorchGibbs.sample``."""

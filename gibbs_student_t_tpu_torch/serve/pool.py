@@ -20,15 +20,17 @@ into its groups' slices of tensors allocated once at construction; no
 kernel is built or rebuilt per tenant (the eager counterpart of the JAX
 pool's one compiled program).
 
-Randomness: a tenant's draws for its tenant-local sweep ``i`` come from
-the pool's generator seeded with ``sweep_key(seed, i)`` and are drawn at
-the tenant's own chain count, by the same calls in the same order as
-``TorchGibbs._draw``, then written into its lanes. They depend neither on
-its lanes nor on its neighbours, so a tenant alone in the pool is the
-solo sampler: ``TorchGibbs.sample`` with the same seed
-(tests/test_torch_serve.py). The JAX pool gives the same guarantee with
-per-chain philox keys; per-chain keys (so that a chain's draws also stop
-depending on ``nchains``) are left for later.
+Randomness (the JAX pool's per-lane philox keys): each lane carries its
+tenant chain's key words and the tenant-local index of its next sweep, in
+``(G, 16, 2)`` and ``(G, 16)`` device tensors written at admission (pad
+lanes and free groups keep them parked at zeros). Every sweep draws every
+lane's numbers in one launch of the draw kernel (``ops/rng.sweep_draws``)
+at the lanes' own sweep indices, with the solo sampler's draw code
+(``TorchGibbs._draw``). Chain k of a tenant with seed s draws at its sweep
+i what chain k of ``TorchGibbs.sample(seed=s)`` draws at sweep i: the
+numbers depend on neither its lanes nor its neighbours nor its chain
+count, so a tenant alone in the pool is the solo sampler
+(tests/test_torch_serve.py), wherever its lanes fall.
 
 Lanes not owned by a tenant's chains (free groups, and the pad lanes of a
 tenant whose chain count is not a multiple of 16) are frozen at the end
@@ -57,10 +59,10 @@ from gibbs_student_t_tpu_torch.backends.torch_backend import (
     SweepDraws,
     TorchGibbs,
     resolve_device,
-    sweep_key,
 )
 from gibbs_student_t_tpu_torch.config import GibbsConfig
 from gibbs_student_t_tpu_torch.models.pta import ModelArrays
+from gibbs_student_t_tpu_torch.ops import rng
 from gibbs_student_t_tpu_torch.ops.hyper_mh import hyper_mh_lanes
 from gibbs_student_t_tpu_torch.ops.lanes import LANES_GROUP
 from gibbs_student_t_tpu_torch.ops.tnt import tnt_lanes
@@ -72,8 +74,6 @@ from gibbs_student_t_tpu_torch.parallel.ensemble import (
 
 #: gid of lanes no tenant owns (whole free groups)
 FREE_GID = -1
-#: the state fields ``TorchGibbs._draw`` reads
-_DRAW_FIELDS = ("z", "df", "mh_log_scale", "mh_cov_chol")
 
 
 class TenantSlot:
@@ -100,15 +100,6 @@ class TenantSlot:
     @property
     def remaining(self) -> int:
         return self.niter - self.done_sweeps
-
-
-def _rows(lanes: np.ndarray, device):
-    """A slice when ``lanes`` are consecutive (a view, no copy), else an
-    index tensor on ``device``."""
-    lo = int(lanes[0])
-    if np.array_equal(lanes, np.arange(lo, lo + len(lanes))):
-        return slice(lo, lo + len(lanes))
-    return torch.as_tensor(lanes, dtype=torch.long, device=device)
 
 
 def _flat(t):
@@ -214,9 +205,9 @@ class SlotPool:
         self.n_pool = tmpl.n
         G = nlanes // LANES_GROUP
         self.sampler = _LaneSampler(tmpl, config, G, device)
-        # the draws of every tenant, at its own chain count (_draw reads
-        # only structure and the state, which the pool's tenants share
-        # with the template), and the lanes' first state: the template's
+        # the draws of every lane (_draw reads only structure and the
+        # state, which the pool's tenants share with the template), the
+        # Robbins-Monro steps and the lanes' first state: the template's
         self.drawer = TorchGibbs(tmpl, config, nchains=nlanes,
                                  device=device, tnt_block_size=None,
                                  record=record)
@@ -224,16 +215,19 @@ class SlotPool:
         flat = self.drawer.init_state(seed=0)
         self.state = ChainState(*(t.reshape(G, LANES_GROUP, *t.shape[1:])
                                   for t in flat))
-        self._gen = torch.Generator(device=device)
-        # one sweep's draws for every lane, allocated once: the tenants'
-        # draws are written into their lanes each sweep. Lanes no tenant
-        # draws for keep finite values (a rejected MH step, theta 1/2)
-        shapes = self.drawer._draw(self._gen.manual_seed(0), flat)
-        self._draws = SweepDraws(*(
-            torch.full((G, LANES_GROUP, *t.shape[1:]),
-                       1.0 if name in ("g_theta", "g_alpha") else 0.0,
-                       dtype=t.dtype, device=device)
-            for name, t in zip(SweepDraws._fields, shapes)))
+        # one sweep's raw draws for every lane, allocated once; each
+        # lane's key words and next tenant-local sweep (host mirrors,
+        # uploaded with the flags)
+        self._raw = torch.empty(nlanes * self.drawer._table.width,
+                                dtype=torch.float32, device=device)
+        self._keys_np = np.zeros((nlanes, 2), np.int64)
+        self._sweep_np = np.zeros(nlanes, np.int64)
+        self._lane_keys = torch.zeros((G, LANES_GROUP, 2), dtype=torch.int64,
+                                      device=device)
+        self._lane_sweep = torch.zeros((G, LANES_GROUP), dtype=torch.int64,
+                                       device=device)
+        self._steps = torch.arange(quantum, dtype=torch.int64,
+                                   device=device)[:, None, None]
         # host-authoritative lane flags, uploaded at the next quantum
         self._active_np = np.zeros(nlanes, bool)
         self._gid_np = np.full(nlanes, FREE_GID, np.int32)
@@ -242,9 +236,6 @@ class SlotPool:
         self._dirty = True
         self._slots: Dict[int, TenantSlot] = {}
         self._next_sweep: Dict[int, int] = {}
-        # each tenant's chain lanes: a slice, or an index tensor when its
-        # groups are not consecutive
-        self._rows: Dict[int, object] = {}
 
     # ------------------------------------------------------------------
     # lane writes
@@ -271,10 +262,14 @@ class SlotPool:
         self._active_np[lanes[:k]] = True
         self._active_np[lanes[k:]] = False
         self._gid_np[lanes] = slot.tenant_id
+        self._keys_np[lanes[:k]] = rng.chain_keys(slot.seed,
+                                                  np.arange(k)).numpy()
+        self._keys_np[lanes[k:]] = 0
+        self._sweep_np[lanes[:k]] = slot.start_sweep
+        self._sweep_np[lanes[k:]] = 0
         self._dirty = True
         self._slots[slot.tenant_id] = slot
         self._next_sweep[slot.tenant_id] = slot.start_sweep
-        self._rows[slot.tenant_id] = _rows(slot.chain_lanes, self.device)
 
     def evict(self, slot: TenantSlot) -> None:
         """Free a tenant's lanes: inactive, their groups free. Their model
@@ -282,8 +277,10 @@ class SlotPool:
         them."""
         self._active_np[slot.lanes] = False
         self._gid_np[slot.lanes] = FREE_GID
+        self._keys_np[slot.lanes] = 0
+        self._sweep_np[slot.lanes] = 0
         self._dirty = True
-        for d in (self._slots, self._next_sweep, self._rows):
+        for d in (self._slots, self._next_sweep):
             d.pop(slot.tenant_id, None)
 
     def tenant_state(self, slot: TenantSlot) -> ChainState:
@@ -302,10 +299,11 @@ class SlotPool:
     def _upload(self) -> None:
         if self._dirty:
             G = self.nlanes // LANES_GROUP
-            self._active.copy_(torch.from_numpy(self._active_np).reshape(
-                G, LANES_GROUP))
-            self.sampler.gid.copy_(torch.from_numpy(self._gid_np).reshape(
-                G, LANES_GROUP))
+            for dst, src in ((self._active, self._active_np),
+                             (self.sampler.gid, self._gid_np),
+                             (self._lane_keys, self._keys_np),
+                             (self._lane_sweep, self._sweep_np)):
+                dst.copy_(torch.from_numpy(src).reshape(dst.shape))
             self._dirty = False
 
     def _eta_table(self):
@@ -319,25 +317,16 @@ class SlotPool:
         return torch.from_numpy(table).to(self.device).reshape(
             self.quantum, -1, LANES_GROUP, 1)
 
-    def _write_draws(self, st: ChainState, step: int) -> None:
-        """Every resident tenant's draws of its sweep ``step`` of this
-        quantum, drawn at its chain count and written into its lanes."""
-        for tid, slot in self._slots.items():
-            rows = self._rows[tid]
-            if isinstance(rows, slice):
-                view = {f: _flat(getattr(st, f))[rows] for f in _DRAW_FIELDS}
-            else:
-                view = {f: _flat(getattr(st, f)).index_select(0, rows)
-                        for f in _DRAW_FIELDS}
-            st_t = ChainState(**{f: view.get(f) for f in ChainState._fields})
-            i = self._next_sweep[tid] + step
-            dr = self.drawer._draw(
-                self._gen.manual_seed(sweep_key(slot.seed, i)), st_t)
-            for buf, val in zip(self._draws, dr):
-                if isinstance(rows, slice):
-                    _flat(buf)[rows].copy_(val)
-                else:
-                    _flat(buf).index_copy_(0, rows, val)
+    def _lane_draws(self, st: ChainState, sweeps) -> SweepDraws:
+        """Every lane's draws of one sweep, at the lanes' sweep indices
+        ``sweeps (G, 16)``: one launch of the draw kernel over all lanes,
+        written into the pool's one raw buffer."""
+        G = self.nlanes // LANES_GROUP
+        flat = ChainState(*(_flat(t) for t in st))
+        dr = self.drawer._draw(_flat(self._lane_keys), _flat(sweeps), flat,
+                               out=self._raw)
+        return SweepDraws(*(t.reshape(G, LANES_GROUP, *t.shape[1:])
+                            for t in dr))
 
     def run_quantum(self) -> Dict[str, torch.Tensor]:
         """Advance every lane by ``quantum`` sweeps and return the records:
@@ -350,11 +339,12 @@ class SlotPool:
             smp.eta = self._eta_table()
         start = st = self.state
         recs = {f: [] for f in self.fields}
+        # each lane's sweep index at every step of the quantum
+        sweeps = self._lane_sweep + self._steps
         for j in range(self.quantum):
             for f in self.fields:
                 recs[f].append(getattr(st, f))
-            self._write_draws(st, j)
-            st = smp._sweep(st, self._draws, sweep=j)
+            st = smp._sweep(st, self._lane_draws(st, sweeps[j]), sweep=j)
         if not self._active_np.all():
             st = ChainState(*(
                 torch.where(self._active.reshape(
@@ -363,6 +353,9 @@ class SlotPool:
         self.state = st
         for tid in self._next_sweep:
             self._next_sweep[tid] += self.quantum
+        if self._slots:
+            self._sweep_np[self._active_np] += self.quantum
+            self._dirty = True
         return {f: torch.stack(v) for f, v in recs.items()}
 
     # ------------------------------------------------------------------

@@ -30,9 +30,10 @@ class QueueFull(RuntimeError):
 class TenantRequest:
     """One job for the slot pool: ``niter`` sweeps (a multiple of the pool
     quantum) of ``nchains`` chains of the model ``ma`` from the seed
-    ``seed``. ``state`` and ``start_sweep`` resume a tenant: sweep ``i`` of
-    a tenant draws from ``sweep_key(seed, i)``, so a continuation equals
-    the unbroken run."""
+    ``seed``. ``state`` and ``start_sweep`` resume a tenant: chain k of a
+    tenant draws at its sweep ``i`` from the key of ``(seed, k)`` at
+    counter ``i`` (ops/rng.py), whatever lanes it holds, so a
+    continuation equals the unbroken run."""
 
     ma: ModelArrays
     niter: int

@@ -21,12 +21,10 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from gibbs_student_t_tpu_torch.backends.torch_backend import (
-    TorchGibbs,
-    sweep_key,
-)
+from gibbs_student_t_tpu_torch.backends.torch_backend import TorchGibbs
 from gibbs_student_t_tpu_torch.config import GibbsConfig
 from gibbs_student_t_tpu_torch.models.pta import ModelArrays
+from gibbs_student_t_tpu_torch.ops.rng import check_counter
 from gibbs_student_t_tpu_torch.parallel.ensemble import (
     _localize_names,
     _structure,
@@ -80,8 +78,10 @@ class ChainServer:
             raise ValueError(
                 f"tenant needs {groups} lane groups; the pool only has "
                 f"{pool.nlanes // pool.group}")
-        # every tenant-local sweep must have a key
-        sweep_key(request.seed, request.start_sweep + request.niter - 1)
+        # the seed and every tenant-local sweep index must fit their
+        # 32-bit key and counter words
+        check_counter("seed", request.seed)
+        check_counter("sweep", request.start_sweep + request.niter - 1)
         if self.queue.full() and self.queue.policy == "block":
             while self.queue.full() and self.step():
                 pass

@@ -27,32 +27,36 @@ def separate_ties(ll_lp64, x, dx, logu, margin=1e-3, push=1e-2, others=(),
 
     ``others`` are float32 evaluations ``ll_lp(q) -> (ll, lp)`` of the
     same block (on other operands or another device; ``q`` is passed as
-    float32 on ``x``'s device). Where a step's float32 delta departs from
-    the float64 one by ``err`` along the float64 path, that step's margin
-    grows to ``SPREAD_FACTOR * err`` and its push to twice its margin: a
-    decision that float32 cannot resolve is moved out of its reach. Where
-    one of them is not finite and the float64 delta is, or the other way
-    round, ``logu`` is set to -inf (float64 accepts) or +inf (it
-    rejects). A dict passed as ``info`` receives ``max_err``, the largest
-    finite ``err``, and ``forced``, the number of draws set to an
-    infinity."""
+    float32 on ``x``'s device). They follow the float64 path's decisions
+    with float32 arithmetic, as a float32 block forms its proposals
+    (``x + dx`` rounded in float32), so a proposal that float32 rounds
+    onto a prior bound, or off it, is seen. Where a step's float32 delta
+    departs from the float64 one by ``err``, that step's margin grows to
+    ``SPREAD_FACTOR * err`` and its push to twice its margin: a decision
+    that float32 cannot resolve is moved out of its reach. Where one of
+    them is not finite and the float64 delta is, or the other way round,
+    ``logu`` is set to -inf (float64 accepts) or +inf (it rejects). A
+    dict passed as ``info`` receives ``max_err``, the largest finite
+    ``err``, and ``forced``, the number of draws set to an infinity."""
+    xf, dxf = x.float(), dx.float()
     x = x.double()
     dx = dx.double()
     logu = logu.clone().double()
 
-    def evals(q):
+    def evals(q, qf):
         out = [ll_lp64(q)]
         for f in others:
-            ll, lp = f(q.float())
+            ll, lp = f(qf)
             out.append((ll.to(x.device, torch.float64),
                         lp.to(x.device, torch.float64)))
         return [ll + lp for ll, lp in out]
 
-    w0 = evals(x)
+    w0 = evals(x, xf)
     max_err, forced = 0.0, 0
     for i in range(dx.shape[1]):
         q = x + dx[:, i]
-        w1 = evals(q)
+        qf = xf + dxf[:, i]
+        w1 = evals(q, qf)
         delta = w1[0] - w0[0]
         err = torch.zeros_like(delta)
         force = torch.zeros_like(delta, dtype=torch.bool)
@@ -72,6 +76,7 @@ def separate_ties(ll_lp64, x, dx, logu, margin=1e-3, push=1e-2, others=(),
         logu[:, i] = torch.where(force, torch.where(acc, -inf, inf), lu)
         forced += int(force.sum())
         x = torch.where(acc[:, None], q, x)
+        xf = torch.where(acc[:, None], qf, xf)
         w0 = [torch.where(acc, a, b) for a, b in zip(w1, w0)]
     if info is not None:
         info.update(max_err=max_err, forced=forced)

@@ -5,8 +5,11 @@ sampler state is the batched :class:`ChainState` plus a sweep counter, so
 a checkpoint is one ``.npz`` whose keys are the ``ChainState`` field names
 (the same in both packages) plus ``sweep`` and ``seed``: a checkpoint
 written by either package loads in the other. Resume is exact because
-sweep ``i`` draws from ``sweep_key(seed, i)``
-(backends/torch_backend.py), whatever chunk or call it falls in.
+chain k draws at sweep ``i`` from the key of ``(seed, k)`` at counter
+``i`` (ops/rng.py, backends/torch_backend.py), whatever chunk or call it
+falls in. A checkpoint or spool written before the port keyed its draws
+per chain (its own sweep-seeded generator) resumes in law, not bitwise:
+the stream it continues is another.
 """
 
 from __future__ import annotations

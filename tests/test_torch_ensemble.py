@@ -57,16 +57,14 @@ from gibbs_student_t_tpu.ops import pallas_white as jwhite
 from gibbs_student_t_tpu.parallel import ensemble as jens
 from gibbs_student_t_tpu.parallel.diagnostics import ess_per_param
 from gibbs_student_t_tpu_torch.backends import torch_backend as tb
-from gibbs_student_t_tpu_torch.backends.torch_backend import (
-    TorchGibbs,
-    sweep_key,
-)
+from gibbs_student_t_tpu_torch.backends.torch_backend import TorchGibbs
 from gibbs_student_t_tpu_torch.config import GibbsConfig
 from gibbs_student_t_tpu_torch.convert import (
     chain_state_from_arrays,
     model_arrays_from_fields,
 )
 from gibbs_student_t_tpu_torch.ops import hyper_mh as thyper
+from gibbs_student_t_tpu_torch.ops import rng
 from gibbs_student_t_tpu_torch.ops import white_mh as twhite
 from gibbs_student_t_tpu_torch.parallel import ensemble as tens
 from gibbs_student_t_tpu_torch.parallel import EnsembleGibbs
@@ -103,8 +101,10 @@ def _port(ma):
     return model_arrays_from_fields(_fields(ma))
 
 
-def _seeded(gen, seed, sweep):
-    return gen.manual_seed(sweep_key(seed, sweep))
+def _keyed(smp, seed, sweep):
+    """``(keys, sweep)`` of ``smp``'s chains in the run ``seed`` at sweep
+    ``sweep``: the first two arguments of ``_draw``."""
+    return smp._chain_keys(seed), torch.tensor(sweep)
 
 
 def _assert_results_equal(a, b):
@@ -137,11 +137,10 @@ def test_resumed_solo_run_equals_unbroken_run():
     for a, b in zip(last, s.last_state):
         assert torch.equal(a, b)
 
-    # the seed formula does not collide: (0, 1000003) and (1, 0) differ
+    # the keying does not collide: (0, 1000003) and (1, 0) differ
     st = s.init_state(seed=2)
-    gen = torch.Generator()
-    d1 = s._draw(_seeded(gen, 0, 1000003), st)
-    d2 = s._draw(_seeded(gen, 1, 0), st)
+    d1 = s._draw(*_keyed(s, 0, 1000003), st)
+    d2 = s._draw(*_keyed(s, 1, 0), st)
     assert not torch.equal(d1.dx_w, d2.dx_w)
     assert not torch.equal(d1.xi, d2.xi)
     s.sample(niter=1, seed=0, state=st, start_sweep=1000003)
@@ -151,16 +150,24 @@ def test_resumed_solo_run_equals_unbroken_run():
 
 
 def test_sweep_key_is_one_to_one():
+    """The per-chain key (ops/rng.chain_key, which took the place of the
+    per-sweep generator seed): one-to-one in (seed, chain), two 32-bit
+    words, each of which differs too here; out-of-range seeds, chains
+    and sweep indices are refused."""
     pairs = [(s, i) for s in (0, 1, 2, 7, 1000003, 2 ** 32 - 1)
              for i in (0, 1, 2, 100, 1000003, 2 ** 32 - 1)]
-    keys = [sweep_key(s, i) for s, i in pairs]
+    keys = [rng.chain_key(s, i) for s, i in pairs]
     assert len(set(keys)) == len(pairs)
-    assert all(0 <= k < 2 ** 64 for k in keys)
-    # the CPU generator keeps the low 32 bits: those differ too here
-    assert len({k & 0xFFFFFFFF for k in keys}) == len(pairs)
+    assert all(0 <= w < 2 ** 32 for k in keys for w in k)
+    assert len({k[0] for k in keys}) == len({k[1] for k in keys}) == len(
+        pairs)
     for bad in ((-1, 0), (0, -1), (2 ** 32, 0), (0, 2 ** 32)):
         with pytest.raises(ValueError):
-            sweep_key(*bad)
+            rng.chain_key(*bad)
+    s = TorchGibbs(_port(jax_demo_model_arrays(components=5)), _cfg(),
+                   nchains=2, device="cpu")
+    with pytest.raises(ValueError, match="sweep index"):
+        s.sample(niter=2, seed=0, start_sweep=2 ** 32 - 1)
 
 
 def test_resumed_ensemble_run_equals_unbroken_run():
@@ -455,10 +462,9 @@ def test_one_ensemble_sweep_matches_solo_sweeps(monkeypatch):
              for ma in jens.localized_padded(jmas)]
     assert [s._n_real for s in solos] == list(NS)
     # a state a few sweeps in, with outliers and adapted proposals
-    gen = torch.Generator()
     st = e._prop_cov_update(e.init_state(seed=5))
     for i in range(3):
-        st = e._sweep(st, e._draw(_seeded(gen, 5, i), st), sweep=i)
+        st = e._sweep(st, e._draw(*_keyed(e, 5, i), st), sweep=i)
     st = e._prop_cov_update(st)
     # the proposal factors are each pulsar's own population's
     for p, s in enumerate(solos):
@@ -468,7 +474,7 @@ def test_one_ensemble_sweep_matches_solo_sweeps(monkeypatch):
     draws = []
     for p, s in enumerate(solos):
         sp = type(st)(*(f[p] for f in st))
-        dr = s._draw(_seeded(gen, 9, p), sp)
+        dr = s._draw(*_keyed(s, 9, p), sp)
         draws.append(_separated_draws(monkeypatch, s, sp, dr, 3))
     dr_e = type(draws[0])(*(torch.stack(f) for f in zip(*draws)))
     out = e._sweep(st, dr_e, sweep=3)
@@ -502,7 +508,7 @@ def test_ensemble_state_crosses_from_jax():
     np.testing.assert_array_equal(st.alpha.numpy(), js["alpha"])
     e = EnsembleGibbs([_port(ma) for ma in jmas], GibbsConfig(
         model="mixture"), nchains=4, device="cpu")
-    out = e._sweep(st, e._draw(_seeded(torch.Generator(), 0, 0), st))
+    out = e._sweep(st, e._draw(*_keyed(e, 0, 0), st))
     assert torch.isfinite(out.x).all() and torch.isfinite(out.b).all()
 
 

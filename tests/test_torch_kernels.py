@@ -32,7 +32,11 @@ its four systems a block, with failed factors in a block of good ones.
 The factor in its block form at (1024, 74) and (1, 74), the shapes the
 sampler's chunk-end log-posterior and ``lnlikelihood`` launch; the
 record wire casts (``record_tuple``) on the card, bit for bit the CPU's
-after the pinned-memory copy.
+after the pinned-memory copy. The per-chain draw kernel (D1,
+``rng.sweep_draws``) against its plain version on every field kind, with
+one sweep index and with one a chain: uniforms bit for bit, the float64
+transcendentals' float32 results equal but for at most 1e-4 of them, one
+ulp apart, and a flagship sampler's draws on the card equal to the CPU's.
 
 Tolerances: kernel and plain version both compute in float32, in other
 summation orders. Factors, solves and logdets agree to rtol 1e-4 / atol
@@ -58,13 +62,14 @@ import pytest
 import torch
 
 from gibbs_student_t_tpu_torch.backends import torch_backend as tb
+from gibbs_student_t_tpu_torch.config import GibbsConfig
 from gibbs_student_t_tpu_torch.data.demo import make_demo_model_arrays
 from gibbs_student_t_tpu_torch.models.pta import (
     ndiag,
     phiinv_logdet,
     static_phi_columns,
 )
-from gibbs_student_t_tpu_torch.ops import chol, linalg
+from gibbs_student_t_tpu_torch.ops import chol, linalg, rng
 from gibbs_student_t_tpu_torch.ops import hyper_mh as thyper
 from gibbs_student_t_tpu_torch.ops import white_mh as twhite
 from gibbs_student_t_tpu_torch.ops import tnt as ttnt
@@ -1163,3 +1168,67 @@ def test_record_casts_on_card_equal_cpu():
         for f, a, b in zip(fields, host, cpu):
             assert a.dtype == b.dtype and a.is_pinned(), f
             np.testing.assert_array_equal(bits(a), bits(b), err_msg=f)
+
+
+def _f32_ulps(a, b):
+    """Per-element distance in float32 ulps (same-sign finite values)."""
+    ia = a.contiguous().view(torch.int32).long()
+    ib = b.contiguous().view(torch.int32).long()
+    return (ia - ib).abs()
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("per_chain_sweep", [False, True])
+def test_sweep_draws_kernel_on_card(per_chain_sweep):
+    dev = _cuda()
+    n, B = 130, 1027
+    tab = rng.DrawTable([
+        rng.DrawField("white_scale", rng.UNIFORM, (20,)),
+        rng.DrawField("white_pick", rng.UNIFORM, (20,)),
+        rng.DrawField("white_jump", rng.NORMAL, (20, 3)),
+        rng.DrawField("white_logu", rng.LOG_UNIFORM, (20,)),
+        rng.DrawField("white_gumbel", rng.GUMBEL, (20, 4)),
+        rng.DrawField("g_theta", rng.GAMMA, (2,), col=0, per=1),
+        rng.DrawField("g_alpha", rng.GAMMA, (2, n), col=2, per=n)])
+    rs = np.random.default_rng(3)
+    df = rs.integers(1, 31, B).astype(np.float32)
+    shapes = torch.from_numpy(np.stack(
+        [rs.uniform(0.3, 60, B), rs.uniform(0.3, 60, B), df / 2,
+         (df + 1) / 2], -1).astype(np.float32))
+    keys = rng.chain_keys(17, range(B))
+    sweep = (torch.from_numpy(rs.integers(0, 1000, B)) if per_chain_sweep
+             else torch.tensor(41))
+    cpu = tab.views(rng.sweep_draws(keys, sweep, shapes, tab), (B,))
+    n0 = rng.sweep_draws.launches
+    card = tab.views(rng.sweep_draws(keys.to(dev), sweep.to(dev),
+                                     shapes.to(dev), tab), (B,))
+    torch.cuda.synchronize()
+    assert rng.sweep_draws.launches == n0 + 1
+    for f in tab.fields:
+        a, b = card[f.name].cpu(), cpu[f.name]
+        assert torch.isfinite(a).all(), f.name
+        if f.kind == rng.UNIFORM:
+            assert torch.equal(a, b), f.name
+            continue
+        ulps = _f32_ulps(a, b)
+        assert int(ulps.max()) <= 1, f.name
+        assert float((ulps > 0).double().mean()) <= 1e-4, f.name
+
+
+@pytest.mark.torch
+def test_sampler_draws_on_card_equal_cpu():
+    dev = _cuda()
+    ma = make_demo_model_arrays()
+    cfg = GibbsConfig(model="mixture", vary_df=True,
+                      theta_prior="beta").with_adapt(10, adapt_cov=True)
+    gpu = tb.TorchGibbs(ma, cfg, nchains=256, device=dev)
+    cpu = tb.TorchGibbs(ma, cfg, nchains=256, device="cpu")
+    st = cpu._prop_cov_update(cpu.init_state(seed=2))
+    d_c = cpu._draw(cpu._chain_keys(2), torch.tensor(5), st)
+    d_g = gpu._draw(gpu._chain_keys(2), torch.tensor(5, device=dev),
+                    type(st)(*(t.to(dev) for t in st)))
+    # the raw draws agree to a float32 ulp (the test above); the jumps go
+    # through the card's and the CPU's 3-term products L @ xi
+    for f, a, b in zip(d_c._fields, d_g, d_c):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6,
+                                   msg=f)

@@ -11,8 +11,8 @@ against the port's solo sampler and the JAX package.
   pad lanes) under Robbins-Monro adaptation, whose lanes sit at other
   sweeps than its neighbour's; and for a tenant resumed from
   ``tenant_state`` at ``start_sweep`` against the unbroken solo run;
-- bookkeeping: four tenants share one pool whose model, constant, draw
-  and flag tensors are never reallocated; ``busy_chain_sweeps`` is the sum
+- bookkeeping: four tenants share one pool whose model, constant, draw,
+  lane-key and flag tensors are never reallocated; ``busy_chain_sweeps`` is the sum
   of chains x sweeps; every group returns to the free list; pad lanes and
   free groups end a quantum bitwise as they began it, and pad lanes
   start as copies of chain 0;
@@ -169,8 +169,8 @@ def _buffers(pool):
     tensors = [t for name in GROUPED_ATTRS
                for t, _ in _model_leaves(getattr(smp, name),
                                          getattr(smp, name))]
-    tensors += [smp.gid, pool._active,
-                *pool._draws]
+    tensors += [smp.gid, pool._active, pool._raw, pool._lane_keys,
+                pool._lane_sweep]
     return [t.data_ptr() for t in tensors]
 
 

@@ -50,6 +50,7 @@ from gibbs_student_t_tpu_torch.backends.torch_backend import (
 from gibbs_student_t_tpu_torch.config import GibbsConfig
 from gibbs_student_t_tpu_torch.convert import model_arrays_from_fields
 from gibbs_student_t_tpu_torch.ops import hyper_mh as thyper
+from gibbs_student_t_tpu_torch.ops import rng
 from gibbs_student_t_tpu_torch.ops import white_mh as twhite
 from test_torch_host import _fields
 from test_torch_kernels import jumps, separate_ties
@@ -224,16 +225,15 @@ def test_draws_are_state_shaped():
     cfg = GibbsConfig(model="mixture").with_adapt(10, adapt_cov=True)
     s = TorchGibbs(ma, cfg, nchains=8, device="cpu")
     st = s._prop_cov_update(s.init_state(seed=1))
-    gen = torch.Generator().manual_seed(0)
-    dr = s._draw(gen, st)
+    keys, sweep = rng.chain_keys(0, range(8)), torch.tensor(0)
+    dr = s._draw(keys, sweep, st)
     assert dr.dx_w.shape == (8, 20, 3) and dr.dx_h.shape == (8, 10, 3)
     # population-covariance jumps stay inside each block's coordinates
     assert not dr.dx_w[..., list(ma.hyper_indices)].any()
     assert not dr.dx_h[..., list(ma.white_indices)].any()
     assert dr.g_alpha.shape == (8, 2, ma.n) and (dr.g_alpha > 0).all()
-    # the same generator state gives the same draws
-    gen2 = torch.Generator().manual_seed(0)
-    for a, b_ in zip(dr, s._draw(gen2, st)):
+    # the same keys and sweep give the same draws
+    for a, b_ in zip(dr, s._draw(keys.clone(), sweep.clone(), st)):
         assert torch.equal(a, b_)
 
 

@@ -37,6 +37,7 @@ from gibbs_student_t_tpu.ops.tnt import pad_rows as jpad_rows
 from gibbs_student_t_tpu_torch.backends.torch_backend import TorchGibbs
 from gibbs_student_t_tpu_torch.config import GibbsConfig
 from gibbs_student_t_tpu_torch.data.demo import make_demo_model_arrays
+from gibbs_student_t_tpu_torch.ops import rng
 from gibbs_student_t_tpu_torch.ops import tnt as ttnt
 
 torch.set_num_threads(1)
@@ -251,14 +252,15 @@ def test_blocked_sweep_matches_dense():
     dense = TorchGibbs(ma, cfg, nchains=C, device="cpu", tnt_block_size=None)
     blocked = TorchGibbs(ma, cfg, nchains=C, device="cpu", tnt_block_size=128)
     assert blocked._n == 256 and dense._n == ma.n == 130
-    gen = torch.Generator().manual_seed(4)
+    keys = rng.chain_keys(4, range(C))
     st = dense._prop_cov_update(dense.init_state(seed=4))
     for i in range(3):
-        st = dense._sweep(st, dense._draw(gen, st), sweep=i)
+        st = dense._sweep(st, dense._draw(keys, torch.tensor(i), st),
+                          sweep=i)
     n = ma.n
     st_b = st._replace(z=_pad(st.z, 256, 0.0), alpha=_pad(st.alpha, 256, 1.0),
                        pout=_pad(st.pout, 256, 0.0))
-    dr = blocked._draw(gen, st_b)
+    dr = blocked._draw(keys, torch.tensor(3), st_b)
     dr_d = dr._replace(u_z=dr.u_z[:, :n], g_alpha=dr.g_alpha[..., :n])
     out_d = dense._sweep(st, dr_d, sweep=3)
     out_b = blocked._sweep(st_b, dr, sweep=3)

@@ -196,12 +196,23 @@ def main() -> None:
         return got
 
     def sweeps(smp, n=3):
-        """``n`` sweeps of a sampler from its initial state."""
+        """``n`` sweeps of a sampler from its initial state (a checkout
+        from before the per-chain draws draws from one generator)."""
         def run():
-            gen = torch.Generator(device=dev).manual_seed(5)
             st = smp.init_state(seed=5)
+            if hasattr(smp, "_chain_keys"):
+                keys = smp._chain_keys(5)
+                idx = torch.arange(n, device=dev)
+
+                def draw(st, i):
+                    return smp._draw(keys, idx[i], st)
+            else:
+                gen = torch.Generator(device=dev).manual_seed(5)
+
+                def draw(st, i):
+                    return smp._draw(gen, st)
             for i in range(n):
-                st = smp._sweep(st, smp._draw(gen, st), sweep=i)
+                st = smp._sweep(st, draw(st, i), sweep=i)
         return run
 
     def solo(components, nchains, n):
