@@ -182,7 +182,13 @@ exits 1 through ``fail`` before it, and so does an uncaught exception.
       102,400 TOAs, full MTM, ens32's 32 x 256, pool1024's lanes), the
       plain version on the card and on the CPU: uniforms bit for bit,
       the share of other values that differ and their largest distance
-      in ulps, and the gammas accepted at another attempt;
+      in ulps, and the gammas accepted at another attempt; then the retry
+      queue and its edges in the flagship's table at 96 chains (whole
+      tiles of a = 1 and of a = 0.5 boosted, shapes 0, NaN, inf, -1,
+      1e-30, 3e38, 1e20 and 1e30 among good chains) at three tile
+      lengths: every value bit for bit the plain version's on the card,
+      NaN exactly for the bad shapes, the good chains as when drawn
+      alone;
    b. independence on the card: the flagship's chains 0-15 drawn alone,
       and the batch permuted, give their draws bit for bit; a pool tenant
       in the first groups and behind a neighbour gives the same records;
@@ -192,7 +198,11 @@ exits 1 through ``fail`` before it, and so does an uncaught exception.
    d. costs: the draws' launches and device time a sweep beside the
       parent's generator draws on the flagship, stress, ens32 and
       pool1024, each path's launches a sweep then and now, and D1's time
-      beside its bound, its plain version and the generator draws.
+      beside its first design's, its byte bound, its instruction floor
+      (tools/torch_kernel_ab.py: each class of instruction the path's
+      values and Marsaglia-Tsang attempts need, counted in the SASS of
+      probe kernels, over its rate), its plain version and the generator
+      draws.
 
 Launch counts are read per path: every count is set to 0 just before a
 run and read just after it; a count is launches per sweep x sweeps plus
@@ -343,7 +353,6 @@ GROUPED = {"white_mh_grouped": "white_mh", "hyper_mh_grouped": "hyper_mh",
 LANES = {"white_mh_lanes": "white_mh", "hyper_mh_lanes": "hyper_mh"}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate
 FP32_FLOPS = 67e12             # H100 SXM float32 rate outside tensor cores
-FP64_FLOPS = 34e12             # H100 SXM float64 rate outside tensor cores
 # phase 14 (per-chain draws): the 14c card-vs-CPU sweeps, the profiled
 # draw calls a path, and the stress chains the CPU plain version draws
 DRAW_SWEEPS, DRAW_PROFILE_CALLS, DRAW_CPU_STRESS_CHAINS = 5, 10, 4
@@ -408,11 +417,15 @@ FIRST_DESIGN_MS = {
     ("white_mh_grouped", 8192, 130): 0.2698,
     ("white_mh_lanes", 1024, 130): 0.04696,
     ("white_mtm", 1024, 130): 0.2502,
-    ("white_mtm_grouped", 1024, 130): 0.2713}
+    ("white_mtm_grouped", 1024, 130): 0.2713,
+    # sweep_draws (a thread a value, each gamma looping until it accepts),
+    # by (kernel, chains, values a chain): flagship, stress, ens32, pool
+    ("sweep_draws", 1024, 646): 0.01752, ("sweep_draws", 64, 307426): 0.6102,
+    ("sweep_draws", 8192, 646): 0.1085, ("sweep_draws", 1024, 616): 0.01794}
 # the redesigned kernels, reported beside their first design
 REDESIGNED = ("chol_fused", "hyper_mh", "tnt_batched", "tri_solve_T",
               "tnt_lanes", "white_mh", "white_mh_grouped", "white_mh_lanes",
-              "white_mtm", "white_mtm_grouped")
+              "white_mtm", "white_mtm_grouped", "sweep_draws")
 # the stream hold before a timed loop: 5e7 cycles, at least 25 ms below the
 # H100's 1.98 GHz top SM clock
 SLEEP_CYCLES, SLEEP_MS = 50_000_000, 25.0
@@ -578,6 +591,11 @@ def main() -> None:
             separate_mtm_ties,
             separate_ties,
         )
+        from tools.torch_kernel_ab import (
+            draw_floor,
+            draw_instructions,
+        )
+        from tools.torch_kernel_ab import draw_work as draw_counts
     except ImportError as exc:
         fail(f"the port's package is not importable here: {exc}")
 
@@ -3119,8 +3137,85 @@ def main() -> None:
         if not rec["ok"]:
             fail(f"the draw kernel disagrees with its plain version on the "
                  f"{path} path")
-    parity[DRAWS] = drep["parity"]
     del out_k, out_p, vk, vc
+
+    # the retry queue and its edges, in the flagship's table at 96 chains:
+    # whole gamma tiles of the shapes that reject most (a = 1; a = 0.5,
+    # boosted), then chains of the shapes 0, NaN, inf and -1 (NaN, no
+    # attempt), 1e-30 (boosted: its boost underflows to 0), 3e38 (near the
+    # float32 maximum), 1e20 and 1e30 (float64 rounding leaves the squeeze
+    # test a coin toss: up to ~17 attempts) among good chains; at the
+    # launch's tiles and at 1 and 16 gamma values a thread
+    rs_e = np.random.default_rng(14)
+    B_e = 96
+    df_e = rs_e.integers(1, 31, B_e).astype(np.float32)
+    sh_e = np.stack([rs_e.uniform(0.3, 60, B_e), rs_e.uniform(0.3, 60, B_e),
+                     df_e / 2, (df_e + 1) / 2], -1).astype(np.float32)
+    sh_e[:16, 2:] = 1.0
+    sh_e[16:32, 2:] = 0.5
+    odd = np.array([0.0, np.nan, np.inf, -1.0, 1e-30, 3e38, 1e20, 1e30],
+                   np.float32)
+    sh_e[32::2, 0] = odd[np.arange(32) % 8]
+    sh_e[33::2, 2] = odd[np.arange(32) % 8]
+    sh_e[40::4, 3] = odd[np.arange(14) % 8]
+    bad_e = torch.from_numpy(~((sh_e > 0) & np.isfinite(sh_e))).to(dev)
+    keys_e = rng.chain_keys(23, range(B_e), device=dev)
+    sw_e = torch.tensor(11, device=dev)
+    shd_e = torch.from_numpy(sh_e).to(dev)
+    tab_e = sampler._table
+
+    def bitwise(a, b):
+        """Bit for bit, NaN where the other is NaN."""
+        na, nb = torch.isnan(a), torch.isnan(b)
+        return bool(torch.equal(na, nb) and torch.equal(a[~na], b[~nb]))
+
+    plain_e = rng.sweep_draws_plain(keys_e, sw_e, shd_e, tab_e)
+    outs_e = [rng.sweep_draws(keys_e, sw_e, shd_e, tab_e, elems=el)
+              for el in (None, (8, 1), (8, 16))]
+    torch.cuda.synchronize()
+    ve = tab_e.views(outs_e[0], (B_e,))
+    nan_at = {"g_theta": bad_e[:, :2], "g_alpha": bad_e[:, 2:, None]}
+    good_e = torch.nonzero(~bad_e.any(-1)).reshape(-1)
+    alone_e = tab_e.views(rng.sweep_draws(keys_e[good_e], sw_e,
+                                          shd_e[good_e], tab_e),
+                          (len(good_e),))
+    ga = ve["g_alpha"]
+    edges = drep["edges"] = {
+        "chains": B_e, "good_chains": len(good_e),
+        "bitwise_vs_plain": [bitwise(o, plain_e) for o in outs_e],
+        "nan_exactly_at_bad_shapes": all(
+            torch.equal(torch.isnan(v), nan_at.get(
+                k, torch.zeros((), dtype=torch.bool, device=dev)).expand(
+                    v.shape)) for k, v in ve.items()),
+        "good_alone_bitwise": all(bitwise(ve[k][good_e], alone_e[k])
+                                  for k in ve),
+        "tiny_boosted_zero": bool((ga[shd_e[:, 2:] == 1e-30] == 0).all()),
+        "near_max_finite": bool(torch.isfinite(
+            ga[shd_e[:, 2:] == 3e38]).all()),
+        "attempts": rng.gamma_attempts(keys_e, sw_e, shd_e, tab_e),
+        "valid_gammas": int((~bad_e[:, :2]).sum()) + int(
+            (~bad_e[:, 2:]).sum()) * tab_e.fields[-2].per}
+    edges["vs_cpu_plain"] = draw_cmp(
+        tab_e, {k: v.cpu() for k, v in ve.items()},
+        tab_e.views(rng.sweep_draws_plain(keys_e.cpu(), sw_e.cpu(),
+                                          shd_e.cpu(), tab_e), (B_e,)))
+    edges["max_abs_err"] = edges["vs_cpu_plain"]["max_abs_err"]
+    edges["ok"] = bool(all(edges["bitwise_vs_plain"])
+                       and edges["nan_exactly_at_bad_shapes"]
+                       and edges["good_alone_bitwise"]
+                       and edges["tiny_boosted_zero"]
+                       and edges["near_max_finite"]
+                       and edges["vs_cpu_plain"]["ok"])
+    print(f"# draws retry queue and edges: {json.dumps(edges)}", flush=True)
+    # tolerance: bit for bit on the card at every tile length; against the
+    # CPU as the paths above
+    if not edges["ok"]:
+        fail("the draw kernel's retries or bad shapes disagree with its "
+             "plain version")
+    drep["parity"].append({"path": "edges", "max_abs_err":
+                           edges["max_abs_err"]})
+    parity[DRAWS] = drep["parity"]
+    del outs_e, plain_e, ve, alone_e, ga
 
     # 14b. a chain's draws depend only on (seed, chain, sweep) on the card:
     # the flagship's chains 0-15 drawn alone and the batch permuted give
@@ -3234,31 +3329,46 @@ def main() -> None:
     # time profiled, and the kernel's time beside its bound, its plain
     # version and (as the yardstick) the parent's draws; the pool's were
     # measured with its tenants resident (phase 11d)
-    def draw_work(args):
-        """(bytes, float64 operations) of one draw-kernel call: keys,
-        sweep indices and shapes read once, every value written once; the
-        operations of each value's formula with a transcendental counted
-        as one and a gamma at one attempt (the first accepts > 95 % of
-        the time), a lower bound on the work."""
-        keys_d, sw_d, sh_d, tab_d = args
-        B = keys_d.numel() // 2
-        per = {rng.UNIFORM: 2, rng.NORMAL: 7, rng.LOG_UNIFORM: 3,
-               rng.GUMBEL: 4, rng.GAMMA: 25}
-        byts = (8 * keys_d.numel() + 8 * sw_d.numel() + 4 * sh_d.numel()
-                + 4 * B * tab_d.width)
-        return byts, B * sum(per[f.kind] * f.count for f in tab_d.fields)
+    # D1's instruction floor: each instruction class's count in the SASS
+    # of its probe kernels (tools/torch_kernel_ab.py), the card's SMs and
+    # top SM clock
+    draw_ins = drep["instructions"] = draw_instructions(HERE)
+    if draw_ins is None:
+        fail("nvcc or cuobjdump is missing: D1's instructions cannot be "
+             "counted")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    max_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
 
     def draw_row(path, args, extra):
-        byts, flops = draw_work(args)
+        """D1's time on a path's operands beside its first design's, its
+        plain version's and its bounds: the bytes (keys, sweep indices
+        and shapes read once, every value written once) over the memory
+        rate, and the instruction floor of the values and attempts these
+        operands need (``draw_floor``); the bound is the larger of the
+        bytes' time and the float64 instructions' over the FP64 pipe, the
+        floor the largest class's time, issue slots included."""
+        keys_d, sw_d, sh_d, tab_d = args
+        B = keys_d.numel() // 2
+        byts = (8 * keys_d.numel() + 8 * sw_d.numel() + 4 * sh_d.numel()
+                + 4 * B * tab_d.width)
+        counts = draw_counts(rng, *args)
+        fl = draw_floor(draw_ins, counts, sms, max_mhz)
+        byte_ms = byts / HBM_BYTES_PER_S * 1e3
+        fp64_ms = fl["ms_by_class"]["fp64"]
         return dict(
-            path=path, shape=list(args[0].shape[:-1]),
+            path=path, shape=list(keys_d.shape[:-1]), width=tab_d.width,
+            first_design_ms=FIRST_DESIGN_MS.get((DRAWS, B, tab_d.width)),
             ms=timed(rng.sweep_draws, args, 50),
             plain_ms=timed(rng.sweep_draws_plain, args, 3,
                            queue_ahead=False),
-            bound_ms=max(byts / HBM_BYTES_PER_S, flops / FP64_FLOPS) * 1e3,
-            bound_by="bytes" if byts / HBM_BYTES_PER_S
-            >= flops / FP64_FLOPS else "operations",
-            bytes=byts, flops=flops, **extra)
+            bound_ms=max(byte_ms, fp64_ms),
+            bound_by="bytes" if byte_ms >= fp64_ms else "operations",
+            byte_bound_ms=byte_ms, floor_ms=fl["floor_ms"],
+            floor_by=fl["by"], floor_ms_by_class=fl["ms_by_class"],
+            work=counts, bytes=byts, **extra)
 
     costs = drep["costs"] = {}
     for path, smp, st_p, prof_total, wall_ms in (
@@ -3333,12 +3443,21 @@ def main() -> None:
               f"{c['sweep_device_ms_per_sweep']:.4f} ms, wall "
               f"{c['sweep_wall_ms_per_sweep']:.4f} ms | {card}", flush=True)
     for r in timing[DRAWS]:
-        print(f"# {DRAWS} {r['path']} {r['shape']}: {r['ms']:.4f} ms, "
-              f"{r['ms'] / r['bound_ms']:.1f}x its {r['bound_by']} bound "
-              f"({r['bound_ms']:.5f} ms), plain {r['plain_ms']:.3f} ms, "
-              f"generator draws {r['library_ms']:.4f} ms"
+        first = r["first_design_ms"]
+        print(f"# {DRAWS} {r['path']} {r['shape']} x {r['width']}: "
+              f"{r['ms']:.5f} ms"
+              + (f" (first design {first} ms, {first / r['ms']:.2f}x)"
+                 if first else "")
+              + f", {r['ms'] / r['byte_bound_ms']:.1f}x its byte bound "
+              f"({r['byte_bound_ms']:.6f} ms), "
+              f"{r['ms'] / r['floor_ms']:.2f}x its instruction floor "
+              f"({r['floor_ms']:.5f} ms by {r['floor_by']}; FP64 "
+              f"{r['floor_ms_by_class']['fp64']:.5f} ms), plain "
+              f"{r['plain_ms']:.3f} ms, generator draws "
+              f"{r['library_ms']:.4f} ms"
               + (f", _standard_gamma alone {r['standard_gamma_ms']:.4f} ms"
-                 if "standard_gamma_ms" in r else ""), flush=True)
+                 if "standard_gamma_ms" in r else "")
+              + f" | {card}", flush=True)
     drep["seconds"] = time.perf_counter() - t14
     print(f"# phase 14: {drep['seconds']:.1f} s", flush=True)
     del stress, ens

@@ -62,7 +62,9 @@ _SIGNATURES = {
     "gst_tnt_workspace": ([_I, _I, _I], _Z),
     "gst_tnt_lanes": ([_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _L, _L,
                        _I, _P], _I),
-    "gst_sweep_draws": ([_P, _P, _I, _P, _I, _P, _P, _I, _L, _P], _I),
+    "gst_sweep_draws": ([_P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _L, _P],
+                        _I),
+    "gst_draw_geometry": ([_P], _I),
 }
 
 _lock = threading.Lock()

@@ -269,15 +269,15 @@ def normals(keys, sweep, tag: int, n: int):
     return _box_muller(w[0], w[1]).float()
 
 
-def gamma_mt(keys, sweep, tag: int, shape):
-    """``Gamma(shape)`` draws by Marsaglia-Tsang with the a < 1 boost:
-    ``shape (B, n)`` float32 (each element its own), element e of chain b
-    at counters ``(e, attempt, tag, sweep[b])``. Attempts run over the
-    elements not yet accepted; see the module docstring."""
+def _gamma_mt(keys, sweep, tag: int, shape):
+    """:func:`gamma_mt`'s draws and the attempts each took (int64: k + 1
+    for a gamma accepted at attempt k, 0 for an invalid shape,
+    ``MT_MAX_ATTEMPTS`` for one that gave up)."""
     B, n = shape.shape
     dev = shape.device
     a = shape.double().reshape(-1)
     out = torch.full_like(a, math.nan)
+    tries = torch.zeros(a.shape, dtype=torch.int64, device=dev)
     boost = a < 1.0
     d = torch.where(boost, a + 1.0, a) - 1.0 / 3.0
     cc = 1.0 / (3.0 * torch.sqrt(d))
@@ -289,6 +289,7 @@ def gamma_mt(keys, sweep, tag: int, shape):
     for attempt in range(MT_MAX_ATTEMPTS):
         if not len(pend):
             break
+        tries[pend] += 1
         w = philox_4x32(k0[pend], k1[pend], elem[pend], attempt, tag,
                         sw[pend])
         if attempt == 0:
@@ -305,7 +306,30 @@ def gamma_mt(keys, sweep, tag: int, shape):
         pend = pend[~acc]
     bi = torch.nonzero(boost & torch.isfinite(out)).reshape(-1)
     out[bi] = out[bi] * torch.exp(torch.log(ub[bi]) / a[bi])
-    return out.float().reshape(B, n)
+    return out.float().reshape(B, n), tries.reshape(B, n)
+
+
+def gamma_mt(keys, sweep, tag: int, shape):
+    """``Gamma(shape)`` draws by Marsaglia-Tsang with the a < 1 boost:
+    ``shape (B, n)`` float32 (each element its own), element e of chain b
+    at counters ``(e, attempt, tag, sweep[b])``. Attempts run over the
+    elements not yet accepted; see the module docstring."""
+    return _gamma_mt(keys, sweep, tag, shape)[0]
+
+
+def gamma_attempts(keys, sweep, shapes, table) -> int:
+    """The Marsaglia-Tsang attempts every gamma of one sweep's ``table``
+    takes for the chains ``keys (*batch, 2)`` at ``sweep`` with ``shapes
+    (*batch, k)`` (the work D1 does on these inputs; a boosted shape's
+    attempt 0 included)."""
+    keys, sweep, shapes, _ = _flat_operands("gamma_attempts", keys, sweep,
+                                            shapes)
+    sweep = sweep.expand(keys.shape[0])
+    return sum(int(_gamma_mt(keys, sweep, SWEEP_TAGS[f.name] + c,
+                             shapes[:, f.col + c, None].expand(
+                                 -1, f.per))[1].sum())
+               for f in (f for f in table.fields if f.kind == GAMMA)
+               for c in range(f.count // f.per))
 
 
 # ---------------------------------------------------------------------------
@@ -330,10 +354,44 @@ class DrawField(NamedTuple):
         return math.prod(self.shape)
 
 
+#: D1's geometry (``csrc/draws.cu``; :func:`draw_geometry` asks the built
+#: kernel): threads a block, chains a tile may span, the longest tile
+DRAW_THREADS, DRAW_MAX_CHAINS, DRAW_MAX_TILE = 128, 256, 65535
+#: segments a launch may have (a gamma field counts once a shape column)
+MAX_SEGMENTS = 64
+_DIV_BITS = 31
+
+
+def draw_elems(gammas: int, threads: int, sms: int):
+    """``(other, gamma)``: the values a thread takes in a tile of a
+    non-gamma field (8) and of a gamma field: the largest power of two up
+    to 16 that leaves two gamma tiles an SM (on an H100's 132 SMs at 128
+    threads: 4 at the flagship's and the pool's 268,288 gammas, 16 at
+    ens32's 2.1 M and the stress path's 13.1 M)."""
+    g = gammas // (2 * sms * threads)
+    return 8, min(16, 1 << (g.bit_length() - 1)) if g else 1
+
+
+def div_magic(n: int):
+    """``(magic, shift)`` with ``p // n == (p * magic) >> shift`` for every
+    ``0 <= p < 2**31`` (Granlund and Montgomery 1994, Thm 4.2: with
+    ``l = ceil(log2 n)``, ``magic = ceil(2**(31 + l) / n) < 2**32``), so
+    D1 finds a value's chain by one 32 x 32 -> 64-bit multiply."""
+    n = int(n)
+    if not 1 <= n < 1 << _DIV_BITS:
+        raise ValueError(f"div_magic: divisor {n} outside [1, 2**31)")
+    shift = _DIV_BITS + (n - 1).bit_length()
+    return -(-(1 << shift) // n), shift
+
+
 class DrawTable:
     """The fields one sweep draws, laid out field-major: field f of a
     batch of B chains occupies ``[B * off_f, B * (off_f + count_f))`` of
-    the flat output, as a contiguous ``(B, count_f)`` block."""
+    the flat output, as a contiguous ``(B, count_f)`` block.
+
+    D1 draws it by segments, a field or one shape column of a gamma field
+    (:attr:`segments`), each cut into tiles of consecutive values
+    (:meth:`tiles`), one thread block a tile."""
 
     def __init__(self, fields: Sequence[DrawField]):
         self.fields = tuple(fields)
@@ -343,10 +401,17 @@ class DrawTable:
             off += f.count
         self.offsets = tuple(offs)
         self.width = off
-        #: the kernel's table: (kind, tag, count, off, col, per) a field
-        self.host = [v for f, o in zip(self.fields, self.offsets)
-                     for v in (f.kind, SWEEP_TAGS[f.name], f.count, o,
-                               f.col, f.per)]
+        #: D1's segments: (kind, tag, n, stride, offset, column start,
+        #: shape column, magic, shift); segment s writes chain b's element
+        #: e < n at ``B * offset + column start + b * stride + e``
+        self.segments = tuple(
+            (f.kind, SWEEP_TAGS[f.name] + c, n, f.count, o, c * n,
+             f.col + c, *div_magic(n))
+            for f, o in zip(self.fields, self.offsets)
+            for c, n in ([(c, f.per) for c in range(f.count // f.per)]
+                         if f.kind == GAMMA else [(0, f.count)])
+            if n)
+        self._launch = {}
 
     def views(self, raw, batch) -> Dict[str, torch.Tensor]:
         """``{name: (*batch, *shape) view}`` of a flat output ``raw``."""
@@ -355,8 +420,77 @@ class DrawTable:
                                                               *f.shape)
                 for f, o in zip(self.fields, self.offsets)}
 
+    @property
+    def gammas(self) -> int:
+        """Gamma values a chain."""
+        return sum(f.count for f in self.fields if f.kind == GAMMA)
 
-MAX_FIELDS = 32
+    def tiles(self, B: int, threads: int, max_chains: int, elems):
+        """D1's tiles for B chains, ``(ntiles, 4)`` int32 rows (segment,
+        first chain, first element, length), and the longest tile.
+
+        Segment s's ``B * n`` values are cut in order into tiles of
+        ``threads * elems`` (``elems[1]`` for a gamma segment, ``elems[0]``
+        otherwise), fewer where that would span more than ``max_chains``
+        chains: then into runs of whole chains. Every value of every
+        segment lies in exactly one tile."""
+        rows, longest = [], 0
+        for s, seg in enumerate(self.segments):
+            kind, n = seg[0], seg[2]
+            L = threads * elems[kind == GAMMA]
+            if n + L >= 1 << _DIV_BITS:
+                raise ValueError(f"tiles: {n} values a chain and tiles of "
+                                 f"{L} pass the kernel's 2**31 index")
+            step = (L if L <= (max_chains - 1) * n + 1
+                    else n * min(max_chains, L // n))
+            start = np.arange(0, B * n, step, dtype=np.int64)
+            if not len(start):
+                continue
+            ln = np.minimum(step, B * n - start)
+            rows.append(np.stack([np.full_like(start, s), start // n,
+                                  start % n, ln], -1))
+            longest = max(longest, int(ln.max()))
+        tiles = (np.concatenate(rows) if rows
+                 else np.zeros((0, 4), np.int64)).astype(np.int32)
+        return tiles, longest
+
+    def launch(self, B: int, device, elems=None):
+        """D1's launch operands for B chains on ``device``: the tile rows
+        (:meth:`tiles` at the built kernel's geometry, at ``elems`` or else
+        :func:`draw_elems` on the device's SMs) on the device, and the
+        segment rows as a host int32 array; made once per (B, elems,
+        device) and kept."""
+        key = (B, elems, str(device))
+        if key not in self._launch:
+            from gibbs_student_t_tpu_torch.ops import _cuda
+
+            threads, max_chains, max_tile = draw_geometry()
+            if elems is None:
+                elems = draw_elems(
+                    B * self.gammas, threads,
+                    torch.cuda.get_device_properties(
+                        device).multi_processor_count)
+            tiles, longest = self.tiles(B, threads, max_chains, elems)
+            if longest > max_tile:
+                raise ValueError(f"sweep_draws: tiles of {longest} values, "
+                                 f"the kernel takes {max_tile}")
+            segs = _cuda.host_ints([v - (1 << 32) if v >= 1 << 31 else v
+                                    for row in self.segments for v in row])
+            self._launch[key] = (torch.from_numpy(tiles).to(device), segs)
+        return self._launch[key]
+
+
+def draw_geometry():
+    """``(threads, max chains, longest tile)`` of the built D1 (builds the
+    kernels)."""
+    if not hasattr(draw_geometry, "cached"):
+        from gibbs_student_t_tpu_torch.ops import _cuda
+
+        out = _cuda.host_ints([0] * 3)
+        _cuda.check(_cuda.lib().gst_draw_geometry(_cuda.addr(out)),
+                    "draw_geometry")
+        draw_geometry.cached = tuple(out)
+    return draw_geometry.cached
 
 
 def _flat_operands(name, keys, sweep, shapes):
@@ -413,12 +547,16 @@ def sweep_draws_plain(keys, sweep, shapes, table: DrawTable, out=None):
     return out
 
 
-def sweep_draws(keys, sweep, shapes, table: DrawTable, out=None):
+def sweep_draws(keys, sweep, shapes, table: DrawTable, out=None,
+                elems=None):
     """One sweep's raw draws for a batch of chains (see
     :func:`sweep_draws_plain`): the plain version on the CPU, one launch
     of D1 (``csrc/draws.cu``) on a CUDA device, counted in
     ``sweep_draws.launches``. ``out``, when given, is the flat float32
-    output to write (reused from sweep to sweep by the serving pool)."""
+    output to write (reused from sweep to sweep by the serving pool).
+    ``elems`` (values a thread, other and gamma fields; default
+    :func:`draw_elems`) sets the tiles' length, for measurements; it does
+    not change the values."""
     if keys.device.type == "cpu":
         return sweep_draws_plain(keys, sweep, shapes, table, out=out)
     if keys.device.type != "cuda":
@@ -426,9 +564,9 @@ def sweep_draws(keys, sweep, shapes, table: DrawTable, out=None):
     from gibbs_student_t_tpu_torch.ops import _cuda
 
     kf, sw, sh, batch = _flat_operands("sweep_draws", keys, sweep, shapes)
-    if len(table.fields) > MAX_FIELDS:
-        raise ValueError(f"sweep_draws: {len(table.fields)} fields, the "
-                         f"kernel takes {MAX_FIELDS}")
+    if len(table.segments) > MAX_SEGMENTS:
+        raise ValueError(f"sweep_draws: {len(table.segments)} segments, the "
+                         f"kernel takes {MAX_SEGMENTS}")
     B = kf.shape[0]
     kf, sw, sh = kf.contiguous(), sw.contiguous(), sh.contiguous()
     if out is None:
@@ -439,11 +577,12 @@ def sweep_draws(keys, sweep, shapes, table: DrawTable, out=None):
         raise ValueError("sweep_draws: out must be a contiguous float32 "
                          f"tensor of {B * table.width} on {keys.device}")
     if B and table.width:
-        tab = _cuda.host_ints(table.host)
+        tiles, segs = table.launch(B, keys.device, elems)
         _cuda.check(_cuda.lib().gst_sweep_draws(
             _cuda.ptr(kf), _cuda.ptr(sw), int(sw.numel() > 1), _cuda.ptr(sh),
-            sh.shape[-1], _cuda.ptr(out), _cuda.addr(tab), len(table.fields),
-            B, _cuda.stream(keys.device)), "sweep_draws")
+            sh.shape[-1], _cuda.ptr(out), _cuda.addr(segs),
+            len(table.segments), _cuda.ptr(tiles), tiles.shape[0], B,
+            _cuda.stream(keys.device)), "sweep_draws")
         sweep_draws.launches += 1
     return out
 

@@ -132,7 +132,9 @@ def test_default_device_raises_without_cuda(demo_ma):
 
 def _port_files():
     pkg = os.path.join(REPO, "gibbs_student_t_tpu_torch")
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    # chip_smoke.py and the measurement code it imports
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tools", "torch_kernel_ab.py")]
     for root, _, names in os.walk(pkg):
         files += [os.path.join(root, nm) for nm in names
                   if nm.endswith(".py")]

@@ -34,9 +34,15 @@ sampler's chunk-end log-posterior and ``lnlikelihood`` launch; the
 record wire casts (``record_tuple``) on the card, bit for bit the CPU's
 after the pinned-memory copy. The per-chain draw kernel (D1,
 ``rng.sweep_draws``) against its plain version on every field kind, with
-one sweep index and with one a chain: uniforms bit for bit, the float64
+one sweep index and with one a chain, at one chain, 1,027 chains (ragged
+tiles), a field of one value and 3,000 gammas a column, the shapes that
+reject most mixed with others in one tile, bad and edge shapes (NaN only
+for the bad ones, the good chains as when drawn alone) and 102,400 values
+a column: against the CPU uniforms bit for bit, the float64
 transcendentals' float32 results equal but for at most 1e-4 of them, one
-ulp apart, and a flagship sampler's draws on the card equal to the CPU's.
+ulp apart; against the plain version on the card bit for bit at every
+tile length; and a flagship sampler's draws on the card equal to the
+CPU's.
 
 Tolerances: kernel and plain version both compute in float32, in other
 summation orders. Factors, solves and logdets agree to rtol 1e-4 / atol
@@ -1177,42 +1183,113 @@ def _f32_ulps(a, b):
     return (ia - ib).abs()
 
 
-@pytest.mark.torch
-@pytest.mark.parametrize("per_chain_sweep", [False, True])
-def test_sweep_draws_kernel_on_card(per_chain_sweep):
-    dev = _cuda()
-    n, B = 130, 1027
-    tab = rng.DrawTable([
+def _draw_case(case):
+    """``(table, shapes (B, 4), expect_nan (B, 4))`` of a D1 card case:
+    the shapes are the sampler's columns (theta's a and b, alpha's df / 2
+    and (df + 1) / 2), ``expect_nan`` the shapes that must give NaN."""
+    rs = np.random.default_rng(3)
+    n, B = {"flagship": (130, 1027), "one_chain": (130, 1),
+            "ragged": (3000, 37), "mixed_shapes": (130, 301),
+            "edge_shapes": (130, 96), "stress_width": (102_400, 3)}[case]
+    fields = [
         rng.DrawField("white_scale", rng.UNIFORM, (20,)),
         rng.DrawField("white_pick", rng.UNIFORM, (20,)),
         rng.DrawField("white_jump", rng.NORMAL, (20, 3)),
         rng.DrawField("white_logu", rng.LOG_UNIFORM, (20,)),
         rng.DrawField("white_gumbel", rng.GUMBEL, (20, 4)),
         rng.DrawField("g_theta", rng.GAMMA, (2,), col=0, per=1),
-        rng.DrawField("g_alpha", rng.GAMMA, (2, n), col=2, per=n)])
-    rs = np.random.default_rng(3)
+        rng.DrawField("g_alpha", rng.GAMMA, (2, n), col=2, per=n)]
+    if case == "ragged":
+        # a field of one value a chain; 3,000 gammas a column, no multiple
+        # of any tile
+        fields.insert(0, rng.DrawField("hyper_logu", rng.LOG_UNIFORM, (1,)))
+    tab = rng.DrawTable(fields)
     df = rs.integers(1, 31, B).astype(np.float32)
-    shapes = torch.from_numpy(np.stack(
-        [rs.uniform(0.3, 60, B), rs.uniform(0.3, 60, B), df / 2,
-         (df + 1) / 2], -1).astype(np.float32))
+    sh = np.stack([rs.uniform(0.3, 60, B), rs.uniform(0.3, 60, B), df / 2,
+                   (df + 1) / 2], -1).astype(np.float32)
+    if case == "mixed_shapes":
+        # the shapes that reject most (a = 1; a = 0.5 boosted) beside
+        # a >= 1, chain by chain, so every alpha tile mixes them
+        sh[:, 2:] = np.array([0.5, 1.0, 1.5, 7.5, 15.5],
+                             np.float32)[np.arange(2 * B).reshape(B, 2) % 5]
+    if case == "edge_shapes":
+        # whole tiles (8 chains of 130 values) of a = 1 and of a = 0.5,
+        # then chains of bad and edge shapes among good ones
+        sh[:16, 2:] = 1.0
+        sh[16:32, 2:] = 0.5
+        odd = np.array([0.0, np.nan, np.inf, -1.0, 1e-30, 3e38, 1e20, 1e30],
+                       np.float32)
+        sh[32::2, 0] = odd[np.arange(len(sh[32::2])) % 8]
+        sh[33::2, 2] = odd[np.arange(len(sh[33::2])) % 8]
+        sh[40::4, 3] = odd[np.arange(len(sh[40::4])) % 8]
+    bad = ~((sh > 0) & np.isfinite(sh))
+    return tab, torch.from_numpy(sh), torch.from_numpy(bad)
+
+
+def _nan_equal(a, b):
+    """Bit for bit, NaN where the other is NaN."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb) and torch.equal(a[~na], b[~nb]))
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("case", ["flagship", "one_chain", "ragged",
+                                  "mixed_shapes", "edge_shapes",
+                                  "stress_width"])
+@pytest.mark.parametrize("per_chain_sweep", [False, True])
+def test_sweep_draws_kernel_on_card(per_chain_sweep, case):
+    """D1 against its plain version: on the CPU (uniforms bit for bit,
+    other values one float32 ulp apart on at most 1e-4 of them) and on
+    the card (every value bit for bit: both take the card's libm), the
+    same at every tile length, NaN exactly for the bad shapes, and each
+    good chain's values as when it is drawn alone."""
+    dev = _cuda()
+    tab, shapes, bad = _draw_case(case)
+    B = shapes.shape[0]
     keys = rng.chain_keys(17, range(B))
+    rs = np.random.default_rng(5)
     sweep = (torch.from_numpy(rs.integers(0, 1000, B)) if per_chain_sweep
              else torch.tensor(41))
     cpu = tab.views(rng.sweep_draws(keys, sweep, shapes, tab), (B,))
+    kd, sd, shd = keys.to(dev), sweep.to(dev), shapes.to(dev)
     n0 = rng.sweep_draws.launches
-    card = tab.views(rng.sweep_draws(keys.to(dev), sweep.to(dev),
-                                     shapes.to(dev), tab), (B,))
+    out = rng.sweep_draws(kd, sd, shd, tab)
     torch.cuda.synchronize()
     assert rng.sweep_draws.launches == n0 + 1
+    card = tab.views(out, (B,))
+    plain = rng.sweep_draws_plain(kd, sd, shd, tab)
+    assert _nan_equal(out, plain)
+    for elems in ((1, 1), (3, 2), (32, 32)):
+        assert _nan_equal(rng.sweep_draws(kd, sd, shd, tab, elems=elems),
+                          out), elems
+    # NaN exactly where a gamma's shape is bad
+    expect = {"g_theta": bad[:, :2], "g_alpha": bad[:, 2:, None]}
     for f in tab.fields:
         a, b = card[f.name].cpu(), cpu[f.name]
-        assert torch.isfinite(a).all(), f.name
+        nan = expect.get(f.name, torch.zeros((), dtype=torch.bool))
+        assert torch.equal(torch.isnan(a), nan.expand(a.shape)), f.name
+        assert torch.equal(torch.isnan(b), torch.isnan(a)), f.name
+        a, b = a[~torch.isnan(a)], b[~torch.isnan(b)]
         if f.kind == rng.UNIFORM:
             assert torch.equal(a, b), f.name
             continue
         ulps = _f32_ulps(a, b)
         assert int(ulps.max()) <= 1, f.name
         assert float((ulps > 0).double().mean()) <= 1e-4, f.name
+    if case == "edge_shapes":
+        # the good chains drawn alone: their values bit for bit
+        good = torch.nonzero(~bad.any(-1)).reshape(-1)
+        alone = tab.views(rng.sweep_draws(
+            kd[good], sd[good] if per_chain_sweep else sd, shd[good], tab),
+            (len(good),))
+        for f in tab.fields:
+            assert _nan_equal(card[f.name][good.to(dev)],
+                              alone[f.name]), f.name
+        # a boosted 1e-30 gives 0 (its boost underflows), 3e38 a finite
+        # value
+        g = card["g_alpha"].cpu()
+        assert (g[shapes[:, 2:] == 1e-30] == 0).all()
+        assert torch.isfinite(g[shapes[:, 2:] == 3e38]).all()
 
 
 @pytest.mark.torch

@@ -284,3 +284,147 @@ def test_pool_tenant_behind_a_neighbour_equals_torch_gibbs(demo, neighbour):
                                       err_msg=f)
     for k in ("acc_white", "acc_hyper"):
         np.testing.assert_array_equal(rv.stats[k], rs.stats[k], err_msg=k)
+
+
+# --- D1's launch geometry: segments, tiles and the magic division ------------
+
+def _path_table(path):
+    """The draw table of a chip path's sampler: the flagship (covariance
+    proposals), full MTM (K = 4 on both blocks), the stress path's
+    coordinate picks at its 102,400 padded TOAs, the serving pool's
+    ``mixture`` config. The tables are ``TorchGibbs._draw_table`` of the
+    demo model's sampler with only the TOA count changed, so they match
+    X."""
+    import types
+
+    from gibbs_student_t_tpu_torch.backends import torch_backend as tb
+
+    base = GibbsConfig(model="mixture", vary_df=True, theta_prior="beta")
+    cfg = {"flagship": base.with_adapt(100, adapt_cov=True),
+           "mtm": base.with_adapt(100, adapt_cov=True).with_mtm(4),
+           "stress": base, "pool": GibbsConfig(model="mixture")}[path]
+    smp = TorchGibbs(make_demo_model_arrays(components=30), cfg, nchains=1,
+                     device="cpu")
+    ns = types.SimpleNamespace(config=smp.config, _mtm=smp._mtm,
+                               _ma=smp._ma,
+                               _n=102_400 if path == "stress" else smp._n)
+    return tb.TorchGibbs._draw_table(ns)
+
+
+def _div(p, n):
+    magic, shift = rng.div_magic(n)
+    return (np.asarray(p, np.uint64) * np.uint64(magic)) >> np.uint64(shift)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 7, 20, 30, 60, 74, 130, 131, 256,
+                               1000, 2049, 102_400, 204_800, 3 ** 19,
+                               2 ** 30, 2 ** 31 - 1])
+def test_div_magic_divides_every_tile_index(n):
+    # every index a tile can reach (p < n + the longest tile) where that is
+    # few, else both ends of that range, 2**31 - 1 and a million random p
+    rs = np.random.default_rng(n % 1000)
+    top = min(n + rng.DRAW_MAX_TILE, 2 ** 31)
+    if top <= 1 << 22:
+        p = np.arange(top, dtype=np.uint64)
+    else:
+        p = np.concatenate([np.arange(1 << 16), np.arange(top - (1 << 16),
+                                                          top),
+                            [2 ** 31 - 1],
+                            rs.integers(0, 2 ** 31, 1 << 20)]).astype(
+                                np.uint64)
+    magic, _ = rng.div_magic(n)
+    assert 0 < magic < 2 ** 32
+    np.testing.assert_array_equal(_div(p, n), p // np.uint64(n))
+
+
+@pytest.mark.parametrize("B", [1, 7, 1024])
+@pytest.mark.parametrize("path", ["flagship", "stress", "mtm", "pool"])
+def test_tiles_cover_every_value_once(path, B):
+    """Every (field, chain, element) of the table lies in exactly one tile,
+    at the default geometry and two others; a tile spans at most the
+    kernel's chains and values. Where the table is small enough, the
+    kernel's index arithmetic is replayed on every value: tile value j
+    lands where the plain version writes chain b's element e, at the
+    counters (e, tag + shape column) of the layout."""
+    tab = _path_table(path)
+    assert tab.width == {"flagship": 646, "mtm": 1486, "stress": 307_426,
+                         "pool": 616}[path]
+    # the segments split each field into its shape columns, in order
+    for f, o in zip(tab.fields, tab.offsets):
+        segs = [s for s in tab.segments if s[4] == o]
+        cols = f.count // f.per if f.kind == rng.GAMMA else 1
+        assert [s[5] for s in segs] == [c * (f.count // cols)
+                                        for c in range(cols)]
+        assert all(s[0] == f.kind and s[3] == f.count
+                   and s[1] == rng.SWEEP_TAGS[f.name] + c
+                   and s[6] == f.col + c for c, s in enumerate(segs))
+    default = (rng.DRAW_THREADS, rng.DRAW_MAX_CHAINS,
+               rng.draw_elems(B * tab.gammas, rng.DRAW_THREADS, 132))
+    for threads, max_chains, elems in (default, (128, 256, (1, 1)),
+                                       (256, 64, (32, 32))):
+        tiles, longest = tab.tiles(B, threads, max_chains, elems)
+        assert tiles.dtype == np.int32 and tiles.shape[1] == 4
+        seg, b0, e0, ln = (tiles[:, i].astype(np.int64) for i in range(4))
+        n = np.array([s[2] for s in tab.segments])[seg]
+        gamma = np.array([s[0] == rng.GAMMA for s in tab.segments])[seg]
+        L = threads * np.where(gamma, elems[1], elems[0])
+        assert (ln >= 1).all() and (ln <= L).all()
+        assert longest == int(ln.max())
+        assert ((e0 >= 0) & (e0 < n) & (b0 >= 0) & (b0 < B)).all()
+        assert ((e0 + ln - 1) // n + 1 <= max_chains).all()
+        # exact cover: each segment's tiles are consecutive runs of its
+        # B * n values, in order, from 0 to the end
+        start = b0 * n + e0
+        for s, row in enumerate(tab.segments):
+            mine = seg == s
+            st, l_ = start[mine], ln[mine]
+            assert st[0] == 0 and (st[1:] == st[:-1] + l_[:-1]).all()
+            assert st[-1] + l_[-1] == B * row[2]
+        if B * tab.width > 1 << 21:
+            continue
+        # the kernel's arithmetic on every value of every tile
+        rep = np.repeat(np.arange(len(tiles)), ln)
+        j = np.arange(len(rep)) - np.repeat(np.cumsum(ln) - ln, ln)
+        p = e0[rep] + j
+        rows = np.array(tab.segments, np.int64)[seg[rep]]
+        magic, shift = rows[:, 7].astype(np.uint64), rows[:, 8].astype(
+            np.uint64)
+        lc = ((p.astype(np.uint64) * magic) >> shift).astype(np.int64)
+        e = p - lc * rows[:, 2]
+        chain = b0[rep] + lc
+        at = B * rows[:, 4] + rows[:, 5] + chain * rows[:, 3] + e
+        assert ((e >= 0) & (e < rows[:, 2]) & (chain < B)).all()
+        np.testing.assert_array_equal(np.sort(at), np.arange(B * tab.width))
+        # the plain layout at each of those places: field f's (B, count)
+        # block, a gamma field's element k in column k // per
+        for f, o in zip(tab.fields, tab.offsets):
+            mine = (at >= B * o) & (at < B * (o + f.count))
+            k = at[mine] - B * o
+            per = f.per if f.kind == rng.GAMMA else f.count
+            np.testing.assert_array_equal(chain[mine], k // f.count)
+            np.testing.assert_array_equal(e[mine], k % f.count % per)
+            np.testing.assert_array_equal(
+                rows[mine, 1], rng.SWEEP_TAGS[f.name] + k % f.count // per)
+
+
+def test_tiles_refuse_an_index_past_31_bits():
+    tab = rng.DrawTable([rng.DrawField("u_z", rng.UNIFORM, (2 ** 31 - 100,))])
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        tab.tiles(1, rng.DRAW_THREADS, rng.DRAW_MAX_CHAINS, (8, 4))
+
+
+@pytest.mark.parametrize("path, B, want", [
+    ("flagship", 1024, 4), ("pool", 1024, 4), ("stress", 64, 16),
+    ("flagship", 8192, 16), ("flagship", 1, 1), ("flagship", 64, 1)])
+def test_draw_elems_leaves_two_gamma_tiles_an_sm(path, B, want):
+    tab = _path_table(path)
+    other, gamma = rng.draw_elems(B * tab.gammas, rng.DRAW_THREADS, 132)
+    assert (other, gamma) == (8, want)
+    tiles, _ = tab.tiles(B, rng.DRAW_THREADS, rng.DRAW_MAX_CHAINS,
+                         (other, gamma))
+    segs = np.array([s[0] == rng.GAMMA for s in tab.segments])
+    assert gamma == 1 or int(segs[tiles[:, 0]].sum()) >= 2 * 132
+    # gammas / (threads x gamma) lies in [2, 4) tiles an SM unless clamped
+    per_sm = B * tab.gammas / (rng.DRAW_THREADS * gamma * 132)
+    assert gamma == 1 or per_sm >= 2
+    assert gamma == 16 or per_sm < 4

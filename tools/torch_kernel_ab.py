@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Time the PyTorch/CUDA port's factor, back-solve, hyper-block, Gram and
-white-block kernels of one checkout, to compare two versions of the
-kernels on the same card.
+"""Time the PyTorch/CUDA port's factor, back-solve, hyper-block, Gram,
+white-block and draw kernels of one checkout, to compare two versions of
+the kernels on the same card.
 
     python3 tools/torch_kernel_ab.py [--root DIR] [--label NAME]
                                      [--only NAME,...]
                                      [--white-sweep [--sweep-n N,...]]
+                                     [--draw-operands DIR]
+                                     [--draw-elems A,G;...]
+    python3 tools/torch_kernel_ab.py --compare FILE
 
 ``--root`` is the directory holding the ``gibbs_student_t_tpu_torch``
 package to time (default: the checkout this script lies in). One process
@@ -33,6 +36,21 @@ bound: the instructions the white likelihood needs a TOA and point (the
 accurate ``logf`` and the IEEE quotient counted in the SASS of probe
 kernels, plus the formula's own arithmetic) over the card's issue rate.
 ``--only`` times the named kernels alone.
+
+``sweep_draws`` (D1, the per-chain draws) is timed on the operands of the
+four paths' draw calls: the flagship (1024 chains with covariance
+proposals, 646 values a chain), stress (64 x 307,426), ens32 (8,192 x
+646) and pool1024 (1024 lanes x 616). ``--draw-operands DIR`` saves the
+captured operands there (keys, sweep indices, shapes and the table's
+fields) or, where a file of the path is there already, loads them, so
+that every root of an A/B draws from the same inputs; each row carries
+the sha256 of the kernel's output, and ``--compare FILE`` (the JSON lines
+of several roots) checks that those digests agree path by path and prints
+the times side by side. Rows of a root whose ``sweep_draws`` takes
+``elems`` are timed also at each tile length of ``--draw-elems`` (values
+a thread for the other fields and the gamma fields, e.g. ``8,4;1,1``),
+and carry D1's instruction floor where the root's ``rng`` counts the
+Marsaglia-Tsang attempts (:func:`draw_floor`).
 
 ``--white-sweep`` times instead ``white_mh`` and ``white_mtm`` (K = 4,
 and K = 8 at 130 TOAs) on synthetic operands tiled from the demo pulsar
@@ -88,27 +106,74 @@ def function_instructions(root):
     the same kernel without it, up to the kernel's ``EXIT`` and without
     the code a branch skips to reach the quotient's rare exact path (a
     call). ``None`` where ``nvcc`` or ``cuobjdump`` is missing."""
-    import re
-    import shutil
-
-    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    nvcc = shutil.which("nvcc") or os.path.join(cuda, "bin", "nvcc")
-    tool = shutil.which("cuobjdump") or os.path.join(cuda, "bin",
-                                                     "cuobjdump")
-    if not (os.path.exists(nvcc) and os.path.exists(tool)):
+    sass = _sass(root, "probe", _PROBE)
+    if sass is None:
         return None
-    out = os.path.join(root, "gibbs_student_t_tpu_torch", "_build",
-                       "probe")
-    os.makedirs(out, exist_ok=True)
-    src, cubin = os.path.join(out, "probe.cu"), os.path.join(out,
-                                                             "probe.cubin")
-    with open(src, "w") as fh:
-        fh.write(_PROBE)
-    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-O3", "-cubin", src, "-o", cubin], check=True)
-    sass = subprocess.run([tool, "-sass", cubin], capture_output=True,
-                          text=True, check=True).stdout
-    counts = {}
+    counts = {f: len(ins) for f, ins in _sass_fast_paths(sass).items()}
+    base = counts["probe_base"]
+    return {"logf": counts["probe_log"] - base,
+            "quotient": counts["probe_quot"] - base}
+
+
+# One value of each of D1's kinds, one Marsaglia-Tsang attempt, the boost
+# of an accepted gamma and a shape's constants, each in a kernel of its
+# own on operands read per thread (so nothing folds), from the kernel's
+# own header csrc/gst_draws.cuh.
+_DRAW_PROBE = r"""
+#include "gst_draws.cuh"
+#define I threadIdx.x
+extern "C" __global__ void probe_base(const unsigned* w, const double* p,
+                                      float* o) {
+  o[I] = (float)p[I] + __uint_as_float(w[I]);
+}
+#define PLAIN(name, kind)                                                  \
+  extern "C" __global__ void name(const unsigned* w, const double* p,      \
+                                  float* o) {                              \
+    o[I] = (float)gst_plain_value(kind, w[I], w[I + 32], w[I + 64],        \
+                                  w[I + 96], w[I + 128]);                  \
+  }
+PLAIN(probe_uniform, GST_UNIFORM)
+PLAIN(probe_normal, GST_NORMAL)
+PLAIN(probe_log_uniform, GST_LOG_UNIFORM)
+PLAIN(probe_gumbel, GST_GUMBEL)
+extern "C" __global__ void probe_attempt(const unsigned* w, const double* p,
+                                         float* o) {
+  double g = 0.0;
+  uint32_t w3;
+  const bool acc = gst_mt_attempt(w[I], w[I + 32], w[I + 64], w[I + 96],
+                                  w[I + 128], w[I + 160], p[I], p[I + 32],
+                                  g, w3);
+  o[I] = acc ? (float)g : __uint_as_float(w3);
+}
+extern "C" __global__ void probe_boost(const unsigned* w, const double* p,
+                                       float* o) {
+  o[I] = (float)gst_mt_boost(p[I], w[I], p[I + 32]);
+}
+extern "C" __global__ void probe_consts(const unsigned* w, const double* p,
+                                        float* o) {
+  double d, cc;
+  gst_mt_consts(p[I], d, cc);
+  o[I] = (float)d;
+  o[I + 32] = (float)cc;
+}
+"""
+
+#: the instruction classes D1's floor reads, with their rate in lanes a
+#: cycle on one SM of compute capability 9.0 (CUDA C++ Programming Guide,
+#: "Throughput of Native Arithmetic Instructions"): float64 add, multiply
+#: and FMA 64; conversions from and to 64-bit types 16; the special
+#: function unit (MUFU, the seeds of float64 rcp and rsqrt) 16; and
+#: every instruction one of the 4 schedulers' 32 issue lanes
+DRAW_RATES = {"fp64": 64, "conv64": 16, "mufu": 16, "issue": 128}
+
+
+def _sass_fast_paths(sass):
+    """``{function: [instruction text]}``: each function's instructions up
+    to its first unpredicated ``EXIT``, without NOPs and without the code a
+    forward branch skips to reach a call (a slow path)."""
+    import re
+
+    paths = {}
     for func in sass.split("Function : ")[1:]:
         ins = [(int(a, 16), t.strip()) for a, t in re.findall(
             r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
@@ -122,12 +187,143 @@ def function_instructions(root):
             if a < tgt <= end and any(a < x < tgt and "CALL" in u
                                       for x, u in ins):
                 skip.append((a, tgt))
-        counts[func.split("\n", 1)[0].strip()] = sum(
-            1 for a, t in ins if a <= end and not t.startswith("NOP")
-            and not any(lo < a < hi for lo, hi in skip))
-    base = counts["probe_base"]
-    return {"logf": counts["probe_log"] - base,
-            "quotient": counts["probe_quot"] - base}
+        paths[func.split("\n", 1)[0].strip()] = [
+            t for a, t in ins if a <= end and not t.startswith("NOP")
+            and not any(lo < a < hi for lo, hi in skip)]
+    return paths
+
+
+def _sass(root, name, source, flags=()):
+    """The SASS of ``source`` compiled for sm_90a (``None`` without
+    ``nvcc`` or ``cuobjdump``)."""
+    import shutil
+
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    nvcc = shutil.which("nvcc") or os.path.join(cuda, "bin", "nvcc")
+    tool = shutil.which("cuobjdump") or os.path.join(cuda, "bin",
+                                                     "cuobjdump")
+    if not (os.path.exists(nvcc) and os.path.exists(tool)):
+        return None
+    out = os.path.join(root, "gibbs_student_t_tpu_torch", "_build",
+                       "probe")
+    os.makedirs(out, exist_ok=True)
+    src, cubin = (os.path.join(out, name + ".cu"),
+                  os.path.join(out, name + ".cubin"))
+    with open(src, "w") as fh:
+        fh.write(source)
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-O3", *flags, "-cubin", src, "-o", cubin], check=True)
+    return subprocess.run([tool, "-sass", cubin], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def _op_class(text):
+    """The classes of :data:`DRAW_RATES` one SASS instruction counts in."""
+    op = text.split()[1] if text.startswith("@") else text.split()[0]
+    head = op.split(".")[0]
+    cls = ["issue"]
+    if head in ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET"):
+        cls.append("fp64")
+    elif head in ("F2F", "I2F", "F2I") and "64" in op:
+        cls.append("conv64")
+    elif head == "MUFU":
+        cls.append("mufu")
+    return cls
+
+
+def draw_instructions(root):
+    """The instructions of one value of each of D1's kinds, of one
+    Marsaglia-Tsang attempt, of the boost and of a shape's constants, as
+    nvcc compiles ``csrc/gst_draws.cuh`` for sm_90a with D1's flags:
+    ``{probe: {class: count}}`` over :data:`DRAW_RATES`' classes, counted
+    on each probe's fast path (``issue``: less the same kernel's loads
+    and store without the draw). ``None`` where ``nvcc`` or ``cuobjdump``
+    is missing."""
+    csrc = os.path.join(root, "gibbs_student_t_tpu_torch", "csrc")
+    sass = _sass(root, "draw_probe", _DRAW_PROBE,
+                 ("-fmad=false", "-I", csrc))
+    if sass is None:
+        return None
+    counts = {}
+    for func, ins in _sass_fast_paths(sass).items():
+        c = dict.fromkeys(DRAW_RATES, 0)
+        for t in ins:
+            for k in _op_class(t):
+                c[k] += 1
+        counts[func] = c
+    base = counts.pop("probe_base")
+    out = {}
+    for func, c in counts.items():
+        c["issue"] -= base["issue"]
+        out[func[len("probe_"):]] = c
+    return out
+
+
+def draw_work(rng, keys, sweep, shapes, table):
+    """What D1 does on these operands: values of each non-gamma kind, the
+    Marsaglia-Tsang attempts of the gammas (``rng.gamma_attempts``), the
+    accepted boosted gammas and the (chain, shape column) pairs."""
+    B = keys.numel() // 2
+    sh = shapes.reshape(B, -1)
+    kinds = {rng.UNIFORM: "uniform", rng.NORMAL: "normal",
+             rng.LOG_UNIFORM: "log_uniform", rng.GUMBEL: "gumbel"}
+    work = dict.fromkeys(kinds.values(), 0)
+    work.update(attempts=rng.gamma_attempts(keys, sweep, shapes, table),
+                boost=0, consts=0, gammas=0)
+    for f in table.fields:
+        if f.kind != rng.GAMMA:
+            work[kinds[f.kind]] += B * f.count
+            continue
+        a = sh[:, f.col:f.col + f.count // f.per]
+        work["boost"] += int(((a > 0) & (a < 1)).sum()) * f.per
+        work["consts"] += a.numel()
+        work["gammas"] += B * f.count
+    return work
+
+
+def draw_floor(ins, work, sms, mhz):
+    """D1's least time on ``work`` (:func:`draw_work`) at ``ins``
+    (:func:`draw_instructions`): for each class of :data:`DRAW_RATES` its
+    instructions over its rate on ``sms`` SMs at ``mhz``; the floor is the
+    largest (``by``)."""
+    need = dict.fromkeys(DRAW_RATES, 0)
+    for probe, count in (("uniform", work["uniform"]),
+                         ("normal", work["normal"]),
+                         ("log_uniform", work["log_uniform"]),
+                         ("gumbel", work["gumbel"]),
+                         ("attempt", work["attempts"]),
+                         ("boost", work["boost"]),
+                         ("consts", work["consts"])):
+        for k in need:
+            need[k] += count * ins[probe][k]
+    ms = {k: need[k] / (sms * DRAW_RATES[k] * mhz * 1e6) * 1e3
+          for k in need}
+    by = max(ms, key=ms.get)
+    return {"floor_ms": ms[by], "by": by, "ms_by_class": ms,
+            "instructions": need}
+
+
+def compare(path):
+    """Check that the D1 rows of several roots (JSON lines of this script)
+    agree bit for bit path by path; print their times side by side."""
+    with open(path) as fh:
+        runs = [json.loads(line) for line in fh if line.startswith("{")]
+    digests, times, ok = {}, {}, True
+    for run in runs:
+        for r in run["rows"]:
+            if r["kernel"] != "sweep_draws":
+                continue
+            key = (r["case"], tuple(r.get("elems") or ()))
+            digests.setdefault(r["case"], set()).add(r["digest"])
+            times.setdefault(key, []).append((run["label"], r["ms"]))
+    for case, ds in sorted(digests.items()):
+        same = len(ds) == 1
+        ok &= same
+        print(f"{case}: {'bitwise equal' if same else 'DIFFERENT'} "
+              f"across {len(runs)} runs")
+    for key, ts in sorted(times.items()):
+        print(key, " ".join(f"{lab}={ms:.5f}" for lab, ms in ts))
+    return ok
 
 
 def main() -> None:
@@ -138,7 +334,12 @@ def main() -> None:
     ap.add_argument("--only", default=None)
     ap.add_argument("--white-sweep", action="store_true")
     ap.add_argument("--sweep-n", default=None)
+    ap.add_argument("--draw-operands", default=None)
+    ap.add_argument("--draw-elems", default=None)
+    ap.add_argument("--compare", default=None)
     opts = ap.parse_args()
+    if opts.compare:
+        sys.exit(0 if compare(opts.compare) else 1)
     root = os.path.abspath(opts.root)
     sys.path.insert(0, root)
 
@@ -154,7 +355,7 @@ def main() -> None:
         make_reference_pta,
     )
     from gibbs_student_t_tpu_torch.ops import chol, hyper_mh, linalg, tnt
-    from gibbs_student_t_tpu_torch.ops import white_mh
+    from gibbs_student_t_tpu_torch.ops import rng, white_mh
     from gibbs_student_t_tpu_torch.parallel import EnsembleGibbs
     from gibbs_student_t_tpu_torch.serve import ChainServer, TenantRequest
     from gibbs_student_t_tpu_torch.serve import pool as serve_pool
@@ -263,11 +464,21 @@ def main() -> None:
         ("ens mtm 8 x 128", lambda: sweeps(ens32(
             8, 128, cfg.with_mtm(4, blocks=("white",))), 2), ("white_mtm",)),
         ("pool1024", pool_step, ("tnt_lanes", "white_mh_lanes")))
-    if opts.only:
-        keep = set(opts.only.split(","))
+    keep = set(opts.only.split(",")) if opts.only else None
+    if keep:
         cases = tuple((c, mk, tuple(n for n in names if n in keep))
                       for c, mk, names in cases
                       if any(n in keep for n in names))
+    cfg_cov = cfg.with_adapt(100, adapt_cov=True)
+    # D1's paths: the samplers of chip_smoke.py's flagship, stress, ens32
+    # and pool1024
+    draw_cases = (
+        ("flagship", lambda: sweeps(tb.TorchGibbs(
+            make_demo_model_arrays(components=30), cfg_cov, nchains=1024,
+            device=dev))),
+        ("stress", lambda: sweeps(solo(30, 64, 100_000))),
+        ("ens32", lambda: sweeps(ens32(cfg=cfg_cov), 2)),
+        ("pool1024", pool_step))
 
     fn_ins = function_instructions(root)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -377,9 +588,88 @@ def main() -> None:
             torch.cuda.empty_cache()
         return rows_
 
+    def draw_operands(case, make):
+        """``(keys, sweep, shapes, table)`` of the last draw call of a
+        path's sweeps, from ``--draw-operands`` where saved there."""
+        path = (os.path.join(opts.draw_operands, case.replace(" ", "_")
+                             + ".pt") if opts.draw_operands else None)
+        if path and os.path.exists(path):
+            d = torch.load(path)
+            return (d["keys"].to(dev), d["sweep"].to(dev),
+                    d["shapes"].to(dev),
+                    rng.DrawTable([rng.DrawField(*f) for f in d["fields"]]))
+        got = []
+        real = tb.sweep_draws
+
+        def rec(keys, sweep, shapes, table, out=None, **kw):
+            got[:] = [(keys.clone(), sweep.clone(), shapes.clone(), table)]
+            return real(keys, sweep, shapes, table, out=out, **kw)
+        tb.sweep_draws = rec
+        try:
+            make()()
+            torch.cuda.synchronize()
+        finally:
+            tb.sweep_draws = real
+        (args,) = got
+        if path:
+            os.makedirs(opts.draw_operands, exist_ok=True)
+            torch.save({"keys": args[0].cpu(), "sweep": args[1].cpu(),
+                        "shapes": args[2].cpu(),
+                        "fields": [tuple(f) for f in args[3].fields]}, path)
+        return args
+
+    def draw_rows():
+        """D1 on each path's operands: time, output digest, and (where the
+        checkout counts attempts) its work and instruction floor, at the
+        default tiles and at each of ``--draw-elems``."""
+        import hashlib
+        import inspect
+
+        ins = draw_instructions(here)
+        elems_ok = "elems" in inspect.signature(rng.sweep_draws).parameters
+        variants = [None] + ([tuple(int(v) for v in e.split(","))
+                              for e in opts.draw_elems.split(";")]
+                             if opts.draw_elems and elems_ok else [])
+        out = []
+        for case, make in draw_cases:
+            args = draw_operands(case, make)
+            keys, sw, sh, tab = args
+            B = keys.numel() // 2
+            work = (draw_work(rng, *args)
+                    if hasattr(rng, "gamma_attempts") else None)
+            for elems in variants:
+                fn = (rng.sweep_draws if elems is None else
+                      lambda *a, e=elems: rng.sweep_draws(*a, elems=e))
+                try:
+                    res = fn(*args)
+                    torch.cuda.synchronize()
+                except (RuntimeError, ValueError) as exc:
+                    # a tile length the checkout's kernel refuses
+                    print(f"# sweep_draws {case} {elems}: {exc}",
+                          file=sys.stderr, flush=True)
+                    continue
+                row = {"kernel": "sweep_draws", "case": case,
+                       "shape": [B, tab.width], "elems": elems,
+                       "ms": timed(fn, args),
+                       "digest": hashlib.sha256(
+                           res.cpu().numpy().tobytes()).hexdigest()[:16]}
+                if elems is None:
+                    row["work"] = work
+                    row["floor"] = (draw_floor(ins, work, sms, max_mhz)
+                                    if work and ins else None)
+                out.append(row)
+                print(f"# sweep_draws {case} {elems}: {row['ms']:.5f} ms",
+                      file=sys.stderr, flush=True)
+            del args, keys, sw, sh, res
+            torch.cuda.empty_cache()
+        return out, ins
+
     rows = []
+    draw_ins = None
     if opts.white_sweep:
         rows = white_sweep()
+    elif keep is None or "sweep_draws" in keep:
+        rows, draw_ins = draw_rows()
     for case, make, names in () if opts.white_sweep else cases:
         for (name, shape), args in sorted(capture(make(), names).items()):
             row = {"kernel": name, "case": case, "shape": list(shape),
@@ -394,7 +684,8 @@ def main() -> None:
         torch.cuda.empty_cache()
     print(json.dumps({"label": opts.label or root, "card": card,
                       "function_instructions": fn_ins,
-                      "per_point": per_point(3), "sms": sms,
+                      "per_point": per_point(3),
+                      "draw_instructions": draw_ins, "sms": sms,
                       "max_sm_mhz": max_mhz, "rows": rows}), flush=True)
 
 
