@@ -97,7 +97,8 @@ exits 1 through ``fail`` before it, and so does an uncaught exception.
    c. a tenant of 256 chains against ``TorchGibbs`` on the card: its draws
       bit for bit the solo sampler's, and one sweep from the same state
       with the same accept counts once ties are separated;
-   d. the pool1024 run through ``ChainServer.run()`` (8 tenants of 256
+   d. the pool1024 run through ``ChainServer.run()`` on the serial
+      executor (8 tenants of 256
       chains with budgets of 4-7 quanta, then a 40-chain tenant with 8 pad
       lanes; ``record="light"``; tnt_lanes 1, white_mh_lanes 1,
       hyper_mh_lanes 1, chol_fused 2, tri_solve_T 2 launches per pool
@@ -203,6 +204,30 @@ exits 1 through ``fail`` before it, and so does an uncaught exception.
       values and Marsaglia-Tsang attempts need, counted in the SASS of
       probe kernels, over its rate), its plain version and the generator
       draws.
+15. the scheduler and the pipelined executor (``serve.ChainServer``
+   ``scheduler=``, ``pipeline=``) at pool1024, in a temporary directory
+   removed at the end:
+   a. phase 11d's tenant set through the serial loop and the pipelined
+      executor in turns (serial, pipelined, pipelined, serial): every
+      tenant bit for bit across the four runs, finite and shaped;
+   b. lossless preemption on each executor: two spooled priority-2
+      tenants of 512 chains x 250 sweeps fill the pool, a priority-0
+      tenant of 1024 chains x 50 sweeps arrives after their second
+      quantum (the trigger reads ``server.quanta``); both victims are
+      preempted, requeued and finish bit for bit their uninterrupted runs
+      (every light record field and the accept rates); then a
+      deadline-armed victim (deadline 50 sweeps, the interactive tenant
+      arriving after the first quantum) resolves with
+      ``DeadlineExceeded`` whose spooled prefix is bit for bit the
+      uninterrupted run's first rows, and the other victim finishes bit
+      for bit; the launches of every phase-15 run are checked as pool
+      sweeps (path ``pool_sched``);
+   c. serial against pipelined: ms a quantum, device ms a quantum (a
+      profile of 4 tenants x 2 quanta under each) and idle share, busy
+      chain-sweeps/s, the drain's, dispatch's and admission's host ms a
+      quantum and the gap between dispatches; the preemptions, the
+      victims' re-admission delay in quanta and the sweep they were
+      frozen at; with the card's name and power limit.
 
 Launch counts are read per path: every count is set to 0 just before a
 run and read just after it; a count is launches per sweep x sweeps plus
@@ -344,7 +369,8 @@ DRAWS = "sweep_draws"
 # ("drivers": the reference's model of a simulated 130-TOA pulsar, the
 # flagship's shapes), and its ensemble runs launch ens32's grouped kernels
 SAME_AS = {"sample": "flagship", "spool": "flagship", "spool_ens": "ens32",
-           "drivers": "flagship", "drivers_ens": "ens32"}
+           "drivers": "flagship", "drivers_ens": "ens32",
+           "pool_sched": "pool"}
 # a grouped kernel's entry: the wrapper it shares with the single-model
 # launch; it counts on the wrapper's launches_grouped
 GROUPED = {"white_mh_grouped": "white_mh", "hyper_mh_grouped": "hyper_mh",
@@ -1904,8 +1930,10 @@ def main() -> None:
     rng_b = np.random.default_rng(0)
     budgets = [int(rng_b.integers(4, 8)) * POOL_QUANTUM
                for _ in range(POOL_TENANTS)]
+    # the serial executor: 11d checks every quantum it runs
     srv = ChainServer(template, cfg_p, nlanes=POOL_LANES,
-                      quantum=POOL_QUANTUM, record="light", device=dev)
+                      quantum=POOL_QUANTUM, record="light", device=dev,
+                      pipeline=False)
     pool = srv.pool
     pool_rep = report["pool1024"] = {
         "build_s": time.perf_counter() - t0, "nlanes": POOL_LANES,
@@ -3461,6 +3489,261 @@ def main() -> None:
     drep["seconds"] = time.perf_counter() - t14
     print(f"# phase 14: {drep['seconds']:.1f} s", flush=True)
     del stress, ens
+
+    # --- 15. the scheduler and the pipelined executor (pool1024) ------------
+    from gibbs_student_t_tpu_torch.serve import DeadlineExceeded
+
+    t15 = time.perf_counter()
+    srep = report["sched"] = {}
+    tmp15 = tempfile.mkdtemp(prefix="gst_chip_smoke_sched_")
+    served = [0]            # pool sweeps of phase 15's servers
+    WAIT_S = 600.0          # no result is waited for longer
+
+    def pool_server(pipeline, **kw):
+        return ChainServer(template, cfg_p, nlanes=POOL_LANES,
+                           quantum=POOL_QUANTUM, record="light", device=dev,
+                           pipeline=pipeline, **kw)
+
+    def drive(s, on_quantum=None):
+        """``s.run()`` to idle, timed behind a synchronize; the server is
+        closed (every thread it started ends) whatever happens."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            s.run(on_quantum=on_quantum)
+            torch.cuda.synchronize()
+        finally:
+            s.close(timeout=WAIT_S)
+        served[0] += s.quanta * POOL_QUANTUM
+        return time.perf_counter() - t0
+
+    def tenant_set():
+        """Phase 11d's tenants: 8 of 256 chains, then one of 40."""
+        reqs = [TenantRequest(ma=tenant_mas[i], niter=budgets[i],
+                              nchains=POOL_CHAINS, seed=100 + i)
+                for i in range(POOL_TENANTS)]
+        reqs.append(TenantRequest(
+            ma=tenant_mas[-1], niter=POOL_PAD_SWEEPS,
+            nchains=POOL_PAD_CHAINS, seed=100 + POOL_TENANTS))
+        return reqs
+
+    def finite_shaped(res, nchains, niter):
+        return (res.chain.shape == (niter, nchains, template.nparam)
+                and bool(np.isfinite(res.chain).all()
+                         and np.isfinite(res.thetachain).all()
+                         and np.isfinite(res.dfchain).all()))
+
+    reset_counts()
+    try:
+        # 15a. phase 11's tenant set through each executor: every tenant
+        # bitwise across the two; 15c's walls, throughput and host ms
+        # in turns: serial, pipelined, pipelined, serial
+        runs = {False: [], True: []}
+        first = None
+        bitwise = True
+        for pipeline in (False, True, True, False):
+            s = pool_server(pipeline)
+            hs = [s.submit(r) for r in tenant_set()]
+            wall = drive(s)
+            res = [h.result(timeout=WAIT_S) for h in hs]
+            if first is None:
+                first = res
+            bitwise &= all(same_rows(a, b) for a, b in zip(first, res))
+            runs[pipeline].append((wall, s.summary()))
+        shapes_ok = all(finite_shaped(r, c_, n_) for r, (c_, n_) in zip(
+            first, pool_rep["tenants"]))
+        t15b = time.perf_counter()
+        # the device's busy time a quantum, from a profiled window of each
+        # executor (4 tenants of 256 chains, 2 quanta)
+        prof_q = 2
+        device_ms = {}
+        for pipeline in (True, False):
+            s = pool_server(pipeline)
+            for i in range(POOL_LANES // POOL_CHAINS):
+                s.submit(TenantRequest(ma=tenant_mas[i],
+                                       niter=prof_q * POOL_QUANTUM,
+                                       nchains=POOL_CHAINS, seed=600 + i))
+            prof = profile_calls(torch, lambda s=s: drive(s), 1)
+            if prof["device_ms_per_sweep"] <= 0:
+                fail("the profiler saw no device time in a scheduled run")
+            # (the pipelined executor admits what its staging window holds,
+            # so its quanta may be more)
+            device_ms[pipeline] = prof["device_ms_per_sweep"] / s.quanta
+        for pipeline in (False, True):
+            walls = [w for w, _ in runs[pipeline]]
+            summ = runs[pipeline][0][1]
+            ms_q = float(np.mean([1e3 * w / sm["quanta"]
+                                  for w, sm in runs[pipeline]]))
+
+            def host(leg):
+                return [sm["host_ms"][leg]["mean"] for _, sm in
+                        runs[pipeline]]
+
+            srep["serial" if not pipeline else "pipelined"] = {
+                "quanta": [sm["quanta"] for _, sm in runs[pipeline]],
+                "wall_s": walls,
+                "ms_per_quantum": ms_q,
+                "device_ms_per_quantum": device_ms[pipeline],
+                "idle_share": max(0.0, 1.0 - device_ms[pipeline] / ms_q),
+                "busy_chain_sweeps_per_s": [
+                    summ["busy_chain_sweeps"] / w for w in walls],
+                "occupancy": summ["occupancy"],
+                "drain_host_ms_per_quantum": host("drain"),
+                "dispatch_host_ms_per_quantum": host("dispatch"),
+                "admission_host_ms_per_quantum": host("admission"),
+                "dispatch_gap_ms": host("dispatch_gap"),
+                "admission_ms_mean": [sm["admission_ms"]
+                                      for _, sm in runs[pipeline]]}
+        srep["tenant_set"] = {"bitwise": bool(bitwise),
+                              "finite_shaped": bool(shapes_ok)}
+        print(f"# sched 15a phase 11's tenant set, serial vs pipelined: "
+              f"{json.dumps(srep['tenant_set'])}", flush=True)
+        if not (bitwise and shapes_ok):
+            fail("the pipelined executor's tenants differ from the serial "
+                 "loop's, or are not finite and shaped")
+        del runs
+
+        # 15b. lossless preemption: two spooled batch tenants of 512
+        # chains x 250 sweeps (10 quanta) fill the pool; an interactive
+        # tenant of 1024 chains x 50 sweeps arrives after their second
+        # quantum (the trigger reads server.quanta, which the dispatch
+        # side sets)
+        V_CHAINS, V_SWEEPS = POOL_LANES // 2, 10 * POOL_QUANTUM
+        H_SWEEPS = 2 * POOL_QUANTUM
+
+        def victims(extra=({}, {})):
+            return [TenantRequest(ma=tenant_mas[4 + i], niter=V_SWEEPS,
+                                  nchains=V_CHAINS, seed=300 + i,
+                                  priority=2, **extra[i])
+                    for i in range(2)]
+
+        s = pool_server(False)
+        ref_hs = [s.submit(r) for r in victims()]
+        drive(s)
+        refs = [h.result(timeout=WAIT_S) for h in ref_hs]
+
+        def preempted_run(pipeline, at, tag, deadline=None):
+            s = pool_server(pipeline, scheduler="priority")
+            vh = [s.submit(r) for r in victims([
+                dict(spool_dir=os.path.join(tmp15, f"{tag}{i}"),
+                     deadline_sweeps=(deadline if i == 0 else None))
+                for i in range(2)])]
+            hi, seen = [], [dict(out=None, back=None) for _ in vh]
+
+            def on_quantum(srv_):
+                if srv_.quanta == at and not hi:
+                    hi.append(srv_.submit(TenantRequest(
+                        ma=tenant_mas[6], niter=H_SWEEPS, nchains=POOL_LANES,
+                        seed=400, priority=0)))
+                for h, st in zip(vh, seen):
+                    inside = h.tenant_id in srv_._running
+                    if not inside and st["out"] is None and hi:
+                        st["out"] = srv_.quanta
+                    if inside and st["out"] is not None \
+                            and st["back"] is None:
+                        st["back"] = srv_.quanta
+
+            wall = drive(s, on_quantum)
+            return s, vh, hi, seen, wall
+
+        pre = {}
+        srep["seconds_15a"] = t15b - t15
+        srep["seconds_profiles"] = time.perf_counter() - t15b
+        for pipeline in (False, True):
+            s, vh, hi, seen, wall = preempted_run(pipeline, 2,
+                                                  f"p{int(pipeline)}_")
+            got = [h.result(timeout=WAIT_S) for h in vh]
+            hres = hi[0].result(timeout=WAIT_S)
+            pre[pipeline] = {
+                "preemptions": s.summary()["sched"]["preemptions"],
+                "victim_preemptions": [h.preemptions for h in vh],
+                "frozen_at": [h.request.start_sweep for h in vh],
+                "readmission_delay_quanta": [
+                    None if st["back"] is None else st["back"] - st["out"] - 1
+                    for st in seen],
+                "quanta": s.quanta, "wall_s": wall,
+                "drain_host_ms_per_quantum":
+                    s.summary()["host_ms"]["drain"]["mean"],
+                "dispatch_host_ms_per_quantum":
+                    s.summary()["host_ms"]["dispatch"]["mean"],
+                "victims_bitwise": [bool(same_rows(a, b))
+                                    for a, b in zip(got, refs)],
+                "interactive_ok": bool(finite_shaped(hres, POOL_LANES,
+                                                     H_SWEEPS))}
+        # a deadline-armed victim (deadline 2 quanta; the interactive
+        # tenant arrives after the first quantum): DeadlineExceeded with
+        # its spooled prefix, bitwise the uninterrupted run's first rows;
+        # the other victim finishes bitwise
+        s, vh, hi, seen, wall = preempted_run(True, 1, "d_",
+                                              deadline=2 * POOL_QUANTUM)
+        try:
+            vh[0].result(timeout=WAIT_S)
+            dl = {"raised": False}
+        except DeadlineExceeded as e:
+            n = e.partial.chain.shape[0]
+            dl = {"raised": True, "deadline_sweep": e.deadline_sweep,
+                  "served_sweeps": e.served_sweeps, "prefix_rows": n,
+                  "prefix_bitwise": bool(
+                      n == e.served_sweeps
+                      and all(eq(getattr(e.partial, f),
+                                 getattr(refs[0], f)[:n])
+                              for f in ("chain", "thetachain", "dfchain"))
+                      and all(eq(e.partial.stats[k], refs[0].stats[k][:n])
+                              for k in ("acc_white", "acc_hyper")))}
+        dl["other_bitwise"] = bool(same_rows(vh[1].result(timeout=WAIT_S),
+                                             refs[1]))
+        hi[0].result(timeout=WAIT_S)
+        srep["preemption"] = {"serial": pre[False], "pipelined": pre[True],
+                              "deadline": dl}
+        for pipeline in (False, True):
+            print(f"# sched 15b preemption "
+                  f"{'pipelined' if pipeline else 'serial'}: "
+                  f"{json.dumps(pre[pipeline])}", flush=True)
+        print(f"# sched 15b deadline: {json.dumps(dl)}", flush=True)
+        if not all(all(p["victims_bitwise"]) and p["interactive_ok"]
+                   and p["preemptions"] >= 2
+                   and min(p["victim_preemptions"]) >= 1
+                   for p in pre.values()):
+            fail("a preempted tenant is not bitwise its uninterrupted run, "
+                 "or the preemption did not happen")
+        if not (dl["raised"] and dl["served_sweeps"] >= 2 * POOL_QUANTUM
+                and dl["prefix_bitwise"] and dl["other_bitwise"]):
+            fail("the deadline-armed victim did not resolve with its "
+                 "spooled prefix")
+        counts15 = check_launches("pool_sched", served[0], 0)
+    finally:
+        shutil.rmtree(tmp15, ignore_errors=True)
+
+    # 15c. serial against pipelined
+    for name in ("serial", "pipelined"):
+        r = srep[name]
+
+        def two(vals, f=".3f"):
+            return " / ".join(format(v, f) for v in vals)
+
+        print(f"# sched 15c pool1024 {name}: {r['ms_per_quantum']:.2f} ms "
+              f"a quantum (mean of 2 runs of {two(r['quanta'], 'd')} "
+              f"quanta), device "
+              f"{r['device_ms_per_quantum']:.3f} ms a quantum, idle share "
+              f"{r['idle_share']:.4f}, "
+              f"{two(r['busy_chain_sweeps_per_s'], '.1f')} busy "
+              f"chain-sweeps/s, drain host "
+              f"{two(r['drain_host_ms_per_quantum'])} ms a quantum "
+              f"(dispatch {two(r['dispatch_host_ms_per_quantum'])}, admission "
+              f"{two(r['admission_host_ms_per_quantum'])}, dispatch gap "
+              f"{two(r['dispatch_gap_ms'])}) | {card}", flush=True)
+    for name, p in (("serial", pre[False]), ("pipelined", pre[True])):
+        print(f"# sched 15c preemption {name}: {p['preemptions']} "
+              f"preemptions, re-admission delay "
+              f"{p['readmission_delay_quanta']} quanta, victims frozen at "
+              f"sweep {p['frozen_at']}, {1e3 * p['wall_s'] / p['quanta']:.2f}"
+              f" ms a quantum, drain host "
+              f"{p['drain_host_ms_per_quantum']:.3f} ms a quantum "
+              f"(dispatch {p['dispatch_host_ms_per_quantum']:.3f}) | {card}",
+              flush=True)
+    srep["launches"] = counts15
+    srep["seconds"] = time.perf_counter() - t15
+    print(f"# phase 15: {srep['seconds']:.1f} s", flush=True)
 
     # the redesigned kernels beside the first design and the library call
     # (reported, not gated)

@@ -206,18 +206,23 @@ def record_tuple(st, fields, casts):
 class _HostCopy:
     """Tensors on their way to the host: on a CUDA device, copied with
     ``non_blocking=True`` into pinned host memory on ``stream`` (ordered
-    after the work that produced them), with an event recorded after the
+    after the work that produced them: the event ``after``, recorded
+    where that work was issued, or else everything issued so far on the
+    calling thread's current stream), with an event recorded after the
     copies; on the CPU they are the host tensors already. :meth:`wait`
     returns the host tensors once the copy is complete. The device
     tensors are held until then, so their memory is not reused while
     the copy reads it."""
 
-    def __init__(self, tensors, stream=None):
+    def __init__(self, tensors, stream=None, after=None):
         self._src, self._event = list(tensors), None
         if stream is None:
             self._host = self._src
             return
-        stream.wait_stream(torch.cuda.current_stream(stream.device))
+        if after is not None:
+            stream.wait_event(after)
+        else:
+            stream.wait_stream(torch.cuda.current_stream(stream.device))
         with torch.cuda.stream(stream):
             self._host = [
                 torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(

@@ -37,11 +37,18 @@ tenant whose chain count is not a multiple of 16) are frozen at the end
 of each quantum, bitwise: their state is the quantum's starting state.
 A tenant's pad lanes start as copies of its chain 0 (finite, discarded).
 
+A quantum is dispatched by :meth:`SlotPool.dispatch_quantum`, which
+returns the records still on the device and, when asked, a copy of the
+post-quantum state (the checkpoint of a spooled tenant, read by the
+pipelined server's drain thread while the next quantum runs);
+:meth:`SlotPool.run_quantum` is its serial form.
+
 Not ported from the JAX pool: buffer donation and the device scatter of
 admissions (``GST_SERVE_SCATTER``), the adaptive block-gate operand, the
-wire-dtype record tiers, telemetry, recycling, and heterogeneous pools
-(tenants with fewer TOAs than the pool). Like the JAX pool it refuses
-population-covariance adaptation; it also refuses multiple-try
+wire-dtype record tiers, telemetry and the lane-health writes
+(quarantine, poison, re-initialization), recycling, and heterogeneous
+pools (tenants with fewer TOAs than the pool). Like the JAX pool it
+refuses population-covariance adaptation; it also refuses multiple-try
 Metropolis, which the lanes entries do not cover.
 """
 
@@ -88,6 +95,11 @@ class TenantSlot:
         self.start_sweep = start_sweep
         self.done_sweeps = 0          # tenant-local sweeps served so far
         self.seed = seed
+        # a cancel (or a preemption, which is a cancel whose tenant is
+        # requeued from its checkpoint) landing while a quantum is in
+        # flight: the lanes freeze at the next quantum boundary
+        self.cancelled = False
+        self.preempted = False
 
     @property
     def chain_lanes(self) -> np.ndarray:
@@ -287,10 +299,17 @@ class SlotPool:
         """The tenant's current chain state: ``(nchains, ...)`` tensors on
         the pool's device (copies), e.g. to resume it in ``TorchGibbs``
         or in another pool at ``start_sweep``."""
+        return self.tenant_state_from(self.state, slot)
+
+    @staticmethod
+    def tenant_state_from(snap: ChainState, slot: TenantSlot) -> ChainState:
+        """One tenant's ``(nchains, ...)`` slice (copies) of a lane state
+        ``snap`` (``(G, 16, ...)`` tensors on any device): of a snapshot
+        from :meth:`dispatch_quantum`, the checkpoint of a deferred
+        drain."""
         idx = torch.as_tensor(slot.chain_lanes, dtype=torch.long,
-                              device=self.device)
-        return ChainState(*(_flat(f).index_select(0, idx)
-                            for f in self.state))
+                              device=snap.x.device)
+        return ChainState(*(_flat(f).index_select(0, idx) for f in snap))
 
     # ------------------------------------------------------------------
     # the quantum
@@ -328,11 +347,21 @@ class SlotPool:
         return SweepDraws(*(t.reshape(G, LANES_GROUP, *t.shape[1:])
                             for t in dr))
 
-    def run_quantum(self) -> Dict[str, torch.Tensor]:
-        """Advance every lane by ``quantum`` sweeps and return the records:
-        ``{field: (quantum, G, 16, ...)}`` device tensors, the state before
-        each sweep (as ``TorchGibbs.sample`` records). Lanes no tenant's
-        chain owns end the quantum as they began it."""
+    def dispatch_quantum(self, snapshot: bool = False):
+        """Advance every lane by ``quantum`` sweeps without waiting for the
+        device: returns ``(records, snap)``. ``records`` is ``{field:
+        (quantum, G, 16, ...)}`` device tensors, the state before each
+        sweep (as ``TorchGibbs.sample`` records); ``snap``, with
+        ``snapshot=True``, a copy of the post-quantum state made on the
+        device before any later boundary writes the state in place
+        (``write_tenant``), the checkpoint a deferred drain reads (else
+        None). Lanes no tenant's chain owns end the quantum as they began
+        it.
+
+        The lane flags, keys and sweep indices are uploaded from host
+        mirrors by a pageable copy, which returns only when it is done: a
+        boundary write to a mirror while this quantum runs on the card
+        can never reach its operands."""
         self._upload()
         smp = self.sampler
         if self.config.mh.adapt_until > 0:
@@ -356,15 +385,22 @@ class SlotPool:
         if self._slots:
             self._sweep_np[self._active_np] += self.quantum
             self._dirty = True
-        return {f: torch.stack(v) for f, v in recs.items()}
+        snap = ChainState(*(t.clone() for t in st)) if snapshot else None
+        return {f: torch.stack(v) for f, v in recs.items()}, snap
+
+    def run_quantum(self) -> Dict[str, torch.Tensor]:
+        """The serial form of :meth:`dispatch_quantum`: the records only
+        (the state is read from the pool before the next boundary)."""
+        return self.dispatch_quantum()[0]
 
     # ------------------------------------------------------------------
     # records
     # ------------------------------------------------------------------
 
     def materialize(self, recs: Dict[str, torch.Tensor]) -> dict:
-        """A quantum's records on the host: ``{field: (nlanes, rows,
-        ...)}`` numpy arrays (the JAX pool's lane-major layout)."""
+        """A quantum's records (on the device, or already on the host) as
+        host ``{field: (nlanes, rows, ...)}`` numpy arrays (the JAX pool's
+        lane-major layout)."""
         out = {}
         for f, t in recs.items():
             a = t.cpu().numpy()

@@ -18,8 +18,9 @@ against the port's solo sampler and the JAX package.
   start as copies of chain 0;
 - validation: ``niter`` not a multiple of the quantum, more chains than
   lanes, a full queue under ``backpressure="reject"`` (``QueueFull``),
-  unknown request fields (``TypeError``), and models the pool cannot
-  serve (other basis, other TOA count: rejected through the handle);
+  request fields whose machinery is not ported (``TypeError``), and
+  models the pool cannot serve (other basis, other TOA count: rejected
+  through the handle);
   population-covariance adaptation and MTM are refused; without CUDA the
   pool and the server raise unless asked for the CPU;
 - in law: a pool tenant (48 chains beside a 16-chain neighbour, 300
@@ -227,8 +228,8 @@ def test_validation(demo):
         srv.submit(TenantRequest(ma=ma, niter=7, nchains=16))
     with pytest.raises(ValueError, match="lane groups"):
         srv.submit(TenantRequest(ma=ma, niter=5, nchains=33))
-    with pytest.raises(TypeError):
-        TenantRequest(ma=ma, niter=5, priority=0)
+    with pytest.raises(TypeError, match="not supported"):
+        TenantRequest(ma=ma, niter=5, monitor=object())
     srv.submit(TenantRequest(ma=ma, niter=5, nchains=16, seed=0))
     srv.submit(TenantRequest(ma=ma, niter=5, nchains=16, seed=1))
     with pytest.raises(QueueFull):
