@@ -102,8 +102,9 @@ exits 1 through ``fail`` before it, and so does an uncaught exception.
       chains with budgets of 4-7 quanta, then a 40-chain tenant with 8 pad
       lanes; ``record="light"``; tnt_lanes 1, white_mh_lanes 1,
       hyper_mh_lanes 1, chol_fused 2, tri_solve_T 2 launches per pool
-      sweep, no dense TNT product, no ungrouped or ensemble-form MH
-      launch): results finite and shaped, inactive lanes frozen at every
+      sweep, tnt_lanes 1 and chol_fused 1 more a quantum for the
+      telemetry's log-posterior, no dense TNT product, no ungrouped or
+      ensemble-form MH launch): results finite and shaped, inactive lanes frozen at every
       quantum, every group freed; busy chain-sweeps/s, occupancy, and
       from a profile of 4 full quanta the launches that draw the lanes'
       numbers (beside the parent's generator draws, a set a tenant) and
@@ -228,6 +229,38 @@ exits 1 through ``fail`` before it, and so does an uncaught exception.
       quantum and the gap between dispatches; the preemptions, the
       victims' re-admission delay in quanta and the sweep they were
       frozen at; with the card's name and power limit.
+16. fault containment and crash recovery (``serve.faults``, the server's
+   supervision and lane-health policies, ``serve/manifest.py``,
+   ``ChainServer.recover``) at pool1024, in a temporary directory removed
+   at the end:
+   a. phase 11d's tenant set under a fault script, serial, pipelined (with
+      the drain thread's death), pipelined, serial: a NaN lane after the
+      first quantum of t0 (``on_divergence="fail"``), t1 (``quarantine``)
+      and t2 (``reinit``), t3's ``on_chunk`` raising at its second
+      quantum, t4's staging failing, and on the second run the drain
+      thread dying in t5's entry of its second quantum. t0 and t3 fail
+      with their two quanta drained (``where`` divergence and drain), t5
+      with one (``worker``), t4 is rejected; t1 finishes with chain 0
+      quarantined, t2 with it re-drawn and finite; every victim's other
+      chains and every other tenant bit for bit 15a's results;
+      ``summary()["faults"]`` the same on both executors (plus one failure
+      and exactly one worker restart with the death); ms a quantum with
+      the script beside 15a's without it;
+   b. a process kill on the card: two child processes each serve phase
+      15b's two spooled tenants (512 chains x 250 sweeps) with a manifest,
+      killed (``os._exit(9)``) in the first tenant's second spool append,
+      one before and one after its state checkpoint; a third process calls
+      ``ChainServer.recover`` on both manifests and serves them to their
+      end: every tenant bit for bit 15b's uninterrupted run, each log
+      compacted to its ``server`` record at the close; the seconds from
+      that process's start to its first dispatch and each recovered run's
+      wall;
+   c. the pool's telemetry on and off in turns (4 tenants of 256 chains, 4
+      quanta): records bit for bit, launches a sweep, device and wall ms a
+      quantum. With telemetry on (the default) every pool quantum launches
+      one more tnt_lanes and one more chol_fused (the log-posterior at the
+      quantum's end), as phases 11d, 15 and 16 count them (path
+      ``pool_faults``).
 
 Launch counts are read per path: every count is set to 0 just before a
 run and read just after it; a count is launches per sweep x sweeps plus
@@ -262,12 +295,14 @@ KERNELS = {
     # loop's 1 + 2 x 10 stacked factorizations (10 hyper steps); per
     # chunk: the telemetry's chunk-end log-posterior, one factorization of
     # the full m x m Sigma (and, on the stress path, one Gram launch) on
-    # every path that samples through TorchGibbs._run (the pool does not)
+    # every path that samples through TorchGibbs._run, and on the pool
+    # once a quantum with its telemetry on (then also one tnt_lanes); a
+    # pool path's chunks are its telemetry-on quanta
     "chol_fused": dict(
         per_sweep={"flagship": 2, "stress": 2, "mtm": 2, "full_mtm": 23,
                    "ens32": 2, "ens_mtm": 2, "pool": 2},
         per_chunk={"flagship": 1, "stress": 1, "mtm": 1, "full_mtm": 1,
-                   "ens32": 1, "ens_mtm": 1, "pool": 0},
+                   "ens32": 1, "ens_mtm": 1, "pool": 1},
         source=_CHOL,
         replaces="gibbs_student_t_tpu/ops/pallas_chol.py:81 _chol_kernel"),
     "tri_solve_T": dict(
@@ -324,6 +359,7 @@ KERNELS = {
     "tnt_lanes": dict(
         per_sweep={"flagship": 0, "stress": 0, "mtm": 0, "full_mtm": 0,
                    "ens32": 0, "ens_mtm": 0, "pool": 1},
+        per_chunk={"pool": 1},
         source="gibbs_student_t_tpu_torch/csrc/tnt.cu",
         replaces="gibbs_student_t_tpu/ops/pallas_tnt.py:173 "
                  "tnt_lanes_pallas"),
@@ -370,7 +406,7 @@ DRAWS = "sweep_draws"
 # flagship's shapes), and its ensemble runs launch ens32's grouped kernels
 SAME_AS = {"sample": "flagship", "spool": "flagship", "spool_ens": "ens32",
            "drivers": "flagship", "drivers_ens": "ens32",
-           "pool_sched": "pool"}
+           "pool_sched": "pool", "pool_faults": "pool"}
 # a grouped kernel's entry: the wrapper it shares with the single-model
 # launch; it counts on the wrapper's launches_grouped
 GROUPED = {"white_mh_grouped": "white_mh", "hyper_mh_grouped": "hyper_mh",
@@ -422,6 +458,69 @@ UNTIL_CHECK, UNTIL_MAX = 100, 1000
 SPOOL_SWEEPS, SPOOL_CHUNK, PROFILE_CHUNK = 300, 100, 10
 DRIVER_SWEEPS, DRIVER_BURN = 200, 100
 DRIVER_ENS, DRIVER_ENS_CHAINS = 8, 128
+# phase 16 (fault containment and crash recovery): the killed servers'
+# two spooled tenants (phase 15b's victims: 512 chains x 250 sweeps, seeds
+# 300 and 301, tenant models 4 and 5), the quanta of each telemetry run
+# (one to warm, two timed, one profiled), and the longest a child process
+# may take
+KILL_CHAINS, KILL_SWEEPS = POOL_LANES // 2, 10 * POOL_QUANTUM
+TELE_QUANTA, CHILD_TIMEOUT_S = 4, 300
+# the server processes of phase 16b, run as ``python3 -c CHILD16 <checkout>
+# <json>``: "kill" serves the two spooled tenants with a manifest until the
+# armed kill point ends the process; "recover" calls ChainServer.recover on
+# each manifest, serves it to its end and prints one JSON line
+CHILD16 = r"""
+import json, os, sys, time
+t_start = time.time()
+sys.path.insert(0, sys.argv[1])
+cfg = json.loads(sys.argv[2])
+import torch
+from gibbs_student_t_tpu_torch.config import GibbsConfig
+from gibbs_student_t_tpu_torch.data.demo import (
+    make_contaminated_pulsar, make_reference_pta)
+from gibbs_student_t_tpu_torch.serve import ChainServer, TenantRequest, faults
+
+
+def pool_model(seed):
+    psr, _ = make_contaminated_pulsar(n=130, components=30, theta=0.02,
+                                      sigma_out=1e-5, seed=seed)
+    return make_reference_pta(psr, 30).frozen(0)
+
+
+if cfg["mode"] == "kill":
+    faults.install(faults.FaultSpec(cfg["arm"], tenant="v0", after=1,
+                                    action="kill"))
+    srv = ChainServer(pool_model(42), GibbsConfig(model="mixture"),
+                      nlanes=cfg["nlanes"], quantum=cfg["quantum"],
+                      record="light", pipeline=False,
+                      manifest_dir=cfg["manifest"])
+    for i in range(2):
+        srv.submit(TenantRequest(
+            ma=pool_model(104 + i), niter=cfg["sweeps"],
+            nchains=cfg["chains"], seed=300 + i, priority=2, name=f"v{i}",
+            spool_dir=os.path.join(cfg["spools"], f"v{i}")))
+    srv.run()
+    sys.exit(3)  # not reached: the armed kill ends the process first
+runs = []
+for man in cfg["manifests"]:
+    t0, first = time.time(), []
+
+    def on_quantum(s):
+        if s.quanta and not first:      # after the first dispatch
+            first.append(time.time())
+
+    srv, handles = ChainServer.recover(man)
+    srv.run(on_quantum=on_quantum)
+    torch.cuda.synchronize()
+    srv.close()
+    runs.append({"manifest": man, "recover_t": t0,
+                 "first_dispatch_t": first[0], "wall_s": time.time() - t0,
+                 "start_sweeps": {k: h.request.start_sweep
+                                  for k, h in sorted(handles.items())},
+                 "status": {k: h.status for k, h in sorted(handles.items())},
+                 "lost": len(srv.lost_tenants)})
+print(json.dumps({"t_start": t_start, "runs": runs}))
+"""
 # times of the first design of chol_fused (one 128-thread block per matrix),
 # hyper_mh (one per chain) and tri_solve_T (one 32-thread block per
 # system), ms per launch by (kernel, batch, size); of tnt_batched (16 x 16
@@ -1950,8 +2049,10 @@ def main() -> None:
     # captured from a sweep of a full pool (4 tenants of 256 chains)
     pool_names = ["tnt_lanes", "white_mh_lanes", "hyper_mh_lanes",
                   "chol_fused", "tri_solve_T"]
+    # (telemetry off: its quantum-end log-posterior would add a Gram and
+    # a factor call that are not the sweep's)
     cap = ChainServer(template, cfg_p, nlanes=POOL_LANES, quantum=1,
-                      device=dev)
+                      device=dev, telemetry=False)
     for i in range(POOL_LANES // POOL_CHAINS):
         cap.submit(TenantRequest(ma=tenant_mas[i], niter=2,
                                  nchains=POOL_CHAINS, seed=200 + i))
@@ -2224,7 +2325,7 @@ def main() -> None:
         tb.tnt_products = tnt_products
     wall = time.perf_counter() - t0
     sweeps = srv.quanta * POOL_QUANTUM
-    check_launches("pool", sweeps, 0)
+    check_launches("pool", sweeps, srv.quanta)
     summ = srv.summary()
     want_busy = (sum(budgets) * POOL_CHAINS
                  + POOL_PAD_SWEEPS * POOL_PAD_CHAINS)
@@ -3496,7 +3597,7 @@ def main() -> None:
     t15 = time.perf_counter()
     srep = report["sched"] = {}
     tmp15 = tempfile.mkdtemp(prefix="gst_chip_smoke_sched_")
-    served = [0]            # pool sweeps of phase 15's servers
+    served = [0, 0]         # pool sweeps and quanta of phase 15's servers
     WAIT_S = 600.0          # no result is waited for longer
 
     def pool_server(pipeline, **kw):
@@ -3515,6 +3616,7 @@ def main() -> None:
         finally:
             s.close(timeout=WAIT_S)
         served[0] += s.quanta * POOL_QUANTUM
+        served[1] += s.quanta
         return time.perf_counter() - t0
 
     def tenant_set():
@@ -3710,7 +3812,7 @@ def main() -> None:
                 and dl["prefix_bitwise"] and dl["other_bitwise"]):
             fail("the deadline-armed victim did not resolve with its "
                  "spooled prefix")
-        counts15 = check_launches("pool_sched", served[0], 0)
+        counts15 = check_launches("pool_sched", served[0], served[1])
     finally:
         shutil.rmtree(tmp15, ignore_errors=True)
 
@@ -3744,6 +3846,290 @@ def main() -> None:
     srep["launches"] = counts15
     srep["seconds"] = time.perf_counter() - t15
     print(f"# phase 15: {srep['seconds']:.1f} s", flush=True)
+
+    # --- 16. fault containment and crash recovery (pool1024) ----------------
+    from gibbs_student_t_tpu_torch.serve import TenantError, faults
+    from gibbs_student_t_tpu_torch.serve.manifest import read_manifest
+
+    t16 = time.perf_counter()
+    frep = report["faults"] = {}
+    tmp16 = tempfile.mkdtemp(prefix="gst_chip_smoke_faults_")
+    set_refs = first        # 15a's fault-free results of the tenant set
+    Q = POOL_QUANTUM
+    run16 = [0, 0]          # pool sweeps, and quanta with telemetry on
+    policies = {0: "fail", 1: "quarantine", 2: "reinit"}
+
+    def cut_equal(a, b, rows=None, cols=None):
+        """The recorded fields (light: the non-empty ones) and the accept
+        rates of ``a`` bitwise ``b``'s, on their first ``rows`` rows and
+        the chains ``cols``."""
+        pairs = [(getattr(a, f), getattr(b, f)) for f in chains]
+        pairs += [(a.stats[k], b.stats[k]) for k in ("acc_white",
+                                                     "acc_hyper")]
+        for u, v in pairs:
+            u, v = np.asarray(u), np.asarray(v)
+            if u.size == 0 and v.size == 0:
+                continue
+            if rows is not None:
+                u, v = u[:rows], v[:rows]
+            if cols is not None:
+                u, v = u[:, cols], v[:, cols]
+            if not eq(u, v):
+                return False
+        return True
+
+    def fault_script(death):
+        """lane_nan on t0, t1, t2 (after their first quantum; the fail,
+        quarantine and reinit policies), a raising callback on t3 (its
+        second quantum), a staging failure on t4 and, with ``death``, the
+        drain thread's death in t5's entry of its second quantum."""
+        specs = [faults.FaultSpec("lane_nan", tenant=f"t{i}", after=1)
+                 for i in policies]
+        specs += [faults.FaultSpec("callback", tenant="t3", after=1),
+                  faults.FaultSpec("staging", tenant="t4")]
+        if death:
+            specs.append(faults.FaultSpec("drain_death", tenant="t5",
+                                          after=1, action="die"))
+        return specs
+
+    def fault_set():
+        reqs = tenant_set()
+        for i, r in enumerate(reqs):
+            r.name = f"t{i}"
+            r.on_divergence = policies.get(i, "none")
+        reqs[3].on_chunk = lambda h, sweep_end, records: None
+        return reqs
+
+    def outcome16(hs, death):
+        """Each tenant's outcome against what the script does to it: the
+        victims' prefixes (their healthy chains throughout) and every
+        other tenant bitwise 15a's results."""
+        out = {}
+        for i, h in enumerate(hs):
+            ref, name = set_refs[i], f"t{i}"
+            healthy = list(range(1, h.request.nchains))
+            rec = out[name] = {}
+            if i == 4:
+                rec["ok"] = (h.status == "rejected"
+                             and "injected fault [staging]" in h.error)
+                continue
+            want = {0: ("divergence", 2 * Q), 3: ("drain", 2 * Q)}
+            if death:
+                want[5] = ("worker", Q)
+            if i in want:
+                try:
+                    h.result(timeout=WAIT_S)
+                    rec["ok"] = False
+                    continue
+                except TenantError as e:
+                    rows = 0 if e.partial is None else e.partial.chain.shape[0]
+                    rec.update(where=e.where, prefix_rows=rows)
+                    rec["ok"] = ((e.where, rows) == want[i] and cut_equal(
+                        e.partial, ref, rows=rows,
+                        cols=healthy if i == 0 else None)
+                        and cut_equal(e.partial, ref, rows=Q))
+                continue
+            res = h.result(timeout=WAIT_S)
+            if i in (1, 2):
+                hl = h.health
+                rec.update(n_quarantined=hl["n_quarantined"],
+                           quarantined_chains=hl["quarantined_chains"],
+                           n_reinits=hl["n_reinits"],
+                           status0=str(hl["status"][0]), n_ok=hl["n_ok"])
+                rec["ok"] = (res.chain.shape[0] == ref.chain.shape[0]
+                             and cut_equal(res, ref, cols=healthy)
+                             and rec["status0"] == "diverged"
+                             and ((hl["quarantined_chains"], hl["n_reinits"])
+                                  == (([0], 0) if i == 1 else ([], 1))))
+                if i == 2:
+                    rec["ok"] &= bool(np.isfinite(res.chain[-1, 0]).all())
+                continue
+            rec["ok"] = same_rows(res, ref)
+        return out
+
+    reset_counts()
+    want16 = {"tenant_failures": 2, "quarantined_lanes": 1, "reinits": 1,
+              "worker_restarts": 0, "pool_failures": 0}
+    try:
+        # 16a. the script on each executor, in turns; the drain thread's
+        # death only where there is one
+        runs16 = []
+        for pipeline, death in ((False, False), (True, True), (True, False),
+                                (False, False)):
+            s = pool_server(pipeline)
+            with faults.inject(*fault_script(death)):
+                hs = [s.submit(r) for r in fault_set()]
+                wall = drive(s)
+                fired = faults.fired_counts()
+            run16[0] += s.quanta * Q
+            run16[1] += s.quanta
+            summ = s.summary()
+            counts_want = dict(want16)
+            if death:
+                counts_want["tenant_failures"] += 1
+                counts_want["worker_restarts"] = 1
+            tenants = outcome16(hs, death)
+            runs16.append({
+                "executor": "pipelined" if pipeline else "serial",
+                "drain_death": death, "quanta": s.quanta, "wall_s": wall,
+                "ms_per_quantum": 1e3 * wall / s.quanta,
+                "dispatch_host_ms_per_quantum":
+                    summ["host_ms"]["dispatch"]["mean"],
+                "faults": summ["faults"],
+                "faults_ok": summ["faults"] == counts_want,
+                "fired": {f"{p}:{t}": n for (p, t), n in fired.items()},
+                "tenants": tenants,
+                "ok": all(r["ok"] for r in tenants.values())})
+            print(f"# faults 16a {runs16[-1]['executor']}"
+                  f"{' + drain_death' if death else ''}: "
+                  f"{json.dumps(runs16[-1])}", flush=True)
+        frep["containment"] = runs16
+        if not all(r["ok"] and r["faults_ok"] for r in runs16):
+            fail("a fault escaped its tenant, a victim's prefix or health is "
+                 "wrong, or the fault counters differ between the executors")
+
+        # 16c. the telemetry's cost: 4 tenants of 256 chains, telemetry on
+        # and off in turns; a quantum to warm up, two timed, one profiled
+        tele = {True: [], False: []}
+        tele_res = {}
+        for on in (True, False, False, True):
+            s = ChainServer(template, cfg_p, nlanes=POOL_LANES, quantum=Q,
+                            record="light", device=dev, pipeline=False,
+                            telemetry=on)
+            hs = [s.submit(TenantRequest(ma=tenant_mas[i],
+                                         niter=TELE_QUANTA * Q,
+                                         nchains=POOL_CHAINS, seed=700 + i))
+                  for i in range(POOL_LANES // POOL_CHAINS)]
+            s.step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TELE_QUANTA - 2):
+                s.step()
+            torch.cuda.synchronize()
+            wall_q = 1e3 * (time.perf_counter() - t0) / (TELE_QUANTA - 2)
+            prof = profile_calls(torch, s.step, 1)
+            s.close(timeout=WAIT_S)
+            run16[0] += s.quanta * Q
+            run16[1] += s.quanta if on else 0
+            tele_res.setdefault(on, [h.result(timeout=WAIT_S) for h in hs])
+            tele[on].append({
+                "wall_ms_per_quantum": wall_q,
+                "device_ms_per_quantum": prof["device_ms_per_sweep"],
+                "launches_per_sweep": prof["launches_per_sweep"] / Q})
+        tele_bitwise = all(same_rows(a, b) for a, b in
+                           zip(tele_res[True], tele_res[False]))
+        frep["telemetry"] = {"on": tele[True], "off": tele[False],
+                             "records_bitwise": bool(tele_bitwise)}
+        if not tele_bitwise:
+            fail("pool telemetry changes the chains")
+        counts16 = check_launches("pool_faults", run16[0], run16[1])
+
+        # 16b. a server process killed on either side of a spool checkpoint
+        # (two spooled tenants of 512 chains x 250 sweeps, the kill in the
+        # first one's second append), then ChainServer.recover in a new
+        # process; both tenants bitwise 15b's uninterrupted runs
+        torch.cuda.empty_cache()
+        arms = ("kill_before_checkpoint", "kill_after_checkpoint")
+        dirs = {a: (os.path.join(tmp16, a, "manifest"),
+                    os.path.join(tmp16, a, "spools")) for a in arms}
+
+        def child(cfg):
+            return subprocess.Popen(
+                [sys.executable, "-c", CHILD16, HERE, json.dumps(cfg)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        procs = []
+        try:
+            t_kill = time.perf_counter()
+            procs = [child({"mode": "kill", "arm": a, "manifest": dirs[a][0],
+                            "spools": dirs[a][1], "nlanes": POOL_LANES,
+                            "quantum": Q, "chains": KILL_CHAINS,
+                            "sweeps": KILL_SWEEPS}) for a in arms]
+            killed = [p.communicate(timeout=CHILD_TIMEOUT_S) for p in procs]
+            kill_s = time.perf_counter() - t_kill
+            rcs = [p.returncode for p in procs]
+            if rcs != [9, 9]:
+                fail(f"the killed servers exited {rcs}, not 9: "
+                     f"{[e[-1500:] for _, e in killed]}")
+            ck = {a: [spool_mod.load_spool_state(
+                os.path.join(dirs[a][1], f"v{i}"), device="cpu")[1]
+                      if os.path.exists(os.path.join(dirs[a][1], f"v{i}",
+                                                     "state.npz")) else 0
+                      for i in range(2)] for a in arms}
+            t_spawn = time.time()
+            procs = [child({"mode": "recover",
+                            "manifests": [dirs[a][0] for a in arms]})]
+            out, err = procs[0].communicate(timeout=2 * CHILD_TIMEOUT_S)
+            if procs[0].returncode != 0:
+                fail(f"the recovering server exited "
+                     f"{procs[0].returncode}: {err[-3000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        rec16 = json.loads(out.strip().splitlines()[-1])
+        kill = {"kill_processes_s": kill_s, "checkpoints": ck,
+                "first_dispatch_s": (rec16["runs"][0]["first_dispatch_t"]
+                                     - t_spawn),
+                "recover_to_first_dispatch_s": (
+                    rec16["runs"][0]["first_dispatch_t"]
+                    - rec16["runs"][0]["recover_t"]),
+                "recovered": {}}
+        for a, r in zip(arms, rec16["runs"]):
+            got = [spool_mod.load_spool(os.path.join(dirs[a][1], f"v{i}"))
+                   for i in range(2)]
+            kinds = [x["kind"] for x in read_manifest(dirs[a][0])]
+            kill["recovered"][a] = {
+                "wall_s": r["wall_s"], "start_sweeps": r["start_sweeps"],
+                "status": r["status"], "lost": r["lost"],
+                "bitwise": [bool(g.chain.shape[0] == KILL_SWEEPS
+                                 and same_rows(g, ref))
+                            for g, ref in zip(got, refs)],
+                "manifest_after_close": kinds}
+        frep["kill"] = kill
+        print(f"# faults 16b process kill: {json.dumps(kill)}", flush=True)
+        want_ck = {"kill_before_checkpoint": Q, "kill_after_checkpoint": 2 * Q}
+        if not all(ck[a][0] == want_ck[a]
+                   and kill["recovered"][a]["start_sweeps"]["v0"] == want_ck[a]
+                   and all(kill["recovered"][a]["bitwise"])
+                   and kill["recovered"][a]["manifest_after_close"]
+                   == ["server"]
+                   and set(kill["recovered"][a]["status"].values())
+                   == {"done"} for a in arms):
+            fail("a killed server's tenants did not recover bitwise from "
+                 "its manifest")
+    finally:
+        shutil.rmtree(tmp16, ignore_errors=True)
+
+    def mean(vals):
+        return sum(vals) / len(vals)
+
+    for r in runs16:
+        base = srep["serial" if r["executor"] == "serial" else "pipelined"]
+        print(f"# faults 16a pool1024 {r['executor']}"
+              f"{' + drain_death' if r['drain_death'] else ''}: "
+              f"{r['ms_per_quantum']:.2f} ms a quantum with the script "
+              f"({r['quanta']} quanta; without it, 15a: "
+              f"{base['ms_per_quantum']:.2f}), faults {r['faults']} | {card}",
+              flush=True)
+    for on in (True, False):
+        t_ = tele[on]
+        print(f"# faults 16c pool1024 telemetry {'on' if on else 'off'}: "
+              f"{mean([x['launches_per_sweep'] for x in t_]):.1f} launches a "
+              f"sweep, device "
+              f"{mean([x['device_ms_per_quantum'] for x in t_]):.3f} ms and "
+              f"wall {' / '.join(format(x['wall_ms_per_quantum'], '.2f') for x in t_)}"
+              f" ms a quantum | {card}", flush=True)
+    print(f"# faults 16b: killed servers {kill['kill_processes_s']:.1f} s; "
+          f"the recovering process's start to its first dispatch "
+          f"{kill['first_dispatch_s']:.2f} s (recover() to first dispatch "
+          f"{kill['recover_to_first_dispatch_s']:.2f} s), recovered runs "
+          + ", ".join(f"{a} {kill['recovered'][a]['wall_s']:.2f} s"
+                      for a in arms) + f" | {card}", flush=True)
+    frep["launches"] = counts16
+    frep["seconds"] = time.perf_counter() - t16
+    print(f"# phase 16: {frep['seconds']:.1f} s", flush=True)
 
     # the redesigned kernels beside the first design and the library call
     # (reported, not gated)

@@ -38,18 +38,27 @@ of each quantum, bitwise: their state is the quantum's starting state.
 A tenant's pad lanes start as copies of its chain 0 (finite, discarded).
 
 A quantum is dispatched by :meth:`SlotPool.dispatch_quantum`, which
-returns the records still on the device and, when asked, a copy of the
-post-quantum state (the checkpoint of a spooled tenant, read by the
-pipelined server's drain thread while the next quantum runs);
-:meth:`SlotPool.run_quantum` is its serial form.
+returns the records still on the device, the quantum's telemetry and,
+when asked, a copy of the post-quantum state (the checkpoint of a spooled
+tenant, read by the pipelined server's drain thread while the next
+quantum runs); :meth:`SlotPool.run_quantum` is its serial form.
+
+Telemetry (``telemetry=True``, the default, as in the JAX pool): every
+lane's ``obs/telemetry.Telemetry`` counters ride each quantum (per-block
+accept sums, the non-finite count and the sticky ``diverged`` flag a
+sweep, the log-posterior at the quantum's end); they read the state only,
+so the chains are bitwise the same with it off. The lane-health writes
+act on them at quantum boundaries (serve/server.py): :meth:`quarantine_lanes`
+freezes lanes without freeing their groups, :meth:`reinit_lanes` writes
+fresh chains into lanes and re-activates them, and :meth:`poison_lanes`
+writes NaN into a lane's parameters (the ``lane_nan`` fault).
 
 Not ported from the JAX pool: buffer donation and the device scatter of
 admissions (``GST_SERVE_SCATTER``), the adaptive block-gate operand, the
-wire-dtype record tiers, telemetry and the lane-health writes
-(quarantine, poison, re-initialization), recycling, and heterogeneous
-pools (tenants with fewer TOAs than the pool). Like the JAX pool it
-refuses population-covariance adaptation; it also refuses multiple-try
-Metropolis, which the lanes entries do not cover.
+wire-dtype record tiers, recycling, and heterogeneous pools (tenants with
+fewer TOAs than the pool). Like the JAX pool it refuses population-
+covariance adaptation; it also refuses multiple-try Metropolis, which the
+lanes entries do not cover.
 """
 
 from __future__ import annotations
@@ -69,6 +78,10 @@ from gibbs_student_t_tpu_torch.backends.torch_backend import (
 )
 from gibbs_student_t_tpu_torch.config import GibbsConfig
 from gibbs_student_t_tpu_torch.models.pta import ModelArrays
+from gibbs_student_t_tpu_torch.obs.telemetry import (
+    telemetry_init,
+    telemetry_update,
+)
 from gibbs_student_t_tpu_torch.ops import rng
 from gibbs_student_t_tpu_torch.ops.hyper_mh import hyper_mh_lanes
 from gibbs_student_t_tpu_torch.ops.lanes import LANES_GROUP
@@ -100,6 +113,15 @@ class TenantSlot:
         # flight: the lanes freeze at the next quantum boundary
         self.cancelled = False
         self.preempted = False
+        # a failed tenant freezes and releases at the next boundary as a
+        # cancel does; where and why it failed (the first cause only)
+        self.failed = False
+        self.fail_where = ""
+        self.fail_cause = None
+        # tenant-chain indices frozen by the quarantine policy, and the
+        # chains re-drawn by the reinit policy
+        self.quarantined: set = set()
+        self.n_reinits = 0
 
     @property
     def chain_lanes(self) -> np.ndarray:
@@ -177,12 +199,14 @@ class SlotPool:
     noise groups and prior kinds; tenants must match it (the server
     validates at admission). ``record`` is ``"full"`` or ``"light"`` as in
     ``TorchGibbs``. ``device`` as in ``TorchGibbs``: CUDA unless the
-    caller asks for the CPU."""
+    caller asks for the CPU. ``telemetry`` carries every lane's
+    ``Telemetry`` through each quantum (the lane-health policies read
+    its ``diverged`` flags)."""
 
     def __init__(self, template_ma: ModelArrays, config: GibbsConfig,
                  nlanes: int = 1024, quantum: int = 25,
                  group: int = LANES_GROUP, device=None,
-                 record: str = "full"):
+                 record: str = "full", telemetry: bool = True):
         device = resolve_device(device)
         if group % LANES_GROUP:
             raise ValueError(
@@ -213,6 +237,7 @@ class SlotPool:
                              "(its n defines the pool TOA axis)")
         self.nlanes, self.quantum, self.group = nlanes, quantum, group
         self.record, self.config, self.device = record, config, device
+        self.telemetry = bool(telemetry)
         self.template_ma = tmpl
         self.n_pool = tmpl.n
         G = nlanes // LANES_GROUP
@@ -295,6 +320,39 @@ class SlotPool:
         for d in (self._slots, self._next_sweep):
             d.pop(slot.tenant_id, None)
 
+    def quarantine_lanes(self, lanes: np.ndarray) -> None:
+        """Mask lanes inactive without freeing their groups: they stop
+        advancing (frozen at the next quantum, their draws discarded) but
+        stay their tenant's, so its result keeps its shape and its other
+        chains are untouched, bitwise. The groups free at eviction."""
+        self._active_np[np.asarray(lanes, int)] = False
+        self._dirty = True
+
+    def poison_lanes(self, lanes: np.ndarray) -> None:
+        """Write NaN into the lanes' parameters (the ``lane_nan`` fault
+        of serve/faults.py): the next quantum's sticky ``diverged`` flag
+        picks it up as it would a real divergence."""
+        idx = torch.as_tensor(np.asarray(lanes, np.int64), device=self.device)
+        _flat(self.state.x).index_fill_(0, idx, float("nan"))
+
+    def reinit_lanes(self, lanes: np.ndarray, fresh: ChainState,
+                     fresh_idx: np.ndarray) -> None:
+        """Write chains ``fresh_idx`` of the state ``fresh`` into the lanes
+        and re-activate them (the ``reinit`` policy: a prior draw from the
+        tenant's sampler). The lanes keep their adapted jump scales and
+        covariance factors, as ``TorchGibbs``'s ``reinit_diverged`` does,
+        and their key and sweep index; every other lane is untouched."""
+        idx = torch.as_tensor(np.asarray(lanes, np.int64), device=self.device)
+        sel = torch.as_tensor(np.asarray(fresh_idx, np.int64),
+                              device=self.device)
+        for f, val in zip(ChainState._fields, fresh):
+            if f in ("mh_log_scale", "mh_cov_chol"):
+                continue
+            _flat(getattr(self.state, f)).index_copy_(
+                0, idx, val.to(self.device).index_select(0, sel))
+        self._active_np[np.asarray(lanes, int)] = True
+        self._dirty = True
+
     def tenant_state(self, slot: TenantSlot) -> ChainState:
         """The tenant's current chain state: ``(nchains, ...)`` tensors on
         the pool's device (copies), e.g. to resume it in ``TorchGibbs``
@@ -349,9 +407,11 @@ class SlotPool:
 
     def dispatch_quantum(self, snapshot: bool = False):
         """Advance every lane by ``quantum`` sweeps without waiting for the
-        device: returns ``(records, snap)``. ``records`` is ``{field:
-        (quantum, G, 16, ...)}`` device tensors, the state before each
-        sweep (as ``TorchGibbs.sample`` records); ``snap``, with
+        device: returns ``(records, telemetry, snap)``. ``records`` is
+        ``{field: (quantum, G, 16, ...)}`` device tensors, the state before
+        each sweep (as ``TorchGibbs.sample`` records); ``telemetry`` the
+        quantum's ``Telemetry`` of ``(G, 16)`` tensors (None with
+        ``telemetry`` off); ``snap``, with
         ``snapshot=True``, a copy of the post-quantum state made on the
         device before any later boundary writes the state in place
         (``write_tenant``), the checkpoint a deferred drain reads (else
@@ -368,12 +428,19 @@ class SlotPool:
             smp.eta = self._eta_table()
         start = st = self.state
         recs = {f: [] for f in self.fields}
+        G = self.nlanes // LANES_GROUP
+        tl = (telemetry_init((G, LANES_GROUP), self.device)
+              if self.telemetry else None)
         # each lane's sweep index at every step of the quantum
         sweeps = self._lane_sweep + self._steps
         for j in range(self.quantum):
             for f in self.fields:
                 recs[f].append(getattr(st, f))
             st = smp._sweep(st, self._lane_draws(st, sweeps[j]), sweep=j)
+            if tl is not None:
+                tl = telemetry_update(tl, st)
+        if tl is not None:
+            tl = tl._replace(logpost=smp._logpost_chain(st))
         if not self._active_np.all():
             st = ChainState(*(
                 torch.where(self._active.reshape(
@@ -386,12 +453,13 @@ class SlotPool:
             self._sweep_np[self._active_np] += self.quantum
             self._dirty = True
         snap = ChainState(*(t.clone() for t in st)) if snapshot else None
-        return {f: torch.stack(v) for f, v in recs.items()}, snap
+        return {f: torch.stack(v) for f, v in recs.items()}, tl, snap
 
-    def run_quantum(self) -> Dict[str, torch.Tensor]:
-        """The serial form of :meth:`dispatch_quantum`: the records only
-        (the state is read from the pool before the next boundary)."""
-        return self.dispatch_quantum()[0]
+    def run_quantum(self):
+        """The serial form of :meth:`dispatch_quantum`: ``(records,
+        telemetry)`` (the state is read from the pool before the next
+        boundary)."""
+        return self.dispatch_quantum()[:2]
 
     # ------------------------------------------------------------------
     # records

@@ -15,9 +15,10 @@ defaults. The queue and the handles are thread-safe: the pipelined
 executor's staging, drain and dispatch threads share them.
 
 A shed or expired job's ``result()`` raises at once; it never waits.
-The JAX request's monitors, warm starts, adaptive scans, convergence
-evictions, trace ids and lane-health policies other than ``"none"`` are
-not ported: a request that sets one raises ``TypeError``.
+A request's ``on_divergence`` lane-health policy (:data:`DIVERGENCE_POLICIES`)
+is the server's to apply (serve/server.py). The JAX request's monitors,
+warm starts, adaptive scans, convergence evictions and trace ids are not
+ported: a request that sets one raises ``TypeError``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 
 from gibbs_student_t_tpu_torch.models.pta import ModelArrays
+from gibbs_student_t_tpu_torch.serve import faults
 
 
 class QueueFull(RuntimeError):
@@ -61,8 +63,8 @@ class TenantError(RuntimeError):
     ``cause`` is the original exception (also chained as ``__cause__``);
     ``partial`` the :class:`ChainResult` of what was served before the
     failure (a bitwise prefix of the uninterrupted run), or None;
-    ``where`` names the stage (``drain``, ``spool``, ``deadline``,
-    ``close``, ``pool``)."""
+    ``where`` names the stage (``drain``, ``finalize``, ``worker``,
+    ``divergence``, ``spool``, ``deadline``, ``close``, ``pool``)."""
 
     def __init__(self, tenant_id: int, reason: str,
                  where: str = "drain", cause=None, partial=None):
@@ -94,11 +96,15 @@ class DeadlineExceeded(TenantError):
         self.served_sweeps = int(served_sweeps)
 
 
+#: Valid ``TenantRequest.on_divergence`` policies. ``none`` streams on
+#: (diverged chains are flagged by telemetry only); the others need pool
+#: telemetry and a supervised server (checked at submit).
+DIVERGENCE_POLICIES = ("none", "fail", "quarantine", "reinit")
+
 #: fields of the JAX request whose machinery this package does not have
 #: (their value here must stay the default)
 _NOT_PORTED = {"monitor": None, "warm_start": None, "adapt_scan": None,
-               "trace_id": None, "on_converged": "none",
-               "on_divergence": "none"}
+               "trace_id": None, "on_converged": "none"}
 
 
 @dataclass
@@ -124,7 +130,15 @@ class TenantRequest:
     higher number, losslessly. ``deadline_sweeps`` (sweeps from
     ``start_sweep``, or None) orders the jobs of one tier by slack, and a
     tenant preempted at or past its deadline resolves with
-    :class:`DeadlineExceeded`."""
+    :class:`DeadlineExceeded`.
+
+    ``on_divergence`` is the tenant's lane-health policy, applied at the
+    quantum boundary after a chain's state goes non-finite (the pool
+    telemetry's sticky ``diverged`` flag): ``none`` streams on, ``fail``
+    fails the tenant with a :class:`TenantError`, ``quarantine`` freezes
+    the diverged chains and serves the others on, ``reinit`` re-draws
+    them from the prior (``TorchGibbs``'s ``reinit_diverged``, in the
+    pool)."""
 
     ma: ModelArrays
     niter: int
@@ -168,6 +182,11 @@ class TenantHandle:
         self.finished_t: Optional[float] = None
         self.sweeps_done = 0
         self._cols: Dict[str, List[np.ndarray]] = {}
+        # the telemetry accumulated over the tenant's quanta (tele_* keys,
+        # the solo sampler's aggregation) and the health report built
+        # from it at the end (None with pool telemetry off)
+        self._tele_stats: Dict[str, np.ndarray] = {}
+        self.health: Optional[Dict] = None
         self._result = None
         self._builder = None
         self._build_lock = threading.Lock()
@@ -191,7 +210,15 @@ class TenantHandle:
         if self.first_result_t is None:
             self.first_result_t = time.monotonic()
         if self.request.on_chunk is not None:
+            faults.fire("callback", tenant=self.fault_key)
             self.request.on_chunk(self, sweep_end, records)
+
+    @property
+    def fault_key(self):
+        """The fault-injection identity (serve/faults.py): the request's
+        name when it has one, else the tenant id."""
+        return (self.request.name if self.request.name is not None
+                else self.tenant_id)
 
     def _append(self, records: Dict[str, np.ndarray]) -> None:
         for f, a in records.items():

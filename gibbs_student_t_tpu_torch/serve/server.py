@@ -38,11 +38,33 @@ queued continuation (or, past its deadline, a :class:`DeadlineExceeded`
 carrying the spooled prefix). A full queue sheds with a structured
 :class:`RetryAfter`, counted per tier.
 
-Not ported from the JAX server: supervision and fault containment (a
-failure while draining a tenant fails that tenant's handle and then the
-run), lane-health policies, the crash-recovery manifest and ``recover``,
-monitors, adaptive scans, warm starts, recycling, telemetry and cost
-accounting, spans, the flight recorder, the watchdog and the wire
+Fault containment (``supervise=True``, the default; the JAX server's
+``GST_SERVE_SUPERVISE=auto``): a failure that belongs to one tenant (its
+``on_chunk`` callback raising, its spool write failing, the drain thread
+dying in its entry) fails only that tenant. Its lanes freeze and release
+at the next boundary, as a cancel's do, and its handle resolves to a
+:class:`TenantError` carrying the cause and the prefix drained before it
+(bitwise the uninterrupted run's first rows); a supervisor restarts a dead
+staging or drain thread with a capped backoff, and only a worker past its
+restart budget, or a failure of the pool itself, fails every tenant. A
+drain thread that died in a bundle leaves the rest of that bundle to its
+successor, so no other tenant loses a quantum. Lane health: at each
+boundary the previous quantum's sticky ``diverged`` telemetry flags are
+folded, and a tenant's ``on_divergence`` policy fails it, quarantines the
+diverged chains or re-draws them from the prior; the fold waits for that
+quantum only while some running tenant has a policy. ``supervise=False``
+keeps the fail-fast reference: the failure fails its tenant and then the
+run. The injection points of serve/faults.py make each path reproducible.
+
+Crash recovery: with ``manifest_dir``, the server journals its geometry,
+admissions, spool checkpoints, completions and containment events to an
+append-only manifest (serve/manifest.py), and :meth:`ChainServer.recover`
+rebuilds the pool after a process kill and resubmits every spooled tenant
+from its last checkpoint, bitwise its uninterrupted run.
+
+Not ported from the JAX server: monitors, adaptive scans, warm starts,
+recycling, cost accounting, metrics emits, spans, the flight recorder,
+the watchdog, the persistent compile cache of ``recover`` and the wire
 (ROADMAP A-9).
 """
 
@@ -52,6 +74,7 @@ import itertools
 import queue as _queue
 import threading
 import time
+import warnings
 from dataclasses import dataclass, replace
 from typing import Dict, List, Optional
 
@@ -65,14 +88,24 @@ from gibbs_student_t_tpu_torch.backends.torch_backend import (
 )
 from gibbs_student_t_tpu_torch.config import GibbsConfig
 from gibbs_student_t_tpu_torch.models.pta import ModelArrays
+from gibbs_student_t_tpu_torch.obs.health import chain_health
+from gibbs_student_t_tpu_torch.obs.telemetry import Telemetry
 from gibbs_student_t_tpu_torch.ops.rng import check_counter
 from gibbs_student_t_tpu_torch.parallel.ensemble import (
     _localize_names,
     _structure,
     check_kernel_structure,
 )
+from gibbs_student_t_tpu_torch.serve import faults as _faults
+from gibbs_student_t_tpu_torch.serve.manifest import (
+    ServerManifest,
+    load_server_state,
+    load_tenant_model,
+    outstanding_tenants,
+)
 from gibbs_student_t_tpu_torch.serve.pool import SlotPool, TenantSlot
 from gibbs_student_t_tpu_torch.serve.scheduler import (
+    DIVERGENCE_POLICIES,
     AdmissionQueue,
     DeadlineExceeded,
     QueueFull,
@@ -101,11 +134,13 @@ class _Prepared:
 
 @dataclass
 class _Tenant:
-    """A running tenant's entry."""
+    """A running tenant's entry. ``backend`` is kept only for an
+    ``on_divergence="reinit"`` tenant (its prior re-draw)."""
 
     slot: TenantSlot
     handle: TenantHandle
     spool: Optional[ChainSpool] = None
+    backend: Optional[TorchGibbs] = None
 
 
 @dataclass
@@ -113,14 +148,18 @@ class _Bundle:
     """One quantum's deferred drain. ``entries`` rows are ``(slot, handle,
     spool, sweep_end, final, drained)``: ``drained`` False marks a
     finalize-only entry (a tenant released at a boundary after its last
-    records rode an earlier bundle). ``event`` follows the quantum on the
-    device (None on the CPU); ``idx`` is the next entry to drain."""
+    records rode an earlier bundle). ``tl`` is the quantum's telemetry;
+    ``event`` follows the quantum on the device (None on the CPU);
+    ``idx`` is the next entry to drain; ``host`` the pulled records,
+    telemetry and snapshot, kept for a drain that resumes the bundle."""
 
     recs: Optional[Dict[str, torch.Tensor]]
+    tl: Optional[Telemetry]
     snap: Optional[ChainState]
     event: object
     entries: list
     idx: int = 0
+    host: Optional[tuple] = None
 
 
 def _percentiles(vals: List[float]) -> Optional[dict]:
@@ -147,20 +186,31 @@ class ChainServer:
     ``age_boost_s`` is the priority scheduler's starvation bound: a queued
     job gains one tier for each that many seconds waited. ``pipeline``
     picks the executor :meth:`run` uses (True: pipelined; False: the
-    serial loop), and ``prefetch`` bounds the staged-tenant window."""
+    serial loop), and ``prefetch`` bounds the staged-tenant window.
+    ``telemetry`` carries the pool's per-lane telemetry (the lane-health
+    policies need it); ``supervise`` picks fault containment (True) or the
+    fail-fast reference (False); ``manifest_dir`` journals the server to
+    a crash-recovery manifest there (:meth:`recover`)."""
 
     #: quanta dispatched and not yet drained, at most
     MAX_INFLIGHT = 2
+    #: restarts of one worker kind before its death is a pool failure
+    MAX_WORKER_RESTARTS = 5
 
     def __init__(self, template_ma: ModelArrays, config: GibbsConfig,
                  nlanes: int = 1024, quantum: int = 25, record: str = "full",
                  device=None, max_queue: int = 64,
                  backpressure: str = "block", pipeline: bool = True,
                  prefetch: int = 2, scheduler: str = "fifo",
-                 age_boost_s: float = 30.0):
+                 age_boost_s: float = 30.0, telemetry: bool = True,
+                 supervise: bool = True,
+                 manifest_dir: Optional[str] = None):
         if pipeline not in (True, False):
             raise ValueError(f"pipeline must be True or False, got "
                              f"{pipeline!r}")
+        if supervise not in (True, False):
+            raise ValueError(f"supervise must be True or False, got "
+                             f"{supervise!r}")
         if prefetch < 1:
             raise ValueError(f"prefetch must be >= 1, got {prefetch}")
         if scheduler not in ("fifo", "priority"):
@@ -168,6 +218,7 @@ class ChainServer:
                              f"got {scheduler!r}")
         self.config = config
         self.pipeline = bool(pipeline)
+        self.supervise = bool(supervise)
         self.scheduler = scheduler
         self.age_boost_s = float(age_boost_s)
         self.queue = AdmissionQueue(
@@ -176,7 +227,8 @@ class ChainServer:
                    (lambda h: schedule_score(h,
                                              age_boost_s=self.age_boost_s))))
         self.pool = SlotPool(template_ma, config, nlanes=nlanes,
-                             quantum=quantum, device=device, record=record)
+                             quantum=quantum, device=device, record=record,
+                             telemetry=telemetry)
         # the dispatch thread's state; reentrant, so a callback on the
         # serial path may read status()
         self._lock = threading.RLock()
@@ -209,6 +261,30 @@ class ChainServer:
         self._reaped: List[_Tenant] = []
         self._pull_stream = (torch.cuda.Stream(self.pool.device)
                              if self.pool.device.type == "cuda" else None)
+        # fault containment: each worker kind's restarts and the earliest
+        # time of its next one; the bundle a dead drain thread left for
+        # its successor
+        self._restarts = {"drain": {"n": 0, "next_t": 0.0},
+                          "stage": {"n": 0, "next_t": 0.0}}
+        self._resume_bundle: Optional[_Bundle] = None
+        self._fault_counts = {"tenant_failures": 0, "quarantined_lanes": 0,
+                              "reinits": 0, "worker_restarts": 0,
+                              "pool_failures": 0}
+        # the lane-health fold: the last quantum's telemetry (host arrays
+        # on the serial loop, device tensors when pipelined) and the
+        # tenants that quantum advanced (one admitted after it must not
+        # inherit its lanes' previous owner's flags)
+        self._last_tl = None
+        self._last_tl_tids: set = set()
+        # the crash-recovery manifest; the jobs recover() could not resume
+        self._manifest = None
+        self.lost_tenants: List[dict] = []
+        if manifest_dir is not None:
+            self._manifest = ServerManifest(manifest_dir)
+            self._manifest.record_server(template_ma, config, {
+                "nlanes": nlanes, "quantum": quantum, "record": record,
+                "max_queue": max_queue, "backpressure": backpressure,
+                "telemetry": bool(telemetry), "scheduler": scheduler})
         # run-level aggregates
         self.quanta = 0
         self.busy_chain_sweeps = 0
@@ -258,6 +334,20 @@ class ChainServer:
                 f"of the pool quantum ({pool.quantum})")
         if request.nchains < 1:
             raise ValueError("nchains must be >= 1")
+        if request.on_divergence not in DIVERGENCE_POLICIES:
+            raise ValueError(
+                f"on_divergence must be one of {DIVERGENCE_POLICIES}, "
+                f"got {request.on_divergence!r}")
+        if request.on_divergence != "none":
+            if not self.supervise:
+                raise ValueError(
+                    "on_divergence policies need a supervised server "
+                    "(supervise=False keeps the fail-fast reference)")
+            if not self.pool.telemetry:
+                raise ValueError(
+                    "on_divergence policies need pool telemetry: its "
+                    "sticky diverged flags are what lane health folds at "
+                    "quantum boundaries")
         pr = request.priority
         if isinstance(pr, bool) or not isinstance(pr, int) or pr < 0:
             raise ValueError(f"priority must be a non-negative int (0 = "
@@ -356,6 +446,7 @@ class ChainServer:
         not fit the pool (the handle is rejected)."""
         req, pool = handle.request, self.pool
         try:
+            _faults.fire("staging", tenant=handle.fault_key)
             ma = _localize_names(req.ma)
             t = pool.template_ma
             if ma.row_mask is not None:
@@ -375,7 +466,7 @@ class ChainServer:
             check_kernel_structure(backend, pool.drawer)
             state = (backend.init_state(seed=req.seed) if req.state is None
                      else req.state)
-        except ValueError as e:
+        except Exception as e:  # noqa: BLE001 - reject it, keep the pool
             handle._fail(f"{type(e).__name__}: {e}")
             return None
         return _Prepared(handle, backend, state, self._groups_needed(handle))
@@ -404,11 +495,18 @@ class ChainServer:
                 resume_at=req.start_sweep or None,
                 record_mode=pool.drawer.record_mode,
                 extra_meta={"tenant": handle.tenant_id,
-                            "n_toa": [pool.n_pool]})
+                            "n_toa": [pool.n_pool]},
+                fault_key=handle.fault_key)
         handle.admitted_t = time.monotonic()
         handle.status = "running"
-        self._running[handle.tenant_id] = _Tenant(slot, handle, spool)
+        self._running[handle.tenant_id] = _Tenant(
+            slot, handle, spool,
+            backend=prep.backend if req.on_divergence == "reinit" else None)
         self._admission_ms.append(handle.admission_ms)
+        if self._manifest is not None:
+            self._manifest.record_admit(
+                handle.tenant_id, req,
+                model=req.ma if req.spool_dir is not None else None)
 
     def _admit(self, handle: TenantHandle) -> None:
         """Serial admission: prepare and place in one call."""
@@ -475,12 +573,13 @@ class ChainServer:
         pr = int(waiter.request.priority)
         needed = self._groups_needed(waiter) - len(self._free_groups)
         for t in self._running.values():
-            if t.slot.cancelled:
+            if t.slot.cancelled or t.slot.failed:
                 needed -= len(t.slot.lanes) // self.pool.group
         if needed <= 0:
             return 0
         victims = [t for t in self._running.values()
                    if t.spool is not None and not t.slot.cancelled
+                   and not t.slot.failed
                    and int(t.handle.request.priority) > pr]
 
         def victim_key(t):
@@ -508,13 +607,15 @@ class ChainServer:
 
     def _reap_decided(self) -> List[_Tenant]:
         """Release the running tenants whose freeze was decided since the
-        last dispatch (cancels), so their groups backfill at this
-        boundary. Returns them for a finalize after their last drain."""
+        last dispatch (cancels, preemptions, contained failures), so their
+        groups backfill at this boundary. Returns them for a finalize
+        after their last drain."""
         reaped = []
         for tid, t in list(self._running.items()):
-            if t.slot.cancelled and t.slot.done_sweeps > 0:
+            slot = t.slot
+            if (slot.cancelled or slot.failed) and slot.done_sweeps > 0:
                 self._running.pop(tid)
-                self._release(t.slot)
+                self._release(slot)
                 reaped.append(t)
         return reaped
 
@@ -522,41 +623,100 @@ class ChainServer:
     # draining and finishing
     # ------------------------------------------------------------------
 
+    def _host_tele(self, tl: Optional[Telemetry]) -> Optional[Telemetry]:
+        """A quantum's telemetry (``(G, 16)`` tensors, or the host copies
+        a drain pulled) as ``(nlanes,)`` numpy arrays."""
+        if tl is None:
+            return None
+        return Telemetry(*(np.asarray(t.cpu() if torch.is_tensor(t) else t)
+                           .reshape(self.pool.nlanes) for t in tl))
+
     def _drain_tenant(self, slot: TenantSlot, handle: TenantHandle,
                       spool: Optional[ChainSpool], host: dict,
-                      sweep_end: int, state_fn) -> None:
+                      tele: Optional[Telemetry], sweep_end: int,
+                      state_fn) -> None:
         """Hand one tenant its share of a quantum (both executors): its
         records to its spool, with the checkpoint ``state_fn()`` at
-        ``sweep_end``, or to its handle; then the ``on_chunk`` callback."""
+        ``sweep_end`` (journaled), or to its handle; then the ``on_chunk``
+        callback, and the quantum's telemetry into its running stats."""
         records = self.pool.tenant_records(host, slot)
         if spool is not None:
             spool.append(records, state_fn(), sweep_end)
+            if self._manifest is not None:
+                self._manifest.record_checkpoint(slot.tenant_id, sweep_end)
         else:
             handle._append(records)
         first = handle.first_result_t is None
         handle._stream(sweep_end, records)
         if first and handle.first_result_ms is not None:
             self._first_result_ms.append(handle.first_result_ms)
+        if tele is not None:
+            self._accumulate_tele(handle, slot, tele)
+
+    @staticmethod
+    def _accumulate_tele(handle: TenantHandle, slot: TenantSlot,
+                         tele: Telemetry) -> None:
+        """Fold one quantum's telemetry (``(nlanes,)`` host arrays) into
+        the tenant's ``tele_*`` stats as the solo sampler aggregates them
+        (obs/telemetry.TelemetryAccumulator): sweeps and non-finite counts
+        sum, accept rates are means a sweep, the diverged flag ORs, the
+        log-posterior is the latest quantum's."""
+        lanes = slot.chain_lanes
+        sub = Telemetry(*(a[lanes] for a in tele))
+        d = handle._tele_stats
+        q = int(sub.sweeps.flat[0])
+        prev = int(d.get("tele_sweeps", 0))
+        total = max(prev + q, 1)
+        for blk, val in (("white", sub.accept_white),
+                         ("hyper", sub.accept_hyper)):
+            key = f"tele_accept_{blk}"
+            prev_rate = np.asarray(d.get(key, np.zeros(len(lanes))),
+                                   np.float64)
+            d[key] = ((prev_rate * prev + np.asarray(val, np.float64))
+                      / total).astype(np.float32)
+        d["tele_sweeps"] = np.asarray(prev + q)
+        d["tele_nonfinite"] = (np.asarray(sub.nonfinite, np.int64)
+                               + d.get("tele_nonfinite", 0))
+        d["tele_diverged"] = (np.asarray(sub.diverged, bool)
+                              | d.get("tele_diverged", False))
+        d["tele_logpost"] = np.asarray(sub.logpost, np.float32)
+
+    def _finish(self, t: _Tenant) -> None:
+        """Deliver a released tenant: its failure or its result."""
+        if t.slot.failed:
+            self._finalize_failed(t)
+        else:
+            self._finalize(t)
 
     def _finalize(self, t: _Tenant) -> None:
         """Deliver a finished tenant's result, after its last records were
-        drained. A preempted tenant with budget left is requeued
-        instead."""
+        drained, with its telemetry stats and health report. A preempted
+        tenant with budget left is requeued instead."""
         slot, handle, spool = t.slot, t.handle, t.spool
         if slot.preempted and slot.remaining > 0:
             self._requeue_preempted(t)
             return
+        handle.health = health = self._tenant_health(t)
+        if self._manifest is not None:
+            self._manifest.record_done(slot.tenant_id, "done",
+                                       slot.done_sweeps)
+        extra = dict(handle._tele_stats)
+        extra["n_toa"] = np.asarray([self.pool.n_pool])
+        if health is not None:
+            extra["health"] = health
         if spool is not None:
             spool.close()
             res = load_spool(handle.request.spool_dir)
-            res.stats["n_toa"] = np.asarray([self.pool.n_pool])
+            res.stats.update(extra)
             handle._finish(res)
             return
         pool = self.pool
 
         def build():
-            return pool.result({f: np.concatenate(c)
-                                for f, c in handle._cols.items()})
+            res = pool.result({f: np.concatenate(c)
+                               for f, c in handle._cols.items()})
+            res.stats.update(extra)
+            return res
 
         handle._finish_lazy(build)
 
@@ -577,6 +737,9 @@ class ChainServer:
             handle._fail_tenant(DeadlineExceeded(
                 slot.tenant_id, handle._deadline_sweep, next_sweep,
                 partial=partial))
+            if self._manifest is not None:
+                self._manifest.record_done(slot.tenant_id, "failed",
+                                           slot.done_sweeps)
             return
         state, ck_sweep, _ = load_spool_state(sdir, device="cpu")
         if ck_sweep != next_sweep:
@@ -585,8 +748,8 @@ class ChainServer:
                 f"preemption checkpoint sits at sweep {ck_sweep}, not the "
                 f"frozen tenant's {next_sweep}", where="spool"))
             return
-        # the aging anchor, the absolute deadline and the preemption
-        # count survive the requeue; the admission legs restart
+        # the aging anchor, the absolute deadline, the preemption count
+        # and the telemetry survive the requeue; the admission legs restart
         handle.request = replace(
             handle.request, niter=slot.niter - slot.done_sweeps,
             state=state, start_sweep=ck_sweep, resume_spool=False)
@@ -601,25 +764,212 @@ class ChainServer:
                                      len(self.queue))
 
     def _fail_drained(self, handle: TenantHandle, exc: Exception) -> None:
-        """Resolve a tenant whose drain or finalize raised (its waiter
-        must not hang); the failure then fails the run."""
+        """Fail-fast (``supervise=False``): resolve a tenant whose drain or
+        finalize raised (its waiter must not hang); the failure then
+        fails the run."""
         if not handle.done():
             handle._fail_tenant(TenantError(
                 handle.tenant_id, f"{type(exc).__name__}: {exc}",
                 where="drain", cause=exc))
 
     # ------------------------------------------------------------------
+    # fault containment
+    # ------------------------------------------------------------------
+
+    def _note_fault(self, t: _Tenant, where: str, cause) -> None:
+        """Mark a tenant failed (it freezes and releases at the next
+        boundary, as a cancel does) and count and journal the fault. Only
+        the first cause is kept."""
+        slot = t.slot
+        if slot.failed:
+            return
+        slot.failed = True
+        slot.fail_where = where
+        slot.fail_cause = cause
+        self._fault_counts["tenant_failures"] += 1
+        if self._manifest is not None:
+            self._manifest.record(
+                "fault", tenant=slot.tenant_id, where=where,
+                error=f"{type(cause).__name__}: {cause}")
+
+    def _tenant_health(self, t: _Tenant) -> Optional[dict]:
+        """The tenant's health report (obs/health.chain_health over its
+        telemetry, with the quarantined chains and re-draws), or None when
+        the pool runs telemetry off."""
+        handle, slot = t.handle, t.slot
+        if not handle._tele_stats:
+            return None
+        report = chain_health(handle._tele_stats)
+        report["n_quarantined"] = len(slot.quarantined)
+        report["quarantined_chains"] = sorted(slot.quarantined)
+        report["n_reinits"] = slot.n_reinits
+        return report
+
+    def _finalize_failed(self, t: _Tenant) -> None:
+        """Deliver a contained failure, after the tenant's last drain: a
+        :class:`TenantError` carrying the cause and the prefix drained
+        before it (a bitwise prefix of the uninterrupted run, as a
+        cancel's), with the health report."""
+        slot, handle, spool = t.slot, t.handle, t.spool
+        if handle.done():
+            return
+        partial = None
+        try:
+            if spool is not None:
+                spool.close()
+                partial = load_spool(handle.request.spool_dir)
+            elif handle._cols:
+                partial = self.pool.result(
+                    {f: np.concatenate(c) for f, c in handle._cols.items()})
+        except Exception:  # noqa: BLE001 - the prefix itself is broken
+            partial = None
+        handle.health = self._tenant_health(t)
+        if partial is not None:
+            partial.stats.update(handle._tele_stats)
+            if handle.health is not None:
+                partial.stats["health"] = handle.health
+        cause = slot.fail_cause
+        handle._fail_tenant(TenantError(
+            slot.tenant_id,
+            (f"{type(cause).__name__}: {cause}" if cause is not None
+             else "unknown"),
+            where=slot.fail_where or "drain", cause=cause, partial=partial))
+        if self._manifest is not None:
+            self._manifest.record_done(slot.tenant_id, "failed",
+                                       slot.done_sweeps)
+
+    def _fold_lane_health(self) -> List[_Tenant]:
+        """At a boundary (the caller holds ``_lock``), fold the previous
+        quantum's sticky ``diverged`` flags and apply each tenant's
+        ``on_divergence`` policy. Reading them waits for that quantum, so
+        it happens only while a running tenant has a policy. Returns the
+        tenants the policy failed, released, for a finalize after their
+        last drain."""
+        tl = self._last_tl
+        if tl is None or not any(
+                t.handle.request.on_divergence != "none"
+                for t in self._running.values()):
+            return []
+        self._last_tl = None
+        div = tl.diverged
+        div = np.asarray(div.cpu() if torch.is_tensor(div) else div,
+                         bool).reshape(-1)
+        failed: List[_Tenant] = []
+        for tid, t in list(self._running.items()):
+            slot, handle = t.slot, t.handle
+            pol = handle.request.on_divergence
+            if pol == "none" or slot.failed or tid not in self._last_tl_tids:
+                continue
+            mask = div[slot.chain_lanes].copy()
+            if slot.quarantined:
+                mask[sorted(slot.quarantined)] = False
+            chains = np.flatnonzero(mask)
+            if chains.size == 0:
+                continue
+            sweep_now = slot.start_sweep + slot.done_sweeps
+            fail_now = pol == "fail"
+            if pol == "quarantine":
+                self.pool.quarantine_lanes(slot.chain_lanes[chains])
+                slot.quarantined.update(int(c) for c in chains)
+                self._fault_counts["quarantined_lanes"] += int(chains.size)
+                if self._manifest is not None:
+                    self._manifest.record(
+                        "quarantine", tenant=tid, sweep=sweep_now,
+                        chains=[int(c) for c in chains])
+                # no chain left to serve is a failure, not a freeze
+                fail_now = len(slot.quarantined) >= slot.nchains
+            elif pol == "reinit":
+                fresh = t.backend.init_state(
+                    seed=handle.request.seed + 7919 * sweep_now)
+                self.pool.reinit_lanes(slot.chain_lanes[chains], fresh,
+                                       chains)
+                slot.n_reinits += int(chains.size)
+                self._fault_counts["reinits"] += int(chains.size)
+                if self._manifest is not None:
+                    self._manifest.record(
+                        "reinit", tenant=tid, sweep=sweep_now,
+                        chains=[int(c) for c in chains])
+            if fail_now:
+                why = (f"{chains.size} chain(s) diverged" if pol == "fail"
+                       else f"all {slot.nchains} chains diverged/quarantined")
+                self._note_fault(t, "divergence", RuntimeError(why))
+                self._running.pop(tid)
+                self._release(slot)
+                failed.append(t)
+        return failed
+
+    def _boundary_faults(self) -> None:
+        """The ``lane_nan`` injection point, before a dispatch: a spec
+        firing for a running tenant poisons its first chain's lane, which
+        the quantum's telemetry then flags as a real divergence."""
+        for t in self._running.values():
+            if t.slot.failed:
+                continue
+            try:
+                _faults.fire("lane_nan", tenant=t.handle.fault_key)
+            except Exception:  # noqa: BLE001 - the firing is the signal
+                self.pool.poison_lanes(t.slot.chain_lanes[:1])
+
+    @staticmethod
+    def _drains(slot: TenantSlot) -> bool:
+        """Whether a tenant's records of a dispatched quantum are still
+        drained: not once the drain side failed it (the serial loop would
+        have released it before that quantum); a divergence failure is
+        decided at the boundary after the quantum, which drains."""
+        return not slot.failed or slot.fail_where == "divergence"
+
+    def _pool_failure(self, err: BaseException, label: str = ""):
+        """A pool-level fault (a worker's error under the fail-fast
+        reference, a pull of records failing, a worker past its restart
+        budget): under supervision every outstanding handle resolves;
+        then the run raises."""
+        self._fault_counts["pool_failures"] += 1
+        if self.supervise:
+            self._fail_all_outstanding(
+                f"pool failure: {type(err).__name__}: {err}", where="pool")
+        raise RuntimeError("serve worker thread failed"
+                           + (f" ({label})" if label else "")) from err
+
+    def _supervise_workers(self) -> None:
+        """Restart dead workers with a capped exponential backoff; a
+        worker kind past ``MAX_WORKER_RESTARTS`` is a pool failure (one
+        crash-looping would fail every tenant a bundle at a time)."""
+        now = time.monotonic()
+        for kind, th in (("drain", self._drain_thread),
+                         ("stage", self._stage_thread)):
+            if th is not None and th.is_alive():
+                continue
+            st = self._restarts[kind]
+            if st["n"] >= self.MAX_WORKER_RESTARTS:
+                self._pool_failure(
+                    RuntimeError(f"{kind} worker crash-looping "
+                                 f"({st['n']} restarts)"),
+                    label=f"{kind} worker crash-looping")
+            if now < st["next_t"]:
+                continue
+            st["n"] += 1
+            st["next_t"] = now + min(0.05 * 2 ** st["n"], 1.0)
+            self._fault_counts["worker_restarts"] += 1
+            if kind == "drain":
+                self._drain_thread = None
+            else:
+                self._stage_thread = None
+            self._ensure_workers()
+
+    # ------------------------------------------------------------------
     # the serial quantum loop (the reference executor)
     # ------------------------------------------------------------------
 
     def step(self) -> bool:
-        """One quantum on the calling thread: release cancelled tenants,
-        admit, advance, hand out the records, release and finish the
-        tenants that are done. Returns True while there is work left
-        (resident or queued)."""
+        """One quantum on the calling thread: fold lane health, release
+        cancelled and failed tenants, admit, advance, hand out the
+        records, release and finish the tenants that are done. Returns
+        True while there is work left (resident or queued)."""
         with self._lock:
+            for t in self._fold_lane_health():
+                self._finalize_failed(t)
             for t in self._reap_decided():
-                self._finalize(t)
+                self._finish(t)
             t0 = time.monotonic()
             self._try_admissions()
             self._admit_apply_ms.append((time.monotonic() - t0) * 1e3)
@@ -628,9 +978,14 @@ class ChainServer:
         # the quantum itself runs outside the lock (only this thread
         # changes the running set; a cancel meanwhile only flags a slot)
         pool = self.pool
+        self._boundary_faults()
+        _faults.fire("dispatch_stall")
         t_d = self._dispatch_start()
-        host = pool.materialize(pool.run_quantum())
+        recs, tl = pool.run_quantum()
+        host = pool.materialize(recs)
+        tele = self._host_tele(tl)
         with self._lock:
+            self._last_tl, self._last_tl_tids = tele, set(self._running)
             self._last_dispatch_t = t0 = time.monotonic()
             self._dispatch_ms.append((t0 - t_d) * 1e3)
             q = pool.quantum
@@ -638,21 +993,31 @@ class ChainServer:
             for tid, t in self._running.items():
                 slot = t.slot
                 slot.done_sweeps += q
-                try:
-                    self._drain_tenant(
-                        slot, t.handle, t.spool, host,
-                        slot.start_sweep + slot.done_sweeps,
-                        state_fn=lambda s=slot: pool.tenant_state(s))
-                except Exception as e:
-                    self._fail_drained(t.handle, e)
-                    raise
-                if slot.remaining <= 0 or slot.cancelled:
+                if not slot.failed:
+                    try:
+                        self._drain_tenant(
+                            slot, t.handle, t.spool, host, tele,
+                            slot.start_sweep + slot.done_sweeps,
+                            state_fn=lambda s=slot: pool.tenant_state(s))
+                    except Exception as e:  # noqa: BLE001 - contained
+                        if not self.supervise:
+                            self._fail_drained(t.handle, e)
+                            raise
+                        self._note_fault(t, "drain", e)
+                if slot.remaining <= 0 or slot.cancelled or slot.failed:
                     finished.append(tid)
             self._count_quantum()
             for tid in finished:
                 t = self._running.pop(tid)
                 self._release(t.slot)
-                self._finalize(t)
+                try:
+                    self._finish(t)
+                except Exception as e:  # noqa: BLE001 - contained
+                    if not self.supervise:
+                        self._fail_drained(t.handle, e)
+                        raise
+                    self._note_fault(t, "finalize", e)
+                    self._finalize_failed(t)
             self._drain_ms.append((time.monotonic() - t0) * 1e3)
             return bool(self._running) or len(self.queue) > 0
 
@@ -693,14 +1058,18 @@ class ChainServer:
                 self._stage_wake.wait(0.05)
                 continue
             try:
-                prep = self._prepare(h)
+                prep = self._prepare(h)  # rejects the tenant's Exceptions
             except BaseException as e:
+                # a worker death (or an interpreter exit): balance the
+                # count and resolve the handle before the thread ends;
+                # the supervisor decides on a successor
                 with self._prep_lock:
                     self._staging_n -= 1
-                h._fail(f"staging failed: {type(e).__name__}: {e}")
-                self._worker_error = e
-                self._worker_error_label = f"staging tenant {h.tenant_id}"
-                return
+                if not h.done():
+                    h._fail(f"staging worker died: {type(e).__name__}: {e}")
+                if isinstance(e, _faults.WorkerDeath):
+                    return
+                raise
             with self._prep_lock:
                 self._staging_n -= 1
                 if h.tenant_id in self._cancelled_prestage:
@@ -711,12 +1080,14 @@ class ChainServer:
 
     def _dispatch_one(self, need_snap: bool) -> _Bundle:
         """Dispatch the next quantum (outside ``_lock``: only this thread
-        changes the running set), then, under it, its bookkeeping, the
-        release of the tenants it finishes, and its drain bundle
-        (finalize-only entries of the tenants reaped at this boundary
-        first)."""
+        changes the running set), after the boundary's injection points;
+        then, under the lock, its bookkeeping, the release of the tenants
+        it finishes, and its drain bundle (finalize-only entries of the
+        tenants released at this boundary first)."""
+        self._boundary_faults()
+        _faults.fire("dispatch_stall")
         t_d = self._dispatch_start()
-        recs, snap = self.pool.dispatch_quantum(snapshot=need_snap)
+        recs, tl, snap = self.pool.dispatch_quantum(snapshot=need_snap)
         event = None
         if self._pull_stream is not None:
             event = torch.cuda.Event()
@@ -725,6 +1096,7 @@ class ChainServer:
         self._dispatch_ms.append((self._last_dispatch_t - t_d) * 1e3)
         q = self.pool.quantum
         with self._lock:
+            self._last_tl, self._last_tl_tids = tl, set(self._running)
             entries = [(t.slot, t.handle, t.spool,
                         t.slot.start_sweep + t.slot.done_sweeps, True, False)
                        for t in self._reaped]
@@ -733,7 +1105,8 @@ class ChainServer:
             for tid, t in self._running.items():
                 slot = t.slot
                 slot.done_sweeps += q
-                final = slot.remaining <= 0 or slot.cancelled
+                final = (slot.remaining <= 0 or slot.cancelled
+                         or slot.failed)
                 entries.append((slot, t.handle, t.spool,
                                 slot.start_sweep + slot.done_sweeps, final,
                                 True))
@@ -742,25 +1115,34 @@ class ChainServer:
             self._count_quantum()
             for tid in finished:
                 self._release(self._running.pop(tid).slot)
-        return _Bundle(recs, snap, event, entries)
+        return _Bundle(recs, tl, snap, event, entries)
 
     def _drain_bundle(self, b: _Bundle) -> None:
-        """Copy a quantum's records (and snapshot) to the host on the side
-        stream, after the quantum's event, then drain and finalize its
-        entries in order. A failure resolves the handles it touches, and
-        is raised on the dispatch thread at its next boundary."""
-        host = snap = None
+        """Copy a quantum's records, telemetry (and snapshot) to the host
+        on the side stream, after the quantum's event, then drain and
+        finalize its entries in order. A tenant's failure is contained to
+        it (``supervise``) or fails it and then the run; a failed pull
+        fails the run. A worker death in an entry fails that entry's
+        tenant and leaves ``b.idx`` past it, for the next drain."""
+        host = tele = snap = None
         err = None
         try:
             if b.recs is not None:
                 fields = list(b.recs)
-                tensors = list(b.recs.values()) + list(b.snap or ())
+                tl = list(b.tl) if b.tl is not None else []
+                tensors = list(b.recs.values()) + tl + list(b.snap or ())
                 pulled = _HostCopy(tensors, self._pull_stream,
                                    after=b.event).wait()
                 host = self.pool.materialize(dict(zip(fields, pulled)))
+                k = len(fields)
+                if tl:
+                    tele = self._host_tele(Telemetry(*pulled[k:k + len(tl)]))
                 if b.snap is not None:
-                    snap = ChainState(*pulled[len(fields):])
-                b.recs = b.snap = None
+                    snap = ChainState(*pulled[k + len(tl):])
+                b.recs = b.tl = b.snap = None
+                b.host = (host, tele, snap)
+            elif b.host is not None:
+                host, tele, snap = b.host
         except Exception as e:  # noqa: BLE001 - raised on the dispatch side
             for entry in b.entries[b.idx:]:
                 self._fail_drained(entry[1], e)
@@ -770,45 +1152,71 @@ class ChainServer:
         while b.idx < len(b.entries):
             slot, handle, spool, sweep_end, final, drained = \
                 b.entries[b.idx]
-            b.idx += 1
+            if handle.done():
+                # resolved meanwhile (a pool failure, a fail-fast drain)
+                b.idx += 1
+                continue
+            t = _Tenant(slot, handle, spool)
             try:
-                if drained:
+                _faults.fire("drain_death", tenant=handle.fault_key)
+                if drained and self._drains(slot):
                     self._drain_tenant(
-                        slot, handle, spool, host, sweep_end,
+                        slot, handle, spool, host, tele, sweep_end,
                         state_fn=lambda s=slot:
                         self.pool.tenant_state_from(snap, s))
                 if final:
-                    self._finalize(_Tenant(slot, handle, spool))
-            except Exception as e:  # noqa: BLE001 - raised below
-                self._fail_drained(handle, e)
-                err = err or (e, f"draining tenant {handle.tenant_id}")
+                    self._finish(t)
+            except Exception as e:  # noqa: BLE001 - contained or raised
+                if not self.supervise:
+                    self._fail_drained(handle, e)
+                    err = err or (e, f"draining tenant {handle.tenant_id}")
+                else:
+                    self._note_fault(t, "drain", e)
+                    if final:
+                        self._finalize_failed(t)
+            except BaseException as e:
+                # the worker dies here: this entry's tenant has lost its
+                # quantum; the next drain resumes after it
+                self._note_fault(t, "worker", e)
+                if final:
+                    self._finalize_failed(t)
+                b.idx += 1
+                raise
+            b.idx += 1
         if host is not None:
             self._drain_ms.append((time.monotonic() - t0) * 1e3)
         if err is not None:
             self._worker_error, self._worker_error_label = err
 
-    def _drain_item(self, item: Optional[_Bundle]) -> None:
-        """Drain one queued item (the drain worker's body; also the inline
-        flush's) and free its slot."""
+    def _drain_one(self, item: _Bundle) -> bool:
+        """Drain a queued bundle and free its slot (the drain worker's
+        body, and the inline flush's). False when the draining thread
+        died in it: the bundle stays unfinished, kept for the next
+        drain, which resumes it before anything queued after it."""
         try:
-            if item is not None:
-                self._drain_bundle(item)
-        finally:
-            if item is not None:
-                self._inflight.release()
-            self._drainq.task_done()
+            self._drain_bundle(item)
+        except Exception as e:  # noqa: BLE001 - latched, raised below
+            self._worker_error, self._worker_error_label = (
+                e, "draining a quantum")
+        except BaseException:
+            self._resume_bundle = item
+            raise
+        self._inflight.release()
+        self._drainq.task_done()
+        return True
 
     def _drain_worker(self) -> None:
         while True:
-            item = self._drainq.get()
-            try:
-                self._drain_item(item)
-            except BaseException as e:
-                self._worker_error = e
-                self._worker_error_label = "drain worker"
-                return
+            item, self._resume_bundle = self._resume_bundle, None
             if item is None:
-                return
+                item = self._drainq.get()
+                if item is None:
+                    self._drainq.task_done()
+                    return
+            try:
+                self._drain_one(item)
+            except _faults.WorkerDeath:
+                return      # an injected death: end quietly
 
     def _stop_workers(self, timeout: Optional[float] = None) -> None:
         self._workers_stop.set()
@@ -837,17 +1245,22 @@ class ChainServer:
         if self._worker_error is not None:
             err, self._worker_error = self._worker_error, None
             label, self._worker_error_label = self._worker_error_label, ""
-            raise RuntimeError(f"serve worker failed ({label})") from err
+            self._pool_failure(err, label)
 
     def _wait_inflight(self) -> None:
         """Bounded run-ahead: take a drain slot before dispatching, waiting
         while ``MAX_INFLIGHT`` bundles are undrained (outside ``_lock``,
-        so the drain never waits on the dispatch thread)."""
+        so the drain never waits on the dispatch thread). A dead drain
+        thread is replaced (``supervise``) or its work done inline."""
         while not self._inflight.acquire(timeout=0.05):
             self._raise_worker_error()
             th = self._drain_thread
             if th is None or not th.is_alive():
-                self._flush_drains()
+                if self.supervise:
+                    self._supervise_workers()
+                th = self._drain_thread
+                if th is None or not th.is_alive():
+                    self._flush_drains()
 
     def _pipeline_idle(self) -> bool:
         """Nothing running, waiting to be drained, queued or staged. The
@@ -874,9 +1287,12 @@ class ChainServer:
                        on_quantum) -> None:
         while not self._stop.is_set():
             self._raise_worker_error()
+            if self.supervise:
+                self._supervise_workers()
             self._wait_inflight()
             bundle = None
             with self._lock:
+                self._reaped.extend(self._fold_lane_health())
                 self._reaped.extend(self._reap_decided())
                 t0 = time.monotonic()
                 self._apply_admissions()
@@ -889,7 +1305,7 @@ class ChainServer:
                                 t.slot.start_sweep + t.slot.done_sweeps,
                                 True, False) for t in self._reaped]
                     self._reaped.clear()
-                    bundle = _Bundle(None, None, None, entries)
+                    bundle = _Bundle(None, None, None, None, entries)
             if have_work:
                 bundle = self._dispatch_one(need_snap)
             if bundle is not None:
@@ -906,17 +1322,25 @@ class ChainServer:
     def _flush_drains(self) -> None:
         """Wait until every queued bundle is drained: by the drain worker
         while it lives, else inline on this thread (so a dead worker
-        never leaves the flush waiting)."""
+        never leaves the flush waiting), the bundle it died in first."""
         while self._drainq.unfinished_tasks:
             th = self._drain_thread
             if th is not None and th.is_alive():
                 time.sleep(0.002)
                 continue
+            item, self._resume_bundle = self._resume_bundle, None
+            if item is None:
+                try:
+                    item = self._drainq.get_nowait()
+                except _queue.Empty:
+                    break
+                if item is None:
+                    self._drainq.task_done()
+                    continue
             try:
-                item = self._drainq.get_nowait()
-            except _queue.Empty:
-                break
-            self._drain_item(item)
+                self._drain_one(item)
+            except _faults.WorkerDeath:
+                pass        # the bundle is kept; the loop resumes it
 
     # ------------------------------------------------------------------
     # drivers
@@ -968,8 +1392,22 @@ class ChainServer:
         self._flush_drains()
         self._stop_workers(timeout)
         self._fail_all_outstanding("server closed")
+        if self._manifest is not None:
+            # every tenant is resolved: the compacted log is the geometry
+            # and nothing outstanding. A failure leaves the full journal,
+            # which stays valid
+            try:
+                self._manifest.compact()
+            except Exception as e:  # noqa: BLE001 - bookkeeping only
+                warnings.warn(f"manifest compaction at close failed "
+                              f"({type(e).__name__}: {e}); the full "
+                              "journal remains valid", RuntimeWarning)
 
-    def _fail_all_outstanding(self, reason: str) -> None:
+    def _fail_all_outstanding(self, reason: str,
+                              where: str = "close") -> None:
+        """Resolve every handle the server still owns: queued and staged
+        jobs as rejected, running (and released, unfinished) tenants with
+        a :class:`TenantError` carrying their drained prefix."""
         while True:
             h = self.queue.pop_next()
             if h is None:
@@ -987,17 +1425,71 @@ class ChainServer:
                 if t.slot.tenant_id in self.pool._slots:
                     self._release(t.slot)
         for t in running:
-            partial = None
-            if t.spool is not None:
-                t.spool.close()
-                if t.slot.done_sweeps:
-                    partial = load_spool(t.handle.request.spool_dir)
-            elif t.handle._cols:
-                partial = self.pool.result(
-                    {f: np.concatenate(c)
-                     for f, c in t.handle._cols.items()})
-            t.handle._fail_tenant(TenantError(
-                t.slot.tenant_id, reason, where="close", partial=partial))
+            self._note_fault(t, where, RuntimeError(reason))
+            self._finalize_failed(t)
+
+    # ------------------------------------------------------------------
+    # crash recovery
+    # ------------------------------------------------------------------
+
+    @classmethod
+    def recover(cls, manifest_dir: str, **overrides):
+        """Rebuild a server from its crash-recovery manifest and resubmit
+        every outstanding spooled tenant from its last spool checkpoint.
+        Returns ``(server, handles)``, ``handles`` keyed by each recovered
+        tenant's name (or spool directory); drive the server as usual.
+        A resumed tenant's chains are bitwise its uninterrupted run (the
+        spool resume contract); one that died before its first checkpoint
+        restarts from its request. Tenants admitted without a spool died
+        with the process: they are listed on ``server.lost_tenants``.
+        ``overrides`` are constructor arguments (``device``, ``pipeline``,
+        ...); the pool's geometry comes from the manifest. The log is
+        compacted to the outstanding set afterwards."""
+        template_ma, config, kw = load_server_state(manifest_dir)
+        kw.update(overrides)
+        recoverable, lost = outstanding_tenants(manifest_dir)
+        srv = cls(template_ma, config, manifest_dir=manifest_dir, **kw)
+        srv.lost_tenants = lost
+        handles: Dict[object, TenantHandle] = {}
+        for rec in recoverable:
+            key = rec.get("name") or rec["spool_dir"]
+            ma = load_tenant_model(manifest_dir, rec)
+            try:
+                state, next_sweep, _ = load_spool_state(rec["spool_dir"],
+                                                        device="cpu")
+            except (OSError, KeyError):
+                # killed before its first checkpoint: start it afresh
+                state, next_sweep = None, rec["start_sweep"]
+            remaining = rec["niter"] - (next_sweep - rec["start_sweep"])
+            if remaining <= 0:
+                # served and checkpointed; only its delivery was lost
+                h = TenantHandle(next(srv._ids), TenantRequest(
+                    ma=ma, niter=rec["niter"], nchains=rec["nchains"],
+                    seed=rec["seed"], spool_dir=rec["spool_dir"],
+                    name=rec.get("name")))
+                h._finish(load_spool(rec["spool_dir"]))
+                handles[key] = h
+                continue
+            # the deadline was journaled relative to the admission's
+            # start_sweep: re-anchor it, and drop one already passed
+            dls = rec.get("deadline_sweeps")
+            if dls is not None:
+                dls = rec["start_sweep"] + int(dls) - next_sweep
+                if dls <= 0:
+                    dls = None
+            handles[key] = srv.submit(TenantRequest(
+                ma=ma, niter=remaining, nchains=rec["nchains"],
+                seed=rec["seed"], state=state, start_sweep=next_sweep,
+                spool_dir=rec["spool_dir"], name=rec.get("name"),
+                on_divergence=rec.get("on_divergence") or "none",
+                priority=(1 if rec.get("priority") is None
+                          else int(rec["priority"])),
+                deadline_sweeps=dls))
+        # the resubmissions are journaled in the new epoch: what came
+        # before is history a later recovery need not read
+        if srv._manifest is not None:
+            srv._manifest.compact(keep_lost=False)
+        return srv, handles
 
     # ------------------------------------------------------------------
     # the scheduling surface
@@ -1035,7 +1527,10 @@ class ChainServer:
                 p = t.handle.progress()
                 p.update({"lane0": int(t.slot.lanes[0]),
                           "lane_groups": len(t.slot.lanes) // self.pool.group,
-                          "cancelled": bool(t.slot.cancelled)})
+                          "cancelled": bool(t.slot.cancelled),
+                          "failed": bool(t.slot.failed),
+                          "quarantined": len(t.slot.quarantined),
+                          "reinits": t.slot.n_reinits})
                 tenants.append(p)
             return {
                 "schema": 1,
@@ -1053,6 +1548,8 @@ class ChainServer:
                 "queue_depth": len(self.queue),
                 "staged": staged,
                 "pipeline": self.pipeline,
+                "supervise": self.supervise,
+                "faults": dict(self._fault_counts),
                 "sched": self._sched_block(),
                 "slo": self._slo_block(),
                 "tenants": tenants,
@@ -1065,13 +1562,15 @@ class ChainServer:
         per-quantum host ms of admission, the dispatch (serial: until the
         records are on the host), the drain (after the records are on the
         host) and the gap from one dispatch's end to the next one's start;
-        ``sched`` the scheduling counters."""
+        ``sched`` the scheduling counters; ``faults`` the containment
+        counters (tenants failed, lanes quarantined, chains re-drawn,
+        workers restarted, pool failures)."""
         occ = (self.busy_chain_sweeps / self.total_lane_sweeps
                if self.total_lane_sweeps else 0.0)
         return {"nlanes": self.pool.nlanes, "quantum": self.pool.quantum,
                 "quanta": self.quanta, "occupancy": occ,
                 "busy_chain_sweeps": self.busy_chain_sweeps,
-                "pipeline": self.pipeline,
+                "pipeline": self.pipeline, "supervise": self.supervise,
                 "admission_ms": (float(np.mean(self._admission_ms))
                                  if self._admission_ms else None),
                 "host_ms": {"admission": _percentiles(self._admit_apply_ms),
@@ -1079,4 +1578,5 @@ class ChainServer:
                             "drain": _percentiles(self._drain_ms),
                             "dispatch_gap": _percentiles(self._gap_ms)},
                 "sched": self._sched_block(),
-                "slo": self._slo_block()}
+                "slo": self._slo_block(),
+                "faults": dict(self._fault_counts)}

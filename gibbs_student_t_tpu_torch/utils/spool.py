@@ -15,9 +15,11 @@ The directory holds ``<field>.spool`` per recorded field, ``state.npz``
 ``fields``, ``seed``, ``base``, ``record_mode``, ``record_thin``,
 ``recycle``, ``extra``) and, under ``reinit_diverged``,
 ``run_stats.json``. Either package reads a spool directory the other
-wrote. The JAX spool's fault-injection points (``fault_key``) belong to
-its serving fault harness (serve/faults.py), which this package does not
-have yet.
+wrote. With a ``fault_key`` (a serving tenant's name or id), the serving
+fault harness's points (serve/faults.py) arm inside
+:meth:`ChainSpool.append`: ``spool_io`` before the rows are written, and
+``kill_before_checkpoint`` / ``kill_after_checkpoint`` on either side of
+the state checkpoint.
 """
 
 from __future__ import annotations
@@ -52,14 +54,19 @@ class ChainSpool:
     (``recycle=None`` skips its check, as a solo run passes it).
     ``extra_meta`` is JSON-able run metadata (the ensemble's per-pulsar
     TOA counts) that :func:`load_spool` replays into the result's
-    ``stats``."""
+    ``stats``. ``fault_key`` is the serving fault-injection identity
+    (serve/faults.py): when set, :meth:`append` fires ``spool_io``,
+    ``kill_before_checkpoint`` and ``kill_after_checkpoint`` for it, the
+    deterministic stand-ins for a disk-full error and a process kill on
+    either side of the checkpoint write."""
 
     def __init__(self, path: str, seed: int, resume: bool = False,
                  resume_at: Optional[int] = None,
                  record_mode: Optional[str] = None,
                  record_thin: int = 1,
                  recycle: Optional[bool] = None,
-                 extra_meta: Optional[Dict] = None):
+                 extra_meta: Optional[Dict] = None,
+                 fault_key=None):
         self.path = path
         self.seed = seed
         self.resume = resume
@@ -70,6 +77,7 @@ class ChainSpool:
         # sweep-indexed bookkeeping (base, resume_at) divides by it
         self.record_thin = int(record_thin)
         self.extra_meta = extra_meta
+        self.fault_key = fault_key
         self._writers: Optional[Dict[str, SpoolWriter]] = None
         os.makedirs(path, exist_ok=True)
 
@@ -117,6 +125,7 @@ class ChainSpool:
         point); ``state`` the state there (tensors or numpy arrays).
         ``run_stats`` (the running re-init count) is kept beside the
         checkpoint so a resumed run's counters stay cumulative."""
+        self._fire("spool_io")
         if self._writers is None:
             meta_path = os.path.join(self.path, "meta.json")
             chunk_len = len(next(iter(records.values())))
@@ -141,13 +150,24 @@ class ChainSpool:
         for f, a in records.items():
             self._writers[f].append(a)
             self._writers[f].flush()
+        # a kill here leaves orphan rows past the last checkpoint, which a
+        # resume cuts off; a kill after it resumes from this sweep
+        self._fire("kill_before_checkpoint")
         save_checkpoint(os.path.join(self.path, "state.npz"), state, sweep,
                         self.seed)
+        self._fire("kill_after_checkpoint")
         if run_stats is not None:
             tmp = os.path.join(self.path, "run_stats.json.tmp")
             with open(tmp, "w") as fh:
                 json.dump(run_stats, fh)
             os.replace(tmp, os.path.join(self.path, "run_stats.json"))
+
+    def _fire(self, point: str) -> None:
+        if self.fault_key is not None:
+            # imported here: the serve package imports this module
+            from gibbs_student_t_tpu_torch.serve import faults
+
+            faults.fire(point, tenant=self.fault_key)
 
     def close(self) -> None:
         if self._writers is not None:

@@ -160,7 +160,9 @@ def test_port_imports_no_jax():
             "gibbs_student_t_tpu_torch/utils/spool.py",
             "gibbs_student_t_tpu_torch/utils/spoolfile.py",
             "gibbs_student_t_tpu_torch/obs/metrics.py",
-            "gibbs_student_t_tpu_torch/drivers/run_sims.py"} <= scanned
+            "gibbs_student_t_tpu_torch/drivers/run_sims.py",
+            "gibbs_student_t_tpu_torch/serve/faults.py",
+            "gibbs_student_t_tpu_torch/serve/manifest.py"} <= scanned
     bad = []
     for path in files:
         with open(path) as fh:

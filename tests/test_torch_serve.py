@@ -146,12 +146,13 @@ def test_resumed_tenant_equals_unbroken_run(demo):
     smp = TorchGibbs(ma, cfg, nchains=16, device="cpu", tnt_block_size=None)
     first = TenantSlot(0, np.arange(16), 16, 5, 0, 4)
     pool.write_tenant(first, smp, smp.init_state(seed=4))
-    rec1 = pool.tenant_records(pool.materialize(pool.run_quantum()), first)
+    rec1 = pool.tenant_records(pool.materialize(pool.run_quantum()[0]),
+                               first)
     state = pool.tenant_state(first)
     pool.evict(first)
     second = TenantSlot(1, np.arange(32, 48), 16, 5, 5, 4)
     pool.write_tenant(second, smp, state)
-    rec2 = pool.tenant_records(pool.materialize(pool.run_quantum()),
+    rec2 = pool.tenant_records(pool.materialize(pool.run_quantum()[0]),
                                second)
     rv = pool.result({f: np.concatenate([rec1[f], rec2[f]])
                       for f in rec1})
