@@ -247,9 +247,12 @@ exits 1 through ``fail`` before it, and so does an uncaught exception.
       and exactly one worker restart with the death); ms a quantum with
       the script beside 15a's without it;
    b. a process kill on the card: two child processes each serve phase
-      15b's two spooled tenants (512 chains x 250 sweeps) with a manifest,
+      15b's two spooled tenants (512 chains x 250 sweeps) with a manifest
+      and a flight recorder synced every quantum (``flight_dir``),
       killed (``os._exit(9)``) in the first tenant's second spool append,
-      one before and one after its state checkpoint; a third process calls
+      one before and one after its state checkpoint; each left a
+      parseable ``flight.json``, valid against the port's schema and at
+      most one quantum behind the two it dispatched; a third process calls
       ``ChainServer.recover`` on both manifests and serves them to their
       end: every tenant bit for bit 15b's uninterrupted run, each log
       compacted to its ``server`` record at the close; the seconds from
@@ -261,6 +264,45 @@ exits 1 through ``fail`` before it, and so does an uncaught exception.
       one more tnt_lanes and one more chol_fused (the log-posterior at the
       quantum's end), as phases 11d, 15 and 16 count them (path
       ``pool_faults``).
+   The serving observability plane is on by default, so phases 11d, 14,
+   15 and 16 run with it; no run of phases 15 and 16 may trip the
+   watchdog.
+17. the serving observability plane (``serve.MonitorSpec``, spans,
+   ``obs_dir``, the flight recorder, the watchdog) at pool1024, in a
+   temporary directory removed at the end:
+   a. phase 11d's tenant set with every tenant monitored (parameters 0-2)
+      and the whole plane on (a span JSONL sink, ``obs_dir``, a metrics
+      run directory, the flight recorder, the watchdog), and with all of
+      it off, on both executors in turns (serial on, off; pipelined on,
+      off, off, on; serial off, on): every tenant bit for bit 15a's
+      results; every kernel's launches a quantum equal in every run;
+      device ms a quantum on and off (a device-only profile of 4 tenants x
+      2 quanta on the serial loop each) within 3 %, and the device events
+      whose counts differ on and off reported by name; each tenant's
+      final ``progress()`` equal to
+      ``ess_per_param``/``split_rhat_per_param`` of its rows to 1e-6; the
+      trace a span per (tenant, quantum, role) and a staging span per
+      tenant; every record (live and final status, healthz, status.json,
+      span lines, events, the metrics manifest, cost, the postmortem,
+      flight.json, the Chrome trace) valid against the port's schema; the
+      tenants' cost summing to ``dispatch_wall_ms`` to 1e-9; no watchdog
+      trip; printed: ms a quantum on and off and the host ms of the
+      monitor feed and the ``obs_dir`` refresh, per executor;
+   b. a stalled dispatch on each executor: two tenants of the set, the
+      second dispatch sleeping 2 s (``dispatch_stall``, ``after=1``)
+      under a watchdog whose floor is 0.5 s: ``healthz()``, polled from a
+      thread, reports the trip with cause ``dispatch_stall`` during the
+      stall (at quantum 1); the postmortem on disk is valid and says why;
+      both tenants bit for bit 15a's;
+   c. eviction at convergence on each executor: the longest-budget tenant
+      of the first four gets ``on_converged="evict"`` and an ESS target
+      its 15a rows first reach at a quantum k >= 2 before its budget: it
+      converges at exactly k quanta, ends ``done`` with a prefix bit for
+      bit 15a's (exactly k quanta on the serial loop), a queued tenant
+      takes its groups at the next quantum, ``converged_evictions`` is 1,
+      and every other tenant is bit for bit 15a's; occupancy and busy
+      chain-sweeps/s beside 15a's. The launches of every phase-17 run are
+      checked as pool sweeps (path ``pool_obs``).
 
 Launch counts are read per path: every count is set to 0 just before a
 run and read just after it; a count is launches per sweep x sweeps plus
@@ -281,6 +323,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -406,7 +449,7 @@ DRAWS = "sweep_draws"
 # flagship's shapes), and its ensemble runs launch ens32's grouped kernels
 SAME_AS = {"sample": "flagship", "spool": "flagship", "spool_ens": "ens32",
            "drivers": "flagship", "drivers_ens": "ens32",
-           "pool_sched": "pool", "pool_faults": "pool"}
+           "pool_sched": "pool", "pool_faults": "pool", "pool_obs": "pool"}
 # a grouped kernel's entry: the wrapper it shares with the single-model
 # launch; it counts on the wrapper's launches_grouped
 GROUPED = {"white_mh_grouped": "white_mh", "hyper_mh_grouped": "hyper_mh",
@@ -493,7 +536,8 @@ if cfg["mode"] == "kill":
     srv = ChainServer(pool_model(42), GibbsConfig(model="mixture"),
                       nlanes=cfg["nlanes"], quantum=cfg["quantum"],
                       record="light", pipeline=False,
-                      manifest_dir=cfg["manifest"])
+                      manifest_dir=cfg["manifest"], flight_dir=cfg["flight"],
+                      flight_sync_every=1)
     for i in range(2):
         srv.submit(TenantRequest(
             ma=pool_model(104 + i), niter=cfg["sweeps"],
@@ -518,7 +562,8 @@ for man in cfg["manifests"]:
                  "start_sweeps": {k: h.request.start_sweep
                                   for k, h in sorted(handles.items())},
                  "status": {k: h.status for k, h in sorted(handles.items())},
-                 "lost": len(srv.lost_tenants)})
+                 "lost": len(srv.lost_tenants),
+                 "watchdog": srv.healthz()["watchdog"]["state"]})
 print(json.dumps({"t_start": t_start, "runs": runs}))
 """
 # times of the first design of chol_fused (one 128-thread block per matrix),
@@ -654,14 +699,17 @@ def legacy_draw(torch, smp, gen, state):
     return out
 
 
-def profile_calls(torch, fn, ncalls: int) -> dict:
+def profile_calls(torch, fn, ncalls: int, cpu: bool = True) -> dict:
     """Device time by kernel over ``ncalls`` calls of ``fn`` (torch.profiler,
-    CUDA activity) and the wall time of the same window, per call."""
+    CUDA activity, and with ``cpu`` the CPU ops too) and the wall time of
+    the same window, per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if cpu:
+        acts.insert(0, ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(ncalls):
             fn()
@@ -671,6 +719,7 @@ def profile_calls(torch, fn, ncalls: int) -> dict:
     rows = []
     dev_total = 0.0
     launches = 0
+    events = {}
     for ev in prof.key_averages():
         # device-side events only (kernels, memcpy/memset): the CPU ops
         # that launched them carry the same device time again, and so do
@@ -679,6 +728,7 @@ def profile_calls(torch, fn, ncalls: int) -> dict:
         if ev.device_type != DeviceType.CUDA or getattr(
                 ev, "is_user_annotation", False):
             continue
+        events[ev.key] = events.get(ev.key, 0) + ev.count
         dt = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
         if dt <= 0:
@@ -691,7 +741,9 @@ def profile_calls(torch, fn, ncalls: int) -> dict:
     dev_ms = dev_total / 1e3 / ncalls
     return {"sweeps": ncalls, "wall_ms_per_sweep": wall * 1e3 / ncalls,
             "device_ms_per_sweep": dev_ms,
-            "launches_per_sweep": launches / ncalls, "top": rows[:12]}
+            "launches_per_sweep": launches / ncalls,
+            # every device event by name, those timed at 0 included
+            "device_events": events, "top": rows[:12]}
 
 
 def main() -> None:
@@ -3599,6 +3651,7 @@ def main() -> None:
     tmp15 = tempfile.mkdtemp(prefix="gst_chip_smoke_sched_")
     served = [0, 0]         # pool sweeps and quanta of phase 15's servers
     WAIT_S = 600.0          # no result is waited for longer
+    wd_states = []          # the watchdog's state after each driven run
 
     def pool_server(pipeline, **kw):
         return ChainServer(template, cfg_p, nlanes=POOL_LANES,
@@ -3615,6 +3668,7 @@ def main() -> None:
             torch.cuda.synchronize()
         finally:
             s.close(timeout=WAIT_S)
+        wd_states.append(s.healthz()["watchdog"]["state"])
         served[0] += s.quanta * POOL_QUANTUM
         served[1] += s.quanta
         return time.perf_counter() - t0
@@ -3848,9 +3902,11 @@ def main() -> None:
     print(f"# phase 15: {srep['seconds']:.1f} s", flush=True)
 
     # --- 16. fault containment and crash recovery (pool1024) ----------------
+    from gibbs_student_t_tpu_torch.obs import schema as obs_schema
     from gibbs_student_t_tpu_torch.serve import TenantError, faults
     from gibbs_student_t_tpu_torch.serve.manifest import read_manifest
 
+    schemas = obs_schema.load_schemas()
     t16 = time.perf_counter()
     frep = report["faults"] = {}
     tmp16 = tempfile.mkdtemp(prefix="gst_chip_smoke_faults_")
@@ -4042,7 +4098,9 @@ def main() -> None:
         try:
             t_kill = time.perf_counter()
             procs = [child({"mode": "kill", "arm": a, "manifest": dirs[a][0],
-                            "spools": dirs[a][1], "nlanes": POOL_LANES,
+                            "spools": dirs[a][1],
+                            "flight": os.path.join(tmp16, a, "flight"),
+                            "nlanes": POOL_LANES,
                             "quantum": Q, "chains": KILL_CHAINS,
                             "sweeps": KILL_SWEEPS}) for a in arms]
             killed = [p.communicate(timeout=CHILD_TIMEOUT_S) for p in procs]
@@ -4051,6 +4109,20 @@ def main() -> None:
             if rcs != [9, 9]:
                 fail(f"the killed servers exited {rcs}, not 9: "
                      f"{[e[-1500:] for _, e in killed]}")
+            # each killed server's last flight.json (synced every
+            # quantum; the kill came in its second quantum's drain)
+            flight16 = {}
+            for a in arms:
+                fpath = os.path.join(tmp16, a, "flight", "flight.json")
+                try:
+                    fj = json.load(open(fpath))
+                    errs = obs_schema.validate(fj, schemas["postmortem"],
+                                                 defs=schemas)
+                    flight16[a] = {"reason": fj.get("reason"),
+                                   "quanta_recorded": fj["quanta_recorded"],
+                                   "schema_errors": errs[:5]}
+                except (OSError, ValueError, KeyError) as exc:
+                    flight16[a] = {"error": repr(exc)}
             ck = {a: [spool_mod.load_spool_state(
                 os.path.join(dirs[a][1], f"v{i}"), device="cpu")[1]
                       if os.path.exists(os.path.join(dirs[a][1], f"v{i}",
@@ -4070,6 +4142,7 @@ def main() -> None:
                     p.wait()
         rec16 = json.loads(out.strip().splitlines()[-1])
         kill = {"kill_processes_s": kill_s, "checkpoints": ck,
+                "flight": flight16,
                 "first_dispatch_s": (rec16["runs"][0]["first_dispatch_t"]
                                      - t_spawn),
                 "recover_to_first_dispatch_s": (
@@ -4083,6 +4156,7 @@ def main() -> None:
             kill["recovered"][a] = {
                 "wall_s": r["wall_s"], "start_sweeps": r["start_sweeps"],
                 "status": r["status"], "lost": r["lost"],
+                "watchdog": r["watchdog"],
                 "bitwise": [bool(g.chain.shape[0] == KILL_SWEEPS
                                  and same_rows(g, ref))
                             for g, ref in zip(got, refs)],
@@ -4099,6 +4173,15 @@ def main() -> None:
                    == {"done"} for a in arms):
             fail("a killed server's tenants did not recover bitwise from "
                  "its manifest")
+        # the killed servers' flight.json: parseable, valid and at most
+        # flight_sync_every (1) quanta behind the 2 they had dispatched
+        if not all(f.get("reason") == "sync" and not f["schema_errors"]
+                   and 2 - f["quanta_recorded"] <= 1
+                   for f in flight16.values()):
+            fail(f"a killed server left no valid, recent flight.json: "
+                 f"{flight16}")
+        if any(kill["recovered"][a]["watchdog"] == "tripped" for a in arms):
+            fail("the recovering server's watchdog tripped")
     finally:
         shutil.rmtree(tmp16, ignore_errors=True)
 
@@ -4129,7 +4212,447 @@ def main() -> None:
                       for a in arms) + f" | {card}", flush=True)
     frep["launches"] = counts16
     frep["seconds"] = time.perf_counter() - t16
-    print(f"# phase 16: {frep['seconds']:.1f} s", flush=True)
+    # the plane is on by default: no clean run of phases 15 and 16 tripped
+    # the watchdog
+    frep["watchdog_states"] = {st: wd_states.count(st)
+                               for st in sorted(set(wd_states))}
+    print(f"# phase 16: {frep['seconds']:.1f} s; watchdog after phases 15 "
+          f"and 16's runs: {frep['watchdog_states']}", flush=True)
+    if "tripped" in wd_states:
+        fail("the watchdog tripped in a run of phase 15 or 16")
+
+    # --- 17. the serving observability plane (pool1024) ---------------------
+    from gibbs_student_t_tpu_torch.obs import MetricsRegistry
+    from gibbs_student_t_tpu_torch.obs.metrics import _jsonable, read_events
+    from gibbs_student_t_tpu_torch.obs.watchdog import WatchdogSpec
+    from gibbs_student_t_tpu_torch.parallel.diagnostics import (
+        ess_per_param,
+        split_rhat_per_param,
+    )
+    from gibbs_student_t_tpu_torch.serve import MonitorSpec
+
+    t17 = time.perf_counter()
+    orep = report["obs"] = {}
+    tmp17 = tempfile.mkdtemp(prefix="gst_chip_smoke_obs_")
+    MON = [0, 1, 2]         # the monitored parameters
+    run17 = [0, 0]          # pool sweeps and quanta of phase 17's servers
+    bad = []                # (record, the schema's complaints)
+
+    def check_schema(doc, name, label):
+        """Validate ``doc``, as a reader of its JSON would see it, against
+        the port's schema ``name``; complaints are collected in ``bad``."""
+        errs = obs_schema.validate(json.loads(json.dumps(_jsonable(doc))),
+                                   schemas[name], defs=schemas)
+        if errs:
+            bad.append((label, errs[:5]))
+
+    def count_run(s):
+        run17[0] += s.quanta * Q
+        run17[1] += s.quanta
+
+    def launches_now():
+        return {n: count(n) for n in wrappers}
+
+    def plane_run(pipeline, on, tag):
+        """The tenant set with every tenant monitored and the whole plane
+        on (spans with a JSONL sink, obs_dir, a metrics run directory, the
+        flight recorder, the watchdog), or all of it off. Returns the
+        server, handles, results, wall, each kernel's launches, and (on)
+        its directory and the status and healthz read at the first
+        boundary with busy lanes."""
+        d = os.path.join(tmp17, tag)
+        reg = None
+        if on:
+            reg = MetricsRegistry(run_dir=os.path.join(d, "run"))
+            reg.write_manifest(config=cfg_p)
+            kw = dict(metrics=reg, obs_dir=os.path.join(d, "obs"),
+                      trace_jsonl=os.path.join(d, "obs", "spans.jsonl"))
+        else:
+            kw = dict(spans=False, flight=False, watchdog=False)
+        s = pool_server(pipeline, **kw)
+        reqs = tenant_set()
+        if on:
+            for r in reqs:
+                r.monitor = MonitorSpec(params=MON)
+        live = {}
+
+        def on_quantum(srv_):
+            if on and not live and srv_.quanta:
+                live["status"] = srv_.status()
+                live["healthz"] = srv_.healthz()
+
+        before = launches_now()
+        hs = [s.submit(r) for r in reqs]
+        wall = drive(s, on_quantum)
+        launches = {n: c - before[n] for n, c in launches_now().items()}
+        count_run(s)
+        res = [h.result(timeout=WAIT_S) for h in hs]
+        if reg is not None:
+            reg.close()
+        return dict(s=s, hs=hs, res=res, wall=wall, launches=launches, d=d,
+                    live=live)
+
+    reset_counts()
+    try:
+        # 17a. the plane on and off, each executor, in turns
+        runs17 = {(p, on): [] for p in (False, True) for on in (True, False)}
+        order = ((False, True), (False, False), (True, True), (True, False),
+                 (True, False), (True, True), (False, False), (False, True))
+        for i, (pipeline, on) in enumerate(order):
+            runs17[(pipeline, on)].append(
+                plane_run(pipeline, on, f"a{i}_{int(pipeline)}{int(on)}"))
+        bitwise17 = all(same_rows(a, b) for rs in runs17.values()
+                        for r in rs for a, b in zip(r["res"], first))
+        # launches a quantum of every kernel: the same in every run
+        per_q = [{n: c / r["s"].quanta for n, c in r["launches"].items()}
+                 for rs in runs17.values() for r in rs]
+        launches_equal = all(x == per_q[0] for x in per_q)
+        # the monitor's final view against the diagnostics of the rows
+        prog_err = 0.0
+        rows_ok = True
+        for pipeline in (False, True):
+            for r in runs17[(pipeline, True)]:
+                for h, res in zip(r["hs"], r["res"]):
+                    p = h.progress()
+                    window = np.asarray(res.chain)[:, :, MON]
+                    e_ref = ess_per_param(window)
+                    r_ref = split_rhat_per_param(window)
+                    rows_ok &= p["rows"] == window.shape[0]
+                    prog_err = max(
+                        prog_err,
+                        float(np.max(np.abs(np.asarray(p["ess"]) - e_ref)
+                                     / e_ref)),
+                        float(np.nanmax(np.abs(np.asarray(p["rhat"])
+                                               - r_ref) / r_ref)))
+        # spans: one a (tenant, quantum, role) and a staging span a tenant
+        spans_ok = True
+        for pipeline in (False, True):
+            r = runs17[(pipeline, True)][0]
+            doc = json.load(open(r["s"].export_trace(
+                os.path.join(r["d"], "trace.json"))))
+            check_schema(doc, "chrome_trace", "trace")
+            roles = {}
+            staged = set()
+            for e in doc["traceEvents"]:
+                if e["ph"] != "X" or e["pid"] == 0:
+                    continue
+                if e["cat"] == "staging":
+                    staged.add(e["pid"] - 1)
+                q = e["args"].get("quantum")
+                if q is not None and e["name"] in ("quantum", "drain"):
+                    roles.setdefault(e["pid"] - 1, {}).setdefault(
+                        q, set()).add(e["cat"])
+            for h in r["hs"]:
+                got = roles.get(h.tenant_id, {})
+                spans_ok &= (h.tenant_id in staged
+                             and len(got) == h.request.niter // Q
+                             and all(v == {"dispatch", "drain"}
+                                     for v in got.values()))
+        # every record the plane emitted, against the port's schema; the
+        # tenants' cost against the dispatch wall; the watchdog untripped
+        cost_err = 0.0
+        tripped = []
+        for pipeline in (False, True):
+            for r in runs17[(pipeline, True)]:
+                s, d = r["s"], r["d"]
+                check_schema(r["live"]["status"], "serve_status",
+                             "live status")
+                check_schema(r["live"]["healthz"], "healthz", "live healthz")
+                check_schema(s.status(), "serve_status", "status")
+                check_schema(s.healthz(), "healthz", "healthz")
+                check_schema(json.load(open(os.path.join(
+                    d, "obs", "status.json"))), "serve_status",
+                    "status.json")
+                for line in open(os.path.join(d, "obs", "spans.jsonl")):
+                    check_schema(json.loads(line), "span", "span line")
+                for e in read_events(os.path.join(d, "run")):
+                    check_schema(e, "event", "event")
+                check_schema(json.load(open(os.path.join(
+                    d, "run", "manifest.json"))), "manifest", "manifest")
+                for h in r["hs"]:
+                    check_schema(h.cost(), "cost", "cost")
+                check_schema(json.load(open(s.dump_postmortem(
+                    reason="phase17"))), "postmortem", "postmortem")
+                check_schema(json.load(open(os.path.join(
+                    d, "obs", "flight.json"))), "postmortem", "flight.json")
+                summ = s.summary()
+                check_schema(summ["watchdog"], "watchdog", "watchdog")
+                wall_ms = summ["cost"]["dispatch_wall_ms"]
+                cost_err = max(cost_err, abs(sum(
+                    h.cost()["device_ms"] for h in r["hs"]) - wall_ms)
+                    / wall_ms)
+                if summ["watchdog"]["state"] != "ok":
+                    tripped.append(summ["watchdog"]["trip"])
+        t17p = time.perf_counter()
+        # device time and all device events a quantum, plane on and off: a
+        # profiled window of 4 tenants x 2 quanta on the serial loop (the
+        # executors launch the same work), device activity only
+        prof17 = {}
+        for pipeline, on in ((False, True), (False, False)):
+            kw = (dict(obs_dir=os.path.join(tmp17, f"p{int(pipeline)}"))
+                  if on else dict(spans=False, flight=False, watchdog=False))
+            s = pool_server(pipeline, **kw)
+            for i in range(POOL_LANES // POOL_CHAINS):
+                s.submit(TenantRequest(
+                    ma=tenant_mas[i], niter=2 * Q, nchains=POOL_CHAINS,
+                    seed=600 + i,
+                    monitor=MonitorSpec(params=MON) if on else None))
+            prof = profile_calls(torch, lambda s=s: drive(s), 1, cpu=False)
+            count_run(s)
+            if prof["device_ms_per_sweep"] <= 0:
+                fail("the profiler saw no device time in phase 17's window")
+            prof17[(pipeline, on)] = {
+                "quanta": s.quanta,
+                "device_ms_per_quantum": prof["device_ms_per_sweep"]
+                / s.quanta,
+                "launches_per_quantum": prof["launches_per_sweep"]
+                / s.quanta,
+                "device_events": prof["device_events"]}
+        orep["seconds_profiles"] = time.perf_counter() - t17p
+        pon, poff = prof17[(False, True)], prof17[(False, False)]
+        for pipeline in (False, True):
+            name = "pipelined" if pipeline else "serial"
+            on_r, off_r = runs17[(pipeline, True)], runs17[(pipeline, False)]
+
+            def host(rs, leg):
+                return [r["s"].summary()["host_ms"][leg]["mean"] for r in rs]
+
+            orep[name] = {
+                "ms_per_quantum_on": [1e3 * r["wall"] / r["s"].quanta
+                                      for r in on_r],
+                "ms_per_quantum_off": [1e3 * r["wall"] / r["s"].quanta
+                                       for r in off_r],
+                "quanta_on": [r["s"].quanta for r in on_r],
+                "quanta_off": [r["s"].quanta for r in off_r],
+                "dispatch_host_ms_on": host(on_r, "dispatch"),
+                "dispatch_host_ms_off": host(off_r, "dispatch"),
+                "monitor_host_ms_per_quantum": host(on_r, "monitor"),
+                "obs_refresh_host_ms_per_quantum": host(on_r, "obs_refresh"),
+                "drain_host_ms_on": host(on_r, "drain"),
+                "drain_host_ms_off": host(off_r, "drain")}
+        orep["device"] = {
+            "ms_per_quantum_on": pon["device_ms_per_quantum"],
+            "ms_per_quantum_off": poff["device_ms_per_quantum"],
+            "launches_per_quantum_on": pon["launches_per_quantum"],
+            "launches_per_quantum_off": poff["launches_per_quantum"],
+            "events_on": sum(pon["device_events"].values()),
+            "events_off": sum(poff["device_events"].values()),
+            "profiled_quanta": [pon["quanta"], poff["quanta"]]}
+        dev_spread = abs(pon["device_ms_per_quantum"]
+                         / poff["device_ms_per_quantum"] - 1.0)
+        # every device event of the profiles, by name: the names whose
+        # counts differ on and off (reported; the launches of the
+        # hand-written kernels above are the exact check)
+        ev_on, ev_off = pon["device_events"], poff["device_events"]
+        events_differ = {k: [ev_on.get(k, 0), ev_off.get(k, 0)]
+                         for k in sorted(set(ev_on) | set(ev_off))
+                         if ev_on.get(k, 0) != ev_off.get(k, 0)}
+        orep["plane"] = {
+            "bitwise": bool(bitwise17), "launches_equal": bool(launches_equal),
+            "device_events": {f"{'pipelined' if p else 'serial'}_"
+                              f"{'on' if on else 'off'}":
+                              sum(v["device_events"].values())
+                              for (p, on), v in prof17.items()},
+            "device_events_differ_on_off": events_differ,
+            "device_ms_spread": dev_spread,
+            "progress_max_rel_err": prog_err, "rows_ok": bool(rows_ok),
+            "spans_ok": bool(spans_ok), "cost_max_rel_err": cost_err,
+            "schema_failures": [str(b) for b in bad],
+            "watchdog_trips": tripped}
+        print(f"# obs 17a plane on vs off: {json.dumps(orep['plane'])}",
+              flush=True)
+        if not (bitwise17 and launches_equal):
+            fail("the plane changes the chains or the launches")
+        if dev_spread > 0.03:
+            fail(f"device ms a quantum move by {dev_spread:.4f} with the "
+                 "plane on (more than the 3 % device spread)")
+        if not (rows_ok and prog_err <= 1e-6):
+            fail(f"progress() differs from the diagnostics of the drained "
+                 f"rows by {prog_err:.3g} (allowed 1e-6)")
+        if not spans_ok:
+            fail("the trace lacks a span of some (tenant, quantum, role)")
+        if bad:
+            fail(f"records violate the port's schema: {bad[:4]}")
+        if cost_err > 1e-9:
+            fail(f"the tenants' cost misses the dispatch wall by "
+                 f"{cost_err:.3g} relative (allowed 1e-9)")
+        if tripped:
+            fail(f"the watchdog tripped on a clean run: {tripped}")
+        del runs17
+
+        n_wd = len(wd_states)
+        # 17b. a stalled dispatch: the pool warms for one quantum, then the
+        # next dispatch sleeps 2 s under a watchdog whose floor is 0.5 s
+        stall = {}
+        for pipeline in (False, True):
+            d = os.path.join(tmp17, f"stall{int(pipeline)}")
+            s = pool_server(pipeline, flight_dir=d, watchdog_spec=WatchdogSpec(
+                min_deadline_s=0.5, deadline_factor=2.0, tick_s=0.05))
+            polls, first_trip, stop = [], {}, threading.Event()
+
+            def poll(s=s, polls=polls, first_trip=first_trip, stop=stop):
+                while not stop.is_set():
+                    t0 = time.perf_counter()
+                    hz = s.healthz()
+                    polls.append(time.perf_counter() - t0)
+                    trip = hz["watchdog"]["trip"]
+                    if trip is not None and not first_trip:
+                        first_trip.update(hz=hz, quanta=s.quanta,
+                                          cause=trip["cause"])
+                    time.sleep(0.02)
+
+            th = threading.Thread(target=poll, daemon=True)
+            with faults.inject(faults.FaultSpec(
+                    "dispatch_stall", after=1, action="sleep", seconds=2.0)):
+                hs = [s.submit(r) for r in tenant_set()[:2]]
+                th.start()
+                try:
+                    wall = drive(s)
+                finally:
+                    stop.set()
+                    th.join(5.0)
+                fired = faults.fired_counts()
+            count_run(s)
+            res = [h.result(timeout=WAIT_S) for h in hs]
+            pm_path = os.path.join(d, "postmortem.json")
+            pm = json.load(open(pm_path)) if os.path.exists(pm_path) else {}
+            n_bad = len(bad)
+            if first_trip:
+                check_schema(first_trip["hz"], "healthz", "stalled healthz")
+            check_schema(pm, "postmortem", "stall postmortem")
+            stall["pipelined" if pipeline else "serial"] = rec = {
+                "wall_s": wall, "quanta": s.quanta,
+                "fired": {f"{p}:{t}": n for (p, t), n in fired.items()},
+                "trip_cause": first_trip.get("cause"),
+                "trip_seen_at_quanta": first_trip.get("quanta"),
+                "healthz_ok_during_stall": (first_trip["hz"]["ok"]
+                                            if first_trip else None),
+                "healthz_polls": len(polls),
+                "healthz_max_ms": 1e3 * max(polls) if polls else None,
+                "postmortem_reason": pm.get("reason"),
+                "schema_ok": len(bad) == n_bad,
+                "bitwise": [bool(same_rows(a, b))
+                            for a, b in zip(res, first[:2])]}
+            print(f"# obs 17b stall, {'pipelined' if pipeline else 'serial'}"
+                  f": {json.dumps(rec)}", flush=True)
+            if not (rec["trip_cause"] == "dispatch_stall"
+                    and rec["trip_seen_at_quanta"] == 1
+                    and rec["healthz_ok_during_stall"] is False
+                    and rec["postmortem_reason"] == "watchdog:dispatch_stall"
+                    and rec["schema_ok"] and all(rec["bitwise"])
+                    and rec["fired"] == {"dispatch_stall:None": 1}):
+                fail("the stalled dispatch was not reported during the "
+                     "stall, left no valid postmortem, or changed a tenant")
+        orep["stall"] = stall
+        del wd_states[n_wd:]    # these runs trip it on purpose
+
+        # 17c. eviction at convergence: the tenant with the longest budget
+        # of the first four, its ESS target the min-ESS its uninterrupted
+        # rows first reach at a quantum k >= 2 before its budget, above
+        # every earlier quantum's where the monitor evaluates (from 15a's
+        # rows: it must converge at exactly k quanta)
+        ev = max(range(4), key=lambda i: budgets[i])
+        ref = first[ev]
+        xs = np.asarray(ref.chain)[:, :, MON]
+        nq = budgets[ev] // Q
+        k1 = -(-MonitorSpec().min_rows // Q)    # the first evaluation
+        ess_k = [float(ess_per_param(xs[:k * Q]).min())
+                 for k in range(1, nq + 1)]
+        k_ev = next((k for k in range(max(2, k1 + 1), nq)
+                     if ess_k[k - 1] > max(ess_k[k1 - 1:k - 1])), None)
+        if k_ev is None:
+            fail(f"no quantum before the budget raises tenant {ev}'s "
+                 f"min-ESS: {ess_k}")
+        target = ess_k[k_ev - 1]
+        evict = {}
+        for pipeline in (False, True):
+            s = pool_server(pipeline)
+            reqs = tenant_set()
+            reqs[ev].monitor = MonitorSpec(params=MON, ess_target=target)
+            reqs[ev].on_converged = "evict"
+            hs = [s.submit(r) for r in reqs]
+            wall = drive(s)
+            count_run(s)
+            h = hs[ev]
+            res = h.result(timeout=WAIT_S)
+            rows = res.chain.shape[0]
+            spans = s.spans.spans()
+            last_q = max(x["quantum"] for x in spans
+                         if x["name"] == "quantum"
+                         and x["tenant"] == h.tenant_id)
+            lane0 = {e["tenant"]: e["lane0"]
+                     for e in s.flight.bundle("phase17")["events"]
+                     if e["kind"] == "admit"}
+            backfilled = [x["tenant"] for x in spans
+                          if x["name"] == "admit" and x["quantum"] == last_q + 1
+                          and lane0[h.tenant_id] <= lane0.get(x["tenant"], -1)
+                          < lane0[h.tenant_id] + POOL_CHAINS]
+            summ = s.summary()
+            others = [same_rows(a, b) for i, (a, b) in enumerate(zip(
+                [x.result(timeout=WAIT_S) for x in hs], first)) if i != ev]
+            evict["pipelined" if pipeline else "serial"] = rec = {
+                "tenant": ev, "budget": budgets[ev], "ess_target": target,
+                "converged_at": h.converged_at, "expected": k_ev * Q,
+                "status": h.status, "rows": rows,
+                "prefix_bitwise": bool(cut_equal(res, ref, rows=rows)),
+                "last_quantum": last_q, "backfilled": backfilled,
+                "converged_evictions": summ["converged_evictions"],
+                "others_bitwise": bool(all(others)),
+                "occupancy": summ["occupancy"], "quanta": s.quanta,
+                "wall_s": wall,
+                "busy_chain_sweeps_per_s": summ["busy_chain_sweeps"] / wall}
+            print(f"# obs 17c evict, {'pipelined' if pipeline else 'serial'}"
+                  f": {json.dumps(rec)}", flush=True)
+            if not (h.status == "done" and h.converged_at == k_ev * Q
+                    and k_ev * Q <= rows < budgets[ev]
+                    and (pipeline or rows == k_ev * Q)
+                    and rec["prefix_bitwise"] and backfilled
+                    and summ["converged_evictions"] == 1
+                    and rec["others_bitwise"]):
+                fail("the converged tenant was not evicted at its boundary "
+                     "with a bitwise prefix, or its groups did not backfill")
+        orep["evict"] = evict
+        if "tripped" in wd_states:
+            fail("the watchdog tripped in a clean run of phase 17")
+        counts17 = check_launches("pool_obs", run17[0], run17[1])
+    finally:
+        shutil.rmtree(tmp17, ignore_errors=True)
+
+    for name in ("serial", "pipelined"):
+        r, base = orep[name], srep[name]
+
+        def two(vals, f=".2f"):
+            return " / ".join(format(v, f) for v in vals)
+
+        print(f"# obs 17a pool1024 {name}: plane on "
+              f"{two(r['ms_per_quantum_on'])} ms a quantum, off "
+              f"{two(r['ms_per_quantum_off'])} (15a: "
+              f"{base['ms_per_quantum']:.2f}); "
+              f"monitor feed {two(r['monitor_host_ms_per_quantum'], '.3f')} "
+              f"ms and obs_dir refresh "
+              f"{two(r['obs_refresh_host_ms_per_quantum'], '.3f')} ms a "
+              f"quantum (host); dispatch host on "
+              f"{two(r['dispatch_host_ms_on'], '.3f')}, off "
+              f"{two(r['dispatch_host_ms_off'], '.3f')} | {card}",
+              flush=True)
+    dv = orep["device"]
+    print(f"# obs 17a pool1024 device (serial, profiled): "
+          f"{dv['ms_per_quantum_on']:.3f} / {dv['ms_per_quantum_off']:.3f} ms "
+          f"and {dv['events_on']} / {dv['events_off']} device events in "
+          f"{dv['profiled_quanta'][0]} quanta, plane on / off | {card}",
+          flush=True)
+    for name in ("serial", "pipelined"):
+        e, base = orep["evict"][name], srep[name]
+        print(f"# obs 17c pool1024 {name}: tenant {e['tenant']} evicted at "
+              f"sweep {e['converged_at']} of {e['budget']} ({e['rows']} rows "
+              f"served), occupancy {e['occupancy']:.4f}, "
+              f"{e['busy_chain_sweeps_per_s']:.1f} busy chain-sweeps/s "
+              f"(15a: occupancy {base['occupancy']:.4f}, "
+              f"{' / '.join(format(v, '.1f') for v in base['busy_chain_sweeps_per_s'])}"
+              f") | {card}", flush=True)
+    orep["launches"] = counts17
+    orep["seconds"] = time.perf_counter() - t17
+    print(f"# phase 17: {orep['seconds']:.1f} s", flush=True)
 
     # the redesigned kernels beside the first design and the library call
     # (reported, not gated)

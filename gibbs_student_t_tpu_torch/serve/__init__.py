@@ -19,11 +19,19 @@ dead worker threads, and with a ``manifest_dir`` journals itself
 (``manifest.py``) so that :meth:`ChainServer.recover` resumes every
 spooled tenant after a process kill. ``faults.py`` holds the injection
 points that make each of those paths reproducible.
+
+A request may carry a :class:`MonitorSpec` (``monitor.py``): the server
+streams the tenant's ESS and split-R-hat from its drained rows into
+``progress()``, and ``on_converged="evict"`` ends it once converged. The
+server's observability plane (spans, cost, the pull surface, the flight
+recorder and the watchdog) is described in ``server.py``.
 """
 
 from gibbs_student_t_tpu_torch.serve import faults
+from gibbs_student_t_tpu_torch.serve.monitor import MonitorSpec, TenantMonitor
 from gibbs_student_t_tpu_torch.serve.pool import SlotPool, TenantSlot
 from gibbs_student_t_tpu_torch.serve.scheduler import (
+    CONVERGED_POLICIES,
     DIVERGENCE_POLICIES,
     AdmissionQueue,
     DeadlineExceeded,
@@ -36,7 +44,8 @@ from gibbs_student_t_tpu_torch.serve.scheduler import (
 )
 from gibbs_student_t_tpu_torch.serve.server import ChainServer
 
-__all__ = ["DIVERGENCE_POLICIES", "AdmissionQueue", "ChainServer",
-           "DeadlineExceeded", "QueueFull", "RetryAfter", "SlotPool",
-           "TenantError", "TenantHandle", "TenantRequest", "TenantSlot",
-           "faults", "schedule_score"]
+__all__ = ["CONVERGED_POLICIES", "DIVERGENCE_POLICIES", "AdmissionQueue",
+           "ChainServer", "DeadlineExceeded", "MonitorSpec", "QueueFull",
+           "RetryAfter", "SlotPool", "TenantError", "TenantHandle",
+           "TenantMonitor", "TenantRequest", "TenantSlot", "faults",
+           "schedule_score"]

@@ -16,9 +16,11 @@ executor's staging, drain and dispatch threads share them.
 
 A shed or expired job's ``result()`` raises at once; it never waits.
 A request's ``on_divergence`` lane-health policy (:data:`DIVERGENCE_POLICIES`)
-is the server's to apply (serve/server.py). The JAX request's monitors,
-warm starts, adaptive scans, convergence evictions and trace ids are not
-ported: a request that sets one raises ``TypeError``.
+and its ``on_converged`` policy (:data:`CONVERGED_POLICIES`, with the
+streaming ``monitor`` of serve/monitor.py) are the server's to apply
+(serve/server.py). A handle reports its progress, its convergence and its
+cost while it runs. The JAX request's warm starts, adaptive scans and
+trace ids are not ported: a request that sets one raises ``TypeError``.
 """
 
 from __future__ import annotations
@@ -101,10 +103,18 @@ class DeadlineExceeded(TenantError):
 #: telemetry and a supervised server (checked at submit).
 DIVERGENCE_POLICIES = ("none", "fail", "quarantine", "reinit")
 
+#: Valid ``TenantRequest.on_converged`` policies. ``none`` serves the whole
+#: ``niter`` budget; ``evict`` frees the tenant's lanes at the first quantum
+#: boundary after its monitor's armed targets hold (``converged_at``),
+#: through the cancel machinery: the result is the served prefix with
+#: status ``done``, and the freed groups backfill from the queue at that
+#: boundary. ``evict`` needs a monitor with an armed target (checked at
+#: submit).
+CONVERGED_POLICIES = ("none", "evict")
+
 #: fields of the JAX request whose machinery this package does not have
 #: (their value here must stay the default)
-_NOT_PORTED = {"monitor": None, "warm_start": None, "adapt_scan": None,
-               "trace_id": None, "on_converged": "none"}
+_NOT_PORTED = {"warm_start": None, "adapt_scan": None, "trace_id": None}
 
 
 @dataclass
@@ -138,7 +148,14 @@ class TenantRequest:
     fails the tenant with a :class:`TenantError`, ``quarantine`` freezes
     the diverged chains and serves the others on, ``reinit`` re-draws
     them from the prior (``TorchGibbs``'s ``reinit_diverged``, in the
-    pool)."""
+    pool).
+
+    ``monitor`` (a :class:`~gibbs_student_t_tpu_torch.serve.monitor.
+    MonitorSpec`) arms streaming convergence monitoring: the drain folds
+    each quantum's chain rows into online ESS and split-R-hat, reported
+    by :meth:`TenantHandle.progress`, with ``converged_at`` in the
+    result's stats and the server's SLO block. ``on_converged="evict"``
+    ends the tenant at the first boundary after it converged."""
 
     ma: ModelArrays
     niter: int
@@ -201,6 +218,14 @@ class TenantHandle:
         self._age_t = self.submitted_t
         self._deadline_sweep: Optional[int] = None
         self.preemptions = 0
+        # the streaming convergence monitor (serve/monitor.TenantMonitor),
+        # attached at admission when the request armed one; the server
+        # detaches it (with a warning) if it ever raises
+        self._monitor = None
+        # the tenant's share of the dispatch wall (active-lane share of
+        # each quantum it ran in) and its active chain-lane quanta
+        self.cost_device_ms = 0.0
+        self.cost_lane_quanta = 0
 
     # -- server side ------------------------------------------------------
 
@@ -263,6 +288,12 @@ class TenantHandle:
         self.status = "failed"
         self._done.set()
 
+    def _add_cost(self, device_ms: float, lane_quanta: int) -> None:
+        """Fold one quantum's attributed share (one writer: the drain
+        thread, or the serial loop's thread)."""
+        self.cost_device_ms += device_ms
+        self.cost_lane_quanta += int(lane_quanta)
+
     # -- caller side ------------------------------------------------------
 
     @property
@@ -287,18 +318,58 @@ class TenantHandle:
         return self.request.nchains * self.sweeps_done / dt if dt > 0 \
             else None
 
+    @property
+    def converged_at(self) -> Optional[int]:
+        """The sweep at which the monitor's armed targets first held; None
+        while unconverged or unmonitored."""
+        mon = self._monitor
+        return None if mon is None else mon.converged_at
+
+    def cost(self) -> Dict[str, object]:
+        """The tenant's cost: ``device_ms``, its active-lane share of
+        every quantum's dispatch wall (the shares of the tenants of a
+        quantum sum to that quantum's wall, so the tenants' ``device_ms``
+        add up to the server's ``summary()["cost"]["dispatch_wall_ms"]``);
+        ``lane_quanta``, active chain-lanes x quanta; ``ess_per_core_s``,
+        the monitored min-ESS per attributed second (None unmonitored or
+        before the first evaluation)."""
+        ess_min = None
+        mon = self._monitor
+        if mon is not None:
+            ess_min = mon.snapshot().get("ess_min")
+        core_s = self.cost_device_ms / 1e3
+        return {
+            "device_ms": self.cost_device_ms,
+            "lane_quanta": int(self.cost_lane_quanta),
+            "ess_per_core_s": (
+                round(float(ess_min) / core_s, 3)
+                if isinstance(ess_min, (int, float)) and core_s > 0
+                else None),
+        }
+
     def slack_sweeps(self) -> Optional[float]:
         """Deadline slack in sweeps, None without a deadline: the sweeps
-        to the deadline less the remaining budget. Negative: the deadline
-        cannot be met any more."""
+        to the deadline less the work left, which is the monitor's
+        ``est_sweeps_to_target`` when it has one and the remaining budget
+        otherwise. Negative: the deadline cannot be met at this rate."""
         if self._deadline_sweep is None:
             return None
         pos = self.request.start_sweep + self.sweeps_done
-        return float(self._deadline_sweep - pos
-                     - (self.request.niter - self.sweeps_done))
+        est = None
+        mon = self._monitor
+        if mon is not None:
+            est = mon.snapshot().get("est_sweeps_to_target")
+        if not isinstance(est, (int, float)):
+            est = self.request.niter - self.sweeps_done
+        return float(self._deadline_sweep - pos - est)
 
     def progress(self) -> Dict[str, object]:
-        """The job's scheduling state; callable from any thread."""
+        """The job's state, callable from any thread before, during and
+        after its run: scheduling state, the streaming convergence view
+        when it is monitored (``rows``, per-parameter ``ess``/``rhat``
+        and their ``ess_min``/``rhat_max``, ``ess_per_s``,
+        ``est_sweeps_to_target``, ``converged_at``) and its
+        :meth:`cost`."""
         p: Dict[str, object] = {
             "tenant_id": self.tenant_id,
             "name": self.request.name,
@@ -306,13 +377,17 @@ class TenantHandle:
             "nchains": self.request.nchains,
             "sweeps_done": self.sweeps_done,
             "niter": self.request.niter,
-            "priority": int(self.request.priority),
         }
+        mon = self._monitor
+        if mon is not None:
+            p.update(mon.snapshot())
+        p["priority"] = int(self.request.priority)
         if self._deadline_sweep is not None:
             p["deadline_sweep"] = int(self._deadline_sweep)
             p["slack_sweeps"] = self.slack_sweeps()
         if self.preemptions:
             p["preemptions"] = int(self.preemptions)
+        p["cost"] = self.cost()
         return p
 
     def done(self) -> bool:

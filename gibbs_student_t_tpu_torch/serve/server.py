@@ -62,16 +62,37 @@ append-only manifest (serve/manifest.py), and :meth:`ChainServer.recover`
 rebuilds the pool after a process kill and resubmits every spooled tenant
 from its last checkpoint, bitwise its uninterrupted run.
 
-Not ported from the JAX server: monitors, adaptive scans, warm starts,
-recycling, cost accounting, metrics emits, spans, the flight recorder,
-the watchdog, the persistent compile cache of ``recover`` and the wire
-(ROADMAP A-9).
+The observability plane: a request's ``monitor`` streams its ESS and
+split-R-hat from the drained rows (serve/monitor.py; ``progress()``), and
+``on_converged="evict"`` ends a converged tenant at the next boundary.
+``spans`` records each staging, admission, dispatch, drain and finalize
+step per tenant (obs/spans.py; :meth:`ChainServer.export_trace`); each
+quantum's dispatch wall is attributed to its tenants by active-lane share
+(``TenantHandle.cost()``); ``obs_dir`` refreshes ``status.json`` and
+``metrics.prom`` at each quantum; the flight recorder (obs/flight.py)
+keeps the last quanta, events and heartbeats and dumps a postmortem on a
+pool failure, a contained tenant fault, a watchdog trip, SIGTERM or exit;
+the watchdog (obs/watchdog.py) trips on a stalled dispatch, a growing
+drain backlog or a throughput collapse, and :meth:`ChainServer.healthz`
+reports it without taking the server lock. The plane adds no device work:
+chains and launches are the same with it on or off.
+
+Not ported from the JAX server: adaptive scans, warm starts, recycling,
+the in-kernel stage timers (``summary()["stages"]`` stays None: the JAX
+server's come from its CPU native library), the persistent compile cache
+of ``recover``, the HTTP endpoints and the rest of the wire (ROADMAP A-9).
 """
 
 from __future__ import annotations
 
+import atexit
+import contextlib
 import itertools
+import json
+import os
 import queue as _queue
+import signal
+import tempfile
 import threading
 import time
 import warnings
@@ -88,8 +109,22 @@ from gibbs_student_t_tpu_torch.backends.torch_backend import (
 )
 from gibbs_student_t_tpu_torch.config import GibbsConfig
 from gibbs_student_t_tpu_torch.models.pta import ModelArrays
+from gibbs_student_t_tpu_torch.obs.export import write_prometheus
+from gibbs_student_t_tpu_torch.obs.flight import FlightRecorder
 from gibbs_student_t_tpu_torch.obs.health import chain_health
+from gibbs_student_t_tpu_torch.obs.metrics import MetricsRegistry, _jsonable
+from gibbs_student_t_tpu_torch.obs.spans import (
+    ROLE_DISPATCH,
+    ROLE_DRAIN,
+    ROLE_STAGING,
+    SpanRecorder,
+)
 from gibbs_student_t_tpu_torch.obs.telemetry import Telemetry
+from gibbs_student_t_tpu_torch.obs.watchdog import (
+    Watchdog,
+    WatchdogSpec,
+    serve_watchdog_env,
+)
 from gibbs_student_t_tpu_torch.ops.rng import check_counter
 from gibbs_student_t_tpu_torch.parallel.ensemble import (
     _localize_names,
@@ -103,8 +138,16 @@ from gibbs_student_t_tpu_torch.serve.manifest import (
     load_tenant_model,
     outstanding_tenants,
 )
+from gibbs_student_t_tpu_torch.serve.monitor import (
+    BLOCK_NAMES,
+    MonitorSpec,
+    TenantMonitor,
+    param_blocks,
+    resolve_params,
+)
 from gibbs_student_t_tpu_torch.serve.pool import SlotPool, TenantSlot
 from gibbs_student_t_tpu_torch.serve.scheduler import (
+    CONVERGED_POLICIES,
     DIVERGENCE_POLICIES,
     AdmissionQueue,
     DeadlineExceeded,
@@ -118,6 +161,7 @@ from gibbs_student_t_tpu_torch.serve.scheduler import (
 from gibbs_student_t_tpu_torch.utils.spool import (
     ChainSpool,
     load_spool,
+    load_spool_prefix,
     load_spool_state,
 )
 
@@ -130,6 +174,7 @@ class _Prepared:
     backend: TorchGibbs
     state: object
     groups_needed: int
+    monitor: Optional[TenantMonitor] = None
 
 
 @dataclass
@@ -151,7 +196,10 @@ class _Bundle:
     records rode an earlier bundle). ``tl`` is the quantum's telemetry;
     ``event`` follows the quantum on the device (None on the CPU);
     ``idx`` is the next entry to drain; ``host`` the pulled records,
-    telemetry and snapshot, kept for a drain that resumes the bundle."""
+    telemetry and snapshot, kept for a drain that resumes the bundle.
+    ``qidx`` is the quantum's index; ``cost`` its dispatch wall and the
+    ``(handle, active lanes)`` shares it is attributed by, consumed once
+    by the drain."""
 
     recs: Optional[Dict[str, torch.Tensor]]
     tl: Optional[Telemetry]
@@ -160,6 +208,8 @@ class _Bundle:
     entries: list
     idx: int = 0
     host: Optional[tuple] = None
+    qidx: Optional[int] = None
+    cost: Optional[tuple] = None
 
 
 def _percentiles(vals: List[float]) -> Optional[dict]:
@@ -190,7 +240,24 @@ class ChainServer:
     ``telemetry`` carries the pool's per-lane telemetry (the lane-health
     policies need it); ``supervise`` picks fault containment (True) or the
     fail-fast reference (False); ``manifest_dir`` journals the server to
-    a crash-recovery manifest there (:meth:`recover`)."""
+    a crash-recovery manifest there (:meth:`recover`).
+
+    The observability plane, with the JAX server's names and defaults:
+    ``spans`` (on) records per-tenant executor spans into a ring of
+    ``span_capacity`` (and the ``trace_jsonl`` sink), exported by
+    :meth:`export_trace`; ``obs_dir`` refreshes ``status.json`` (the
+    :meth:`status` snapshot) and ``metrics.prom`` (the Prometheus text of
+    ``metrics``, a :class:`MetricsRegistry` made in memory when none is
+    given) at every quantum; ``flight`` (on) keeps a ring of
+    ``flight_capacity`` quanta, synced without spans to
+    ``<flight_dir>/flight.json`` every ``flight_sync_every`` quanta
+    (``flight_dir`` defaults to ``obs_dir``, then ``manifest_dir``) and
+    dumped in full to ``postmortem.json`` by :meth:`dump_postmortem`;
+    ``watchdog`` (``"auto"`` follows ``GST_SERVE_WATCHDOG``, auto ->
+    ``"dump"``; ``False`` turns it off; ``"warn"``, ``"dump"`` or
+    ``"fail"`` set the trip policy, which a set ``GST_SERVE_WATCHDOG``
+    overrides) runs the stall watchdog with the
+    thresholds of ``watchdog_spec``."""
 
     #: quanta dispatched and not yet drained, at most
     MAX_INFLIGHT = 2
@@ -204,7 +271,13 @@ class ChainServer:
                  prefetch: int = 2, scheduler: str = "fifo",
                  age_boost_s: float = 30.0, telemetry: bool = True,
                  supervise: bool = True,
-                 manifest_dir: Optional[str] = None):
+                 manifest_dir: Optional[str] = None, metrics=None,
+                 spans: bool = True, span_capacity: int = 65536,
+                 trace_jsonl: Optional[str] = None,
+                 obs_dir: Optional[str] = None, watchdog="auto",
+                 watchdog_spec: Optional[WatchdogSpec] = None,
+                 flight: bool = True, flight_dir: Optional[str] = None,
+                 flight_capacity: int = 64, flight_sync_every: int = 4):
         if pipeline not in (True, False):
             raise ValueError(f"pipeline must be True or False, got "
                              f"{pipeline!r}")
@@ -216,6 +289,11 @@ class ChainServer:
         if scheduler not in ("fifo", "priority"):
             raise ValueError(f"scheduler must be 'fifo' or 'priority', "
                              f"got {scheduler!r}")
+        if watchdog not in ("auto", False, "warn", "dump", "fail"):
+            raise ValueError(
+                f"watchdog must be 'auto', False, 'warn', 'dump' or "
+                f"'fail', got {watchdog!r}")
+        wd_env = serve_watchdog_env()
         self.config = config
         self.pipeline = bool(pipeline)
         self.supervise = bool(supervise)
@@ -303,6 +381,120 @@ class ChainServer:
         self._sheds = 0
         self._sheds_by_tier: Dict[int, int] = {}
         self._queue_depth_peak = 0
+        self._init_plane(metrics, spans, span_capacity, trace_jsonl,
+                         obs_dir, manifest_dir, wd_env, watchdog,
+                         watchdog_spec, flight, flight_dir, flight_capacity,
+                         flight_sync_every)
+
+    def _init_plane(self, metrics, spans, span_capacity, trace_jsonl,
+                    obs_dir, manifest_dir, wd_env, watchdog, watchdog_spec,
+                    flight, flight_dir, flight_capacity,
+                    flight_sync_every) -> None:
+        """The plane's state: the metrics registry, the span ring, the
+        pull surface, the per-tenant SLO and cost series, the flight
+        recorder with its exit hooks, and the watchdog."""
+        if obs_dir is not None and metrics is None:
+            metrics = MetricsRegistry()    # the exposition needs one
+        self.metrics = metrics
+        self.spans = (SpanRecorder(capacity=span_capacity,
+                                   jsonl_path=trace_jsonl, metrics=metrics)
+                      if spans else None)
+        self.obs_dir = obs_dir
+        if obs_dir is not None:
+            os.makedirs(obs_dir, exist_ok=True)
+        self._obs_warned = False
+        self._tenant_names: Dict[int, object] = {}
+        self._converged_ms: List[float] = []
+        # tier -> leg -> ms (the per-priority SLO series)
+        self._tier_slo: Dict[int, Dict[str, List[float]]] = {}
+        self._converged_evictions = 0
+        # the sum of the quanta's dispatch walls, which the tenants' cost
+        # shares add up to
+        self._dispatch_wall_ms = 0.0
+        # host ms of the plane's own work: the monitor feed (a drained
+        # quantum, all its tenants) and the obs_dir refresh
+        self._monitor_ms: List[float] = []
+        self._refresh_ms: List[float] = []
+        self._monitor_t = 0.0
+        self._flight_dir = flight_dir or obs_dir or manifest_dir
+        self.flight = None
+        self._atexit_registered = False
+        self._sigterm_prev = None
+        if flight:
+            sync_path = (os.path.join(self._flight_dir, "flight.json")
+                         if self._flight_dir is not None else None)
+            self.flight = FlightRecorder(
+                capacity=flight_capacity, sync_path=sync_path,
+                sync_every=flight_sync_every,
+                context_fn=self._flight_context,
+                spans_fn=(self.spans.spans if self.spans is not None
+                          else None))
+            # evidence on the way down: atexit covers a normal exit,
+            # SIGTERM a polite kill; os._exit skips both, which the
+            # periodic flight.json sync covers. close() undoes both
+            atexit.register(self._atexit_dump)
+            self._atexit_registered = True
+            try:
+                if (threading.current_thread() is threading.main_thread()
+                        and signal.getsignal(signal.SIGTERM)
+                        == signal.SIG_DFL):
+                    self._sigterm_prev = signal.signal(
+                        signal.SIGTERM, self._on_sigterm)
+            except (ValueError, OSError):
+                pass   # not installable here; atexit and the sync remain
+        if wd_env != "auto":
+            policy = None if wd_env == "0" else wd_env
+        elif watchdog is False:
+            policy = None
+        else:
+            policy = "dump" if watchdog == "auto" else watchdog
+        self._watchdog = None
+        # the stall detector owes heartbeats only while a driver is inside
+        # run(): an idle server with parked tenants is not stalled
+        self._driving = False
+        if policy is not None:
+            self._watchdog = Watchdog(
+                policy=policy, spec=watchdog_spec,
+                active_fn=lambda: self._driving and bool(self._running),
+                on_trip=self._watchdog_trip)
+
+    def reset_counters(self) -> None:
+        """Zero the run-level aggregates (a benchmark's warm-up boundary)
+        without touching tenants or the pool."""
+        self.quanta = 0
+        self.busy_chain_sweeps = 0
+        self.total_lane_sweeps = 0
+        for series in (self._admission_ms, self._first_result_ms,
+                       self._converged_ms, self._admit_apply_ms,
+                       self._dispatch_ms, self._drain_ms, self._gap_ms,
+                       self._monitor_ms, self._refresh_ms):
+            series.clear()
+        self._last_dispatch_t = None
+        self._dispatch_wall_ms = 0.0
+        for k in self._fault_counts:
+            self._fault_counts[k] = 0
+        self._converged_evictions = 0
+        self._preemptions = 0
+        self._sheds = 0
+        self._sheds_by_tier = {}
+        self._queue_depth_peak = 0
+        self._tier_slo = {}
+
+    def _span(self, name: str, role: str, tenant=None,
+              quantum: Optional[int] = None):
+        """A span context of the recorder, or a null context with spans
+        off."""
+        if self.spans is None:
+            return contextlib.nullcontext()
+        return self.spans.span(name, role, tenant=tenant, quantum=quantum)
+
+    def _tier_leg(self, request, leg: str) -> List[float]:
+        """The per-tier SLO series of one leg (made at first use)."""
+        legs = self._tier_slo.setdefault(
+            int(request.priority), {"admission_ms": [],
+                                    "first_result_ms": [],
+                                    "converged_ms": []})
+        return legs[leg]
 
     # ------------------------------------------------------------------
     # submission
@@ -338,6 +530,23 @@ class ChainServer:
             raise ValueError(
                 f"on_divergence must be one of {DIVERGENCE_POLICIES}, "
                 f"got {request.on_divergence!r}")
+        if (request.monitor is not None
+                and not isinstance(request.monitor, MonitorSpec)):
+            raise ValueError(
+                f"monitor must be a serve.monitor.MonitorSpec or None, "
+                f"got {type(request.monitor).__name__}")
+        if request.on_converged not in CONVERGED_POLICIES:
+            raise ValueError(
+                f"on_converged must be one of {CONVERGED_POLICIES}, "
+                f"got {request.on_converged!r}")
+        if request.on_converged == "evict":
+            mon = request.monitor
+            if mon is None or (mon.ess_target is None
+                               and mon.rhat_target is None):
+                raise ValueError(
+                    "on_converged='evict' needs a monitor with an armed "
+                    "target (ess_target and/or rhat_target): the "
+                    "streaming convergence verdict triggers the eviction")
         if request.on_divergence != "none":
             if not self.supervise:
                 raise ValueError(
@@ -384,11 +593,15 @@ class ChainServer:
             err = self._shed_error(pr)
             self._sheds += 1
             self._sheds_by_tier[pr] = self._sheds_by_tier.get(pr, 0) + 1
+            if self.metrics is not None:
+                self.metrics.counter("serve_sheds_total").inc()
             handle._fail_shed(err)
             raise err from e
         self._stage_wake.set()
-        self._queue_depth_peak = max(self._queue_depth_peak,
-                                     len(self.queue))
+        depth = len(self.queue)
+        self._queue_depth_peak = max(self._queue_depth_peak, depth)
+        if self.metrics is not None:
+            self.metrics.gauge("serve_queue_depth").set(depth)
         return handle
 
     def _shed_error(self, tier: int) -> RetryAfter:
@@ -445,10 +658,22 @@ class ChainServer:
         at the same seed, or the request's), or None when the model does
         not fit the pool (the handle is rejected)."""
         req, pool = handle.request, self.pool
+        t0 = time.monotonic()
+        monitor = None
         try:
             _faults.fire("staging", tenant=handle.fault_key)
             ma = _localize_names(req.ma)
             t = pool.template_ma
+            if req.monitor is not None:
+                pidx = resolve_params(req.monitor, t.param_names)
+                monitor = TenantMonitor(
+                    req.monitor, req.nchains, pidx,
+                    param_names=t.param_names,
+                    blocks=param_blocks(pidx, t.white_indices,
+                                        t.hyper_indices),
+                    block_names=BLOCK_NAMES)
+                if req.spool_dir is not None and req.start_sweep > 0:
+                    self._backfill_monitor(monitor, req)
             if ma.row_mask is not None:
                 raise ValueError("tenant models must be unpadded")
             if ma.n != pool.n_pool:
@@ -469,7 +694,12 @@ class ChainServer:
         except Exception as e:  # noqa: BLE001 - reject it, keep the pool
             handle._fail(f"{type(e).__name__}: {e}")
             return None
-        return _Prepared(handle, backend, state, self._groups_needed(handle))
+        if self.spans is not None:
+            self.spans.record("stage", ROLE_STAGING, t0,
+                              time.monotonic() - t0,
+                              tenant=handle.tenant_id)
+        return _Prepared(handle, backend, state, self._groups_needed(handle),
+                         monitor=monitor)
 
     def _apply_prepared(self, prep: _Prepared) -> None:
         """Place a prepared tenant into the first free groups (the caller
@@ -480,6 +710,7 @@ class ChainServer:
                 self._cancelled_prestage.discard(handle.tenant_id)
                 handle._fail("cancelled before admission")
                 return
+        t_admit0 = time.monotonic()
         taken = sorted(self._free_groups.pop(0)
                        for _ in range(prep.groups_needed))
         G = pool.group
@@ -499,14 +730,33 @@ class ChainServer:
                 fault_key=handle.fault_key)
         handle.admitted_t = time.monotonic()
         handle.status = "running"
+        handle._monitor = prep.monitor
+        self._tenant_names[handle.tenant_id] = req.name
         self._running[handle.tenant_id] = _Tenant(
             slot, handle, spool,
             backend=prep.backend if req.on_divergence == "reinit" else None)
         self._admission_ms.append(handle.admission_ms)
+        self._tier_leg(req, "admission_ms").append(handle.admission_ms)
+        if self.spans is not None:
+            self.spans.record("admit", ROLE_DISPATCH, t_admit0,
+                              time.monotonic() - t_admit0,
+                              tenant=handle.tenant_id, quantum=self.quanta)
         if self._manifest is not None:
             self._manifest.record_admit(
                 handle.tenant_id, req,
                 model=req.ma if req.spool_dir is not None else None)
+        if self.metrics is not None:
+            self.metrics.histogram("serve_admission_ms").observe(
+                handle.admission_ms)
+            self.metrics.counter("serve_admissions").inc()
+            self.metrics.emit("admit", tenant=handle.tenant_id,
+                              nchains=req.nchains, niter=req.niter,
+                              lanes=int(lanes[0]),
+                              admission_ms=handle.admission_ms)
+        if self.flight is not None:
+            self.flight.note_event("admit", tenant=handle.tenant_id,
+                                   nchains=req.nchains, niter=req.niter,
+                                   lane0=int(lanes[0]))
 
     def _admit(self, handle: TenantHandle) -> None:
         """Serial admission: prepare and place in one call."""
@@ -604,6 +854,12 @@ class ChainServer:
         self._free_groups.extend(
             int(g) for g in slot.lanes[::self.pool.group] // self.pool.group)
         self._free_groups.sort()
+        if self.metrics is not None:
+            self.metrics.emit("evict", tenant=slot.tenant_id,
+                              sweeps=slot.done_sweeps)
+        if self.flight is not None:
+            self.flight.note_event("evict", tenant=slot.tenant_id,
+                                   sweeps=slot.done_sweeps)
 
     def _reap_decided(self) -> List[_Tenant]:
         """Release the running tenants whose freeze was decided since the
@@ -649,9 +905,101 @@ class ChainServer:
         first = handle.first_result_t is None
         handle._stream(sweep_end, records)
         if first and handle.first_result_ms is not None:
-            self._first_result_ms.append(handle.first_result_ms)
+            ms = handle.first_result_ms
+            self._first_result_ms.append(ms)
+            self._tier_leg(handle.request, "first_result_ms").append(ms)
+            if self.metrics is not None:
+                self.metrics.histogram("serve_first_result_ms").observe(ms)
         if tele is not None:
             self._accumulate_tele(handle, slot, tele)
+        self._feed_monitor(handle, slot, records, sweep_end)
+
+    def _backfill_monitor(self, monitor: TenantMonitor, req) -> None:
+        """Re-arm a resumed monitored tenant's monitor over its whole
+        recorded prefix: fold the spooled ``x`` rows below the resume
+        point in one pass without an evaluation, so the resumed run
+        evaluates (and converges, and evicts) at the same sweeps as the
+        uninterrupted one. A failure warns, and the window restarts at
+        the resume point; it never fails the tenant."""
+        try:
+            loaded = load_spool_prefix(req.spool_dir, "x", req.start_sweep)
+            if loaded is None:
+                return
+            rows, base = loaded
+            if not len(rows):
+                return
+            monitor.backfill(
+                rows, req.start_sweep,
+                updates=(req.start_sweep - base) // self.pool.quantum)
+        except Exception as e:  # noqa: BLE001 - observability contract
+            warnings.warn(
+                f"monitor backfill from {req.spool_dir!r} failed "
+                f"({type(e).__name__}: {e}); the monitor window "
+                "restarts at the resume point", RuntimeWarning)
+
+    def _feed_monitor(self, handle: TenantHandle, slot: TenantSlot,
+                      records: dict, sweep_end: int) -> None:
+        """Fold one drained quantum into the tenant's monitor, from the
+        records already on the host (no copy from the device of its own).
+        On convergence record the SLO leg and, under
+        ``on_converged="evict"``, freeze the tenant at the next boundary
+        through the cancel machinery. A monitor exception detaches THAT
+        tenant's monitor with a warning and the tenant keeps serving."""
+        mon = handle._monitor
+        if mon is None:
+            return
+        t0 = time.monotonic()
+        try:
+            mon.update(records["x"], sweep_end)
+            if (mon.converged_at is not None
+                    and not getattr(handle, "_conv_recorded", False)):
+                handle._conv_recorded = True
+                conv_t = mon.converged_t
+                ms = ((conv_t - handle.submitted_t) * 1e3
+                      if conv_t is not None else None)
+                if ms is not None:
+                    self._converged_ms.append(ms)
+                    self._tier_leg(handle.request,
+                                   "converged_ms").append(ms)
+                if self.metrics is not None:
+                    if ms is not None:
+                        self.metrics.histogram(
+                            "serve_converged_ms").observe(ms)
+                    self.metrics.emit(
+                        "tenant_converged", tenant=slot.tenant_id,
+                        sweep=mon.converged_at, ms=ms)
+                # the armed targets hold: the rest of the budget buys no
+                # requested statistic. The flag is read at the next
+                # boundary (a GIL-atomic write from the drain thread; at
+                # worst one more quantum runs, as for a racing cancel())
+                if (handle.request.on_converged == "evict"
+                        and slot.remaining > 0 and not slot.cancelled
+                        and not slot.failed):
+                    slot.cancelled = True
+                    self._converged_evictions += 1
+                    if self.metrics is not None:
+                        self.metrics.counter(
+                            "serve_converged_evictions").inc()
+                        self.metrics.emit(
+                            "evict_converged", tenant=slot.tenant_id,
+                            sweep=mon.converged_at,
+                            budget=handle.request.niter)
+                    if self.flight is not None:
+                        self.flight.note_event(
+                            "evict_converged", tenant=slot.tenant_id,
+                            sweep=mon.converged_at)
+        except Exception as e:  # noqa: BLE001 - observability contract
+            handle._monitor = None
+            warnings.warn(
+                f"tenant {slot.tenant_id} convergence monitor failed "
+                f"({type(e).__name__}: {e}); monitoring disabled for "
+                "this tenant, serving continues", RuntimeWarning)
+            if self.metrics is not None:
+                self.metrics.counter("serve_monitor_errors").inc()
+                self.metrics.emit("monitor_error", tenant=slot.tenant_id,
+                                  error=f"{type(e).__name__}: {e}")
+        finally:
+            self._monitor_t += time.monotonic() - t0
 
     @staticmethod
     def _accumulate_tele(handle: TenantHandle, slot: TenantSlot,
@@ -700,10 +1048,23 @@ class ChainServer:
         if self._manifest is not None:
             self._manifest.record_done(slot.tenant_id, "done",
                                        slot.done_sweeps)
+        if self.metrics is not None and health is not None:
+            self.metrics.emit(
+                "tenant_health", tenant=slot.tenant_id,
+                n_ok=health["n_ok"], n_diverged=health["n_diverged"],
+                n_stuck=health["n_stuck"], n_dead=health["n_dead"],
+                n_quarantined=health["n_quarantined"],
+                n_reinits=health["n_reinits"])
         extra = dict(handle._tele_stats)
         extra["n_toa"] = np.asarray([self.pool.n_pool])
         if health is not None:
             extra["health"] = health
+        # the monitor's final view and the cost ride the result's stats
+        # (the tenant's last quantum was attributed before this finalize)
+        if handle._monitor is not None:
+            extra["monitor"] = handle._monitor.snapshot()
+            extra["converged_at"] = handle._monitor.converged_at
+        extra["cost"] = handle.cost()
         if spool is not None:
             spool.close()
             res = load_spool(handle.request.spool_dir)
@@ -740,6 +1101,11 @@ class ChainServer:
             if self._manifest is not None:
                 self._manifest.record_done(slot.tenant_id, "failed",
                                            slot.done_sweeps)
+            if self.metrics is not None:
+                self.metrics.emit(
+                    "tenant_deadline_exceeded", tenant=slot.tenant_id,
+                    deadline_sweep=handle._deadline_sweep,
+                    at_sweep=next_sweep)
             return
         state, ck_sweep, _ = load_spool_state(sdir, device="cpu")
         if ck_sweep != next_sweep:
@@ -758,10 +1124,19 @@ class ChainServer:
         handle.admitted_t = handle.first_result_t = None
         handle.sweeps_done = 0
         handle.preemptions += 1
+        # re-armed and backfilled from the spool at the re-admission
+        handle._monitor = None
         self.queue.put_displaced(handle)
         self._stage_wake.set()
-        self._queue_depth_peak = max(self._queue_depth_peak,
-                                     len(self.queue))
+        depth = len(self.queue)
+        self._queue_depth_peak = max(self._queue_depth_peak, depth)
+        if self.metrics is not None:
+            self.metrics.gauge("serve_queue_depth").set(depth)
+        if self.flight is not None:
+            self.flight.note_event(
+                "preempt_requeued", tenant=slot.tenant_id,
+                next_sweep=next_sweep,
+                remaining=slot.niter - slot.done_sweeps)
 
     def _fail_drained(self, handle: TenantHandle, exc: Exception) -> None:
         """Fail-fast (``supervise=False``): resolve a tenant whose drain or
@@ -787,10 +1162,20 @@ class ChainServer:
         slot.fail_where = where
         slot.fail_cause = cause
         self._fault_counts["tenant_failures"] += 1
+        error = f"{type(cause).__name__}: {cause}"
+        if self.metrics is not None:
+            self.metrics.counter("serve_tenant_faults").inc()
+            self.metrics.emit("tenant_fault", tenant=slot.tenant_id,
+                              where=where, error=error)
         if self._manifest is not None:
             self._manifest.record(
-                "fault", tenant=slot.tenant_id, where=where,
-                error=f"{type(cause).__name__}: {cause}")
+                "fault", tenant=slot.tenant_id, where=where, error=error)
+        if self.flight is not None:
+            # a contained failure is a dump trigger: the bundle keeps the
+            # quanta and spans around the fault while they are in the ring
+            self.flight.note_event("tenant_fault", tenant=slot.tenant_id,
+                                   where=where, error=error)
+            self._dump_flight(f"tenant_fault:{slot.tenant_id}")
 
     def _tenant_health(self, t: _Tenant) -> Optional[dict]:
         """The tenant's health report (obs/health.chain_health over its
@@ -872,6 +1257,12 @@ class ChainServer:
                 self.pool.quarantine_lanes(slot.chain_lanes[chains])
                 slot.quarantined.update(int(c) for c in chains)
                 self._fault_counts["quarantined_lanes"] += int(chains.size)
+                if self.metrics is not None:
+                    self.metrics.counter("serve_quarantined_lanes").inc(
+                        int(chains.size))
+                    self.metrics.emit("quarantine", tenant=tid,
+                                      sweep=sweep_now,
+                                      chains=[int(c) for c in chains])
                 if self._manifest is not None:
                     self._manifest.record(
                         "quarantine", tenant=tid, sweep=sweep_now,
@@ -885,6 +1276,12 @@ class ChainServer:
                                        chains)
                 slot.n_reinits += int(chains.size)
                 self._fault_counts["reinits"] += int(chains.size)
+                if self.metrics is not None:
+                    self.metrics.counter("serve_reinits").inc(
+                        int(chains.size))
+                    self.metrics.emit("reinit", tenant=tid,
+                                      sweep=sweep_now,
+                                      chains=[int(c) for c in chains])
                 if self._manifest is not None:
                     self._manifest.record(
                         "reinit", tenant=tid, sweep=sweep_now,
@@ -924,6 +1321,12 @@ class ChainServer:
         budget): under supervision every outstanding handle resolves;
         then the run raises."""
         self._fault_counts["pool_failures"] += 1
+        if self.metrics is not None:
+            self.metrics.emit("pool_failure", error=str(err), label=label)
+        if self.flight is not None:
+            self.flight.note_event("pool_failure", error=str(err),
+                                   label=label)
+            self._dump_flight("pool_failure")
         if self.supervise:
             self._fail_all_outstanding(
                 f"pool failure: {type(err).__name__}: {err}", where="pool")
@@ -950,6 +1353,9 @@ class ChainServer:
             st["n"] += 1
             st["next_t"] = now + min(0.05 * 2 ** st["n"], 1.0)
             self._fault_counts["worker_restarts"] += 1
+            if self.metrics is not None:
+                self.metrics.counter("serve_worker_restarts").inc()
+                self.metrics.emit("worker_restart", worker=kind, n=st["n"])
             if kind == "drain":
                 self._drain_thread = None
             else:
@@ -979,7 +1385,9 @@ class ChainServer:
         # changes the running set; a cancel meanwhile only flags a slot)
         pool = self.pool
         self._boundary_faults()
+        self._beat("dispatch")
         _faults.fire("dispatch_stall")
+        qidx = self.quanta
         t_d = self._dispatch_start()
         recs, tl = pool.run_quantum()
         host = pool.materialize(recs)
@@ -987,18 +1395,28 @@ class ChainServer:
         with self._lock:
             self._last_tl, self._last_tl_tids = tele, set(self._running)
             self._last_dispatch_t = t0 = time.monotonic()
-            self._dispatch_ms.append((t0 - t_d) * 1e3)
+            disp_ms = (t0 - t_d) * 1e3
+            self._dispatch_ms.append(disp_ms)
+            self._dispatch_wall_ms += disp_ms
+            self._attribute_cost(disp_ms,
+                                 self._cost_shares(self._running.values()))
+            self._quantum_spans(t_d, t0, qidx)
+            self._monitor_t = 0.0
             q = pool.quantum
             finished = []
+            busy = 0
             for tid, t in self._running.items():
                 slot = t.slot
                 slot.done_sweeps += q
+                busy += slot.nchains
                 if not slot.failed:
                     try:
-                        self._drain_tenant(
-                            slot, t.handle, t.spool, host, tele,
-                            slot.start_sweep + slot.done_sweeps,
-                            state_fn=lambda s=slot: pool.tenant_state(s))
+                        with self._span("drain", ROLE_DRAIN, tenant=tid,
+                                        quantum=qidx):
+                            self._drain_tenant(
+                                slot, t.handle, t.spool, host, tele,
+                                slot.start_sweep + slot.done_sweeps,
+                                state_fn=lambda s=slot: pool.tenant_state(s))
                     except Exception as e:  # noqa: BLE001 - contained
                         if not self.supervise:
                             self._fail_drained(t.handle, e)
@@ -1011,14 +1429,20 @@ class ChainServer:
                 t = self._running.pop(tid)
                 self._release(t.slot)
                 try:
-                    self._finish(t)
+                    with self._span("finalize", ROLE_DRAIN, tenant=tid,
+                                    quantum=qidx):
+                        self._finish(t)
                 except Exception as e:  # noqa: BLE001 - contained
                     if not self.supervise:
                         self._fail_drained(t.handle, e)
                         raise
                     self._note_fault(t, "finalize", e)
                     self._finalize_failed(t)
-            self._drain_ms.append((time.monotonic() - t0) * 1e3)
+            drain_ms = (time.monotonic() - t0) * 1e3
+            self._drain_ms.append(drain_ms)
+            self._beat("drain")
+            self._note_quantum_done(qidx, disp_ms, busy, drain_ms, 0)
+            self._refresh_obs(locked=True)
             return bool(self._running) or len(self.queue) > 0
 
     def _dispatch_start(self) -> float:
@@ -1029,10 +1453,44 @@ class ChainServer:
 
     def _count_quantum(self) -> None:
         q = self.pool.quantum
+        busy = sum(t.slot.nchains for t in self._running.values())
         self.quanta += 1
-        self.busy_chain_sweeps += q * sum(t.slot.nchains
-                                          for t in self._running.values())
+        self.busy_chain_sweeps += q * busy
         self.total_lane_sweeps += self.pool.nlanes * q
+        if self.metrics is not None:
+            self.metrics.gauge("serve_occupancy").set(busy / self.pool.nlanes)
+            self.metrics.gauge("serve_queue_depth").set(len(self.queue))
+            self.metrics.counter("serve_sweeps_total").inc(busy * q)
+
+    def _beat(self, role: str) -> None:
+        """An executor role's heartbeat, to the watchdog and the flight
+        recorder."""
+        if self._watchdog is not None:
+            self._watchdog.beat(role)
+        if self.flight is not None:
+            self.flight.beat(role)
+
+    def _quantum_spans(self, t_d: float, t_end: float, qidx: int) -> None:
+        """One dispatch-role span for each tenant the quantum advanced."""
+        if self.spans is not None:
+            for tid in list(self._running):
+                self.spans.record("quantum", ROLE_DISPATCH, t_d,
+                                  t_end - t_d, tenant=tid, quantum=qidx)
+
+    def _note_quantum_done(self, qidx: int, disp_ms: float, busy: int,
+                           drain_ms: Optional[float], backlog: int) -> None:
+        """A drained quantum's evidence: the watchdog's wall, throughput
+        and backlog, the flight ring's entry, and the monitor feed's host
+        ms (the serial loop's thread, or the drain thread)."""
+        if self._monitor_t:
+            self._monitor_ms.append(self._monitor_t * 1e3)
+        if self._watchdog is not None:
+            q = self.pool.quantum
+            self._watchdog.note_quantum(
+                disp_ms, sweeps_per_s=(busy * q / (disp_ms / 1e3)
+                                       if disp_ms > 0 else None),
+                backlog=backlog)
+        self._flight_quantum(qidx, disp_ms, busy, drain_ms)
 
     # ------------------------------------------------------------------
     # the pipelined executor
@@ -1052,6 +1510,8 @@ class ChainServer:
 
     def _stage_worker(self) -> None:
         while not self._workers_stop.is_set():
+            if self._watchdog is not None:
+                self._watchdog.beat("staging")
             self._stage_wake.clear()
             h = self._take_for_staging()
             if h is None:
@@ -1085,7 +1545,9 @@ class ChainServer:
         it finishes, and its drain bundle (finalize-only entries of the
         tenants released at this boundary first)."""
         self._boundary_faults()
+        self._beat("dispatch")
         _faults.fire("dispatch_stall")
+        qidx = self.quanta
         t_d = self._dispatch_start()
         recs, tl, snap = self.pool.dispatch_quantum(snapshot=need_snap)
         event = None
@@ -1093,9 +1555,14 @@ class ChainServer:
             event = torch.cuda.Event()
             event.record()
         self._last_dispatch_t = time.monotonic()
-        self._dispatch_ms.append((self._last_dispatch_t - t_d) * 1e3)
+        disp_ms = (self._last_dispatch_t - t_d) * 1e3
+        self._dispatch_ms.append(disp_ms)
+        self._dispatch_wall_ms += disp_ms
+        self._quantum_spans(t_d, self._last_dispatch_t, qidx)
         q = self.pool.quantum
         with self._lock:
+            # the attribution itself runs on the drain thread
+            cost = (disp_ms, self._cost_shares(self._running.values()))
             self._last_tl, self._last_tl_tids = tl, set(self._running)
             entries = [(t.slot, t.handle, t.spool,
                         t.slot.start_sweep + t.slot.done_sweeps, True, False)
@@ -1115,7 +1582,7 @@ class ChainServer:
             self._count_quantum()
             for tid in finished:
                 self._release(self._running.pop(tid).slot)
-        return _Bundle(recs, tl, snap, event, entries)
+        return _Bundle(recs, tl, snap, event, entries, qidx=qidx, cost=cost)
 
     def _drain_bundle(self, b: _Bundle) -> None:
         """Copy a quantum's records, telemetry (and snapshot) to the host
@@ -1148,6 +1615,11 @@ class ChainServer:
                 self._fail_drained(entry[1], e)
             b.idx = len(b.entries)
             err = (e, "pulling quantum records")
+        # consumed once: a resumed bundle never bills a tenant twice
+        cost, b.cost = b.cost, None
+        if cost is not None:
+            self._attribute_cost(*cost)
+            self._monitor_t = 0.0
         t0 = time.monotonic()
         while b.idx < len(b.entries):
             slot, handle, spool, sweep_end, final, drained = \
@@ -1160,12 +1632,16 @@ class ChainServer:
             try:
                 _faults.fire("drain_death", tenant=handle.fault_key)
                 if drained and self._drains(slot):
-                    self._drain_tenant(
-                        slot, handle, spool, host, tele, sweep_end,
-                        state_fn=lambda s=slot:
-                        self.pool.tenant_state_from(snap, s))
+                    with self._span("drain", ROLE_DRAIN,
+                                    tenant=slot.tenant_id, quantum=b.qidx):
+                        self._drain_tenant(
+                            slot, handle, spool, host, tele, sweep_end,
+                            state_fn=lambda s=slot:
+                            self.pool.tenant_state_from(snap, s))
                 if final:
-                    self._finish(t)
+                    with self._span("finalize", ROLE_DRAIN,
+                                    tenant=slot.tenant_id, quantum=b.qidx):
+                        self._finish(t)
             except Exception as e:  # noqa: BLE001 - contained or raised
                 if not self.supervise:
                     self._fail_drained(handle, e)
@@ -1183,8 +1659,16 @@ class ChainServer:
                 b.idx += 1
                 raise
             b.idx += 1
+        drain_ms = None
         if host is not None:
-            self._drain_ms.append((time.monotonic() - t0) * 1e3)
+            drain_ms = (time.monotonic() - t0) * 1e3
+            self._drain_ms.append(drain_ms)
+        if cost is not None:
+            disp_ms, shares = cost
+            self._note_quantum_done(b.qidx, disp_ms,
+                                    sum(a for _, a in shares), drain_ms,
+                                    self._drainq.unfinished_tasks)
+            self._refresh_obs()
         if err is not None:
             self._worker_error, self._worker_error_label = err
 
@@ -1213,6 +1697,7 @@ class ChainServer:
                 if item is None:
                     self._drainq.task_done()
                     return
+            self._beat("drain")
             try:
                 self._drain_one(item)
             except _faults.WorkerDeath:
@@ -1353,6 +1838,9 @@ class ChainServer:
         with the executor ``pipeline`` picked. ``on_quantum(server)`` is
         called on this thread after every boundary."""
         self._driver = threading.current_thread()
+        if self._watchdog is not None:
+            self._watchdog.start()
+        self._driving = True
         try:
             if self.pipeline:
                 self._run_pipelined(idle_exit, poll_s, on_quantum)
@@ -1366,7 +1854,13 @@ class ChainServer:
                         return
                     time.sleep(poll_s)
         finally:
+            self._driving = False
             self._driver = None
+            if self._watchdog is not None:
+                # every quantum of this run has been noted: one last
+                # evaluation, then no ticker while nobody drives
+                self._watchdog.check()
+                self._watchdog.stop()
 
     def start(self) -> None:
         """Run the server on a thread of its own until :meth:`close`."""
@@ -1402,6 +1896,21 @@ class ChainServer:
                 warnings.warn(f"manifest compaction at close failed "
                               f"({type(e).__name__}: {e}); the full "
                               "journal remains valid", RuntimeWarning)
+        if self._watchdog is not None:
+            self._watchdog.stop()
+        if self._atexit_registered:
+            # a cleanly closed server leaves no postmortem behind
+            with contextlib.suppress(Exception):
+                atexit.unregister(self._atexit_dump)
+            self._atexit_registered = False
+        if self._sigterm_prev is not None:
+            with contextlib.suppress(Exception):
+                if signal.getsignal(signal.SIGTERM) == self._on_sigterm:
+                    signal.signal(signal.SIGTERM, self._sigterm_prev)
+            self._sigterm_prev = None
+        self._refresh_obs()          # the pull surface's final state
+        if self.spans is not None:
+            self.spans.close()       # the JSONL sink only
 
     def _fail_all_outstanding(self, reason: str,
                               where: str = "close") -> None:
@@ -1440,7 +1949,11 @@ class ChainServer:
         tenant's name (or spool directory); drive the server as usual.
         A resumed tenant's chains are bitwise its uninterrupted run (the
         spool resume contract); one that died before its first checkpoint
-        restarts from its request. Tenants admitted without a spool died
+        restarts from its request. A monitored tenant's monitor is
+        re-armed from its journaled spec and backfilled from its spool, so
+        it evaluates (and, under ``on_converged="evict"``, evicts) at the
+        sweeps of the uninterrupted run. Its priority is kept as
+        journaled, 0 included. Tenants admitted without a spool died
         with the process: they are listed on ``server.lost_tenants``.
         ``overrides`` are constructor arguments (``device``, ``pipeline``,
         ...); the pool's geometry comes from the manifest. The log is
@@ -1477,11 +1990,17 @@ class ChainServer:
                 dls = rec["start_sweep"] + int(dls) - next_sweep
                 if dls <= 0:
                     dls = None
+            mon = rec.get("monitor")
+            if mon is not None:
+                mon = MonitorSpec(**{k: v for k, v in mon.items()
+                                     if v is not None})
             handles[key] = srv.submit(TenantRequest(
                 ma=ma, niter=remaining, nchains=rec["nchains"],
                 seed=rec["seed"], state=state, start_sweep=next_sweep,
                 spool_dir=rec["spool_dir"], name=rec.get("name"),
                 on_divergence=rec.get("on_divergence") or "none",
+                on_converged=rec.get("on_converged") or "none",
+                monitor=mon,
                 priority=(1 if rec.get("priority") is None
                           else int(rec["priority"])),
                 deadline_sweeps=dls))
@@ -1510,50 +2029,121 @@ class ChainServer:
         }
 
     def _slo_block(self) -> dict:
-        return {"admission_ms": _percentiles(self._admission_ms),
-                "first_result_ms": _percentiles(self._first_result_ms)}
+        """Latency percentiles, ms: submit -> admit (queue wait
+        included), admit -> first drained records, and submit ->
+        converged (monitored tenants whose targets held; ``n_converged``
+        counts them), and the same per priority tier."""
+        blk = {"admission_ms": _percentiles(self._admission_ms),
+               "first_result_ms": _percentiles(self._first_result_ms),
+               "converged_ms": _percentiles(self._converged_ms),
+               "n_converged": len(self._converged_ms)}
+        if self._tier_slo:
+            blk["tiers"] = {
+                str(tier): {leg: _percentiles(vals)
+                            for leg, vals in legs.items()}
+                for tier, legs in sorted(self._tier_slo.items())}
+        return blk
+
+    def _slo_raw(self) -> dict:
+        """The raw series behind :meth:`_slo_block` (percentiles of
+        several servers do not combine; their series do)."""
+        return {
+            "admission_ms": [round(v, 3) for v in self._admission_ms],
+            "first_result_ms": [round(v, 3) for v in self._first_result_ms],
+            "converged_ms": [round(v, 3) for v in self._converged_ms],
+            "tiers": {str(tier): {leg: [round(v, 3) for v in vals]
+                                  for leg, vals in legs.items()}
+                      for tier, legs in sorted(self._tier_slo.items())}}
+
+    def _status_locked(self) -> dict:
+        """The :meth:`status` snapshot; the caller holds ``_lock``."""
+        running = list(self._running.values())
+        with self._prep_lock:
+            staged = len(self._prepared) + self._staging_n
+        busy = sum(t.slot.nchains for t in running)
+        tenants = []
+        for t in running:
+            p = t.handle.progress()
+            p.update({"lane0": int(t.slot.lanes[0]),
+                      "lane_groups": len(t.slot.lanes) // self.pool.group,
+                      "cancelled": bool(t.slot.cancelled),
+                      "failed": bool(t.slot.failed),
+                      "quarantined": len(t.slot.quarantined),
+                      "reinits": t.slot.n_reinits})
+            tenants.append(p)
+        return {
+            "schema": 1,
+            "t": time.time(),
+            "uptime_s": time.monotonic() - self._t_started,
+            "quanta": self.quanta,
+            "nlanes": self.pool.nlanes,
+            "group": self.pool.group,
+            "quantum": self.pool.quantum,
+            "busy_lanes": busy,
+            "free_groups": len(self._free_groups),
+            "occupancy_now": busy / self.pool.nlanes,
+            "occupancy": (self.busy_chain_sweeps / self.total_lane_sweeps
+                          if self.total_lane_sweeps else 0.0),
+            "queue_depth": len(self.queue),
+            "staged": staged,
+            "pipeline": self.pipeline,
+            "supervise": self.supervise,
+            "faults": dict(self._fault_counts),
+            "stages": None,
+            "watchdog": self._watchdog_block(),
+            "sched": self._sched_block(),
+            "slo": self._slo_block(),
+            "slo_raw": self._slo_raw(),
+            "tenants": tenants,
+        }
 
     def status(self) -> dict:
         """A live snapshot: pool geometry and occupancy, queue and staging
-        depth, the scheduling counters, latency percentiles, and one entry
-        per running tenant."""
+        depth, the fault and scheduling counters, the watchdog, latency
+        percentiles and their raw series, and one entry per running
+        tenant (its :meth:`TenantHandle.progress`, with the convergence
+        view of a monitored one, and its lanes). ``obs_dir/status.json``
+        is this, refreshed every quantum. ``stages`` is None: the JAX
+        server's per-stage device times come from the in-kernel timers of
+        its CPU native library, which this package does not have."""
         with self._lock:
-            running = list(self._running.values())
-            with self._prep_lock:
-                staged = len(self._prepared) + self._staging_n
-            busy = sum(t.slot.nchains for t in running)
-            tenants = []
-            for t in running:
-                p = t.handle.progress()
-                p.update({"lane0": int(t.slot.lanes[0]),
-                          "lane_groups": len(t.slot.lanes) // self.pool.group,
-                          "cancelled": bool(t.slot.cancelled),
-                          "failed": bool(t.slot.failed),
-                          "quarantined": len(t.slot.quarantined),
-                          "reinits": t.slot.n_reinits})
-                tenants.append(p)
-            return {
-                "schema": 1,
-                "t": time.time(),
-                "uptime_s": time.monotonic() - self._t_started,
-                "quanta": self.quanta,
-                "nlanes": self.pool.nlanes,
-                "group": self.pool.group,
-                "quantum": self.pool.quantum,
-                "busy_lanes": busy,
-                "free_groups": len(self._free_groups),
-                "occupancy_now": busy / self.pool.nlanes,
-                "occupancy": (self.busy_chain_sweeps / self.total_lane_sweeps
-                              if self.total_lane_sweeps else 0.0),
-                "queue_depth": len(self.queue),
-                "staged": staged,
-                "pipeline": self.pipeline,
-                "supervise": self.supervise,
-                "faults": dict(self._fault_counts),
-                "sched": self._sched_block(),
-                "slo": self._slo_block(),
-                "tenants": tenants,
-            }
+            return self._status_locked()
+
+    def healthz(self) -> dict:
+        """The liveness verdict: ``ok`` is False exactly when the POOL is
+        unhealthy (a pool failure counted, a worker error latched, or the
+        watchdog tripped); a contained tenant fault does not flip it.
+        Lock-free (GIL-atomic reads only), so it answers during a stall of
+        the dispatch thread, with the watchdog's cause."""
+        err = self._worker_error
+        wd = self._watchdog_block()
+        tripped = wd.get("state") == "tripped"
+        ok = (self._fault_counts["pool_failures"] == 0
+              and err is None and not tripped)
+        return {
+            "ok": bool(ok),
+            "t": round(time.time(), 3),
+            "uptime_s": round(time.monotonic() - self._t_started, 3),
+            "quanta": self.quanta,
+            "running_tenants": len(self._running),
+            "pipeline": bool(self.pipeline),
+            "supervise": bool(self.supervise),
+            "workers": {
+                "driver": bool(self._thread is not None
+                               and self._thread.is_alive()),
+                "stage": bool(self._stage_thread is not None
+                              and self._stage_thread.is_alive()),
+                "drain": bool(self._drain_thread is not None
+                              and self._drain_thread.is_alive()),
+            },
+            "worker_restarts": self._fault_counts["worker_restarts"],
+            "pool_failures": self._fault_counts["pool_failures"],
+            "watchdog": wd,
+            "error": (f"{type(err).__name__}: {err}"
+                      if err is not None
+                      else (f"watchdog trip: {wd['trip']['cause']}"
+                            if tripped and wd.get("trip") else None)),
+        }
 
     def summary(self) -> dict:
         """Run-level serving numbers: ``occupancy`` is the chain-lane
@@ -1561,10 +2151,15 @@ class ChainServer:
         the sum over served tenants of chains x sweeps; ``host_ms`` the
         per-quantum host ms of admission, the dispatch (serial: until the
         records are on the host), the drain (after the records are on the
-        host) and the gap from one dispatch's end to the next one's start;
-        ``sched`` the scheduling counters; ``faults`` the containment
-        counters (tenants failed, lanes quarantined, chains re-drawn,
-        workers restarted, pool failures)."""
+        host), the gap from one dispatch's end to the next one's start,
+        the monitor feed (a drained quantum's tenants) and the
+        ``obs_dir`` refresh; ``sched`` the scheduling counters; ``faults``
+        the containment counters (tenants failed, lanes quarantined,
+        chains re-drawn, workers restarted, pool failures);
+        ``converged_evictions`` the tenants ``on_converged="evict"``
+        ended early; ``cost["dispatch_wall_ms"]`` the sum of the quanta's
+        dispatch walls, which the tenants' ``cost()["device_ms"]`` add up
+        to; ``stages`` None (see :meth:`status`)."""
         occ = (self.busy_chain_sweeps / self.total_lane_sweeps
                if self.total_lane_sweeps else 0.0)
         return {"nlanes": self.pool.nlanes, "quantum": self.pool.quantum,
@@ -1573,10 +2168,199 @@ class ChainServer:
                 "pipeline": self.pipeline, "supervise": self.supervise,
                 "admission_ms": (float(np.mean(self._admission_ms))
                                  if self._admission_ms else None),
+                "admission_ms_max": (float(np.max(self._admission_ms))
+                                     if self._admission_ms else None),
                 "host_ms": {"admission": _percentiles(self._admit_apply_ms),
                             "dispatch": _percentiles(self._dispatch_ms),
                             "drain": _percentiles(self._drain_ms),
-                            "dispatch_gap": _percentiles(self._gap_ms)},
+                            "dispatch_gap": _percentiles(self._gap_ms),
+                            "monitor": _percentiles(self._monitor_ms),
+                            "obs_refresh": _percentiles(self._refresh_ms)},
+                "faults": dict(self._fault_counts),
+                "converged_evictions": self._converged_evictions,
                 "sched": self._sched_block(),
                 "slo": self._slo_block(),
-                "faults": dict(self._fault_counts)}
+                "stages": None,
+                "watchdog": self._watchdog_block(),
+                "cost": {"dispatch_wall_ms": self._dispatch_wall_ms}}
+
+    # ------------------------------------------------------------------
+    # cost accounting
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _cost_shares(running) -> List:
+        """``[(handle, active lanes), ...]`` of one quantum's tenants
+        (quarantined lanes are frozen: they do no work and buy no
+        share)."""
+        return [(t.handle, max(t.slot.nchains - len(t.slot.quarantined), 0))
+                for t in running]
+
+    @staticmethod
+    def _attribute_cost(dispatch_ms: float, shares: List) -> None:
+        """Split one quantum's dispatch wall across its tenants by
+        active-lane share; the shares sum to ``dispatch_ms``. Runs on the
+        drain thread (pipelined) or the serial loop's thread."""
+        total = sum(a for _, a in shares)
+        if total <= 0:
+            return
+        for handle, act in shares:
+            if act:
+                handle._add_cost(dispatch_ms * act / total, act)
+
+    # ------------------------------------------------------------------
+    # the flight recorder and the watchdog
+    # ------------------------------------------------------------------
+
+    def _watchdog_block(self) -> dict:
+        """The watchdog's view for ``healthz()`` and ``status()``
+        (lock-free: it answers during the stall it reports)."""
+        if self._watchdog is None:
+            return {"enabled": False, "policy": None, "state": "off",
+                    "trip": None}
+        return self._watchdog.snapshot()
+
+    def _watchdog_trip(self, trip: dict) -> None:
+        """The watchdog's one trip (on the ticker thread): a warning and
+        an alert event; under ``dump`` and ``fail`` the postmortem; under
+        ``fail`` a latched pool error, raised by the driver at its next
+        boundary (a device call in flight cannot be killed safely)."""
+        policy = self._watchdog.policy
+        warnings.warn(
+            f"serving watchdog tripped [{trip['cause']}]: "
+            f"{trip['detail']} (policy {policy}); healthz now degraded",
+            RuntimeWarning)
+        if self.metrics is not None:
+            try:
+                self.metrics.counter("serve_watchdog_trips").inc()
+                self.metrics.emit("watchdog_trip", cause=trip["cause"],
+                                  detail=trip["detail"])
+            except Exception:  # noqa: BLE001 - alerting only
+                pass
+        if self._manifest is not None:
+            self._manifest.record("fault", tenant=None, where="watchdog",
+                                  error=f"{trip['cause']}: "
+                                        f"{trip['detail']}")
+        if self.flight is not None:
+            self.flight.note_event("watchdog_trip", **trip)
+            if policy in ("dump", "fail"):
+                self.dump_postmortem(reason=f"watchdog:{trip['cause']}")
+        if policy == "fail" and self._worker_error is None:
+            self._worker_error = RuntimeError(
+                f"watchdog trip: {trip['cause']} ({trip['detail']})")
+            self._worker_error_label = "watchdog"
+
+    def _flight_context(self) -> dict:
+        """The server's context in every flight bundle. Lock-free: it is
+        composed while the dispatch thread may be stalled."""
+        return {
+            "quantum_idx": self.quanta,
+            "nlanes": self.pool.nlanes,
+            "quantum_sweeps": self.pool.quantum,
+            "running_tenants": len(self._running),
+            "queue_depth": len(self.queue),
+            "pipeline": bool(self.pipeline),
+            "faults": dict(self._fault_counts),
+            "watchdog": self._watchdog_block(),
+            "stage_totals_ms": None,
+            "kernel_timers": False,
+        }
+
+    def _flight_quantum(self, qidx: int, dispatch_ms: float, busy: int,
+                        drain_ms: Optional[float]) -> None:
+        """One quantum's entry in the flight ring (at its drain)."""
+        if self.flight is None:
+            return
+        self.flight.note_quantum({
+            "q": qidx,
+            "t": round(time.time(), 3),
+            "dispatch_ms": round(dispatch_ms, 3),
+            "drain_ms": (round(drain_ms, 3)
+                         if drain_ms is not None else None),
+            "busy_lanes": busy,
+            "occupancy_now": round(busy / self.pool.nlanes, 4),
+            "queue_depth": len(self.queue),
+            "faults": dict(self._fault_counts),
+            "stage_device_ms": None,
+        })
+
+    def dump_postmortem(self, path: Optional[str] = None,
+                        reason: str = "manual") -> Optional[str]:
+        """Write the flight recorder's postmortem bundle (the span tail
+        included) atomically and return its path; ``path`` defaults to
+        ``<flight_dir>/postmortem.json`` (the system's temporary directory
+        without one). Raises only when the recorder is off; an IO failure
+        warns and returns None."""
+        if self.flight is None:
+            raise ValueError(
+                "flight recorder is disabled (ChainServer(flight=False))")
+        if path is None:
+            d = self._flight_dir or tempfile.gettempdir()
+            path = os.path.join(d, "postmortem.json")
+        return self.flight.dump(path, reason=reason, include_spans=True)
+
+    def _dump_flight(self, reason: str) -> None:
+        """The postmortem bundle to ``<flight_dir>/postmortem.json``, when
+        the server has a flight directory (the recorder never raises)."""
+        if self.flight is not None and self._flight_dir is not None:
+            self.flight.dump(os.path.join(self._flight_dir,
+                                          "postmortem.json"),
+                             reason=reason, include_spans=True)
+
+    def _atexit_dump(self) -> None:
+        """At interpreter exit, leave a bundle behind for a server still
+        open (close() unregisters this)."""
+        self._dump_flight("atexit")
+
+    def _on_sigterm(self, signum, frame) -> None:
+        """SIGTERM: dump the bundle, then deliver the default action, so
+        the process still dies of the signal."""
+        self._dump_flight("sigterm")
+        try:
+            signal.signal(signal.SIGTERM, signal.SIG_DFL)
+            os.kill(os.getpid(), signal.SIGTERM)
+        except Exception:  # noqa: BLE001
+            raise SystemExit(143)
+
+    # ------------------------------------------------------------------
+    # the pull surface and the trace
+    # ------------------------------------------------------------------
+
+    def _refresh_obs(self, locked: bool = False) -> None:
+        """Refresh the ``obs_dir`` pull surface (``status.json`` and
+        ``metrics.prom``) at a quantum boundary: on the serial loop's
+        thread, or the pipelined executor's drain thread. Atomic writes;
+        a failure warns once and serving continues."""
+        if self.obs_dir is None:
+            return
+        t0 = time.monotonic()
+        try:
+            st = self._status_locked() if locked else self.status()
+            path = os.path.join(self.obs_dir, "status.json")
+            tmp = path + ".tmp"
+            with open(tmp, "w") as fh:
+                json.dump(_jsonable(st), fh)
+            os.replace(tmp, path)
+            if self.metrics is not None:
+                write_prometheus(self.metrics,
+                                 os.path.join(self.obs_dir, "metrics.prom"))
+        except Exception as e:  # noqa: BLE001 - observability contract
+            if not self._obs_warned:
+                self._obs_warned = True
+                warnings.warn(
+                    f"obs_dir refresh failed ({type(e).__name__}: {e}); "
+                    "serving continues without the pull surface",
+                    RuntimeWarning)
+        finally:
+            self._refresh_ms.append((time.monotonic() - t0) * 1e3)
+
+    def export_trace(self, path: str) -> str:
+        """Write the recorded executor spans as Chrome trace-event JSON
+        (``chrome://tracing``, Perfetto): one swimlane per tenant, one
+        track per thread role (staging, dispatch, drain). Returns
+        ``path``."""
+        if self.spans is None:
+            raise ValueError(
+                "span tracing is disabled (ChainServer(spans=False))")
+        return self.spans.export_chrome_trace(
+            path, tenant_names=self._tenant_names)

@@ -35,6 +35,7 @@ Every run is driven on a thread of its own with a time limit, so a hang
 fails instead of stalling the suite.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -408,8 +409,8 @@ def test_dispatch_stall_is_bitwise(demo, refs, pipeline):
 
 def test_request_policy_checks_and_telemetry_off(demo, refs):
     """``on_divergence`` takes the four policies and nothing else, needs
-    pool telemetry, and the other unported request fields still raise;
-    with telemetry off the chains are bitwise, with no health report."""
+    pool telemetry, and the request fields still unported raise; with
+    telemetry off the chains are bitwise, with no health report."""
     srv = _server(demo, False, telemetry=False)
     try:
         with pytest.raises(ValueError, match="on_divergence must be one"):
@@ -417,7 +418,7 @@ def test_request_policy_checks_and_telemetry_off(demo, refs):
         with pytest.raises(ValueError, match="pool telemetry"):
             srv.submit(_request(demo, "X", 1, on_divergence="fail"))
         with pytest.raises(TypeError, match="not supported"):
-            _request(demo, "X", 1, monitor=object())
+            _request(demo, "X", 1, warm_start=object())
         with pytest.raises(ValueError, match="supervise must be"):
             _server(demo, False, supervise="auto")
         hA = srv.submit(_request(demo, "A", 1))
@@ -612,7 +613,8 @@ ma = make_demo_model_arrays(components=5)
 faults.install(faults.FaultSpec({arm!r}, tenant="S", after=1,
                                 action="kill"))
 srv = ChainServer(ma, GibbsConfig(model="mixture"), nlanes=32, quantum=5,
-                  record="full", device="cpu", manifest_dir={man!r})
+                  record="full", device="cpu", manifest_dir={man!r},
+                  flight_dir={flight!r}, flight_sync_every=1)
 srv.submit(TenantRequest(ma=ma, niter=20, nchains=16, seed=3, name="S",
                          spool_dir={spool!r}))
 srv.run()
@@ -620,6 +622,7 @@ os._exit(3)  # not reached: the injected kill fires first
 """
 
 
+@pytest.mark.chaos
 @pytest.mark.parametrize("arm", ["kill_before_checkpoint",
                                  "kill_after_checkpoint"])
 def test_process_kill_recovery_bitwise(demo, refs, tmp_path, arm):
@@ -628,14 +631,31 @@ def test_process_kill_recovery_bitwise(demo, refs, tmp_path, arm):
     server from its manifest: the before-arm leaves the second quantum's
     rows as orphans past checkpoint 5 (cut at the resume), the after-arm
     resumes from checkpoint 10; either way the chains are bitwise the
-    uninterrupted run."""
+    uninterrupted run. The killed server's flight recorder, synced every
+    quantum, left a parseable, schema-valid ``flight.json`` at most one
+    quantum behind the two it dispatched, which ``tools/postmortem.py``
+    renders."""
+    from gibbs_student_t_tpu_torch.obs import schema as obs_schema
+
     man, spool = str(tmp_path / "manifest"), str(tmp_path / "S")
+    flight = str(tmp_path / "flight")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
         [sys.executable, "-c", _VICTIM.format(repo=REPO, arm=arm, man=man,
-                                              spool=spool)],
+                                              spool=spool, flight=flight)],
         capture_output=True, text=True, env=env, timeout=RUN_TIMEOUT_S)
     assert out.returncode == 9, (out.returncode, out.stderr[-2000:])
+    bundle = os.path.join(flight, "flight.json")
+    with open(bundle) as fh:
+        doc = json.load(fh)
+    schemas = obs_schema.load_schemas()
+    obs_schema.assert_valid(doc, schemas["postmortem"], "flight.json",
+                            defs=schemas)
+    assert doc["reason"] == "sync" and 2 - doc["quanta_recorded"] <= 1
+    shown = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools", "postmortem.py"),
+         bundle], capture_output=True, text=True, env=env, timeout=60)
+    assert shown.returncode == 0, shown.stderr[-2000:]
     _, next_sweep, _ = load_spool_state(spool, device="cpu")
     assert next_sweep == (5 if arm == "kill_before_checkpoint" else 10)
     srv, handles = ChainServer.recover(man, device="cpu")

@@ -162,7 +162,13 @@ def test_port_imports_no_jax():
             "gibbs_student_t_tpu_torch/obs/metrics.py",
             "gibbs_student_t_tpu_torch/drivers/run_sims.py",
             "gibbs_student_t_tpu_torch/serve/faults.py",
-            "gibbs_student_t_tpu_torch/serve/manifest.py"} <= scanned
+            "gibbs_student_t_tpu_torch/serve/manifest.py",
+            "gibbs_student_t_tpu_torch/serve/monitor.py",
+            "gibbs_student_t_tpu_torch/obs/schema.py",
+            "gibbs_student_t_tpu_torch/obs/spans.py",
+            "gibbs_student_t_tpu_torch/obs/export.py",
+            "gibbs_student_t_tpu_torch/obs/flight.py",
+            "gibbs_student_t_tpu_torch/obs/watchdog.py"} <= scanned
     bad = []
     for path in files:
         with open(path) as fh:
