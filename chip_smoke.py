@@ -303,6 +303,40 @@ exits 1 through ``fail`` before it, and so does an uncaught exception.
       and every other tenant is bit for bit 15a's; occupancy and busy
       chain-sweeps/s beside 15a's. The launches of every phase-17 run are
       checked as pool sweeps (path ``pool_obs``).
+18. the serving stack's capacity arms at pool1024 (a window of 4 tenants
+   of 256 chains), in a temporary directory removed at the end:
+   a. adaptive block scans (``serve.AdaptScanSpec``): a 64-lane pool on
+      the card and its CPU twin, the first tenant's white, hyper (so b)
+      and z blocks gated, the second's theta, alpha and df, after a
+      quantum at full rate two quanta of 5 sweeps, sweep by sweep from
+      the card's state and draws (ties separated as in 11b): the gated fields bitwise their carried values
+      on the card, accept counts equal and x to 1e-4 (b reported); two of
+      four monitored tenants with an ``AdaptScanSpec`` (ESS target 1)
+      against none for 5 quanta, both executors in turns: each of the two
+      thins, no other does, kernel launches a quantum equal (a gated
+      block still launches); printed: the selection probabilities, ms a
+      quantum thinning and not, and a device-only profile's launches a
+      sweep and device ms a quantum (serial) of each;
+   b. warm starts: four ``WarmStartSpec()`` tenants and one
+      ``kind="flow"`` tenant of 128 chains, monitored, on the pipelined
+      executor with a manifest: one pilot wave served on the pool, none
+      degraded; two journaled fits (a mixture and the flow) given to a
+      new server draw the same x0 and serve the same tenants bit for bit,
+      with no pilot; printed per tenant beside the same tenants cold:
+      pilot ms, admission and first-result ms, the final min-ESS, and the
+      sweep at which one ESS target (the cold tenants' median min-ESS at
+      half the budget) holds, by the monitor's own update on the rows;
+   c. recycling on against off, both executors in turns, two tenants
+      spooled, and (18a's all-ones check) the first run with every
+      lane's gates armed at ones and a fifth on a pool built with
+      ``GST_ADAPT_SCAN=0``: chains and spool bytes bit for bit,
+      ``recycled_rows`` = (rows - 1) x chains with recycling on and 0
+      off, kernel launches a quantum equal; printed: the drain's host ms
+      a quantum on and off.
+   The launches of every served run of phase 18 are checked as pool
+   sweeps (path ``pool_capacity``). Recycling is on by default (as in
+   the JAX server), so the served runs of phases 11d and 14-17 tag their
+   rows too; the pools of every phase carry block gates, all ones.
 
 Launch counts are read per path: every count is set to 0 just before a
 run and read just after it; a count is launches per sweep x sweeps plus
@@ -449,7 +483,8 @@ DRAWS = "sweep_draws"
 # flagship's shapes), and its ensemble runs launch ens32's grouped kernels
 SAME_AS = {"sample": "flagship", "spool": "flagship", "spool_ens": "ens32",
            "drivers": "flagship", "drivers_ens": "ens32",
-           "pool_sched": "pool", "pool_faults": "pool", "pool_obs": "pool"}
+           "pool_sched": "pool", "pool_faults": "pool", "pool_obs": "pool",
+           "pool_capacity": "pool"}
 # a grouped kernel's entry: the wrapper it shares with the single-model
 # launch; it counts on the wrapper's launches_grouped
 GROUPED = {"white_mh_grouped": "white_mh", "hyper_mh_grouped": "hyper_mh",
@@ -4653,6 +4688,419 @@ def main() -> None:
     orep["launches"] = counts17
     orep["seconds"] = time.perf_counter() - t17
     print(f"# phase 17: {orep['seconds']:.1f} s", flush=True)
+
+    # --- 18. the capacity arms: adaptive scans, warm starts, recycling ------
+    import contextlib as _ctx
+
+    from gibbs_student_t_tpu_torch.serve import (
+        AdaptScanSpec,
+        WarmStartFit,
+        WarmStartSpec,
+    )
+    from gibbs_student_t_tpu_torch.serve import TenantMonitor
+    from gibbs_student_t_tpu_torch.serve.adapt import NBLOCKS
+
+    t18 = time.perf_counter()
+    crep = report["capacity"] = {}
+    tmp18 = tempfile.mkdtemp(prefix="gst_chip_smoke_capacity_")
+    run18 = [0, 0]          # pool sweeps and quanta of phase 18's servers
+    MON18 = [0, 1, 2]       # the monitored parameters
+    CAP_TENANTS = 4         # a window of 4 tenants of 256 chains
+
+    @_ctx.contextmanager
+    def env_set(var, value):
+        old = os.environ.get(var)
+        os.environ[var] = value
+        try:
+            yield
+        finally:
+            if old is None:
+                os.environ.pop(var, None)
+            else:
+                os.environ[var] = old
+
+    def window_set(nq, seed0, monitor=None, adapt=0):
+        """4 tenants of 256 chains for ``nq`` quanta, ``monitor`` on each,
+        an ``AdaptScanSpec`` on the first ``adapt``."""
+        return [TenantRequest(
+            ma=tenant_mas[i], niter=nq * Q, nchains=POOL_CHAINS,
+            seed=seed0 + i, monitor=monitor,
+            adapt_scan=AdaptScanSpec(floor=0.25) if i < adapt else None)
+            for i in range(CAP_TENANTS)]
+
+    def serve18(s, reqs, keep_open=False):
+        """Serve ``reqs`` to idle (``drive``, or, with ``keep_open``, the
+        same without the close) and count the run; the server, handles,
+        results, wall, and each kernel's launches and launches a
+        quantum."""
+        before = launches_now()
+        hs = [s.submit(r) for r in reqs]
+        if keep_open:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        else:
+            wall = drive(s)
+        launches = {n: c - before[n] for n, c in launches_now().items()}
+        run18[0] += s.quanta * Q
+        run18[1] += s.quanta
+        res = [h.result(timeout=WAIT_S) for h in hs]
+        return dict(s=s, hs=hs, res=res, wall=wall, launches=launches,
+                    per_q={n: c / s.quanta for n, c in launches.items()})
+
+    # 18a-iii. the gates on the card against the CPU: a 64-lane pool (two
+    # tenants of 32 chains) and its CPU twin, the first tenant's white,
+    # hyper (so b) and z blocks gated, the second's theta, alpha and df;
+    # after a quantum of 5 sweeps at full rate, two quanta of 5 sweeps,
+    # each sweep from the card's state with the card's draws, ties
+    # separated as in 11b (these sweeps are not counted with the served
+    # runs' launches)
+    Q_S = 5
+    gates18 = [np.ones(NBLOCKS, np.float32) for _ in range(2)]
+    gates18[0][[0, 1, 4]] = 0.0
+    gates18[1][[3, 5, 6]] = 0.0
+    carried18 = (("x", "b", "z", "pout"), ("theta", "alpha", "df"))
+    C2 = POOL_CPU_CHAINS
+    pools18 = {}
+    for device in (dev, "cpu"):
+        pl = SlotPool(template, cfg_p, nlanes=POOL_CPU_LANES, quantum=Q_S,
+                      device=device)
+        for i in range(2):
+            be = tb.TorchGibbs(tenant_mas[i], cfg_p, nchains=C2,
+                               device=device, tnt_block_size=None)
+            lanes = np.arange(i * C2, (i + 1) * C2)
+            pl.write_tenant(TenantSlot(i, lanes, C2, 2 * Q_S, 0, 500 + i),
+                            be, be.init_state(seed=500 + i))
+        pools18[device] = pl
+    pg, pc = pools18[dev], pools18["cpu"]
+    # a quantum at full rate on the card first, as 11b starts from a state
+    # two sweeps in (each sweep below starts from the card's state)
+    pg.run_quantum()
+    for pl in (pg, pc):
+        for i in range(2):
+            pl.set_block_gates(np.arange(i * C2, (i + 1) * C2), gates18[i])
+        pl._upload()
+    gg, gc = pg.block_gates(), pc.block_gates()
+    st = pg.state
+    gate_rows = []
+    for j in range(2 * Q_S):
+        dr = pg._lane_draws(st, pg._lane_sweep + j)
+        dr = type(dr)(*(t.clone() for t in dr))
+        st_c = type(st)(*map(to_cpu, st))
+        for name, field in (("white_mh_lanes", "logu_w"),
+                            ("hyper_mh_lanes", "logu_h")):
+            dr_c = type(dr)(*map(to_cpu, dr))
+            (g,) = capture([name], lambda: pg.sampler._sweep(
+                st, dr, 0, block_gates=gg)).values()
+            (c,) = capture([name], lambda: pc.sampler._sweep(
+                st_c, dr_c, 0, block_gates=gc)).values()
+            gname = name.replace("lanes", "grouped")
+            lu = grouped_sep(gname, lanes_grouped(name, g), others=(
+                grouped_ll(gname, lanes_grouped(name, c), torch.float32),))
+            dr = dr._replace(**{field: lu})
+        dr_c = type(dr)(*map(to_cpu, dr))
+        out_g = pg.sampler._sweep(st, dr, 0, block_gates=gg)
+        out_c = pc.sampler._sweep(st_c, dr_c, 0, block_gates=gc)
+        nw, nh = cfg_p.mh.n_white_steps, cfg_p.mh.n_hyper_steps
+        agree = ((torch.round(to_cpu(out_g.acc_white) * nw)
+                  == torch.round(out_c.acc_white * nw))
+                 & (torch.round(to_cpu(out_g.acc_hyper) * nh)
+                    == torch.round(out_c.acc_hyper * nh)))
+        carried = all(
+            torch.equal(lanes_flat(getattr(out_g, f))[i * C2:(i + 1) * C2],
+                        lanes_flat(getattr(st, f))[i * C2:(i + 1) * C2])
+            for i, fields in enumerate(carried18) for f in fields)
+        gate_rows.append({
+            "sweep": j, "chains_acc_mismatch": int((~agree).sum()),
+            "carried_bitwise": bool(carried),
+            **{f: rel_err(to_cpu(getattr(out_g, f)), getattr(out_c, f))[:2]
+               for f in ("x", "b")}})
+        st = out_g
+    crep["gated_card_vs_cpu"] = gate_rows
+    print(f"# capacity 18a gated pool card-vs-cpu ({POOL_CPU_LANES} lanes, "
+          f"2 x {Q_S} sweeps): {json.dumps(gate_rows)}", flush=True)
+    # tolerance: the gated fields bitwise their carried values on the card;
+    # every chain's accept counts equal and x to 1e-4 relative at every
+    # sweep, as 11b (b reported, as 11b reports it)
+    if not all(r["carried_bitwise"] and r["chains_acc_mismatch"] == 0
+               and r["x"][1] <= 1e-4 for r in gate_rows):
+        fail("a gated pool sweep on the card does not carry the gated "
+             "fields, or disagrees with the CPU's")
+    del pools18, pg, pc, st, st_c, dr, dr_c, out_g, out_c
+
+    reset_counts()
+    try:
+        # 18a-ii. two of four monitored tenants with an AdaptScanSpec (an
+        # ESS target of 1: every block converged at the first evaluation,
+        # so each thins to the floor), against the same four monitored
+        # without, both executors in turns
+        mon18 = MonitorSpec(params=MON18, ess_target=1.0)
+        thin = {(p, t): [] for p in (False, True) for t in (True, False)}
+        order = ((False, True), (False, False), (True, False), (True, True))
+        for pipeline, th in order:
+            r = serve18(pool_server(pipeline),
+                        window_set(5, 720, mon18, adapt=2 if th else 0))
+            r["adapt"] = r["s"].summary()["adapt"]
+            r["views"] = [h.adapt for h in r["hs"]]
+            thin[(pipeline, th)].append(r)
+        per_q0 = thin[(False, False)][0]["per_q"]
+        thin_ok = {
+            "thinned": all(r["adapt"]["tenants_thinned"] == 2
+                           and all(v and v["probs"] for v in r["views"][:2])
+                           for p in (False, True) for r in thin[(p, True)]),
+            "unthinned": all(r["adapt"]["tenants_thinned"] == 0
+                             and not any(r["views"])
+                             for p in (False, True)
+                             for r in thin[(p, False)]),
+            "launches_equal": all(r["per_q"] == per_q0
+                                  for rs in thin.values() for r in rs)}
+        # the launches and device ms a quantum of every device op, thinning
+        # and not: a device-only profile of the same window, serial
+        prof18 = {}
+        for th in (True, False):
+            s = pool_server(False)
+            for req in window_set(5, 720, mon18, adapt=2 if th else 0):
+                s.submit(req)
+            prof = profile_calls(torch, lambda s=s: drive(s), 1, cpu=False)
+            run18[0] += s.quanta * Q
+            run18[1] += s.quanta
+            if prof["device_ms_per_sweep"] <= 0:
+                fail("the profiler saw no device time in phase 18's window")
+            prof18[th] = {
+                "quanta": s.quanta,
+                "device_ms_per_quantum": prof["device_ms_per_sweep"]
+                / s.quanta,
+                "launches_per_sweep": prof["launches_per_sweep"]
+                / (s.quanta * Q)}
+        for pipeline in (False, True):
+            name = "pipelined" if pipeline else "serial"
+            crep[f"adapt_{name}"] = {
+                f"ms_per_quantum_{'thin' if th else 'full'}": [
+                    1e3 * r["wall"] / r["s"].quanta
+                    for r in thin[(pipeline, th)]]
+                for th in (True, False)}
+            crep[f"adapt_{name}"]["gate_updates"] = [
+                r["adapt"]["updates"] for r in thin[(pipeline, True)]]
+        crep["adapt_probs"] = thin[(False, True)][0]["views"][0]["probs"]
+        crep["adapt_profile"] = {"thin" if th else "full": v
+                                 for th, v in prof18.items()}
+        crep["adapt_checks"] = thin_ok
+        print(f"# capacity 18a adaptive scans: {json.dumps(thin_ok)}",
+              flush=True)
+        if not all(thin_ok.values()):
+            fail("an adaptive tenant did not thin, a tenant without a spec "
+                 "did, or thinning changed the kernels' launches")
+        del thin
+
+        # 18b. warm starts: four WarmStartSpec() tenants and one flow tenant
+        # of 128 chains, monitored, on the pipelined executor (their pilots
+        # served on the pool, one wave), against the same tenants cold; a
+        # journaled fit given to a new server draws the same x0 and gives
+        # the same tenant
+        W_CHAINS, W_QUANTA = 128, 8
+        mon_w = MonitorSpec(params=MON18)
+
+        def warm_set(warm):
+            return [TenantRequest(
+                ma=tenant_mas[i], niter=W_QUANTA * Q, nchains=W_CHAINS,
+                seed=800 + i, monitor=mon_w,
+                warm_start=((WarmStartSpec(kind="flow") if i == 4
+                             else WarmStartSpec()) if warm else None))
+                for i in range(5)]
+
+        man18 = os.path.join(tmp18, "manifest")
+        s = pool_server(True, manifest_dir=man18)
+        try:
+            w = serve18(s, warm_set(True), keep_open=True)
+            journal = {r["seed"]: r["warm"] for r in read_manifest(man18)
+                       if r.get("kind") == "admit"}
+        finally:
+            s.close(timeout=WAIT_S)
+        wd_states.append(s.healthz()["watchdog"]["state"])
+        w_summ = s.summary()["warm"]
+        c = serve18(pool_server(True), warm_set(False))
+        # the replay: the gmm tenant 0 and the flow tenant 4 from their
+        # journaled fits on a new server, no pilot
+        replay_idx = (0, 4)
+        rp = serve18(pool_server(True), [
+            TenantRequest(ma=tenant_mas[i], niter=W_QUANTA * Q,
+                          nchains=W_CHAINS, seed=800 + i, monitor=mon_w,
+                          warm_start=journal[800 + i])
+            for i in replay_idx])
+        # the convergence verdict of one ESS target on every tenant's rows,
+        # warm and cold: the monitor's own update, quantum by quantum, with
+        # the target the cold tenants' median min-ESS after half the budget
+        ess_half = float(np.median([
+            ess_per_param(r.chain[:W_QUANTA // 2 * Q][:, :, MON18]).min()
+            for r in c["res"]]))
+
+        def verdict(res):
+            mon = TenantMonitor(MonitorSpec(params=MON18,
+                                            ess_target=ess_half),
+                                W_CHAINS, np.asarray(MON18))
+            for k in range(1, W_QUANTA + 1):
+                mon.update(res.chain[(k - 1) * Q:k * Q], k * Q)
+            return mon.converged_at
+
+        x0_ok = all(np.array_equal(
+            w["res"][i].chain[0],
+            WarmStartFit.from_json(journal[800 + i]).draw_x0(
+                W_CHAINS, 800 + i, tenant_mas[i].specs_np).astype(
+                    np.float32)) for i in replay_idx)
+        warm_ok = {
+            "warm_starts": w_summ["warm_starts"],
+            "degraded": w_summ["degraded"],
+            "pilot_batches": w_summ["pilot_batches"],
+            "pilot_batched_fits": w_summ["pilot_batched_fits"],
+            "flow_fits": w_summ["flow_fits"],
+            "kinds": [h.warm["kind"] for h in w["hs"]],
+            "journaled": sorted(journal) == [800 + i for i in range(5)],
+            "x0_replayed_bitwise": bool(x0_ok),
+            "replay_bitwise": all(
+                same_rows(a, w["res"][i])
+                for a, i in zip(rp["res"], replay_idx)),
+            "replayed_without_pilot": all(
+                h.warm["replayed"] for h in rp["hs"])
+            and rp["s"].summary()["warm"]["pilot_ms_total"] == 0.0,
+            "finite": all(np.isfinite(r.chain).all() for r in w["res"])}
+        crep["warm"] = {
+            **warm_ok, "pilot_ms_total": w_summ["pilot_ms_total"],
+            "tenants": [{
+                "kind": h.warm["kind"], "batched": h.warm["batched"],
+                "pilot_ms": h.warm["pilot_ms"],
+                "admission_ms": [h.admission_ms, hc.admission_ms],
+                "first_result_ms": [h.first_result_ms, hc.first_result_ms],
+                "converged_at": [verdict(rw), verdict(rc)],
+                "ess_min_final": [h.progress()["ess_min"],
+                                  hc.progress()["ess_min"]]}
+                for h, hc, rw, rc in zip(w["hs"], c["hs"], w["res"],
+                                         c["res"])],
+            "ess_target": ess_half,
+            "wall_s": [w["wall"], c["wall"]],
+            "quanta": [w["s"].quanta, c["s"].quanta]}
+        print(f"# capacity 18b warm starts: {json.dumps(warm_ok)}",
+              flush=True)
+        if not (warm_ok["warm_starts"] == 5 and warm_ok["degraded"] == 0
+                and warm_ok["pilot_batches"] >= 1
+                and warm_ok["flow_fits"] == 1
+                and warm_ok["kinds"] == ["gmm"] * 4 + ["flow"]
+                and warm_ok["journaled"] and warm_ok["x0_replayed_bitwise"]
+                and warm_ok["replay_bitwise"]
+                and warm_ok["replayed_without_pilot"]
+                and warm_ok["finite"]):
+            fail("the warm starts did not ride one pilot wave, degraded, or "
+                 "a journaled fit did not replay the tenant bitwise")
+        del w, c, rp
+
+        # 18c. recycling on against off, each executor, in turns: the window
+        # with two spooled tenants; its first run with every lane's gates
+        # armed at ones, and a last one on a pool built without gates
+        # (GST_ADAPT_SCAN=0), both held to the others bit for bit with equal
+        # launches a quantum (18a's all-ones check)
+        rec = {}
+        for pipeline, on, arm in ((False, True, "ones"), (False, False, ""),
+                                  (True, False, ""), (True, True, ""),
+                                  (False, True, "off")):
+            reqs = window_set(4, 900)
+            for i in range(2):
+                reqs[i].spool_dir = os.path.join(
+                    tmp18, f"rec{int(pipeline)}{int(on)}{arm}_{i}")
+            if arm == "off":
+                with env_set("GST_ADAPT_SCAN", "0"):
+                    s = pool_server(pipeline, recycle=on)
+            else:
+                s = pool_server(pipeline, recycle=on)
+            if s.pool.adaptive is (arm == "off"):
+                fail("GST_ADAPT_SCAN=0 did not build a pool without gates")
+            if arm == "ones":
+                s.pool.set_block_gates(np.arange(POOL_LANES),
+                                       np.ones(NBLOCKS, np.float32))
+            rec[(pipeline, on, arm)] = r = serve18(s, reqs)
+            r["dirs"] = [q.spool_dir for q in reqs[:2]]
+
+        def spool_bytes(d):
+            out = {}
+            for name in sorted(os.listdir(d)):
+                if name.endswith(".spool"):
+                    with open(os.path.join(d, name), "rb") as fh:
+                        out[name] = fh.read()
+            return out
+
+        base = rec[(False, True, "ones")]["res"]
+        rec_ok = {
+            "bitwise": all(same_rows(a, b) for r in rec.values()
+                           for a, b in zip(r["res"], base)),
+            "spools_bitwise": all(
+                spool_bytes(a) == spool_bytes(b)
+                for key in rec for a, b in zip(
+                    rec[key]["dirs"], rec[(False, True, "ones")]["dirs"])),
+            "recycled_rows": all(
+                h.recycled_rows == ((res.chain.shape[0] - 1)
+                                    * res.chain.shape[1] if on else 0)
+                and ("recycle" in res.stats) == on
+                for (p, on, _), r in rec.items()
+                for h, res in zip(r["hs"], r["res"])),
+            "launches_equal": all(
+                r["per_q"] == rec[(False, True, "ones")]["per_q"]
+                for r in rec.values())}
+        for pipeline in (False, True):
+            crep[f"recycle_{'pipelined' if pipeline else 'serial'}"] = {
+                f"drain_host_ms_{'on' if on else 'off'}":
+                rec[(pipeline, on, "ones" if not pipeline and on else "")][
+                    "s"].summary()["host_ms"]["drain"]["mean"]
+                for on in (True, False)}
+        crep["recycle"] = rec_ok
+        print(f"# capacity 18c recycling on vs off, gates all ones and "
+              f"GST_ADAPT_SCAN=0: {json.dumps(rec_ok)}", flush=True)
+        if not all(rec_ok.values()):
+            fail("recycling or the all-ones gates changed the chains, the "
+                 "spools or the launches, or the recycled rows miscount")
+        del rec
+        if "tripped" in wd_states:
+            fail("the watchdog tripped in a run of phase 18")
+        counts18 = check_launches("pool_capacity", run18[0], run18[1])
+    finally:
+        shutil.rmtree(tmp18, ignore_errors=True)
+
+    for pipeline in (False, True):
+        name = "pipelined" if pipeline else "serial"
+        a = crep[f"adapt_{name}"]
+        print(f"# capacity 18a pool1024 {name}: ms a quantum thinning "
+              f"{' / '.join(format(v, '.2f') for v in a['ms_per_quantum_thin'])}"
+              f", full rate "
+              f"{' / '.join(format(v, '.2f') for v in a['ms_per_quantum_full'])}"
+              f"; gate updates {a['gate_updates']} | {card}", flush=True)
+    pf = crep["adapt_profile"]
+    print(f"# capacity 18a pool1024 device (serial, profiled): thinning "
+          f"{pf['thin']['launches_per_sweep']:.1f} launches a sweep, "
+          f"{pf['thin']['device_ms_per_quantum']:.3f} ms a quantum; full "
+          f"rate {pf['full']['launches_per_sweep']:.1f}, "
+          f"{pf['full']['device_ms_per_quantum']:.3f}; selection "
+          f"probabilities {json.dumps(crep['adapt_probs'])} | {card}",
+          flush=True)
+    wm = crep["warm"]
+    for t in wm["tenants"]:
+        print(f"# capacity 18b warm {t['kind']} (batched {t['batched']}): "
+              f"pilot {t['pilot_ms']:.1f} ms; admission "
+              f"{t['admission_ms'][0]:.1f} ms warm / {t['admission_ms'][1]:.1f}"
+              f" cold; first result {t['first_result_ms'][0]:.1f} / "
+              f"{t['first_result_ms'][1]:.1f} ms; at ESS "
+              f"{wm['ess_target']:.1f} converged at sweep "
+              f"{t['converged_at'][0]} warm / {t['converged_at'][1]} cold, "
+              f"final min-ESS {t['ess_min_final'][0]:.1f} / "
+              f"{t['ess_min_final'][1]:.1f} | {card}", flush=True)
+    for pipeline in (False, True):
+        name = "pipelined" if pipeline else "serial"
+        r = crep[f"recycle_{name}"]
+        print(f"# capacity 18c pool1024 {name}: drain host ms a quantum, "
+              f"recycling on {r['drain_host_ms_on']:.3f}, off "
+              f"{r['drain_host_ms_off']:.3f} | {card}", flush=True)
+    crep["launches"] = counts18
+    crep["seconds"] = time.perf_counter() - t18
+    print(f"# phase 18: {crep['seconds']:.1f} s", flush=True)
+
 
     # the redesigned kernels beside the first design and the library call
     # (reported, not gated)

@@ -136,6 +136,27 @@ _RECORD_FIELDS = ("x", "b", "z", "theta", "alpha", "df", "pout",
 #: shape the per-TOA z, alpha and pout dominate the device-to-host bytes)
 _LIGHT_FIELDS = ("x", "theta", "df", "acc_white", "acc_hyper")
 
+# The systematic-scan block order of ``_sweep`` (white x, hyper x, b,
+# theta, z, alpha, df) splits the recorded fields at the partial-scan point
+# after the coefficient draw: a mid-scan state holds the new values of the
+# fields the scan has updated and the old values of the rest. Recycling
+# Gibbs (parallel/recycle.py) rebuilds those states from adjacent recorded
+# rows by these two groups (the JAX backend's, pinned equal in
+# tests/test_torch_recycle.py).
+RECYCLE_EARLY_FIELDS = ("x", "b", "acc_white", "acc_hyper")
+RECYCLE_LATE_FIELDS = ("z", "theta", "alpha", "df", "pout")
+
+# Adaptive block scans (serve/adapt.py): the indices into ``_sweep``'s
+# per-chain block-enable operand, one per conditional block in the scan
+# order above (the JAX backend's). The b draw's effective gate is tied to
+# the hyper gate (``BLOCK_HYPER & BLOCK_B``): b is drawn conditioned on the
+# proposed hyper x, so a kept b under a discarded x would condition on a
+# value the chain never took.
+BLOCK_WHITE, BLOCK_HYPER, BLOCK_B = 0, 1, 2
+BLOCK_THETA, BLOCK_Z, BLOCK_ALPHA, BLOCK_DF = 3, 4, 5, 6
+NBLOCKS = 7
+BLOCK_NAMES = ("white", "hyper", "b", "theta", "z", "alpha", "df")
+
 # record="compact": device->host transport dtypes for the bulky recorded
 # fields (jax_backend.py's ``_COMPACT_CASTS``). z is exactly 0/1 so it is
 # bit-packed (8 indicators per byte, lossless); pout is a probability
@@ -1009,10 +1030,21 @@ class TorchGibbs(SamplerBackend):
     # ------------------------------------------------------------------
 
     def _sweep(self, state: ChainState, draws: SweepDraws,
-               sweep: Optional[int] = None) -> ChainState:
+               sweep: Optional[int] = None,
+               block_gates: Optional[torch.Tensor] = None) -> ChainState:
         """One full Gibbs sweep for all chains, deterministic given
         ``draws``. ``sweep`` (the sweep index) is needed only while the
-        MH scales adapt (MHConfig.adapt_until)."""
+        MH scales adapt (MHConfig.adapt_until).
+
+        ``block_gates`` (``(..., NBLOCKS)`` 0/1 floats, one row a chain;
+        the adaptive scan of serve/adapt.py) gates each conditional block
+        as the JAX backend does: a block whose gate is 0 is computed and
+        discarded, and its fields keep their carried values (the draws are
+        made either way, so the key schedule does not change). A gated
+        white block leaves ``nvec`` built from the carried x; b keeps its
+        value unless both the hyper and the b gate are 1; a gated MH
+        block's acceptance reads 0 and its Robbins-Monro term is frozen.
+        ``None`` is the ungated sweep, op for op."""
         cfg = self.config
         mm = self._ma
         mask = self._mask
@@ -1021,6 +1053,7 @@ class TorchGibbs(SamplerBackend):
         x, b, z, alpha, theta, df = (state.x, state.b, state.z, state.alpha,
                                      state.theta, state.df)
         zeros = torch.zeros_like(state.theta)
+        gate = None if block_gates is None else block_gates > 0.5
 
         # --- white MH block (reference gibbs.py:114-143) ---------------
         az = alpha ** z
@@ -1029,6 +1062,10 @@ class TorchGibbs(SamplerBackend):
             if self._white is not None:
                 yred = self._y - matvec_blocked(self._T, b, self._block_size)
                 x, acc_w = self._white_block(x, az, yred * yred, draws)
+            if gate is not None:
+                g_w = gate[..., BLOCK_WHITE]
+                x = torch.where(g_w[..., None], x, state.x)
+                acc_w = torch.where(g_w, acc_w, zeros)
             nvec = self._masked_nvec(x, az)
 
         # --- per-sweep inner products (reference gibbs.py:302-304) -----
@@ -1052,8 +1089,11 @@ class TorchGibbs(SamplerBackend):
                 return_factor=True)
             base = (const_white + 0.5 * (quad_s - logdetA)
                     - 0.5 * hp["logdet_static"])
+            x_in = x
             with block_span("gibbs/hyper_mh"):
                 x, acc_h = self._hyper_block(x, S0, rt, base, draws)
+            if gate is not None:
+                x, acc_h = _gate_hyper(gate, x, x_in, acc_h, zeros)
             # b draw with block-factor reuse: factor only the phi-varying
             # block S_v = S0 + diag(phiinv_v) (escalating jitters) and
             # assemble the permuted full factor from the A-block pieces
@@ -1069,16 +1109,23 @@ class TorchGibbs(SamplerBackend):
                 b[..., s_i] = y_s * isd_a
                 b[..., v_i] = y_v * isd_v
         else:
+            x_in = x
             if hp is not None:
                 base = const_white - 0.5 * hp["logdet_static"]
                 with block_span("gibbs/hyper_mh"):
                     x, acc_h = self._hyper_block(x, TNT, d, base, draws)
+            if gate is not None:
+                x, acc_h = _gate_hyper(gate, x, x_in, acc_h, zeros)
             with block_span("gibbs/b_draw"):
                 phiinv = self._phiinv(x)
                 Sigma = TNT + torch.diag_embed(phiinv)
                 y, isd, _ = robust_precond_draw(Sigma, d, draws.xi,
                                                 jitters=jits)
                 b = y * isd
+        if gate is not None:
+            # tied to the hyper gate on both b paths (see BLOCK_B)
+            g_b = gate[..., BLOCK_HYPER] & gate[..., BLOCK_B]
+            b = torch.where(g_b[..., None], b, state.b)
 
         resid = self._y - matvec_blocked(self._T, b, self._block_size)
         nvec0 = self._ndiag(x)
@@ -1089,6 +1136,9 @@ class TorchGibbs(SamplerBackend):
         if cfg.is_outlier_model:
             ga, gb = draws.g_theta[..., 0], draws.g_theta[..., 1]
             theta = ga / (ga + gb)
+            if gate is not None:
+                theta = torch.where(gate[..., BLOCK_THETA], theta,
+                                    state.theta)
 
         # --- outlier indicators z ~ Bernoulli (gibbs.py:201-226) --------
         pout = state.pout
@@ -1105,6 +1155,10 @@ class TorchGibbs(SamplerBackend):
                 q = torch.where(mask, q, 0.0)
             pout = q
             z = (draws.u_z < q.clamp(0.0, 1.0)).to(x.dtype)
+            if gate is not None:
+                g_z = gate[..., BLOCK_Z, None]
+                z = torch.where(g_z, z, state.z)
+                pout = torch.where(g_z, pout, state.pout)
 
         # --- auxiliary scales alpha (gibbs.py:229-242) -------------------
         if cfg.vary_alpha:
@@ -1116,6 +1170,9 @@ class TorchGibbs(SamplerBackend):
                 alpha_new = torch.where(mask, alpha_new, 1.0)
             alpha = torch.where((z.sum(-1) >= 1.0)[..., None], alpha_new,
                                 alpha)
+            if gate is not None:
+                alpha = torch.where(gate[..., BLOCK_ALPHA, None], alpha,
+                                    state.alpha)
 
         # --- degrees of freedom on the grid (gibbs.py:244-259) -----------
         if cfg.vary_df:
@@ -1128,6 +1185,8 @@ class TorchGibbs(SamplerBackend):
                     + n_stat * (grid / 2.0) * torch.log(grid / 2.0)
                     - n_stat * torch.special.gammaln(grid / 2.0))
             df = grid[torch.argmax(logp + draws.gumbel_df, dim=-1)]
+            if gate is not None:
+                df = torch.where(gate[..., BLOCK_DF], df, state.df)
 
         # --- Robbins-Monro jump-scale adaptation --------------------------
         mh_ls = state.mh_log_scale
@@ -1135,7 +1194,12 @@ class TorchGibbs(SamplerBackend):
             eta = self._rm_step(sweep)
             target = (cfg.mh.cov_target_accept if cfg.mh.adapt_cov
                       else cfg.mh.target_accept)
-            mh_ls = mh_ls + eta * (torch.stack([acc_w, acc_h], -1) - target)
+            step = torch.stack([acc_w, acc_h], -1) - target
+            if block_gates is not None:
+                # a gated MH block's zeroed acceptance must not read as a
+                # rejection: its adaptation term is frozen instead
+                step = block_gates[..., :2].to(step.dtype) * step
+            mh_ls = mh_ls + eta * step
 
         return ChainState(x=x, b=b, z=z, alpha=alpha, theta=theta, df=df,
                           pout=pout, acc_white=acc_w, acc_hyper=acc_h,
@@ -1505,6 +1569,14 @@ class TorchGibbs(SamplerBackend):
             alphachain=cols.get("alpha", empty),
             poutchain=cols.get("pout", empty), dfchain=cols["df"],
             stats=stats)
+
+
+def _gate_hyper(gate, x, x_in, acc_h, zeros):
+    """The hyper block's gate: a gated chain keeps the x it entered the
+    block with, and its acceptance reads 0."""
+    g_h = gate[..., BLOCK_HYPER]
+    return (torch.where(g_h[..., None], x, x_in),
+            torch.where(g_h, acc_h, zeros))
 
 
 def _norm_pdf(x, var):

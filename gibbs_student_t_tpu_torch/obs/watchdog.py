@@ -36,13 +36,14 @@ walls, and an injected stall).
 from __future__ import annotations
 
 import collections
-import os
 import statistics
 import threading
 import time
 import warnings
 from dataclasses import dataclass
 from typing import Callable, Optional
+
+from gibbs_student_t_tpu_torch.utils.env import env_choice
 
 #: Trip causes (the ``healthz.watchdog.trip.cause`` enum).
 CAUSES = ("dispatch_stall", "drain_backlog", "throughput_collapse")
@@ -58,13 +59,7 @@ def serve_watchdog_env() -> str:
     """The validated ``GST_SERVE_WATCHDOG`` (``auto`` when unset):
     strictly ``auto|0|warn|dump|fail``, and any other value raises a
     ``ValueError`` naming it."""
-    env = os.environ.get("GST_SERVE_WATCHDOG")
-    if env is not None and env not in _ENV_VALUES:
-        pretty = ", ".join(f"'{v}'" for v in _ENV_VALUES[:-1])
-        raise ValueError(
-            f"GST_SERVE_WATCHDOG must be {pretty} or "
-            f"'{_ENV_VALUES[-1]}', got {env!r}")
-    return env if env is not None else "auto"
+    return env_choice("GST_SERVE_WATCHDOG", _ENV_VALUES)
 
 
 @dataclass

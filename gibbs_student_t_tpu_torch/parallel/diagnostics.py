@@ -13,9 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
-#: the ``row_class`` value of a scan-end row, the only kind a run without
-#: recycled partial-scan rows records (``parallel/recycle.py`` of the JAX
-#: package defines the classes; recycling is not part of this package)
+#: the ``row_class`` value of a scan-end row (``parallel/recycle.py`` tags
+#: the rebuilt partial-scan rows between them)
 ROW_SCAN_END = 0
 
 
@@ -74,15 +73,14 @@ def ess_per_param(window: np.ndarray,
     (rows, nchains, p) window: chains pooled, each discounted by its
     autocorrelation time, all nchains*p columns in one batched FFT.
 
-    ``row_class`` (:data:`ROW_SCAN_END` and the JAX package's
-    parallel/recycle.py) marks recycled partial-scan rows in an
-    interleaved window; they are DROPPED here before the
-    autocorrelation pass. Each coordinate updates once per scan, so a
+    ``row_class`` (:data:`ROW_SCAN_END` and parallel/recycle.py) marks
+    recycled partial-scan rows in an interleaved window; they are
+    DROPPED here before the autocorrelation pass. Each coordinate updates once per scan, so a
     recycled row duplicates its per-param value from an adjacent
     scan-end row — keeping duplicates would double the row count AND
     the measured τ, an estimator no-op paid for with a 2× FFT
     (recycling buys cross-block moments, never per-param ESS; see
-    recycle.py's module docs, pinned in tests/test_recycle.py)."""
+    recycle.py's module docs, pinned in tests/test_torch_recycle.py)."""
     window = np.asarray(window, dtype=np.float64)
     if row_class is not None:
         window = window[np.asarray(row_class) == ROW_SCAN_END]

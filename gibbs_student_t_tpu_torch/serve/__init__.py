@@ -25,9 +25,18 @@ streams the tenant's ESS and split-R-hat from its drained rows into
 ``progress()``, and ``on_converged="evict"`` ends it once converged. The
 server's observability plane (spans, cost, the pull surface, the flight
 recorder and the watchdog) is described in ``server.py``.
+
+The capacity arms: a request's :class:`WarmStartSpec` (``warm.py``) starts
+its chains from a fit to a short pilot run instead of the prior (a
+:class:`WarmStartFit` replays a journaled fit); its :class:`AdaptScanSpec`
+(``adapt.py``) thins its converged conditional blocks; and the server tags
+the partial-scan states every sweep computes as recycled rows
+(``parallel/recycle.py``). ``GST_WARM_START``, ``GST_WARM_FLOW``,
+``GST_ADAPT_SCAN`` and ``GST_RECYCLE`` gate them, strictly ``auto|1|0``.
 """
 
 from gibbs_student_t_tpu_torch.serve import faults
+from gibbs_student_t_tpu_torch.serve.adapt import AdaptScanSpec
 from gibbs_student_t_tpu_torch.serve.monitor import MonitorSpec, TenantMonitor
 from gibbs_student_t_tpu_torch.serve.pool import SlotPool, TenantSlot
 from gibbs_student_t_tpu_torch.serve.scheduler import (
@@ -43,9 +52,11 @@ from gibbs_student_t_tpu_torch.serve.scheduler import (
     schedule_score,
 )
 from gibbs_student_t_tpu_torch.serve.server import ChainServer
+from gibbs_student_t_tpu_torch.serve.warm import WarmStartFit, WarmStartSpec
 
-__all__ = ["CONVERGED_POLICIES", "DIVERGENCE_POLICIES", "AdmissionQueue",
-           "ChainServer", "DeadlineExceeded", "MonitorSpec", "QueueFull",
-           "RetryAfter", "SlotPool", "TenantError", "TenantHandle",
-           "TenantMonitor", "TenantRequest", "TenantSlot", "faults",
+__all__ = ["CONVERGED_POLICIES", "DIVERGENCE_POLICIES", "AdaptScanSpec",
+           "AdmissionQueue", "ChainServer", "DeadlineExceeded",
+           "MonitorSpec", "QueueFull", "RetryAfter", "SlotPool",
+           "TenantError", "TenantHandle", "TenantMonitor", "TenantRequest",
+           "TenantSlot", "WarmStartFit", "WarmStartSpec", "faults",
            "schedule_score"]

@@ -19,14 +19,17 @@ the windowed autocorrelation (one batched FFT over ``rows x nchains x
 ``MonitorSpec.every``. It runs on the drain thread, never the dispatch
 thread.
 
+Recycling (parallel/recycle.py): the drain passes each quantum's count of
+recycled partial-scan rows, and the Welford moments weight them in (each
+recycled row's x equals the next scan-end row's, so the weighting is
+multiplicity 2 on the trailing rows, with no rebuilt array). ESS and
+split-R-hat stay on the scan-end rows: a recycled row repeats its
+neighbour's per-parameter values, so it would double the rows and the
+measured autocorrelation time for the same verdict.
+
 Failure contract: the server wraps every monitor call, and a monitor
 exception detaches THAT tenant's monitor with a warning while the tenant
 keeps serving.
-
-Not here: the Rao-Blackwellized weighting of recycled partial-scan rows
-(the reference's ``recycled=`` argument). It belongs to recycling, which
-this package does not have; a nonzero ``recycled`` is refused with a
-``ValueError``.
 """
 
 from __future__ import annotations
@@ -37,28 +40,6 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Sequence
 
 import numpy as np
-
-#: The conditional blocks of one Gibbs sweep, in sweep order (the
-#: reference's ``serve/adapt.BLOCK_NAMES``). The monitor reports the
-#: per-block minimum ESS of the blocks its parameters belong to.
-BLOCK_NAMES = ("white", "hyper", "b", "theta", "z", "alpha", "df")
-BLOCK_WHITE, BLOCK_HYPER = 0, 1
-
-
-def param_blocks(param_idx, white_indices, hyper_indices) -> np.ndarray:
-    """Each monitored parameter's conditional block: ``BLOCK_WHITE``,
-    ``BLOCK_HYPER`` or ``-1`` (a column no parameter block owns). Pure
-    model structure (``ModelArrays.white_indices`` and
-    ``hyper_indices``), computed once at admission."""
-    w = {int(i) for i in np.asarray(white_indices).ravel()}
-    h = {int(i) for i in np.asarray(hyper_indices).ravel()}
-    out = np.full(len(param_idx), -1, int)
-    for j, p in enumerate(np.asarray(param_idx, int)):
-        if int(p) in w:
-            out[j] = BLOCK_WHITE
-        elif int(p) in h:
-            out[j] = BLOCK_HYPER
-    return out
 
 
 @dataclass
@@ -119,14 +100,6 @@ def resolve_params(spec: MonitorSpec, param_names) -> np.ndarray:
     return np.asarray(idx, int)
 
 
-def _no_recycling(recycled) -> None:
-    if recycled:
-        raise ValueError(
-            "recycled-row weighting belongs to recycling, which this "
-            "package does not have; feed scan-end rows only "
-            "(recycled=0)")
-
-
 class TenantMonitor:
     """Online ESS and split-R-hat over one tenant's monitored columns.
 
@@ -166,6 +139,9 @@ class TenantMonitor:
         self._w_m2 = np.zeros_like(self._w_mean)
         self._updates = 0
         self._t_first: Optional[float] = None
+        # recycled partial-scan rows folded into the weighted moments
+        # (the windowed ESS and R-hat stay on the scan-end rows)
+        self._recycled = 0
         self._snap: Dict[str, object] = {
             "rows": 0, "sweeps": 0, "params": self.param_names,
             "ess": None, "ess_min": None, "rhat": None, "rhat_max": None,
@@ -185,16 +161,25 @@ class TenantMonitor:
         self._buf[self._rows:need] = rows
         self._rows = need
 
-    def _welford(self, rows: np.ndarray) -> None:
+    def _welford(self, rows: np.ndarray,
+                 weights: Optional[np.ndarray] = None) -> None:
         """Chan's batched merge: fold the new rows' count, mean and M2
-        into the running moments in one vectorized step."""
+        into the running moments in one vectorized step. ``weights`` (per
+        row, the recycled rows' multiplicities) makes it the weighted
+        merge; integer weights equal duplicated rows."""
         rows = np.asarray(rows, np.float64)            # (nb, nchains, p)
         nb = rows.shape[0]
         if nb == 0:
             return
-        wsum = float(nb)
-        bm = rows.mean(axis=0)
-        bm2 = ((rows - bm) ** 2).sum(axis=0)
+        if weights is None:
+            wsum = float(nb)
+            bm = rows.mean(axis=0)
+            bm2 = ((rows - bm) ** 2).sum(axis=0)
+        else:
+            w = np.asarray(weights, np.float64).reshape(nb, 1, 1)
+            wsum = float(w.sum())
+            bm = (w * rows).sum(axis=0) / wsum
+            bm2 = (w * (rows - bm) ** 2).sum(axis=0)
         tot = self._w_n + wsum
         delta = bm - self._w_mean
         self._w_m2 += bm2 + delta ** 2 * (self._w_n * wsum / tot)
@@ -211,23 +196,39 @@ class TenantMonitor:
             x_rows = x_rows[:, :, self.param_idx]
         return x_rows
 
+    @staticmethod
+    def _recycle_weights(nb: int, recycled: int):
+        """``(weights, recycled)`` of ``nb`` scan-end rows of which the
+        trailing ``recycled`` each stand for a recycled row too."""
+        if not recycled:
+            return None, 0
+        recycled = min(int(recycled), nb)
+        weights = np.ones(nb)
+        weights[nb - recycled:] += 1.0
+        return weights, recycled
+
     def update(self, x_rows: np.ndarray, sweep_end: int,
                recycled: int = 0) -> None:
         """Fold one drained quantum: ``x_rows`` is the tenant's new
         ``(rows, nchains, p_model)`` rows (or ``(rows, nchains,
-        |params|)``, already sliced). O(new rows) plus the throttled
-        windowed evaluation."""
-        _no_recycling(recycled)
+        |params|)``, already sliced). ``recycled`` is the quantum's count
+        of recycled partial-scan rows, which the moments weight in (see
+        the module docstring). O(new rows) plus the throttled windowed
+        evaluation."""
         x_rows = self._columns(x_rows, "update")
         now = time.monotonic()
+        weights, recycled = self._recycle_weights(x_rows.shape[0], recycled)
         with self._lock:
             if self._t_first is None:
                 self._t_first = now
             self._append(np.asarray(x_rows, np.float32))
-            self._welford(x_rows)
+            self._welford(x_rows, weights=weights)
+            self._recycled += recycled
             self._updates += 1
             self._snap["rows"] = self._rows
             self._snap["sweeps"] = int(sweep_end)
+            if self._recycled:
+                self._snap["recycled_rows"] = self._recycled
             if (self._updates % self.spec.every == 0
                     and self._rows >= self.spec.min_rows):
                 self._evaluate(now, int(sweep_end))
@@ -240,14 +241,17 @@ class TenantMonitor:
         advanced, so the first evaluation after the resume sees the same
         rows, at the same ``every`` phase, as the uninterrupted run's at
         that sweep."""
-        _no_recycling(recycled)
         x_rows = self._columns(x_rows, "backfill")
+        weights, recycled = self._recycle_weights(x_rows.shape[0], recycled)
         with self._lock:
             self._append(np.asarray(x_rows, np.float32))
-            self._welford(x_rows)
+            self._welford(x_rows, weights=weights)
+            self._recycled += recycled
             self._updates += int(updates)
             self._snap["rows"] = self._rows
             self._snap["sweeps"] = int(sweep_end)
+            if self._recycled:
+                self._snap["recycled_rows"] = self._recycled
 
     def _evaluate(self, now: float, sweep_end: int) -> None:
         """The windowed diagnostics over the accumulated rows: exactly

@@ -53,17 +53,27 @@ freezes lanes without freeing their groups, :meth:`reinit_lanes` writes
 fresh chains into lanes and re-activates them, and :meth:`poison_lanes`
 writes NaN into a lane's parameters (the ``lane_nan`` fault).
 
+Adaptive block scans (serve/adapt.py; ``GST_ADAPT_SCAN``, resolved once at
+construction into :attr:`SlotPool.adaptive`): an adaptive pool keeps a
+host ``(nlanes, NBLOCKS)`` buffer of per-lane block gates with its own
+dirty flag, which :meth:`SlotPool.set_block_gates` writes (the server's
+drain, at a tenant's boundaries) and the next dispatch uploads; admission
+and eviction write ones. While every lane's gates are ones the sweep gets
+``block_gates=None``, the ungated sweep op for op, so launches a sweep
+change only while some tenant thins. A gated block is computed and
+discarded, as in the JAX pool: its kernel still launches.
+
 Not ported from the JAX pool: buffer donation and the device scatter of
-admissions (``GST_SERVE_SCATTER``), the adaptive block-gate operand, the
-wire-dtype record tiers, recycling, and heterogeneous pools (tenants with
-fewer TOAs than the pool). Like the JAX pool it refuses population-
-covariance adaptation; it also refuses multiple-try Metropolis, which the
-lanes entries do not cover.
+admissions (``GST_SERVE_SCATTER``), the wire-dtype record tiers, and
+heterogeneous pools (tenants with fewer TOAs than the pool). Like the JAX
+pool it refuses population-covariance adaptation; it also refuses
+multiple-try Metropolis, which the lanes entries do not cover.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import threading
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -71,6 +81,7 @@ import torch
 from gibbs_student_t_tpu_torch.backends.torch_backend import (
     _LIGHT_FIELDS,
     _RECORD_FIELDS,
+    NBLOCKS,
     ChainState,
     SweepDraws,
     TorchGibbs,
@@ -91,6 +102,7 @@ from gibbs_student_t_tpu_torch.parallel.ensemble import (
     EnsembleGibbs,
     _localize_names,
 )
+from gibbs_student_t_tpu_torch.serve.adapt import adapt_scan_enabled
 
 #: gid of lanes no tenant owns (whole free groups)
 FREE_GID = -1
@@ -273,6 +285,17 @@ class SlotPool:
         self._dirty = True
         self._slots: Dict[int, TenantSlot] = {}
         self._next_sweep: Dict[int, int] = {}
+        # adaptive block scans: the lanes' gates, host-authoritative, with
+        # their own dirty flag and lock (the server's drain thread writes
+        # them while the dispatch thread may be uploading)
+        self.adaptive = adapt_scan_enabled()
+        self._bg_np = np.ones((nlanes, NBLOCKS), np.float32)
+        self._bg_lock = threading.Lock()
+        self._bg_dirty = False
+        self._bg_ones = True
+        self._bg = (torch.ones((G, LANES_GROUP, NBLOCKS),
+                               dtype=torch.float32, device=device)
+                    if self.adaptive else None)
 
     # ------------------------------------------------------------------
     # lane writes
@@ -305,6 +328,7 @@ class SlotPool:
         self._sweep_np[lanes[:k]] = slot.start_sweep
         self._sweep_np[lanes[k:]] = 0
         self._dirty = True
+        self.set_block_gates(lanes, np.ones(NBLOCKS, np.float32))
         self._slots[slot.tenant_id] = slot
         self._next_sweep[slot.tenant_id] = slot.start_sweep
 
@@ -317,8 +341,31 @@ class SlotPool:
         self._keys_np[slot.lanes] = 0
         self._sweep_np[slot.lanes] = 0
         self._dirty = True
+        self.set_block_gates(slot.lanes, np.ones(NBLOCKS, np.float32))
         for d in (self._slots, self._next_sweep):
             d.pop(slot.tenant_id, None)
+
+    def set_block_gates(self, lanes: np.ndarray, gates: np.ndarray,
+                        tenant_id: Optional[int] = None) -> bool:
+        """Write a tenant's ``(NBLOCKS,)`` block-enable vector into its
+        lanes (the adaptive scan's boundary update, serve/adapt.py): a host
+        write, uploaded at the next dispatch. With ``tenant_id``, only
+        while that tenant still owns the lanes: the server's drain thread
+        may update a tenant after its last quantum was dispatched, when
+        its lanes may already hold the next tenant (an eviction resets
+        the lanes' gates after it frees them, under the same lock).
+        Returns whether it wrote; a no-op on a pool that is not
+        adaptive."""
+        if not self.adaptive:
+            return False
+        lanes = np.asarray(lanes, int)
+        with self._bg_lock:
+            if tenant_id is not None and not (
+                    self._gid_np[lanes] == tenant_id).all():
+                return False
+            self._bg_np[lanes] = np.asarray(gates, np.float32)
+            self._bg_dirty = True
+        return True
 
     def quarantine_lanes(self, lanes: np.ndarray) -> None:
         """Mask lanes inactive without freeing their groups: they stop
@@ -382,6 +429,20 @@ class SlotPool:
                              (self._lane_sweep, self._sweep_np)):
                 dst.copy_(torch.from_numpy(src).reshape(dst.shape))
             self._dirty = False
+        if self._bg_dirty:
+            with self._bg_lock:
+                gates = self._bg_np.copy()
+                self._bg_dirty = False
+            self._bg_ones = bool((gates == 1.0).all())
+            if not self._bg_ones:
+                self._bg.copy_(torch.from_numpy(gates).reshape(
+                    self._bg.shape))
+
+    def block_gates(self):
+        """The lanes' gates as the sweep's ``(G, 16, NBLOCKS)`` operand,
+        or None while every lane's are ones (and on a pool that is not
+        adaptive): the ungated sweep."""
+        return None if self._bg_ones else self._bg
 
     def _eta_table(self):
         """``(quantum, G, 16, 1)`` Robbins-Monro step sizes: each lane's at
@@ -433,10 +494,12 @@ class SlotPool:
               if self.telemetry else None)
         # each lane's sweep index at every step of the quantum
         sweeps = self._lane_sweep + self._steps
+        gates = self.block_gates()
         for j in range(self.quantum):
             for f in self.fields:
                 recs[f].append(getattr(st, f))
-            st = smp._sweep(st, self._lane_draws(st, sweeps[j]), sweep=j)
+            st = smp._sweep(st, self._lane_draws(st, sweeps[j]), sweep=j,
+                            block_gates=gates)
             if tl is not None:
                 tl = telemetry_update(tl, st)
         if tl is not None:

@@ -18,9 +18,11 @@ A shed or expired job's ``result()`` raises at once; it never waits.
 A request's ``on_divergence`` lane-health policy (:data:`DIVERGENCE_POLICIES`)
 and its ``on_converged`` policy (:data:`CONVERGED_POLICIES`, with the
 streaming ``monitor`` of serve/monitor.py) are the server's to apply
-(serve/server.py). A handle reports its progress, its convergence and its
-cost while it runs. The JAX request's warm starts, adaptive scans and
-trace ids are not ported: a request that sets one raises ``TypeError``.
+(serve/server.py), and so are its ``warm_start`` (serve/warm.py) and its
+``adapt_scan`` (serve/adapt.py). A handle reports its progress, its
+convergence, its cost, and its warm start, adaptive scan and recycled rows
+while it runs. The JAX request's trace id belongs to the wire, which is
+not ported: a request that sets one raises ``TypeError``.
 """
 
 from __future__ import annotations
@@ -114,7 +116,7 @@ CONVERGED_POLICIES = ("none", "evict")
 
 #: fields of the JAX request whose machinery this package does not have
 #: (their value here must stay the default)
-_NOT_PORTED = {"warm_start": None, "adapt_scan": None, "trace_id": None}
+_NOT_PORTED = {"trace_id": None}
 
 
 @dataclass
@@ -155,12 +157,23 @@ class TenantRequest:
     each quantum's chain rows into online ESS and split-R-hat, reported
     by :meth:`TenantHandle.progress`, with ``converged_at`` in the
     result's stats and the server's SLO block. ``on_converged="evict"``
-    ends the tenant at the first boundary after it converged."""
+    ends the tenant at the first boundary after it converged.
+
+    ``x0`` (``(nchains, p)`` or ``(p,)``) starts the chains there instead
+    of at prior draws. ``warm_start`` (serve/warm.py) starts them from a
+    fit instead: a ``WarmStartSpec`` fits one on a short pilot of the
+    tenant's model at staging, and a ``WarmStartFit`` (or its journaled
+    JSON dict) replays an earlier fit, bitwise; ``GST_WARM_START`` gates
+    the arm (``0`` serves every request cold). ``adapt_scan`` (an
+    ``AdaptScanSpec``, serve/adapt.py) thins the tenant's converged
+    conditional blocks at drain boundaries; it needs a monitor with an ESS
+    target, and ``GST_ADAPT_SCAN`` gates the arm."""
 
     ma: ModelArrays
     niter: int
     nchains: int = 16
     seed: int = 0
+    x0: Optional[np.ndarray] = None
     state: object = None
     start_sweep: int = 0
     spool_dir: Optional[str] = None
@@ -226,6 +239,14 @@ class TenantHandle:
         # each quantum it ran in) and its active chain-lane quanta
         self.cost_device_ms = 0.0
         self.cost_lane_quanta = 0
+        # the recycled partial-scan chain-rows the drain tagged (0 with
+        # recycling off); the warm-start summary ({kind, pilot_sweeps,
+        # pilot_ms, ...}, {"degraded": why}, or None: cold), set at
+        # staging; the adaptive scan's latest selection probabilities and
+        # gates (None while the tenant runs the full-rate scan)
+        self.recycled_rows = 0
+        self.warm: Optional[Dict] = None
+        self.adapt: Optional[Dict] = None
 
     # -- server side ------------------------------------------------------
 
@@ -368,8 +389,8 @@ class TenantHandle:
         after its run: scheduling state, the streaming convergence view
         when it is monitored (``rows``, per-parameter ``ess``/``rhat``
         and their ``ess_min``/``rhat_max``, ``ess_per_s``,
-        ``est_sweeps_to_target``, ``converged_at``) and its
-        :meth:`cost`."""
+        ``est_sweeps_to_target``, ``converged_at``), its :meth:`cost`, and
+        its ``recycled_rows``, ``warm`` and ``adapt`` views once set."""
         p: Dict[str, object] = {
             "tenant_id": self.tenant_id,
             "name": self.request.name,
@@ -388,6 +409,12 @@ class TenantHandle:
         if self.preemptions:
             p["preemptions"] = int(self.preemptions)
         p["cost"] = self.cost()
+        if self.recycled_rows:
+            p["recycled_rows"] = int(self.recycled_rows)
+        if self.warm is not None:
+            p["warm"] = dict(self.warm)
+        if self.adapt is not None:
+            p["adapt"] = dict(self.adapt)
         return p
 
     def done(self) -> bool:

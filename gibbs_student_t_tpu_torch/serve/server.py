@@ -77,10 +77,33 @@ drain backlog or a throughput collapse, and :meth:`ChainServer.healthz`
 reports it without taking the server lock. The plane adds no device work:
 chains and launches are the same with it on or off.
 
-Not ported from the JAX server: adaptive scans, warm starts, recycling,
-the in-kernel stage timers (``summary()["stages"]`` stays None: the JAX
-server's come from its CPU native library), the persistent compile cache
-of ``recover``, the HTTP endpoints and the rest of the wire (ROADMAP A-9).
+The capacity arms, each gated as in the JAX server:
+
+- **Recycling** (``recycle``; ``GST_RECYCLE``, auto -> on;
+  parallel/recycle.py): the drain tags the partial-scan states each sweep
+  already computed as recycled rows (rebuilt from adjacent recorded rows,
+  so no device work), streams a ``row_class`` array beside each
+  quantum's records, counts them per tenant (quarantined lanes excluded)
+  and folds them into the monitor's weighted moments. Chains, spool bytes
+  and scan-end rows are bitwise the same on or off.
+- **Warm starts** (``TenantRequest.warm_start``; ``GST_WARM_START``;
+  serve/warm.py): the pipelined executor serves each warm tenant's pilot
+  on the pool itself, as an internal tenant that neither the manifest nor
+  the SLO series sees, together with the pilots of warm tenants queued
+  behind it (one wave, one wait); the serial executor runs a standalone
+  pilot. The fit is journaled in the manifest's admit record, so
+  ``recover`` replays the init without a pilot. A failed pilot degrades
+  the tenant to the cold init.
+- **Adaptive block scans** (``TenantRequest.adapt_scan``;
+  ``GST_ADAPT_SCAN``; serve/adapt.py): at each drain boundary a monitored
+  tenant's converged white and hyper blocks thin to a learned selection
+  probability, and its gates, drawn from ``(seed, tenant, sweep)``, go to
+  the pool's lanes for the next dispatch.
+
+Not ported from the JAX server: the in-kernel stage timers
+(``summary()["stages"]`` stays None: the JAX server's come from its CPU
+native library), the persistent compile cache of ``recover``, the HTTP
+endpoints and the rest of the wire (ROADMAP A-9).
 """
 
 from __future__ import annotations
@@ -131,6 +154,8 @@ from gibbs_student_t_tpu_torch.parallel.ensemble import (
     _structure,
     check_kernel_structure,
 )
+from gibbs_student_t_tpu_torch.parallel.recycle import row_class_pattern
+from gibbs_student_t_tpu_torch.serve import adapt as _adapt
 from gibbs_student_t_tpu_torch.serve import faults as _faults
 from gibbs_student_t_tpu_torch.serve.manifest import (
     ServerManifest,
@@ -139,10 +164,8 @@ from gibbs_student_t_tpu_torch.serve.manifest import (
     outstanding_tenants,
 )
 from gibbs_student_t_tpu_torch.serve.monitor import (
-    BLOCK_NAMES,
     MonitorSpec,
     TenantMonitor,
-    param_blocks,
     resolve_params,
 )
 from gibbs_student_t_tpu_torch.serve.pool import SlotPool, TenantSlot
@@ -158,6 +181,14 @@ from gibbs_student_t_tpu_torch.serve.scheduler import (
     TenantRequest,
     schedule_score,
 )
+from gibbs_student_t_tpu_torch.serve.warm import (
+    WarmStartFit,
+    WarmStartSpec,
+    fit_from_rows,
+    fit_warm_start,
+    resolve_warm_start,
+)
+from gibbs_student_t_tpu_torch.utils.env import env_choice
 from gibbs_student_t_tpu_torch.utils.spool import (
     ChainSpool,
     load_spool,
@@ -166,15 +197,27 @@ from gibbs_student_t_tpu_torch.utils.spool import (
 )
 
 
+def serve_recycle_env() -> str:
+    """The validated ``GST_RECYCLE`` (``auto`` when unset), strictly
+    ``auto|1|0``: recycling Gibbs row tagging in the drain
+    (parallel/recycle.py). ``auto`` resolves to on; a set value overrides
+    the constructor's ``recycle``. ``0`` is today's drain: no tag, no
+    count, no weighting, no new key in records, stats or spools."""
+    return env_choice("GST_RECYCLE")
+
+
 @dataclass
 class _Prepared:
-    """A staged tenant: what admission needs except its lanes."""
+    """A staged tenant: what admission needs except its lanes.
+    ``warm_fit`` is the fit whose draws made ``state`` (None: cold),
+    journaled at admission."""
 
     handle: TenantHandle
     backend: TorchGibbs
     state: object
     groups_needed: int
     monitor: Optional[TenantMonitor] = None
+    warm_fit: Optional[WarmStartFit] = None
 
 
 @dataclass
@@ -257,7 +300,12 @@ class ChainServer:
     ``"dump"``; ``False`` turns it off; ``"warn"``, ``"dump"`` or
     ``"fail"`` set the trip policy, which a set ``GST_SERVE_WATCHDOG``
     overrides) runs the stall watchdog with the
-    thresholds of ``watchdog_spec``."""
+    thresholds of ``watchdog_spec``.
+
+    ``recycle`` (``"auto"`` follows ``GST_RECYCLE``, auto -> on; ``True``
+    or ``False``, which a set ``GST_RECYCLE`` overrides) arms recycling's
+    row tagging (see the module docstring); warm starts and adaptive scans
+    ride the requests."""
 
     #: quanta dispatched and not yet drained, at most
     MAX_INFLIGHT = 2
@@ -277,7 +325,8 @@ class ChainServer:
                  obs_dir: Optional[str] = None, watchdog="auto",
                  watchdog_spec: Optional[WatchdogSpec] = None,
                  flight: bool = True, flight_dir: Optional[str] = None,
-                 flight_capacity: int = 64, flight_sync_every: int = 4):
+                 flight_capacity: int = 64, flight_sync_every: int = 4,
+                 recycle="auto"):
         if pipeline not in (True, False):
             raise ValueError(f"pipeline must be True or False, got "
                              f"{pipeline!r}")
@@ -294,6 +343,12 @@ class ChainServer:
                 f"watchdog must be 'auto', False, 'warn', 'dump' or "
                 f"'fail', got {watchdog!r}")
         wd_env = serve_watchdog_env()
+        if recycle not in ("auto", True, False):
+            raise ValueError(f"recycle must be 'auto', True or False, got "
+                             f"{recycle!r}")
+        rec_env = serve_recycle_env()
+        self.recycle = (rec_env == "1" if rec_env != "auto"
+                        else recycle in ("auto", True))
         self.config = config
         self.pipeline = bool(pipeline)
         self.supervise = bool(supervise)
@@ -381,6 +436,9 @@ class ChainServer:
         self._sheds = 0
         self._sheds_by_tier: Dict[int, int] = {}
         self._queue_depth_peak = 0
+        # the warm-start fits a pilot wave made for tenants still queued
+        self._pilot_fits: Dict[int, WarmStartFit] = {}
+        self._zero_capacity_counters()
         self._init_plane(metrics, spans, span_capacity, trace_jsonl,
                          obs_dir, manifest_dir, wd_env, watchdog,
                          watchdog_spec, flight, flight_dir, flight_capacity,
@@ -479,6 +537,24 @@ class ChainServer:
         self._sheds_by_tier = {}
         self._queue_depth_peak = 0
         self._tier_slo = {}
+        self._zero_capacity_counters()
+
+    def _zero_capacity_counters(self) -> None:
+        """The capacity arms' counters: recycled chain-rows delivered; warm
+        starts served, degraded to cold, their pilots' wall, the pilot
+        waves and the fits served from a wave; flow fits and flow requests
+        served the mixture; the adaptive scan's gate updates and the
+        tenants ever thinned."""
+        self._recycled_lane_rows = 0
+        self._warm_starts = 0
+        self._warm_degraded = 0
+        self._warm_pilot_ms = 0.0
+        self._warm_pilot_batches = 0
+        self._warm_pilot_batched = 0
+        self._warm_flow_fits = 0
+        self._warm_flow_degraded = 0
+        self._adapt_updates = 0
+        self._adapt_tenants: set = set()
 
     def _span(self, name: str, role: str, tenant=None,
               quantum: Optional[int] = None):
@@ -547,6 +623,28 @@ class ChainServer:
                     "on_converged='evict' needs a monitor with an armed "
                     "target (ess_target and/or rhat_target): the "
                     "streaming convergence verdict triggers the eviction")
+        if request.warm_start is not None and not isinstance(
+                request.warm_start, (WarmStartSpec, WarmStartFit, dict)):
+            raise ValueError(
+                "warm_start must be a serve.warm.WarmStartSpec, a "
+                "WarmStartFit (or its journaled JSON dict), or None, got "
+                f"{type(request.warm_start).__name__}")
+        if request.adapt_scan is not None:
+            if not isinstance(request.adapt_scan, _adapt.AdaptScanSpec):
+                raise ValueError(
+                    "adapt_scan must be a serve.adapt.AdaptScanSpec or "
+                    f"None, got {type(request.adapt_scan).__name__}")
+            mon = request.monitor
+            if mon is None:
+                raise ValueError(
+                    "adapt_scan needs a monitor: the per-block ESS the "
+                    "policy thins on is the streaming monitor's")
+            if request.adapt_scan.ess_target is None \
+                    and mon.ess_target is None:
+                raise ValueError(
+                    "adapt_scan needs an ESS target: set "
+                    "AdaptScanSpec.ess_target or arm the monitor's "
+                    "ess_target")
         if request.on_divergence != "none":
             if not self.supervise:
                 raise ValueError(
@@ -654,9 +752,10 @@ class ChainServer:
 
     def _prepare(self, handle: TenantHandle) -> Optional[_Prepared]:
         """A queued tenant's ``TorchGibbs`` on the pool's device, checked
-        against the template, and its initial state (the solo sampler's
-        at the same seed, or the request's), or None when the model does
-        not fit the pool (the handle is rejected)."""
+        against the template, and its initial state (the request's, or
+        the solo sampler's at the same seed from ``x0``, a warm-start fit's
+        draws or the prior), or None when the model does not fit the pool
+        (the handle is rejected)."""
         req, pool = handle.request, self.pool
         t0 = time.monotonic()
         monitor = None
@@ -669,11 +768,16 @@ class ChainServer:
                 monitor = TenantMonitor(
                     req.monitor, req.nchains, pidx,
                     param_names=t.param_names,
-                    blocks=param_blocks(pidx, t.white_indices,
-                                        t.hyper_indices),
-                    block_names=BLOCK_NAMES)
+                    blocks=_adapt.param_blocks(pidx, t.white_indices,
+                                               t.hyper_indices),
+                    block_names=_adapt.BLOCK_NAMES)
                 if req.spool_dir is not None and req.start_sweep > 0:
                     self._backfill_monitor(monitor, req)
+                # the tenant's adaptive-scan policy under GST_ADAPT_SCAN
+                # (None: the full-rate scan); it acts only on gates
+                handle._adapt_spec = (
+                    _adapt.resolve_adapt_scan(req.adapt_scan, req.monitor)
+                    if pool.adaptive else None)
             if ma.row_mask is not None:
                 raise ValueError("tenant models must be unpadded")
             if ma.n != pool.n_pool:
@@ -689,8 +793,17 @@ class ChainServer:
             backend = TorchGibbs(ma, self.config, nchains=req.nchains,
                                  device=pool.device, tnt_block_size=None)
             check_kernel_structure(backend, pool.drawer)
-            state = (backend.init_state(seed=req.seed) if req.state is None
-                     else req.state)
+            warm_fit = None
+            if req.state is not None:
+                state = req.state
+            else:
+                x0 = req.x0
+                if x0 is None:
+                    warm_fit = self._warm_fit_for(handle, ma)
+                    if warm_fit is not None:
+                        x0 = warm_fit.draw_x0(req.nchains, req.seed,
+                                              ma.specs_np)
+                state = backend.init_state(x0, seed=req.seed)
         except Exception as e:  # noqa: BLE001 - reject it, keep the pool
             handle._fail(f"{type(e).__name__}: {e}")
             return None
@@ -699,7 +812,189 @@ class ChainServer:
                               time.monotonic() - t0,
                               tenant=handle.tenant_id)
         return _Prepared(handle, backend, state, self._groups_needed(handle),
-                         monitor=monitor)
+                         monitor=monitor, warm_fit=warm_fit)
+
+    def _warm_fit_for(self, handle: TenantHandle, ma):
+        """The tenant's warm-start fit under ``GST_WARM_START``: a
+        journaled fit replayed, a pilot's fit (served on the pool by the
+        pipelined executor, standalone by the serial one), or None (cold).
+        Runs inside ``_prepare``'s scope, but only an invalid
+        ``warm_start`` rejects the tenant: a failed pilot or fit degrades
+        it to the cold init. Sets the handle's ``warm`` view, the
+        counters, and the ``warm_start`` / ``warm_start_degraded`` /
+        ``warm_flow_degraded`` events."""
+        if getattr(handle, "_internal", False):
+            return None        # a pilot never warm-starts itself
+        req = handle.request
+        warm_in = resolve_warm_start(req.warm_start)   # invalid: rejects
+        if warm_in is None:
+            if req.warm_start is not None:
+                # requested but turned off: cold, bitwise today's init
+                handle.warm = {"degraded": "GST_WARM_START=0"}
+            return None
+        batched = False
+        try:
+            if isinstance(warm_in, WarmStartFit):
+                fit = warm_in                 # journaled: a replay
+            elif self.pipeline:
+                # a wave staged for an earlier tenant may have fitted this
+                # one already: then no pilot wait at all
+                fit = self._pilot_fits.pop(handle.tenant_id, None)
+                batched = fit is not None
+                if batched:
+                    self._warm_pilot_batched += 1
+                else:
+                    fit = self._pool_pilot_fit(handle, warm_in)
+            else:
+                # the serial executor stages on the driving thread: a
+                # pilot served by the pool would wait on itself
+                fit = fit_warm_start(ma, self.config, warm_in,
+                                     seed=req.seed, device=self.pool.device)
+        except Exception as e:  # noqa: BLE001 - degrade, never reject
+            self._warm_degraded += 1
+            handle.warm = {"degraded": f"{type(e).__name__}: {e}"}
+            warnings.warn(
+                f"tenant {handle.tenant_id} warm-start fit failed "
+                f"({type(e).__name__}: {e}); serving from the cold prior "
+                "init", RuntimeWarning)
+            if self.metrics is not None:
+                self.metrics.counter("serve_warm_degraded").inc()
+                self.metrics.emit("warm_start_degraded",
+                                  tenant=handle.tenant_id,
+                                  error=f"{type(e).__name__}: {e}")
+            return None
+        self._warm_starts += 1
+        if not batched:
+            # a batched fit's pilot wall was its wave's, counted once
+            self._warm_pilot_ms += fit.pilot_ms
+        handle.warm = {"kind": fit.kind,
+                       "pilot_sweeps": fit.pilot_sweeps,
+                       "pilot_chains": fit.pilot_chains,
+                       "pilot_ms": round(fit.pilot_ms, 1),
+                       "replayed": fit.pilot_ms == 0.0,
+                       "batched": batched}
+        if fit.kind == "flow":
+            self._warm_flow_fits += 1
+        fdeg = (fit.meta or {}).get("flow_degraded")
+        if fdeg:
+            # a flow request served the mixture: still warm
+            self._warm_flow_degraded += 1
+            handle.warm["flow_degraded"] = fdeg
+            if self.metrics is not None:
+                self.metrics.counter("serve_warm_flow_degraded").inc()
+                self.metrics.emit("warm_flow_degraded",
+                                  tenant=handle.tenant_id, reason=fdeg)
+        if self.metrics is not None:
+            self.metrics.counter("serve_warm_starts").inc()
+            self.metrics.emit("warm_start", tenant=handle.tenant_id,
+                              kind=fit.kind, pilot_sweeps=fit.pilot_sweeps,
+                              pilot_ms=round(fit.pilot_ms, 1))
+        return fit
+
+    #: the longest one pilot wave is waited for (a full pool admits a
+    #: pilot as soon as a group frees; past this the tenant starts cold)
+    PILOT_TIMEOUT_S = 300.0
+
+    def _pilot_wave(self, handle: TenantHandle, spec) -> list:
+        """The pilots of one staging pickup: this tenant's, and one for
+        each queued warm-start tenant behind it (at most one a lane
+        group), so N queued warm tenants wait for one pilot wall, not N.
+        Returns ``[(handle, spec)]``, this tenant first."""
+        wave = [(handle, spec)]
+        cap = max(1, self.pool.nlanes // self.pool.group)
+        for rh in self.queue.snapshot():
+            if len(wave) >= cap:
+                break
+            rr = rh.request
+            if (rh is handle or rh.done()
+                    or getattr(rh, "_internal", False)
+                    or rh.tenant_id in self._pilot_fits
+                    or rr.state is not None or rr.x0 is not None):
+                continue
+            try:
+                rspec = resolve_warm_start(rr.warm_start)
+            except Exception:  # noqa: BLE001 - its own staging rejects it
+                continue
+            if isinstance(rspec, WarmStartSpec):
+                wave.append((rh, rspec))
+        return wave
+
+    def _pool_pilot_fit(self, handle: TenantHandle, spec):
+        """Serve a wave of pilots on the pool and fit them. Each pilot is
+        an internal tenant (``pilot_chains`` chains of its warm tenant's
+        model and seed, its sweeps rounded up to whole quanta) put straight
+        into the staged window (this is the staging thread: a queued pilot
+        would wait on itself), served by the dispatch thread beside the
+        running tenants, and fitted by ``fit_from_rows``. The wave is
+        waited for once; riders' fits go to ``_pilot_fits`` for their own
+        staging. Pilots do real, accounted work, but the manifest and the
+        SLO series do not see them. A rider's failure is its own (it runs
+        its own pilot later); this tenant's raises (and degrades it)."""
+        t0 = time.monotonic()
+        q = self.pool.quantum
+        pilots = []
+        for wh, wspec in self._pilot_wave(handle, spec):
+            niter = -(-int(wspec.pilot_sweeps) // q) * q
+            ph = TenantHandle(next(self._ids), TenantRequest(
+                ma=wh.request.ma, niter=niter, nchains=wspec.pilot_chains,
+                seed=wh.request.seed, name=f"__warm_pilot_{wh.tenant_id}"))
+            ph._internal = True
+            prep = self._prepare(ph)
+            if prep is None:
+                if wh is handle:
+                    raise RuntimeError(f"pilot rejected: {ph.error}")
+                continue
+            with self._prep_lock:
+                self._prepared.append(prep)
+            pilots.append((wh, wspec, ph, prep))
+        if len(pilots) > 1:
+            self._warm_pilot_batches += 1
+            if self.metrics is not None:
+                self.metrics.counter("serve_pilot_batches").inc()
+                self.metrics.emit("pilot_batch", tenant=handle.tenant_id,
+                                  size=len(pilots))
+        # one wait for the wave, which a stopping server ends (close()
+        # joins this thread)
+        deadline = t0 + self.PILOT_TIMEOUT_S
+        fit_out = None
+        timed_out = False
+
+        def cancel_rest():
+            for _, _, p2, _ in pilots:
+                if not p2.done():
+                    self.cancel(p2)
+
+        for wh, wspec, ph, prep in pilots:
+            while not ph.done() and not timed_out:
+                if self._workers_stop.is_set() or self._stop.is_set():
+                    cancel_rest()
+                    raise RuntimeError("server stopping mid-pilot")
+                if time.monotonic() > deadline:
+                    timed_out = True
+                    break
+                ph._done.wait(0.05)
+            if timed_out and not ph.done():
+                self.cancel(ph)
+                if wh is handle:
+                    cancel_rest()
+                    raise TimeoutError(
+                        f"warm-start pilot not served within "
+                        f"{self.PILOT_TIMEOUT_S:.0f}s")
+                continue
+            try:
+                res = ph.result(timeout=0)
+                fit = fit_from_rows(np.asarray(res.chain), wspec,
+                                    prep.backend._ma.specs_np,
+                                    pilot_ms=(time.monotonic() - t0) * 1e3)
+            except Exception:  # noqa: BLE001 - a rider degrades alone
+                if wh is handle:
+                    raise
+                continue
+            if wh is handle:
+                fit_out = fit
+            else:
+                self._pilot_fits[wh.tenant_id] = fit
+        return fit_out
 
     def _apply_prepared(self, prep: _Prepared) -> None:
         """Place a prepared tenant into the first free groups (the caller
@@ -721,10 +1016,13 @@ class ChainServer:
         pool.write_tenant(slot, prep.backend, prep.state)
         spool = None
         if req.spool_dir is not None:
+            # the spool keeps scan-end rows either way; with recycling on
+            # its meta records that (a resume may not flip it)
             spool = ChainSpool(
                 req.spool_dir, req.seed, resume=req.start_sweep > 0,
                 resume_at=req.start_sweep or None,
                 record_mode=pool.drawer.record_mode,
+                recycle=True if self.recycle else None,
                 extra_meta={"tenant": handle.tenant_id,
                             "n_toa": [pool.n_pool]},
                 fault_key=handle.fault_key)
@@ -735,16 +1033,22 @@ class ChainServer:
         self._running[handle.tenant_id] = _Tenant(
             slot, handle, spool,
             backend=prep.backend if req.on_divergence == "reinit" else None)
-        self._admission_ms.append(handle.admission_ms)
-        self._tier_leg(req, "admission_ms").append(handle.admission_ms)
+        # a warm-start pilot stays out of the SLO series and the manifest
+        # (a recovered server must not resurrect a pilot)
+        internal = getattr(handle, "_internal", False)
+        if not internal:
+            self._admission_ms.append(handle.admission_ms)
+            self._tier_leg(req, "admission_ms").append(handle.admission_ms)
         if self.spans is not None:
             self.spans.record("admit", ROLE_DISPATCH, t_admit0,
                               time.monotonic() - t_admit0,
                               tenant=handle.tenant_id, quantum=self.quanta)
-        if self._manifest is not None:
+        if self._manifest is not None and not internal:
             self._manifest.record_admit(
                 handle.tenant_id, req,
-                model=req.ma if req.spool_dir is not None else None)
+                model=req.ma if req.spool_dir is not None else None,
+                warm=(prep.warm_fit.to_json()
+                      if prep.warm_fit is not None else None))
         if self.metrics is not None:
             self.metrics.histogram("serve_admission_ms").observe(
                 handle.admission_ms)
@@ -903,8 +1207,10 @@ class ChainServer:
         else:
             handle._append(records)
         first = handle.first_result_t is None
-        handle._stream(sweep_end, records)
-        if first and handle.first_result_ms is not None:
+        rec_rows, stream = self._recycle_rows(handle, slot, records, first)
+        handle._stream(sweep_end, stream)
+        if (first and handle.first_result_ms is not None
+                and not getattr(handle, "_internal", False)):
             ms = handle.first_result_ms
             self._first_result_ms.append(ms)
             self._tier_leg(handle.request, "first_result_ms").append(ms)
@@ -912,7 +1218,35 @@ class ChainServer:
                 self.metrics.histogram("serve_first_result_ms").observe(ms)
         if tele is not None:
             self._accumulate_tele(handle, slot, tele)
-        self._feed_monitor(handle, slot, records, sweep_end)
+        self._feed_monitor(handle, slot, records, sweep_end,
+                           recycled=rec_rows)
+
+    def _recycle_rows(self, handle: TenantHandle, slot: TenantSlot,
+                      records: dict, first: bool):
+        """Recycling's share of one drained quantum: ``(recycled rows,
+        the records to stream)``. One recycled row stands before each
+        scan-end row (the mid-scan state leading to it), except before a
+        stream's very first row, whose predecessor was the init; the
+        streamed records are a copy with the ``row_class`` tag (the spool
+        and the result keep the records as they are). Quarantined lanes
+        advanced no scan, so they are not counted. ``(0, records)`` with
+        recycling off."""
+        if not self.recycle:
+            return 0, records
+        rows_q = self.pool.quantum
+        continuing = not first or handle.request.start_sweep > 0
+        rec_rows = rows_q if continuing else rows_q - 1
+        if not rec_rows:
+            return 0, records
+        active = max(slot.nchains - len(slot.quarantined), 0)
+        handle.recycled_rows += rec_rows * active
+        self._recycled_lane_rows += rec_rows * active
+        if self.metrics is not None:
+            self.metrics.counter("serve_recycled_rows").inc(
+                rec_rows * active)
+        stream = dict(records)
+        stream["row_class"] = row_class_pattern(rows_q, continuing)
+        return rec_rows, stream
 
     def _backfill_monitor(self, monitor: TenantMonitor, req) -> None:
         """Re-arm a resumed monitored tenant's monitor over its whole
@@ -930,7 +1264,8 @@ class ChainServer:
                 return
             monitor.backfill(
                 rows, req.start_sweep,
-                updates=(req.start_sweep - base) // self.pool.quantum)
+                updates=(req.start_sweep - base) // self.pool.quantum,
+                recycled=len(rows) - 1 if self.recycle else 0)
         except Exception as e:  # noqa: BLE001 - observability contract
             warnings.warn(
                 f"monitor backfill from {req.spool_dir!r} failed "
@@ -938,19 +1273,21 @@ class ChainServer:
                 "restarts at the resume point", RuntimeWarning)
 
     def _feed_monitor(self, handle: TenantHandle, slot: TenantSlot,
-                      records: dict, sweep_end: int) -> None:
-        """Fold one drained quantum into the tenant's monitor, from the
-        records already on the host (no copy from the device of its own).
-        On convergence record the SLO leg and, under
-        ``on_converged="evict"``, freeze the tenant at the next boundary
-        through the cancel machinery. A monitor exception detaches THAT
+                      records: dict, sweep_end: int,
+                      recycled: int = 0) -> None:
+        """Fold one drained quantum (and its ``recycled`` row count) into
+        the tenant's monitor, from the records already on the host (no
+        copy from the device of its own). On convergence record the SLO
+        leg and, under ``on_converged="evict"``, freeze the tenant at the
+        next boundary through the cancel machinery; then redraw an
+        adaptive tenant's block gates. A monitor exception detaches THAT
         tenant's monitor with a warning and the tenant keeps serving."""
         mon = handle._monitor
         if mon is None:
             return
         t0 = time.monotonic()
         try:
-            mon.update(records["x"], sweep_end)
+            mon.update(records["x"], sweep_end, recycled=recycled)
             if (mon.converged_at is not None
                     and not getattr(handle, "_conv_recorded", False)):
                 handle._conv_recorded = True
@@ -988,6 +1325,12 @@ class ChainServer:
                         self.flight.note_event(
                             "evict_converged", tenant=slot.tenant_id,
                             sweep=mon.converged_at)
+            # the adaptive scan: gates redrawn from the fresh per-block
+            # ESS, a host write the next dispatch uploads
+            spec_a = getattr(handle, "_adapt_spec", None)
+            if spec_a is not None and not slot.cancelled \
+                    and not slot.failed:
+                self._adapt_update(handle, slot, mon, spec_a, sweep_end)
         except Exception as e:  # noqa: BLE001 - observability contract
             handle._monitor = None
             warnings.warn(
@@ -1000,6 +1343,47 @@ class ChainServer:
                                   error=f"{type(e).__name__}: {e}")
         finally:
             self._monitor_t += time.monotonic() - t0
+
+    def _adapt_update(self, handle: TenantHandle, slot: TenantSlot, mon,
+                      spec, sweep_end: int) -> None:
+        """One adaptive-scan boundary update (serve/adapt.py): every
+        converged thinnable block thins to its selection probability, and
+        this boundary's 0/1 gates are drawn from the ``(seed, tenant,
+        sweep)`` stream into the tenant's lanes. Runs in
+        ``_feed_monitor``'s failure scope."""
+        target = spec.ess_target
+        if target is None:
+            target = handle.request.monitor.ess_target
+        bess = mon.block_ess()
+        if target is None or not bess:
+            return
+        probs = _adapt.selection_probs(bess, float(target), spec.floor)
+        if not (probs < 1.0).any() and handle.adapt is None:
+            return          # never thinned: the gates stay ones
+        gates = _adapt.draw_gates(probs, slot.seed, slot.tenant_id,
+                                  int(sweep_end))
+        if not self.pool.set_block_gates(slot.lanes, gates,
+                                         tenant_id=slot.tenant_id):
+            return          # released: its lanes may hold another tenant
+        self._adapt_updates += 1
+        first = slot.tenant_id not in self._adapt_tenants
+        self._adapt_tenants.add(slot.tenant_id)
+        handle.adapt = {
+            "sweep": int(sweep_end),
+            "probs": {n: round(float(p), 4)
+                      for n, p in zip(_adapt.BLOCK_NAMES, probs) if p < 1.0},
+            "gates": [int(g) for g in gates],
+            "updates": (handle.adapt or {}).get("updates", 0) + 1,
+        }
+        if self.metrics is not None:
+            self.metrics.counter("serve_adapt_updates").inc()
+            if first:
+                self.metrics.emit("adapt_scan", tenant=slot.tenant_id,
+                                  sweep=int(sweep_end),
+                                  probs=handle.adapt["probs"])
+        if first and self.flight is not None:
+            self.flight.note_event("adapt_scan", tenant=slot.tenant_id,
+                                   sweep=int(sweep_end))
 
     @staticmethod
     def _accumulate_tele(handle: TenantHandle, slot: TenantSlot,
@@ -1065,6 +1449,14 @@ class ChainServer:
             extra["monitor"] = handle._monitor.snapshot()
             extra["converged_at"] = handle._monitor.converged_at
         extra["cost"] = handle.cost()
+        if self.recycle:
+            # the count only: the recycled rows are rebuilt from the chains
+            # (parallel/recycle.recycled_result), never stored
+            extra["recycle"] = {"enabled": True,
+                                "recycled_lane_rows":
+                                    int(handle.recycled_rows)}
+        if handle.warm is not None:
+            extra["warm"] = dict(handle.warm)
         if spool is not None:
             spool.close()
             res = load_spool(handle.request.spool_dir)
@@ -1949,10 +2341,12 @@ class ChainServer:
         tenant's name (or spool directory); drive the server as usual.
         A resumed tenant's chains are bitwise its uninterrupted run (the
         spool resume contract); one that died before its first checkpoint
-        restarts from its request. A monitored tenant's monitor is
-        re-armed from its journaled spec and backfilled from its spool, so
-        it evaluates (and, under ``on_converged="evict"``, evicts) at the
-        sweeps of the uninterrupted run. Its priority is kept as
+        restarts from its request, and a warm-started one then draws the
+        same init from its journaled fit, with no pilot. A monitored
+        tenant's monitor is re-armed from its journaled spec and backfilled
+        from its spool, so it evaluates (and, under
+        ``on_converged="evict"``, evicts) at the sweeps of the
+        uninterrupted run. Its priority is kept as
         journaled, 0 included. Tenants admitted without a spool died
         with the process: they are listed on ``server.lost_tenants``.
         ``overrides`` are constructor arguments (``device``, ``pipeline``,
@@ -2000,7 +2394,7 @@ class ChainServer:
                 spool_dir=rec["spool_dir"], name=rec.get("name"),
                 on_divergence=rec.get("on_divergence") or "none",
                 on_converged=rec.get("on_converged") or "none",
-                monitor=mon,
+                monitor=mon, warm_start=rec.get("warm"),
                 priority=(1 if rec.get("priority") is None
                           else int(rec["priority"])),
                 deadline_sweeps=dls))
@@ -2157,9 +2551,13 @@ class ChainServer:
         the containment counters (tenants failed, lanes quarantined,
         chains re-drawn, workers restarted, pool failures);
         ``converged_evictions`` the tenants ``on_converged="evict"``
-        ended early; ``cost["dispatch_wall_ms"]`` the sum of the quanta's
-        dispatch walls, which the tenants' ``cost()["device_ms"]`` add up
-        to; ``stages`` None (see :meth:`status`)."""
+        ended early; ``recycle`` the recycled chain-rows delivered;
+        ``warm`` the warm starts, degradations, pilot wall, pilot waves,
+        fits served from a wave and flow fits; ``adapt`` the adaptive
+        scan's gate updates and tenants thinned;
+        ``cost["dispatch_wall_ms"]`` the sum of the quanta's dispatch
+        walls, which the tenants' ``cost()["device_ms"]`` add up to;
+        ``stages`` None (see :meth:`status`)."""
         occ = (self.busy_chain_sweeps / self.total_lane_sweeps
                if self.total_lane_sweeps else 0.0)
         return {"nlanes": self.pool.nlanes, "quantum": self.pool.quantum,
@@ -2178,6 +2576,18 @@ class ChainServer:
                             "obs_refresh": _percentiles(self._refresh_ms)},
                 "faults": dict(self._fault_counts),
                 "converged_evictions": self._converged_evictions,
+                "recycle": {"enabled": bool(self.recycle),
+                            "recycled_lane_rows": self._recycled_lane_rows},
+                "warm": {"warm_starts": self._warm_starts,
+                         "degraded": self._warm_degraded,
+                         "pilot_ms_total": round(self._warm_pilot_ms, 1),
+                         "pilot_batches": self._warm_pilot_batches,
+                         "pilot_batched_fits": self._warm_pilot_batched,
+                         "flow_fits": self._warm_flow_fits,
+                         "flow_degraded": self._warm_flow_degraded},
+                "adapt": {"enabled": bool(self.pool.adaptive),
+                          "updates": self._adapt_updates,
+                          "tenants_thinned": len(self._adapt_tenants)},
                 "sched": self._sched_block(),
                 "slo": self._slo_block(),
                 "stages": None,

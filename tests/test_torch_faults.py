@@ -418,7 +418,9 @@ def test_request_policy_checks_and_telemetry_off(demo, refs):
         with pytest.raises(ValueError, match="pool telemetry"):
             srv.submit(_request(demo, "X", 1, on_divergence="fail"))
         with pytest.raises(TypeError, match="not supported"):
-            _request(demo, "X", 1, warm_start=object())
+            _request(demo, "X", 1, trace_id="t")
+        with pytest.raises(ValueError, match="warm_start must be"):
+            srv.submit(_request(demo, "X", 1, warm_start=object()))
         with pytest.raises(ValueError, match="supervise must be"):
             _server(demo, False, supervise="auto")
         hA = srv.submit(_request(demo, "A", 1))

@@ -230,7 +230,9 @@ def test_validation(demo):
     with pytest.raises(ValueError, match="lane groups"):
         srv.submit(TenantRequest(ma=ma, niter=5, nchains=33))
     with pytest.raises(TypeError, match="not supported"):
-        TenantRequest(ma=ma, niter=5, warm_start=object())
+        TenantRequest(ma=ma, niter=5, trace_id="t")
+    with pytest.raises(ValueError, match="warm_start must be"):
+        srv.submit(TenantRequest(ma=ma, niter=5, warm_start=object()))
     srv.submit(TenantRequest(ma=ma, niter=5, nchains=16, seed=0))
     srv.submit(TenantRequest(ma=ma, niter=5, nchains=16, seed=1))
     with pytest.raises(QueueFull):

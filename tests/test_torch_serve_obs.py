@@ -364,10 +364,17 @@ def test_monitor_spec_checks_match_jax():
         return out
 
     assert verdicts(port_monitor) == verdicts(jax_monitor)
-    mon = port_monitor.TenantMonitor(port_monitor.MonitorSpec(), 2,
-                                     np.arange(2))
-    with pytest.raises(ValueError, match="recycling"):
-        mon.update(np.zeros((5, 2, 2)), 5, recycled=2)
+    # recycled rows: the same weighted moments and count as the JAX monitor
+    rows = np.random.default_rng(0).normal(size=(5, 2, 2))
+    mons = [mod.TenantMonitor(mod.MonitorSpec(), 2, np.arange(2))
+            for mod in (port_monitor, jax_monitor)]
+    for mon in mons:
+        mon.update(rows, 5, recycled=2)
+    assert mons[0].snapshot()["recycled_rows"] == 2
+    assert mons[1].snapshot()["recycled_rows"] == 2
+    for a in ("_w_n", "_w_mean", "_w_m2"):
+        np.testing.assert_allclose(getattr(mons[0], a), getattr(mons[1], a),
+                                   rtol=1e-12, err_msg=a)
 
 
 class _Clock:
@@ -655,10 +662,9 @@ def test_cost_reconciles_with_dispatch_wall(plane_run):
         assert res.stats["cost"] == c == h.progress()["cost"]
 
 
-#: keys only the JAX server reports: warm starts, adaptive scans,
-#: recycling, the wire, and its native backend; and, by path, the
-#: summary's block of its scatter admission
-JAX_ONLY = {"warm", "adapt", "recycle", "recycled_rows", "http", "backend"}
+#: keys only the JAX server reports: the wire and its native backend;
+#: and, by path, the summary's block of its scatter admission
+JAX_ONLY = {"http", "backend"}
 JAX_ONLY_PATHS = {("admission",)}
 #: keys only the port reports: host ms of the launch loop and the plane
 PORT_ONLY = {("host_ms", "dispatch"), ("host_ms", "monitor"),
@@ -987,7 +993,10 @@ def test_request_and_server_checks(demo, monkeypatch, tmp_path):
                 srv.submit(TenantRequest(ma=demo[0], niter=5, monitor=spec,
                                          on_converged="evict"))
         with pytest.raises(TypeError, match="not supported"):
-            TenantRequest(ma=demo[0], niter=5, warm_start=object())
+            TenantRequest(ma=demo[0], niter=5, trace_id="t")
+        with pytest.raises(ValueError, match="warm_start must be"):
+            srv.submit(TenantRequest(ma=demo[0], niter=5,
+                                     warm_start=object()))
         quiet = _server(demo, False, spans=False)
         with pytest.raises(ValueError, match="span tracing is disabled"):
             quiet.export_trace(str(tmp_path / "t.json"))
