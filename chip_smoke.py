@@ -337,6 +337,46 @@ exits 1 through ``fail`` before it, and so does an uncaught exception.
    sweeps (path ``pool_capacity``). Recycling is on by default (as in
    the JAX server), so the served runs of phases 11d and 14-17 tag their
    rows too; the pools of every phase carry block gates, all ones.
+19. the wire for one pool (``serve/rpc.py``, ``obs/http.py``,
+   ``serve/pool_main.py``) at pool1024, in a temporary directory removed
+   at the end; every worker is a ``python -m
+   gibbs_student_t_tpu_torch.serve.pool_main`` process on the card (a
+   second CUDA context), stopped before the phase ends:
+   a. a worker spawned on pool1024's spec (the serial executor, light
+      records, telemetry on): the seconds from its spawn to its
+      ``ready.json``, which must hold both ports, and whether it built the
+      kernels' library or loaded it from the stamp of phase 2's build;
+   b. the tenant set submitted through ``RemoteChainServer``: every
+      tenant bit for bit 15a's in-process serial results; one tenant
+      streamed, its chunk frames one a quantum and their concatenation
+      its chain; two tenants with a ``trace_id``, carried by exactly their
+      spans in the worker's ``/trace``;
+   c. the worker's HTTP endpoints: ``/healthz`` 200, ``/status`` valid
+      against the port's schema, ``/metrics`` Prometheus text,
+      ``/tenants/<name>/progress`` equal to the remote handle's
+      ``progress()``, ``/postmortem`` a valid flight bundle, an unknown
+      tenant 404;
+   d. control over the wire: a resubmit of a model the worker holds goes
+      out digest-only (both submit frames' bytes printed), a queued
+      tenant cancelled resolves as cancelled, a model of another basis
+      size is rejected while the pool serves on, ``reset`` zeroes the
+      counters;
+   e. chaos: the worker armed with ``rpc_sever`` severs a streamed
+      tenant at its second chunk, and its result fetched by id on a new
+      connection is bit for bit; a second worker armed with ``pool_kill``
+      dies at its fourth quantum over phase 15b's two spooled victims, a
+      ``--recover`` worker maps both in ``ready.json["recovered"]`` and
+      serves them bit for bit their uninterrupted runs; printed: the
+      seconds from that worker's spawn to its first dispatch;
+   f. the wire's cost, in turns: the set in process, through the worker
+      (its ``summary()`` written at its ``shutdown``, which must exit 0),
+      in process again, and behind an ``RpcServer`` mounted on an
+      in-process server, whose kernel launches must equal the in-process
+      run's (path ``pool_wire``); printed: ms a quantum and the dispatch
+      and drain host ms a quantum of each, the bytes and encode and
+      decode ms of a 256-chain result frame and of a chunk frame, and the
+      worker's watchdog state (reported: its throughput rule reads
+      chain-sweeps/s, which falls with occupancy).
 
 Launch counts are read per path: every count is set to 0 just before a
 run and read just after it; a count is launches per sweep x sweeps plus
@@ -355,6 +395,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -484,7 +525,7 @@ DRAWS = "sweep_draws"
 SAME_AS = {"sample": "flagship", "spool": "flagship", "spool_ens": "ens32",
            "drivers": "flagship", "drivers_ens": "ens32",
            "pool_sched": "pool", "pool_faults": "pool", "pool_obs": "pool",
-           "pool_capacity": "pool"}
+           "pool_capacity": "pool", "pool_wire": "pool"}
 # a grouped kernel's entry: the wrapper it shares with the single-model
 # launch; it counts on the wrapper's launches_grouped
 GROUPED = {"white_mh_grouped": "white_mh", "hyper_mh_grouped": "hyper_mh",
@@ -5100,6 +5141,469 @@ def main() -> None:
     crep["launches"] = counts18
     crep["seconds"] = time.perf_counter() - t18
     print(f"# phase 18: {crep['seconds']:.1f} s", flush=True)
+
+    # --- 19. the wire for one pool (pool1024) -------------------------------
+    import urllib.error
+    import urllib.request
+
+    from gibbs_student_t_tpu_torch.serve import RemoteChainServer, RpcServer
+    from gibbs_student_t_tpu_torch.serve import rpc as rpc_mod
+    from gibbs_student_t_tpu_torch.serve.pool_main import write_spec
+
+    t19 = time.perf_counter()
+    wrep = report["wire"] = {}
+    tmp19 = tempfile.mkdtemp(prefix="gst_chip_smoke_wire_")
+    run19 = [0, 0]          # pool sweeps and quanta of phase 19's servers
+    workers = []            # every worker process this phase started
+    prom_line = re.compile(
+        r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*='
+        r'"([^"\\]|\\.)*",?)*\})? (NaN|[+-]Inf|-?[0-9.eE+-]+)( -?[0-9]+)?$')
+
+    def http_get(port, route):
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                        timeout=120) as resp:
+                return resp.status, resp.read().decode()
+        except urllib.error.HTTPError as exc:
+            return exc.code, exc.read().decode()
+
+    def worker_log(d):
+        try:
+            with open(os.path.join(d, "worker.log")) as fh:
+                return fh.read()[-3000:]
+        except OSError:
+            return ""
+
+    def spawn(name, *args):
+        """A pool1024 worker on the card (serve/pool_main.py: the serial
+        executor, light records), its output in its directory's log."""
+        d = os.path.join(tmp19, name)
+        if not os.path.exists(os.path.join(d, "spec.pkl")):
+            write_spec(d, template, cfg_p, dict(
+                nlanes=POOL_LANES, quantum=POOL_QUANTUM, record="light",
+                pipeline=False))
+        with open(os.path.join(d, "worker.log"), "a") as log:
+            t = time.time()
+            p = subprocess.Popen(
+                [sys.executable, "-m",
+                 "gibbs_student_t_tpu_torch.serve.pool_main", "--dir", d,
+                 *args], cwd=HERE, stdout=log, stderr=subprocess.STDOUT)
+        workers.append(p)
+        return d, p, t
+
+    def ready_of(d, p, key=None):
+        """The worker's ready.json once written (and holding ``key`` in
+        its coldstart block, when given)."""
+        path = os.path.join(d, "ready.json")
+        t_end = time.monotonic() + CHILD_TIMEOUT_S
+        while True:
+            if os.path.exists(path):
+                with open(path) as fh:
+                    doc = json.load(fh)
+                if key is None or key in doc["coldstart"]:
+                    return doc
+            if p.poll() is not None:
+                fail(f"a worker exited {p.returncode} before it was ready: "
+                     f"{worker_log(d)}")
+            if time.monotonic() > t_end:
+                fail(f"a worker was not ready in {CHILD_TIMEOUT_S} s: "
+                     f"{worker_log(d)}")
+            time.sleep(0.05)
+
+    def ended(d, p):
+        try:
+            return p.wait(timeout=CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            fail(f"a worker did not exit in {CHILD_TIMEOUT_S} s: "
+                 f"{worker_log(d)}")
+
+    def named_set():
+        reqs = tenant_set()
+        for i, r in enumerate(reqs):
+            r.name = f"w{i}"
+        return reqs
+
+    def in_process(rpc_mounted):
+        """The tenant set on an in-process serial server (behind an
+        RpcServer, submitted over loopback, with ``rpc_mounted``): wall,
+        summary, each kernel's launches, results."""
+        s = pool_server(False)
+        rpc = cl = None
+        reqs = named_set()
+        before = launches_now()
+        if rpc_mounted:
+            rpc = RpcServer(s)
+            cl = RemoteChainServer(rpc.address, timeout=120.0)
+            reqs[0].on_chunk = lambda h, sweep_end, records: None
+            hs = [cl.submit(r) for r in reqs]
+        else:
+            hs = [s.submit(r) for r in reqs]
+        try:
+            wall = drive(s)
+            res = [h.result(timeout=WAIT_S) for h in hs]
+        finally:
+            if rpc is not None:
+                cl.close()
+                rpc.close()
+        launches = {n: c - before[n] for n, c in launches_now().items()}
+        run19[0] += s.quanta * Q
+        run19[1] += s.quanta
+        return dict(wall=wall, summary=s.summary(), launches=launches,
+                    quanta=s.quanta, res=res)
+
+    def frame_cost(body, reps=5):
+        """Bytes of ``body``'s frame, and its mean encode and decode ms."""
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            data = rpc_mod.encode_frame(body)
+        enc = 1e3 * (time.perf_counter() - t0) / reps
+        _, _, kind, _ = rpc_mod._HEADER.unpack(data[:rpc_mod._HEADER.size])
+        payload = data[rpc_mod._HEADER.size:]
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            rpc_mod.decode_payload(kind, payload)
+        dec = 1e3 * (time.perf_counter() - t0) / reps
+        return {"bytes": len(data), "encode_ms": enc, "decode_ms": dec}
+
+    # every submit frame the parent's clients send: (name, model
+    # attached, bytes)
+    sent = []
+    plain_send = rpc_mod.send_frame
+
+    def counting_send(sock, body, max_frame=None):
+        if body.get("op") == "submit":
+            sent.append((body.get("name"), "ma" in body,
+                         len(rpc_mod.encode_frame(body))))
+        return plain_send(sock, body, max_frame)
+
+    reset_counts()
+    rpc_mod.send_frame = counting_send
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    try:
+        # 19a. spawn a worker on the card; it arms a sever of the "sev"
+        # tenant's stream at its second chunk (its submit request is the
+        # point's first traversal)
+        sever = json.dumps([{"point": "rpc_sever", "tenant": "sev",
+                             "after": 2}])
+        d1, w1, t_spawn = spawn("w1", "--faults", sever)
+        ready1 = ready_of(d1, w1)
+        spawn_s = time.time() - t_spawn
+        if not (ready1.get("rpc_port") and ready1.get("http_port")):
+            fail(f"the worker's ready.json lacks a port: {ready1}")
+        if ready1["coldstart"]["library"] not in ("built", "loaded"):
+            fail(f"the worker did not load the kernels: {ready1}")
+        wrep["spawn"] = {"spawn_to_ready_s": spawn_s,
+                         "coldstart": ready1["coldstart"]}
+        hport = ready1["http_port"]
+        cli = RemoteChainServer(("127.0.0.1", ready1["rpc_port"]),
+                                timeout=120.0)
+
+        # 19b. the tenant set through the worker: every tenant bitwise
+        # 15a's in-process serial results; w0 streamed, w1 and w2 traced
+        chunks = []
+        traced = {1: "wire-trace-1", 2: "wire-trace-2"}
+        reqs = named_set()
+        reqs[0].on_chunk = lambda h, sweep_end, records: chunks.append(
+            (sweep_end, records))
+        for i, tid in traced.items():
+            reqs[i].trace_id = tid
+        t0 = time.perf_counter()
+        hs = [cli.submit(r) for r in reqs]
+        res19 = [h.result(timeout=WAIT_S) for h in hs]
+        set_wall_1 = time.perf_counter() - t0
+        bitwise19 = [bool(same_rows(a, b)) for a, b in zip(res19, set_refs)]
+        ends = [s_ for s_, _ in chunks]
+        stream_ok = (ends == list(range(Q, budgets[0] + 1, Q))
+                     and eq(np.concatenate([c["x"] for _, c in chunks]),
+                            res19[0].chain))
+        code, body = http_get(hport, "/trace")
+        doc = json.loads(body)
+        tagged = {hs[i].tenant_id: tid for i, tid in traced.items()}
+        spans_x = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+        tagged_ev = [e for e in spans_x if e["pid"] - 1 in tagged]
+        trace_ok = (code == 200 and {e["pid"] - 1 for e in tagged_ev}
+                    == set(tagged)
+                    and all(e["args"].get("trace_id") == tagged[e["pid"] - 1]
+                            for e in tagged_ev)
+                    and not any("trace_id" in e["args"] for e in spans_x
+                                if e["pid"] - 1 not in tagged))
+        wrep["set"] = {"bitwise": bitwise19, "stream_ends": ends,
+                       "stream_ok": bool(stream_ok),
+                       "traced_spans": len(tagged_ev),
+                       "trace_ok": bool(trace_ok), "wall_s": set_wall_1}
+        print(f"# wire 19b the tenant set through the worker: "
+              f"{json.dumps(wrep['set'])}", flush=True)
+        if not (all(bitwise19) and stream_ok and trace_ok):
+            fail("a tenant served by the worker differs from the in-process "
+                 "run, its stream from its chain, or a trace id is missing")
+
+        # 19c. the worker's HTTP endpoints
+        http = {}
+        code, body = http_get(hport, "/healthz")
+        http["healthz"] = code == 200 and json.loads(body)["ok"] is True
+        code, body = http_get(hport, "/status")
+        st = json.loads(body)
+        http["status"] = code == 200 and not obs_schema.validate(
+            st, schemas["serve_status"], defs=schemas)
+        code, text = http_get(hport, "/metrics")
+        lines = [ln for ln in text.splitlines() if ln]
+        http["metrics"] = (code == 200 and bool(lines) and all(
+            ln.startswith(("# HELP ", "# TYPE ")) or prom_line.match(ln)
+            for ln in lines) and "gst_serve_admissions" in text)
+        http["progress"] = True
+        for i in (0, 3, POOL_TENANTS):
+            code, body = http_get(hport, f"/tenants/w{i}/progress")
+            http["progress"] &= (code == 200
+                                 and json.loads(body) == hs[i].progress())
+        code, body = http_get(hport, "/postmortem")
+        pm = json.loads(body)
+        http["postmortem"] = (code == 200 and pm.get("reason") == "endpoint"
+                              and not obs_schema.validate(
+                                  pm, schemas["postmortem"], defs=schemas))
+        http["unknown_404"] = http_get(hport, "/tenants/nobody/progress")[
+            0] == 404
+        wrep["http"] = http
+        print(f"# wire 19c HTTP: {json.dumps(http)}", flush=True)
+        if not all(http.values()):
+            fail(f"a worker endpoint failed: {http}")
+
+        # 19d. control over the wire: a digest-only resubmit (w0's model),
+        # a queued tenant cancelled behind it, a bad model rejected while
+        # the pool serves on, reset
+        n_sent = len(sent)
+        hf = cli.submit(TenantRequest(ma=tenant_mas[0], niter=2 * Q,
+                                      nchains=POOL_LANES, seed=900,
+                                      name="fill"))
+        hq = cli.submit(TenantRequest(ma=tenant_mas[1], niter=Q,
+                                      nchains=POOL_CHAINS, seed=901,
+                                      name="queued"))
+        ctl = {"cancel_returned": bool(hq.cancel())}
+        try:
+            hq.result(timeout=WAIT_S)
+            ctl["cancelled"] = False
+        except RuntimeError as exc:
+            ctl["cancelled"] = "cancelled" in str(exc)
+        psr_b, _ = make_contaminated_pulsar(n=130, components=20, theta=0.02,
+                                            sigma_out=1e-5, seed=903)
+        hb = cli.submit(TenantRequest(
+            ma=make_reference_pta(psr_b, 20).frozen(0), niter=Q,
+            nchains=POOL_CHAINS, seed=902, name="bad"))
+        hg = cli.submit(TenantRequest(ma=tenant_mas[2], niter=2 * Q,
+                                      nchains=POOL_CHAINS, seed=903,
+                                      name="good"))
+        try:
+            hb.result(timeout=WAIT_S)
+            ctl["bad_rejected"] = False
+        except RuntimeError as exc:
+            ctl["bad_rejected"] = "basis size" in str(exc)
+        ctl["served_on"] = bool(
+            finite_shaped(hg.result(timeout=WAIT_S), POOL_CHAINS, 2 * Q)
+            and finite_shaped(hf.result(timeout=WAIT_S), POOL_LANES, 2 * Q))
+        first_w0 = next(x for x in sent if x[0] == "w0")
+        fill = sent[n_sent]
+        ctl["submit_bytes"] = {"w0_with_model": first_w0[2],
+                               "fill_digest_only": fill[2]}
+        ctl["digest_only"] = first_w0[1] and not fill[1]
+        cli.reset_counters()
+        ctl["reset"] = cli.status()["quanta"] == 0
+
+        # 19e. chaos: the sever of sev's stream at its second chunk; its
+        # result fetched by id on a new connection
+        sev_ends = []
+        rq = tenant_set()[0]
+        rq.name = "sev"
+        rq.on_chunk = lambda h, sweep_end, records: sev_ends.append(
+            sweep_end)
+        hsv = cli.submit(rq)
+        try:
+            hsv.result(timeout=WAIT_S)
+            ctl["severed"] = False
+        except ConnectionError as exc:
+            ctl["severed"] = "severed" in str(exc)
+        res_sev = rpc_mod.RemoteTenantHandle(cli, hsv.tenant_id, None).result(
+            timeout=WAIT_S)
+        ctl["sever_chunks"] = sev_ends
+        ctl["sever_bitwise"] = bool(same_rows(res_sev, set_refs[0]))
+        wrep["control"] = ctl
+        print(f"# wire 19d-e control and the sever: {json.dumps(ctl)}",
+              flush=True)
+        if not (all(v for k, v in ctl.items() if k not in (
+                "submit_bytes", "sever_chunks"))
+                and sev_ends == [Q]
+                and fill[2] < first_w0[2]):
+            fail(f"a control op over the wire failed: {ctl}")
+
+        # 19f. the wire's cost, in turns: the set in process, through the
+        # worker, in process, through the worker (its counters reset before
+        # the first of its turns; its summary, written at its shutdown,
+        # covers both); then behind an RpcServer mounted on an in-process
+        # server, whose launches must equal the in-process runs'
+        def worker_turn():
+            q0 = cli.status()["quanta"]
+            t0 = time.perf_counter()
+            hs_ = [cli.submit(r) for r in named_set()]
+            res_ = [h.result(timeout=WAIT_S) for h in hs_]
+            wall = time.perf_counter() - t0
+            q = cli.status()["quanta"] - q0
+            return dict(wall=wall, quanta=q, res=res_,
+                        ms_per_quantum=1e3 * wall / q)
+
+        turns = [in_process(False)]
+        cli.reset_counters()
+        wturns = [worker_turn()]
+        turns.append(in_process(False))
+        wturns.append(worker_turn())
+        # reported, not gated: the collapse rule reads chain-sweeps/s, so
+        # a long-lived worker whose occupancy falls (one small tenant
+        # after a full pool) can trip it
+        wd = cli.healthz()["watchdog"]
+        wd_worker = {"state": wd["state"],
+                     "cause": (wd.get("trip") or {}).get("cause")}
+        cli.shutdown()
+        rc1 = ended(d1, w1)
+        cli.close()
+        if rc1 != 0:
+            fail(f"the worker exited {rc1} after shutdown: {worker_log(d1)}")
+        with open(os.path.join(d1, "summary.json")) as fh:
+            wsum = json.load(fh)
+        over_rpc = in_process(True)
+        bit_more = all(same_rows(a, b) for t in turns + wturns + [over_rpc]
+                       for a, b in zip(t["res"], set_refs))
+        launches_equal = (over_rpc["quanta"] == turns[0]["quanta"]
+                          and over_rpc["launches"] == turns[0]["launches"]
+                          == turns[1]["launches"])
+        per_sweep = {n: c / (over_rpc["quanta"] * Q)
+                     for n, c in over_rpc["launches"].items() if c}
+        # one 256-chain result frame, and one chunk frame of w0's stream
+        frames = {
+            "result": dict(frame_cost({"op": "result",
+                                       "result": rpc_mod.Pickled(
+                                           set_refs[0])}),
+                           shape=list(set_refs[0].chain.shape)),
+            "chunk": dict(frame_cost({"op": "chunk",
+                                      "sweep_end": chunks[0][0],
+                                      "records": {f: np.asarray(a) for f, a
+                                                  in chunks[0][1].items()}}),
+                          shape=list(chunks[0][1]["x"].shape))}
+
+        def host_mean(summ, leg):
+            return summ["host_ms"][leg]["mean"]
+
+        wrep["cost"] = {
+            "worker": {"quanta": [t["quanta"] for t in wturns],
+                       "ms_per_quantum_client": [t["ms_per_quantum"]
+                                                 for t in wturns],
+                       "summary_quanta": wsum["quanta"],
+                       "dispatch_host_ms": host_mean(wsum, "dispatch"),
+                       "drain_host_ms": host_mean(wsum, "drain"),
+                       "watchdog": wd_worker},
+            "in_process": [{"quanta": t["quanta"],
+                            "ms_per_quantum": 1e3 * t["wall"] / t["quanta"],
+                            "dispatch_host_ms": host_mean(t["summary"],
+                                                          "dispatch"),
+                            "drain_host_ms": host_mean(t["summary"],
+                                                       "drain")}
+                           for t in turns],
+            "over_rpc_in_process": {
+                "ms_per_quantum": 1e3 * over_rpc["wall"] / over_rpc["quanta"],
+                "launches_per_sweep": per_sweep,
+                "launches_equal": bool(launches_equal)},
+            "bitwise": bool(bit_more), "frames": frames}
+        print(f"# wire 19f cost: {json.dumps(wrep['cost'])}", flush=True)
+        if not (bit_more and launches_equal):
+            fail("the wire's runs differ from the in-process run in chains "
+                 "or launches")
+        counts19 = check_launches("pool_wire", run19[0], run19[1])
+
+        # 19e. chaos: a worker killed by pool_kill at its fourth completed
+        # quantum over phase 15b's two spooled victims; a --recover worker
+        # maps both and serves them bitwise their uninterrupted runs
+        torch.cuda.empty_cache()
+        kill_spec = json.dumps([{"point": "pool_kill", "after": 3,
+                                 "action": "kill"}])
+        d2, w2, _ = spawn("w2", "--faults", kill_spec)
+        ready2 = ready_of(d2, w2)
+        c2 = RemoteChainServer(("127.0.0.1", ready2["rpc_port"]),
+                               timeout=120.0)
+        for i in range(2):
+            c2.submit(TenantRequest(
+                ma=tenant_mas[4 + i], niter=KILL_SWEEPS, nchains=KILL_CHAINS,
+                seed=300 + i, priority=2, name=f"v{i}",
+                spool_dir=os.path.join(tmp19, "spools", f"v{i}")))
+        rc2 = ended(d2, w2)
+        c2.close()
+        if rc2 != 9:
+            fail(f"the pool_kill worker exited {rc2}, not 9: "
+                 f"{worker_log(d2)}")
+        os.remove(os.path.join(d2, "ready.json"))
+        _, w3, t_spawn3 = spawn("w2", "--recover")
+        ready3 = ready_of(d2, w3)
+        ready3_s = time.time() - t_spawn3
+        if set(ready3["recovered"]) != {"v0", "v1"} or ready3["lost"]:
+            fail(f"the recovered worker did not map both victims: {ready3}")
+        c3 = RemoteChainServer(("127.0.0.1", ready3["rpc_port"]),
+                               timeout=120.0)
+        got = [rpc_mod.RemoteTenantHandle(
+            c3, ready3["recovered"][f"v{i}"], None).result(timeout=WAIT_S)
+            for i in range(2)]
+        first3 = ready_of(d2, w3, key="first_dispatch_t")["coldstart"]
+        c3.shutdown()
+        rc3 = ended(d2, w3)
+        c3.close()
+        rec = {"spawn_to_ready_s": ready3_s,
+               "coldstart": first3,
+               "first_dispatch_s": first3["first_dispatch_t"] - t_spawn3,
+               "bitwise": [bool(g.chain.shape[0] == KILL_SWEEPS
+                                and same_rows(g, r_))
+                           for g, r_ in zip(got, refs)],
+               "exit": rc3}
+        wrep["kill"] = rec
+        print(f"# wire 19e kill and recover: {json.dumps(rec)}", flush=True)
+        if not (all(rec["bitwise"]) and rc3 == 0):
+            fail("a victim of the killed worker did not recover bitwise, or "
+                 "the recovered worker did not retire cleanly")
+    finally:
+        rpc_mod.send_frame = plain_send
+        for p in workers:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp19, ignore_errors=True)
+
+    print(f"# wire 19a pool1024 worker: ready.json {spawn_s:.2f} s after the "
+          f"spawn, the kernels' library {ready1['coldstart']['library']} "
+          f"({ready1['coldstart']['library_s']} s) | {card}", flush=True)
+    print(f"# wire 19e the recovered worker's first dispatch "
+          f"{wrep['kill']['first_dispatch_s']:.2f} s after its spawn "
+          f"(16b's recovering process: {kill['first_dispatch_s']:.2f} s) | "
+          f"{card}", flush=True)
+    wc = wrep["cost"]
+    print(f"# wire 19f pool1024 ms a quantum: worker "
+          + " / ".join(format(v, ".2f")
+                       for v in wc["worker"]["ms_per_quantum_client"])
+          + f" (seen by the client; its dispatch "
+          f"{wc['worker']['dispatch_host_ms']:.2f}, drain "
+          f"{wc['worker']['drain_host_ms']:.2f} host ms), in process "
+          + " / ".join(f"{t['ms_per_quantum']:.2f} (dispatch "
+                       f"{t['dispatch_host_ms']:.2f}, drain "
+                       f"{t['drain_host_ms']:.2f})" for t in wc["in_process"])
+          + f"; behind an in-process RpcServer "
+          f"{wc['over_rpc_in_process']['ms_per_quantum']:.2f}, launches a "
+          f"sweep equal | {card}", flush=True)
+    for kind, f_ in wc["frames"].items():
+        print(f"# wire 19f {kind} frame {f_['shape']}: {f_['bytes']} bytes, "
+              f"encode {f_['encode_ms']:.3f} ms, decode "
+              f"{f_['decode_ms']:.3f} ms | {card}", flush=True)
+    sb = wrep["control"]["submit_bytes"]
+    print(f"# wire 19d submit frames: with the model {sb['w0_with_model']} "
+          f"bytes, digest only {sb['fill_digest_only']} bytes", flush=True)
+    wrep["launches"] = counts19
+    wrep["seconds"] = time.perf_counter() - t19
+    print(f"# phase 19: {wrep['seconds']:.1f} s", flush=True)
+
 
 
     # the redesigned kernels beside the first design and the library call

@@ -27,10 +27,15 @@ The serving observability plane (``serve.ChainServer`` drives it):
   metrics registry (``obs_dir/metrics.prom``).
 - :mod:`~gibbs_student_t_tpu_torch.obs.schema` — the validator and this
   package's copy of the records' schemas.
+- :mod:`~gibbs_student_t_tpu_torch.obs.http` — the read-only HTTP
+  endpoints (``/healthz``, ``/status``, ``/metrics``, ``/trace``,
+  ``/tenants/<id>/progress``, ``/postmortem``), mounted by
+  ``ChainServer(http_port=...)``.
 
 Not ported: the JAX package's XLA compile introspection
-(``obs/introspect.py``; ROADMAP A-10), and the wire's HTTP endpoints and
-fleet views (``obs/http.py``, ``obs/aggregate.py``; ROADMAP A-9).
+(``obs/introspect.py``; ROADMAP A-10), and the fleet's views
+(``obs/aggregate.py`` and ``obs/export.prometheus_labeled``; ROADMAP A-9
+item 8).
 """
 
 from gibbs_student_t_tpu_torch.obs.export import (
@@ -38,6 +43,7 @@ from gibbs_student_t_tpu_torch.obs.export import (
     write_prometheus,
 )
 from gibbs_student_t_tpu_torch.obs.flight import FlightRecorder, read_bundle
+from gibbs_student_t_tpu_torch.obs.http import ObsHttpServer
 from gibbs_student_t_tpu_torch.obs.metrics import MetricsRegistry
 from gibbs_student_t_tpu_torch.obs.spans import SpanRecorder
 from gibbs_student_t_tpu_torch.obs.watchdog import (
@@ -46,6 +52,7 @@ from gibbs_student_t_tpu_torch.obs.watchdog import (
     serve_watchdog_env,
 )
 
-__all__ = ["FlightRecorder", "MetricsRegistry", "SpanRecorder", "Watchdog",
+__all__ = ["FlightRecorder", "MetricsRegistry", "ObsHttpServer",
+           "SpanRecorder", "Watchdog",
            "WatchdogSpec", "prometheus_text", "read_bundle",
            "serve_watchdog_env", "write_prometheus"]

@@ -9,6 +9,13 @@ in ``.gitignore``), and again whenever the hash of the sources and flags
 changes. Each ``.cu`` is compiled by its own ``nvcc`` process, all started
 together, then linked once.
 
+The build is safe across processes (a serving worker loads the library
+beside the process that spawned it): the check of the stamp and the build
+run under an ``fcntl.flock`` on ``_build/build.lock``, a process that
+waited re-reads the stamp and loads what the other one built, the objects
+and the linked library are written under names of the building process's
+own, and the library and its stamp land by ``os.replace``.
+
 ``--use_fast_math`` is deliberately absent: the MH kernels' reject
 semantics (a non-PD pivot gives NaN, NaN never accepts, an out-of-bounds
 prior is -inf) rest on IEEE ``logf``/``expf``/``rsqrtf`` behaviour.
@@ -24,6 +31,7 @@ built on a host without CUDA: the CPU tests never reach :func:`lib`.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -35,6 +43,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 LIB_NAME = "libgst_cuda.so"
+LOCK_NAME = "build.lock"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: extra nvcc flags of one source file, by its name
@@ -71,6 +80,9 @@ _lock = threading.Lock()
 _lib = None
 #: the ptxas resource report of the last build in this process
 ptxas_report = ""
+#: how this process's last :func:`build` got the library: ``"built"``
+#: (compiled it), ``"loaded"`` (the stamp matched) or None (no call yet)
+last_build = None
 
 
 def _sources():
@@ -97,44 +109,73 @@ def _nvcc() -> str:
                        "kernels cannot be built on this host")
 
 
+def _stamp_matches(lib_path: str, stamp: str, want: str) -> bool:
+    if not (os.path.exists(lib_path) and os.path.exists(stamp)):
+        return False
+    with open(stamp) as fh:
+        return fh.read().strip() == want
+
+
 def build(force: bool = False) -> str:
     """Compile the sources into ``_build/libgst_cuda.so`` unless the
-    library there matches the current sources' hash. Returns its path."""
-    global ptxas_report
+    library there matches the current sources' hash. Returns its path.
+    Another process's build in flight is waited for, then loaded."""
+    global ptxas_report, last_build
     os.makedirs(BUILD, exist_ok=True)
     lib_path = os.path.join(BUILD, LIB_NAME)
     stamp = os.path.join(BUILD, LIB_NAME + ".hash")
     want = _hash()
-    if not force and os.path.exists(lib_path) and os.path.exists(stamp):
-        with open(stamp) as fh:
-            if fh.read().strip() == want:
+    with open(os.path.join(BUILD, LOCK_NAME), "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not force and _stamp_matches(lib_path, stamp, want):
+                last_build = "loaded"
                 return lib_path
+            report = _compile_and_link(lib_path, stamp, want)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    ptxas_report = report
+    with open(os.path.join(BUILD, "ptxas.txt"), "w") as fh:
+        fh.write(ptxas_report)
+    last_build = "built"
+    return lib_path
+
+
+def _compile_and_link(lib_path: str, stamp: str, want: str) -> str:
+    """The build itself (the caller holds the lock): objects and the
+    linked library under this process's own names, then the library and
+    its stamp by ``os.replace``. Returns the ptxas report."""
     nvcc = _nvcc()
-    objs = [os.path.join(BUILD, os.path.basename(src)[:-3] + ".o")
+    tag = f".{os.getpid()}"
+    objs = [os.path.join(BUILD, os.path.basename(src)[:-3] + tag + ".o")
             for src in _sources()]
     cmds = [[nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(os.path.basename(src), ()),
              "-c", src, "-o", obj]
             for src, obj in zip(_sources(), objs)]
-    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for cmd in cmds]
-    reports = [proc.communicate()[0] for proc in procs]
-    for cmd, proc, out in zip(cmds, procs, reports):
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                               f"{' '.join(cmd)}\n{out}")
-    link = [nvcc, "-shared", "-o", lib_path + ".tmp", *objs]
-    res = subprocess.run(link, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc link failed: {' '.join(link)}\n"
-                           f"{res.stdout}{res.stderr}")
-    os.replace(lib_path + ".tmp", lib_path)
-    with open(stamp, "w") as fh:
-        fh.write(want)
-    ptxas_report = "".join(reports)
-    with open(os.path.join(BUILD, "ptxas.txt"), "w") as fh:
-        fh.write(ptxas_report)
-    return lib_path
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        reports = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, out in zip(cmds, procs, reports):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{out}")
+        tmp = lib_path + tag + ".tmp"
+        link = [nvcc, "-shared", "-o", tmp, *objs]
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed: {' '.join(link)}\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(tmp, lib_path)
+        with open(stamp + tag + ".tmp", "w") as fh:
+            fh.write(want)
+        os.replace(stamp + tag + ".tmp", stamp)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return "".join(reports)
 
 
 def lib():

@@ -33,12 +33,21 @@ its chains from a fit to a short pilot run instead of the prior (a
 the partial-scan states every sweep computes as recycled rows
 (``parallel/recycle.py``). ``GST_WARM_START``, ``GST_WARM_FLOW``,
 ``GST_ADAPT_SCAN`` and ``GST_RECYCLE`` gate them, strictly ``auto|1|0``.
+
+The wire for one pool: ``rpc.py`` holds the frame codec, the
+:class:`RpcServer` mounted beside a server and the client
+:class:`RemoteChainServer`, whose handles mirror the local ones (streaming
+included); ``pool_main.py`` runs a server as a worker process behind the
+RPC edge and the HTTP endpoints (``ChainServer(http_port=...)``,
+obs/http.py). The fleet (the JAX package's router and aggregator) is not
+ported.
 """
 
 from gibbs_student_t_tpu_torch.serve import faults
 from gibbs_student_t_tpu_torch.serve.adapt import AdaptScanSpec
 from gibbs_student_t_tpu_torch.serve.monitor import MonitorSpec, TenantMonitor
 from gibbs_student_t_tpu_torch.serve.pool import SlotPool, TenantSlot
+from gibbs_student_t_tpu_torch.serve.rpc import RemoteChainServer, RpcServer
 from gibbs_student_t_tpu_torch.serve.scheduler import (
     CONVERGED_POLICIES,
     DIVERGENCE_POLICIES,
@@ -56,7 +65,8 @@ from gibbs_student_t_tpu_torch.serve.warm import WarmStartFit, WarmStartSpec
 
 __all__ = ["CONVERGED_POLICIES", "DIVERGENCE_POLICIES", "AdaptScanSpec",
            "AdmissionQueue", "ChainServer", "DeadlineExceeded",
-           "MonitorSpec", "QueueFull", "RetryAfter", "SlotPool",
+           "MonitorSpec", "QueueFull", "RemoteChainServer", "RetryAfter",
+           "RpcServer", "SlotPool",
            "TenantError", "TenantHandle", "TenantMonitor", "TenantRequest",
            "TenantSlot", "WarmStartFit", "WarmStartSpec", "faults",
            "schedule_score"]

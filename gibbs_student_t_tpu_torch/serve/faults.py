@@ -46,10 +46,12 @@ point                       site (fires just before the real work)
                             before the state checkpoint
                             (``action="kill"``: ``os._exit(9)``)
 ``kill_after_checkpoint``   the same, after the checkpoint
-``rpc_sever``               declared for the wire (ROADMAP A-9 item 7);
-                            no site fires it in this package yet
-``pool_kill``               declared for the subprocess pool worker
-                            (A-9 item 7); no site fires it yet
+``rpc_sever``               serve/rpc.py: each request on a connection,
+                            and each chunk a stream pushes (a firing
+                            closes the connection, no error frame)
+``pool_kill``               serve/pool_main.py: each completed quantum
+                            of the worker (``action="kill"``: the dead
+                            pool)
 ==========================  =============================================
 
 Actions: ``raise`` (the named exception type, the default), ``die``

@@ -21,8 +21,9 @@ streaming ``monitor`` of serve/monitor.py) are the server's to apply
 (serve/server.py), and so are its ``warm_start`` (serve/warm.py) and its
 ``adapt_scan`` (serve/adapt.py). A handle reports its progress, its
 convergence, its cost, and its warm start, adaptive scan and recycled rows
-while it runs. The JAX request's trace id belongs to the wire, which is
-not ported: a request that sets one raises ``TypeError``.
+while it runs. A request's ``trace_id`` is an opaque correlation id: the
+server tags the tenant's spans with it and ``progress()`` reports it; it
+never touches the chains.
 """
 
 from __future__ import annotations
@@ -114,11 +115,6 @@ DIVERGENCE_POLICIES = ("none", "fail", "quarantine", "reinit")
 #: submit).
 CONVERGED_POLICIES = ("none", "evict")
 
-#: fields of the JAX request whose machinery this package does not have
-#: (their value here must stay the default)
-_NOT_PORTED = {"trace_id": None}
-
-
 @dataclass
 class TenantRequest:
     """One job for the slot pool: ``niter`` sweeps (a multiple of the pool
@@ -167,7 +163,12 @@ class TenantRequest:
     the arm (``0`` serves every request cold). ``adapt_scan`` (an
     ``AdaptScanSpec``, serve/adapt.py) thins the tenant's converged
     conditional blocks at drain boundaries; it needs a monitor with an ESS
-    target, and ``GST_ADAPT_SCAN`` gates the arm."""
+    target, and ``GST_ADAPT_SCAN`` gates the arm.
+
+    ``trace_id`` (an opaque string, or None) correlates the tenant across
+    processes: every span the server records for it carries the id, as
+    does :meth:`TenantHandle.progress`, and the crash manifest journals
+    it. It is observational only."""
 
     ma: ModelArrays
     niter: int
@@ -188,14 +189,6 @@ class TenantRequest:
     warm_start: object = None
     adapt_scan: object = None
     trace_id: Optional[str] = None
-
-    def __post_init__(self):
-        for f, default in _NOT_PORTED.items():
-            if getattr(self, f) != default:
-                raise TypeError(
-                    f"TenantRequest.{f}={getattr(self, f)!r} is not "
-                    f"supported by this package's server (only "
-                    f"{default!r})")
 
 
 class TenantHandle:
@@ -389,8 +382,9 @@ class TenantHandle:
         after its run: scheduling state, the streaming convergence view
         when it is monitored (``rows``, per-parameter ``ess``/``rhat``
         and their ``ess_min``/``rhat_max``, ``ess_per_s``,
-        ``est_sweeps_to_target``, ``converged_at``), its :meth:`cost`, and
-        its ``recycled_rows``, ``warm`` and ``adapt`` views once set."""
+        ``est_sweeps_to_target``, ``converged_at``), its ``trace_id`` when
+        it has one, its :meth:`cost`, and its ``recycled_rows``, ``warm``
+        and ``adapt`` views once set."""
         p: Dict[str, object] = {
             "tenant_id": self.tenant_id,
             "name": self.request.name,
@@ -402,6 +396,8 @@ class TenantHandle:
         mon = self._monitor
         if mon is not None:
             p.update(mon.snapshot())
+        if self.request.trace_id is not None:
+            p["trace_id"] = self.request.trace_id
         p["priority"] = int(self.request.priority)
         if self._deadline_sweep is not None:
             p["deadline_sweep"] = int(self._deadline_sweep)

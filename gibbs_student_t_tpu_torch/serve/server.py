@@ -100,10 +100,21 @@ The capacity arms, each gated as in the JAX server:
   probability, and its gates, drawn from ``(seed, tenant, sweep)``, go to
   the pool's lanes for the next dispatch.
 
+The wire for one pool: ``http_port`` mounts the read-only HTTP endpoints
+(obs/http.py: ``/healthz``, ``/status``, ``/metrics``, ``/trace``,
+``/tenants/<id-or-name>/progress``, ``/postmortem``) on the in-memory
+forms of what ``obs_dir``, :meth:`export_trace` and
+:meth:`dump_postmortem` write; serve/rpc.py's ``RpcServer`` mounts the
+mutating edge beside a server, and serve/pool_main.py runs one server as
+a worker process behind both. A request's ``trace_id`` tags every span the
+server records for its tenant, rides ``progress()`` and the manifest, and
+is restored by :meth:`recover`; chains do not depend on it.
+
 Not ported from the JAX server: the in-kernel stage timers
 (``summary()["stages"]`` stays None: the JAX server's come from its CPU
-native library), the persistent compile cache of ``recover``, the HTTP
-endpoints and the rest of the wire (ROADMAP A-9).
+native library), the persistent compile cache of ``recover``, and the
+fleet (the router, migration, rebalancing and the aggregator; ROADMAP
+A-9 item 8).
 """
 
 from __future__ import annotations
@@ -132,9 +143,13 @@ from gibbs_student_t_tpu_torch.backends.torch_backend import (
 )
 from gibbs_student_t_tpu_torch.config import GibbsConfig
 from gibbs_student_t_tpu_torch.models.pta import ModelArrays
-from gibbs_student_t_tpu_torch.obs.export import write_prometheus
+from gibbs_student_t_tpu_torch.obs.export import (
+    prometheus_text,
+    write_prometheus,
+)
 from gibbs_student_t_tpu_torch.obs.flight import FlightRecorder
 from gibbs_student_t_tpu_torch.obs.health import chain_health
+from gibbs_student_t_tpu_torch.obs.http import ObsHttpServer
 from gibbs_student_t_tpu_torch.obs.metrics import MetricsRegistry, _jsonable
 from gibbs_student_t_tpu_torch.obs.spans import (
     ROLE_DISPATCH,
@@ -296,6 +311,9 @@ class ChainServer:
     ``<flight_dir>/flight.json`` every ``flight_sync_every`` quanta
     (``flight_dir`` defaults to ``obs_dir``, then ``manifest_dir``) and
     dumped in full to ``postmortem.json`` by :meth:`dump_postmortem`;
+    ``http_port`` (None: off; 0: an ephemeral port, read back from
+    ``server.http.port``) serves the plane over HTTP on ``http_host``
+    (obs/http.py); a bind failure warns and the server runs without it.
     ``watchdog`` (``"auto"`` follows ``GST_SERVE_WATCHDOG``, auto ->
     ``"dump"``; ``False`` turns it off; ``"warn"``, ``"dump"`` or
     ``"fail"`` set the trip policy, which a set ``GST_SERVE_WATCHDOG``
@@ -322,7 +340,9 @@ class ChainServer:
                  manifest_dir: Optional[str] = None, metrics=None,
                  spans: bool = True, span_capacity: int = 65536,
                  trace_jsonl: Optional[str] = None,
-                 obs_dir: Optional[str] = None, watchdog="auto",
+                 obs_dir: Optional[str] = None,
+                 http_port: Optional[int] = None,
+                 http_host: str = "127.0.0.1", watchdog="auto",
                  watchdog_spec: Optional[WatchdogSpec] = None,
                  flight: bool = True, flight_dir: Optional[str] = None,
                  flight_capacity: int = 64, flight_sync_every: int = 4,
@@ -366,6 +386,9 @@ class ChainServer:
         # serial path may read status()
         self._lock = threading.RLock()
         self._running: Dict[int, _Tenant] = {}
+        # every handle this server made, by tenant id (the wire's and the
+        # HTTP endpoints' lookup by id or name)
+        self._handles: Dict[int, TenantHandle] = {}
         # admission groups (``pool.group`` lanes each) no tenant holds
         self._free_groups: List[int] = list(range(nlanes // self.pool.group))
         self._ids = itertools.count()
@@ -443,6 +466,24 @@ class ChainServer:
                          obs_dir, manifest_dir, wd_env, watchdog,
                          watchdog_spec, flight, flight_dir, flight_capacity,
                          flight_sync_every)
+        # the read-only HTTP endpoints on a daemon thread; a failure to
+        # mount them warns and the server serves without them
+        self.http = None
+        if http_port is not None:
+            try:
+                self.http = ObsHttpServer(
+                    host=http_host, port=http_port,
+                    status_fn=self.status, healthz_fn=self.healthz,
+                    metrics_fn=self._metrics_text,
+                    trace_fn=self._trace_doc,
+                    progress_fn=self._tenant_progress,
+                    postmortem_fn=self._postmortem_doc)
+            except Exception as e:  # noqa: BLE001 - observability contract
+                warnings.warn(
+                    f"observability HTTP server failed to start on "
+                    f"{http_host}:{http_port} ({type(e).__name__}: {e}); "
+                    "serving continues without the endpoints",
+                    RuntimeWarning)
 
     def _init_plane(self, metrics, spans, span_capacity, trace_jsonl,
                     obs_dir, manifest_dir, wd_env, watchdog, watchdog_spec,
@@ -674,8 +715,14 @@ class ChainServer:
         check_counter("seed", request.seed)
         check_counter("sweep", request.start_sweep + request.niter - 1)
         handle = TenantHandle(next(self._ids), request)
+        with self._lock:
+            self._handles[handle.tenant_id] = handle
         if dls is not None:
             handle._deadline_sweep = request.start_sweep + dls
+        if self.spans is not None:
+            # registered at submit, so every span of the tenant carries it
+            # (a preempted tenant's continuation keeps its handle)
+            self.spans.set_trace_id(handle.tenant_id, request.trace_id)
         if self.queue.policy == "block" and (
                 self._driver is None
                 or self._driver is threading.current_thread()):
@@ -694,6 +741,8 @@ class ChainServer:
             if self.metrics is not None:
                 self.metrics.counter("serve_sheds_total").inc()
             handle._fail_shed(err)
+            with self._lock:
+                self._handles.pop(handle.tenant_id, None)
             raise err from e
         self._stage_wake.set()
         depth = len(self.queue)
@@ -939,6 +988,8 @@ class ChainServer:
                 ma=wh.request.ma, niter=niter, nchains=wspec.pilot_chains,
                 seed=wh.request.seed, name=f"__warm_pilot_{wh.tenant_id}"))
             ph._internal = True
+            with self._lock:
+                self._handles[ph.tenant_id] = ph
             prep = self._prepare(ph)
             if prep is None:
                 if wh is handle:
@@ -2301,6 +2352,9 @@ class ChainServer:
                     signal.signal(signal.SIGTERM, self._sigterm_prev)
             self._sigterm_prev = None
         self._refresh_obs()          # the pull surface's final state
+        if self.http is not None:
+            self.http.close()        # last: readable through the close
+            self.http = None
         if self.spans is not None:
             self.spans.close()       # the JSONL sink only
 
@@ -2350,8 +2404,9 @@ class ChainServer:
         journaled, 0 included. Tenants admitted without a spool died
         with the process: they are listed on ``server.lost_tenants``.
         ``overrides`` are constructor arguments (``device``, ``pipeline``,
-        ...); the pool's geometry comes from the manifest. The log is
-        compacted to the outstanding set afterwards."""
+        ``http_port``, ...); the pool's geometry comes from the manifest.
+        A tenant's ``trace_id`` is restored from its admission record.
+        The log is compacted to the outstanding set afterwards."""
         template_ma, config, kw = load_server_state(manifest_dir)
         kw.update(overrides)
         recoverable, lost = outstanding_tenants(manifest_dir)
@@ -2375,6 +2430,7 @@ class ChainServer:
                     seed=rec["seed"], spool_dir=rec["spool_dir"],
                     name=rec.get("name")))
                 h._finish(load_spool(rec["spool_dir"]))
+                srv._handles[h.tenant_id] = h
                 handles[key] = h
                 continue
             # the deadline was journaled relative to the admission's
@@ -2395,6 +2451,7 @@ class ChainServer:
                 on_divergence=rec.get("on_divergence") or "none",
                 on_converged=rec.get("on_converged") or "none",
                 monitor=mon, warm_start=rec.get("warm"),
+                trace_id=rec.get("trace_id"),
                 priority=(1 if rec.get("priority") is None
                           else int(rec["priority"])),
                 deadline_sweeps=dls))
@@ -2717,6 +2774,13 @@ class ChainServer:
                                           "postmortem.json"),
                              reason=reason, include_spans=True)
 
+    def _postmortem_doc(self) -> Optional[dict]:
+        """``GET /postmortem``: the bundle :meth:`dump_postmortem` writes,
+        rendered in memory (None, a 404, with the recorder off)."""
+        if self.flight is None:
+            return None
+        return self.flight.bundle("endpoint", include_spans=True)
+
     def _atexit_dump(self) -> None:
         """At interpreter exit, leave a bundle behind for a server still
         open (close() unregisters this)."""
@@ -2763,6 +2827,37 @@ class ChainServer:
                     RuntimeWarning)
         finally:
             self._refresh_ms.append((time.monotonic() - t0) * 1e3)
+
+    def _metrics_text(self) -> Optional[str]:
+        """``GET /metrics``: the exposition text ``metrics.prom`` holds
+        (None, a 404, without a registry)."""
+        if self.metrics is None:
+            return None
+        return prometheus_text(self.metrics.snapshot(),
+                               ts_ms=int(time.time() * 1e3))
+
+    def _trace_doc(self) -> Optional[dict]:
+        """``GET /trace``: the document :meth:`export_trace` writes (None,
+        a 404, with spans off)."""
+        if self.spans is None:
+            return None
+        return self.spans.chrome_trace_doc(tenant_names=self._tenant_names)
+
+    def _tenant_progress(self, key: str) -> Optional[dict]:
+        """``GET /tenants/<key>/progress``: a handle's ``progress()``, by
+        tenant id or request name (the latest submission wins a name).
+        None, a 404, when no handle matches."""
+        with self._lock:
+            h = None
+            try:
+                h = self._handles.get(int(key))
+            except (TypeError, ValueError):
+                pass
+            if h is None:
+                for hh in self._handles.values():
+                    if hh.request.name == key:
+                        h = hh
+        return None if h is None else h.progress()
 
     def export_trace(self, path: str) -> str:
         """Write the recorded executor spans as Chrome trace-event JSON

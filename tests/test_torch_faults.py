@@ -409,7 +409,7 @@ def test_dispatch_stall_is_bitwise(demo, refs, pipeline):
 
 def test_request_policy_checks_and_telemetry_off(demo, refs):
     """``on_divergence`` takes the four policies and nothing else, needs
-    pool telemetry, and the request fields still unported raise; with
+    pool telemetry, and a request carries a ``trace_id``; with
     telemetry off the chains are bitwise, with no health report."""
     srv = _server(demo, False, telemetry=False)
     try:
@@ -417,8 +417,7 @@ def test_request_policy_checks_and_telemetry_off(demo, refs):
             srv.submit(_request(demo, "X", 1, on_divergence="banana"))
         with pytest.raises(ValueError, match="pool telemetry"):
             srv.submit(_request(demo, "X", 1, on_divergence="fail"))
-        with pytest.raises(TypeError, match="not supported"):
-            _request(demo, "X", 1, trace_id="t")
+        assert _request(demo, "X", 1, trace_id="t").trace_id == "t"
         with pytest.raises(ValueError, match="warm_start must be"):
             srv.submit(_request(demo, "X", 1, warm_start=object()))
         with pytest.raises(ValueError, match="supervise must be"):

@@ -229,8 +229,7 @@ def test_validation(demo):
         srv.submit(TenantRequest(ma=ma, niter=7, nchains=16))
     with pytest.raises(ValueError, match="lane groups"):
         srv.submit(TenantRequest(ma=ma, niter=5, nchains=33))
-    with pytest.raises(TypeError, match="not supported"):
-        TenantRequest(ma=ma, niter=5, trace_id="t")
+    assert TenantRequest(ma=ma, niter=5, trace_id="t").trace_id == "t"
     with pytest.raises(ValueError, match="warm_start must be"):
         srv.submit(TenantRequest(ma=ma, niter=5, warm_start=object()))
     srv.submit(TenantRequest(ma=ma, niter=5, nchains=16, seed=0))

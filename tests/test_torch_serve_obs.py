@@ -992,8 +992,8 @@ def test_request_and_server_checks(demo, monkeypatch, tmp_path):
             with pytest.raises(ValueError, match="armed target"):
                 srv.submit(TenantRequest(ma=demo[0], niter=5, monitor=spec,
                                          on_converged="evict"))
-        with pytest.raises(TypeError, match="not supported"):
-            TenantRequest(ma=demo[0], niter=5, trace_id="t")
+        assert TenantRequest(ma=demo[0], niter=5,
+                             trace_id="t").trace_id == "t"
         with pytest.raises(ValueError, match="warm_start must be"):
             srv.submit(TenantRequest(ma=demo[0], niter=5,
                                      warm_start=object()))
