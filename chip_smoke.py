@@ -377,6 +377,39 @@ exits 1 through ``fail`` before it, and so does an uncaught exception.
       decode ms of a 256-chain result frame and of a chunk frame, and the
       worker's watchdog state (reported: its throughput rule reads
       chain-sweeps/s, which falls with occupancy).
+20. the fleet on one card (``serve/router.py``, ``obs/aggregate.py``) at
+   pool1024, in a temporary directory removed at the end; each fleet is
+   two ``python -m gibbs_student_t_tpu_torch.serve.pool_main`` workers on
+   the card (the serial executor, light records), spawned together by
+   ``spawn_fleet`` and retired by ``teardown_fleet``:
+   a. round-robin placement: 15a's tenant set through the router, every
+      tenant bit for bit 15a's in-process serial results, the placements on
+      both workers; the fleet's ``/status`` valid against the port's
+      ``fleet_status`` schema with both pools reachable, ``/metrics``
+      Prometheus text (``prometheus_labeled``), ``/trace`` stitched over
+      the router and both workers with a clock a worker and every job's
+      router and pool spans (``trace_coverage``); printed: each worker's
+      spawn-to-ready seconds and library, and each pool's healthz cause
+      (reported, not gated: the watchdog's throughput rule reads
+      chain-sweeps/s);
+   b. live migration: the set's longest tenant, spooled, pinned to worker
+      0 and moved to worker 1 once worker 0 has counted two quanta, with a
+      caller blocked in ``result()`` that rides through; a queued tenant
+      behind a full pool moved by replay; both bit for bit 15a's results;
+   c. dead-pool failover: a fleet whose worker 1 dies at its third
+      quantum (``pool_kill``) under two spooled tenants and one in memory;
+      the router's watch respawns it with ``--recover``: the spooled ones
+      resume and the other is replayed, all bit for bit, and worker 0's
+      tenants are untouched; printed: the seconds from the kill to the
+      recovered worker's first dispatch;
+   d. rebalancing (``rebalance=True``, a fleet of its own): a queued
+      tenant behind a full worker 0 stolen by the drained worker 1, bit
+      for bit;
+   e. reported, not gated, in turns after 20a: the set's busy
+      chain-sweeps/s through one worker (all pinned to worker 0), both,
+      both, one, with each worker's ms a quantum. The workers' launches are not
+      counted (the parent cannot count them); the kernels line is
+      unchanged.
 
 Launch counts are read per path: every count is set to 0 just before a
 run and read just after it; a count is launches per sweep x sweeps plus
@@ -5603,6 +5636,313 @@ def main() -> None:
     wrep["launches"] = counts19
     wrep["seconds"] = time.perf_counter() - t19
     print(f"# phase 19: {wrep['seconds']:.1f} s", flush=True)
+
+    # --- 20. the fleet on one card (pool1024) --------------------------------
+    from gibbs_student_t_tpu_torch.obs import aggregate as fleet_agg
+    from gibbs_student_t_tpu_torch.serve.router import (
+        spawn_fleet,
+        teardown_fleet,
+    )
+
+    t20 = time.perf_counter()
+    flrep = report["fleet"] = {}
+    tmp20 = tempfile.mkdtemp(prefix="gst_chip_smoke_fleet_")
+    fleets = []             # every router this phase made
+    worker_kw = dict(nlanes=POOL_LANES, quantum=Q, record="light",
+                     pipeline=False)
+
+    def fleet_of(name, **kw):
+        """Two pool1024 workers on the card behind a router; no fallback:
+        a worker that does not come up raises."""
+        kw.setdefault("ready_timeout", CHILD_TIMEOUT_S)
+        fl = spawn_fleet(os.path.join(tmp20, name), 2, template, cfg_p,
+                         pool_kwargs=dict(worker_kw), **kw)
+        fleets.append(fl)
+        libs = [p.ready["coldstart"]["library"] for p in fl.pools]
+        if any(lib not in ("built", "loaded") for lib in libs):
+            fail(f"a fleet worker did not load the kernels: {libs}")
+        return fl
+
+    def fleet_set():
+        reqs = tenant_set()
+        for i, r in enumerate(reqs):
+            r.name = f"f{i}"
+        return reqs
+
+    def through(fl, reqs, pin=None):
+        """The requests through the router (all on pool ``pin`` when
+        given): results, the wall, each worker's quanta in the run."""
+        q0 = [p.rpc.status()["quanta"] for p in fl.pools]
+        t0 = time.perf_counter()
+        hs = [fl.submit(r, pool=pin) for r in reqs]
+        res = [h.result(timeout=WAIT_S) for h in hs]
+        wall = time.perf_counter() - t0
+        dq = [p.rpc.status()["quanta"] - q for p, q in zip(fl.pools, q0)]
+        return hs, res, wall, dq
+
+    def pool_health(fl):
+        """Each worker's healthz verdict and cause (reported, not gated:
+        the watchdog's collapse rule reads chain-sweeps/s)."""
+        return {p.label: {"ok": h["ok"], "cause": h.get("error"),
+                          "watchdog": h.get("watchdog", {}).get("state")}
+                for p, h in ((p, p.healthz()) for p in fl.pools)}
+
+    set_chain_sweeps = sum(r.niter * r.nchains for r in tenant_set())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    try:
+        # 20a. two workers, round robin: the set bitwise 15a's in-process
+        # serial results, spread over both; the fleet's wire
+        fa = fleet_of("a", placement="round_robin", http_port=0,
+                      obs_dir=os.path.join(tmp20, "a_obs"),
+                      capacity_sample_s=0.5)
+        spawn_s = {p.label: p.spawn_s for p in fa.pools}
+        hs, res, wall, dq = through(fa, fleet_set())
+        bitwise_a = [bool(same_rows(a, b)) for a, b in zip(res, set_refs)]
+        placements = dict(fa.placements)
+        fport = fa.http.port
+        code, body = http_get(fport, "/status")
+        snap = json.loads(body)
+        status_ok = (code == 200 and not obs_schema.validate(
+            snap, schemas["fleet_status"], defs=schemas)
+            and snap["n_reachable"] == 2)
+        code, text = http_get(fport, "/metrics")
+        lines = [ln for ln in text.splitlines() if ln]
+        metrics_ok = (code == 200 and bool(lines) and all(
+            ln.startswith(("# HELP ", "# TYPE ")) or prom_line.match(ln)
+            for ln in lines) and 'gst_fleet_placements{pool="pool0"}' in text)
+        code, body = http_get(fport, "/trace")
+        doc = json.loads(body)
+        cov = fleet_agg.trace_coverage(doc)
+        traced = sum(1 for h in hs
+                     if cov.get(h.request.trace_id, {}).get("router", 0) >= 1
+                     and cov.get(h.request.trace_id, {}).get("pool", 0) >= 1)
+        clocks = doc["otherData"]["clocks"]
+        trace_ok = (code == 200 and not obs_schema.validate(
+            doc, schemas["fleet_trace"], defs=schemas)
+            and set(clocks) == {"pool0", "pool1"}
+            and all(c["n"] >= 1 for c in clocks.values())
+            and traced == len(hs))
+        flrep["set"] = {
+            "bitwise": bitwise_a, "placements": placements,
+            "status_schema_valid": bool(status_ok),
+            "metrics_ok": bool(metrics_ok), "trace_ok": bool(trace_ok),
+            "jobs_traced_end_to_end": traced, "jobs": len(hs),
+            "clocks": clocks, "spawn_to_ready_s": spawn_s,
+            "coldstart": {p.label: p.ready["coldstart"] for p in fa.pools},
+            "wall_s": wall, "quanta": dq}
+        print(f"# fleet 20a the set through two workers: "
+              f"{json.dumps(flrep['set'])}", flush=True)
+        if not (all(bitwise_a) and status_ok and metrics_ok and trace_ok
+                and set(placements) == {"pool0", "pool1"}):
+            fail("the fleet's tenants differ from the in-process run, or its "
+                 "placements, /status, /metrics or /trace are wrong")
+
+        # 20e. throughput, in turns: the set through one worker (pinned to
+        # pool 0), through both, both, one
+        turns = []
+        for pin in (0, None, None, 0):
+            _, res_, wall_, dq_ = through(fa, fleet_set(), pin=pin)
+            turns.append({
+                "workers": 1 if pin == 0 else 2, "wall_s": wall_,
+                "busy_chain_sweeps_per_s": set_chain_sweeps / wall_,
+                "quanta": dq_,
+                "ms_per_quantum": [1e3 * wall_ / q if q else None
+                                   for q in dq_],
+                "bitwise": all(same_rows(a, b)
+                               for a, b in zip(res_, set_refs))})
+        one = [t["busy_chain_sweeps_per_s"] for t in turns
+               if t["workers"] == 1]
+        two = [t["busy_chain_sweeps_per_s"] for t in turns
+               if t["workers"] == 2]
+        flrep["throughput"] = {"turns": turns,
+                               "two_over_one": float(np.mean(two)
+                                                     / np.mean(one))}
+        flrep["health_a"] = pool_health(fa)
+        if not all(t["bitwise"] for t in turns):
+            fail("a tenant of the throughput turns differs from 15a's")
+
+        # 20b. live migration: a running spooled 256-chain tenant moved to
+        # the other worker once its source has counted two of its quanta,
+        # with a caller blocked in result(); then a queued tenant, moved
+        # by replay
+        mi = int(np.argmax(budgets[:POOL_TENANTS]))
+        mreq = fleet_set()[mi]
+        mreq.spool_dir = os.path.join(tmp20, "spool_mig")
+        src = fa.pools[0]
+        q_start = src.rpc.healthz()["quanta"]
+        rh = fa.submit(mreq, pool=0)
+        got = {}
+        waiter = threading.Thread(
+            target=lambda: got.update(res=rh.result(timeout=WAIT_S)),
+            daemon=True)
+        waiter.start()
+        t_end = time.monotonic() + WAIT_S
+        while src.rpc.healthz()["quanta"] < q_start + 2:
+            if time.monotonic() > t_end:
+                fail("the tenant to migrate never ran")
+            time.sleep(0.005)
+        t_mig = time.perf_counter()
+        moved = fa.migrate(rh, 1, timeout=WAIT_S)
+        mig_s = time.perf_counter() - t_mig
+        waiter.join(WAIT_S)
+        frozen_at = rh._inner.request.start_sweep
+        anchor = fa.submit(TenantRequest(
+            ma=tenant_mas[0], niter=40 * Q, nchains=POOL_LANES, seed=950,
+            name="anchor"), pool=0)
+        qreq = fleet_set()[1]
+        qh = fa.submit(qreq, pool=0)
+        moved_q = fa.migrate(qh, 1, timeout=WAIT_S)
+        res_q = qh.result(timeout=WAIT_S)
+        anchor.cancel()
+        anchor.result(timeout=WAIT_S)
+        mig = {"moved": bool(moved), "seconds": mig_s,
+               "frozen_at_sweep": frozen_at, "budget": mreq.niter,
+               "rode_through": "res" in got,
+               "bitwise": bool("res" in got
+                               and same_rows(got["res"], set_refs[mi])),
+               "queued_moved": bool(moved_q),
+               "queued_bitwise": bool(same_rows(res_q, set_refs[1])),
+               "migrations": fa.migrations}
+        flrep["migration"] = mig
+        print(f"# fleet 20b live migration: {json.dumps(mig)}", flush=True)
+        if not (mig["moved"] and mig["rode_through"] and mig["bitwise"]
+                and 0 < frozen_at < mreq.niter and mig["queued_moved"]
+                and mig["queued_bitwise"] and fa.migrations == 2):
+            fail("a migrated tenant is not bitwise its unmigrated run, or a "
+                 "caller did not ride through the move")
+        flrep["router_a"] = fa.fleet_status()["router"]
+        teardown_fleet(fa)
+        exits = [p.proc.returncode for p in fa.pools]
+        if exits != [0, 0]:
+            fail(f"a fleet worker did not retire cleanly: {exits}")
+
+        # 20c. dead-pool failover: worker 1 dies at its third completed
+        # quantum (pool_kill) under two spooled tenants and one in memory;
+        # the router's watch respawns it with --recover
+        fc = fleet_of("c", placement="round_robin", watch_poll_s=0.2,
+                      faults_for={1: [{"point": "pool_kill", "after": 2,
+                                       "action": "kill"}]})
+        dying = fc.pools[1].proc
+        died = {}
+
+        def watch_death():
+            while dying.poll() is None and not died.get("stop"):
+                time.sleep(0.005)
+            died["t"] = time.time()
+
+        wt = threading.Thread(target=watch_death, daemon=True)
+        wt.start()
+        reqs = fleet_set()[:6]
+        for i in (1, 5):            # round robin puts 1, 3, 5 on pool 1
+            reqs[i].spool_dir = os.path.join(tmp20, f"spool_f{i}")
+        hs = [fc.submit(r) for r in reqs]
+        on1 = [h.pool_idx for h in hs]
+        inner0 = {i: hs[i]._inner for i in (0, 2, 4)}
+        res = [h.result(timeout=WAIT_S) for h in hs]
+        died["stop"] = True
+        wt.join(10.0)
+        new1 = fc.pools[1]
+        rpath = os.path.join(new1.spec.pool_dir, "ready.json")
+        t_end = time.monotonic() + CHILD_TIMEOUT_S
+        while True:
+            with open(rpath) as fh:
+                rdoc = json.load(fh)
+            if "first_dispatch_t" in rdoc["coldstart"]:
+                break
+            if time.monotonic() > t_end:
+                fail("the recovered worker never dispatched")
+            time.sleep(0.05)
+        fo = {"placed_on": on1, "exit_of_killed": dying.returncode,
+              "failovers": fc.failovers, "resubmitted": fc.resubmitted,
+              "recovered": sorted(new1.ready.get("recovered") or {}),
+              "bitwise": [bool(same_rows(a, set_refs[i]))
+                          for i, a in enumerate(res)],
+              "others_untouched": all(hs[i]._inner is inner0[i]
+                                      and hs[i].pool_idx == 0
+                                      for i in (0, 2, 4)),
+              "respawn_spawn_to_ready_s": new1.spawn_s,
+              "kill_to_first_dispatch_s": (
+                  rdoc["coldstart"]["first_dispatch_t"] - died["t"]
+                  if "t" in died else None)}
+        flrep["failover"] = fo
+        print(f"# fleet 20c dead-pool failover: {json.dumps(fo)}",
+              flush=True)
+        if not (on1 == [0, 1, 0, 1, 0, 1] and fo["exit_of_killed"] == 9
+                and fo["failovers"] == 1 and fo["resubmitted"] == 1
+                and fo["recovered"] == ["f1", "f5"] and all(fo["bitwise"])
+                and fo["others_untouched"]):
+            fail("the failover did not recover the victims bitwise, or it "
+                 "touched the other worker's tenants")
+
+        flrep["health_c"] = pool_health(fc)
+        flrep["router_c"] = fc.fleet_status()["router"]
+        teardown_fleet(fc)
+
+        # 20d. rebalancing (a fleet of its own: with both pools free, the
+        # policy also moves a tenant queued for an instant): a long tenant
+        # fills pool 0 and a queued one waits behind it; the drained pool 1
+        # steals it (a replay), bitwise
+        fd = fleet_of("d", placement="round_robin", failover=False,
+                      rebalance=True, rebalance_poll_s=0.25)
+        filler = fd.submit(TenantRequest(
+            ma=tenant_mas[2], niter=40 * Q, nchains=POOL_LANES, seed=951,
+            name="filler"), pool=0)
+        sh = fd.submit(fleet_set()[6], pool=0)
+        res_s = sh.result(timeout=WAIT_S)
+        filler.cancel()
+        filler.result(timeout=WAIT_S)
+        reb = {"steals": fd.steals, "stolen_to": sh.pool_idx,
+               "bitwise": bool(same_rows(res_s, set_refs[6])),
+               "explain": [e["won"] for e in fd.explain(sh)]}
+        flrep["rebalance"] = reb
+        print(f"# fleet 20d rebalance: {json.dumps(reb)}", flush=True)
+        if not (reb["steals"] == 1 and reb["stolen_to"] == 1
+                and reb["bitwise"]):
+            fail("the drained worker did not steal the queued tenant "
+                 "bitwise")
+        teardown_fleet(fd)
+    finally:
+        for fl in fleets:
+            for p in fl.pools:
+                if p.proc.poll() is None:
+                    p.kill()
+            fl.close(grace=5.0)
+        shutil.rmtree(tmp20, ignore_errors=True)
+
+    s_ = flrep["set"]
+    spawned = ", ".join(f"{k} {v:.2f} s"
+                        for k, v in s_["spawn_to_ready_s"].items())
+    libs = ", ".join(f"{k} {v['library']}"
+                     for k, v in s_["coldstart"].items())
+    print(f"# fleet 20a pool1024 workers: spawn to ready.json {spawned}, "
+          f"spawned together; libraries {libs}; placements "
+          f"{s_['placements']}; {s_['jobs_traced_end_to_end']}"
+          f"/{s_['jobs']} jobs traced end to end | {card}", flush=True)
+    print(f"# fleet 20a/20c pool healthz after the runs: "
+          f"{json.dumps(flrep['health_a'])} / "
+          f"{json.dumps(flrep['health_c'])}", flush=True)
+    print(f"# fleet 20b a running tenant moved in "
+          f"{flrep['migration']['seconds']:.3f} s, frozen at sweep "
+          f"{flrep['migration']['frozen_at_sweep']} | {card}", flush=True)
+    fo = flrep["failover"]
+    print(f"# fleet 20c the killed worker's recovery: spawn to ready.json "
+          f"{fo['respawn_spawn_to_ready_s']:.2f} s, kill to the recovered "
+          f"worker's first dispatch "
+          + (f"{fo['kill_to_first_dispatch_s']:.2f} s"
+             if fo["kill_to_first_dispatch_s"] is not None else "not seen")
+          + f" | {card}", flush=True)
+    for t in flrep["throughput"]["turns"]:
+        print(f"# fleet 20e the set through {t['workers']} worker(s): "
+              f"{t['busy_chain_sweeps_per_s']:.1f} busy chain-sweeps/s, "
+              f"wall {t['wall_s']:.3f} s, quanta {t['quanta']}, ms a quantum "
+              + " / ".join("-" if m is None else f"{m:.2f}"
+                           for m in t["ms_per_quantum"])
+              + f" | {card}", flush=True)
+    print(f"# fleet 20e two workers over one: "
+          f"{flrep['throughput']['two_over_one']:.3f}x | {card}", flush=True)
+    flrep["seconds"] = time.perf_counter() - t20
+    print(f"# phase 20: {flrep['seconds']:.1f} s", flush=True)
 
 
 

@@ -24,21 +24,29 @@ The serving observability plane (``serve.ChainServer`` drives it):
 - :mod:`~gibbs_student_t_tpu_torch.obs.watchdog` — the stall watchdog
   (``GST_SERVE_WATCHDOG``).
 - :mod:`~gibbs_student_t_tpu_torch.obs.export` — the Prometheus text of a
-  metrics registry (``obs_dir/metrics.prom``).
+  metrics registry (``obs_dir/metrics.prom``), and of families with a
+  label set a sample (``prometheus_labeled``, the fleet's exposition).
 - :mod:`~gibbs_student_t_tpu_torch.obs.schema` — the validator and this
   package's copy of the records' schemas.
 - :mod:`~gibbs_student_t_tpu_torch.obs.http` — the read-only HTTP
   endpoints (``/healthz``, ``/status``, ``/metrics``, ``/trace``,
   ``/tenants/<id>/progress``, ``/postmortem``), mounted by
   ``ChainServer(http_port=...)``.
+- :mod:`~gibbs_student_t_tpu_torch.obs.aggregate` — the fleet's view over
+  those endpoints (or ``status.json`` paths): the merged occupancy and SLO
+  snapshot the fleet router (serve/router.py) places by and serves, and
+  the fleet trace stitched over the router's and the pools' clocks.
 
 Not ported: the JAX package's XLA compile introspection
-(``obs/introspect.py``; ROADMAP A-10), and the fleet's views
-(``obs/aggregate.py`` and ``obs/export.prometheus_labeled``; ROADMAP A-9
-item 8).
+(``obs/introspect.py``; ROADMAP A-10).
 """
 
+from gibbs_student_t_tpu_torch.obs.aggregate import (
+    fleet_status,
+    read_status,
+)
 from gibbs_student_t_tpu_torch.obs.export import (
+    prometheus_labeled,
     prometheus_text,
     write_prometheus,
 )
@@ -53,6 +61,6 @@ from gibbs_student_t_tpu_torch.obs.watchdog import (
 )
 
 __all__ = ["FlightRecorder", "MetricsRegistry", "ObsHttpServer",
-           "SpanRecorder", "Watchdog",
-           "WatchdogSpec", "prometheus_text", "read_bundle",
-           "serve_watchdog_env", "write_prometheus"]
+           "SpanRecorder", "Watchdog", "WatchdogSpec", "fleet_status",
+           "prometheus_labeled", "prometheus_text", "read_bundle",
+           "read_status", "serve_watchdog_env", "write_prometheus"]

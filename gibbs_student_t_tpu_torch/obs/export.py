@@ -1,7 +1,7 @@
 """Prometheus text exposition of a :class:`MetricsRegistry`.
 
-Counterpart of the exposition half of
-``gibbs_student_t_tpu/obs/export.py`` (:func:`prometheus_text` and
+Counterpart of ``gibbs_student_t_tpu/obs/export.py``
+(:func:`prometheus_text`, :func:`prometheus_labeled` and
 :func:`write_prometheus`). The serving stack keeps its live metrics in an
 in-process registry (counters, gauges, histograms; obs/metrics.py). This
 module renders a registry snapshot in the Prometheus text exposition
@@ -9,7 +9,9 @@ format (version 0.0.4: ``# HELP``/``# TYPE`` headers, cumulative
 ``_bucket{le=...}`` rows, ``_sum``/``_count``), so a scrape-shaped
 consumer, or a plain ``watch cat``, can read a live server without any
 RPC surface: ``ChainServer(obs_dir=...)`` refreshes ``metrics.prom`` and
-``status.json`` at quantum boundaries.
+``status.json`` at quantum boundaries. :func:`prometheus_labeled`
+renders families whose samples carry a label set each (the fleet's
+per-pool gauges).
 
 Write discipline: atomic replace (a scraper never sees a torn file), and
 :func:`write_prometheus` never raises: an IO error warns once per path
@@ -148,6 +150,32 @@ def prometheus_text(snapshot: dict, prefix: str = "gst_",
         out.append(f"{n}_sum{lbl} {_fmt(h.get('sum', 0.0))}{suffix}")
         out.append(f"{n}_count{lbl} {int(h.get('count', 0))}{suffix}")
     return "\n".join(out) + "\n"
+
+
+def prometheus_labeled(families: dict, prefix: str = "gst_",
+                       ts_ms: Optional[int] = None) -> str:
+    """Render families of samples with a label set each.
+
+    :func:`prometheus_text` attaches one label set to a whole registry
+    snapshot; a fleet's exposition declares each family once with a
+    sample row a pool (a repeated ``# TYPE`` is invalid exposition).
+    ``families`` maps a family's name to ``{"kind": "gauge"|"counter",
+    "help": str (optional), "samples": [(labels_dict, value), ...]}``;
+    ``# HELP`` and ``# TYPE`` come once a family, then every sample row
+    with its own label block. The fleet router's ``GET /metrics`` renders
+    its counters and per-pool gauges with it."""
+    out = []
+    suffix = f" {ts_ms}" if ts_ms is not None else ""
+    for name in sorted(families):
+        fam = families[name] or {}
+        n = _metric_name(name, prefix)
+        kind = fam.get("kind") or "gauge"
+        help_ = fam.get("help") or _HELP.get(n, f"{kind} {n}")
+        out.append(f"# HELP {n} {_escape_help(help_)}")
+        out.append(f"# TYPE {n} {kind}")
+        for labels, value in fam.get("samples") or ():
+            out.append(f"{n}{_label_str(labels)} {_fmt(value)}{suffix}")
+    return "\n".join(out) + ("\n" if out else "")
 
 
 def write_prometheus(registry, path: str, prefix: str = "gst_",

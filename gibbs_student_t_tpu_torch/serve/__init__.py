@@ -39,14 +39,20 @@ The wire for one pool: ``rpc.py`` holds the frame codec, the
 :class:`RemoteChainServer`, whose handles mirror the local ones (streaming
 included); ``pool_main.py`` runs a server as a worker process behind the
 RPC edge and the HTTP endpoints (``ChainServer(http_port=...)``,
-obs/http.py). The fleet (the JAX package's router and aggregator) is not
-ported.
+obs/http.py).
+
+The fleet: ``router.py``'s :class:`FleetRouter` places tenants on several
+pools (workers spawned by :func:`spawn_fleet`, or in-process servers),
+sheds a fleet-wide overload, fails a dead worker over through its manifest,
+migrates and rebalances tenants live, and serves the merged fleet view
+(obs/aggregate.py) over its own HTTP endpoints.
 """
 
 from gibbs_student_t_tpu_torch.serve import faults
 from gibbs_student_t_tpu_torch.serve.adapt import AdaptScanSpec
 from gibbs_student_t_tpu_torch.serve.monitor import MonitorSpec, TenantMonitor
 from gibbs_student_t_tpu_torch.serve.pool import SlotPool, TenantSlot
+from gibbs_student_t_tpu_torch.serve.router import FleetRouter, spawn_fleet
 from gibbs_student_t_tpu_torch.serve.rpc import RemoteChainServer, RpcServer
 from gibbs_student_t_tpu_torch.serve.scheduler import (
     CONVERGED_POLICIES,
@@ -65,8 +71,8 @@ from gibbs_student_t_tpu_torch.serve.warm import WarmStartFit, WarmStartSpec
 
 __all__ = ["CONVERGED_POLICIES", "DIVERGENCE_POLICIES", "AdaptScanSpec",
            "AdmissionQueue", "ChainServer", "DeadlineExceeded",
-           "MonitorSpec", "QueueFull", "RemoteChainServer", "RetryAfter",
-           "RpcServer", "SlotPool",
+           "FleetRouter", "MonitorSpec", "QueueFull", "RemoteChainServer",
+           "RetryAfter", "RpcServer", "SlotPool",
            "TenantError", "TenantHandle", "TenantMonitor", "TenantRequest",
            "TenantSlot", "WarmStartFit", "WarmStartSpec", "faults",
-           "schedule_score"]
+           "schedule_score", "spawn_fleet"]

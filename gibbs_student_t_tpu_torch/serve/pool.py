@@ -64,10 +64,11 @@ change only while some tenant thins. A gated block is computed and
 discarded, as in the JAX pool: its kernel still launches.
 
 Not ported from the JAX pool: buffer donation and the device scatter of
-admissions (``GST_SERVE_SCATTER``), and, with the fleet (ROADMAP A-9 item
-8), the wire-dtype record tiers and heterogeneous pools (tenants with
-fewer TOAs than the pool). A pool served over the wire (serve/rpc.py,
-serve/pool_main.py) ships the float32 host records it drains. Like the JAX
+admissions (``GST_SERVE_SCATTER``), the wire-dtype record tiers and
+heterogeneous pools (tenants with fewer TOAs than the pool; both ROADMAP
+A-9 item 8b; the fleet router uses neither). A pool served over the wire
+(serve/rpc.py, serve/pool_main.py, a worker of serve/router.py's fleet)
+ships the float32 host records it drains. Like the JAX
 pool it refuses population-covariance adaptation; it also refuses
 multiple-try Metropolis, which the lanes entries do not cover.
 """

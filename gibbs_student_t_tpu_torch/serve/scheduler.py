@@ -51,7 +51,7 @@ class RetryAfter(QueueFull):
     recent admission latencies, floored at 0.5 s; 1 s without any).
     ``queue_depth`` is the queued and staged jobs at the shed, ``tier``
     the rejected request's priority, ``where`` ``"server"`` (or
-    ``"router"``, the JAX fleet router's shed)."""
+    ``"router"``, the fleet router's shed, serve/router.py)."""
 
     def __init__(self, msg: str, retry_after_s=None, queue_depth=None,
                  tier=None, where: str = "server"):

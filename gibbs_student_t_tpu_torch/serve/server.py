@@ -110,11 +110,16 @@ a worker process behind both. A request's ``trace_id`` tags every span the
 server records for its tenant, rides ``progress()`` and the manifest, and
 is restored by :meth:`recover`; chains do not depend on it.
 
+The fleet: serve/router.py's ``FleetRouter`` places tenants on several
+such servers (in process, or workers), fails a dead worker over through
+its manifest and :meth:`recover`, and migrates tenants between them live
+(a cancel at the next boundary, then ``resume_spool`` on the target).
+
 Not ported from the JAX server: the in-kernel stage timers
 (``summary()["stages"]`` stays None: the JAX server's come from its CPU
-native library), the persistent compile cache of ``recover``, and the
-fleet (the router, migration, rebalancing and the aggregator; ROADMAP
-A-9 item 8).
+native library), the persistent compile cache of ``recover``, and
+heterogeneous pools (tenants with fewer TOAs than the pool's template;
+ROADMAP A-9 item 8b).
 """
 
 from __future__ import annotations

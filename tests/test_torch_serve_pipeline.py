@@ -12,8 +12,10 @@ result waited for with a timeout and every server closed:
 - preemption is lossless: in a 48-lane pool a padded spooled batch tenant
   (20 chains, 50 sweeps, still adapting when it is frozen) and a
   deadline-armed one (16 chains, deadline 15) are preempted by an
-  interactive job of 48 chains that arrives after the second quantum (the
-  trigger reads ``server.quanta``, which the dispatch side sets). The
+  interactive job of 48 chains that arrives once both have served two
+  quanta (the trigger reads their slots' served sweeps, which the dispatch
+  side sets, so a victim the staging thread admits a quantum late still
+  serves its two). The
   first finishes bitwise its uninterrupted run, every field; the second
   resolves with ``DeadlineExceeded`` whose spooled prefix is bitwise the
   uninterrupted run's first rows;
@@ -176,10 +178,15 @@ def test_preemption_is_lossless(setup, reference, tmp_path, pipeline):
     srv = ChainServer(ma, cfg, nlanes=48, quantum=5, device="cpu",
                       pipeline=pipeline, scheduler="priority",
                       age_boost_s=0)
-    hi = []
+    hi, victims = [], []
 
     def on_quantum(s):
-        if s.quanta == 2 and not hi:
+        # the pipelined executor stages one tenant at a time, so under load
+        # the second victim can be admitted a quantum after the first: the
+        # trigger waits for both to have served two quanta
+        served = [t.slot.done_sweeps for t in list(s._running.values())
+                  if t.handle in victims]
+        if not hi and len(served) == 2 and min(served) >= 10:
             hi.append(s.submit(TenantRequest(ma=ma, niter=10, nchains=48,
                                              seed=9, priority=0)))
 
@@ -187,6 +194,7 @@ def test_preemption_is_lossless(setup, reference, tmp_path, pipeline):
         hv = srv.submit(_victim(ma, spool_dir=str(tmp_path / "v")))
         hw = srv.submit(_deadline_victim(ma, deadline_sweeps=15,
                                          spool_dir=str(tmp_path / "w")))
+        victims += [hv, hw]
         _drive(srv, on_quantum)
         assert hi[0].result(TIMEOUT_S).chain.shape == (10, 48, 3)
         _assert_bitwise(hv.result(TIMEOUT_S), ref_v)
