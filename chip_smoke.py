@@ -410,6 +410,33 @@ exits 1 through ``fail`` before it, and so does an uncaught exception.
       both, one, with each worker's ms a quantum. The workers' launches are not
       counted (the parent cannot count them); the kernels line is
       unchanged.
+21. the pool's last gaps (``SlotPool(record=...)``, whose default is now
+   ``"compact8"``, and ``heterogeneous=True``) at pool1024:
+   a. B3-L, B4-L and B5-L on masked lanes operands: inputs captured from a
+      sweep of a heterogeneous pool1024 holding tenants of 130, 120 and
+      100 TOAs (256 chains each; each tenant's groups carry its row mask
+      in the white constants and zero suffix rows of T and y, checked),
+      held against their plain versions and float64 as 11a holds them
+      (accept counts against the float64 referee on the draws as they
+      are and with ties separated; B5-L to 1e-4 of M);
+   b. a heterogeneous pool's sweep on the card against the CPU at 96
+      lanes (tenants of 130, 120 and 100 TOAs, 32 chains each), ties
+      separated, as 11b: accept counts equal, x to 1e-4, the padded rows
+      pinned (z 0, alpha 1);
+   c. a 256-chain tenant beside another in a 512-lane pool (two quanta)
+      under ``"compact8"`` and ``"full"``, and the solo sampler under
+      both: the pool's compact8 records are the compact8 casts of its
+      full records bit for bit, as the solo sampler's are of its own, and
+      the tenant equals the solo compact8 sampler bit for bit wherever its
+      full records equal the solo full sampler's (each field's share of
+      equal elements printed);
+   d. phase 11d's tenant set on the pipelined executor under ``"full"``
+      and ``"compact8"`` in turns (full, compact8, compact8, full): each
+      compact8 tenant the compact8 casts of its full run, bit for bit;
+      printed: the bytes the drain pulls a quantum, one quantum's copy to
+      pinned host memory (CUDA events), and the drain's and dispatch's
+      host ms a quantum under each. The launches of 21c and 21d are
+      checked as pool sweeps (path ``pool_tiers``).
 
 Launch counts are read per path: every count is set to 0 just before a
 run and read just after it; a count is launches per sweep x sweeps plus
@@ -558,7 +585,8 @@ DRAWS = "sweep_draws"
 SAME_AS = {"sample": "flagship", "spool": "flagship", "spool_ens": "ens32",
            "drivers": "flagship", "drivers_ens": "ens32",
            "pool_sched": "pool", "pool_faults": "pool", "pool_obs": "pool",
-           "pool_capacity": "pool", "pool_wire": "pool"}
+           "pool_capacity": "pool", "pool_wire": "pool",
+           "pool_tiers": "pool"}
 # a grouped kernel's entry: the wrapper it shares with the single-model
 # launch; it counts on the wrapper's launches_grouped
 GROUPED = {"white_mh_grouped": "white_mh", "hyper_mh_grouped": "hyper_mh",
@@ -599,6 +627,10 @@ POOL_LANES, POOL_QUANTUM = 1024, 25
 POOL_TENANTS, POOL_CHAINS = 8, 256
 POOL_PAD_CHAINS, POOL_PAD_SWEEPS = 40, 100
 POOL_CPU_LANES, POOL_CPU_CHAINS = 64, 32
+# phase 21 (record tiers and heterogeneous pools): the TOA counts of the
+# heterogeneous pool's tenants (pool1024's template is 130 TOAs; 120 and
+# 100 are run_sims.py's ensemble rule of 130 - (i mod 3) 10)
+HET_NS = (130, 120, 100)
 POOL_PROFILE_QUANTA = 4
 # phase 12 (the sampling surface): sweeps of each record-tier run, the
 # recovery runs' chunk (two chunks a run), sample_until's check interval
@@ -2213,7 +2245,7 @@ def main() -> None:
     # (telemetry off: its quantum-end log-posterior would add a Gram and
     # a factor call that are not the sweep's)
     cap = ChainServer(template, cfg_p, nlanes=POOL_LANES, quantum=1,
-                      device=dev, telemetry=False)
+                      record="full", device=dev, telemetry=False)
     for i in range(POOL_LANES // POOL_CHAINS):
         cap.submit(TenantRequest(ma=tenant_mas[i], niter=2,
                                  nchains=POOL_CHAINS, seed=200 + i))
@@ -2304,7 +2336,7 @@ def main() -> None:
     # lanes (two tenants of 32 chains), ties separated as in 10b
     def small_pool(device):
         return SlotPool(template, cfg_p, nlanes=POOL_CPU_LANES, quantum=1,
-                        device=device)
+                        record="full", device=device)
 
     pg, pc = small_pool(dev), small_pool("cpu")
     C2 = POOL_CPU_CHAINS
@@ -2386,7 +2418,7 @@ def main() -> None:
     other = tb.TorchGibbs(tenant_mas[1], cfg_p, nchains=POOL_CHAINS,
                           device=dev, tnt_block_size=None)
     ps = SlotPool(template, cfg_p, nlanes=2 * POOL_CHAINS, quantum=1,
-                  device=dev)
+                  record="full", device=dev)
     seed_s, i_s = 400, 3
     keys, sw = keyed(solo, seed_s, i_s + 1)
     st = solo.init_state(seed=seed_s)
@@ -4840,7 +4872,7 @@ def main() -> None:
     pools18 = {}
     for device in (dev, "cpu"):
         pl = SlotPool(template, cfg_p, nlanes=POOL_CPU_LANES, quantum=Q_S,
-                      device=device)
+                      record="full", device=device)
         for i in range(2):
             be = tb.TorchGibbs(tenant_mas[i], cfg_p, nchains=C2,
                                device=device, tnt_block_size=None)
@@ -5944,6 +5976,322 @@ def main() -> None:
     flrep["seconds"] = time.perf_counter() - t20
     print(f"# phase 20: {flrep['seconds']:.1f} s", flush=True)
 
+
+
+    # --- 21. the pool's last gaps: record tiers, heterogeneous pools --------
+    from types import SimpleNamespace
+
+    from gibbs_student_t_tpu_torch.parallel.ensemble import (
+        _localize_names,
+        pad_model_arrays,
+    )
+
+    t21 = time.perf_counter()
+    trep = report["tiers_hetero"] = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    def het_model(n, seed):
+        """The serving bench's pulsar (pool_model's) at n TOAs."""
+        psr, _ = make_contaminated_pulsar(n=n, components=30, theta=0.02,
+                                          sigma_out=1e-5, seed=seed)
+        return make_reference_pta(psr, 30).frozen(0)
+
+    het_mas = {n: het_model(n, 700 + n) for n in HET_NS}
+
+    # 21a. B3-L, B4-L and B5-L on masked operands: inputs captured from a
+    # sweep of a heterogeneous pool1024 holding tenants of 130, 120 and
+    # 100 TOAs (256 chains each), held as 11a holds them
+    cap = ChainServer(template, cfg_p, nlanes=POOL_LANES, quantum=1,
+                      record="full", device=dev, telemetry=False,
+                      heterogeneous=True)
+    for i, n in enumerate(HET_NS):
+        cap.submit(TenantRequest(ma=het_mas[n], niter=2,
+                                 nchains=POOL_CHAINS, seed=710 + i))
+    cap.step()
+    het_names = ["tnt_lanes", "white_mh_lanes", "hyper_mh_lanes"]
+    captured_h = capture(het_names, cap.step)
+    del cap
+    if sorted({k[0] for k in captured_h}) != sorted(het_names):
+        fail(f"the heterogeneous pool's sweep reached {sorted(captured_h)}")
+    gpt = POOL_CHAINS // LANES_GROUP        # groups a tenant
+    ((_, wargs),) = ((k, a) for k, a in captured_h.items()
+                     if k[0] == "white_mh_lanes")
+    ((_, targs),) = ((k, a) for k, a in captured_h.items()
+                     if k[0] == "tnt_lanes")
+    # the operands really are masked: each tenant's groups carry its row
+    # mask in the white constants and zero suffix rows of T and y
+    masked = {}
+    for i, n in enumerate(HET_NS):
+        g = slice(i * gpt, (i + 1) * gpt)
+        mrow = wargs[5][g, 0, 1]
+        masked[n] = bool((mrow[:, :n] == 1).all() and (mrow[:, n:] == 0).all()
+                         and (targs[0][g, 0, n:] == 0).all()
+                         and (targs[1][g, 0, n:] == 0).all())
+    trep["masked_operands"] = masked
+    if not all(masked.values()):
+        fail(f"the heterogeneous pool's operands are not masked: {masked}")
+    for name in ("white_mh_lanes", "hyper_mh_lanes"):
+        ((shape, args),) = ((k[1], a) for k, a in captured_h.items()
+                            if k[0] == name)
+        gname = name.replace("lanes", "grouped")
+        i_lu = 4 if name.startswith("white") else 6
+        lu = grouped_sep(gname, lanes_grouped(name, args))
+        grouped_parity(name, args, args[:i_lu] + (lu,) + args[i_lu + 1:])
+        parity[name][-1]["masked"] = True
+    T_l, y_l, nv_l = targs[:3]
+    n_p = nv_l.shape[-1]
+    Tg64, yg64, nv64 = (T_l[:, 0, :n_p].double(),
+                        y_l[:, 0, None, :n_p].double(), nv_l.double())
+    out_64 = tnt.tnt_products(Tg64, yg64, nv64)
+    M, Md, _ = tnt.tnt_products(Tg64.abs(), yg64.abs(), nv64)
+    Mc = 0.5 * (torch.log(nv64).abs().sum(-1) + (yg64 * yg64 / nv64).sum(-1))
+    out_k = tnt.tnt_lanes(*targs)
+    out_p = tnt.tnt_lanes_plain(*targs)
+
+    def over_m64(out):
+        return max(float(((a.double() - b) / s_).abs().max())
+                   for a, b, s_ in zip(out, out_64, (M, Md, Mc)))
+
+    rec = {"shape": list(nv_l.shape), "m": int(T_l.shape[-1]),
+           "masked": True, "n_real": list(HET_NS),
+           "max_abs_err": max(rel_err(a, b)[0] for a, b in zip(out_k, out_p)),
+           "kernel_err_over_M": over_m64(out_k),
+           "plain_err_over_M": over_m64(out_p),
+           "symmetric": bool(torch.equal(out_k[0],
+                                         out_k[0].transpose(-1, -2)))}
+    # tolerance: 1e-4 of M on every output, as 11a holds B5-L
+    rec["ok"] = (rec["kernel_err_over_M"] <= 1e-4
+                 and rec["plain_err_over_M"] <= 1e-4 and rec["symmetric"])
+    parity["tnt_lanes"].append(rec)
+    print(f"# parity tnt_lanes {rec['shape']} masked: {json.dumps(rec)}",
+          flush=True)
+    if not rec["ok"]:
+        fail("tnt_lanes disagrees with float64 on masked operands")
+    del captured_h, wargs, targs, T_l, y_l, nv_l, out_64, M, Md, Mc
+    del Tg64, yg64, nv64, out_k, out_p
+
+    # 21b. a heterogeneous pool's sweep on the card against the same sweep
+    # on the CPU: 96 lanes, tenants of 130, 120 and 100 TOAs (32 chains
+    # each), ties separated, as 11b holds the homogeneous pool
+    C2 = POOL_CPU_CHAINS
+
+    def het_pool(device):
+        return SlotPool(template, cfg_p, nlanes=len(HET_NS) * C2, quantum=1,
+                        record="full", device=device, heterogeneous=True)
+
+    pg, pc = het_pool(dev), het_pool("cpu")
+    for i, n in enumerate(HET_NS):
+        (ma_p,) = pad_model_arrays([_localize_names(het_mas[n])],
+                                   n_to=pg.n_pool)
+        be_g = tb.TorchGibbs(ma_p, cfg_p, nchains=C2, device=dev,
+                             tnt_block_size=None)
+        be_c = tb.TorchGibbs(ma_p, cfg_p, nchains=C2, device="cpu",
+                             tnt_block_size=None)
+        st_i = be_g.init_state(seed=720 + i)
+        lanes = np.arange(i * C2, (i + 1) * C2)
+        pg.write_tenant(TenantSlot(i, lanes, C2, 3, 0, 720 + i, n_real=n),
+                        be_g, st_i)
+        pc.write_tenant(TenantSlot(i, lanes, C2, 3, 0, 720 + i, n_real=n),
+                        be_c, type(st_i)(*map(to_cpu, st_i)))
+    for _ in range(2):
+        pg.run_quantum()
+    for pl in (pg, pc):
+        pl._upload()
+    st = pg.state
+    dr = pg._lane_draws(st, pg._lane_sweep)
+    dr = type(dr)(*(t.clone() for t in dr))
+    st_c = type(st)(*map(to_cpu, st))
+    sep = {}
+    for name, field in (("white_mh_lanes", "logu_w"),
+                        ("hyper_mh_lanes", "logu_h")):
+        dr_c = type(dr)(*map(to_cpu, dr))
+        (g,) = capture([name], lambda: pg.sampler._sweep(st, dr, 0)).values()
+        (c,) = capture([name], lambda: pc.sampler._sweep(st_c, dr_c, 0)
+                       ).values()
+        gname = name.replace("lanes", "grouped")
+        ga, ca = lanes_grouped(name, g), lanes_grouped(name, c)
+        info = sep[name] = {}
+        lu = grouped_sep(gname, ga, others=(
+            grouped_ll(gname, ca, torch.float32),), info=info)
+        info["moved"] = int((lu != getattr(dr, field)).sum())
+        dr = dr._replace(**{field: lu})
+    cmp = trep["sweep_card_vs_cpu"] = card_vs_cpu(pg.sampler, pc.sampler,
+                                                  st, dr, 0)
+    cmp["separation"] = sep
+    # the padded rows stay pinned on the card: z 0 and alpha 1 there
+    pins = all(bool((lanes_flat(pg.state.z)[i * C2:(i + 1) * C2, n:] == 0)
+                    .all() and (lanes_flat(pg.state.alpha)[
+                        i * C2:(i + 1) * C2, n:] == 1).all())
+               for i, n in enumerate(HET_NS))
+    cmp["padded_rows_pinned"] = pins
+    print(f"# heterogeneous pool sweep card-vs-cpu ({len(HET_NS) * C2} "
+          f"lanes, n = {list(HET_NS)}): {json.dumps(cmp)}", flush=True)
+    # tolerance as 11b: every chain's accept counts equal on draws clear
+    # of every float32 tie, x to 1e-4 relative (b reported)
+    if cmp["chains_acc_mismatch"] > 0 or cmp["x"][1] > 1e-4 or not pins:
+        fail("a heterogeneous pool's sweep on the card disagrees with the "
+             "CPU, or its padded rows moved")
+    del pg, pc, st, st_c, dr
+
+    # 21c. a compact8 tenant against the solo compact8 sampler on the
+    # card: a 256-chain tenant beside another in a 512-lane pool, two
+    # quanta, under "compact8" and under "full", and the solo sampler
+    # (quantum-sized chunks) under both
+    tier_fields = ("x", "b", "z", "theta", "alpha", "df", "pout",
+                   "acc_white", "acc_hyper")
+    res_of = dict(x="chain", b="bchain", z="zchain", theta="thetachain",
+                  alpha="alphachain", df="dfchain", pout="poutchain")
+
+    def rows_of(res, f):
+        return res.stats[f] if f.startswith("acc_") else getattr(res,
+                                                                 res_of[f])
+
+    c8 = tb.TorchGibbs(tenant_mas[0], cfg_p, nchains=POOL_CHAINS,
+                       device=dev, record="compact8")
+
+    def as_tier(res):
+        """A full-record result's rows through the compact8 casts on the
+        card and back (record_tuple, then _materialize), as TorchGibbs
+        turns a chunk around."""
+        ns = SimpleNamespace(**{f: torch.from_numpy(np.ascontiguousarray(
+            rows_of(res, f))).to(dev) for f in tier_fields})
+        wire = tb.record_tuple(ns, c8._record_fields, c8._record_casts)
+        return dict(zip(c8._record_fields,
+                        c8._materialize([w.cpu() for w in wire])))
+
+    def solo_tier(record):
+        smp = tb.TorchGibbs(tenant_mas[0], cfg_p, nchains=POOL_CHAINS,
+                            device=dev, chunk_size=POOL_QUANTUM,
+                            tnt_block_size=None, record=record)
+        return smp.sample(niter=2 * POOL_QUANTUM, seed=730)
+
+    solo_c = {r: solo_tier(r) for r in ("full", "compact8")}
+    served0 = list(served)
+    reset_counts()
+
+    def pair_run(record):
+        s = ChainServer(template, cfg_p, nlanes=2 * POOL_CHAINS,
+                        quantum=POOL_QUANTUM, record=record, device=dev)
+        hs = [s.submit(TenantRequest(ma=tenant_mas[i],
+                                     niter=2 * POOL_QUANTUM,
+                                     nchains=POOL_CHAINS, seed=730 + i))
+              for i in range(2)]
+        drive(s)
+        return hs[0].result(timeout=WAIT_S)
+
+    pool_c = {r: pair_run(r) for r in ("full", "compact8")}
+    cast_p, cast_s = as_tier(pool_c["full"]), as_tier(solo_c["full"])
+    cc = trep["compact8_tenant"] = {
+        "chains": POOL_CHAINS, "sweeps": 2 * POOL_QUANTUM,
+        "pool_is_cast_of_full": {f: bool(eq(rows_of(pool_c["compact8"], f),
+                                            cast_p[f]))
+                                 for f in tier_fields},
+        "solo_is_cast_of_full": {f: bool(eq(rows_of(solo_c["compact8"], f),
+                                            cast_s[f]))
+                                 for f in tier_fields}}
+    agree, extra = {}, {}
+    for f in tier_fields:
+        m_full = rows_of(pool_c["full"], f) != rows_of(solo_c["full"], f)
+        m_c8 = (rows_of(pool_c["compact8"], f)
+                != rows_of(solo_c["compact8"], f))
+        agree[f] = {"full": float(1.0 - m_full.mean()),
+                    "compact8": float(1.0 - m_c8.mean())}
+        extra[f] = int((m_c8 & ~m_full).sum())
+    cc["pool_vs_solo_equal_share"] = agree
+    cc["compact8_mismatch_where_full_agrees"] = extra
+    print(f"# compact8 tenant vs the solo compact8 sampler: "
+          f"{json.dumps(cc)}", flush=True)
+    # tolerance: the pool's compact8 records are the compact8 casts of its
+    # full records, bit for bit, as the solo sampler's are of its own; and
+    # the compact8 tenant equals the solo compact8 sampler bit for bit
+    # wherever its full records equal the solo full sampler's (on the
+    # card the pool's B5-L and the solo's product sum in other orders,
+    # so b, alpha and pout are not bitwise there under "full" either)
+    if not (all(cc["pool_is_cast_of_full"].values())
+            and all(cc["solo_is_cast_of_full"].values())
+            and not any(extra.values())):
+        fail("the pool's compact8 records are not the solo sampler's tier")
+    del solo_c, pool_c, cast_p, cast_s
+
+    # 21d. the tenant set with full records under "full" and "compact8",
+    # in turns (full, compact8, compact8, full), pipelined: the bytes the
+    # drain pulls a quantum and its host ms a quantum; every compact8
+    # tenant the compact8 casts of the same tenant's full records
+    tiers21 = {"full": [], "compact8": []}
+    first21 = {}
+    for record in ("full", "compact8", "compact8", "full"):
+        s = ChainServer(template, cfg_p, nlanes=POOL_LANES,
+                        quantum=POOL_QUANTUM, record=record, device=dev)
+        hs = [s.submit(r) for r in tenant_set()]
+        wall = drive(s)
+        res = [h.result(timeout=WAIT_S) for h in hs]
+        if record not in first21:
+            first21[record] = res
+        elif not all(same_rows(a, b) for a, b in zip(first21[record], res)):
+            fail(f"two record={record!r} runs of the tenant set differ")
+        summ = s.summary()
+        tiers21[record].append({
+            "quanta": s.quanta, "wall_s": wall,
+            "ms_per_quantum": 1e3 * wall / s.quanta,
+            "wire_bytes_per_quantum": s.pool.wire_bytes,
+            "drain_host_ms_per_quantum": summ["host_ms"]["drain"]["mean"],
+            "dispatch_host_ms_per_quantum":
+                summ["host_ms"]["dispatch"]["mean"]})
+        del s, hs, res
+    counts21 = check_launches("pool_tiers", served[0] - served0[0],
+                              served[1] - served0[1])
+    cast_ok = all(
+        all(eq(rows_of(c, f), as_tier(fr)[f]) for f in tier_fields)
+        for c, fr in zip(first21["compact8"], first21["full"]))
+    shapes_ok = all(finite_shaped(r, c_, n_) for r, (c_, n_) in zip(
+        first21["compact8"], pool_rep["tenants"]))
+    trep["tenant_set"] = {"turns": tiers21, "compact8_is_cast_of_full":
+                          bool(cast_ok), "finite_shaped": bool(shapes_ok),
+                          "launches": counts21}
+    # the pull alone: one quantum's wire records of each tier copied to
+    # pinned host memory on a side stream (CUDA events), an idle pool's
+    pull_ms = {}
+    for record in ("full", "compact8"):
+        pl = SlotPool(template, cfg_p, nlanes=POOL_LANES,
+                      quantum=POOL_QUANTUM, record=record, device=dev,
+                      telemetry=False)
+        recs, _, _ = pl.dispatch_quantum()
+        side = torch.cuda.Stream(dev)
+        ts = list(recs.values())
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        reps = 10
+        with torch.cuda.stream(side):
+            bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    for t in ts]
+            e0.record(side)
+            for _ in range(reps):
+                for b_, t in zip(bufs, ts):
+                    b_.copy_(t, non_blocking=True)
+            e1.record(side)
+        e1.synchronize()
+        pull_ms[record] = e0.elapsed_time(e1) / reps
+        del pl, recs, ts, bufs
+    trep["pull_ms_per_quantum"] = pull_ms
+    for record in ("full", "compact8"):
+        t_ = tiers21[record]
+        print(f"# tiers 21d pool1024 {record}: "
+              f"{t_[0]['wire_bytes_per_quantum'] / 1e6:.3f} MB pulled a "
+              f"quantum ({pull_ms[record]:.4f} ms to pinned host), drain "
+              f"host " + " / ".join(f"{r['drain_host_ms_per_quantum']:.3f}"
+                                    for r in t_)
+              + " ms a quantum, " + " / ".join(
+                  f"{r['ms_per_quantum']:.2f}" for r in t_)
+              + f" ms a quantum | {card}", flush=True)
+    gist = {k: v for k, v in trep["tenant_set"].items() if k != "turns"}
+    print(f"# tiers 21d tenant set: {json.dumps(gist)}", flush=True)
+    if not (cast_ok and shapes_ok):
+        fail("the compact8 tenant set is not the compact8 casts of the "
+             "full one, or not finite and shaped")
+    trep["seconds"] = time.perf_counter() - t21
+    print(f"# phase 21: {trep['seconds']:.1f} s", flush=True)
 
 
     # the redesigned kernels beside the first design and the library call

@@ -13,9 +13,9 @@ reader skips (obs/ledger.read_ledger).
 Record kinds (each carries ``t``, unix seconds):
 
 - ``server``: one a server epoch, the pool geometry ``recover`` rebuilds
-  (nlanes, quantum, record, max_queue, backpressure, telemetry,
-  scheduler). The template model and config are pickled beside the log
-  (``server.pkl``).
+  (nlanes, quantum, record tier, heterogeneous, max_queue,
+  backpressure, telemetry, scheduler). The template model and config
+  are pickled beside the log (``server.pkl``).
 - ``admit``: an admission: tenant id, name, seed, niter, nchains,
   start_sweep, spool_dir, on_divergence, priority, deadline_sweeps and,
   for a spooled tenant, its pickled model in the content-addressed store

@@ -63,12 +63,32 @@ and eviction write ones. While every lane's gates are ones the sweep gets
 change only while some tenant thins. A gated block is computed and
 discarded, as in the JAX pool: its kernel still launches.
 
+Record tiers (``record``, the JAX pool's and ``TorchGibbs``'s: ``"full"``,
+``"compact"``, ``"compact8"``, the default, and ``"light"``): a quantum's
+records are cast to the tier's wire dtypes on the device, as the quantum
+ends (``torch_backend.record_tuple``: z bit-packed, b and alpha to
+bfloat16, pout to float16 or uint8), so the drain copies the narrow bytes.
+:meth:`SlotPool.wire_host` holds them on the host uncast,
+:meth:`SlotPool.tenant_wire` slices one tenant's lanes out, and
+:meth:`SlotPool.materialize_tenant` turns a tenant's accumulated slices
+into float32 once (the server does so at its finalize; a spool or an
+``on_chunk`` consumer gets :meth:`SlotPool.tenant_quantum_records` each
+quantum). The casts are elementwise, so a tenant's records are those of
+``TorchGibbs(record=...)`` on the same chains.
+
+Heterogeneous pools (``heterogeneous=True``): the template is padded with
+:func:`parallel.ensemble.pad_model_arrays` to its own n, so every group
+carries a row mask and its own statistical TOA count (``_mask``,
+``_nstat``), and a tenant with fewer TOAs than the pool is admitted padded
+with masked suffix rows, as the ensemble pads its pulsars; its per-TOA
+records are cut back to its ``n_real`` TOAs. The lanes kernels take the
+masked operands as they are (a zero mask row in the white constants, zero
+suffix rows of T and y). A homogeneous pool keeps the count a number and
+a tenant's chains bitwise ``TorchGibbs.sample``'s; a heterogeneous pool's
+agree with it in law (the JAX pool's rule).
+
 Not ported from the JAX pool: buffer donation and the device scatter of
-admissions (``GST_SERVE_SCATTER``), the wire-dtype record tiers and
-heterogeneous pools (tenants with fewer TOAs than the pool; both ROADMAP
-A-9 item 8b; the fleet router uses neither). A pool served over the wire
-(serve/rpc.py, serve/pool_main.py, a worker of serve/router.py's fleet)
-ships the float32 host records it drains. Like the JAX
+admissions (``GST_SERVE_SCATTER``), and ``record_thin``. Like the JAX
 pool it refuses population-covariance adaptation; it also refuses
 multiple-try Metropolis, which the lanes entries do not cover.
 """
@@ -76,18 +96,18 @@ multiple-try Metropolis, which the lanes entries do not cover.
 from __future__ import annotations
 
 import threading
+from types import SimpleNamespace
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from gibbs_student_t_tpu_torch.backends.torch_backend import (
-    _LIGHT_FIELDS,
-    _RECORD_FIELDS,
     NBLOCKS,
     ChainState,
     SweepDraws,
     TorchGibbs,
+    record_tuple,
     resolve_device,
 )
 from gibbs_student_t_tpu_torch.config import GibbsConfig
@@ -104,6 +124,7 @@ from gibbs_student_t_tpu_torch.ops.white_mh import white_mh_lanes
 from gibbs_student_t_tpu_torch.parallel.ensemble import (
     EnsembleGibbs,
     _localize_names,
+    pad_model_arrays,
 )
 from gibbs_student_t_tpu_torch.serve.adapt import adapt_scan_enabled
 
@@ -115,7 +136,8 @@ class TenantSlot:
     """Book-keeping of one admitted tenant (host side)."""
 
     def __init__(self, tenant_id: int, lanes: np.ndarray, nchains: int,
-                 niter: int, start_sweep: int, seed: int):
+                 niter: int, start_sweep: int, seed: int,
+                 n_real: Optional[int] = None):
         self.tenant_id = tenant_id
         self.lanes = lanes            # (ceil(nchains/16)*16,) lane indices
         self.nchains = nchains        # real chains; lanes[nchains:] pad
@@ -123,6 +145,9 @@ class TenantSlot:
         self.start_sweep = start_sweep
         self.done_sweeps = 0          # tenant-local sweeps served so far
         self.seed = seed
+        # the tenant's own TOA count (the pool's when None, set at
+        # admission): its per-TOA records are cut back to it
+        self.n_real = n_real
         # a cancel (or a preemption, which is a cancel whose tenant is
         # requeued from its checkpoint) landing while a quantum is in
         # flight: the lanes freeze at the next quantum boundary
@@ -212,16 +237,19 @@ class SlotPool:
     budgets are multiples of it). ``template_ma`` fixes the pool's model
     structure: TOA count, basis size, parameter structure, Schur split,
     noise groups and prior kinds; tenants must match it (the server
-    validates at admission). ``record`` is ``"full"`` or ``"light"`` as in
-    ``TorchGibbs``. ``device`` as in ``TorchGibbs``: CUDA unless the
-    caller asks for the CPU. ``telemetry`` carries every lane's
-    ``Telemetry`` through each quantum (the lane-health policies read
-    its ``diverged`` flags)."""
+    validates at admission), or, with ``heterogeneous=True``, have at
+    most its TOA count (see the module docstring). ``record`` is the
+    record tier, ``"compact8"`` (the default, as the JAX pool's),
+    ``"compact"``, ``"full"`` or ``"light"``, as in ``TorchGibbs``.
+    ``device`` as in ``TorchGibbs``: CUDA unless the caller asks for the
+    CPU. ``telemetry`` carries every lane's ``Telemetry`` through each
+    quantum (the lane-health policies read its ``diverged`` flags)."""
 
     def __init__(self, template_ma: ModelArrays, config: GibbsConfig,
                  nlanes: int = 1024, quantum: int = 25,
                  group: int = LANES_GROUP, device=None,
-                 record: str = "full", telemetry: bool = True):
+                 record: str = "compact8", telemetry: bool = True,
+                 heterogeneous: bool = False):
         device = resolve_device(device)
         if group % LANES_GROUP:
             raise ValueError(
@@ -243,15 +271,16 @@ class SlotPool:
             raise ValueError(
                 "the serve slot pool runs single-try MH blocks; multiple-"
                 "try Metropolis has no lanes form")
-        if record not in ("full", "light"):
-            raise ValueError(f"record must be 'full' or 'light', got "
-                             f"{record!r}")
         tmpl = _localize_names(template_ma)
         if tmpl.row_mask is not None:
             raise ValueError("template_ma must be an unpadded model "
                              "(its n defines the pool TOA axis)")
+        self.heterogeneous = bool(heterogeneous)
+        if self.heterogeneous:
+            # every group carries a row mask and its own TOA count
+            (tmpl,) = pad_model_arrays([tmpl], n_to=tmpl.n)
         self.nlanes, self.quantum, self.group = nlanes, quantum, group
-        self.record, self.config, self.device = record, config, device
+        self.config, self.device = config, device
         self.telemetry = bool(telemetry)
         self.template_ma = tmpl
         self.n_pool = tmpl.n
@@ -260,10 +289,17 @@ class SlotPool:
         # the draws of every lane (_draw reads only structure and the
         # state, which the pool's tenants share with the template), the
         # Robbins-Monro steps and the lanes' first state: the template's
+        # (its record checks and tier: the wire fields and casts)
         self.drawer = TorchGibbs(tmpl, config, nchains=nlanes,
                                  device=device, tnt_block_size=None,
                                  record=record)
-        self.fields = _RECORD_FIELDS if record == "full" else _LIGHT_FIELDS
+        self.record = self.drawer.record_mode
+        self.fields = self.drawer._record_fields
+        self.casts = self.drawer._record_casts
+        # the bytes of the last quantum's records in wire dtypes
+        self.wire_bytes = 0
+        if self.heterogeneous:
+            self._lane_theta_shapes()
         flat = self.drawer.init_state(seed=0)
         self.state = ChainState(*(t.reshape(G, LANES_GROUP, *t.shape[1:])
                                   for t in flat))
@@ -310,11 +346,16 @@ class SlotPool:
         of the model tensors, its chains' state into its lanes (pad lanes:
         copies of chain 0), its lanes marked active and owned.
         ``backend`` is a ``TorchGibbs`` of the tenant's model on the pool's
-        device, its structure already checked against the template; its
-        numbers are copied, the pool keeps no reference to it."""
+        device (padded to the pool's TOA count in a heterogeneous pool),
+        its structure already checked against the template; its numbers
+        are copied, the pool keeps no reference to it."""
         lanes, k = slot.lanes, slot.nchains
+        if slot.n_real is None:
+            slot.n_real = self.n_pool
         for g in slot.groups:
             self.sampler.write_pulsar(int(g), backend)
+        if self.heterogeneous:
+            self._lane_theta_shapes()
         idx = torch.as_tensor(lanes, dtype=torch.long, device=self.device)
         for f, val in zip(ChainState._fields, state):
             val = val.to(self.device)
@@ -334,6 +375,19 @@ class SlotPool:
         self.set_block_gates(lanes, np.ones(NBLOCKS, np.float32))
         self._slots[slot.tenant_id] = slot
         self._next_sweep[slot.tenant_id] = slot.start_sweep
+
+    def _lane_theta_shapes(self) -> None:
+        """Give the drawer each lane's statistical TOA count and theta
+        prior (``(nlanes,)``, from its group's): the draws' Beta shapes of
+        the outlier fraction (``TorchGibbs._theta_shapes``) read them, and
+        in a heterogeneous pool they differ by group."""
+        smp = self.sampler
+
+        def lanes(t):
+            return smp._per_lane(t).reshape(-1)
+
+        self.drawer._nstat = lanes(smp._nstat)
+        self.drawer._theta_prior = tuple(lanes(t) for t in smp._theta_prior)
 
     def evict(self, slot: TenantSlot) -> None:
         """Free a tenant's lanes: inactive, their groups free. Their model
@@ -472,8 +526,9 @@ class SlotPool:
     def dispatch_quantum(self, snapshot: bool = False):
         """Advance every lane by ``quantum`` sweeps without waiting for the
         device: returns ``(records, telemetry, snap)``. ``records`` is
-        ``{field: (quantum, G, 16, ...)}`` device tensors, the state before
-        each sweep (as ``TorchGibbs.sample`` records); ``telemetry`` the
+        ``{field: (quantum, G, 16, ...)}`` device tensors in the tier's wire
+        dtypes, the state before each sweep (as ``TorchGibbs.sample``
+        records it); ``telemetry`` the
         quantum's ``Telemetry`` of ``(G, 16)`` tensors (None with
         ``telemetry`` off); ``snap``, with
         ``snapshot=True``, a copy of the post-quantum state made on the
@@ -519,7 +574,12 @@ class SlotPool:
             self._sweep_np[self._active_np] += self.quantum
             self._dirty = True
         snap = ChainState(*(t.clone() for t in st)) if snapshot else None
-        return {f: torch.stack(v) for f, v in recs.items()}, tl, snap
+        # the tier's casts on the device, once over the stacked quantum
+        wire = record_tuple(SimpleNamespace(**{
+            f: torch.stack(v) for f, v in recs.items()}), self.fields,
+            self.casts)
+        self.wire_bytes = sum(t.numel() * t.element_size() for t in wire)
+        return dict(zip(self.fields, wire)), tl, snap
 
     def run_quantum(self):
         """The serial form of :meth:`dispatch_quantum`: ``(records,
@@ -530,28 +590,92 @@ class SlotPool:
     # ------------------------------------------------------------------
     # records
     # ------------------------------------------------------------------
+    # A quantum's records reach the host in the tier's wire dtypes, lanes
+    # on axis 1: ``{field: (rows, nlanes, ...)}`` host tensors (bfloat16
+    # has no numpy dtype). In-memory tenants keep their lanes' narrow
+    # slices and are turned into float32 once, at finalize; a spool or an
+    # on_chunk consumer pays the cast each quantum, for its lanes only.
+
+    def wire_host(self, recs: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        """A quantum's records (from :meth:`dispatch_quantum`) on the host
+        in wire dtypes, no cast: ``{field: (rows, nlanes, ...)}``. Device
+        tensors are copied by a blocking copy; host tensors (the
+        pipelined drain's pull on its side stream) are only reshaped."""
+        return {f: t.cpu().reshape(t.shape[0], self.nlanes, *t.shape[3:])
+                for f, t in recs.items()}
+
+    def tenant_wire(self, wire: Dict[str, torch.Tensor],
+                    slot: TenantSlot) -> Dict[str, torch.Tensor]:
+        """One tenant's lanes of a wire-dtype quantum: ``{field: (rows,
+        nchains, ...)}`` copies in ordinary host memory (the quantum's
+        pinned buffers go back to the allocator after the drain)."""
+        lanes = slot.chain_lanes
+        lo, hi = int(lanes[0]), int(lanes[-1]) + 1
+        idx = (None if hi - lo == len(lanes)
+               else torch.as_tensor(lanes, dtype=torch.long))
+        out = {}
+        for f, a in wire.items():
+            a = a[:, lo:hi] if idx is None else a.index_select(1, idx)
+            out[f] = torch.empty(a.shape, dtype=a.dtype).copy_(a)
+        return out
+
+    def materialize_tenant(self, cols: Dict[str, torch.Tensor],
+                           n_real: int) -> dict:
+        """A tenant's wire-dtype records ``{field: (rows, nchains, ...)}``
+        (one quantum's, or the quanta's concatenated on the rows axis) as
+        float32 numpy arrays, as ``TorchGibbs`` turns a chunk back
+        (``_materialize``), per-TOA fields cut to the tenant's ``n_real``
+        TOAs. The casts are elementwise, so a slice turned back equals the
+        same slice of the whole quantum turned back."""
+        host = self.drawer._materialize([cols[f] for f in self.fields])
+        return {f: self._cut(f, a, n_real)
+                for f, a in zip(self.fields, host)}
+
+    def _cut(self, field: str, a, n_real: int):
+        """A per-TOA field cut from the pool's TOA count to ``n_real``."""
+        if n_real != self.n_pool and field in ("z", "alpha", "pout"):
+            return a[..., :n_real]
+        return a
+
+    def tenant_quantum_records(self, wire: Dict[str, torch.Tensor],
+                               slot: TenantSlot) -> dict:
+        """One tenant's float32 records of one quantum (the spool's and
+        ``on_chunk``'s payload): its wire slice, turned back."""
+        return self.materialize_tenant(self.tenant_wire(wire, slot),
+                                       slot.n_real)
+
+    def tenant_wire_device(self, recs: Dict[str, torch.Tensor],
+                           slot: TenantSlot) -> Dict[str, torch.Tensor]:
+        """:meth:`wire_host` then :meth:`tenant_wire` with the gather on
+        the device: the tenant's lanes are gathered into ``(rows,
+        nchains, ...)`` tensors on the pool's device and only those bytes
+        are copied to the host. The values are the host slice's."""
+        idx = torch.as_tensor(slot.chain_lanes, dtype=torch.long,
+                              device=self.device)
+        return {f: t.reshape(t.shape[0], self.nlanes, *t.shape[3:])
+                .index_select(1, idx).cpu() for f, t in recs.items()}
 
     def materialize(self, recs: Dict[str, torch.Tensor]) -> dict:
-        """A quantum's records (on the device, or already on the host) as
-        host ``{field: (nlanes, rows, ...)}`` numpy arrays (the JAX pool's
-        lane-major layout)."""
-        out = {}
-        for f, t in recs.items():
-            a = t.cpu().numpy()
-            out[f] = np.swapaxes(a.reshape(a.shape[0], self.nlanes,
-                                           *a.shape[3:]), 0, 1)
-        return out
+        """A quantum's records (on the device, or already on the host)
+        turned back to float32 for every lane, as host ``{field: (nlanes,
+        rows, ...)}`` numpy arrays (the JAX pool's lane-major layout)."""
+        host = self.materialize_tenant(self.wire_host(recs), self.n_pool)
+        return {f: np.swapaxes(a, 0, 1) for f, a in host.items()}
 
     def tenant_records(self, host: dict, slot: TenantSlot) -> dict:
         """One tenant's slice of a materialized quantum: ``{field: (rows,
-        nchains, ...)}`` (copies)."""
-        return {f: np.ascontiguousarray(np.swapaxes(a[slot.chain_lanes],
-                                                    0, 1))
-                for f, a in host.items()}
+        nchains, ...)}`` (copies), per-TOA fields cut to its TOAs."""
+        return {f: self._cut(f, np.ascontiguousarray(np.swapaxes(
+            a[slot.chain_lanes], 0, 1)), slot.n_real)
+            for f, a in host.items()}
 
-    def result(self, cols: dict):
-        """A ``ChainResult`` from a tenant's records ``{field: (niter,
-        nchains, ...)}``, as ``TorchGibbs.sample`` returns it."""
+    def result(self, cols: dict, n_real: Optional[int] = None):
+        """A ``ChainResult`` from a tenant's float32 records ``{field:
+        (niter, nchains, ...)}``, as ``TorchGibbs.sample`` returns it;
+        ``stats["n_toa"]`` is the tenant's TOA count (the pool's when
+        ``n_real`` is None)."""
         res = self.drawer._to_result(cols)
-        res.stats["n_toa"] = np.asarray([self.n_pool])
+        res.stats["n_toa"] = np.asarray([self.n_pool if n_real is None
+                                         else n_real])
         return res

@@ -47,7 +47,11 @@ numbers since the last ``reset``.
 
 The spec is ``{"template_ma", "config", "kwargs"}``: the ChainServer
 constructor's arguments less the wiring this module owns (the manifest,
-HTTP and ``obs_dir``).
+HTTP and ``obs_dir``), so ``record`` and ``heterogeneous`` ride in
+``kwargs``; a ``--recover`` worker takes them, with the rest of the
+pool's geometry, from its manifest. Result frames on the wire are
+float32 whatever the tier: the narrow dtypes live only between the card
+and the worker's host.
 """
 
 from __future__ import annotations
@@ -126,8 +130,8 @@ def main(argv=None) -> int:
     recovered_map, lost = {}, []
     t_build = time.monotonic()
     if args.recover:
-        for k in ("nlanes", "quantum", "record", "max_queue",
-                  "backpressure", "telemetry", "scheduler"):
+        for k in ("nlanes", "quantum", "record", "heterogeneous",
+                  "max_queue", "backpressure", "telemetry", "scheduler"):
             kwargs.pop(k, None)          # the manifest's geometry holds
         srv, handles = ChainServer.recover(
             manifest_dir, http_port=0, obs_dir=obs_dir, **kwargs)

@@ -96,7 +96,10 @@ DEAD_AFTER_POLLS = 4
 
 class PoolSpec:
     """What it takes to (re)spawn one subprocess pool: the directory
-    the worker owns and the pickled server spec inside it."""
+    the worker owns and the pickled server spec inside it. ``kwargs``
+    are the worker's ChainServer arguments, the pool's record tier
+    (``record``, ``"compact8"`` when absent) and ``heterogeneous`` flag
+    among them."""
 
     def __init__(self, pool_dir: str, template_ma, config,
                  kwargs: Optional[dict] = None):

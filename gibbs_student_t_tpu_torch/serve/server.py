@@ -115,11 +115,20 @@ such servers (in process, or workers), fails a dead worker over through
 its manifest and :meth:`recover`, and migrates tenants between them live
 (a cancel at the next boundary, then ``resume_spool`` on the target).
 
+Record tiers and heterogeneous pools (serve/pool.py): the pool's quanta
+reach the drain in the tier's wire dtypes (``record="compact8"`` by
+default, as in the JAX server). An in-memory tenant keeps its lanes'
+narrow slices and is turned into float32 once, when its result is built;
+a spooled tenant and an ``on_chunk`` callback get float32 records each
+quantum, as the spool files and the wire's result frames hold them. A
+heterogeneous pool (``heterogeneous=True``; the JAX server reads the
+pool's flag and takes no argument) admits a tenant with fewer TOAs than
+the template, padded with masked rows; its records and ``stats["n_toa"]``
+are its own TOA count's.
+
 Not ported from the JAX server: the in-kernel stage timers
 (``summary()["stages"]`` stays None: the JAX server's come from its CPU
-native library), the persistent compile cache of ``recover``, and
-heterogeneous pools (tenants with fewer TOAs than the pool's template;
-ROADMAP A-9 item 8b).
+native library) and the persistent compile cache of ``recover``.
 """
 
 from __future__ import annotations
@@ -173,6 +182,7 @@ from gibbs_student_t_tpu_torch.parallel.ensemble import (
     _localize_names,
     _structure,
     check_kernel_structure,
+    pad_model_arrays,
 )
 from gibbs_student_t_tpu_torch.parallel.recycle import row_class_pattern
 from gibbs_student_t_tpu_torch.serve import adapt as _adapt
@@ -230,7 +240,7 @@ def serve_recycle_env() -> str:
 class _Prepared:
     """A staged tenant: what admission needs except its lanes.
     ``warm_fit`` is the fit whose draws made ``state`` (None: cold),
-    journaled at admission."""
+    journaled at admission; ``n_real`` the tenant's own TOA count."""
 
     handle: TenantHandle
     backend: TorchGibbs
@@ -238,6 +248,7 @@ class _Prepared:
     groups_needed: int
     monitor: Optional[TenantMonitor] = None
     warm_fit: Optional[WarmStartFit] = None
+    n_real: Optional[int] = None
 
 
 @dataclass
@@ -289,7 +300,9 @@ def _percentiles(vals: List[float]) -> Optional[dict]:
 class ChainServer:
     """Serve many sampling jobs through one :class:`SlotPool`.
 
-    ``nlanes``, ``quantum``, ``record`` and ``device`` configure the pool;
+    ``nlanes``, ``quantum``, ``record`` (the tier, ``"compact8"`` by
+    default), ``heterogeneous`` and ``device`` configure the pool
+    (serve/pool.py);
     ``max_queue`` bounds the admission queue, and ``backpressure`` says
     what :meth:`submit` does when it is full: ``"reject"`` sheds at once,
     ``"block"`` waits for room (with no other thread driving the server,
@@ -336,8 +349,8 @@ class ChainServer:
     MAX_WORKER_RESTARTS = 5
 
     def __init__(self, template_ma: ModelArrays, config: GibbsConfig,
-                 nlanes: int = 1024, quantum: int = 25, record: str = "full",
-                 device=None, max_queue: int = 64,
+                 nlanes: int = 1024, quantum: int = 25,
+                 record: str = "compact8", device=None, max_queue: int = 64,
                  backpressure: str = "block", pipeline: bool = True,
                  prefetch: int = 2, scheduler: str = "fifo",
                  age_boost_s: float = 30.0, telemetry: bool = True,
@@ -351,7 +364,7 @@ class ChainServer:
                  watchdog_spec: Optional[WatchdogSpec] = None,
                  flight: bool = True, flight_dir: Optional[str] = None,
                  flight_capacity: int = 64, flight_sync_every: int = 4,
-                 recycle="auto"):
+                 recycle="auto", heterogeneous: bool = False):
         if pipeline not in (True, False):
             raise ValueError(f"pipeline must be True or False, got "
                              f"{pipeline!r}")
@@ -386,7 +399,7 @@ class ChainServer:
                                              age_boost_s=self.age_boost_s))))
         self.pool = SlotPool(template_ma, config, nlanes=nlanes,
                              quantum=quantum, device=device, record=record,
-                             telemetry=telemetry)
+                             telemetry=telemetry, heterogeneous=heterogeneous)
         # the dispatch thread's state; reentrant, so a callback on the
         # serial path may read status()
         self._lock = threading.RLock()
@@ -444,6 +457,7 @@ class ChainServer:
             self._manifest = ServerManifest(manifest_dir)
             self._manifest.record_server(template_ma, config, {
                 "nlanes": nlanes, "quantum": quantum, "record": record,
+                "heterogeneous": self.pool.heterogeneous,
                 "max_queue": max_queue, "backpressure": backpressure,
                 "telemetry": bool(telemetry), "scheduler": scheduler})
         # run-level aggregates
@@ -833,13 +847,24 @@ class ChainServer:
                     _adapt.resolve_adapt_scan(req.adapt_scan, req.monitor)
                     if pool.adaptive else None)
             if ma.row_mask is not None:
-                raise ValueError("tenant models must be unpadded")
-            if ma.n != pool.n_pool:
+                raise ValueError("tenant models must be unpadded; the "
+                                 "pool pads to its own TOA axis")
+            if pool.heterogeneous:
+                if ma.n > pool.n_pool:
+                    raise ValueError(
+                        f"tenant n={ma.n} exceeds the pool TOA axis "
+                        f"{pool.n_pool}")
+            elif ma.n != pool.n_pool:
                 raise ValueError(
-                    f"tenant n={ma.n} != pool n={pool.n_pool}; the pool "
-                    "admits only matching TOA counts")
+                    f"tenant n={ma.n} != pool n={pool.n_pool}; a "
+                    "homogeneous pool admits only matching TOA counts "
+                    "(construct the pool with heterogeneous=True to "
+                    "accept suffix-padded tenants)")
             if ma.m != t.m:
                 raise ValueError(f"tenant basis size {ma.m} != pool {t.m}")
+            n_real = ma.n
+            if pool.heterogeneous:
+                (ma,) = pad_model_arrays([ma], n_to=pool.n_pool)
             if _structure(ma) != _structure(t):
                 raise ValueError(
                     "tenant model structure (parameters, noise groups, "
@@ -866,7 +891,7 @@ class ChainServer:
                               time.monotonic() - t0,
                               tenant=handle.tenant_id)
         return _Prepared(handle, backend, state, self._groups_needed(handle),
-                         monitor=monitor, warm_fit=warm_fit)
+                         monitor=monitor, warm_fit=warm_fit, n_real=n_real)
 
     def _warm_fit_for(self, handle: TenantHandle, ma):
         """The tenant's warm-start fit under ``GST_WARM_START``: a
@@ -1068,7 +1093,7 @@ class ChainServer:
         lanes = np.concatenate([np.arange(g * G, (g + 1) * G)
                                 for g in taken])
         slot = TenantSlot(handle.tenant_id, lanes, req.nchains, req.niter,
-                          req.start_sweep, req.seed)
+                          req.start_sweep, req.seed, n_real=prep.n_real)
         pool.write_tenant(slot, prep.backend, prep.state)
         spool = None
         if req.spool_dir is not None:
@@ -1080,7 +1105,7 @@ class ChainServer:
                 record_mode=pool.drawer.record_mode,
                 recycle=True if self.recycle else None,
                 extra_meta={"tenant": handle.tenant_id,
-                            "n_toa": [pool.n_pool]},
+                            "n_toa": [slot.n_real]},
                 fault_key=handle.fault_key)
         handle.admitted_t = time.monotonic()
         handle.status = "running"
@@ -1248,20 +1273,26 @@ class ChainServer:
                            .reshape(self.pool.nlanes) for t in tl))
 
     def _drain_tenant(self, slot: TenantSlot, handle: TenantHandle,
-                      spool: Optional[ChainSpool], host: dict,
+                      spool: Optional[ChainSpool], wire: dict,
                       tele: Optional[Telemetry], sweep_end: int,
                       state_fn) -> None:
-        """Hand one tenant its share of a quantum (both executors): its
-        records to its spool, with the checkpoint ``state_fn()`` at
-        ``sweep_end`` (journaled), or to its handle; then the ``on_chunk``
-        callback, and the quantum's telemetry into its running stats."""
-        records = self.pool.tenant_records(host, slot)
+        """Hand one tenant its share of a quantum (both executors), from
+        the quantum's records on the host in wire dtypes: float32 records
+        to its spool, with the checkpoint ``state_fn()`` at ``sweep_end``
+        (journaled), or its lanes' wire slice to its handle (turned into
+        float32 once, at finalize); then the ``on_chunk`` callback (float32
+        records), and the quantum's telemetry into its running stats."""
+        pool = self.pool
+        records = wire_cols = None
+        if spool is not None or handle.request.on_chunk is not None:
+            records = pool.tenant_quantum_records(wire, slot)
         if spool is not None:
             spool.append(records, state_fn(), sweep_end)
             if self._manifest is not None:
                 self._manifest.record_checkpoint(slot.tenant_id, sweep_end)
         else:
-            handle._append(records)
+            wire_cols = pool.tenant_wire(wire, slot)
+            handle._append(wire_cols)
         first = handle.first_result_t is None
         rec_rows, stream = self._recycle_rows(handle, slot, records, first)
         handle._stream(sweep_end, stream)
@@ -1274,8 +1305,9 @@ class ChainServer:
                 self.metrics.histogram("serve_first_result_ms").observe(ms)
         if tele is not None:
             self._accumulate_tele(handle, slot, tele)
-        self._feed_monitor(handle, slot, records, sweep_end,
-                           recycled=rec_rows)
+        # x has no cast: its wire slice is its float32 record
+        x = records["x"] if records is not None else wire_cols["x"].numpy()
+        self._feed_monitor(handle, slot, x, sweep_end, recycled=rec_rows)
 
     def _recycle_rows(self, handle: TenantHandle, slot: TenantSlot,
                       records: dict, first: bool):
@@ -1284,7 +1316,8 @@ class ChainServer:
         scan-end row (the mid-scan state leading to it), except before a
         stream's very first row, whose predecessor was the init; the
         streamed records are a copy with the ``row_class`` tag (the spool
-        and the result keep the records as they are). Quarantined lanes
+        and the result keep the records as they are; None, with no
+        ``on_chunk`` to stream to, stays None). Quarantined lanes
         advanced no scan, so they are not counted. ``(0, records)`` with
         recycling off."""
         if not self.recycle:
@@ -1300,6 +1333,8 @@ class ChainServer:
         if self.metrics is not None:
             self.metrics.counter("serve_recycled_rows").inc(
                 rec_rows * active)
+        if records is None:
+            return rec_rows, None
         stream = dict(records)
         stream["row_class"] = row_class_pattern(rows_q, continuing)
         return rec_rows, stream
@@ -1329,13 +1364,13 @@ class ChainServer:
                 "restarts at the resume point", RuntimeWarning)
 
     def _feed_monitor(self, handle: TenantHandle, slot: TenantSlot,
-                      records: dict, sweep_end: int,
+                      x: np.ndarray, sweep_end: int,
                       recycled: int = 0) -> None:
-        """Fold one drained quantum (and its ``recycled`` row count) into
-        the tenant's monitor, from the records already on the host (no
-        copy from the device of its own). On convergence record the SLO
-        leg and, under ``on_converged="evict"``, freeze the tenant at the
-        next boundary through the cancel machinery; then redraw an
+        """Fold one drained quantum's ``x`` rows (and its ``recycled`` row
+        count) into the tenant's monitor, from the records already on the
+        host (no copy from the device of its own). On convergence record
+        the SLO leg and, under ``on_converged="evict"``, freeze the tenant
+        at the next boundary through the cancel machinery; then redraw an
         adaptive tenant's block gates. A monitor exception detaches THAT
         tenant's monitor with a warning and the tenant keeps serving."""
         mon = handle._monitor
@@ -1343,7 +1378,7 @@ class ChainServer:
             return
         t0 = time.monotonic()
         try:
-            mon.update(records["x"], sweep_end, recycled=recycled)
+            mon.update(x, sweep_end, recycled=recycled)
             if (mon.converged_at is not None
                     and not getattr(handle, "_conv_recorded", False)):
                 handle._conv_recorded = True
@@ -1496,7 +1531,7 @@ class ChainServer:
                 n_quarantined=health["n_quarantined"],
                 n_reinits=health["n_reinits"])
         extra = dict(handle._tele_stats)
-        extra["n_toa"] = np.asarray([self.pool.n_pool])
+        extra["n_toa"] = np.asarray([slot.n_real])
         if health is not None:
             extra["health"] = health
         # the monitor's final view and the cost ride the result's stats
@@ -1519,15 +1554,21 @@ class ChainServer:
             res.stats.update(extra)
             handle._finish(res)
             return
-        pool = self.pool
 
         def build():
-            res = pool.result({f: np.concatenate(c)
-                               for f, c in handle._cols.items()})
+            res = self._memory_result(slot, handle)
             res.stats.update(extra)
             return res
 
         handle._finish_lazy(build)
+
+    def _memory_result(self, slot: TenantSlot, handle: TenantHandle):
+        """An in-memory tenant's result from the wire slices its handle
+        accumulated: one concatenation, then one pass to float32."""
+        pool = self.pool
+        return pool.result(pool.materialize_tenant(
+            {f: torch.cat(c) for f, c in handle._cols.items()},
+            slot.n_real), slot.n_real)
 
     def _requeue_preempted(self, t: _Tenant) -> None:
         """Turn a preempted tenant's checkpoint into a queued continuation:
@@ -1652,8 +1693,7 @@ class ChainServer:
                 spool.close()
                 partial = load_spool(handle.request.spool_dir)
             elif handle._cols:
-                partial = self.pool.result(
-                    {f: np.concatenate(c) for f, c in handle._cols.items()})
+                partial = self._memory_result(slot, handle)
         except Exception:  # noqa: BLE001 - the prefix itself is broken
             partial = None
         handle.health = self._tenant_health(t)
@@ -1838,7 +1878,7 @@ class ChainServer:
         qidx = self.quanta
         t_d = self._dispatch_start()
         recs, tl = pool.run_quantum()
-        host = pool.materialize(recs)
+        wire = pool.wire_host(recs)
         tele = self._host_tele(tl)
         with self._lock:
             self._last_tl, self._last_tl_tids = tele, set(self._running)
@@ -1862,7 +1902,7 @@ class ChainServer:
                         with self._span("drain", ROLE_DRAIN, tenant=tid,
                                         quantum=qidx):
                             self._drain_tenant(
-                                slot, t.handle, t.spool, host, tele,
+                                slot, t.handle, t.spool, wire, tele,
                                 slot.start_sweep + slot.done_sweeps,
                                 state_fn=lambda s=slot: pool.tenant_state(s))
                     except Exception as e:  # noqa: BLE001 - contained
@@ -2043,12 +2083,13 @@ class ChainServer:
         err = None
         try:
             if b.recs is not None:
+                # one pull of the wire records, telemetry and snapshot
                 fields = list(b.recs)
                 tl = list(b.tl) if b.tl is not None else []
                 tensors = list(b.recs.values()) + tl + list(b.snap or ())
                 pulled = _HostCopy(tensors, self._pull_stream,
                                    after=b.event).wait()
-                host = self.pool.materialize(dict(zip(fields, pulled)))
+                host = self.pool.wire_host(dict(zip(fields, pulled)))
                 k = len(fields)
                 if tl:
                     tele = self._host_tele(Telemetry(*pulled[k:k + len(tl)]))

@@ -367,7 +367,7 @@ def _pool_run(demo, monkeypatch, gates=None, adaptive=True, quanta=2):
     ma, cfg = demo
     if not adaptive:
         monkeypatch.setenv("GST_ADAPT_SCAN", "0")
-    pool = SlotPool(ma, cfg, nlanes=48, quantum=Q, device="cpu")
+    pool = SlotPool(ma, cfg, nlanes=48, quantum=Q, record="full", device="cpu")
     monkeypatch.delenv("GST_ADAPT_SCAN", raising=False)
     assert pool.adaptive is adaptive
     smp = TorchGibbs(ma, cfg, nchains=16, device="cpu", tnt_block_size=None)

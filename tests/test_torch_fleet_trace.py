@@ -568,7 +568,8 @@ def test_two_pool_subprocess_fleet_stitches_end_to_end(tmp_path):
     cfg = GibbsConfig(model="mixture")
     obs = str(tmp_path / "router_obs")
     fleet = spawn_fleet(str(tmp_path / "fleet"), 2, ma, cfg,
-                        pool_kwargs=dict(device="cpu", nlanes=32, quantum=5),
+                        pool_kwargs=dict(device="cpu", nlanes=32, quantum=5,
+                                         record="full"),
                         placement="round_robin", obs_dir=obs,
                         capacity_sample_s=0.25, ready_timeout=300.0)
     try:

@@ -312,7 +312,7 @@ def test_submit_checks_and_structured_shed():
     ma = make_demo_model_arrays(components=5)
     srv = ChainServer(ma, GibbsConfig(model="mixture"), nlanes=32,
                       quantum=5, max_queue=1, backpressure="reject",
-                      device="cpu")
+                      record="full", device="cpu")
     try:
         for bad in (dict(priority=-1), dict(priority=True),
                     dict(priority=1.0), dict(deadline_sweeps=0),

@@ -127,7 +127,8 @@ def test_padded_adapting_tenant_equals_torch_gibbs(demo):
     earlier, so their lanes adapt at other sweep indices."""
     ma, _ = demo
     cfg = GibbsConfig(model="mixture").with_adapt(7)
-    srv = ChainServer(ma, cfg, nlanes=48, quantum=5, device="cpu")
+    srv = ChainServer(ma, cfg, nlanes=48, quantum=5,
+                      record="full", device="cpu")
     h2 = srv.submit(TenantRequest(ma=make_demo_model_arrays(seed=7),
                                   niter=15, nchains=16, seed=13))
     srv.step()
@@ -142,7 +143,7 @@ def test_resumed_tenant_equals_unbroken_run(demo):
     """Five sweeps, then the tenant's state carried into another group at
     ``start_sweep=5``: the ten sweeps of the unbroken solo run."""
     ma, cfg = demo
-    pool = SlotPool(ma, cfg, nlanes=48, quantum=5, device="cpu")
+    pool = SlotPool(ma, cfg, nlanes=48, quantum=5, record="full", device="cpu")
     smp = TorchGibbs(ma, cfg, nchains=16, device="cpu", tnt_block_size=None)
     first = TenantSlot(0, np.arange(16), 16, 5, 0, 4)
     pool.write_tenant(first, smp, smp.init_state(seed=4))
@@ -202,7 +203,7 @@ def test_tenants_share_one_pool(demo):
 
 def test_inactive_lanes_are_frozen(demo):
     ma, cfg = demo
-    pool = SlotPool(ma, cfg, nlanes=48, quantum=5, device="cpu")
+    pool = SlotPool(ma, cfg, nlanes=48, quantum=5, record="full", device="cpu")
     smp = TorchGibbs(ma, cfg, nchains=20, device="cpu", tnt_block_size=None)
     slot = TenantSlot(0, np.arange(32), 20, 5, 0, 1)
     state = smp.init_state(seed=1)
@@ -224,7 +225,7 @@ def test_inactive_lanes_are_frozen(demo):
 def test_validation(demo):
     ma, cfg = demo
     srv = ChainServer(ma, cfg, nlanes=32, quantum=5, max_queue=2,
-                      backpressure="reject", device="cpu")
+                      backpressure="reject", record="full", device="cpu")
     with pytest.raises(ValueError, match="multiple of the pool quantum"):
         srv.submit(TenantRequest(ma=ma, niter=7, nchains=16))
     with pytest.raises(ValueError, match="lane groups"):
@@ -238,7 +239,7 @@ def test_validation(demo):
         srv.submit(TenantRequest(ma=ma, niter=5, nchains=16, seed=2))
     # block: a full queue is served until the next job fits in
     blk = ChainServer(ma, cfg, nlanes=32, quantum=5, max_queue=1,
-                      device="cpu")
+                      record="full", device="cpu")
     first = blk.submit(TenantRequest(ma=ma, niter=5, nchains=32, seed=0))
     second = blk.submit(TenantRequest(ma=ma, niter=5, nchains=16, seed=1))
     assert first.done() and blk.quanta == 1 and not second.done()

@@ -81,8 +81,8 @@ def _deadline_victim(ma, **kw):
 def reference(setup):
     """The two victims' uninterrupted runs (serial, in memory)."""
     ma, cfg = setup
-    srv = ChainServer(ma, cfg, nlanes=48, quantum=5, device="cpu",
-                      pipeline=False)
+    srv = ChainServer(ma, cfg, nlanes=48, quantum=5,
+                      record="full", device="cpu", pipeline=False)
     try:
         hv = srv.submit(_victim(ma))
         hw = srv.submit(_deadline_victim(ma))
@@ -144,8 +144,8 @@ def test_pipelined_equals_serial(setup, tmp_path):
             dict(niter=10, nchains=16, seed=14)]
     results = {}
     for pipeline in EXECUTORS:
-        srv = ChainServer(ma, cfg, nlanes=32, quantum=5, device="cpu",
-                          pipeline=pipeline)
+        srv = ChainServer(ma, cfg, nlanes=32, quantum=5,
+                          record="full", device="cpu", pipeline=pipeline)
         try:
             hs = []
             for i, j in enumerate(jobs):
@@ -175,7 +175,8 @@ def test_pipelined_equals_serial(setup, tmp_path):
 def test_preemption_is_lossless(setup, reference, tmp_path, pipeline):
     ma, cfg = setup
     ref_v, ref_w = reference
-    srv = ChainServer(ma, cfg, nlanes=48, quantum=5, device="cpu",
+    srv = ChainServer(ma, cfg, nlanes=48, quantum=5,
+                      record="full", device="cpu",
                       pipeline=pipeline, scheduler="priority",
                       age_boost_s=0)
     hi, victims = [], []
@@ -224,8 +225,8 @@ def test_spool_drains_in_order(setup, reference, tmp_path, pipeline):
         seen.append((sweep_end, ck_sweep, records["x"].shape[0],
                      handle.sweeps_done, handle.done()))
 
-    srv = ChainServer(ma, cfg, nlanes=32, quantum=5, device="cpu",
-                      pipeline=pipeline)
+    srv = ChainServer(ma, cfg, nlanes=32, quantum=5,
+                      record="full", device="cpu", pipeline=pipeline)
     try:
         h = srv.submit(_victim(ma, niter=25, spool_dir=sdir,
                                on_chunk=on_chunk))
@@ -241,8 +242,8 @@ def test_spool_drains_in_order(setup, reference, tmp_path, pipeline):
 def test_resume_spool_is_bitwise(setup, reference, tmp_path, pipeline):
     ma, cfg = setup
     sdir = str(tmp_path / "r")
-    srv = ChainServer(ma, cfg, nlanes=32, quantum=5, device="cpu",
-                      pipeline=pipeline)
+    srv = ChainServer(ma, cfg, nlanes=32, quantum=5,
+                      record="full", device="cpu", pipeline=pipeline)
     try:
         first = srv.submit(_victim(ma, niter=10, spool_dir=sdir))
         _drive(srv)
@@ -265,8 +266,8 @@ def test_resume_spool_is_bitwise(setup, reference, tmp_path, pipeline):
 @pytest.mark.parametrize("pipeline", EXECUTORS, ids=IDS)
 def test_cancel_freezes_at_next_boundary(setup, reference, pipeline):
     ma, cfg = setup
-    srv = ChainServer(ma, cfg, nlanes=32, quantum=5, device="cpu",
-                      pipeline=pipeline)
+    srv = ChainServer(ma, cfg, nlanes=32, quantum=5,
+                      record="full", device="cpu", pipeline=pipeline)
     h, cancelled = None, []
 
     def on_quantum(s):
@@ -288,7 +289,8 @@ def test_cancel_freezes_at_next_boundary(setup, reference, pipeline):
 
 def test_cancel_while_queued_staged_or_staging(setup):
     ma, cfg = setup
-    srv = ChainServer(ma, cfg, nlanes=32, quantum=5, device="cpu",
+    srv = ChainServer(ma, cfg, nlanes=32, quantum=5,
+                      record="full", device="cpu",
                       prefetch=1)
     entered, release = threading.Event(), threading.Event()
     prepare = srv._prepare
@@ -336,7 +338,8 @@ def test_cancel_while_queued_staged_or_staging(setup):
 @pytest.mark.parametrize("pipeline", EXECUTORS, ids=IDS)
 def test_block_policy_sheds_when_no_room_frees(setup, pipeline):
     ma, cfg = setup
-    srv = ChainServer(ma, cfg, nlanes=32, quantum=5, device="cpu",
+    srv = ChainServer(ma, cfg, nlanes=32, quantum=5,
+                      record="full", device="cpu",
                       max_queue=1, pipeline=pipeline)
     try:
         big = srv.submit(TenantRequest(ma=ma, niter=500, nchains=32))

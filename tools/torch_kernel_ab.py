@@ -442,7 +442,7 @@ def main() -> None:
                                               seed=seed)
             return make_reference_pta(psr, 30).frozen(0)
         srv = ChainServer(model(42), GibbsConfig(model="mixture"),
-                          nlanes=1024, quantum=1, device=dev)
+                          nlanes=1024, quantum=1, record="full", device=dev)
         for i in range(4):
             srv.submit(TenantRequest(ma=model(100 + i), niter=2,
                                      nchains=256, seed=200 + i))
