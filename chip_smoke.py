@@ -115,9 +115,13 @@ exits 1 through ``fail`` before it, and so does an uncaught exception.
 
 12. the sampling surface of ``TorchGibbs`` and ``EnsembleGibbs`` at the
    flagship (1024 chains, from phase 5's state):
-   a. the factor kernel in its block form at (1024, 74), as the
-      telemetry's chunk-end log-posterior launches it, against its plain
-      version and timed; ``lnlikelihood`` (the factor at (1, 74)) on the
+   a. the factor kernel in its warp form (three rows a lane) at (1024,
+      74), as the telemetry's chunk-end log-posterior launches it, and at
+      (1, 74), as ``lnlikelihood`` does, against its plain version; the
+      (1024, 74) operands with two matrices negated: those two alone turn
+      NaN, the others bit for bit as before; both shapes timed (every
+      matrices-per-block count too) and again in turns beside the block
+      form (``per_block=0``) and ``cholesky_ex``; ``lnlikelihood`` on the
       card against the CPU at 8 points (rtol 1e-5); the launches and
       device time the telemetry adds a sweep and a chunk;
    b. 200 sweeps at ``record="compact8"``, ``"compact"`` and ``"full"``
@@ -418,7 +422,10 @@ exits 1 through ``fail`` before it, and so does an uncaught exception.
       in the white constants and zero suffix rows of T and y, checked),
       held against their plain versions and float64 as 11a holds them
       (accept counts against the float64 referee on the draws as they
-      are and with ties separated; B5-L to 1e-4 of M);
+      are and with ties separated; B5-L to 1e-4 of M); B3-L and B5-L
+      timed on those operands beside their plain versions (B5-L also
+      beside the ensemble's matmul per basis), each bound counted over
+      every group's real TOAs;
    b. a heterogeneous pool's sweep on the card against the CPU at 96
       lanes (tenants of 130, 120 and 100 TOAs, 32 chains each), ties
       separated, as 11b: accept counts equal, x to 1e-4, the padded rows
@@ -1205,7 +1212,11 @@ def main() -> None:
     for key, args in sorted(captured_f.items(), key=lambda kv: kv[0][:2]):
         name = key[0]
         m_ = args[0 if name == "chol_fused" else 1].shape[-1]
-        want = ("block" if m_ > chol.WARP_MAX_DIM else "warp")
+        # each kernel's own warp bound: the factor's three rows a lane,
+        # the hyper kernel's 64
+        warp_max = (chol.WARP_MAX_DIM if name == "chol_fused"
+                    else hyper_mh.HYPER_WARP_MAX_V)
+        want = ("block" if m_ > warp_max else "warp")
         form = (chol.launch_form(args[0].numel() // (m_ * m_), m_)
                 if name == "chol_fused"
                 else hyper_mh.launch_form(args[0].shape[0], m_))
@@ -1548,7 +1559,10 @@ def main() -> None:
                         str(pb): timed(
                             lambda *a, pb=pb: fn(*a, per_block=pb), args, 20)
                         for pb in ((1, 2, 4, 8, 0)
-                                   if Bm[1] <= chol.WARP_MAX_DIM else ())}}
+                                   if Bm[1] <= (chol.WARP_MAX_DIM
+                                                if name == "chol_fused"
+                                                else hyper_mh.HYPER_WARP_MAX_V)
+                                   else ())}}
             elif name in GROUPED:
                 extra = {"ungrouped_ms": timed(wrappers[name][2],
                                                ungrouped(name, args), 50)}
@@ -2673,38 +2687,109 @@ def main() -> None:
     st0 = sampler.last_state            # after phase 5's ADAPT + MORE sweeps
     s0 = ADAPT + MORE                   # past adapt_until: factors frozen
 
-    # 12a. B1's block form at (1024, 74), as the telemetry's chunk-end
-    # log-posterior launches it, against its plain version (phase 3's
-    # tolerance), and timed; lnlikelihood (B1 at (1, 74)) on the card
+    # 12a. B1 at (1024, 74), as the telemetry's chunk-end log-posterior
+    # launches it: the warp form with three rows a lane, against its plain
+    # version (phase 3's tolerance); the same operands with two matrices
+    # negated, whose two alone may turn NaN; the kernel timed in turns
+    # beside its block form (per_block = 0) and cholesky_ex; the same at
+    # (1, 74), lnlikelihood's factor; then lnlikelihood on the card
     # against the same call on the CPU at 8 points
     form74 = chol.launch_form(NCHAINS, ma.m)
-    if form74 != ("block", 1):
+    if form74[0] != "warp":
         fail(f"B1 at ({NCHAINS}, {ma.m}) takes the {form74} form")
     captured_lp = capture(["chol_fused"],
                           lambda: sampler._logpost_chain(st0))
     key74 = ("chol_fused", (NCHAINS, ma.m, ma.m))
     if list(captured_lp) != [key74]:
         fail(f"the log-posterior launched {sorted(captured_lp)}")
+    pt0 = [getattr(st0, f)[0].cpu().numpy() for f in ("x", "z", "alpha")]
+    captured_l1 = capture(["chol_fused"],
+                          lambda: sampler.lnlikelihood(*pt0))
+    key1 = ("chol_fused", (1, ma.m, ma.m))
+    if list(captured_l1) != [key1]:
+        fail(f"lnlikelihood launched {sorted(captured_l1)}")
+    for key, capt, what in ((key74, captured_lp, "log-posterior"),
+                            (key1, captured_l1, "lnlikelihood")):
+        args_ = capt[key]
+        form_ = chol.launch_form(key[1][0], ma.m)
+        if form_[0] != "warp":
+            fail(f"B1 at {key[1]} takes the {form_} form")
+        out_k = chol.chol_fused(*args_)
+        out_p = chol.chol_fused_plain(*args_)
+        torch.cuda.synchronize()
+        errs = [rel_err(a, b) for a, b in zip(out_k, out_p)]
+        rec = {"shape": list(key[1]), "form": list(form_),
+               "max_abs_err": max(e[0] for e in errs),
+               "max_rel_err": max(e[1] for e in errs),
+               "nonfinite_mismatch": sum(e[2] for e in errs)}
+        # tolerance: 1e-3 relative on every output, the non-finite pattern
+        # identical (phase 3)
+        rec["ok"] = bool(rec["max_rel_err"] <= 1e-3
+                         and rec["nonfinite_mismatch"] == 0)
+        parity["chol_fused"].append(rec)
+        print(f"# parity chol_fused {rec['shape']} ({what}): "
+              f"{json.dumps(rec)}", flush=True)
+        if not rec["ok"]:
+            fail(f"chol_fused disagrees with its plain version at {key[1]}")
+    # two matrices negated (a negative first pivot): their logdet turns NaN,
+    # on the card and in the plain version; no other matrix's does, and
+    # every other matrix comes out bit for bit as without the negation
     args74 = captured_lp[key74]
+    neg = [3, NCHAINS - 300]
+    S_neg = args74[0].clone()
+    S_neg[neg] = -S_neg[neg]
+    out_n = chol.chol_fused(S_neg, args74[1])
     out_k = chol.chol_fused(*args74)
+    out_np = chol.chol_fused_plain(S_neg, args74[1])
     out_p = chol.chol_fused_plain(*args74)
     torch.cuda.synchronize()
-    errs = [rel_err(a, b) for a, b in zip(out_k, out_p)]
-    rec = {"shape": list(key74[1]), "form": list(form74),
-           "max_abs_err": max(e[0] for e in errs),
-           "max_rel_err": max(e[1] for e in errs),
-           "nonfinite_mismatch": sum(e[2] for e in errs)}
-    # tolerance: 1e-3 relative on every output, the non-finite pattern
-    # identical (phase 3)
-    rec["ok"] = bool(rec["max_rel_err"] <= 1e-3
-                     and rec["nonfinite_mismatch"] == 0)
-    parity["chol_fused"].append(rec)
-    print(f"# parity chol_fused {rec['shape']} (log-posterior): "
-          f"{json.dumps(rec)}", flush=True)
-    if not rec["ok"]:
-        fail(f"chol_fused disagrees with its plain version at {key74[1]}")
+    keep = torch.ones(NCHAINS, dtype=torch.bool, device=dev)
+    keep[neg] = False
+
+    def nan_at(ld):
+        return [int(i) for i in torch.nonzero(torch.isnan(ld)).flatten()]
+
+    nan_rec = {"shape": list(key74[1]), "negated": neg,
+               "nan_logdet": nan_at(out_n[1]),
+               "nan_logdet_before": nan_at(out_k[1]),
+               "plain_nan_logdet": nan_at(out_np[1]),
+               "plain_nan_logdet_before": nan_at(out_p[1]),
+               "others_bitwise_equal": bool(all(
+                   torch.equal(a[keep].view(torch.int32),
+                               b[keep].view(torch.int32))
+                   for a, b in zip(out_n, out_k)))}
+    nan_rec["ok"] = bool(
+        set(nan_rec["nan_logdet"])
+        == set(neg) | set(nan_rec["nan_logdet_before"])
+        and set(nan_rec["plain_nan_logdet"])
+        == set(neg) | set(nan_rec["plain_nan_logdet_before"])
+        and nan_rec["others_bitwise_equal"])
+    srep["negated_factors"] = nan_rec
+    print(f"# chol_fused {list(key74[1])} with two matrices negated: "
+          f"{json.dumps(nan_rec)}", flush=True)
+    if not nan_rec["ok"]:
+        fail("a negated matrix at (1024, 74) leaked out of its own matrix")
+    del S_neg, out_n, out_np, out_p
     time_captured(captured_lp, "sample")
-    del captured_lp, args74, out_k, out_p
+    time_captured(captured_l1, "lnlikelihood")
+    # the kernel beside its block form and the library call, in turns
+    turns74 = srep["chol74_turns"] = {}
+    for key, capt in ((key74, captured_lp), (key1, captured_l1)):
+        a_ = capt[key]
+        arms = {"kernel": (chol.chol_fused, a_),
+                "block form": (lambda S, r: chol.chol_fused(S, r,
+                                                            per_block=0), a_),
+                "cholesky_ex": (lambda S, r: torch.linalg.cholesky_ex(S),
+                                a_)}
+        t_ = {arm: [] for arm in arms}
+        for arm in ("kernel", "block form", "cholesky_ex", "cholesky_ex",
+                    "block form", "kernel"):
+            t_[arm].append(timed(arms[arm][0], arms[arm][1], 50))
+        turns74[str(list(key[1]))] = t_
+        print(f"# chol_fused {list(key[1])} in turns: " + ", ".join(
+            f"{arm} {' / '.join(f'{v:.5f}' for v in ms)} ms"
+            for arm, ms in t_.items()) + f" | {card}", flush=True)
+    del captured_lp, captured_l1, args74, out_k
     lnl_cpu = tb.TorchGibbs(ma, cfg, nchains=8, device="cpu")
     lnl = []
     for c in range(8):
@@ -6068,6 +6153,48 @@ def main() -> None:
           flush=True)
     if not rec["ok"]:
         fail("tnt_lanes disagrees with float64 on masked operands")
+
+    # B3-L and B5-L timed on these masked operands (reported, not gated).
+    # What the function must do depends on the data here: each group's
+    # bound counts its real TOAs only (the ones of its row mask), the
+    # kernel's bytes and operations over those rows summed over groups
+    n_g = [int(v) for v in wargs[5][:, 0, 1].sum(-1).round()]
+    G21 = len(n_g)
+
+    def group_rows(name, a, g, n):
+        """Group ``g``'s operands of a lanes launch cut to its ``n`` real
+        TOAs (views: work() reads shapes only)."""
+        gid_g = a[-2 if name.startswith("white") else -1].reshape(G21, -1)[g]
+        if name == "tnt_lanes":
+            return (a[0][g:g + 1, :, :n], a[1][g:g + 1, :, :n],
+                    a[2][g:g + 1, :, :n], gid_g)
+        return (a[0][g:g + 1], a[1][g:g + 1, :, :n], a[2][g:g + 1, :, :n],
+                a[3][g:g + 1], a[4][g:g + 1], a[5][g:g + 1, ..., :n],
+                a[6][g:g + 1], gid_g, a[8])
+
+    masked_rows = trep["masked_timing"] = {}
+    for name, a in (("white_mh_lanes", wargs), ("tnt_lanes", targs)):
+        byts = flops = 0
+        for g, n in enumerate(n_g):
+            b_, f_ = work(name, group_rows(name, a, g, n))
+            byts, flops = byts + b_, flops + f_
+        lib = library(name, a)
+        row = dict(
+            path="pool hetero (masked)", shape=list(a[2 if name ==
+                                                      "tnt_lanes" else 1]
+                                                    .shape),
+            n_real=sorted(set(n_g)), first_design_ms=None,
+            ms=timed(wrappers[name][2], a, 50),
+            plain_ms=timed(plains[name], a, 3, queue_ahead=False),
+            library_ms=timed(lib[0], lib[1], 50) if lib else None,
+            bound_ms=max(byts / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
+            bound_by="bytes" if byts / HBM_BYTES_PER_S
+            >= flops / FP32_FLOPS else "operations",
+            bytes=byts, flops=flops)
+        masked_rows[name] = row
+        other_forms.setdefault(name, []).append(row)
+        print(f"# time {name} masked {row['shape']}: {json.dumps(row)} | "
+              f"{card}", flush=True)
     del captured_h, wargs, targs, T_l, y_l, nv_l, out_64, M, Md, Mc
     del Tg64, yg64, nv64, out_k, out_p
 

@@ -18,10 +18,11 @@
 // behind the library factorization. Now (gst_common.cuh has the
 // recurrences):
 //
-// - m <= 64: one warp per matrix, up to eight matrices per block (the
+// - m <= 95: one warp per matrix, up to eight matrices per block (the
 //   wrapper picks: four at the (4 x 1024, 60, 60) launch, whose 4,096
-//   warps the card holds almost all at once). The matrix is staged into
-//   its packed lower triangle with 16-byte loads (when m * m is a
+//   warps the card holds almost all at once), a lane owning one, two or
+//   three of the rows 0..m (m < 32, m < 64, m <= 95). The matrix is
+//   staged into its packed lower triangle with 16-byte loads (when m * m is a
 //   multiple of 4 and the tensors are 16-byte aligned, 4-byte otherwise),
 //   eight in flight per lane, that skip the quads above the diagonal (a
 //   quad's row and column come from one float multiply, not from a
@@ -31,10 +32,13 @@
 //   dense, zeros above the diagonal, with 16-byte stores. A matrix that
 //   fails (pivot <= 0) turns NaN in its own warp's triangle only; its
 //   block-mates share nothing with it.
-// - 64 < m <= 160: one block per matrix in a square with an odd row
+// - 95 < m <= 160: one block per matrix in a square with an odd row
 //   stride, gst_chol_fwd_block (a warp per row of the update, one barrier
 //   per column), rows copied with 16-byte accesses when m is a multiple
-//   of 4.
+//   of 4. Below that it is a launch for measurements only (per_block =
+//   0): at (1024, 74), the sampler's chunk-end log-posterior, its 74
+//   barrier-separated columns lose to the library factorization, and
+//   three rows a lane of the warp form beat both.
 //
 // The back-solve L^T x = r reads 2 m (m + 1) bytes of L for m^2 flops:
 // bytes again. Its first kernel (one 32-thread block per system, the full
@@ -225,7 +229,8 @@ template <int VW>
 cudaError_t launch_warp_rows(const float* S, const float* r, float* L,
                              float* u, float* logdet, int B, int m,
                              int per_block, cudaStream_t stream) {
-  // rows 0..m over 32 lanes: the right-hand side is row m
+  // rows 0..m over 32 lanes, at most three a lane: the right-hand side is
+  // row m
   if (m < 32)
     return launch_warp<1, VW>(S, r, L, u, logdet, B, m, per_block, stream);
   if (m < 64)
@@ -277,14 +282,14 @@ cudaError_t launch_solve(bool vec, const float* L, const float* r, float* x,
 extern "C" {
 
 // per_block > 0: the warp form with that many matrices (warps) per block,
-// 1 <= per_block <= 8, m <= 64. per_block == 0: the block form, one
+// 1 <= per_block <= 8, m <= 95. per_block == 0: the block form, one
 // 256-thread block per matrix, m <= 160.
 int gst_chol_fused(const float* S, const float* r, float* L, float* u,
                    float* logdet, int B, int m, int per_block, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (m < 1 || per_block < 0 || per_block > 8) return (int)cudaErrorInvalidValue;
   if (per_block > 0) {
-    if (m > GST_WARP_MAX_M) return (int)cudaErrorInvalidValue;
+    if (m > GST_WARP3_MAX_M) return (int)cudaErrorInvalidValue;
     const bool vec = ((m * m) & 3) == 0 && gst_aligned16(S, L);
     return (int)(vec ? launch_warp_rows<4>(S, r, L, u, logdet, B, m,
                                            per_block, st)

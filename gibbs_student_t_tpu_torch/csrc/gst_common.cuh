@@ -16,25 +16,31 @@
 // (log, forward-solve entry, running sums) to thread 0 while the others
 // waited. Two forms replace it:
 //
-// - gst_chol_fwd_warp (m <= 64): one warp owns one matrix; lane l owns
-//   rows l, l + 32 (and l + 64 for the right-hand-side row of m = 64).
-//   The matrix lives in shared memory as its packed lower triangle (row i
-//   at offset i(i+1)/2: triangular numbers are a complete residue system
-//   modulo 32, so the 32 lanes' rows fall on 32 distinct banks without
-//   padding, and a matrix takes half the shared memory of a square, which
-//   doubles the warps an SM holds). The recurrence is left-looking over
-//   panels of four columns: each lane accumulates its rows' entries of
-//   columns j .. j + 3 over k < j with plain counters (one load per row
-//   and four broadcast loads for four FMAs per row), the panel's 4 x 4
-//   diagonal block travels by ten shuffles in flight together and every
-//   lane factors it for itself, so no thread waits on another's scalar
-//   work, and the only synchronisation is one __syncwarp() per panel.
+// - gst_chol_fwd_warp (m <= 95): one warp owns one matrix; lane l owns
+//   rows l, l + 32 and l + 64 (NR = 1, 2 or 3 of them: the rows 0..m,
+//   the right-hand side being row m). The matrix lives in shared memory
+//   as its packed lower triangle (row i at offset i(i+1)/2: triangular
+//   numbers are a complete residue system modulo 32, and tri(i + 32) -
+//   tri(i) = 32 i + 528 and tri(i + 64) - tri(i) = 64 i + 2,080 are
+//   constant modulo 32, so the 32 lanes' rows of each slot fall on 32
+//   distinct banks without padding, and a matrix takes half the shared
+//   memory of a square, which doubles the warps an SM holds). The
+//   recurrence is left-looking over panels of four columns: each lane
+//   accumulates its rows' entries of columns j .. j + 3 over k < j with
+//   plain counters (one load per row and four broadcast loads for four
+//   FMAs per row), the panel's 4 x 4 diagonal block travels by ten
+//   shuffles in flight together and every lane factors it for itself, so
+//   no thread waits on another's scalar work, and the only
+//   synchronisation is one __syncwarp() per panel.
 //   The code does not branch on the lane anywhere. The right-hand side
 //   rides along as row m of the matrix, so the forward solve u = L^-1 r
 //   is that row of the factor; the pivots' logs are taken once, after the
-//   last column, a row's by its lane.
-// - gst_chol_fwd_block (64 < m <= 160): one block per matrix, as before,
-//   but a warp owns a row of the trailing update and its lanes that row's
+//   last column, a row's by its lane. A panel skips the row slots whose
+//   rows are all finished (slot r once the panel's first column reaches
+//   32 (r + 1)), so a lane's work falls as the factor advances.
+// - gst_chol_fwd_block (m <= 160; the factor takes it above m = 95, the
+//   hyper kernel above v = 64): one block per matrix, as before, but a
+//   warp owns a row of the trailing update and its lanes that row's
 //   columns up to the diagonal (no division, no modulo, no discarded
 //   half); the column is scaled on the fly from the unscaled entries and
 //   the pivot's rsqrt, which leaves one barrier per column; every thread
@@ -58,8 +64,11 @@
 #define GST_LN10 2.302585092994046f
 #define GST_LOG_2PI 1.8378770664093453f
 #define GST_FULL_MASK 0xffffffffu
-// largest m of the warp form, and of the block form (5 x 32 columns a lane)
+// largest m of the hyper kernel's warp form (its proposals' v), of
+// gst_chol_fwd_warp (rows 0..m, three a lane), and of the block form
+// (5 x 32 columns a lane)
 #define GST_WARP_MAX_M 64
+#define GST_WARP3_MAX_M 95
 #define GST_BLOCK_MAX_M 160
 #define GST_BLOCK_COLS 5
 
@@ -246,7 +255,8 @@ __device__ __forceinline__ void gst_chol_panel(float* P, int m, int j, int bj,
 }
 
 // Warp-level Cholesky with the forward solve fused. P is one warp's packed
-// lower triangle in shared memory, gst_warp_floats(m) floats, m <= 64;
+// lower triangle in shared memory, gst_warp_floats(m) floats,
+// m <= GST_WARP3_MAX_M;
 // `init(i, base_i, j)` gives entry (i, j) of the matrix to factor for
 // j <= i < m and entry j of the right-hand side for i = m (it may read P
 // itself: an entry is read before its column is written); it is also
@@ -256,8 +266,8 @@ __device__ __forceinline__ void gst_chol_panel(float* P, int m, int j, int bj,
 // sum log pivot and `quad` = sum u_j^2 are valid on every lane, logdet
 // summed per lane and over the warp by shuffles, quad in ascending j. NR
 // is the number of rows a lane owns: 1 for m < 32, 2 for m < 64, 3 for
-// m = 64. All 32 lanes of the warp must call it, after a __syncwarp()
-// that makes the staged data visible; it ends with one.
+// 64 <= m <= 95. All 32 lanes of the warp must call it, after a
+// __syncwarp() that makes the staged data visible; it ends with one.
 template <int NR, typename Init>
 __device__ __forceinline__ void gst_chol_fwd_warp(float* P, int m,
                                                   const Init& init,
@@ -282,8 +292,15 @@ __device__ __forceinline__ void gst_chol_fwd_warp(float* P, int m,
     bj += 4 * j + 10;                 // rows j .. j + 3 hold 4 j + 10 floats
   }
   if (NR > 1) {
-    for (; j < m; j += 4) {           // 32 <= j < 64: a lane's first row is done
+    for (; j < m && j < 64; j += 4) {  // a lane's first row is done
       gst_chol_panel<NR, (NR > 1 ? 1 : 0)>(P, m, j, bj, dump, init, row, base,
+                                           piv, q);
+      bj += 4 * j + 10;
+    }
+  }
+  if (NR > 2) {
+    for (; j < m; j += 4) {           // 64 <= j: its second row is done too
+      gst_chol_panel<NR, (NR > 2 ? 2 : 0)>(P, m, j, bj, dump, init, row, base,
                                            piv, q);
       bj += 4 * j + 10;
     }
@@ -307,7 +324,7 @@ __device__ __forceinline__ void gst_flat_pos(int e, int m, float inv_m,
 }
 
 // Copy the lower triangle of a dense row-major m x m matrix S (device
-// memory) into the packed triangle P (shared memory), one warp, m <= 64.
+// memory) into the packed triangle P (shared memory), one warp, m <= 160.
 // The walk is flat over the matrix, VW floats a lane (VW = 4: 16-byte
 // loads, needs m * m a multiple of 4 and S 16-byte aligned; VW = 1
 // otherwise), eight independent loads in flight per lane; a load whose

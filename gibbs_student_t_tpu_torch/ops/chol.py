@@ -10,13 +10,13 @@ Counterpart of ``gibbs_student_t_tpu/ops/pallas_chol.py``. Two kernels
   block per matrix) was bound by neither bytes nor flops but by the
   issue slots of its trailing update's index arithmetic and by two block
   barriers per column, and lost to the library factorization. Now a
-  matrix of ``m <= WARP_MAX_DIM`` belongs to one warp, several matrices
-  share a block, the matrix sits in shared memory as its packed lower
-  triangle, and the recurrence (``csrc/gst_common.cuh
-  gst_chol_fwd_warp``) synchronises by ``__syncwarp`` and shuffles only;
-  larger matrices keep a block each with a warp per row of the update and
-  one barrier per column. :func:`launch_form` says which form a shape
-  takes.
+  matrix of ``m <= WARP_MAX_DIM`` belongs to one warp (a lane owns one,
+  two or three of its rows), several matrices share a block, the matrix
+  sits in shared memory as its packed lower triangle, and the recurrence
+  (``csrc/gst_common.cuh gst_chol_fwd_warp``) synchronises by
+  ``__syncwarp`` and shuffles only; larger matrices keep a block each
+  with a warp per row of the update and one barrier per column.
+  :func:`launch_form` says which form a shape takes.
 - ``tri_solve_T(L, rhs) -> x`` with ``L^T x = rhs``. Replaces
   ``pallas_chol.py::_backsolve_kernel``. Bound by bytes (L in). A warp
   per system, four systems a block, L staged as its lower triangle by
@@ -49,27 +49,29 @@ from gibbs_student_t_tpu_torch.ops.lanes import check_lanes_gid
 #: vectors) stays within the 227 KB a Hopper block may use up to m ~ 230;
 #: 160 is the JAX package's own bound (MAX_PALLAS_DIM).
 MAX_CHOL_DIM = 160
-#: largest m the warp form takes: rows 0..m (the right-hand side is row m)
-#: over a warp's lanes, at most three a lane
-WARP_MAX_DIM = 64
+#: largest m the factor's warp form takes: rows 0..m (the right-hand side
+#: is row m) over a warp's lanes, at most three a lane (csrc/chol.cu
+#: checks the same bound, GST_WARP3_MAX_M)
+WARP_MAX_DIM = 95
 #: most matrices (warps) of the warp form in one block
 MAX_PER_BLOCK = 8
 #: SMs of an H100, the card the launch forms are sized for
 SM_COUNT = 132
 
 
-def check_per_block(name, per_block, size):
+def check_per_block(name, per_block, size, warp_max=WARP_MAX_DIM):
     """Raise unless ``per_block`` is a launch the kernels take for
     matrices of ``size``: None (the wrapper decides), 0 (the block form)
-    or 1..MAX_PER_BLOCK warps of the warp form (size <= WARP_MAX_DIM)."""
+    or 1..MAX_PER_BLOCK warps of the warp form (size <= ``warp_max``, the
+    kernel's own bound: the factor's WARP_MAX_DIM by default)."""
     if per_block is None or per_block == 0:
         return
     if not 1 <= per_block <= MAX_PER_BLOCK:
         raise ValueError(f"{name}: per_block = {per_block} outside "
                          f"0..{MAX_PER_BLOCK}")
-    if size > WARP_MAX_DIM:
+    if size > warp_max:
         raise ValueError(f"{name}: size {size} exceeds the warp form's "
-                         f"{WARP_MAX_DIM}; use per_block = 0")
+                         f"{warp_max}; use per_block = 0")
 
 
 def launch_form(B, m):
@@ -77,7 +79,14 @@ def launch_form(B, m):
     matrices of size ``m``: ``("warp", n)`` puts one matrix on each of
     ``n`` warps of a block (m <= WARP_MAX_DIM), ``("block", 1)`` gives a
     matrix a 256-thread block (m <= MAX_CHOL_DIM). Small batches take
-    fewer matrices per block, so that they still spread over the SMs."""
+    fewer matrices per block, so that they still spread over the SMs.
+
+    The rule holds for three rows a lane too. At (1024, 74), the
+    log-posterior's factor, it gives 2; on an NVIDIA H100 80GB HBM3 at
+    700 W (chip_smoke.py phase 12a) 1, 2, 4 and 8 matrices a block took
+    0.04970, 0.04965, 0.04943 and 0.04986 ms, the block form 0.2303 ms:
+    every count holds the batch in one wave of at most 8 warps an SM,
+    and none is 1 % faster than 2."""
     if not 1 <= m <= MAX_CHOL_DIM:
         raise ValueError(f"chol_fused: m = {m} outside 1..{MAX_CHOL_DIM}")
     if m > WARP_MAX_DIM:

@@ -13,9 +13,10 @@ chain against one read of ``S0``, ~60 flops per byte at v = 60). The
 first kernel, one 128-thread block per chain, was held back by latency
 instead: 1,320 block barriers per chain at v = 60, S = 10, integer
 divisions in the update and in the build of each proposal's matrix, and
-per-column scalar work on one thread. Now, for ``v <= WARP_MAX_DIM``, a
-warp owns a chain and several chains share a block: ``S0`` stays in shared
-memory as its packed lower triangle for the whole block of steps, a
+per-column scalar work on one thread. Now, for ``v <=
+HYPER_WARP_MAX_V``, a warp owns a chain and several chains share a block:
+``S0`` stays in shared memory as its packed lower triangle for the whole
+block of steps, a
 proposal's equilibrated matrix is never built (the recurrence,
 ``csrc/gst_common.cuh gst_chol_fwd_warp``, forms each entry as it starts
 the entry's column and writes only the factor), the sums are warp
@@ -62,7 +63,6 @@ from gibbs_student_t_tpu_torch.models.pta import (
 from gibbs_student_t_tpu_torch.ops.chol import (
     MAX_PER_BLOCK,
     SM_COUNT,
-    WARP_MAX_DIM,
     check_per_block,
     chol_fused_plain,
 )
@@ -85,18 +85,22 @@ LN10 = float(np.log(10.0))
 MAX_HYPER_V = 160
 #: most hyper indices the kernel's by-value table takes
 MAX_HYPER_K = 16
+#: largest v the kernel's warp form takes (csrc/hyper_mh.cu checks the
+#: same bound, GST_WARP_MAX_M): above it a chain keeps a block, though the
+#: factor's own warp form reaches further (``chol.WARP_MAX_DIM``)
+HYPER_WARP_MAX_V = 64
 
 
 def launch_form(C, v):
     """``(form, per_block)`` of the hyper kernel's launch for ``C`` chains
     on a ``v x v`` block: ``("warp", n)`` puts one chain on each of ``n``
-    warps of a block (v <= WARP_MAX_DIM), with ``n`` the chains an SM gets
-    when ``C`` is dealt over the card (1,024 chains: 8 a block, 128 blocks,
-    one wave; 64 chains: 64 one-warp blocks, an SM each);
+    warps of a block (v <= HYPER_WARP_MAX_V), with ``n`` the chains an SM
+    gets when ``C`` is dealt over the card (1,024 chains: 8 a block, 128
+    blocks, one wave; 64 chains: 64 one-warp blocks, an SM each);
     ``("block", 1)`` gives a chain a 256-thread block (v <= MAX_HYPER_V)."""
     if not 1 <= v <= MAX_HYPER_V:
         raise ValueError(f"hyper_mh: v = {v} outside 1..{MAX_HYPER_V}")
-    if v > WARP_MAX_DIM:
+    if v > HYPER_WARP_MAX_V:
         return "block", 1
     return "warp", min(MAX_PER_BLOCK, max(1, -(-C // SM_COUNT)))
 
@@ -280,7 +284,7 @@ def _hyper_mh(name, x, S0, dS0, rt, base, dx, logu, K, sel, specs, hyp_idx,
             or logu.shape != (*B, S) or K.shape != (*groups, 1 + nk, v)
             or sel.shape != (*groups, v) or specs.shape != (*groups, 3, p)):
         raise ValueError(f"{name}: inconsistent operand shapes")
-    check_per_block(name, per_block, v)
+    check_per_block(name, per_block, v, HYPER_WARP_MAX_V)
     if x.device.type == "cpu":
         return hyper_mh_loop(x, S0, dS0, rt, base, dx, logu, K, sel, specs,
                              hyp_idx, jitter), 0

@@ -2,12 +2,12 @@
 preconditioned linear algebra around them, against the JAX package.
 
 - ``chol_fused`` / ``tri_solve_T`` against ``jnp.linalg.cholesky`` +
-  ``solve_triangular`` at m in {14, 15, 60, 64, 65} (the sizes the
-  kernel's launch forms tell apart), batch 64: rtol 1e-4 / atol 1e-5
-  on L, u and x, 1e-4 on logdet (float32, same inputs); a non-PD input
-  gives a NaN logdet on both sides;
+  ``solve_triangular`` at m in {14, 15, 60, 64, 65, 74, 95} (the sizes the
+  kernel's launch forms tell apart, and the log-posterior's 74), batch
+  64: rtol 1e-4 / atol 1e-5 on L, u and x, 1e-4 on logdet (float32, same
+  inputs); a non-PD input gives a NaN logdet on both sides;
 - ``launch_form``: which form each (B, m) takes, every m up to the bound
-  takes one;
+  takes one; the hyper kernel keeps its own forms (test_torch_mh.py);
 - ``schur_eliminate(return_factor=True)``, ``robust_precond_draw`` and
   ``precond_quad_logdet`` against the JAX functions at 1e-4, on Sigma
   matrices built from the flagship demo model.
@@ -37,7 +37,7 @@ from test_torch_kernels import spd
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("m", [14, 60, 15, 64, 65])
+@pytest.mark.parametrize("m", [14, 60, 15, 64, 65, 74, 95])
 def test_chol_and_backsolve_vs_jax(m):
     # condition number 30: the stated tolerances sit above float32
     # roundoff times the conditioning (cond 1e3 already moves u and x by
@@ -89,12 +89,15 @@ def test_chol_non_pd_gives_nan_both_sides():
     (4 * 1024, 60, ("warp", 4)), (3 * 1024, 60, ("warp", 4)),
     (1024, 14, ("warp", 2)), (4 * 64, 60, ("warp", 1)),
     (64, 14, ("warp", 1)), (1061, 64, ("warp", 4)), (1, 1, ("warp", 1)),
-    (1061, 65, ("block", 1)), (7, 160, ("block", 1))])
+    (1061, 65, ("warp", 4)), (7, 160, ("block", 1)),
+    (1024, 74, ("warp", 2)), (1, 74, ("warp", 1)), (1061, 95, ("warp", 4)),
+    (259, 96, ("block", 1))])
 def test_chol_launch_form(B, m, want):
     assert chol.launch_form(B, m) == want
 
 
 def test_chol_launch_form_covers_every_size():
+    assert chol.WARP_MAX_DIM == 95       # rows 0..m, three a lane
     forms = {m: chol.launch_form(4096, m)
              for m in range(1, chol.MAX_CHOL_DIM + 1)}
     assert all(f == ("warp", 4) for m, f in forms.items()
@@ -104,6 +107,22 @@ def test_chol_launch_form_covers_every_size():
     for m in (0, chol.MAX_CHOL_DIM + 1):
         with pytest.raises(ValueError):
             chol.launch_form(4096, m)
+
+
+@pytest.mark.parametrize("m", [74, 95])
+def test_chol_per_block_reaches_the_warp_bound(m):
+    # the measurement override takes every warp-form launch up to the
+    # factor's bound, and none past it
+    for pb in range(chol.MAX_PER_BLOCK + 1):
+        chol.check_per_block("chol_fused", pb, m)
+    with pytest.raises(ValueError):
+        chol.check_per_block("chol_fused", 1, chol.WARP_MAX_DIM + 1)
+    rng = np.random.default_rng(m)
+    S = torch.from_numpy(spd(rng, 3, m, cond=30.0))
+    r = torch.from_numpy(rng.normal(size=(3, m)).astype(np.float32))
+    out = chol.chol_fused(S, r, per_block=2)
+    for a, b in zip(out, chol.chol_fused_plain(S, r)):
+        assert torch.equal(a, b)
 
 
 def test_leading_dims_flatten():
@@ -129,8 +148,8 @@ def test_wrappers_reject_bad_operands():
     for per_block in (-1, chol.MAX_PER_BLOCK + 1):
         with pytest.raises(ValueError):
             chol.chol_fused(S, torch.zeros(2, 4), per_block=per_block)
-    with pytest.raises(ValueError):      # the warp form stops at m = 64
-        chol.chol_fused(torch.eye(65)[None], torch.zeros(1, 65), per_block=4)
+    with pytest.raises(ValueError):      # the warp form stops at m = 95
+        chol.chol_fused(torch.eye(96)[None], torch.zeros(1, 96), per_block=4)
 
 
 @pytest.fixture(scope="module")

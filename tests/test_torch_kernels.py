@@ -9,10 +9,12 @@ conftest fixture, so it runs where only PyTorch is installed::
 
 It covers what ``chip_smoke.py`` does not reach at the flagship shapes:
 the factor in each of its launch forms (a warp per matrix with one, two
-and three rows a lane at m = 14/15, 60 and 64, 16-byte and 4-byte copies,
-a ragged last block; a block per matrix at m = 65 and at the bound
-m = 160, shared memory past the 48 KB default), failed pivots that must
-stay inside their own matrix, the hyper kernel at v = 14, 60, 64 and its
+and three rows a lane at m = 14/15, 60 and 64 to 95, 16-byte and 4-byte
+copies, a ragged last block; a block per matrix at m = 96 and at the
+bound m = 160, shared memory past the 48 KB default), failed pivots that
+must stay inside their own matrix (also where a lane's third row fails,
+at m = 74 and 95, in every matrices-per-block count), the hyper kernel
+at v = 14, 60, 64 and its
 bound v = 160, with 64 chains and with 1,027 (a ragged last block), and the
 closure path (the plain hyper loop with the factor kernel), which the
 sampler takes above that bound; the white kernel past shared memory
@@ -29,8 +31,9 @@ white and hyper lanes blocks, each group bit for bit its single-model
 launch; the factor and back-solve lanes entries, bit for bit the plain
 entries. The back-solve alone at m = 1 to 160, at batches ragged against
 its four systems a block, with failed factors in a block of good ones.
-The factor in its block form at (1024, 74) and (1, 74), the shapes the
-sampler's chunk-end log-posterior and ``lnlikelihood`` launch; the
+The factor at (1024, 74) and (1, 74), the shapes the sampler's chunk-end
+log-posterior and ``lnlikelihood`` launch, in the warp form they take and
+in the block form kept for measurements; the
 record wire casts (``record_tuple``) on the card, bit for bit the CPU's
 after the pinned-memory copy. The per-chain draw kernel (D1,
 ``rng.sweep_draws``) against its plain version on every field kind, with
@@ -130,7 +133,7 @@ def _cuda():
 
 
 @pytest.mark.torch
-@pytest.mark.parametrize("m", [14, 15, 60, 64, 65, 160])
+@pytest.mark.parametrize("m", [14, 15, 60, 64, 65, 160, 74, 95, 96])
 def test_chol_kernels_on_card(m):
     """Every launch form of the factor, at a batch whose last block is
     ragged where several matrices share a block."""
@@ -138,7 +141,8 @@ def test_chol_kernels_on_card(m):
     rng = np.random.default_rng(1 + m)
     B = 1061 if m <= chol.WARP_MAX_DIM else 259
     form, per_block = chol.launch_form(B, m)
-    assert (form == "warp") == (m <= 64) and B % max(per_block, 2) == 1
+    assert ((form == "warp") == (m <= chol.WARP_MAX_DIM)
+            and B % max(per_block, 2) == 1)
     S = spd(rng, B, m, cond=30.0)
     S[3] = -S[3]                          # failed first pivot
     S = torch.from_numpy(S).to(dev)
@@ -821,8 +825,8 @@ def test_grouped_hyper_kernel_on_card(components, per_block):
     bit for bit."""
     dev = _cuda()
     v = 2 * components
-    if per_block not in (None, 0) and v > chol.WARP_MAX_DIM:
-        pytest.skip("the warp form takes v <= 64")
+    if per_block not in (None, 0) and v > thyper.HYPER_WARP_MAX_V:
+        pytest.skip("the hyper kernel's warp form takes v <= 64")
     rng = np.random.default_rng(111 + components)
     mas = [make_demo_model_arrays(n=n, components=components, seed=40 + g)
            for g, n in enumerate((130, 120, 110))]
@@ -1146,17 +1150,61 @@ def wire_state(rng, n):
 @pytest.mark.torch
 @pytest.mark.parametrize("B", [1024, 1])
 def test_chol_block_form_at_74_on_card(B):
+    """The log-posterior's and ``lnlikelihood``'s factor shapes: the warp
+    form they launch and the block form (``per_block=0``), each against
+    the plain version."""
     dev = _cuda()
-    assert chol.launch_form(B, 74) == ("block", 1)
+    assert chol.launch_form(B, 74)[0] == "warp"
     rng = np.random.default_rng(B)
     S = torch.from_numpy(spd(rng, B, 74, cond=30.0)).to(dev)
     r = torch.from_numpy(rng.normal(size=(B, 74)).astype(np.float32)).to(dev)
-    n0 = chol.chol_fused.launches
-    L, ld, u = chol.chol_fused(S, r)
+    plain = chol.chol_fused_plain(S, r)
+    for per_block in (None, 0):
+        n0 = chol.chol_fused.launches
+        out = chol.chol_fused(S, r, per_block=per_block)
+        torch.cuda.synchronize()
+        assert chol.chol_fused.launches == n0 + 1
+        for a, b in zip(out, plain):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        assert not torch.triu(out[0], 1).any()
+
+
+@pytest.mark.torch
+@pytest.mark.parametrize("m", [74, 95])
+@pytest.mark.parametrize("per_block", [1, 2, 4, 8])
+def test_chol_third_row_failures_on_card(m, per_block):
+    """Three rows a lane: matrices that fail in a lane's third row (a
+    negative pivot past column 64, a zero last pivot) or at the first
+    pivot, among good ones sharing their block: a non-finite logdet for
+    the failed ones alone (NaN for the negative pivots), the others equal
+    to the plain version and bit for bit what they give without the
+    failures."""
+    dev = _cuda()
+    rng = np.random.default_rng(7 * m + per_block)
+    B = 37
+    S = spd(rng, B, m, cond=30.0)
+    clean = torch.from_numpy(S.copy()).to(dev)
+    S[2] = -S[2]
+    S[9, 70, 70] = -1.0
+    S[9, 70, :70] = S[9, :70, 70] = 0.0
+    S[20, m - 1, m - 1] = 0.0
+    S[20, m - 1, :m - 1] = S[20, :m - 1, m - 1] = 0.0
+    bad = [2, 9, 20]
+    S = torch.from_numpy(S).to(dev)
+    r = torch.from_numpy(rng.normal(size=(B, m)).astype(np.float32)).to(dev)
+    out = chol.chol_fused(S, r, per_block=per_block)
+    out_c = chol.chol_fused(clean, r, per_block=per_block)
+    out_p = chol.chol_fused_plain(S, r)
     torch.cuda.synchronize()
-    assert chol.chol_fused.launches == n0 + 1
-    for a, b in zip((L, ld, u), chol.chol_fused_plain(S, r)):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    good = torch.ones(B, dtype=torch.bool, device=dev)
+    good[bad] = False
+    assert not torch.isfinite(out[1][~good]).any()
+    assert not torch.isfinite(out_p[1][~good]).any()
+    assert torch.isnan(out[1][[2, 9]]).all()
+    for a, b, c in zip(out, out_p, out_c):
+        assert torch.isfinite(a[good]).all()
+        torch.testing.assert_close(a[good], b[good], rtol=1e-4, atol=1e-5)
+        assert torch.equal(a[good], c[good])
 
 
 @pytest.mark.torch

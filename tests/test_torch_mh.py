@@ -7,7 +7,8 @@ package's XLA loops, on operands from the flagship demo model.
   Schur split of the flagship model (v = 60) and of the same pulsar with
   7 Fourier components (v = 14), 64 chains, with a chain whose block is
   not positive definite (every proposal must reject on both sides);
-- ``hyper_mh.launch_form``: which form each (C, v) takes.
+- ``hyper_mh.launch_form``: which form each (C, v) takes; its warp form
+  stays at v <= 64 (``HYPER_WARP_MAX_V``) while the factor's reaches 95.
 
 Per-chain accept counts are equal and x agrees to 1e-5 relative, on
 fixtures whose decisions all sit more than 1e-3 from a tie
@@ -43,6 +44,7 @@ from gibbs_student_t_tpu.ops import pallas_hyper as jhyper
 from gibbs_student_t_tpu.ops import pallas_white as jwhite
 from gibbs_student_t_tpu.ops.tnt import tnt_products as jtnt
 from gibbs_student_t_tpu_torch.convert import model_arrays_from_fields
+from gibbs_student_t_tpu_torch.ops import chol
 from gibbs_student_t_tpu_torch.ops import hyper_mh as thyper
 from gibbs_student_t_tpu_torch.ops import white_mh as twhite
 from test_torch_host import _fields
@@ -199,6 +201,22 @@ def test_hyper_launch_form_covers_every_size():
     for v in (0, thyper.MAX_HYPER_V + 1):
         with pytest.raises(ValueError):
             thyper.launch_form(1024, v)
+
+
+@pytest.mark.parametrize("nchains", [64, 1024])
+def test_hyper_launch_form_keeps_its_own_bound(nchains):
+    # the hyper kernel's forms for every v do not follow the factor's
+    # warp bound: a warp a chain to v = 64, chains dealt over the card's
+    # SMs; a block a chain above
+    assert thyper.HYPER_WARP_MAX_V == 64 < chol.WARP_MAX_DIM
+    per_warp = min(thyper.MAX_PER_BLOCK, -(-nchains // chol.SM_COUNT))
+    for v in range(1, thyper.MAX_HYPER_V + 1):
+        want = ("warp", per_warp) if v <= 64 else ("block", 1)
+        assert thyper.launch_form(nchains, v) == want, v
+    # the measurement override refuses the warp form past v = 64
+    thyper.check_per_block("hyper_mh", 8, 64, thyper.HYPER_WARP_MAX_V)
+    with pytest.raises(ValueError):
+        thyper.check_per_block("hyper_mh", 1, 65, thyper.HYPER_WARP_MAX_V)
 
 
 def test_mh_wrappers_reject_other_devices():

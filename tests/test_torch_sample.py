@@ -22,8 +22,8 @@ package's ``JaxGibbs`` (CPU).
 - ``sample_until``: converging, its rows bitwise a plain ``sample`` of the
   same length, ``min_ess`` gating the stop, and JAX's validation errors.
 
-The card tests of this surface (the factor's block form at the
-log-posterior's shapes, the wire casts on the card) are in
+The card tests of this surface (the factor at the log-posterior's
+shapes, in its warp and block forms, the wire casts on the card) are in
 tests/test_torch_kernels.py, which runs where JAX is not installed.
 
 These mirror tests/test_jax_backend.py (record tiers, thinning,

@@ -20,8 +20,12 @@ card, in turns (A, B, B, A).
 The operands are those of sweeps of the port's own samplers, captured at
 the kernels' calls: the demo pulsar with 30 Fourier components at 1024
 chains (``chol_fused``, ``tri_solve_T`` and ``hyper_mh`` at m = v = 60
-and the back-solve also at 14: the warp-per-matrix forms) and with 80
-components at 64 chains (m = v = 160, the block-per-matrix forms); the
+and the back-solve also at 14: the warp-per-matrix forms), the same
+sampler's chunk-end log-posterior and ``lnlikelihood`` after those sweeps
+(``chol_fused`` at (1024, 74) and (1, 74)), with 32 components at 1024
+chains (m = v = 64: three rows a lane, the right-hand side the third)
+and with 80 components at 64 chains (m = v = 160, the block-per-matrix
+forms); the
 stress config's ``tnt_batched`` (a demo pulsar of 100,000 TOAs padded to
 102,400, 30 components, 64 chains: T is 102,400 x 74); ens32's
 ``tri_solve_T`` (32 demo pulsars x 256 chains: 8,192 systems at 60 and
@@ -46,7 +50,12 @@ fields) or, where a file of the path is there already, loads them, so
 that every root of an A/B draws from the same inputs; each row carries
 the sha256 of the kernel's output, and ``--compare FILE`` (the JSON lines
 of several roots) checks that those digests agree path by path and prints
-the times side by side. Rows of a root whose ``sweep_draws`` takes
+the times side by side. The rows of ``chol_fused`` and ``hyper_mh`` at
+m, v <= 64 (the warp form's one and two rows a lane, and three at 64)
+carry the same digest of their outputs, and of their operands beside it,
+and ``--compare`` checks those too, shape by shape: two checkouts whose
+digests agree there compute those factors and blocks bit for bit alike.
+Rows of a root whose ``sweep_draws`` takes
 ``elems`` are timed also at each tile length of ``--draw-elems`` (values
 a thread for the other fields and the gamma fields, e.g. ``8,4;1,1``),
 and carry D1's instruction floor where the root's ``rng`` counts the
@@ -304,26 +313,48 @@ def draw_floor(ins, work, sms, mhz):
 
 
 def compare(path):
-    """Check that the D1 rows of several roots (JSON lines of this script)
-    agree bit for bit path by path; print their times side by side."""
+    """Check that the rows with digests of several roots (JSON lines of
+    this script) agree bit for bit: D1 path by path (at every tile
+    length), the factor and the hyper block shape by shape, operands and
+    outputs; print every row's times side by side."""
     with open(path) as fh:
         runs = [json.loads(line) for line in fh if line.startswith("{")]
-    digests, times, ok = {}, {}, True
-    for run in runs:
+    digests, inputs, seen, times, ok = {}, {}, {}, {}, True
+    for i, run in enumerate(runs):
         for r in run["rows"]:
-            if r["kernel"] != "sweep_draws":
-                continue
-            key = (r["case"], tuple(r.get("elems") or ()))
-            digests.setdefault(r["case"], set()).add(r["digest"])
-            times.setdefault(key, []).append((run["label"], r["ms"]))
-    for case, ds in sorted(digests.items()):
-        same = len(ds) == 1
-        ok &= same
-        print(f"{case}: {'bitwise equal' if same else 'DIFFERENT'} "
-              f"across {len(runs)} runs")
+            if "digest" in r:
+                key = ((r["kernel"], r["case"])
+                       if r["kernel"] == "sweep_draws"
+                       else (r["kernel"], r["case"], tuple(r["shape"])))
+                digests.setdefault(key, []).append(r["digest"])
+                seen.setdefault(key, set()).add(i)
+                if "digest_in" in r:
+                    inputs.setdefault(key, []).append(r["digest_in"])
+            times.setdefault((r["kernel"], r["case"], tuple(r["shape"]),
+                              tuple(r.get("elems") or ())), []).append(
+                (run["label"], r["ms"]))
+    for key, ds in sorted(digests.items()):
+        same = len(set(ds)) == 1 and len(seen[key]) == len(runs)
+        same_in = len(set(inputs.get(key, [None]))) == 1
+        ok &= same and same_in
+        print(f"{' '.join(map(str, key))}: "
+              f"{'bitwise equal' if same else 'DIFFERENT'} across "
+              f"{len(seen[key])} of {len(runs)} runs"
+              + ("" if same_in else " (operands DIFFERENT)"))
     for key, ts in sorted(times.items()):
         print(key, " ".join(f"{lab}={ms:.5f}" for lab, ms in ts))
     return ok
+
+
+def digest(tensors):
+    """The first 16 hex digits of the sha256 of the tensors' bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        if hasattr(t, "detach"):
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def main() -> None:
@@ -414,6 +445,18 @@ def main() -> None:
                     return smp._draw(gen, st)
             for i in range(n):
                 st = smp._sweep(st, draw(st, i), sweep=i)
+            return st
+        return run
+
+    def logpost(smp):
+        """The chunk-end log-posterior and one ``lnlikelihood`` of ``smp``
+        after its sweeps (run here, outside the capture)."""
+        st = sweeps(smp)()
+        pt = [getattr(st, f)[0].cpu().numpy() for f in ("x", "z", "alpha")]
+
+        def run():
+            smp._logpost_chain(st)
+            smp.lnlikelihood(*pt)
         return run
 
     def solo(components, nchains, n):
@@ -455,6 +498,10 @@ def main() -> None:
     cases = (
         ("solo 30 x 1024", lambda: sweeps(solo(30, 1024, 130)),
          ("chol_fused", "tri_solve_T", "hyper_mh", "white_mh")),
+        ("logpost 30 x 1024", lambda: logpost(solo(30, 1024, 130)),
+         ("chol_fused",)),
+        ("solo 32 x 1024", lambda: sweeps(solo(32, 1024, 130)),
+         ("chol_fused", "hyper_mh")),
         ("solo 80 x 64", lambda: sweeps(solo(80, 64, 130)),
          ("chol_fused", "hyper_mh")),
         ("mtm 30 x 1024", lambda: sweeps(solo_mtm()), ("white_mtm",)),
@@ -622,7 +669,6 @@ def main() -> None:
         """D1 on each path's operands: time, output digest, and (where the
         checkout counts attempts) its work and instruction floor, at the
         default tiles and at each of ``--draw-elems``."""
-        import hashlib
         import inspect
 
         ins = draw_instructions(here)
@@ -650,9 +696,7 @@ def main() -> None:
                     continue
                 row = {"kernel": "sweep_draws", "case": case,
                        "shape": [B, tab.width], "elems": elems,
-                       "ms": timed(fn, args),
-                       "digest": hashlib.sha256(
-                           res.cpu().numpy().tobytes()).hexdigest()[:16]}
+                       "ms": timed(fn, args), "digest": digest([res])}
                 if elems is None:
                     row["work"] = work
                     row["floor"] = (draw_floor(ins, work, sms, max_mhz)
@@ -674,6 +718,10 @@ def main() -> None:
         for (name, shape), args in sorted(capture(make(), names).items()):
             row = {"kernel": name, "case": case, "shape": list(shape),
                    "ms": timed(kernels[name][1], args)}
+            size = args[0 if name == "chol_fused" else 1].shape[-1]
+            if name in ("chol_fused", "hyper_mh") and size <= 64:
+                row["digest_in"] = digest(args)
+                row["digest"] = digest(kernels[name][1](*args))
             if name.startswith("white"):
                 row["form"] = form(args[1].shape[-1], args[0].shape[-1])
                 row["issue_bound_ms"] = issue_bound(
