@@ -444,6 +444,47 @@ exits 1 through ``fail`` before it, and so does an uncaught exception.
       pinned host memory (CUDA events), and the drain's and dispatch's
       host ms a quantum under each. The launches of 21c and 21d are
       checked as pool sweeps (path ``pool_tiers``).
+22. the profiling plane (``ops/timers.py``, the server's ``stages``,
+   ``obs/introspect.py``), each number beside the card's name and power
+   limit, in a temporary directory removed at the end:
+   a. the flagship's 20 sweeps from phase 5's state with the stage timers
+      off, then on: records bit for bit, each kernel's launches equal
+      (paths ``timers_off`` and ``timers_on``) and, counted by the
+      profiler by the build's entry-function names, equal on and off and
+      to the wrappers' counts; every stage reports once a sweep; printed:
+      each stage's ms a sweep, the host ms a sweep of ``sample`` (3 each)
+      and of the sweep alone (5 each) in turns, and the host us and the
+      stream us (issued behind a hold) of a sweep's eight brackets,
+      empty;
+   b. ens32 after its adaptation, 20 sweeps of ``_draw`` and ``_sweep``:
+      each stage's event ms, as the sweeps run and with the stream held
+      50 ms by a sleep kernel before each sweep (the whole sweep queued
+      before the stream reaches it, so that no bracket waits for the
+      host), beside the profiler's device time of the kernels launched
+      inside its bracket (by the launching runtime call's host time
+      within the ``stage/<name>`` annotation; profiled with the holds,
+      after a warm-up step): in that profiled run, ``hyper_mh`` and
+      ``bdraw_factor`` within -2 % / +15 % of their kernels;
+   c. phase 11d's tenant set under ``ChainServer``, serial, off (the
+      default, ``kernel_timers="auto"``, which leaves the timers down),
+      on (``kernel_timers=True``), on, off, off, on: every tenant bit for
+      bit; every closed server's hold on the flag given back; the
+      first on run's ``summary()``/``status()["stages"]`` valid against
+      ``stage_timings`` with the eight names, its shares of the dispatch
+      wall summing to at most 1, the tenants' ``stage_device_ms`` summing
+      to the totals within 2 % + 0.01 ms, the flight ring's entries and
+      context, ``/status`` over HTTP carrying ``stages``; the off
+      servers' ``stages`` None; 4 tenants x 4 quanta under the profiler
+      (path ``pool_prof`` with 22c's runs): each stage's event ms a
+      quantum beside its kernels' device ms; busy chain-sweeps/s off and
+      on;
+   d. ``run_sims --introspect --device cuda`` (one model, both twins, 20
+      sweeps) in a process of its own: its stderr names the build record
+      and exactly the kernels the flagship's model launches, each
+      ``impl=cuda``; each factor, white and hyper entry in the launch
+      form its shape takes (``chol.launch_form``, ``white_form``,
+      ``hyper_mh.launch_form``); the ledger record valid against the
+      port's schema, its ``cuda`` block's ``peak_bytes`` above 0.
 
 Launch counts are read per path: every count is set to 0 just before a
 run and read just after it; a count is launches per sweep x sweeps plus
@@ -459,6 +500,7 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import bisect
 import json
 import math
 import os
@@ -593,7 +635,8 @@ SAME_AS = {"sample": "flagship", "spool": "flagship", "spool_ens": "ens32",
            "drivers": "flagship", "drivers_ens": "ens32",
            "pool_sched": "pool", "pool_faults": "pool", "pool_obs": "pool",
            "pool_capacity": "pool", "pool_wire": "pool",
-           "pool_tiers": "pool"}
+           "pool_tiers": "pool", "timers_off": "flagship",
+           "timers_on": "flagship", "pool_prof": "pool"}
 # a grouped kernel's entry: the wrapper it shares with the single-model
 # launch; it counts on the wrapper's launches_grouped
 GROUPED = {"white_mh_grouped": "white_mh", "hyper_mh_grouped": "hyper_mh",
@@ -639,6 +682,14 @@ POOL_CPU_LANES, POOL_CPU_CHAINS = 64, 32
 # 100 are run_sims.py's ensemble rule of 130 - (i mod 3) 10)
 HET_NS = (130, 120, 100)
 POOL_PROFILE_QUANTA = 4
+# phase 22 (the profiling plane): sweeps of each flagship and ens32 window;
+# sweeps of empty brackets timed for their host cost, and for their
+# stream cost behind a hold (few enough to be queued before it ends)
+PROF_SWEEPS, BRACKET_SWEEPS, BRACKET_STREAM_SWEEPS = 20, 200, 50
+# the stream hold before each of ens32's held sweeps, longer than the host
+# takes to issue one, and before the brackets' stream timing: 1e8 cycles,
+# at least 50 ms
+HOLD_CYCLES = 100_000_000
 # phase 12 (the sampling surface): sweeps of each record-tier run, the
 # recovery runs' chunk (two chunks a run), sample_until's check interval
 # and its most sweeps
@@ -892,6 +943,109 @@ def profile_calls(torch, fn, ncalls: int, cpu: bool = True) -> dict:
             "launches_per_sweep": launches / ncalls,
             # every device event by name, those timed at 0 included
             "device_events": events, "top": rows[:12]}
+
+
+def stage_kernel_ms(events) -> dict:
+    """From a Chrome trace's events (``torch.profiler`` with CPU and CUDA
+    activity): the device ms of the kernels, copies and fills launched
+    inside each ``stage/<name>`` annotation of ops/timers.py, each placed
+    by the host time of the runtime call that launched it (matched by its
+    correlation id) on the same thread; ``unattributed_ms`` is the rest."""
+    ann, launch, dev = {}, {}, []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat, args = e.get("cat", ""), e.get("args") or {}
+        if cat == "user_annotation" and e.get("name", "").startswith(
+                "stage/"):
+            t0 = float(e["ts"])
+            ann.setdefault(e.get("tid"), []).append(
+                (t0, t0 + float(e.get("dur", 0.0)), e["name"][6:]))
+        elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            launch[args["correlation"]] = (e.get("tid"), float(e["ts"]))
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset") and (
+                "correlation" in args):
+            dev.append((args["correlation"], float(e.get("dur", 0.0))))
+    every = sorted(a for v in ann.values() for a in v)
+    for v in ann.values():
+        v.sort()
+    starts = {t: [a[0] for a in v] for t, v in ann.items()}
+    starts_all = [a[0] for a in every]
+    ms, n, other = {}, {}, 0.0
+    for corr, dur in dev:
+        stage = None
+        if corr in launch:
+            tid, ts = launch[corr]
+            lst, st = ann.get(tid), starts.get(tid)
+            if not lst:
+                lst, st = every, starts_all
+            k = bisect.bisect_right(st, ts) - 1
+            if k >= 0 and lst[k][0] <= ts <= lst[k][1]:
+                stage = lst[k][2]
+        if stage is None:
+            other += dur / 1e3
+        else:
+            ms[stage] = ms.get(stage, 0.0) + dur / 1e3
+            n[stage] = n.get(stage, 0) + 1
+    return {"ms": ms, "launches": n, "unattributed_ms": other,
+            "device_events": len(dev), "annotations": len(every)}
+
+
+def profile_counts(torch, fn) -> dict:
+    """Device events by name of one call of ``fn`` (torch.profiler, CUDA
+    activity), counted in the profiler's active step after a warm-up step
+    that runs ``fn`` too: kernels launched just as a capture starts can be
+    missing from its first step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    out = {}
+
+    def ready(prof):
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA and not getattr(
+                    ev, "is_user_annotation", False):
+                out[ev.key] = out.get(ev.key, 0) + ev.count
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=ready) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return out
+
+
+def profile_stages(torch, fn, trace_dir: str, warmup, between=None) -> dict:
+    """Run ``fn()`` under ``torch.profiler`` (CPU and CUDA activity; the
+    stage timers' flag must be up, so that their brackets annotate the
+    trace) in the active step, after a warm-up step that runs ``warmup()``
+    (kernels launched just as a capture starts can be missing from it) and
+    then ``between()``; export the active step's Chrome trace into
+    ``trace_dir`` and read it with :func:`stage_kernel_ms` (the trace is
+    removed after)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    path = os.path.join(trace_dir, f"stages_{time.time_ns()}.json")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(path)) as prof:
+        warmup()
+        torch.cuda.synchronize()
+        prof.step()
+        if between is not None:
+            between()
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+    try:
+        with open(path) as fh:
+            doc = json.load(fh)
+    finally:
+        os.remove(path)
+    return stage_kernel_ms(doc["traceEvents"] if isinstance(doc, dict)
+                           else doc)
 
 
 def main() -> None:
@@ -1344,6 +1498,8 @@ def main() -> None:
     launches = check_launches("flagship", niter,
                               chunks_of(sampler, ADAPT, MORE))
     st = sampler.last_state
+    # phase 22 runs the flagship on from here
+    flagship_state = type(st)(*(t.clone() for t in st))
     finite = torch.ones(NCHAINS, dtype=torch.bool, device=dev)
     for f in ("x", "b", "alpha", "theta", "df"):
         v = getattr(st, f)
@@ -6420,6 +6576,455 @@ def main() -> None:
     trep["seconds"] = time.perf_counter() - t21
     print(f"# phase 21: {trep['seconds']:.1f} s", flush=True)
 
+
+    # --- 22. the profiling plane: stage timers, the server's stages, the run's
+    # introspection -------------------------------------------------------
+    from gibbs_student_t_tpu_torch.obs import introspect
+    from gibbs_student_t_tpu_torch.obs.ledger import read_ledger
+    from gibbs_student_t_tpu_torch.ops import timers
+
+    t22 = time.perf_counter()
+    prep = report["profiling"] = {"card": card}
+    tmp22 = tempfile.mkdtemp(prefix="gst_chip_smoke_prof_")
+    STAGES = timers.STAGE_NAMES
+    S22 = PROF_SWEEPS
+    print(f"# profiling plane | {card}", flush=True)
+    # the hand-written kernels' entry functions, by the build's ptxas report
+    kernel_fns = sorted({k["function"]
+                         for k in introspect.build_record()["kernels"]})
+    if not kernel_fns:
+        fail("the build record lists no kernel entry function")
+
+    def ours(name):
+        """Whether a profiler device event is a hand-written kernel's."""
+        return any(f in name for f in kernel_fns)
+
+    def stage_delta(s0):
+        """{stage: {"ms", "calls"}} since snapshot ``s0``, every bracket
+        done (the card synchronized first)."""
+        torch.cuda.synchronize()
+        return timers.timers_delta_ms(s0, timers.timers_snapshot())
+
+    def fresh_snapshot():
+        torch.cuda.synchronize()
+        return timers.timers_snapshot()
+
+    try:
+        # 22a. the flagship, timers off then on, from phase 5's state
+        def flag_run(on):
+            timers.timers_enable(on)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = sampler.sample(niter=S22, seed=9, state=flagship_state,
+                               start_sweep=ADAPT + MORE)
+            torch.cuda.synchronize()
+            return r, (time.perf_counter() - t0) * 1e3 / S22
+
+        reset_counts()
+        r_off, _ = flag_run(False)
+        check_launches("timers_off", S22, chunks_of(sampler, S22))
+        s0 = fresh_snapshot()
+        reset_counts()
+        r_on, _ = flag_run(True)
+        check_launches("timers_on", S22, chunks_of(sampler, S22))
+        d_on = stage_delta(s0)
+        if not same(r_off, r_on):
+            fail("the flagship's records differ with the stage timers on")
+        if set(d_on) != set(STAGES) or any(
+                v["calls"] != S22 for v in d_on.values()):
+            fail(f"the flagship's stages did not all report once a sweep: "
+                 f"{d_on}")
+        prof_ev = {}
+        for on in (False, True):
+            prof_ev[on] = profile_counts(torch, lambda on=on: flag_run(on))
+        mine = {on: {k: v for k, v in ev.items() if ours(k)}
+                for on, ev in prof_ev.items()}
+        counted = sum(launches_by_path["timers_on"].values())
+        if (not mine[False] or mine[False] != mine[True]
+                or sum(mine[True].values()) != counted):
+            fail(f"the hand-written kernels' profiled launches differ with "
+                 f"the stage timers on, or from the wrappers' {counted}: "
+                 f"{mine}")
+        others = {k: (prof_ev[False].get(k, 0), prof_ev[True].get(k, 0))
+                  for k in set(prof_ev[False]) | set(prof_ev[True])
+                  if prof_ev[False].get(k, 0) != prof_ev[True].get(k, 0)}
+        turns = {False: [], True: []}
+        for on in (False, True, True, False, False, True):
+            turns[on].append(flag_run(on)[1])
+        host = {("on" if k else "off"): v for k, v in turns.items()}
+        med = {k: float(np.median(v)) for k, v in host.items()}
+        # the sweep alone, the way a chunk issues it (no records, no pull),
+        # in turns; then one bracket's host cost, empty
+        keys9 = sampler._chain_keys(9)
+        sw9 = torch.arange(ADAPT + MORE, ADAPT + MORE + S22, device=dev)
+
+        def sweep_loop(on):
+            timers.timers_enable(on)
+            st_ = flagship_state
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(S22):
+                st_ = sampler._sweep(st_, sampler._draw(keys9, sw9[i], st_),
+                                     sweep=ADAPT + MORE + i)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / S22
+
+        loop = {False: [], True: []}
+        for on in (False, True, True, False, False, True, True, False,
+                   False, True):
+            loop[on].append(sweep_loop(on))
+        # a sweep's brackets, empty: draws alone, then the chain from
+        # white_mh to resid, as _draw and _sweep open them
+        x1 = torch.zeros(1, device=dev)
+        chain = ("white_mh", "tnt", "schur", "hyper_mh", "bdraw_factor",
+                 "solves", "resid")
+        def empty_brackets():
+            with timers.stage("draws", x1.device):
+                pass
+            b = None
+            for name in chain:
+                with timers.stage(name, x1.device, follows=b) as b:
+                    pass
+
+        bracket_us = {False: [], True: []}
+        for on in (False, True, True, False):
+            timers.timers_enable(on)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(BRACKET_SWEEPS):
+                empty_brackets()
+            torch.cuda.synchronize()
+            bracket_us[on].append((time.perf_counter() - t0) * 1e6
+                                  / BRACKET_SWEEPS)
+        # their cost to the stream: issued behind a hold, between two
+        # outer events
+        stream_us = []
+        for _ in range(2):
+            timers.timers_enable(True)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(HOLD_CYCLES)
+            o0 = torch.cuda.Event(enable_timing=True)
+            o1 = torch.cuda.Event(enable_timing=True)
+            o0.record()
+            for _ in range(BRACKET_STREAM_SWEEPS):
+                empty_brackets()
+            o1.record()
+            o1.synchronize()
+            stream_us.append(o0.elapsed_time(o1) * 1e3
+                             / BRACKET_STREAM_SWEEPS)
+        timers.timers_enable(False)
+        fresh_snapshot()
+        loop_med = {on: float(np.median(v)) for on, v in loop.items()}
+        prep["flagship"] = {
+            "bitwise": True,
+            "stage_ms_per_sweep": {k: d_on[k]["ms"] / S22 for k in STAGES},
+            "kernel_launches_per_sweep": sum(mine[True].values()) / S22,
+            "device_events_per_sweep": {
+                "off": sum(prof_ev[False].values()) / S22,
+                "on": sum(prof_ev[True].values()) / S22},
+            "other_device_events_differing": others,
+            "host_ms_per_sweep_in_turns": host,
+            "host_cost_share": med["on"] / med["off"] - 1.0,
+            "sweep_loop_ms_in_turns": {"off": loop[False], "on": loop[True]},
+            "sweep_loop_cost_share": loop_med[True] / loop_med[False] - 1.0,
+            "brackets_host_us_per_sweep": {"off": bracket_us[False],
+                                           "on": bracket_us[True]},
+            "brackets_stream_us_per_sweep": stream_us}
+        print(f"# profiling 22a flagship ({NCHAINS} chains, {S22} sweeps "
+              f"from phase 5's state): records bitwise on/off, launches "
+              f"equal ({prep['flagship']['kernel_launches_per_sweep']:.1f} "
+              f"hand-written a sweep by the profiler); stage ms a sweep "
+              + ", ".join(f"{k} {d_on[k]['ms'] / S22:.4f}" for k in STAGES)
+              + f" | {card}", flush=True)
+        print(f"# profiling 22a host ms a sweep in turns, off "
+              + " / ".join(f"{v:.4f}" for v in host["off"]) + ", on "
+              + " / ".join(f"{v:.4f}" for v in host["on"])
+              + f"; medians {med['off']:.4f} / {med['on']:.4f} "
+              f"({100 * prep['flagship']['host_cost_share']:+.2f} %); other "
+              f"device events that differ: {others} | {card}", flush=True)
+        print(f"# profiling 22a the sweep alone, ms a sweep in turns, off "
+              + " / ".join(f"{v:.4f}" for v in loop[False]) + ", on "
+              + " / ".join(f"{v:.4f}" for v in loop[True])
+              + f"; medians {loop_med[False]:.4f} / {loop_med[True]:.4f} "
+              f"({100 * prep['flagship']['sweep_loop_cost_share']:+.2f} %); "
+              f"a sweep's 8 brackets, empty, host us off "
+              + " / ".join(f"{v:.2f}" for v in bracket_us[False]) + ", on "
+              + " / ".join(f"{v:.2f}" for v in bracket_us[True])
+              + ", their stream us "
+              + " / ".join(f"{v:.2f}" for v in stream_us)
+              + f" | {card}", flush=True)
+
+        # 22b. ens32: the stages' event ms against the profiler's device
+        # time of the kernels each bracket launched
+        # (after its adaptation, as phase 10c's timed window)
+        ens = EnsembleGibbs(ens_pulsars(ENS_PULSARS), cfg_e,
+                            nchains=ENS_CHAINS, device=dev, record="light")
+        ens.sample(niter=ADAPT, seed=3)
+        st_e = ens.last_state
+        keys_e = ens._chain_keys(3)
+        sw_e = torch.arange(ADAPT, ADAPT + S22, device=dev)
+
+        def ens_loop(hold=False):
+            # hold: the stream sleeps before each sweep, longer than the
+            # host takes to issue the sweep, so the whole sweep is queued
+            # when the stream reaches it and no bracket waits for the host
+            st_ = st_e
+            for i in range(S22):
+                if hold:
+                    torch.cuda._sleep(HOLD_CYCLES)
+                st_ = ens._sweep(st_, ens._draw(keys_e, sw_e[i], st_),
+                                 sweep=ADAPT + i)
+            torch.cuda.synchronize()
+
+        timers.timers_enable(True)
+        ev_e = {}
+        for hold in (False, True):
+            s0 = fresh_snapshot()
+            t0 = time.perf_counter()
+            ens_loop(hold)
+            if not hold:
+                ens_wall = (time.perf_counter() - t0) * 1e3 / S22
+            ev_e[hold] = {k: v["ms"] / S22
+                          for k, v in stage_delta(s0).items()}
+        snap = []
+        pk = profile_stages(torch, lambda: ens_loop(True), tmp22,
+                            warmup=lambda: x1.add_(1),
+                            between=lambda: snap.append(fresh_snapshot()))
+        ev_p = {k: v["ms"] / S22 for k, v in stage_delta(snap[0]).items()}
+        timers.timers_enable(False)
+        kern = {k: v / S22 for k, v in pk["ms"].items()}
+        rows = {k: {"event_ms": ev_e[False].get(k),
+                    "event_ms_held": ev_e[True].get(k),
+                    "event_ms_profiled": ev_p.get(k),
+                    "kernel_ms": kern.get(k),
+                    "launches": pk["launches"].get(k, 0) / S22}
+                for k in STAGES}
+        prep["ens32"] = {"wall_ms_per_sweep": ens_wall, "stages": rows,
+                         "unattributed_kernel_ms":
+                             pk["unattributed_ms"] / S22,
+                         "annotations": pk["annotations"]}
+        for k in STAGES:
+            r = rows[k]
+            print(f"# profiling 22b ens32 {k}: event "
+                  f"{r['event_ms'] or 0.0:.4f} ms a sweep, with the host "
+                  f"held ahead {r['event_ms_held'] or 0.0:.4f} (profiled "
+                  f"{r['event_ms_profiled'] or 0.0:.4f}), its kernels "
+                  f"{r['kernel_ms'] or 0.0:.4f} ms ({r['launches']:.1f} "
+                  f"launches)", flush=True)
+        print(f"# profiling 22b ens32: wall {ens_wall:.4f} ms a sweep (the "
+              f"sweep alone), {pk['unattributed_ms'] / S22:.4f} ms of device "
+              f"time outside the stages (the hold's sleep kernel among it) "
+              f"| {card}", flush=True)
+        # the gate reads the events and the kernels of one run: the
+        # profiled one, held
+        for k in ("hyper_mh", "bdraw_factor"):
+            r = rows[k]
+            if not r["kernel_ms"] or not r["event_ms_profiled"] or not (
+                    -0.02 <= r["event_ms_profiled"] / r["kernel_ms"] - 1.0
+                    <= 0.15):
+                fail(f"ens32's {k} stage reads {r['event_ms_profiled']} ms "
+                     f"a sweep with the host held ahead, against "
+                     f"{r['kernel_ms']} ms of its kernels in the same run "
+                     f"(-2 % / +15 %)")
+        del ens, st_e
+
+        # 22c. pool1024 under ChainServer: phase 11d's tenant set with the
+        # timers off and on in turns (off, on, on, off), the first on run
+        # read over HTTP; then a profile of 4 quanta
+        reset_counts()
+        pq = [0, 0]      # pool sweeps and quanta of the phase's servers
+
+        def set_run(on, http=False):
+            # off: the default, which leaves the timers down
+            s = pool_server(False, http_port=0 if http else None,
+                            **({"kernel_timers": True} if on else {}))
+            hs = [s.submit(r) for r in tenant_set()]
+            live = {}
+
+            def on_q(srv):
+                if http and "status" not in live and srv.quanta >= 2:
+                    live["status"] = http_get(srv.http.port, "/status")
+
+            wall = drive(s, on_quantum=on_q)
+            pq[0] += s.quanta * POOL_QUANTUM
+            pq[1] += s.quanta
+            return {"server": s, "handles": hs, "wall": wall, "live": live,
+                    "results": [h.result(timeout=WAIT_S) for h in hs],
+                    "rate": s.busy_chain_sweeps / wall}
+
+        runs22 = []
+        for i, on in enumerate((False, True, True, False, False, True)):
+            runs22.append((on, set_run(on, http=(i == 1))))
+        ref = runs22[0][1]["results"]
+        if not all(same_rows(a, b) for _, r in runs22
+                   for a, b in zip(r["results"], ref)):
+            fail("a pool1024 tenant's records differ with the stage timers "
+                 "on")
+        on1 = runs22[1][1]
+        srv_on = on1["server"]
+        summ, stat = srv_on.summary(), srv_on.status()
+        bad22 = []
+        for label, block in (("summary", summ["stages"]),
+                             ("status", stat["stages"])):
+            errs = obs_schema.validate(json.loads(json.dumps(block)),
+                                       schemas["stage_timings"],
+                                       defs=schemas)
+            if errs or set(block or ()) != set(STAGES):
+                bad22.append((label, errs[:3], sorted(block or ())))
+        share = sum(v["share_of_dispatch"] for v in summ["stages"].values())
+        per_tenant = {}
+        for h in on1["handles"]:
+            for k, v in h.cost().get("stage_device_ms", {}).items():
+                per_tenant[k] = per_tenant.get(k, 0.0) + v
+        recon = all(abs(per_tenant.get(k, 0.0) - v["device_ms"])
+                    <= 0.02 * v["device_ms"] + 0.01
+                    for k, v in summ["stages"].items())
+        pm = srv_on.flight.bundle("phase 22")
+        flight_ok = (pm["kernel_timers"] is True
+                     and set(pm["stage_totals_ms"] or ()) == set(STAGES)
+                     and bool(pm["quanta"]) and all(
+                         q["stage_device_ms"] for q in pm["quanta"]))
+        code, body = on1["live"].get("status", (None, "{}"))
+        http_st = json.loads(body)
+        http_ok = (code == 200 and set(http_st.get("stages") or ())
+                   == set(STAGES) and not obs_schema.validate(
+                       http_st, schemas["serve_status"], defs=schemas))
+        off_blank = all(r["server"].summary()["stages"] is None
+                        and r["server"].kernel_timers is False
+                        for on, r in runs22 if not on)
+        # every closed server gave its hold on the flag back
+        held = timers._holds
+        rates = {("on" if on else "off"): [] for on in (True, False)}
+        for on, r in runs22:
+            rates["on" if on else "off"].append(r["rate"])
+        # 4 quanta of 4 tenants under the profiler, serial: each stage's
+        # event ms beside the device ms of the kernels it launched
+        s = pool_server(False, kernel_timers=True)
+        for i in range(4):
+            s.submit(TenantRequest(ma=tenant_mas[i],
+                                   niter=POOL_PROFILE_QUANTA * POOL_QUANTUM,
+                                   nchains=POOL_CHAINS, seed=220 + i))
+        pk = profile_stages(torch, lambda: drive(s), tmp22,
+                            warmup=lambda: x1.add_(1))
+        pq[0] += s.quanta * POOL_QUANTUM
+        pq[1] += s.quanta
+        check_launches("pool_prof", pq[0], pq[1])
+        timers.timers_enable(False)
+        ps = s.summary()
+        nq = max(s.quanta, 1)
+        prow = {k: {"event_ms_per_quantum_profiled":
+                        ps["stages"][k]["device_ms"] / nq,
+                    "kernel_ms_per_quantum": pk["ms"].get(k, 0.0) / nq,
+                    "event_ms_per_quantum": summ["stages"][k][
+                        "ms_per_quantum"],
+                    "share_of_dispatch": summ["stages"][k][
+                        "share_of_dispatch"]}
+                for k in STAGES}
+        prep["pool1024"] = {
+            "stages": prow, "share_of_dispatch_sum": share,
+            "reconciled": recon, "flight": flight_ok, "http_status": http_ok,
+            "schema_problems": bad22,
+            "busy_chain_sweeps_per_s_in_turns": rates,
+            "dispatch_ms_per_quantum_profiled":
+                ps["cost"]["dispatch_wall_ms"] / nq,
+            "unattributed_kernel_ms_per_quantum": pk["unattributed_ms"] / nq}
+        for k in STAGES:
+            r = prow[k]
+            print(f"# profiling 22c pool1024 {k}: event "
+                  f"{r['event_ms_per_quantum']:.3f} ms a quantum "
+                  f"({100 * (r['share_of_dispatch'] or 0.0):.1f} % of the "
+                  f"dispatch wall; profiled "
+                  f"{r['event_ms_per_quantum_profiled']:.3f}), its kernels "
+                  f"{r['kernel_ms_per_quantum']:.3f} ms", flush=True)
+        print(f"# profiling 22c pool1024: shares sum {share:.4f}, tenants "
+              f"reconcile {recon}, flight {flight_ok}, /status {http_ok}; "
+              f"busy chain-sweeps/s off "
+              + " / ".join(f"{v:.0f}" for v in rates["off"]) + ", on "
+              + " / ".join(f"{v:.0f}" for v in rates["on"])
+              + f" | {card}", flush=True)
+        if bad22 or not (0.0 < share <= 1.0) or not recon or not flight_ok \
+                or not http_ok or not off_blank or held or timers._holds:
+            fail(f"pool1024's stages: schema {bad22}, share sum {share}, "
+                 f"reconciled {recon}, flight {flight_ok}, /status "
+                 f"{http_ok}, default servers blank {off_blank}, holds on "
+                 f"the flag after close {held} / {timers._holds}")
+        del runs22, on1, srv_on, s
+
+        # 22d. run_sims --introspect on the card, in a process of its own
+        led = os.path.join(tmp22, "ledger.jsonl")
+        cmd = [sys.executable, "-m",
+               "gibbs_student_t_tpu_torch.drivers.run_sims", "--introspect",
+               "--device", "cuda", "--models", "beta", "--nchains",
+               str(NCHAINS), "--niter", str(S22), "--burn", "10",
+               "--thetas", "0.1", "--seed", "5",
+               "--simdir", os.path.join(tmp22, "sim"), "--outdirs",
+               os.path.join(tmp22, "o1"), os.path.join(tmp22, "o2"),
+               "--ledger", led]
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [HERE] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if p])
+        proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                              text=True, timeout=CHILD_TIMEOUT_S)
+        lines = [ln for ln in proc.stderr.splitlines()
+                 if ln.startswith("  # ")]
+        for ln in lines:
+            print(f"# profiling 22d {ln.strip()}")
+        if proc.returncode != 0:
+            fail(f"run_sims --introspect exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        named = {}
+        for ln in lines:
+            if ln.startswith("  # kernel "):
+                named[ln.split()[2]] = ln
+        want = {"chol_fused", "tri_solve_T", "white_mh", "hyper_mh",
+                "sweep_draws"}
+        build_ln = [ln for ln in lines if ln.startswith(
+            "  # build libgst_cuda.so: ")]
+        (rec,) = read_ledger(led)
+        errs = obs_schema.validate(rec, schemas["ledger_record"],
+                                   defs=schemas)
+        cuda = rec.get("cuda") or {}
+        forms_ok = []
+        for k in cuda.get("kernels", []):
+            name, shape = k["kernel"], k["shape"]
+            if name == "chol_fused":
+                form, per = chol.launch_form(*shape)
+                want_k = chol.form_meta(shape[1],
+                                        per if form == "warp" else 0)
+            elif name == "hyper_mh":
+                form, per = hyper_mh.launch_form(shape[0], shape[1])
+                want_k = {"form": form,
+                          "per_block": per if form == "warp" else 0}
+            elif name == "white_mh":
+                want_k = white_mh.white_form(shape[1], shape[2])._asdict()
+            else:
+                continue
+            forms_ok.append(all(k.get(f) == v for f, v in want_k.items()))
+        intro = {"rc": proc.returncode, "lines": len(lines),
+                 "kernels": sorted(named), "build_line": bool(build_ln),
+                 "schema_problems": errs[:5],
+                 "peak_bytes": cuda.get("peak_bytes"),
+                 "programs": [p["label"] for p in cuda.get("programs", [])],
+                 "forms_checked": len(forms_ok),
+                 "forms_match": all(forms_ok) and bool(forms_ok),
+                 "entry_functions": len(cuda.get("build", {}).get(
+                     "kernels", [])),
+                 "last_build": cuda.get("build", {}).get("last_build")}
+        prep["introspect"] = intro
+        print(f"# profiling 22d: {json.dumps(intro)} | {card}", flush=True)
+        if (set(named) != want or not build_ln
+                or not all("impl=cuda" in ln and "plain" not in ln
+                           for ln in named.values())
+                or errs or not isinstance(intro["peak_bytes"], int)
+                or intro["peak_bytes"] <= 0 or not intro["forms_match"]
+                or not intro["entry_functions"]):
+            fail(f"run_sims --introspect: {json.dumps(intro)}")
+    finally:
+        timers.timers_enable(False)
+        shutil.rmtree(tmp22, ignore_errors=True)
+    prep["seconds"] = time.perf_counter() - t22
+    print(f"# phase 22: {prep['seconds']:.1f} s", flush=True)
 
     # the redesigned kernels beside the first design and the library call
     # (reported, not gated)

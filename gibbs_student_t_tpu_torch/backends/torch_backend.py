@@ -87,6 +87,10 @@ from gibbs_student_t_tpu_torch.models.pta import (
     static_phi_columns,
 )
 from gibbs_student_t_tpu_torch.models.signals import FYR
+from gibbs_student_t_tpu_torch.obs.introspect import (
+    program_begin,
+    program_end,
+)
 from gibbs_student_t_tpu_torch.obs.telemetry import (
     Telemetry,
     TelemetryAccumulator,
@@ -112,6 +116,7 @@ from gibbs_student_t_tpu_torch.ops.linalg import (
     schur_eliminate,
 )
 from gibbs_student_t_tpu_torch.ops.rng import sweep_draws
+from gibbs_student_t_tpu_torch.ops.timers import stage
 from gibbs_student_t_tpu_torch.ops.tnt import (
     auto_block_size,
     matvec_blocked,
@@ -963,7 +968,12 @@ class TorchGibbs(SamplerBackend):
         ``z``, ``df``, ``mh_log_scale`` and ``mh_cov_chol`` of ``state``).
         One launch of the draw kernel writes the raw fields (into ``out``
         when given); ``out`` and the fields' views stay valid until the
-        next call that writes the same buffer."""
+        next call that writes the same buffer. The whole call is the
+        ``draws`` stage (ops/timers.py)."""
+        with stage("draws", state.df.device):
+            return self._draw_fields(keys, sweep, state, out)
+
+    def _draw_fields(self, keys, sweep, state: ChainState, out=None):
         mh = self.config.mh
         B = tuple(state.df.shape)
         a, b = self._theta_shapes(state.z)
@@ -1044,7 +1054,13 @@ class TorchGibbs(SamplerBackend):
         white block leaves ``nvec`` built from the carried x; b keeps its
         value unless both the hyper and the b gate are 1; a gated MH
         block's acceptance reads 0 and its Robbins-Monro term is frozen.
-        ``None`` is the ungated sweep, op for op."""
+        ``None`` is the ungated sweep, op for op.
+
+        Each stage runs inside its bracket of ops/timers.py (``white_mh``,
+        ``tnt``, ``schur``, ``hyper_mh``, ``bdraw_factor``, ``solves``,
+        ``resid``); a bracket touches no tensor. ``sw`` is the bracket
+        just closed, which the next one follows when no device work runs
+        between them (``None`` where some does)."""
         cfg = self.config
         mm = self._ma
         mask = self._mask
@@ -1054,11 +1070,12 @@ class TorchGibbs(SamplerBackend):
                                      state.theta, state.df)
         zeros = torch.zeros_like(state.theta)
         gate = None if block_gates is None else block_gates > 0.5
+        dev = x.device
 
         # --- white MH block (reference gibbs.py:114-143) ---------------
-        az = alpha ** z
-        acc_w = zeros
-        with block_span("gibbs/white_mh"):
+        with stage("white_mh", dev) as sw, block_span("gibbs/white_mh"):
+            az = alpha ** z
+            acc_w = zeros
             if self._white is not None:
                 yred = self._y - matvec_blocked(self._T, b, self._block_size)
                 x, acc_w = self._white_block(x, az, yred * yred, draws)
@@ -1069,7 +1086,8 @@ class TorchGibbs(SamplerBackend):
             nvec = self._masked_nvec(x, az)
 
         # --- per-sweep inner products (reference gibbs.py:302-304) -----
-        with block_span("gibbs/tnt_reduction"):
+        with stage("tnt", dev, follows=sw) as sw, \
+                block_span("gibbs/tnt_reduction"):
             TNT, d, const_white = self._tnt(nvec)
 
         # --- hyper MH block on the marginalized likelihood -------------
@@ -1077,60 +1095,69 @@ class TorchGibbs(SamplerBackend):
         hp = self._hyper
         jits = (cfg.jitter, 1e-4, 1e-2, 1e-1)
         if self._schur is not None and hp is not None:
-            s_i, v_i = self._s_i, self._v_i
-            ns = len(self._schur[0])
-            phiinv_s = self._phiinv(x)[..., s_i]   # x-independent
-            TNT_s = TNT.index_select(-2, s_i)
-            A = TNT_s.index_select(-1, s_i) + torch.diag_embed(phiinv_s)
-            Bm = TNT_s.index_select(-1, v_i)
-            Cv = TNT.index_select(-2, v_i).index_select(-1, v_i)
-            S0, rt, quad_s, logdetA, (La, isd_a, U_B, u_s) = schur_eliminate(
-                A, Bm, Cv, d[..., s_i], d[..., v_i], cfg.jitter,
-                return_factor=True)
-            base = (const_white + 0.5 * (quad_s - logdetA)
-                    - 0.5 * hp["logdet_static"])
+            with stage("schur", dev, follows=sw) as sw:
+                s_i, v_i = self._s_i, self._v_i
+                ns = len(self._schur[0])
+                phiinv_s = self._phiinv(x)[..., s_i]   # x-independent
+                TNT_s = TNT.index_select(-2, s_i)
+                A = TNT_s.index_select(-1, s_i) + torch.diag_embed(phiinv_s)
+                Bm = TNT_s.index_select(-1, v_i)
+                Cv = TNT.index_select(-2, v_i).index_select(-1, v_i)
+                S0, rt, quad_s, logdetA, (La, isd_a, U_B, u_s) = \
+                    schur_eliminate(A, Bm, Cv, d[..., s_i], d[..., v_i],
+                                    cfg.jitter, return_factor=True)
+                base = (const_white + 0.5 * (quad_s - logdetA)
+                        - 0.5 * hp["logdet_static"])
             x_in = x
-            with block_span("gibbs/hyper_mh"):
-                x, acc_h = self._hyper_block(x, S0, rt, base, draws)
-            if gate is not None:
-                x, acc_h = _gate_hyper(gate, x, x_in, acc_h, zeros)
+            with stage("hyper_mh", dev, follows=sw) as sw:
+                with block_span("gibbs/hyper_mh"):
+                    x, acc_h = self._hyper_block(x, S0, rt, base, draws)
+                if gate is not None:
+                    x, acc_h = _gate_hyper(gate, x, x_in, acc_h, zeros)
             # b draw with block-factor reuse: factor only the phi-varying
             # block S_v = S0 + diag(phiinv_v) (escalating jitters) and
             # assemble the permuted full factor from the A-block pieces
             with block_span("gibbs/b_draw"):
-                phiinv = self._phiinv(x)
-                Sv = S0 + torch.diag_embed(phiinv[..., v_i])
-                y_v, isd_v, _ = robust_precond_draw(
-                    Sv, rt, draws.xi[..., ns:], jitters=jits)
-                wty = torch.matmul(U_B, (isd_v * y_v)[..., None])[..., 0]
-                y_s = backward_solve(La, u_s + draws.xi[..., :ns] - wty)
-                b = torch.empty(x.shape[:-1] + (m,), dtype=x.dtype,
-                                device=x.device)
-                b[..., s_i] = y_s * isd_a
-                b[..., v_i] = y_v * isd_v
+                with stage("bdraw_factor", dev, follows=sw) as sw:
+                    phiinv = self._phiinv(x)
+                    Sv = S0 + torch.diag_embed(phiinv[..., v_i])
+                    y_v, isd_v, _ = robust_precond_draw(
+                        Sv, rt, draws.xi[..., ns:], jitters=jits)
+                with stage("solves", dev, follows=sw) as sw:
+                    wty = torch.matmul(U_B, (isd_v * y_v)[..., None])[..., 0]
+                    y_s = backward_solve(La, u_s + draws.xi[..., :ns] - wty)
+                    b = torch.empty(x.shape[:-1] + (m,), dtype=x.dtype,
+                                    device=x.device)
+                    b[..., s_i] = y_s * isd_a
+                    b[..., v_i] = y_v * isd_v
         else:
             x_in = x
-            if hp is not None:
-                base = const_white - 0.5 * hp["logdet_static"]
-                with block_span("gibbs/hyper_mh"):
-                    x, acc_h = self._hyper_block(x, TNT, d, base, draws)
-            if gate is not None:
-                x, acc_h = _gate_hyper(gate, x, x_in, acc_h, zeros)
+            with stage("hyper_mh", dev, follows=sw) as sw:
+                if hp is not None:
+                    base = const_white - 0.5 * hp["logdet_static"]
+                    with block_span("gibbs/hyper_mh"):
+                        x, acc_h = self._hyper_block(x, TNT, d, base, draws)
+                if gate is not None:
+                    x, acc_h = _gate_hyper(gate, x, x_in, acc_h, zeros)
             with block_span("gibbs/b_draw"):
-                phiinv = self._phiinv(x)
-                Sigma = TNT + torch.diag_embed(phiinv)
-                y, isd, _ = robust_precond_draw(Sigma, d, draws.xi,
-                                                jitters=jits)
+                with stage("bdraw_factor", dev, follows=sw):
+                    phiinv = self._phiinv(x)
+                    Sigma = TNT + torch.diag_embed(phiinv)
+                    y, isd, _ = robust_precond_draw(Sigma, d, draws.xi,
+                                                    jitters=jits)
                 b = y * isd
+            sw = None
         if gate is not None:
             # tied to the hyper gate on both b paths (see BLOCK_B)
             g_b = gate[..., BLOCK_HYPER] & gate[..., BLOCK_B]
             b = torch.where(g_b[..., None], b, state.b)
+            sw = None
 
-        resid = self._y - matvec_blocked(self._T, b, self._block_size)
-        nvec0 = self._ndiag(x)
-        if mask is not None:
-            nvec0 = torch.where(mask, nvec0, 1.0)
+        with stage("resid", dev, follows=sw):
+            resid = self._y - matvec_blocked(self._T, b, self._block_size)
+            nvec0 = self._ndiag(x)
+            if mask is not None:
+                nvec0 = torch.where(mask, nvec0, 1.0)
 
         # --- outlier fraction theta ~ Beta (reference gibbs.py:185-198)
         if cfg.is_outlier_model:
@@ -1378,6 +1405,10 @@ class TorchGibbs(SamplerBackend):
                       if spool is not None and start_sweep > 0 else 0)
 
         def step(st, offset, length):
+            # the run's record of this chunk signature's first chunk
+            # (obs/introspect.py), closed at the chunk's flush
+            program = program_begin(self._program_label(), self, length,
+                                    str(self.device))
             rows = {f: [] for f in fields}
             tl = (telemetry_init(self._batch, self.device, self.dtype)
                   if self.telemetry else None)
@@ -1401,10 +1432,12 @@ class TorchGibbs(SamplerBackend):
                 recs = recs + tuple(tl)
             if state_in_pull:
                 recs = recs + tuple(st)
-            return st, _HostCopy(recs, self._pull_stream)
+            return st, (_HostCopy(recs, self._pull_stream), program)
 
-        def flush(pull, chunk_state, sweep_end, n_reinits):
+        def flush(chunk, chunk_state, sweep_end, n_reinits):
+            pull, program = chunk
             host = pull.wait()
+            program_end(program, self.device, self.metrics)
             k = len(fields)
             if tele_acc is not None:
                 summary = tele_acc.add(Telemetry(*(
@@ -1448,6 +1481,11 @@ class TorchGibbs(SamplerBackend):
         if tele_acc is not None:
             stats.update(tele_acc.stats())
         return cols, stats
+
+    def _program_label(self) -> str:
+        """The label of this sampler's chunk program in the run's records
+        (the JAX backend's ``jaxgibbs_chunk_c{C}``)."""
+        return f"torchgibbs_chunk_c{self.nchains}"
 
     def _chain_keys(self, seed: int) -> torch.Tensor:
         """``(*batch, 2)`` key words of the run ``seed``'s chains on the

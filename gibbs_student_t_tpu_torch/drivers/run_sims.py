@@ -26,8 +26,12 @@ this driver does not take:
   --unroll      the ensemble's unrolled form bakes each pulsar's
                 constants into its own XLA trace; eager PyTorch has no
                 trace, so only the grouped form exists
-  --introspect  XLA compile records; this package compiles no XLA and
-                its profiler records do not exist yet
+
+``--introspect`` prints what the run built and launched (obs/introspect.py:
+each chunk program's first chunk, the kernels' build, every kernel with
+its implementation and launch form, the linalg implementations) to stderr
+after the run; the ledger record carries the same ``cuda`` block whether
+or not it is given.
 """
 
 from __future__ import annotations
@@ -371,6 +375,13 @@ def parse_args(argv=None):
                     help="append one run-ledger record per invocation "
                          "(obs/ledger.py). Default: GST_LEDGER_PATH or "
                          "artifacts/ledger.jsonl; '' disables")
+    ap.add_argument("--introspect", action="store_true",
+                    help="print what the run built and launched (each "
+                         "chunk program's first chunk, the kernels' "
+                         "build, every kernel with its implementation and "
+                         "launch form; obs/introspect.py) to stderr after "
+                         "the run; the ledger record carries it either "
+                         "way")
     ap.add_argument("--models", nargs="+",
                     default=["vvh17", "uniform", "beta", "gaussian", "t"])
     ap.add_argument("--par", default=None)
@@ -468,6 +479,13 @@ def main(argv=None):
         # the record lands even when a config failed, so the configs that
         # did complete are documented
         _write_ledger(args)
+        if args.introspect:
+            from gibbs_student_t_tpu_torch.obs.introspect import (
+                format_summary,
+            )
+
+            for ln in format_summary("  # "):
+                print(ln, file=sys.stderr)
 
 
 if __name__ == "__main__":

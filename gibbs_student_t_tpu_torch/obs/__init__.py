@@ -14,6 +14,12 @@
   ledger, one record per driver run.
 - :mod:`~gibbs_student_t_tpu_torch.obs.tracing` — ``torch.profiler``
   capture to a Chrome trace (``--trace-dir``) and named spans.
+- :mod:`~gibbs_student_t_tpu_torch.obs.introspect` — what a run built and
+  launched: each chunk program's first chunk, the hand-written kernels
+  with their implementation and launch form, the linalg implementations
+  and the kernels' build; the ``cuda`` block of the ledger record and the
+  manifest, and ``run_sims --introspect``. The sweep's per-stage device
+  times are ``ops/timers.py``'s, read by ``serve.ChainServer``.
 
 The serving observability plane (``serve.ChainServer`` drives it):
 
@@ -36,9 +42,6 @@ The serving observability plane (``serve.ChainServer`` drives it):
   those endpoints (or ``status.json`` paths): the merged occupancy and SLO
   snapshot the fleet router (serve/router.py) places by and serves, and
   the fleet trace stitched over the router's and the pools' clocks.
-
-Not ported: the JAX package's XLA compile introspection
-(``obs/introspect.py``; ROADMAP A-10).
 """
 
 from gibbs_student_t_tpu_torch.obs.aggregate import (
@@ -52,6 +55,14 @@ from gibbs_student_t_tpu_torch.obs.export import (
 )
 from gibbs_student_t_tpu_torch.obs.flight import FlightRecorder, read_bundle
 from gibbs_student_t_tpu_torch.obs.http import ObsHttpServer
+from gibbs_student_t_tpu_torch.obs.introspect import (
+    clear_introspection,
+    compile_summary,
+    format_summary,
+    linalg_impls,
+    register_kernel,
+    register_linalg_impl,
+)
 from gibbs_student_t_tpu_torch.obs.metrics import MetricsRegistry
 from gibbs_student_t_tpu_torch.obs.spans import SpanRecorder
 from gibbs_student_t_tpu_torch.obs.watchdog import (
@@ -61,6 +72,9 @@ from gibbs_student_t_tpu_torch.obs.watchdog import (
 )
 
 __all__ = ["FlightRecorder", "MetricsRegistry", "ObsHttpServer",
-           "SpanRecorder", "Watchdog", "WatchdogSpec", "fleet_status",
-           "prometheus_labeled", "prometheus_text", "read_bundle",
-           "read_status", "serve_watchdog_env", "write_prometheus"]
+           "SpanRecorder", "Watchdog", "WatchdogSpec", "clear_introspection",
+           "compile_summary", "fleet_status", "format_summary",
+           "linalg_impls", "prometheus_labeled", "prometheus_text",
+           "read_bundle", "read_status", "register_kernel",
+           "register_linalg_impl", "serve_watchdog_env",
+           "write_prometheus"]

@@ -15,11 +15,14 @@ Path: an explicit path wins, then ``GST_LEDGER_PATH``, then
 ``artifacts/ledger.jsonl`` relative to the current directory (the JAX
 package's rule).
 
-Schema v1, the JAX package's keys without ``xla`` (this package compiles
-no XLA): ``schema``, ``t``, ``timestamp_utc``, ``tool``, ``git_sha``,
-``platform`` (``"cuda"`` or ``"cpu"``, the device the sampler ran on),
-``devices`` (obs/metrics topology), ``argv``, ``metrics``,
-``config_fingerprint``, ``host_canary_ms``, optional extras.
+Schema v1, the JAX package's keys with ``cuda`` in place of ``xla``
+(this package compiles no XLA): ``schema``, ``t``, ``timestamp_utc``,
+``tool``, ``git_sha``, ``platform`` (``"cuda"`` or ``"cpu"``, the device
+the sampler ran on), ``devices`` (obs/metrics topology), ``argv``,
+``metrics``, ``cuda`` (obs/introspect.py ``compile_summary``: the
+programs' first chunks, the kernels and linalg implementations that ran,
+the kernels' build), ``config_fingerprint``, ``host_canary_ms``, optional
+extras.
 """
 
 from __future__ import annotations
@@ -83,15 +86,21 @@ def make_record(tool: str, metrics: Dict[str, Any], *,
                 platform: Optional[str] = None,
                 config=None,
                 argv: Optional[List[str]] = None,
+                cuda: Any = "auto",
                 extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """One schema-v1 record. ``metrics`` is the tool's payload;
-    ``config`` is fingerprinted, not stored (the argv is in the
-    record)."""
+    ``config`` is fingerprinted, not stored (the argv is in the record).
+    ``cuda="auto"`` takes the process's introspection summary
+    (obs/introspect.py); None records it as null."""
+    from gibbs_student_t_tpu_torch.obs.introspect import compile_summary
     from gibbs_student_t_tpu_torch.obs.metrics import (
         _device_topology,
         _git_sha,
         _jsonable,
     )
+
+    if cuda == "auto":
+        cuda = compile_summary()
 
     rec: Dict[str, Any] = {
         "schema": LEDGER_SCHEMA,
@@ -104,6 +113,7 @@ def make_record(tool: str, metrics: Dict[str, Any], *,
         "devices": _device_topology(),
         "argv": list(argv if argv is not None else sys.argv),
         "metrics": _jsonable(metrics),
+        "cuda": _jsonable(cuda),
         "config_fingerprint": (config_fingerprint(config)
                                if config is not None else None),
         "host_canary_ms": host_canary_ms(),

@@ -13,7 +13,9 @@ File layout of a run directory (``MetricsRegistry(run_dir=...)``):
 - ``manifest.json`` — one JSON object identifying the run: git SHA,
   config, device topology, seeds, versions, argv. Its keys are the JAX
   package's, with ``torch_version`` and ``cuda_version`` in place of
-  ``jax_version`` and no ``xla`` block (this package compiles no XLA).
+  ``jax_version``; in place of the ``xla`` block, :meth:`MetricsRegistry.close`
+  adds the ``cuda`` block of obs/introspect.py (what the run built and
+  launched) once anything ran (this package compiles no XLA).
 - ``events.jsonl`` — append-only, one JSON object per line, each with
   ``event`` (kind), ``t`` (unix seconds) and ``elapsed_s`` (seconds since
   the registry opened). Every line is flushed, so a killed run keeps its
@@ -187,13 +189,43 @@ class MetricsRegistry:
         return write_manifest(self.run_dir, **fields)
 
     def close(self) -> None:
-        """Emit a final ``snapshot`` event and close the sink."""
+        """Emit a final ``snapshot`` event, close the sink and fold the
+        process's introspection (obs/introspect.py) into the manifest as
+        its ``cuda`` block. Idempotent: one caller wins the close."""
         with self._lock:
             if self._events_fh is None:
                 return
             self.emit("snapshot", metrics=self.snapshot())
             self._events_fh.close()
             self._events_fh = None
+        self._augment_manifest_cuda()
+
+    def _augment_manifest_cuda(self) -> None:
+        """Add the manifest's ``cuda`` block at the close (the manifest is
+        written before the run, the records during it). An atomic rewrite;
+        any failure leaves the manifest as it was."""
+        if self.run_dir is None:
+            return
+        path = os.path.join(self.run_dir, "manifest.json")
+        if not os.path.exists(path):
+            return
+        try:
+            from gibbs_student_t_tpu_torch.obs.introspect import (
+                compile_summary,
+            )
+
+            summ = compile_summary()
+            if not summ["n_programs"] and not summ["kernels"]:
+                return
+            with open(path) as fh:
+                manifest = json.load(fh)
+            manifest["cuda"] = _jsonable(summ)
+            tmp = path + ".tmp"
+            with open(tmp, "w") as fh:
+                json.dump(manifest, fh, indent=1, sort_keys=True)
+            os.replace(tmp, path)
+        except Exception:  # noqa: BLE001 - observability must not raise
+            pass
 
     def __enter__(self):
         return self

@@ -23,9 +23,15 @@ prior is -inf) rest on IEEE ``logf``/``expf``/``rsqrtf`` behaviour.
 ``-fmad=false``, so that its float64 arithmetic rounds each operation as
 the plain PyTorch version on the CPU does.
 
+The run's introspection (obs/introspect.py) reads :data:`last_build`,
+:data:`build_seconds`, :data:`compile_seconds` and the ptxas report
+(:data:`ptxas_report` when this process compiled, else
+``_build/ptxas.txt``), parsed by :func:`parse_ptxas`.
+
 Every C entry returns ``cudaGetLastError()`` after its launch;
-:func:`check` raises when that is non-zero. Nothing here is imported or
-built on a host without CUDA: the CPU tests never reach :func:`lib`.
+:func:`check` raises when that is non-zero. Nothing here is built on a
+host without CUDA: the CPU tests never reach :func:`lib` (obs/introspect.py
+only reads this module's records there).
 """
 
 from __future__ import annotations
@@ -35,9 +41,11 @@ import fcntl
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
+import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -83,6 +91,11 @@ ptxas_report = ""
 #: how this process's last :func:`build` got the library: ``"built"``
 #: (compiled it), ``"loaded"`` (the stamp matched) or None (no call yet)
 last_build = None
+#: seconds this process spent getting the library: every :func:`build`
+#: (compiling, or checking the stamp) and the load in :func:`lib`
+build_seconds = 0.0
+#: of those, the seconds of compiling and linking (0.0 when only loaded)
+compile_seconds = 0.0
 
 
 def _sources():
@@ -120,7 +133,16 @@ def build(force: bool = False) -> str:
     """Compile the sources into ``_build/libgst_cuda.so`` unless the
     library there matches the current sources' hash. Returns its path.
     Another process's build in flight is waited for, then loaded."""
-    global ptxas_report, last_build
+    global build_seconds
+    t0 = time.perf_counter()
+    try:
+        return _build(force)
+    finally:
+        build_seconds += time.perf_counter() - t0
+
+
+def _build(force: bool) -> str:
+    global ptxas_report, last_build, compile_seconds
     os.makedirs(BUILD, exist_ok=True)
     lib_path = os.path.join(BUILD, LIB_NAME)
     stamp = os.path.join(BUILD, LIB_NAME + ".hash")
@@ -131,7 +153,9 @@ def build(force: bool = False) -> str:
             if not force and _stamp_matches(lib_path, stamp, want):
                 last_build = "loaded"
                 return lib_path
+            t0 = time.perf_counter()
             report = _compile_and_link(lib_path, stamp, want)
+            compile_seconds += time.perf_counter() - t0
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     ptxas_report = report
@@ -180,16 +204,83 @@ def _compile_and_link(lib_path: str, stamp: str, want: str) -> str:
 
 def lib():
     """The loaded library (built first if needed), argtypes set."""
-    global _lib
+    global _lib, build_seconds
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(build())
+            path = build()
+            t0 = time.perf_counter()
+            handle = ctypes.CDLL(path)
             for name, (args, res) in _SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = args
                 fn.restype = res
             _lib = handle
+            build_seconds += time.perf_counter() - t0
         return _lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PROPS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def _base_name(mangled: str) -> str:
+    """The function's name of an Itanium-mangled symbol
+    (``_Z11chol_kernelILi2EEv...`` -> ``chol_kernel``; nested names joined
+    by ``::``, an anonymous namespace left out, as the profiler's kernel
+    names show it only as ``(anonymous namespace)``); the symbol itself
+    when it is not one."""
+    s = mangled
+    if not s.startswith("_Z"):
+        return s
+    s = s[2:].lstrip("L")
+    nested = s.startswith("N")
+    if nested:
+        s = s[1:]
+    parts = []
+    while s and s[0].isdigit():
+        k = 0
+        while s[k].isdigit():
+            k += 1
+        n = int(s[:k])
+        if not s[k:k + n].startswith("_GLOBAL__N"):
+            parts.append(s[k:k + n])
+        s = s[k + n:]
+        if not nested:
+            break
+    return "::".join(parts) or mangled
+
+
+def parse_ptxas(report: str) -> list:
+    """The entry functions of an ``nvcc -Xptxas -v`` report, in its order:
+    ``[{"function", "symbol", "registers", "spill_stores", "spill_loads",
+    "stack_bytes", "smem_bytes"}, ...]`` (a field the report does not give
+    for a function is None)."""
+    out = []
+    cur = None
+    for line in report.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            cur = {"function": _base_name(m.group(1)), "symbol": m.group(1),
+                   "registers": None, "spill_stores": None,
+                   "spill_loads": None, "stack_bytes": None,
+                   "smem_bytes": None}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = _PROPS.search(line)
+        if m:
+            cur["stack_bytes"], cur["spill_stores"], cur["spill_loads"] = (
+                int(g) for g in m.groups())
+        m = _USED.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = _SMEM.search(line)
+            cur["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def check(err: int, what: str) -> None:

@@ -36,13 +36,18 @@ when the tensors lie on the CPU, launches its kernel when they lie on a
 CUDA device, and raises otherwise; it counts its launches in
 ``<wrapper>.launches``. A non-PD pivot gives NaN on every path (rsqrt of
 a negative) for its own matrix only, which callers turn into a rejection
-or a jitter escalation.
+or a jitter escalation. Each call notes its kernel, implementation, launch
+form and shape for the run's records (obs/introspect.py ``note_kernel``;
+one set lookup after the first call of a shape).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from gibbs_student_t_tpu_torch.obs.introspect import note_kernel
 from gibbs_student_t_tpu_torch.ops.lanes import check_lanes_gid
 
 #: largest m the factor kernel takes: its shared memory (4 m^2 bytes plus
@@ -95,6 +100,17 @@ def launch_form(B, m):
         if B >= 2 * SM_COUNT * per_block:
             return "warp", per_block
     return "warp", 1
+
+
+def form_meta(m, per_block):
+    """The launch form's fields of a factor launch with ``per_block``
+    (0: the block form) at size ``m``, for the run's records: the warp
+    form's rows a lane (``csrc/chol.cu launch_warp_rows``: 1 below 32, 2
+    below 64, else 3)."""
+    if per_block == 0:
+        return {"form": "block", "per_block": 0}
+    return {"form": "warp", "per_block": per_block,
+            "rows_per_lane": 1 if m < 32 else 2 if m < 64 else 3}
 
 
 def _check(name, mats, vecs, m):
@@ -158,6 +174,7 @@ def _chol_fused(name, S, rhs, per_block=None):
     _check(name, S, rhs, m)
     check_per_block(name, per_block, m)
     if S.device.type == "cpu":
+        note_kernel(name, "plain", (math.prod(S.shape[:-2]), m))
         return chol_fused_plain(S, rhs), 0
     if S.device.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for device {S.device}")
@@ -176,6 +193,8 @@ def _chol_fused(name, S, rhs, per_block=None):
         if per_block is None:
             form, per_block = launch_form(B, m)
             per_block = per_block if form == "warp" else 0
+        note_kernel(name, "cuda", (B, m),
+                    lambda: form_meta(m, per_block))
         _cuda.check(_cuda.lib().gst_chol_fused(
             _cuda.ptr(Sc), _cuda.ptr(rc), _cuda.ptr(L), _cuda.ptr(u),
             _cuda.ptr(ld), B, m, per_block, _cuda.stream(S.device)), name)
@@ -230,6 +249,7 @@ def _tri_solve_T(name, L, rhs):
     m = L.shape[-1]
     _check(name, L, rhs, m)
     if L.device.type == "cpu":
+        note_kernel(name, "plain", (math.prod(L.shape[:-2]), m))
         return tri_solve_T_plain(L, rhs), 0
     if L.device.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for device {L.device}")
@@ -243,6 +263,7 @@ def _tri_solve_T(name, L, rhs):
     B = Lc.shape[0]
     x = torch.empty_like(rc)
     if B:
+        note_kernel(name, "cuda", (B, m))
         _cuda.check(_cuda.lib().gst_tri_solve_T(
             _cuda.ptr(Lc), _cuda.ptr(rc), _cuda.ptr(x), B, m,
             _cuda.stream(L.device)), name)

@@ -60,6 +60,7 @@ from gibbs_student_t_tpu_torch.models.pta import (
     ImproperBlock,
     PowerlawBlock,
 )
+from gibbs_student_t_tpu_torch.obs.introspect import note_kernel
 from gibbs_student_t_tpu_torch.ops.chol import (
     MAX_PER_BLOCK,
     SM_COUNT,
@@ -285,7 +286,9 @@ def _hyper_mh(name, x, S0, dS0, rt, base, dx, logu, K, sel, specs, hyp_idx,
             or sel.shape != (*groups, v) or specs.shape != (*groups, 3, p)):
         raise ValueError(f"{name}: inconsistent operand shapes")
     check_per_block(name, per_block, v, HYPER_WARP_MAX_V)
+    kname = name + "_grouped" if groups and name == "hyper_mh" else name
     if x.device.type == "cpu":
+        note_kernel(kname, "plain", (*B, v, p))
         return hyper_mh_loop(x, S0, dS0, rt, base, dx, logu, K, sel, specs,
                              hyp_idx, jitter), 0
     if x.device.type != "cuda":
@@ -305,6 +308,9 @@ def _hyper_mh(name, x, S0, dS0, rt, base, dx, logu, K, sel, specs, hyp_idx,
         if per_block is None:
             form, per_block = launch_form(C, v)
             per_block = per_block if form == "warp" else 0
+        note_kernel(kname, "cuda", (*B, v, p), lambda: {
+            "form": "warp" if per_block else "block",
+            "per_block": per_block})
         _cuda.check(_cuda.lib().gst_hyper_mh(
             *(_cuda.ptr(t) for t in ops), _cuda.addr(hi), nk,
             _cuda.ptr(xo), _cuda.ptr(acc), C, B[-1], v, p, S, float(jitter),

@@ -15,13 +15,16 @@ b-draw). Factorizations go to the ``chol_fused`` kernel wrapper and
 vector back-substitutions to ``tri_solve_T`` (ops/chol.py); the
 multi-right-hand-side solves of the Schur elimination have no kernel in
 the JAX package either and use ``torch.linalg.solve_triangular``.
-All operands carry a leading batch (chain) axis.
+All operands carry a leading batch (chain) axis. Each operation records
+its implementation for the run's records (obs/introspect.py
+``register_linalg_impl``; one set lookup after its first call).
 """
 
 from __future__ import annotations
 
 import torch
 
+from gibbs_student_t_tpu_torch.obs.introspect import register_linalg_impl
 from gibbs_student_t_tpu_torch.ops.chol import chol_fused, tri_solve_T
 
 
@@ -39,6 +42,7 @@ def _equilibrate(Sigma, jitter: float):
 def precond_cholesky(Sigma, jitter: float = 0.0):
     """``(L, inv_sqrt_d, logdet Sigma)``: ``L`` factors the equilibrated
     matrix plus ``jitter`` on its unit diagonal."""
+    register_linalg_impl("factor", "chol_fused")
     S, inv_sqrt_d, logd = _equilibrate(Sigma, jitter)
     L, logdet_S, _ = chol_fused(S, torch.zeros_like(inv_sqrt_d))
     return L, inv_sqrt_d, logdet_S + logd
@@ -46,6 +50,7 @@ def precond_cholesky(Sigma, jitter: float = 0.0):
 
 def precond_quad_logdet(Sigma, rhs, jitter: float = 0.0):
     """``(rhs^T Sigma^-1 rhs, logdet Sigma)`` in one factorization."""
+    register_linalg_impl("quad_logdet", "chol_fused")
     S, inv_sqrt_d, logd = _equilibrate(Sigma, jitter)
     _, logdet_S, u = chol_fused(S, rhs * inv_sqrt_d)
     return (u * u).sum(-1), logdet_S + logd
@@ -58,6 +63,7 @@ def robust_precond_cholesky(Sigma, jitters=(1e-6, 1e-4, 1e-2), rhs=None):
     leading axis) and the first finite candidate is selected branchlessly
     (all-finite ``L`` and ``logdet``). Returns ``(L, inv_sqrt_d, logdet)``
     and, with ``rhs``, ``u = L^-1 (D^-1/2 rhs)`` of the selected factor."""
+    register_linalg_impl("factor_robust", "chol_fused", jitters=len(jitters))
     S, inv_sqrt_d, logd = _equilibrate(Sigma, 0.0)
     eye = torch.eye(S.shape[-1], dtype=S.dtype, device=S.device)
     Ss = torch.stack([S + j * eye for j in jitters], dim=0)
@@ -76,6 +82,7 @@ def robust_precond_cholesky(Sigma, jitters=(1e-6, 1e-4, 1e-2), rhs=None):
 
 def backward_solve(L, rhs):
     """``L^T x = rhs`` (vector right-hand side)."""
+    register_linalg_impl("bwd_vec", "tri_solve_T")
     return tri_solve_T(L, rhs)
 
 
@@ -99,6 +106,7 @@ def schur_eliminate(Sigma_ss, Sigma_sv, Sigma_vv, rhs_s, rhs_v,
     appends ``(La, isd_a, U_B, u_s)``: the A-block's preconditioned factor,
     ``U_B = La^-1 D_a^-1/2 B`` and ``u_s = La^-1 D_a^-1/2 rhs_s`` — what
     the b-draw's block-assembled factorization reuses."""
+    register_linalg_impl("schur_solves", "solve_triangular")
     La, isd_a, logdetA = precond_cholesky(Sigma_ss, jitter)
     rhsM = torch.cat([Sigma_sv, rhs_s[..., :, None]], dim=-1)
     u = torch.linalg.solve_triangular(La, rhsM * isd_a[..., :, None],

@@ -65,6 +65,8 @@ from typing import Dict, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from gibbs_student_t_tpu_torch.obs.introspect import note_kernel
+
 PHILOX_M0 = 0xD2511F53
 PHILOX_M1 = 0xCD9E8D57
 PHILOX_W0 = 0x9E3779B9
@@ -558,6 +560,8 @@ def sweep_draws(keys, sweep, shapes, table: DrawTable, out=None,
     :func:`draw_elems`) sets the tiles' length, for measurements; it does
     not change the values."""
     if keys.device.type == "cpu":
+        note_kernel("sweep_draws", "plain",
+                    (math.prod(keys.shape[:-1]), table.width))
         return sweep_draws_plain(keys, sweep, shapes, table, out=out)
     if keys.device.type != "cuda":
         raise RuntimeError(f"sweep_draws: no kernel for device {keys.device}")
@@ -577,6 +581,7 @@ def sweep_draws(keys, sweep, shapes, table: DrawTable, out=None,
         raise ValueError("sweep_draws: out must be a contiguous float32 "
                          f"tensor of {B * table.width} on {keys.device}")
     if B and table.width:
+        note_kernel("sweep_draws", "cuda", (B, table.width))
         tiles, segs = table.launch(B, keys.device, elems)
         _cuda.check(_cuda.lib().gst_sweep_draws(
             _cuda.ptr(kf), _cuda.ptr(sw), int(sw.numel() > 1), _cuda.ptr(sh),

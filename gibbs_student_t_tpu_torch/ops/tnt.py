@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from gibbs_student_t_tpu_torch.obs.introspect import note_kernel
 from gibbs_student_t_tpu_torch.ops.chol import SM_COUNT
 from gibbs_student_t_tpu_torch.ops.lanes import (
     check_lanes_gid,
@@ -203,9 +204,11 @@ def tnt_batched(T, y, nvec, block_size: int):
             f"tnt_batched needs n ({n}) to be a multiple of block_size "
             f"({block_size}); use pad_rows first")
     if nvec.device.type == "cpu":
+        note_kernel("tnt_batched", "plain", (C, n, m))
         return tnt_products(T, y, nvec, block_size)
     if nvec.device.type != "cuda":
         raise RuntimeError(f"tnt_batched: no kernel for device {nvec.device}")
+    note_kernel("tnt_batched", "cuda", (C, n, m))
     from gibbs_student_t_tpu_torch.ops import _cuda
 
     w = 1.0 / nvec
@@ -281,6 +284,8 @@ def tnt_lanes(T, y, nvec, gid):
     same float in each), d and the constant; counted on
     ``tnt_lanes.launches``. On the CPU, :func:`tnt_lanes_plain`."""
     if nvec.device.type == "cpu":
+        note_kernel("tnt_lanes", "plain",
+                    (*nvec.shape[:-1], nvec.shape[-1], T.shape[-1]))
         return tnt_lanes_plain(T, y, nvec, gid)
     Tg, yg, nv = _tnt_lanes_operands(T, y, nvec, gid)
     if nvec.device.type != "cuda":
@@ -301,6 +306,8 @@ def tnt_lanes(T, y, nvec, gid):
     d = torch.empty((B, m), dtype=T.dtype, device=T.device)
     const = torch.empty((B,), dtype=T.dtype, device=T.device)
     if B:
+        note_kernel("tnt_lanes", "cuda", (G, C, n, m),
+                    lambda: {"form": lanes_form(G, m)})
         tiles = _device_lanes_tiles(m, T.device)
         _cuda.check(_cuda.lib().gst_tnt_lanes(
             _cuda.ptr(Tg), _cuda.ptr(yg), _cuda.ptr(nv), _cuda.ptr(tiles),

@@ -49,6 +49,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from gibbs_student_t_tpu_torch.obs.introspect import note_kernel
 from gibbs_student_t_tpu_torch.ops.lanes import (
     check_lanes_gid,
     flat_lanes,
@@ -265,9 +266,12 @@ def white_mh(x, az, yred2, dx, logu, rows, specs, var):
     p, n, S = x.shape[-1], az.shape[-1], dx.shape[-2]
     if dx.shape != (*B, S, p) or logu.shape != (*B, S):
         raise ValueError("white_mh: inconsistent draw shapes")
+    name = "white_mh_grouped" if len(B) == 2 else "white_mh"
     if x.device.type == "cpu":
+        note_kernel(name, "plain", (*B, n, p))
         return white_mh_loop(x, az, yred2, dx, logu, rows, specs, var)
     _check_kernel("white_mh", x, var)
+    note_kernel(name, "cuda", (*B, n, p), lambda: white_form(n, p)._asdict())
     xo = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     acc = torch.empty(B, dtype=x.dtype, device=x.device)
     if x.numel():
@@ -323,10 +327,14 @@ def white_mh_lanes(x, az, yred2, dx, logu, rows, specs, gid, var):
     S, p = dx.shape[-2], x.shape[-1]
     if ops[3].shape != (*B, S, p) or ops[4].shape != (*B, S):
         raise ValueError("white_mh_lanes: inconsistent draw shapes")
+    n = az.shape[-1]
     if x.device.type == "cpu":
+        note_kernel("white_mh_lanes", "plain", (*B, n, p))
         xo, acc = white_mh_loop(*ops, rows_g, specs_g, var)
         return xo.reshape(x.shape), acc.reshape(x.shape[:-1])
     _check_kernel("white_mh_lanes", x, var)
+    note_kernel("white_mh_lanes", "cuda", (*B, n, p),
+                lambda: white_form(n, p)._asdict())
     xo = torch.empty(ops[0].shape, dtype=x.dtype, device=x.device)
     acc = torch.empty(B, dtype=x.dtype, device=x.device)
     if x.numel():
@@ -362,10 +370,14 @@ def white_mtm(x, az, yred2, dx, dxr, gumb, logu, rows, specs, var):
     if (dx.shape != (*B, S, K, p) or dxr.shape != (*B, S, K - 1, p)
             or gumb.shape != (*B, S, K) or logu.shape != (*B, S)):
         raise ValueError("white_mtm: inconsistent draw shapes")
+    name = "white_mtm_grouped" if len(B) == 2 else "white_mtm"
     if x.device.type == "cpu":
+        note_kernel(name, "plain", (*B, n, p, K))
         return white_mtm_loop(x, az, yred2, dx, dxr, gumb, logu, rows, specs,
                               var)
     _check_kernel("white_mtm", x, var)
+    note_kernel(name, "cuda", (*B, n, p, K),
+                lambda: white_form(n, p)._asdict())
     xo = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     acc = torch.empty(B, dtype=x.dtype, device=x.device)
     if x.numel():

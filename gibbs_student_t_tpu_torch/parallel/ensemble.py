@@ -395,6 +395,10 @@ class EnsembleGibbs(TorchGibbs):
         res.stats.update(stats)
         return res
 
+    def _program_label(self) -> str:
+        """The JAX ensemble's label of its grouped chunk program."""
+        return f"ensemble_grouped_chunk_p{self.npulsars}_c{self.nchains}"
+
     def _trim(self, field: str, arr: np.ndarray) -> np.ndarray:
         """The ensemble's rows keep the padded TOA axis (``select_pulsar``
         cuts each pulsar's padding by ``stats['n_toa']``)."""

@@ -112,6 +112,10 @@ from gibbs_student_t_tpu_torch.backends.torch_backend import (
 )
 from gibbs_student_t_tpu_torch.config import GibbsConfig
 from gibbs_student_t_tpu_torch.models.pta import ModelArrays
+from gibbs_student_t_tpu_torch.obs.introspect import (
+    program_begin,
+    program_end,
+)
 from gibbs_student_t_tpu_torch.obs.telemetry import (
     telemetry_init,
     telemetry_update,
@@ -298,6 +302,11 @@ class SlotPool:
         self.casts = self.drawer._record_casts
         # the bytes of the last quantum's records in wire dtypes
         self.wire_bytes = 0
+        # the run's record of the first quantum (obs/introspect.py), open
+        # from its dispatch to its records' arrival on the host
+        # (wire_host), and the registry its compile event goes to
+        self._program = None
+        self.metrics = None
         if self.heterogeneous:
             self._lane_theta_shapes()
         flat = self.drawer.init_state(seed=0)
@@ -541,6 +550,10 @@ class SlotPool:
         mirrors by a pageable copy, which returns only when it is done: a
         boundary write to a mirror while this quantum runs on the card
         can never reach its operands."""
+        program = program_begin(f"serve_pool_chunk_l{self.nlanes}", self,
+                                self.quantum, str(self.device))
+        if program is not None:
+            self._program = program
         self._upload()
         smp = self.sampler
         if self.config.mh.adapt_until > 0:
@@ -601,9 +614,14 @@ class SlotPool:
         """A quantum's records (from :meth:`dispatch_quantum`) on the host
         in wire dtypes, no cast: ``{field: (rows, nlanes, ...)}``. Device
         tensors are copied by a blocking copy; host tensors (the
-        pipelined drain's pull on its side stream) are only reshaped."""
-        return {f: t.cpu().reshape(t.shape[0], self.nlanes, *t.shape[3:])
+        pipelined drain's pull on its side stream) are only reshaped. The
+        first quantum's arrival closes its program record
+        (obs/introspect.py)."""
+        host = {f: t.cpu().reshape(t.shape[0], self.nlanes, *t.shape[3:])
                 for f, t in recs.items()}
+        program, self._program = self._program, None
+        program_end(program, self.device, self.metrics)
+        return host
 
     def tenant_wire(self, wire: Dict[str, torch.Tensor],
                     slot: TenantSlot) -> Dict[str, torch.Tensor]:

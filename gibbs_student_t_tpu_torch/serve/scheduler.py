@@ -232,6 +232,9 @@ class TenantHandle:
         # each quantum it ran in) and its active chain-lane quanta
         self.cost_device_ms = 0.0
         self.cost_lane_quanta = 0
+        # its share, by the same active-lane split, of each quantum's stage
+        # times (ops/timers.py); empty while the server runs timers off
+        self.cost_stage_ms: Dict[str, float] = {}
         # the recycled partial-scan chain-rows the drain tagged (0 with
         # recycling off); the warm-start summary ({kind, pilot_sweeps,
         # pilot_ms, ...}, {"degraded": why}, or None: cold), set at
@@ -308,6 +311,12 @@ class TenantHandle:
         self.cost_device_ms += device_ms
         self.cost_lane_quanta += int(lane_quanta)
 
+    def _add_stage_cost(self, stage_ms: Dict[str, float]) -> None:
+        """Fold one quantum's per-stage share (the writer of
+        :meth:`_add_cost`)."""
+        for name, ms in stage_ms.items():
+            self.cost_stage_ms[name] = self.cost_stage_ms.get(name, 0.0) + ms
+
     # -- caller side ------------------------------------------------------
 
     @property
@@ -346,13 +355,15 @@ class TenantHandle:
         add up to the server's ``summary()["cost"]["dispatch_wall_ms"]``);
         ``lane_quanta``, active chain-lanes x quanta; ``ess_per_core_s``,
         the monitored min-ESS per attributed second (None unmonitored or
-        before the first evaluation)."""
+        before the first evaluation); with the server's stage timers on,
+        ``stage_device_ms``, its share of each stage's ms (the tenants'
+        shares add up to the server's ``summary()["stages"]``)."""
         ess_min = None
         mon = self._monitor
         if mon is not None:
             ess_min = mon.snapshot().get("ess_min")
         core_s = self.cost_device_ms / 1e3
-        return {
+        c = {
             "device_ms": self.cost_device_ms,
             "lane_quanta": int(self.cost_lane_quanta),
             "ess_per_core_s": (
@@ -360,6 +371,10 @@ class TenantHandle:
                 if isinstance(ess_min, (int, float)) and core_s > 0
                 else None),
         }
+        if self.cost_stage_ms:
+            c["stage_device_ms"] = {
+                k: round(v, 3) for k, v in sorted(self.cost_stage_ms.items())}
+        return c
 
     def slack_sweeps(self) -> Optional[float]:
         """Deadline slack in sweeps, None without a deadline: the sweeps

@@ -126,9 +126,34 @@ pool's flag and takes no argument) admits a tenant with fewer TOAs than
 the template, padded with masked rows; its records and ``stats["n_toa"]``
 are its own TOA count's.
 
-Not ported from the JAX server: the in-kernel stage timers
-(``summary()["stages"]`` stays None: the JAX server's come from its CPU
-native library) and the persistent compile cache of ``recover``.
+The profiling plane: ``kernel_timers`` (``"auto"`` follows
+``GST_KERNEL_TIMERS``, auto -> off, where the JAX server's auto is on: a
+bracket here costs the host microseconds, not an rdtsc read; ``True``
+turns them on) holds the sweep's stage timers up from construction to
+:meth:`ChainServer.close` (ops/timers.py: a CUDA event pair around each
+stage of every sweep on the card, a host clock on the CPU; the flag is
+process-global and counts its holders). At each drain, once the quantum's records
+are on the host, the server differences the timers' cumulative snapshot
+and folds the delta into ``summary()["stages"]`` and ``status()["stages"]``
+(per stage: total ms, ms a counted quantum, share of the dispatch wall),
+into each tenant's ``cost()["stage_device_ms"]`` (split by active lanes,
+as ``device_ms`` is; the shares add up to the totals) and into the flight
+ring's ``stage_device_ms`` (the flight context carries
+``stage_totals_ms`` and ``kernel_timers``). An event pair measures the
+stream's time between two points, the stream's idle waits for the host
+included: on a host-bound pool a stage's ms are mostly that wait. Under
+the pipelined executor the next quantum may already have recorded
+brackets when a drain reads, so a quantum's delta can lend a sliver to its
+neighbour; the totals are exact. The timers are the process's, not the
+server's: where several servers (a ``LocalPool`` fleet) or a server and a
+``TorchGibbs`` sweep in one process, each server's deltas take in the
+others' brackets too. ``/status`` over HTTP and a worker
+process carry the block through ``status()``; the fleet's merged snapshot
+(obs/aggregate.py) keeps the JAX one's placement subset, which has no
+``stages``.
+
+Not ported from the JAX server: the persistent compile cache of
+``recover``.
 """
 
 from __future__ import annotations
@@ -144,6 +169,7 @@ import tempfile
 import threading
 import time
 import warnings
+import weakref
 from dataclasses import dataclass, replace
 from typing import Dict, List, Optional
 
@@ -177,6 +203,7 @@ from gibbs_student_t_tpu_torch.obs.watchdog import (
     WatchdogSpec,
     serve_watchdog_env,
 )
+from gibbs_student_t_tpu_torch.ops import timers as _timers
 from gibbs_student_t_tpu_torch.ops.rng import check_counter
 from gibbs_student_t_tpu_torch.parallel.ensemble import (
     _localize_names,
@@ -338,6 +365,12 @@ class ChainServer:
     overrides) runs the stall watchdog with the
     thresholds of ``watchdog_spec``.
 
+    ``kernel_timers`` (``"auto"`` follows ``GST_KERNEL_TIMERS``, auto ->
+    off; ``True`` or ``False``, which a set ``GST_KERNEL_TIMERS``
+    overrides): on, the server holds the process-global stage-timer flag
+    up from construction until :meth:`close` (see the module docstring);
+    off, it leaves the flag as it is and reports no stages.
+
     ``recycle`` (``"auto"`` follows ``GST_RECYCLE``, auto -> on; ``True``
     or ``False``, which a set ``GST_RECYCLE`` overrides) arms recycling's
     row tagging (see the module docstring); warm starts and adaptive scans
@@ -364,7 +397,8 @@ class ChainServer:
                  watchdog_spec: Optional[WatchdogSpec] = None,
                  flight: bool = True, flight_dir: Optional[str] = None,
                  flight_capacity: int = 64, flight_sync_every: int = 4,
-                 recycle="auto", heterogeneous: bool = False):
+                 kernel_timers="auto", recycle="auto",
+                 heterogeneous: bool = False):
         if pipeline not in (True, False):
             raise ValueError(f"pipeline must be True or False, got "
                              f"{pipeline!r}")
@@ -384,6 +418,19 @@ class ChainServer:
         if recycle not in ("auto", True, False):
             raise ValueError(f"recycle must be 'auto', True or False, got "
                              f"{recycle!r}")
+        if kernel_timers not in ("auto", True, False):
+            raise ValueError(f"kernel_timers must be 'auto', True or False, "
+                             f"got {kernel_timers!r}")
+        # the stage timers (ops/timers.py) follow GST_KERNEL_TIMERS, then
+        # the argument (auto -> off). On, the server holds the
+        # process-global flag until close, or until it is collected unclosed
+        kt_env = _timers.kernel_timers_env()
+        self.kernel_timers = (kt_env == "1" if kt_env != "auto"
+                              else kernel_timers is True)
+        self._timers_hold = None
+        if self.kernel_timers:
+            _timers.timers_acquire()
+            self._timers_hold = weakref.finalize(self, _timers.timers_release)
         rec_env = serve_recycle_env()
         self.recycle = (rec_env == "1" if rec_env != "auto"
                         else recycle in ("auto", True))
@@ -514,6 +561,8 @@ class ChainServer:
         if obs_dir is not None and metrics is None:
             metrics = MetricsRegistry()    # the exposition needs one
         self.metrics = metrics
+        # the pool's first-quantum record goes to the same registry
+        self.pool.metrics = metrics
         self.spans = (SpanRecorder(capacity=span_capacity,
                                    jsonl_path=trace_jsonl, metrics=metrics)
                       if spans else None)
@@ -529,6 +578,10 @@ class ChainServer:
         # the sum of the quanta's dispatch walls, which the tenants' cost
         # shares add up to
         self._dispatch_wall_ms = 0.0
+        # the stage timers' accounting: the cumulative snapshot is
+        # differenced at each drain, once the quantum's records are on the
+        # host (one writer: the drain thread, or the serial loop's)
+        self._reset_stages()
         # host ms of the plane's own work: the monitor feed (a drained
         # quantum, all its tenants) and the obs_dir refresh
         self._monitor_ms: List[float] = []
@@ -598,6 +651,17 @@ class ChainServer:
         self._queue_depth_peak = 0
         self._tier_slo = {}
         self._zero_capacity_counters()
+        self._reset_stages()
+
+    def _reset_stages(self) -> None:
+        """Restart the stage accounting from the timers' current snapshot,
+        so that nothing recorded before (a warm-up's sweeps) leaks into the
+        window."""
+        self._stage_prev = (_timers.timers_snapshot() if self.kernel_timers
+                            else {})
+        self._stage_ms_total: Dict[str, float] = {}
+        self._stage_quanta = 0
+        self._last_stage_ms: Dict[str, float] = {}
 
     def _zero_capacity_counters(self) -> None:
         """The capacity arms' counters: recycled chain-rows delivered; warm
@@ -1886,8 +1950,11 @@ class ChainServer:
             disp_ms = (t0 - t_d) * 1e3
             self._dispatch_ms.append(disp_ms)
             self._dispatch_wall_ms += disp_ms
+            # the pull above waited for the quantum: its brackets are done
+            stage_ms = self._stage_delta()
             self._attribute_cost(disp_ms,
-                                 self._cost_shares(self._running.values()))
+                                 self._cost_shares(self._running.values()),
+                                 stage_ms=stage_ms)
             self._quantum_spans(t_d, t0, qidx)
             self._monitor_t = 0.0
             q = pool.quantum
@@ -1929,7 +1996,8 @@ class ChainServer:
             drain_ms = (time.monotonic() - t0) * 1e3
             self._drain_ms.append(drain_ms)
             self._beat("drain")
-            self._note_quantum_done(qidx, disp_ms, busy, drain_ms, 0)
+            self._note_quantum_done(qidx, disp_ms, busy, drain_ms, 0,
+                                    stage_ms)
             self._refresh_obs(locked=True)
             return bool(self._running) or len(self.queue) > 0
 
@@ -1966,7 +2034,8 @@ class ChainServer:
                                   t_end - t_d, tenant=tid, quantum=qidx)
 
     def _note_quantum_done(self, qidx: int, disp_ms: float, busy: int,
-                           drain_ms: Optional[float], backlog: int) -> None:
+                           drain_ms: Optional[float], backlog: int,
+                           stage_ms: Dict[str, float]) -> None:
         """A drained quantum's evidence: the watchdog's wall, throughput
         and backlog, the flight ring's entry, and the monitor feed's host
         ms (the serial loop's thread, or the drain thread)."""
@@ -1978,7 +2047,7 @@ class ChainServer:
                 disp_ms, sweeps_per_s=(busy * q / (disp_ms / 1e3)
                                        if disp_ms > 0 else None),
                 backlog=backlog)
-        self._flight_quantum(qidx, disp_ms, busy, drain_ms)
+        self._flight_quantum(qidx, disp_ms, busy, drain_ms, stage_ms)
 
     # ------------------------------------------------------------------
     # the pipelined executor
@@ -2106,8 +2175,12 @@ class ChainServer:
             err = (e, "pulling quantum records")
         # consumed once: a resumed bundle never bills a tenant twice
         cost, b.cost = b.cost, None
+        stage_ms = {}
         if cost is not None:
-            self._attribute_cost(*cost)
+            # the pull waited for the quantum's event, so its brackets are
+            # done (the next quantum's may be too: the totals stay exact)
+            stage_ms = self._stage_delta()
+            self._attribute_cost(*cost, stage_ms=stage_ms)
             self._monitor_t = 0.0
         t0 = time.monotonic()
         while b.idx < len(b.entries):
@@ -2156,7 +2229,7 @@ class ChainServer:
             disp_ms, shares = cost
             self._note_quantum_done(b.qidx, disp_ms,
                                     sum(a for _, a in shares), drain_ms,
-                                    self._drainq.unfinished_tasks)
+                                    self._drainq.unfinished_tasks, stage_ms)
             self._refresh_obs()
         if err is not None:
             self._worker_error, self._worker_error_label = err
@@ -2374,6 +2447,8 @@ class ChainServer:
             self._thread = None
         self._flush_drains()
         self._stop_workers(timeout)
+        if self._timers_hold is not None:
+            self._timers_hold()      # gives the flag back once
         self._fail_all_outstanding("server closed")
         if self._manifest is not None:
             # every tenant is resolved: the compacted log is the geometry
@@ -2586,7 +2661,7 @@ class ChainServer:
             "pipeline": self.pipeline,
             "supervise": self.supervise,
             "faults": dict(self._fault_counts),
-            "stages": None,
+            "stages": self._stages_block(),
             "watchdog": self._watchdog_block(),
             "sched": self._sched_block(),
             "slo": self._slo_block(),
@@ -2600,9 +2675,9 @@ class ChainServer:
         percentiles and their raw series, and one entry per running
         tenant (its :meth:`TenantHandle.progress`, with the convergence
         view of a monitored one, and its lanes). ``obs_dir/status.json``
-        is this, refreshed every quantum. ``stages`` is None: the JAX
-        server's per-stage device times come from the in-kernel timers of
-        its CPU native library, which this package does not have."""
+        is this, refreshed every quantum. ``stages`` is the stage timers'
+        per-stage view (schema ``stage_timings``; None with the timers off
+        or before the first drain)."""
         with self._lock:
             return self._status_locked()
 
@@ -2660,7 +2735,8 @@ class ChainServer:
         scan's gate updates and tenants thinned;
         ``cost["dispatch_wall_ms"]`` the sum of the quanta's dispatch
         walls, which the tenants' ``cost()["device_ms"]`` add up to;
-        ``stages`` None (see :meth:`status`)."""
+        ``stages`` the stage timers' view (see :meth:`status`), which the
+        tenants' ``cost()["stage_device_ms"]`` add up to."""
         occ = (self.busy_chain_sweeps / self.total_lane_sweeps
                if self.total_lane_sweeps else 0.0)
         return {"nlanes": self.pool.nlanes, "quantum": self.pool.quantum,
@@ -2693,7 +2769,7 @@ class ChainServer:
                           "tenants_thinned": len(self._adapt_tenants)},
                 "sched": self._sched_block(),
                 "slo": self._slo_block(),
-                "stages": None,
+                "stages": self._stages_block(),
                 "watchdog": self._watchdog_block(),
                 "cost": {"dispatch_wall_ms": self._dispatch_wall_ms}}
 
@@ -2710,16 +2786,60 @@ class ChainServer:
                 for t in running]
 
     @staticmethod
-    def _attribute_cost(dispatch_ms: float, shares: List) -> None:
+    def _attribute_cost(dispatch_ms: float, shares: List,
+                        stage_ms: Optional[Dict[str, float]] = None) -> None:
         """Split one quantum's dispatch wall across its tenants by
-        active-lane share; the shares sum to ``dispatch_ms``. Runs on the
-        drain thread (pipelined) or the serial loop's thread."""
+        active-lane share; the shares sum to ``dispatch_ms``. ``stage_ms``,
+        the quantum's stage-timer delta, splits by the same share into each
+        tenant's ``cost()["stage_device_ms"]``. Runs on the drain thread
+        (pipelined) or the serial loop's thread."""
         total = sum(a for _, a in shares)
         if total <= 0:
             return
         for handle, act in shares:
             if act:
                 handle._add_cost(dispatch_ms * act / total, act)
+                if stage_ms:
+                    frac = act / total
+                    handle._add_stage_cost(
+                        {k: v * frac for k, v in stage_ms.items()})
+
+    # ------------------------------------------------------------------
+    # the profiling plane
+    # ------------------------------------------------------------------
+
+    def _stage_delta(self) -> Dict[str, float]:
+        """The stage timers' ms since the last drain (``{stage: ms}``, {}
+        with the timers off), folded into the run's totals. Called where
+        the drained quantum's records are on the host, so its brackets are
+        done; one writer, as the cost accumulators."""
+        if not self.kernel_timers:
+            return {}
+        cur = _timers.timers_snapshot()
+        delta = _timers.timers_delta_ms(self._stage_prev, cur)
+        self._stage_prev = cur
+        ms = {k: v["ms"] for k, v in delta.items()}
+        if ms:
+            for k, v in ms.items():
+                self._stage_ms_total[k] = self._stage_ms_total.get(k, 0.0) + v
+            self._stage_quanta += 1
+            self._last_stage_ms = ms
+        return ms
+
+    def _stages_block(self) -> Optional[dict]:
+        """``summary()``/``status()``'s per-stage view: total ms, ms a
+        counted quantum and share of the dispatch wall; None while no
+        stage time has been drained (timers off, or nothing drained
+        yet)."""
+        if not self._stage_ms_total:
+            return None
+        wall = self._dispatch_wall_ms
+        nq = max(self._stage_quanta, 1)
+        return {
+            k: {"device_ms": round(v, 3),
+                "ms_per_quantum": round(v / nq, 4),
+                "share_of_dispatch": round(v / wall, 4) if wall else None}
+            for k, v in sorted(self._stage_ms_total.items())}
 
     # ------------------------------------------------------------------
     # the flight recorder and the watchdog
@@ -2775,13 +2895,17 @@ class ChainServer:
             "pipeline": bool(self.pipeline),
             "faults": dict(self._fault_counts),
             "watchdog": self._watchdog_block(),
-            "stage_totals_ms": None,
-            "kernel_timers": False,
+            "stage_totals_ms": {
+                k: round(v, 3)
+                for k, v in sorted(self._stage_ms_total.items())} or None,
+            "kernel_timers": bool(self.kernel_timers),
         }
 
     def _flight_quantum(self, qidx: int, dispatch_ms: float, busy: int,
-                        drain_ms: Optional[float]) -> None:
-        """One quantum's entry in the flight ring (at its drain)."""
+                        drain_ms: Optional[float],
+                        stage_ms: Dict[str, float]) -> None:
+        """One quantum's entry in the flight ring (at its drain, when its
+        stage delta is known)."""
         if self.flight is None:
             return
         self.flight.note_quantum({
@@ -2794,7 +2918,9 @@ class ChainServer:
             "occupancy_now": round(busy / self.pool.nlanes, 4),
             "queue_depth": len(self.queue),
             "faults": dict(self._fault_counts),
-            "stage_device_ms": None,
+            "stage_device_ms": ({k: round(v, 3)
+                                 for k, v in sorted(stage_ms.items())}
+                                or None),
         })
 
     def dump_postmortem(self, path: Optional[str] = None,

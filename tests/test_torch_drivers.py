@@ -15,6 +15,9 @@ against the JAX package's ``simulate_data.py`` and ``run_sims.py``.
   ``chunk`` event a chunk, one ledger record on the CPU platform;
   ``--ensemble 3`` saves TOA counts [30, 28, 26]; ``--until-rhat`` stops
   on a check boundary; ``--trace-dir`` writes a Chrome trace per config;
+- ``--introspect`` prints the run's introspection summary (each program's
+  first chunk, the build, every kernel with ``impl=plain``) and the ledger
+  record carries a schema-valid ``cuda`` block;
 - bad flag combinations, the JAX driver's flags this one does not take,
   and ``--device cuda`` without CUDA exit non-zero.
 """
@@ -298,7 +301,6 @@ def test_run_sims_trace_dir_writes_a_trace_per_config(tmp_path, capsys):
     ["--models", "nope"],
     ["--backend", "jax"],
     ["--unroll", "1"],
-    ["--introspect"],
 ])
 def test_run_sims_rejects_bad_flags(tmp_path, capsys, flags):
     with pytest.raises(SystemExit) as exc:
@@ -319,6 +321,43 @@ def test_drivers_refuse_cuda_without_it(tmp_path, capsys, driver):
     assert exc.value.code != 0
     assert "CUDA" in capsys.readouterr().err
     assert not os.path.exists(tmp_path / "s")
+
+
+def test_run_sims_introspect_prints_and_records(tmp_path, capsys):
+    from gibbs_student_t_tpu_torch.obs import introspect
+    from gibbs_student_t_tpu_torch.obs import schema as port_schema
+
+    introspect.clear_introspection()
+    _run(tmp_path, "--introspect", models=("gaussian",), nchains=2,
+         niter=4, burn=1, components=4)
+    err = capsys.readouterr().err
+    lines = [ln for ln in err.splitlines() if ln.startswith("  # ")]
+    assert any(ln.startswith("  # program[torchgibbs_chunk_c2] "
+                             "platform=cpu") for ln in lines), lines
+    assert any(ln.startswith("  # build libgst_cuda.so: ") for ln in lines)
+    kernels = {ln.split()[2] for ln in lines
+               if ln.startswith("  # kernel ")}
+    assert {"chol_fused", "tri_solve_T", "white_mh", "hyper_mh",
+            "sweep_draws"} <= kernels
+    assert all("impl=plain" in ln for ln in lines
+               if ln.startswith("  # kernel "))
+    (rec,) = read_ledger(str(tmp_path / "ledger.jsonl"))
+    schemas = port_schema.load_schemas()
+    port_schema.assert_valid(rec, schemas["ledger_record"], "ledger record",
+                             defs=schemas)
+    cuda = rec["cuda"]
+    # one sampler, so one program record, a twin
+    assert cuda["n_programs"] == 2 and cuda["peak_bytes"] == "unavailable"
+    assert cuda["programs"][0]["label"] == "torchgibbs_chunk_c2"
+    assert {k["kernel"] for k in cuda["kernels"]} == kernels
+    assert cuda["build"]["last_build"] is None
+    # without the flag the record carries the block all the same
+    _run(tmp_path, models=("gaussian",), nchains=2, niter=4, burn=1,
+         components=4)
+    assert not [ln for ln in capsys.readouterr().err.splitlines()
+                if ln.startswith("  # kernel ")]
+    assert read_ledger(str(tmp_path / "ledger.jsonl"))[-1]["cuda"][
+        "kernels"]
 
 
 def test_run_sims_help_says_which_flags_are_not_ported():

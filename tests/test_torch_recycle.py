@@ -649,7 +649,7 @@ def both_servers(demo):
     from gibbs_student_t_tpu.serve import adapt as jax_adapt
 
     ma, _ = demo
-    port = _scripted(_server(demo), _script(
+    port = _scripted(_server(demo, kernel_timers=False), _script(
         ma, TenantRequest, port_monitor, port_warm,
         __import__("gibbs_student_t_tpu_torch.serve.adapt",
                    fromlist=["AdaptScanSpec"])))

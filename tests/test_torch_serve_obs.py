@@ -193,14 +193,17 @@ def plane_run(demo, tmp_path_factory):
     """ONE pipelined 4-tenant run of the port's server with the whole plane
     armed: monitors on 3 parameters with loose targets, spans with a JSONL
     sink, ``obs_dir``, a metrics run directory, a crash manifest, the
-    flight recorder and the watchdog."""
+    flight recorder and the watchdog; the stage timers off, as in the JAX
+    run it is compared with (tests/test_torch_stage_timers.py has them
+    on)."""
     root = tmp_path_factory.mktemp("plane")
     obs_dir, run_dir = str(root / "obs"), str(root / "run")
     reg = MetricsRegistry(run_dir=run_dir)
     reg.write_manifest(config=demo[1], seeds=list(range(len(NITERS))))
     srv = _server(demo, True, metrics=reg, obs_dir=obs_dir,
                   manifest_dir=str(root / "manifest"),
-                  trace_jsonl=os.path.join(obs_dir, "spans.jsonl"))
+                  trace_jsonl=os.path.join(obs_dir, "spans.jsonl"),
+                  kernel_timers=False)
     spec = MonitorSpec(params=MON_PARAMS, ess_target=4.0, rhat_target=50.0)
     out = _armed_run(srv, _plane_set(demo[0], TenantRequest, spec),
                      str(root))
@@ -213,7 +216,7 @@ def plane_run(demo, tmp_path_factory):
 @pytest.fixture(scope="module")
 def jax_run(tmp_path_factory):
     """The same tenant set through the JAX server, with the same plane
-    (its kernel timers off: the port has none)."""
+    (its kernel timers off, as the port's fixture has its stage timers)."""
     from gibbs_student_t_tpu.obs import MetricsRegistry as JaxRegistry
     from gibbs_student_t_tpu.serve import ChainServer as JaxServer
     from gibbs_student_t_tpu.serve import MonitorSpec as JaxSpec
@@ -544,11 +547,12 @@ def test_schema_validator_matches_jax(plane_run, schemas):
     """Both validators give the same verdicts on the same records, with
     either package's schema table; the port's table differs from the
     reference's only in the run manifest's versions, the ledger record's
-    ``xla`` and its comment."""
+    ``xla`` and its comment, and adds the named ``cuda_summary`` that
+    takes ``xla``'s place."""
     from gibbs_student_t_tpu.obs import schema as jax_schema
 
     ref = jax_schema.load_schemas()
-    assert sorted(ref) == sorted(schemas)
+    assert sorted(schemas) == sorted([*ref, "cuda_summary"])
     differ = {k for k in ref if ref[k] != schemas[k]}
     assert differ == {"_comment", "manifest", "ledger_record"}
     assert "torch_version" in schemas["manifest"]["required"]

@@ -375,7 +375,8 @@ def _script(server, req_cls, ma):
 @pytest.fixture(scope="module")
 def http_runs(demo, tmp_path_factory):
     """The script through the port's server (obs_dir, manifest, spans,
-    flight) and the JAX server, each with ``http_port=0``."""
+    flight) and the JAX server, each with ``http_port=0`` and its stage
+    timers off."""
     from gibbs_student_t_tpu.config import GibbsConfig as JaxConfig
     from gibbs_student_t_tpu.data.demo import (
         make_demo_model_arrays as jax_demo_model_arrays,
@@ -386,7 +387,7 @@ def http_runs(demo, tmp_path_factory):
     root = tmp_path_factory.mktemp("http")
     out = {}
     srv = _server(demo, False, http_port=0, obs_dir=str(root / "obs"),
-                  manifest_dir=str(root / "man"))
+                  manifest_dir=str(root / "man"), kernel_timers=False)
     hs, url, live, oq = _script(srv, TenantRequest, demo[0])
     try:
         _drive(srv, oq)
