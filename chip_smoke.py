@@ -485,6 +485,41 @@ exits 1 through ``fail`` before it, and so does an uncaught exception.
       form its shape takes (``chol.launch_form``, ``white_form``,
       ``hyper_mh.launch_form``); the ledger record valid against the
       port's schema, its ``cuda`` block's ``peak_bytes`` above 0.
+23. the ensemble over a mesh (``parallel/mesh.py``,
+   ``parallel/multihost.py``, ``EnsembleGibbs(mesh=)``, ``rhat_collective``)
+   at ens32's full width (32 pulsars x 256 chains, ``mixture``, ``vary_df``,
+   a beta theta prior, covariance adaptation; 10 adaptive sweeps then 10
+   more in chunks of 5, ``record="full"``), in a temporary directory
+   removed at the end:
+   a. a 1 x 1 mesh over cuda:0 against ``mesh=None``: every record, stat
+      and the last state bit for bit (paths ``mesh_none`` and
+      ``mesh_1x1``);
+   b. a ``{"pulsar": 2, "chain": 2}`` mesh over ``[cuda:0] * 4`` against
+      ``mesh=None`` at rtol 2e-4 / atol 1e-5 (the JAX tests' gate): x,
+      theta and df after sweeps 1 and 2 (the JAX dryrun's niter=2), z bit
+      for bit there, and b after sweep 1 (a block's dense TOA product
+      rounds otherwise than the whole batch's, and the b draw, a solve
+      through an ill-conditioned Sigma, carries that into the next draw:
+      the chains whose b after sweep 2 is more than 2e-4 of its scale
+      apart are reported); the largest difference and bitwise equality
+      at each of the 20 sweeps;
+      the covariance factor of the second adapting chunk within the gate
+      for every pulsar whose x was bit for bit through the first chunk
+      (bitwise share printed); ms a sweep and launches a sweep of both
+      runs (path ``mesh_2x2``, a block's sweep counted as a sweep);
+   c. two processes on cuda:0 over ``gloo``, under ``dcn {"pulsar": 2}``
+      and under ``dcn {"chain": 2}`` (the covariance gather then crosses
+      the processes): each rank's rows within b's gate of its slice of
+      b's unsharded run (and whether bit for bit b's 2 x 2 run, whose
+      blocks they are), the two tiling the population once, and
+      ``rhat_collective`` over the ranks equal to the host's
+      ``gelman_rubin`` of their rows to 1e-5 relative;
+   d. a one-rank NCCL group (``initialize_distributed(backend="nccl")``):
+      ``rhat_collective`` of CUDA tensors against ``gelman_rubin``;
+   e. ``run_sims --ensemble 4 --device cuda`` prints its 1 x 1 mesh.
+   The processes of c-e run together after b; their launches are not
+   counted. One card cannot show blocks on different cards overlapping,
+   NCCL between ranks, or the launch guard on cuda:1.
 
 Launch counts are read per path: every count is set to 0 just before a
 run and read just after it; a count is launches per sweep x sweeps plus
@@ -636,7 +671,8 @@ SAME_AS = {"sample": "flagship", "spool": "flagship", "spool_ens": "ens32",
            "pool_sched": "pool", "pool_faults": "pool", "pool_obs": "pool",
            "pool_capacity": "pool", "pool_wire": "pool",
            "pool_tiers": "pool", "timers_off": "flagship",
-           "timers_on": "flagship", "pool_prof": "pool"}
+           "timers_on": "flagship", "pool_prof": "pool",
+           "mesh_none": "ens32", "mesh_1x1": "ens32", "mesh_2x2": "ens32"}
 # a grouped kernel's entry: the wrapper it shares with the single-model
 # launch; it counts on the wrapper's launches_grouped
 GROUPED = {"white_mh_grouped": "white_mh", "hyper_mh_grouped": "hyper_mh",
@@ -764,6 +800,79 @@ for man in cfg["manifests"]:
                  "lost": len(srv.lost_tenants),
                  "watchdog": srv.healthz()["watchdog"]["state"]})
 print(json.dumps({"t_start": t_start, "runs": runs}))
+"""
+# phase 23 (the ensemble over a mesh): ens32 at full width, 10 adaptive
+# sweeps then 10 more in chunks of 5; the sweeps the shardings are held
+# at (the JAX dryrun's niter=2) and their gate
+MESH_ADAPT, MESH_SWEEPS, MESH_CHUNK, MESH_SEED = 10, 20, 5, 41
+MESH_GATE_SWEEP, MESH_RTOL, MESH_ATOL = 2, 2e-4, 1e-5
+# b is held after one sweep: a block's dense TOA product rounds otherwise
+# than the whole batch's (the GEMM's kernel follows its shape), and the b
+# draw, a solve through an ill-conditioned Sigma, carries that rounding
+# into its next draw, up to several % of a chain's largest |b| after two
+# sweeps with x, z, theta and df still bit for bit (PERF.md §6)
+MESH_B_SWEEP = 1
+# the processes of phase 23c/d, run as ``python3 -c CHILD23 <checkout>
+# <json>``: "mesh" joins a gloo group of two on one card and samples its
+# blocks of ens32 over a hybrid mesh (its rows to an .npz, R-hat over the
+# mesh's chain line, or over both ranks where the line stays in one
+# process); "nccl" joins a one-rank NCCL group and reduces R-hat of
+# CUDA tensors
+CHILD23 = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+cfg = json.loads(sys.argv[2])
+import numpy as np
+import torch
+import torch.distributed as dist
+from gibbs_student_t_tpu_torch.parallel import (
+    EnsembleGibbs, gelman_rubin, initialize_distributed, make_hybrid_mesh,
+    rhat_collective)
+
+t0 = time.time()
+ok = initialize_distributed(
+    coordinator_address=f"127.0.0.1:{cfg['port']}",
+    num_processes=cfg["nproc"], process_id=cfg["rank"],
+    backend=cfg["backend"])
+out = {"rank": cfg["rank"], "initialized": ok,
+       "backend": dist.get_backend()}
+if cfg["mode"] == "nccl":
+    data = (np.random.default_rng(7).normal(size=(8, 50))
+            + np.arange(8)[:, None])
+    x = torch.as_tensor(data, dtype=torch.float32, device="cuda")
+    out["rhat"] = rhat_collective(x)
+    out["gelman_rubin"] = gelman_rubin(x.double().cpu().numpy().T)
+else:
+    from gibbs_student_t_tpu_torch.config import GibbsConfig
+    from gibbs_student_t_tpu_torch.data.demo import make_demo_model_arrays
+    dcn = cfg["dcn"]
+    other = "chain" if dcn == "pulsar" else "pulsar"
+    mesh = make_hybrid_mesh({other: 2}, {dcn: 2},
+                            devices=[torch.device("cuda", 0)] * 2)
+    mas = [make_demo_model_arrays(n=130 - (i % 3) * 10, components=30,
+                                  seed=100 + i)
+           for i in range(cfg["pulsars"])]
+    c = GibbsConfig(model="mixture", vary_df=True,
+                    theta_prior="beta").with_adapt(cfg["adapt"],
+                                                   adapt_cov=True)
+    ens = EnsembleGibbs(mas, c, nchains=cfg["chains"],
+                        chunk_size=cfg["chunk"], record="full", mesh=mesh)
+    t1 = time.time()
+    res = ens.sample(cfg["sweeps"], seed=cfg["seed"])
+    torch.cuda.synchronize()
+    out["sample_s"] = time.time() - t1
+    k = cfg["gate_sweep"] + 1
+    np.savez(cfg["out"], chain=res.chain, bchain=res.bchain[:k],
+             zchain=res.zchain[:k], thetachain=res.thetachain,
+             dfchain=res.dfchain,
+             **{k: res.stats[k] for k in ("pulsar_start", "pulsar_stop",
+                                         "chain_start", "chain_stop")})
+    group = mesh.group("chain", (0, 0)) if dcn == "chain" else None
+    out["rhat"] = rhat_collective(res.chain[:, 0, :, 0].T, group=group)
+    out["blocks"] = len(ens._blocks)
+dist.destroy_process_group()
+out["seconds"] = time.time() - t0
+print(json.dumps(out), flush=True)
 """
 # times of the first design of chol_fused (one 128-thread block per matrix),
 # hyper_mh (one per chain) and tri_solve_T (one 32-thread block per
@@ -7025,6 +7134,309 @@ def main() -> None:
         shutil.rmtree(tmp22, ignore_errors=True)
     prep["seconds"] = time.perf_counter() - t22
     print(f"# phase 22: {prep['seconds']:.1f} s", flush=True)
+
+    # --- 23. the ensemble over a mesh -------------------------------------
+    t23 = time.perf_counter()
+    from gibbs_student_t_tpu_torch.parallel import gelman_rubin, make_mesh
+
+    mrep = report["mesh"] = {"card": card}
+    cfg_mesh = GibbsConfig(model="mixture", vary_df=True,
+                           theta_prior="beta").with_adapt(
+        MESH_ADAPT, adapt_cov=True)
+    mesh_mas = ens_pulsars(ENS_PULSARS)
+    GATED = ("chain", "bchain", "thetachain", "dfchain")
+    HELD = GATED + ("zchain",)
+
+    def mesh_run(path, mesh, device=None):
+        """ens32 over ``mesh`` (or on ``device``) for MESH_SWEEPS sweeps
+        in full records: the result, the last state, the covariance
+        factors each adapting chunk starts from, the wall and the launch
+        counts (``path``; a block's sweep counts as a sweep)."""
+        e = EnsembleGibbs(mesh_mas, cfg_mesh, nchains=ENS_CHAINS,
+                          chunk_size=MESH_CHUNK, record="full", mesh=mesh,
+                          device=device)
+        covs = []
+        inner = e._pre_chunk
+
+        def pre_chunk(states):
+            out = inner(states)
+            covs.append(e._join(out).mh_cov_chol.clone())
+            return out
+
+        e._pre_chunk = pre_chunk
+        nblocks = 1 if mesh is None else len(e._blocks)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = e.sample(MESH_SWEEPS, seed=MESH_SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = check_launches(path, nblocks * MESH_SWEEPS,
+                                nblocks * -(-MESH_SWEEPS // MESH_CHUNK))
+        return r, e.last_state, covs, wall, counts
+
+    def after(r, last, f, k):
+        """Field ``f`` after ``k`` sweeps: row k, or the last state."""
+        if k < MESH_SWEEPS:
+            return getattr(r, f)[k]
+        return getattr(last, {"chain": "x", "bchain": "b",
+                              "thetachain": "theta",
+                              "dfchain": "df"}[f]).cpu().numpy()
+
+    def sweep_diffs(r, last, ref, ref_last):
+        """Per sweep 1..MESH_SWEEPS: the largest absolute and relative
+        difference of x, b, theta and df, and whether all four are bit for
+        bit equal."""
+        rows = []
+        for k in range(1, MESH_SWEEPS + 1):
+            a = [after(r, last, f, k) for f in GATED]
+            b = [after(ref, ref_last, f, k) for f in GATED]
+            rows.append({
+                "sweep": k,
+                "max_abs": max(float(np.abs(x - y).max())
+                               for x, y in zip(a, b)),
+                "max_rel": max(float((np.abs(x - y)
+                                      / (np.abs(y) + MESH_ATOL)).max())
+                               for x, y in zip(a, b)),
+                "bitwise": all(np.array_equal(x, y) for x, y in zip(a, b))})
+        return rows
+
+    def gated(a_rows, b_rows):
+        """Two results' rows within rtol MESH_RTOL / atol MESH_ATOL: x,
+        theta and df after each sweep up to MESH_GATE_SWEEP, z bit for bit
+        there, and b after MESH_B_SWEEP sweeps. Also the chains whose b
+        after MESH_GATE_SWEEP sweeps is more than MESH_RTOL of its largest
+        |b| away (reported)."""
+        ok = all(np.allclose(a_rows[f][k], b_rows[f][k], rtol=MESH_RTOL,
+                             atol=MESH_ATOL)
+                 for f in ("chain", "thetachain", "dfchain")
+                 for k in range(1, MESH_GATE_SWEEP + 1))
+        ok &= all(np.array_equal(a_rows["zchain"][k], b_rows["zchain"][k])
+                  for k in range(1, MESH_GATE_SWEEP + 1))
+        ok &= np.allclose(a_rows["bchain"][MESH_B_SWEEP],
+                          b_rows["bchain"][MESH_B_SWEEP], rtol=MESH_RTOL,
+                          atol=MESH_ATOL)
+        k = MESH_GATE_SWEEP
+        db = np.abs(a_rows["bchain"][k] - b_rows["bchain"][k]).max(-1)
+        b_apart = int((db > MESH_RTOL
+                       * np.abs(b_rows["bchain"][k]).max(-1)).sum())
+        return bool(ok), b_apart
+
+    # 23a/b. a 1 x 1 mesh (first: it also warms the full records' pinned
+    # buffers), mesh=None and a 2 x 2 mesh on the card
+    r_11, s_11, _, w_11, _ = mesh_run(
+        "mesh_1x1", make_mesh({"pulsar": 1, "chain": 1}, [dev]))
+    r_none, s_none, cov_none, w_none, c_none = mesh_run(
+        "mesh_none", None, device=dev)
+    same_11 = (all(np.array_equal(getattr(r_none, f), getattr(r_11, f))
+                   for f in ("chain", "bchain", "zchain", "thetachain",
+                             "alphachain", "poutchain", "dfchain"))
+               and all(np.array_equal(np.asarray(r_none.stats[k]),
+                                      np.asarray(r_11.stats[k]))
+                       for k in r_none.stats)
+               and r_none.stats.keys() == r_11.stats.keys()
+               and all(torch.equal(a, b) for a, b in zip(s_none, s_11)))
+    mrep["a_one_by_one_bitwise"] = same_11
+    print(f"# mesh 23a: 1 x 1 mesh on cuda:0 bit for bit mesh=None: "
+          f"{same_11} (mesh=None {w_none:.3f} s, 1 x 1 {w_11:.3f} s for "
+          f"{MESH_SWEEPS} sweeps) | {card}", flush=True)
+    if not same_11:
+        fail("the 1 x 1 mesh run differs from the mesh=None run")
+    del r_11, s_11
+    mesh22 = make_mesh({"pulsar": 2, "chain": 2}, [dev] * 4)
+    r_22, s_22, cov_22, w_22, c_22 = mesh_run("mesh_2x2", mesh22)
+    diffs = sweep_diffs(r_22, s_22, r_none, s_none)
+    rows_none = {f: getattr(r_none, f) for f in HELD}
+    gate_ok, b_apart = gated({f: getattr(r_22, f) for f in HELD},
+                             rows_none)
+    finite_22 = all(np.isfinite(getattr(r_22, f)).all() for f in GATED)
+    # the covariance factor the second adapting chunk starts from (after
+    # the first chunk), by pulsar; held where x was bit for bit equal
+    # through that chunk
+    x_same = np.array([np.array_equal(r_22.chain[:MESH_CHUNK + 1, p],
+                                      r_none.chain[:MESH_CHUNK + 1, p])
+                       for p in range(ENS_PULSARS)])
+    cov_a, cov_b = cov_22[1].cpu(), cov_none[1].cpu()
+    cov_close = [bool(torch.allclose(cov_a[p], cov_b[p], rtol=MESH_RTOL,
+                                     atol=MESH_ATOL))
+                 for p in range(ENS_PULSARS)]
+    cov_bits = [bool(torch.equal(cov_a[p], cov_b[p]))
+                for p in range(ENS_PULSARS)]
+    cov_ok = all(c for c, same in zip(cov_close, x_same) if same)
+    mrep["b_two_by_two"] = {
+        "mesh": mesh22.shape, "blocks_on": str(dev),
+        "gate_after_sweeps": MESH_GATE_SWEEP, "gate_ok": gate_ok,
+        "chains_b_apart_at_gate_sweep": b_apart,
+        "finite": finite_22, "per_sweep": diffs,
+        "pulsars_x_bitwise_first_chunk": int(x_same.sum()),
+        "cov_close_where_x_bitwise": cov_ok,
+        "cov_bitwise_pulsars": int(sum(cov_bits)),
+        "cov_bitwise_where_x_bitwise": int(sum(
+            b for b, same in zip(cov_bits, x_same) if same)),
+        "wall_s": {"mesh_none": w_none, "mesh_2x2": w_22},
+        "ms_per_sweep": {"mesh_none": 1e3 * w_none / MESH_SWEEPS,
+                         "mesh_2x2": 1e3 * w_22 / MESH_SWEEPS},
+        "launches_per_sweep": {
+            "mesh_none": sum(c_none.values()) / MESH_SWEEPS,
+            "mesh_2x2": sum(c_22.values()) / MESH_SWEEPS}}
+    for d in diffs:
+        print(f"# mesh 23b sweep {d['sweep']}: max |dx,db,dtheta,ddf| "
+              f"{d['max_abs']:.3e} (rel {d['max_rel']:.3e}), bitwise "
+              f"{d['bitwise']}")
+    b23 = mrep["b_two_by_two"]
+    print(f"# mesh 23b: 2 x 2 mesh on [cuda:0] x 4 against mesh=None: gate "
+          f"{gate_ok} (x, z, theta, df through sweep {MESH_GATE_SWEEP}, "
+          f"b after {MESH_B_SWEEP}; b of {b_apart} of "
+          f"{ENS_PULSARS * ENS_CHAINS} chains more than {MESH_RTOL} of its "
+          f"scale apart after {MESH_GATE_SWEEP}); x bitwise through "
+          f"the first chunk on {b23['pulsars_x_bitwise_first_chunk']}/"
+          f"{ENS_PULSARS} pulsars, covariance factor there close "
+          f"{cov_ok}, bitwise on {b23['cov_bitwise_where_x_bitwise']}; "
+          f"{b23['ms_per_sweep']['mesh_none']:.3f} ms/sweep unsharded, "
+          f"{b23['ms_per_sweep']['mesh_2x2']:.3f} ms/sweep 2 x 2; "
+          f"launches a sweep {b23['launches_per_sweep']['mesh_none']:.1f} "
+          f"/ {b23['launches_per_sweep']['mesh_2x2']:.1f} | {card}",
+          flush=True)
+    if not (gate_ok and finite_22 and cov_ok):
+        fail(f"the 2 x 2 mesh run disagrees with mesh=None: "
+             f"{json.dumps({k: v for k, v in b23.items() if k != 'per_sweep'})}")
+    rows_22 = {f: getattr(r_22, f) for f in HELD}
+    del r_22, s_22, cov_22
+
+    # 23c-e. processes on the card: two gloo ranks under each DCN axis,
+    # a one-rank NCCL group, and run_sims --ensemble, all at once
+    tmp23 = tempfile.mkdtemp(prefix="gst_chip_smoke_mesh_")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        env.pop(k, None)
+
+    def free_port():
+        import socket
+
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            return sk.getsockname()[1]
+
+    children = {}
+    try:
+        for dcn in ("pulsar", "chain"):
+            port = free_port()
+            for rank in range(2):
+                cfg_c = {"mode": "mesh", "port": port, "nproc": 2,
+                         "rank": rank, "backend": "gloo", "dcn": dcn,
+                         "pulsars": ENS_PULSARS, "chains": ENS_CHAINS,
+                         "adapt": MESH_ADAPT, "sweeps": MESH_SWEEPS,
+                         "chunk": MESH_CHUNK, "seed": MESH_SEED,
+                         "gate_sweep": MESH_GATE_SWEEP,
+                         "out": os.path.join(tmp23, f"{dcn}{rank}.npz")}
+                children[(dcn, rank)] = subprocess.Popen(
+                    [sys.executable, "-c", CHILD23, HERE, json.dumps(cfg_c)],
+                    cwd=HERE, env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True)
+        children[("nccl", 0)] = subprocess.Popen(
+            [sys.executable, "-c", CHILD23, HERE, json.dumps(
+                {"mode": "nccl", "port": free_port(), "nproc": 1, "rank": 0,
+                 "backend": "nccl"})],
+            cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        children[("run_sims", 0)] = subprocess.Popen(
+            [sys.executable, "-m", "gibbs_student_t_tpu_torch.drivers.run_sims",
+             "--ensemble", "4", "--device", "cuda", "--models", "beta",
+             "--nchains", "64", "--niter", "10", "--burn", "2", "--thetas",
+             "0.1", "--seed", "5", "--simdir", os.path.join(tmp23, "sim"),
+             "--outdirs", os.path.join(tmp23, "o1"),
+             os.path.join(tmp23, "o2")],
+            cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        outs = {}
+        for key, proc in children.items():
+            out, err = proc.communicate(timeout=CHILD_TIMEOUT_S)
+            if proc.returncode != 0:
+                fail(f"phase 23 child {key} exited {proc.returncode}: "
+                     f"{err[-3000:]}")
+            outs[key] = (out, err)
+        # 23c. each rank's rows against its slice of 23b's unsharded run,
+        # and R-hat over the two ranks against the host's
+        crep = mrep["c_processes"] = {}
+        for dcn in ("pulsar", "chain"):
+            got = [json.loads(outs[(dcn, r)][0].strip().splitlines()[-1])
+                   for r in range(2)]
+            rows = [dict(np.load(os.path.join(tmp23, f"{dcn}{r}.npz")))
+                    for r in range(2)]
+            ok_rows, b_apart_c, same_22 = [], [], []
+            seen = np.zeros((ENS_PULSARS, ENS_CHAINS), int)
+            worst = 0.0
+            for r in rows:
+                ps = slice(int(r["pulsar_start"]), int(r["pulsar_stop"]))
+                cs = slice(int(r["chain_start"]), int(r["chain_stop"]))
+                seen[ps, cs] += 1
+                mine = {f: r[f] for f in HELD}
+                ref = {f: rows_none[f][:MESH_GATE_SWEEP + 1, ps, cs]
+                       for f in HELD}
+                ok_r, apart_r = gated(mine, ref)
+                ok_rows.append(ok_r)
+                b_apart_c.append(apart_r)
+                # the same blocks as 23b's 2 x 2 mesh, in two processes
+                same_22.append(all(np.array_equal(
+                    mine[f], rows_22[f][:len(mine[f]), ps, cs])
+                    for f in HELD))
+                worst = max(worst, max(float(np.abs(
+                    mine[f][MESH_GATE_SWEEP] - ref[f][MESH_GATE_SWEEP]).max())
+                    for f in GATED))
+            pooled = np.concatenate([r["chain"][:, 0, :, 0] for r in rows],
+                                    axis=1)
+            want = gelman_rubin(pooled)
+            rh_ok = all(abs(g["rhat"] - want) <= 1e-5 * abs(want)
+                        for g in got)
+            crep[dcn] = {"rows_gate_ok": ok_rows,
+                         "chains_b_apart_at_gate_sweep": b_apart_c,
+                         "bitwise_the_2x2_mesh": same_22, "tiled_once":
+                         bool((seen == 1).all()), "max_abs_diff_at_gate":
+                         worst, "rhat": [g["rhat"] for g in got],
+                         "gelman_rubin": want, "rhat_ok": rh_ok,
+                         "backend": [g["backend"] for g in got],
+                         "blocks": [g["blocks"] for g in got],
+                         "child_s": [g["seconds"] for g in got],
+                         "sample_s": [g["sample_s"] for g in got]}
+            print(f"# mesh 23c dcn {{'{dcn}': 2}}: {json.dumps(crep[dcn])}",
+                  flush=True)
+            if not (all(ok_rows) and crep[dcn]["tiled_once"] and rh_ok
+                    and all(g["backend"] == "gloo" for g in got)):
+                fail(f"phase 23c under dcn {dcn}: "
+                     f"{json.dumps(crep[dcn])}")
+        # 23d. a one-rank NCCL group: R-hat of CUDA tensors
+        nd = json.loads(outs[("nccl", 0)][0].strip().splitlines()[-1])
+        mrep["d_nccl"] = nd
+        nccl_ok = (nd["initialized"] and nd["backend"] == "nccl"
+                   and abs(nd["rhat"] - nd["gelman_rubin"])
+                   <= 1e-5 * abs(nd["gelman_rubin"]))
+        print(f"# mesh 23d: {json.dumps(nd)} ok {nccl_ok}", flush=True)
+        if not nccl_ok:
+            fail(f"phase 23d: rhat_collective over NCCL: {json.dumps(nd)}")
+        # 23e. run_sims --ensemble on the card: its 1 x 1 mesh
+        err_e = outs[("run_sims", 0)][1]
+        line = [ln for ln in err_e.splitlines()
+                if ln.startswith("# ensemble:")]
+        trees = [ln for ln in outs[("run_sims", 0)][0].splitlines()
+                 if ln.strip()]
+        mrep["e_run_sims"] = {"line": line, "trees": len(trees)}
+        print(f"# mesh 23e: {line} {len(trees)} trees", flush=True)
+        if (len(line) != 1 or "mesh {'pulsar': 1, 'chain': 1}" not in line[0]
+                or len(trees) != 4):
+            fail(f"phase 23e: run_sims --ensemble printed {line}, "
+                 f"{len(trees)} trees")
+    finally:
+        for proc in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp23, ignore_errors=True)
+    del r_none, s_none, cov_none, rows_none, rows_22
+    mrep["seconds"] = time.perf_counter() - t23
+    print(f"# phase 23: {mrep['seconds']:.1f} s | {card}", flush=True)
 
     # the redesigned kernels beside the first design and the library call
     # (reported, not gated)

@@ -844,9 +844,8 @@ class TorchGibbs(SamplerBackend):
         """Prior draws of x (numpy, from ``seed``) unless ``x0`` is given;
         z/alpha/theta/df at the reference's starting values."""
         mm, cfg = self._ma, self.config
-        rng = np.random.default_rng(seed)
         if x0 is None:
-            x0 = np.stack([mm.x_init(rng) for _ in range(self.nchains)])
+            x0 = self._x0_draws(seed, self.nchains)
         x0 = np.asarray(x0, dtype=np.float32)
         if x0.ndim == 1:
             x0 = np.broadcast_to(x0, (self.nchains, len(x0))).copy()
@@ -874,6 +873,12 @@ class TorchGibbs(SamplerBackend):
             df=full((c,), cfg.tdf), pout=full((c, n), 0.0),
             acc_white=full((c,), 0.0), acc_hyper=full((c,), 0.0),
             mh_log_scale=full((c, 2), 0.0), mh_cov_chol=cov0)
+
+    def _x0_draws(self, seed: int, nchains: int) -> np.ndarray:
+        """``(nchains, p)`` prior draws of x from ``seed``, chain after
+        chain (the first k of them are a k-chain sampler's)."""
+        rng_ = np.random.default_rng(seed)
+        return np.stack([self._ma.x_init(rng_) for _ in range(nchains)])
 
     def _draw_table(self) -> rng.DrawTable:
         """The raw fields of one sweep's draws: per MH block the
@@ -1372,6 +1377,78 @@ class TorchGibbs(SamplerBackend):
                 f"start_sweep ({start_sweep}) must land on a recorded "
                 f"sweep (multiple of record_thin={self.record_thin})")
 
+    def _parts(self):
+        """``(sampler, window)`` pairs that run this sampler's chunks: the
+        sampler itself over its whole batch; an ensemble over a mesh has
+        one a block (parallel/ensemble.py), each with its window of the
+        ``(P, C)`` batch this process holds."""
+        return [(self, ())]
+
+    def _split(self, state: ChainState) -> list:
+        """The parts' states (:meth:`_parts`) of ``state``."""
+        return [state]
+
+    def _join(self, states: list, device=None) -> ChainState:
+        """The state of the whole batch from the parts' ``states`` (on
+        ``device``, default the sampler's, where there is more than
+        one)."""
+        return states[0]
+
+    def _pre_chunk(self, states: list) -> list:
+        """The population-covariance re-estimation before an adapting
+        chunk (:meth:`_prop_cov_update`), over the parts' states."""
+        return [self._prop_cov_update(states[0])]
+
+    def _place(self, pieces: list, lead: int) -> np.ndarray:
+        """The parts' host arrays as one array of the batch: each piece is
+        ``(*lead axes, *part batch, ...)`` and lands in its part's window;
+        a single part's piece is the array itself."""
+        if len(pieces) == 1:
+            return pieces[0]
+        p0 = pieces[0]
+        out = np.empty(p0.shape[:lead] + tuple(self._batch)
+                       + p0.shape[lead + len(self._batch):], p0.dtype)
+        for (_, window), piece in zip(self._parts(), pieces):
+            out[(slice(None),) * lead + tuple(window)] = piece
+        return out
+
+    def _issue_chunk(self, st: ChainState, keys, offset: int, length: int,
+                     with_state: bool):
+        """Issue one chunk of ``length`` sweeps from ``st`` at sweep
+        ``offset`` on this sampler's device and start its records'
+        copy to the host: ``(state, (pull, program))``, where ``pull`` (a
+        ``_HostCopy``) holds the recorded rows in their wire dtypes, then
+        the chunk's ``Telemetry`` when it is on, then (``with_state``)
+        the chunk-end state, and ``program`` is the run's record of this
+        chunk signature's first chunk (obs/introspect.py), closed at the
+        chunk's flush."""
+        thin = self.record_thin
+        fields = self._record_fields
+        program = program_begin(self._program_label(), self, length,
+                                str(self.device))
+        rows = {f: [] for f in fields}
+        tl = (telemetry_init(self._batch, self.device, self.dtype)
+              if self.telemetry else None)
+        # the chunk's sweep indices on the device: sweep i reads its own
+        # element, a view (no launch)
+        sweeps = torch.arange(offset, offset + length, device=self.device)
+        for j, i in enumerate(range(offset, offset + length)):
+            if j % thin == 0:
+                for f in fields:
+                    rows[f].append(getattr(st, f))
+            st = self._sweep(st, self._draw(keys, sweeps[j], st), sweep=i)
+            if tl is not None:
+                tl = telemetry_update(tl, st)
+        recs = record_tuple(
+            SimpleNamespace(**{f: torch.stack(v) for f, v in rows.items()}),
+            fields, self._record_casts)
+        if tl is not None:
+            tl = tl._replace(logpost=self._logpost_chain(st))
+            recs = recs + tuple(tl)
+        if with_state:
+            recs = recs + tuple(st)
+        return st, (_HostCopy(recs, self._pull_stream), program)
+
     def _run(self, niter: int, seed: int, state: ChainState,
              start_sweep: int, reinit_diverged: bool = False, spool=None):
         """The chunked loop of :meth:`sample` from ``state``: ``(cols,
@@ -1379,14 +1456,17 @@ class TorchGibbs(SamplerBackend):
         *batch, ...)`` (per-TOA fields at the padded length; none when the
         rows go to ``spool``, a ``ChainSpool``, instead, cut to the real
         TOAs by :meth:`_trim`) and the run's ``n_reinits`` and ``tele_*``
-        stats; ``last_state`` is set."""
+        stats; ``last_state`` is set. Each chunk is issued on every part
+        (:meth:`_parts`) before any part's records are read."""
         mh = self.config.mh
-        keys = self._chain_keys(seed)
+        parts = self._parts()
+        keys = [smp._chain_keys(seed) for smp, _ in parts]
         rng.check_counter("the last sweep index", start_sweep + niter - 1)
         thin = self.record_thin
         fields = self._record_fields
-        if self.device.type == "cuda" and self._pull_stream is None:
-            self._pull_stream = torch.cuda.Stream(self.device)
+        for smp, _ in parts:
+            if smp.device.type == "cuda" and smp._pull_stream is None:
+                smp._pull_stream = torch.cuda.Stream(smp.device)
         # the run's host arrays, filled chunk by chunk: a chunk's pinned
         # buffers go back to the allocator once copied, so pinned memory
         # stays at two chunks however long the run
@@ -1404,53 +1484,40 @@ class TorchGibbs(SamplerBackend):
         n_reinits0 = (int(spool.load_run_stats().get("n_reinits", 0))
                       if spool is not None and start_sweep > 0 else 0)
 
-        def step(st, offset, length):
-            # the run's record of this chunk signature's first chunk
-            # (obs/introspect.py), closed at the chunk's flush
-            program = program_begin(self._program_label(), self, length,
-                                    str(self.device))
-            rows = {f: [] for f in fields}
-            tl = (telemetry_init(self._batch, self.device, self.dtype)
-                  if self.telemetry else None)
-            # the chunk's sweep indices on the device: sweep i reads its
-            # own element, a view (no launch)
-            sweeps = torch.arange(offset, offset + length, device=self.device)
-            for j, i in enumerate(range(offset, offset + length)):
-                if j % thin == 0:
-                    for f in fields:
-                        rows[f].append(getattr(st, f))
-                st = self._sweep(st, self._draw(keys, sweeps[j], st),
-                                 sweep=i)
-                if tl is not None:
-                    tl = telemetry_update(tl, st)
-            recs = record_tuple(
-                SimpleNamespace(**{f: torch.stack(v)
-                                   for f, v in rows.items()}),
-                fields, self._record_casts)
-            if tl is not None:
-                tl = tl._replace(logpost=self._logpost_chain(st))
-                recs = recs + tuple(tl)
-            if state_in_pull:
-                recs = recs + tuple(st)
-            return st, (_HostCopy(recs, self._pull_stream), program)
+        def step(states, offset, length):
+            out = [smp._issue_chunk(st, k, offset, length, state_in_pull)
+                   for (smp, _), st, k in zip(parts, states, keys)]
+            return [o[0] for o in out], [o[1] for o in out]
 
-        def flush(chunk, chunk_state, sweep_end, n_reinits):
-            pull, program = chunk
-            host = pull.wait()
-            program_end(program, self.device, self.metrics)
+        def reinit(states, sweep_end):
+            out = [smp._reinit_diverged(st, seed=seed + 7919 * sweep_end)
+                   for (smp, _), st in zip(parts, states)]
+            return [o[0] for o in out], sum(o[1] for o in out)
+
+        def flush(chunks, chunk_states, sweep_end, n_reinits):
+            hosts = []
+            for (smp, _), (pull, program) in zip(parts, chunks):
+                hosts.append(pull.wait())
+                program_end(program, smp.device, self.metrics)
             k = len(fields)
             if tele_acc is not None:
                 summary = tele_acc.add(Telemetry(*(
-                    t.numpy() for t in host[k:k + n_tele])))
+                    self._place([h[k + i].numpy() for h in hosts], 0)
+                    for i in range(n_tele))))
                 if self.metrics is not None:
                     tele_acc.emit_chunk(self.metrics, sweep_end, summary)
-            rows = self._materialize(host[:k])
+            per_part = [self._materialize(h[:k]) for h in hosts]
+            rows = [self._place([r[i] for r in per_part], 1)
+                    for i in range(k)]
             if spool is not None:
+                chunk_state = (self._join(
+                    [ChainState(*h[k + n_tele:]) for h in hosts],
+                    torch.device("cpu"))
+                    if state_in_pull else self._join(chunk_states))
                 with host_span("gibbs/spool_append"):
                     spool.append(
                         {f: self._trim(f, a) for f, a in zip(fields, rows)},
-                        (type(chunk_state)(*host[k + n_tele:])
-                         if state_in_pull else chunk_state), sweep_end,
+                        chunk_state, sweep_end,
                         run_stats=({"n_reinits": n_reinits}
                                    if reinit_diverged else None))
                 return
@@ -1463,18 +1530,16 @@ class TorchGibbs(SamplerBackend):
             filled[0] = r0 + len(a)
 
         try:
-            state, n_reinits = chunked_sweep_loop(
-                state, niter, self.chunk_size, start_sweep, step_fn=step,
-                flush_fn=flush, pre_chunk_fn=self._prop_cov_update,
+            states, n_reinits = chunked_sweep_loop(
+                self._split(state), niter, self.chunk_size, start_sweep,
+                step_fn=step, flush_fn=flush, pre_chunk_fn=self._pre_chunk,
                 pre_chunk_until=mh.adapt_until if mh.adapt_cov else 0,
-                reinit_fn=((lambda st, end: self._reinit_diverged(
-                    st, seed=seed + 7919 * end)) if reinit_diverged
-                    else None),
+                reinit_fn=reinit if reinit_diverged else None,
                 n_reinits=n_reinits0)
         finally:
             if spool is not None:
                 spool.close()
-        self.last_state = state
+        self.last_state = self._join(states)
         stats = {}
         if reinit_diverged:
             stats["n_reinits"] = np.asarray(n_reinits)

@@ -12,8 +12,10 @@ through ``TorchGibbs``, and save the seven chain arrays with ``--burn``
 rows dropped into ``{outdir}/{model}/{theta}/{idx}/`` (reference
 run_sims.py:114-124), with the chain axis after the row axis. With
 ``--ensemble N``, one theta's N pulsars (heterogeneous TOA counts) run as
-one ``EnsembleGibbs`` population on one GPU and each pulsar's tree lands
-under ``{outdir}/ensemble/{model}/{theta}/{i:02d}_{name}``.
+one ``EnsembleGibbs`` population over a ``('pulsar', 'chain')`` mesh of
+the GPUs (as the JAX driver builds it: the largest grid that divides both
+populations; 1 x 1 on one GPU, or under ``--device cpu``) and each
+pulsar's tree lands under ``{outdir}/ensemble/{model}/{theta}/{i:02d}_{name}``.
 
 It runs on the GPU (``--device cuda``, the default) and exits non-zero,
 naming CUDA, where CUDA is absent; ``--device cpu`` runs the kernels'
@@ -95,11 +97,13 @@ def run_one(ma, cfg, device: str, niter: int, nchains: int, seed: int,
 
 
 def _synced(device: str) -> None:
-    """Wait for the device, so a wall read next covers its work."""
+    """Wait for the devices, so a wall read next covers their work (an
+    ensemble's mesh may hold every card)."""
     if device == "cuda":
         import torch
 
-        torch.cuda.synchronize()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
 def _summarize(key: str, res, dt: float, niter: int) -> str:
@@ -152,14 +156,17 @@ def _tele_chain_fields(res) -> dict:
 
 def run_ensemble(args, configs, parfile, timfile, rng):
     """``--ensemble N``: an N-pulsar array sampled as one
-    ``EnsembleGibbs`` population (the grouped kernels, one GPU). Pulsar
-    datasets get distinct noise realizations and heterogeneous TOA counts
-    (``ntoa - (i % 3) * (ntoa // 13)``); the ensemble masks the padding
-    and each pulsar's tree is saved unpadded."""
+    ``EnsembleGibbs`` population over a mesh (the grouped kernels in each
+    block). Pulsar datasets get distinct noise realizations and
+    heterogeneous TOA counts (``ntoa - (i % 3) * (ntoa // 13)``); the
+    ensemble masks the padding and each pulsar's tree is saved
+    unpadded."""
+    import torch
+
     from gibbs_student_t_tpu_torch.data.pulsar import Pulsar
     from gibbs_student_t_tpu_torch.data.simulate import simulate_data
     from gibbs_student_t_tpu_torch.obs.tracing import trace_to
-    from gibbs_student_t_tpu_torch.parallel import EnsembleGibbs
+    from gibbs_student_t_tpu_torch.parallel import EnsembleGibbs, make_mesh
 
     theta = args.thetas[0]
     mas = []
@@ -173,14 +180,31 @@ def run_ensemble(args, configs, parfile, timfile, rng):
             [f for f in os.listdir(out1) if f.endswith(".par")][0])[0]
         psr = Pulsar(f"{out1}/{name}.par", f"{out1}/{name}.tim")
         mas.append(build_pta(psr, args.components).frozen())
+    # the largest device grid whose axes divide the pulsar and chain
+    # populations (even blocks); unused devices are left idle
+    devices = ([torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+               if args.device == "cuda" else [torch.device("cpu")])
+    ndev = len(devices)
+    n_p = n_c = 1
+    for cp in range(1, ndev + 1):
+        if args.ensemble % cp:
+            continue
+        for cc in range(1, ndev // cp + 1):
+            if args.nchains % cc == 0 and cp * cc > n_p * n_c:
+                n_p, n_c = cp, cc
+    # always a mesh, even of one device (1 x 1): the run on the card takes
+    # the sharded path the CPU mesh tests hold
+    mesh = make_mesh({"pulsar": n_p, "chain": n_c},
+                     devices=devices[:n_p * n_c])
     print(f"# ensemble: {args.ensemble} pulsars x {args.nchains} chains "
-          f"on one {args.device} device (grouped form)", file=sys.stderr,
+          f"on {ndev} device(s), mesh {mesh.shape}", file=sys.stderr,
           flush=True)
 
     for key, cfg in configs.items():
         seed = int(rng.integers(0, 2 ** 31))
-        ens = EnsembleGibbs(mas, cfg, nchains=args.nchains,
-                            device=args.device, record=args.record,
+        ens = EnsembleGibbs(mas, cfg, nchains=args.nchains, mesh=mesh,
+                            record=args.record,
                             record_thin=args.record_thin,
                             telemetry=args.telemetry, metrics=args.registry)
         if args.registry is not None:

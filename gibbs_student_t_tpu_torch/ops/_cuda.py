@@ -28,8 +28,11 @@ The run's introspection (obs/introspect.py) reads :data:`last_build`,
 (:data:`ptxas_report` when this process compiled, else
 ``_build/ptxas.txt``), parsed by :func:`parse_ptxas`.
 
-Every C entry returns ``cudaGetLastError()`` after its launch;
-:func:`check` raises when that is non-zero. Nothing here is built on a
+Every kernel wrapper launches through :func:`launch`, which enters
+:func:`guard` for the device of the wrapper's tensors, passes that
+device's current stream and raises (:func:`check`) when the C entry's
+``cudaGetLastError()`` after its launch is non-zero; :func:`use_kernel`
+is the wrappers' one test of a tensor's device. Nothing here is built on a
 host without CUDA: the CPU tests never reach :func:`lib` (obs/introspect.py
 only reads this module's records there).
 """
@@ -287,6 +290,39 @@ def check(err: int, what: str) -> None:
     """Raise when a C entry reported a CUDA error for its launch."""
     if err:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def use_kernel(t, what: str) -> bool:
+    """Whether a wrapper given ``t`` launches its kernel: True on a CUDA
+    device, False on the CPU (it runs its plain version there); any other
+    device raises. Every wrapper decides by this test of its tensor's
+    device, never by a probe of the host."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise RuntimeError(f"{what}: no kernel for device {t.device}")
+    return True
+
+
+def guard(device):
+    """The context in which work for ``device`` is issued:
+    ``torch.cuda.device(device)``, so that the runtime works in that
+    device's context whatever device is current."""
+    import torch
+
+    return torch.cuda.device(device)
+
+
+def launch(entry: str, device, *args, what: str = "") -> None:
+    """One launch of the C entry ``gst_<entry>`` for tensors on ``device``,
+    the one path of every kernel wrapper: under :func:`guard` (a ctypes
+    entry launches in the current device's context, which would read a
+    ``cuda:1`` tensor's pointers as ``cuda:0``'s), on ``device``'s current
+    stream, passed after ``args``; raises when the entry reports an
+    error (named ``what``, default ``entry``)."""
+    with guard(device):
+        check(getattr(lib(), "gst_" + entry)(*args, stream(device)),
+              what or entry)
 
 
 def ptr(t) -> int:

@@ -173,16 +173,14 @@ def _chol_fused(name, S, rhs, per_block=None):
     m = S.shape[-1]
     _check(name, S, rhs, m)
     check_per_block(name, per_block, m)
-    if S.device.type == "cpu":
+    from gibbs_student_t_tpu_torch.ops import _cuda
+
+    if not _cuda.use_kernel(S, name):
         note_kernel(name, "plain", (math.prod(S.shape[:-2]), m))
         return chol_fused_plain(S, rhs), 0
-    if S.device.type != "cuda":
-        raise RuntimeError(f"{name}: no kernel for device {S.device}")
     if m > MAX_CHOL_DIM:
         raise ValueError(f"{name}: m = {m} exceeds MAX_CHOL_DIM "
                          f"({MAX_CHOL_DIM})")
-    from gibbs_student_t_tpu_torch.ops import _cuda
-
     Sc = S.reshape(-1, m, m).contiguous()
     rc = rhs.reshape(-1, m).contiguous()
     B = Sc.shape[0]
@@ -195,9 +193,9 @@ def _chol_fused(name, S, rhs, per_block=None):
             per_block = per_block if form == "warp" else 0
         note_kernel(name, "cuda", (B, m),
                     lambda: form_meta(m, per_block))
-        _cuda.check(_cuda.lib().gst_chol_fused(
-            _cuda.ptr(Sc), _cuda.ptr(rc), _cuda.ptr(L), _cuda.ptr(u),
-            _cuda.ptr(ld), B, m, per_block, _cuda.stream(S.device)), name)
+        _cuda.launch("chol_fused", S.device, _cuda.ptr(Sc), _cuda.ptr(rc),
+                     _cuda.ptr(L), _cuda.ptr(u), _cuda.ptr(ld), B, m,
+                     per_block, what=name)
     return ((L.reshape(S.shape), ld.reshape(S.shape[:-2]),
              u.reshape(rhs.shape)), int(B > 0))
 
@@ -248,25 +246,22 @@ def _tri_solve_T(name, L, rhs):
     CPU, one launch of the back-solve kernel on a CUDA device."""
     m = L.shape[-1]
     _check(name, L, rhs, m)
-    if L.device.type == "cpu":
+    from gibbs_student_t_tpu_torch.ops import _cuda
+
+    if not _cuda.use_kernel(L, name):
         note_kernel(name, "plain", (math.prod(L.shape[:-2]), m))
         return tri_solve_T_plain(L, rhs), 0
-    if L.device.type != "cuda":
-        raise RuntimeError(f"{name}: no kernel for device {L.device}")
     if m > MAX_CHOL_DIM:
         raise ValueError(f"{name}: m = {m} exceeds MAX_CHOL_DIM "
                          f"({MAX_CHOL_DIM})")
-    from gibbs_student_t_tpu_torch.ops import _cuda
-
     Lc = L.reshape(-1, m, m).contiguous()
     rc = rhs.reshape(-1, m).contiguous()
     B = Lc.shape[0]
     x = torch.empty_like(rc)
     if B:
         note_kernel(name, "cuda", (B, m))
-        _cuda.check(_cuda.lib().gst_tri_solve_T(
-            _cuda.ptr(Lc), _cuda.ptr(rc), _cuda.ptr(x), B, m,
-            _cuda.stream(L.device)), name)
+        _cuda.launch("tri_solve_T", L.device, _cuda.ptr(Lc), _cuda.ptr(rc),
+                     _cuda.ptr(x), B, m, what=name)
     return x.reshape(rhs.shape), int(B > 0)
 
 

@@ -287,16 +287,15 @@ def _hyper_mh(name, x, S0, dS0, rt, base, dx, logu, K, sel, specs, hyp_idx,
         raise ValueError(f"{name}: inconsistent operand shapes")
     check_per_block(name, per_block, v, HYPER_WARP_MAX_V)
     kname = name + "_grouped" if groups and name == "hyper_mh" else name
-    if x.device.type == "cpu":
+    from gibbs_student_t_tpu_torch.ops import _cuda
+
+    if not _cuda.use_kernel(x, name):
         note_kernel(kname, "plain", (*B, v, p))
         return hyper_mh_loop(x, S0, dS0, rt, base, dx, logu, K, sel, specs,
                              hyp_idx, jitter), 0
-    if x.device.type != "cuda":
-        raise RuntimeError(f"{name}: no kernel for device {x.device}")
     if v > MAX_HYPER_V or nk > MAX_HYPER_K:
         raise ValueError(f"{name}: v = {v} / nk = {nk} exceed the "
                          f"kernel bounds ({MAX_HYPER_V}, {MAX_HYPER_K})")
-    from gibbs_student_t_tpu_torch.ops import _cuda
 
     ops = [t.contiguous() for t in (x, S0, dS0, rt, base, dx, logu, K, sel,
                                     specs)]
@@ -311,10 +310,9 @@ def _hyper_mh(name, x, S0, dS0, rt, base, dx, logu, K, sel, specs, hyp_idx,
         note_kernel(kname, "cuda", (*B, v, p), lambda: {
             "form": "warp" if per_block else "block",
             "per_block": per_block})
-        _cuda.check(_cuda.lib().gst_hyper_mh(
-            *(_cuda.ptr(t) for t in ops), _cuda.addr(hi), nk,
-            _cuda.ptr(xo), _cuda.ptr(acc), C, B[-1], v, p, S, float(jitter),
-            per_block, _cuda.stream(x.device)), name)
+        _cuda.launch("hyper_mh", x.device, *(_cuda.ptr(t) for t in ops),
+                     _cuda.addr(hi), nk, _cuda.ptr(xo), _cuda.ptr(acc), C,
+                     B[-1], v, p, S, float(jitter), per_block, what=name)
     return (xo, acc), int(C > 0)
 
 

@@ -559,13 +559,12 @@ def sweep_draws(keys, sweep, shapes, table: DrawTable, out=None,
     ``elems`` (values a thread, other and gamma fields; default
     :func:`draw_elems`) sets the tiles' length, for measurements; it does
     not change the values."""
-    if keys.device.type == "cpu":
+    from gibbs_student_t_tpu_torch.ops import _cuda
+
+    if not _cuda.use_kernel(keys, "sweep_draws"):
         note_kernel("sweep_draws", "plain",
                     (math.prod(keys.shape[:-1]), table.width))
         return sweep_draws_plain(keys, sweep, shapes, table, out=out)
-    if keys.device.type != "cuda":
-        raise RuntimeError(f"sweep_draws: no kernel for device {keys.device}")
-    from gibbs_student_t_tpu_torch.ops import _cuda
 
     kf, sw, sh, batch = _flat_operands("sweep_draws", keys, sweep, shapes)
     if len(table.segments) > MAX_SEGMENTS:
@@ -583,11 +582,11 @@ def sweep_draws(keys, sweep, shapes, table: DrawTable, out=None,
     if B and table.width:
         note_kernel("sweep_draws", "cuda", (B, table.width))
         tiles, segs = table.launch(B, keys.device, elems)
-        _cuda.check(_cuda.lib().gst_sweep_draws(
-            _cuda.ptr(kf), _cuda.ptr(sw), int(sw.numel() > 1), _cuda.ptr(sh),
-            sh.shape[-1], _cuda.ptr(out), _cuda.addr(segs),
-            len(table.segments), _cuda.ptr(tiles), tiles.shape[0], B,
-            _cuda.stream(keys.device)), "sweep_draws")
+        _cuda.launch("sweep_draws", keys.device, _cuda.ptr(kf),
+                     _cuda.ptr(sw), int(sw.numel() > 1), _cuda.ptr(sh),
+                     sh.shape[-1], _cuda.ptr(out), _cuda.addr(segs),
+                     len(table.segments), _cuda.ptr(tiles), tiles.shape[0],
+                     B)
         sweep_draws.launches += 1
     return out
 

@@ -24,7 +24,8 @@ The clock follows the device of the tensors the stage works on, as a
 kernel wrapper's choice of its plain version does, never a probe. On a
 CUDA device a bracket records two ``torch.cuda.Event(enable_timing=True)``
 on the device's current stream, taken from a pool and given back once
-read. A bracket opened with ``follows=`` the bracket that just closed on
+read, each recorded under ``_cuda.guard`` of that device, as the kernels
+are launched. A bracket opened with ``follows=`` the bracket that just closed on
 the same thread, with no device work issued between the two, starts at
 that bracket's end event on its stream instead of recording its own: the
 sweep's brackets from ``white_mh`` to ``solves`` (and ``resid`` where
@@ -74,6 +75,7 @@ from typing import Dict
 
 import torch
 
+from gibbs_student_t_tpu_torch.ops import _cuda
 from gibbs_student_t_tpu_torch.utils.env import env_choice
 
 #: stage names in the JAX enum's order (native/src/gst_kernels.h StageId)
@@ -282,12 +284,14 @@ class _CudaBracket:
                     return self
         self.stream = torch.cuda.current_stream(self.device)
         self.start = _event(self.dev)
-        self.start.record(self.stream)
+        with _cuda.guard(self.device):
+            self.start.record(self.stream)
         return self
 
     def __exit__(self, *exc):
         end = _event(self.dev)
-        end.record(self.stream)
+        with _cuda.guard(self.device):
+            end.record(self.stream)
         self.entry = [self.i, self.dev, self.start, end, False, False]
         with _lock:
             _pending.append(self.entry)

@@ -203,13 +203,12 @@ def tnt_batched(T, y, nvec, block_size: int):
         raise ValueError(
             f"tnt_batched needs n ({n}) to be a multiple of block_size "
             f"({block_size}); use pad_rows first")
-    if nvec.device.type == "cpu":
+    from gibbs_student_t_tpu_torch.ops import _cuda
+
+    if not _cuda.use_kernel(nvec, "tnt_batched"):
         note_kernel("tnt_batched", "plain", (C, n, m))
         return tnt_products(T, y, nvec, block_size)
-    if nvec.device.type != "cuda":
-        raise RuntimeError(f"tnt_batched: no kernel for device {nvec.device}")
     note_kernel("tnt_batched", "cuda", (C, n, m))
-    from gibbs_student_t_tpu_torch.ops import _cuda
 
     w = 1.0 / nvec
     # y^T N^-1 y as one matrix-vector product: a pass less over (C, n)
@@ -223,10 +222,9 @@ def tnt_batched(T, y, nvec, block_size: int):
         work = torch.empty((lib.gst_tnt_workspace(C, n, m),), dtype=T.dtype,
                            device=T.device)
         Tc, yc = _aligned16(T), _aligned16(y)
-        _cuda.check(lib.gst_tnt_batched(
-            _cuda.ptr(Tc), _cuda.ptr(yc), _cuda.ptr(w), _cuda.ptr(pairs),
-            pairs.shape[1], _cuda.ptr(work), _cuda.ptr(TNT), _cuda.ptr(d),
-            C, n, m, _cuda.stream(T.device)), "tnt_batched")
+        _cuda.launch("tnt_batched", T.device, _cuda.ptr(Tc), _cuda.ptr(yc),
+                     _cuda.ptr(w), _cuda.ptr(pairs), pairs.shape[1],
+                     _cuda.ptr(work), _cuda.ptr(TNT), _cuda.ptr(d), C, n, m)
         tnt_batched.launches += 1
     return TNT, d, const
 
@@ -283,14 +281,13 @@ def tnt_lanes(T, y, nvec, gid):
     group), which forms ``w = 1/nvec`` and writes TNT (both triangles, the
     same float in each), d and the constant; counted on
     ``tnt_lanes.launches``. On the CPU, :func:`tnt_lanes_plain`."""
-    if nvec.device.type == "cpu":
+    from gibbs_student_t_tpu_torch.ops import _cuda
+
+    if not _cuda.use_kernel(nvec, "tnt_lanes"):
         note_kernel("tnt_lanes", "plain",
                     (*nvec.shape[:-1], nvec.shape[-1], T.shape[-1]))
         return tnt_lanes_plain(T, y, nvec, gid)
     Tg, yg, nv = _tnt_lanes_operands(T, y, nvec, gid)
-    if nvec.device.type != "cuda":
-        raise RuntimeError(f"tnt_lanes: no kernel for device {nvec.device}")
-    from gibbs_student_t_tpu_torch.ops import _cuda
 
     G, C, n = nv.shape
     m = Tg.shape[-1]
@@ -309,11 +306,10 @@ def tnt_lanes(T, y, nvec, gid):
         note_kernel("tnt_lanes", "cuda", (G, C, n, m),
                     lambda: {"form": lanes_form(G, m)})
         tiles = _device_lanes_tiles(m, T.device)
-        _cuda.check(_cuda.lib().gst_tnt_lanes(
-            _cuda.ptr(Tg), _cuda.ptr(yg), _cuda.ptr(nv), _cuda.ptr(tiles),
-            tiles.shape[1], _cuda.ptr(TNT), _cuda.ptr(d), _cuda.ptr(const),
-            B, n, m, Tg.stride(0), yg.stride(0), lanes_form(G, m),
-            _cuda.stream(T.device)), "tnt_lanes")
+        _cuda.launch("tnt_lanes", T.device, _cuda.ptr(Tg), _cuda.ptr(yg),
+                     _cuda.ptr(nv), _cuda.ptr(tiles), tiles.shape[1],
+                     _cuda.ptr(TNT), _cuda.ptr(d), _cuda.ptr(const), B, n, m,
+                     Tg.stride(0), yg.stride(0), lanes_form(G, m))
         tnt_lanes.launches += 1
     lanes = nvec.shape[:-1]
     return (TNT.reshape(*lanes, m, m), d.reshape(*lanes, m),

@@ -267,15 +267,14 @@ def white_mh(x, az, yred2, dx, logu, rows, specs, var):
     if dx.shape != (*B, S, p) or logu.shape != (*B, S):
         raise ValueError("white_mh: inconsistent draw shapes")
     name = "white_mh_grouped" if len(B) == 2 else "white_mh"
-    if x.device.type == "cpu":
+    if not _use_kernel("white_mh", x, var):
         note_kernel(name, "plain", (*B, n, p))
         return white_mh_loop(x, az, yred2, dx, logu, rows, specs, var)
-    _check_kernel("white_mh", x, var)
     note_kernel(name, "cuda", (*B, n, p), lambda: white_form(n, p)._asdict())
     xo = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     acc = torch.empty(B, dtype=x.dtype, device=x.device)
     if x.numel():
-        _launch("gst_white_mh", (x, az, yred2, dx, logu), rows, specs, var,
+        _launch("white_mh", (x, az, yred2, dx, logu), rows, specs, var,
                 xo, acc, B, (n, p, S))
         if len(B) == 2:
             white_mh.launches_grouped += 1
@@ -328,17 +327,16 @@ def white_mh_lanes(x, az, yred2, dx, logu, rows, specs, gid, var):
     if ops[3].shape != (*B, S, p) or ops[4].shape != (*B, S):
         raise ValueError("white_mh_lanes: inconsistent draw shapes")
     n = az.shape[-1]
-    if x.device.type == "cpu":
+    if not _use_kernel("white_mh_lanes", x, var):
         note_kernel("white_mh_lanes", "plain", (*B, n, p))
         xo, acc = white_mh_loop(*ops, rows_g, specs_g, var)
         return xo.reshape(x.shape), acc.reshape(x.shape[:-1])
-    _check_kernel("white_mh_lanes", x, var)
     note_kernel("white_mh_lanes", "cuda", (*B, n, p),
                 lambda: white_form(n, p)._asdict())
     xo = torch.empty(ops[0].shape, dtype=x.dtype, device=x.device)
     acc = torch.empty(B, dtype=x.dtype, device=x.device)
     if x.numel():
-        _launch("gst_white_mh", ops, rows_g, specs_g, var, xo, acc, B,
+        _launch("white_mh", ops, rows_g, specs_g, var, xo, acc, B,
                 (az.shape[-1], x.shape[-1], dx.shape[-2]))
         white_mh.launches_lanes += 1
     return xo.reshape(x.shape), acc.reshape(x.shape[:-1])
@@ -371,17 +369,16 @@ def white_mtm(x, az, yred2, dx, dxr, gumb, logu, rows, specs, var):
             or gumb.shape != (*B, S, K) or logu.shape != (*B, S)):
         raise ValueError("white_mtm: inconsistent draw shapes")
     name = "white_mtm_grouped" if len(B) == 2 else "white_mtm"
-    if x.device.type == "cpu":
+    if not _use_kernel("white_mtm", x, var):
         note_kernel(name, "plain", (*B, n, p, K))
         return white_mtm_loop(x, az, yred2, dx, dxr, gumb, logu, rows, specs,
                               var)
-    _check_kernel("white_mtm", x, var)
     note_kernel(name, "cuda", (*B, n, p, K),
                 lambda: white_form(n, p)._asdict())
     xo = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     acc = torch.empty(B, dtype=x.dtype, device=x.device)
     if x.numel():
-        _launch("gst_white_mtm", (x, az, yred2, dx, dxr, gumb, logu), rows,
+        _launch("white_mtm", (x, az, yred2, dx, dxr, gumb, logu), rows,
                 specs, var, xo, acc, B, (n, p, S, K))
         if len(B) == 2:
             white_mtm.launches_grouped += 1
@@ -412,12 +409,18 @@ def _check_white(name, x, az, yred2, draws, rows, specs):
     return B
 
 
-def _check_kernel(name, x, var):
-    if x.device.type != "cuda":
-        raise RuntimeError(f"{name}: no kernel for device {x.device}")
+def _use_kernel(name, x, var):
+    """Whether the white block launches its kernel for ``x``
+    (``_cuda.use_kernel``); the kernel's bound on ``var`` is checked
+    first when it does."""
+    from gibbs_student_t_tpu_torch.ops import _cuda
+
+    if not _cuda.use_kernel(x, name):
+        return False
     if len(var) > MAX_WHITE_VAR:
         raise ValueError(f"{name}: {len(var)} varying groups exceed "
                          f"MAX_WHITE_VAR ({MAX_WHITE_VAR})")
+    return True
 
 
 def _launch(entry, ops, rows, specs, var, xo, acc, batch, dims):
@@ -430,7 +433,6 @@ def _launch(entry, ops, rows, specs, var, xo, acc, batch, dims):
 
     ops = [t.contiguous() for t in (*ops, rows, specs)]
     vt = _cuda.host_ints([k for trip in var for k in trip])
-    _cuda.check(getattr(_cuda.lib(), entry)(
-        *(_cuda.ptr(t) for t in ops), _cuda.addr(vt), len(var),
-        _cuda.ptr(xo), _cuda.ptr(acc), math.prod(batch), batch[-1], *dims,
-        rows.shape[-2], _cuda.stream(xo.device)), entry[4:])
+    _cuda.launch(entry, xo.device, *(_cuda.ptr(t) for t in ops),
+                 _cuda.addr(vt), len(var), _cuda.ptr(xo), _cuda.ptr(acc),
+                 math.prod(batch), batch[-1], *dims, rows.shape[-2])

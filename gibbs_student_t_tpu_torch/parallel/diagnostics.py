@@ -4,9 +4,10 @@ A numpy copy of ``gibbs_student_t_tpu/parallel/diagnostics.py``, with the
 same functions, names and signatures. The reference tracks no
 diagnostics at all — not even MH acceptance (SURVEY.md §5). With a chain
 axis on the device, cross-chain statistics are where the
-``effective-samples/sec`` metric comes from. The JAX module's
-``rhat_collective`` (R-hat over a chain axis sharded across devices) has
-no counterpart here until the chain axis spans several GPUs.
+``effective-samples/sec`` metric comes from. :func:`rhat_collective`, the
+one function that is not on the host, computes R-hat over a chain axis
+split across processes with ``torch.distributed`` sums, where the JAX
+module's uses ``psum`` inside ``shard_map``.
 """
 
 from __future__ import annotations
@@ -141,3 +142,40 @@ def split_rhat(chains: np.ndarray) -> float:
     within-chain drift."""
     chains = np.asarray(chains, dtype=np.float64)
     return float(split_rhat_per_param(chains[:, :, None])[0])
+
+
+def rhat_collective(x, group=None) -> float:
+    """Classic R-hat of one scalar parameter over a chain axis split
+    across processes (the JAX module's ``rhat_collective``, with
+    ``torch.distributed`` for its ``psum``): ``x`` is this process's
+    chains, ``(local_chains, niter)``, a tensor or an array; four
+    ``all_reduce(SUM)`` over ``group`` (the chain count, the sum of the
+    chains' means, of their variances, and of the squared distances of
+    the means from the grand mean) make every process's result the
+    statistic of all the chains. In float64. Without a process group it
+    is computed locally and equals ``gelman_rubin(x.T)``. Under ``gloo``
+    the sums move through the host; ``nccl`` reduces device tensors."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.as_tensor(x).to(torch.float64)
+    on = dist.is_available() and dist.is_initialized()
+    via_host = on and dist.get_backend(group) == "gloo"
+
+    def psum(v):
+        if not on:
+            return v
+        buf = v.cpu() if via_host else v
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+        return buf.to(v.device)
+
+    n = t.shape[1]
+    means = t.mean(dim=1)
+    local_vars = t.var(dim=1, unbiased=True)
+    m = psum(torch.full((), float(t.shape[0]), dtype=torch.float64,
+                        device=t.device))
+    grand = psum(means.sum()) / m
+    W = psum(local_vars.sum()) / m
+    B = n * psum(((means - grand) ** 2).sum()) / (m - 1.0)
+    var_plus = (n - 1.0) / n * W + B / n
+    return float(torch.sqrt(var_plus / W))

@@ -1,4 +1,5 @@
-"""Multi-pulsar, multi-chain ensembles on one GPU: ``EnsembleGibbs``.
+"""Multi-pulsar, multi-chain ensembles: ``EnsembleGibbs``, on one GPU or
+over a mesh of blocks.
 
 Counterpart of ``gibbs_student_t_tpu/parallel/ensemble.py`` in its
 grouped form. A pulsar timing array is analysed by sampling every
@@ -17,17 +18,36 @@ structure the grouped kernels share (the white-noise variance groups, the
 hyper indices, the Schur split) must be equal across pulsars, or the
 constructor raises ``ValueError``.
 
+With ``mesh=`` (parallel/mesh.py, parallel/multihost.py) the ``(P, C)``
+population is cut into blocks, as the JAX ensemble's ``shard_map`` cuts
+it: pulsars over the mesh's ``'pulsar'`` axis, chains over its ``'chain'``
+axis. Each block is an ensemble of its own over its pulsars and chains,
+on its device, and launches the same grouped kernels; it draws from the
+global chain keys and starts from its slice of the global initial state,
+so a chain's numbers are the ones it gets unsharded. The sweep needs no
+communication. Before each adapting chunk the population covariance
+gathers each pulsar's chains across the chain axis (``torch.cat``
+within a process, ``all_gather`` over the line's process group across
+processes) and applies the unsharded update to them. Each chunk is issued
+on every block before any block's records are read, so blocks on
+different cards overlap. In one process the result is gathered into
+global ``(P, C)`` order and equals the unsharded run's up to the
+float32 rounding of the covariance estimate over another batch; a 1 x 1
+mesh is the unsharded run, bit for bit. When the mesh spans processes,
+each process runs only its own blocks and ``sample`` returns their rows
+(see :meth:`EnsembleGibbs.sample`).
+
 The JAX package also has an unrolled form (``unroll=True``), which bakes
 each pulsar's constants into its own XLA trace as literals. Eager PyTorch
 has no trace to bake into, and the grouped form already launches once per
-block for every pulsar, so the port has only the grouped form. The mesh
-over several devices is not ported.
+block for every pulsar, so the port has only the grouped form; the
+unrolled form is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -49,6 +69,8 @@ from gibbs_student_t_tpu_torch.models.pta import (
     ModelArrays,
     PowerlawBlock,
 )
+from gibbs_student_t_tpu_torch.ops import rng
+from gibbs_student_t_tpu_torch.parallel.mesh import process_rank
 
 #: the array-valued ("data") fields of ``ModelArrays`` and of each phi
 #: block: stacked along the pulsar axis. Every other field is structure
@@ -223,6 +245,20 @@ def stack_model_arrays(mas: Sequence[ModelArrays]) -> ModelArrays:
         **{f: stack(locs, f) for f in MODEL_DATA_FIELDS})
 
 
+class _Block(NamedTuple):
+    """One block of an ensemble over a mesh: its position ``(i, j)`` on the
+    pulsar and chain axes, its index in ``mesh.devices``, the ensemble
+    that runs it, its global ``chains`` and its ``window`` of the ``(P,
+    C)`` population this process holds."""
+
+    i: int
+    j: int
+    index: tuple
+    sampler: "EnsembleGibbs"
+    chains: slice
+    window: tuple
+
+
 class EnsembleGibbs(TorchGibbs):
     """(pulsars x chains) Gibbs populations on one GPU, in the grouped
     form; ``sample`` returns chains shaped ``(niter, P, C, ...)`` with
@@ -247,12 +283,31 @@ class EnsembleGibbs(TorchGibbs):
     padding as the in-memory result's does. The TOA reduction is dense
     (the JAX ensemble builds its template with ``tnt_block_size=None``).
     ``device`` as in ``TorchGibbs`` (CUDA unless the caller asks for the
-    CPU), and so is ``metrics``."""
+    CPU), and so is ``metrics``.
+
+    ``mesh`` (a ``parallel.mesh.Mesh`` with axes ``'pulsar'`` and
+    ``'chain'``; a missing axis counts as size 1) cuts the population into
+    blocks (the module docstring): block ``(i, j)`` holds pulsars ``i P/nP
+    ...`` and chains ``j C/nC ...`` on ``mesh.devices`` at that position.
+    Both populations must split evenly, and ``device`` is not given with
+    it (each block's device is the mesh's). A state (``init_state``,
+    ``last_state``, ``sample(state=)``) is then the ``(P, C)`` population
+    this process holds, on its first block's device."""
 
     def __init__(self, mas: Sequence[ModelArrays], config: GibbsConfig,
                  nchains: int = 64, device=None, chunk_size: int = 50,
                  record: str = "compact8", record_thin: int = 1,
-                 telemetry: bool = True, metrics=None):
+                 telemetry: bool = True, metrics=None, mesh=None):
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None:
+                raise ValueError(
+                    "pass device= or mesh=, not both: a mesh names the "
+                    "device of each of its blocks")
+            self._build_blocks(mas, config, nchains, metrics, dict(
+                chunk_size=chunk_size, record=record,
+                record_thin=record_thin, telemetry=telemetry))
+            return
         device = resolve_device(device)
         self.npulsars = len(mas)
         # the pulsars' real TOA counts, before padding to the maximum
@@ -279,6 +334,10 @@ class EnsembleGibbs(TorchGibbs):
                      "_hyper_idx", "_df_grid", "_table"):
             setattr(self, name, getattr(t0, name))
         self._batch = (self.npulsars, self.nchains)
+        # (first pulsar, first chain, chains a pulsar) of this ensemble in
+        # the population its keys and initial state are drawn for: a
+        # block of a mesh is a window of the global one
+        self._origin = (0, 0, self.nchains)
         self.metrics = metrics
         self.last_state: Optional[ChainState] = None
 
@@ -354,13 +413,179 @@ class EnsembleGibbs(TorchGibbs):
                 else:
                     dst[p].fill_(float(src))
 
+    # ------------------------------------------------------------------
+    # the ensemble over a mesh
+    # ------------------------------------------------------------------
+
+    def _build_blocks(self, mas, config, nchains, metrics, opts) -> None:
+        """The blocks of this process (the class docstring), each an
+        ensemble of its pulsars and chains on its device, and the
+        attributes the chunked loop and the results read."""
+        mesh = self.mesh
+        unknown = {a: n for a, n in mesh.shape.items()
+                   if a not in ("pulsar", "chain") and n != 1}
+        if unknown:
+            raise ValueError(f"mesh axes {unknown}: an ensemble splits only "
+                             "'pulsar' and 'chain'")
+        P, C = len(mas), int(nchains)
+        nP, nC = mesh.size("pulsar"), mesh.size("chain")
+        if P % nP or C % nC:
+            raise ValueError(
+                f"{P} pulsars x {C} chains do not split evenly over the "
+                f"mesh's pulsar axis ({nP}) and chain axis ({nC})")
+        Pb, Cb = P // nP, C // nC
+        self.npulsars, self.nchains = P, C
+        self.n_toa = np.array([
+            int(np.asarray(ma.row_mask).sum()) if ma.row_mask is not None
+            else ma.n for ma in mas])
+        # padded to the largest pulsar of all, so every block's records
+        # share one TOA length
+        per_pulsar = localized_padded(mas)
+        self.stacked = stack_model_arrays(per_pulsar)
+        SamplerBackend.__init__(self, self.stacked, config)
+        self.metrics = metrics
+        self.last_state = None
+        me = process_rank()
+        names = mesh.axis_names
+        own = []
+        for i in range(nP):
+            for j in range(nC):
+                index = tuple(i if a == "pulsar" else j if a == "chain"
+                              else 0 for a in names)
+                if mesh.ranks[index] == me:
+                    own.append((i, j, index))
+        if not own:
+            raise ValueError(f"process {me} owns no block of {mesh}")
+        rows = sorted({i for i, _, _ in own})
+        cols = sorted({j for _, j, _ in own})
+        if (len(own) != len(rows) * len(cols)
+                or rows != list(range(rows[0], rows[-1] + 1))
+                or cols != list(range(cols[0], cols[-1] + 1))):
+            raise ValueError(f"the blocks of process {me} do not form a "
+                             f"rectangle of {mesh}")
+        self.pulsar_slice = slice(rows[0] * Pb, (rows[-1] + 1) * Pb)
+        self.chain_slice = slice(cols[0] * Cb, (cols[-1] + 1) * Cb)
+        self._blocks = []
+        for i, j, index in own:
+            ps, cs = slice(i * Pb, (i + 1) * Pb), slice(j * Cb, (j + 1) * Cb)
+            blk = EnsembleGibbs(per_pulsar[ps], config, nchains=Cb,
+                                device=mesh.devices[index], **opts)
+            blk._origin = (ps.start, cs.start, C)
+            window = (slice(ps.start - self.pulsar_slice.start,
+                            ps.stop - self.pulsar_slice.start),
+                      slice(cs.start - self.chain_slice.start,
+                            cs.stop - self.chain_slice.start))
+            self._blocks.append(_Block(i, j, index, blk, cs, window))
+        self.spans_processes = len(set(mesh.ranks.flat)) > 1
+        t0 = self._blocks[0].sampler
+        for name in ("record_mode", "_record_fields", "_record_casts",
+                     "chunk_size", "record_thin", "telemetry", "device",
+                     "dtype", "_ma", "_n"):
+            setattr(self, name, getattr(t0, name))
+        self._batch = (self.pulsar_slice.stop - self.pulsar_slice.start,
+                       self.chain_slice.stop - self.chain_slice.start)
+
+    def _parts(self):
+        if self.mesh is None:
+            return super()._parts()
+        return [(b.sampler, b.window) for b in self._blocks]
+
+    def _split(self, state: ChainState) -> list:
+        """Each block's window of ``state``, on the block's device."""
+        if self.mesh is None:
+            return super()._split(state)
+        return [ChainState(*(f[b.window].to(b.sampler.device).contiguous()
+                             for f in state)) for b in self._blocks]
+
+    def _join(self, states: list, device=None) -> ChainState:
+        if self.mesh is None or len(states) == 1:
+            return states[0]
+        dev = self.device if device is None else device
+        rows = {}
+        for b, st in zip(self._blocks, states):
+            rows.setdefault(b.i, []).append((b.j, st))
+
+        def row(pieces, k):
+            return torch.cat([st[k].to(dev) for _, st in sorted(
+                pieces, key=lambda t: t[0])], dim=1)
+
+        return ChainState(*(
+            torch.cat([row(rows[i], k) for i in sorted(rows)], dim=0)
+            for k in range(len(ChainState._fields))))
+
+    def _pre_chunk(self, states: list) -> list:
+        """Each pulsar's proposal covariance from all its chains: a
+        pulsar row's blocks gather their x along the chain axis (in
+        this process, then over the line's process group) and the
+        unsharded update (:meth:`_prop_cov_update`, which reads the
+        previous factor of the row's first chain here) is applied to the
+        whole population; each block keeps its chains' slice."""
+        if self.mesh is None:
+            return super()._pre_chunk(states)
+        out = list(states)
+        by_row = {}
+        for k, b in enumerate(self._blocks):
+            by_row.setdefault(b.i, []).append(k)
+        for ks in by_row.values():
+            ks = sorted(ks, key=lambda k: self._blocks[k].j)
+            first = self._blocks[ks[0]]
+            dev = first.sampler.device
+            xs = [states[k].x.to(dev) for k in ks]
+            x_row = xs[0] if len(xs) == 1 else torch.cat(xs, dim=1)
+            group = self.mesh.group("chain", first.index)
+            if group is not None:
+                x_row = self._gather_chains(x_row, group, first)
+            new = first.sampler._prop_cov_update(
+                states[ks[0]]._replace(x=x_row)).mh_cov_chol
+            for k in ks:
+                b = self._blocks[k]
+                out[k] = states[k]._replace(mh_cov_chol=new[:, b.chains].to(
+                    b.sampler.device).contiguous())
+        return out
+
+    def _gather_chains(self, x_row, group, first: _Block):
+        """``x_row`` (this process's chains of a pulsar row) gathered with
+        the other processes' chains of that row over ``group``, in chain
+        order: ``all_gather`` through the host under ``gloo``, of the
+        device tensors under ``nccl``."""
+        import torch.distributed as dist
+
+        names = self.mesh.axis_names
+        line = [slice(None) if a == "chain" else first.index[k]
+                for k, a in enumerate(names)]
+        ranks = self.mesh.ranks[tuple(line)]
+        members = sorted(set(ranks.tolist()))
+        start = {r: min(j for j, rr in enumerate(ranks.tolist()) if rr == r)
+                 for r in members}
+        via_host = dist.get_backend(group) == "gloo"
+        buf = (x_row.cpu() if via_host else x_row).contiguous()
+        got = [torch.empty_like(buf) for _ in members]
+        dist.all_gather(got, buf, group=group)
+        order = sorted(range(len(members)), key=lambda k: start[members[k]])
+        return torch.cat([got[k] for k in order], dim=1).to(x_row.device)
+
     def init_state(self, seed: int = 0) -> ChainState:
         """Batched state with leading ``(P, C)`` axes: pulsar ``p``'s from
         its own solo sampler at ``seed * 1000 + p`` (prior draws of x,
-        z/alpha/theta/df at the reference's starting values)."""
-        states = [s.init_state(seed=seed * 1000 + p)
-                  for p, s in enumerate(self._pulsar_backends)]
+        z/alpha/theta/df at the reference's starting values). Over a mesh,
+        the blocks' slices of that global state, gathered."""
+        if self.mesh is not None:
+            return self._join([b.sampler.init_state(seed)
+                               for b in self._blocks])
+        p0, c0, C = self._origin
+        states = [s.init_state(x0=s._x0_draws(seed * 1000 + p0 + k, C)[
+                      c0:c0 + self.nchains])
+                  for k, s in enumerate(self._pulsar_backends)]
         return ChainState(*(torch.stack(f) for f in zip(*states)))
+
+    def _chain_keys(self, seed: int) -> torch.Tensor:
+        """``(P, C, 2)`` key words: pulsar p's chain c is ``p * C + c`` of
+        the population (``_origin``), as the JAX ensemble splits its keys
+        pulsar-major."""
+        p0, c0, C = self._origin
+        idx = ((p0 + np.arange(self.npulsars))[:, None] * C
+               + c0 + np.arange(self.nchains))
+        return rng.chain_keys(seed, idx, device=self.device)
 
     def sample(self, niter: int, seed: int = 0,
                state: Optional[ChainState] = None,
@@ -377,8 +602,19 @@ class EnsembleGibbs(TorchGibbs):
         bitwise. ``reinit_diverged`` re-draws numerically
         dead (pulsar, chain) populations from the prior at chunk
         boundaries (count in ``stats['n_reinits']``). ``spool_dir`` as in
-        ``TorchGibbs.sample``."""
+        ``TorchGibbs.sample``.
+
+        On a mesh that spans processes, each process runs its own blocks
+        and the result holds their rows, ``(niter, Pl, C_l, ...)``: its
+        ``stats`` name their global pulsars and chains
+        (``pulsar_start``/``pulsar_stop``, ``chain_start``/``chain_stop``;
+        ``n_toa`` is theirs). As in the JAX package, where no host can
+        ``device_get`` what another holds, the whole population is on no
+        process, so ``spool_dir`` (and :meth:`sample_until`) raise
+        ``NotImplementedError`` there."""
         self._check_run(niter, start_sweep)
+        if spool_dir is not None:
+            self._one_process("spool_dir")
         if state is None:
             state = self.init_state(seed)
         spool = self._open_spool(spool_dir, seed, start_sweep,
@@ -392,8 +628,24 @@ class EnsembleGibbs(TorchGibbs):
         else:
             res = self._to_result(cols)
         res.stats["n_toa"] = self.n_toa
+        if self.mesh is not None and self.spans_processes:
+            ps, cs = self.pulsar_slice, self.chain_slice
+            res.stats["n_toa"] = self.n_toa[ps]
+            res.stats.update(pulsar_start=np.asarray(ps.start),
+                             pulsar_stop=np.asarray(ps.stop),
+                             chain_start=np.asarray(cs.start),
+                             chain_stop=np.asarray(cs.stop))
         res.stats.update(stats)
         return res
+
+    def _one_process(self, what: str) -> None:
+        """Refuse ``what`` on a mesh that spans processes."""
+        if self.mesh is not None and self.spans_processes:
+            raise NotImplementedError(
+                f"{what} on a mesh that spans processes: each process "
+                "holds only its own blocks' rows, and no process has the "
+                "whole population to spool or to test for convergence; "
+                "run it on a mesh of one process")
 
     def _program_label(self) -> str:
         """The JAX ensemble's label of its grouped chunk program."""
@@ -415,7 +667,9 @@ class EnsembleGibbs(TorchGibbs):
         pulsar's chain axis) and, with ``min_ess``, holds that many
         pooled effective samples. Same loop and result semantics as
         ``TorchGibbs.sample_until``; the R-hat arrays in stats are shaped
-        (npulsars, p)."""
+        (npulsars, p). Not on a mesh that spans processes."""
+        self._one_process("sample_until")
+
         def rhat_of(window):
             # window: (rows, npulsars, nchains, p) -> (npulsars, p)
             return np.array([_rhat_per_param(window[:, pl])

@@ -3,7 +3,10 @@ analysis, against the JAX package's modules (CPU, numpy only).
 
 - ``parallel/diagnostics.py``: every function on the same windows
   (random walks, a constant column, a recycled-row mask) equal to the JAX
-  module's, as one parametrised test;
+  module's, as one parametrised test; the port has every public function
+  of the JAX module, ``rhat_collective`` included, which without a
+  process group equals ``gelman_rubin`` (tests/test_torch_multihost.py
+  holds it across processes against JAX's);
 - ``obs/health.py``: ``chain_health`` and ``format_health`` on the same
   telemetry stats and windows (ok / stuck / dead / diverged chains, every
   chain diverged, a zero-row window, missing optional keys, no telemetry)
@@ -19,6 +22,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from gibbs_student_t_tpu import analysis as janalysis
 from gibbs_student_t_tpu.backends.base import ChainResult as JaxChainResult
@@ -86,7 +90,16 @@ def test_diagnostics_names_and_row_class_constant():
     assert diag.ROW_SCAN_END == ROW_SCAN_END
     public = {n for n in dir(jdiag) if not n.startswith("_")
               and callable(getattr(jdiag, n)) and n not in ("jax", "jnp")}
-    assert public - {n for n in dir(diag)} == {"rhat_collective"}
+    assert public - {n for n in dir(diag)} == set()
+
+
+def test_rhat_collective_without_a_group_is_gelman_rubin():
+    w = _window()[..., 1]                    # (rows, nchains)
+    x = w.T                                  # (local chains, niter)
+    want = diag.gelman_rubin(w)
+    assert diag.rhat_collective(x) == pytest.approx(want, rel=1e-12)
+    assert diag.rhat_collective(torch.as_tensor(x, dtype=torch.float32)) \
+        == pytest.approx(want, rel=1e-6)
 
 
 def _stats(acc_w, acc_h, nonf=None, div=None):

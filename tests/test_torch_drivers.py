@@ -13,7 +13,8 @@ against the JAX package's ``simulate_data.py`` and ``run_sims.py``.
 - ``drivers.run_sims --device cpu`` writes arrays bitwise those of an
   in-process ``TorchGibbs(device="cpu")`` run with the driver's seed, one
   ``chunk`` event a chunk, one ledger record on the CPU platform;
-  ``--ensemble 3`` saves TOA counts [30, 28, 26]; ``--until-rhat`` stops
+  ``--ensemble 3`` saves TOA counts [30, 28, 26], prints its 1 x 1 mesh
+  and writes bit for bit the trees of ``mesh=None``; ``--until-rhat`` stops
   on a check boundary; ``--trace-dir`` writes a Chrome trace per config;
 - ``--introspect`` prints the run's introspection summary (each program's
   first chunk, the build, every kernel with ``impl=plain``) and the ledger
@@ -266,6 +267,35 @@ def test_run_sims_ensemble_keeps_each_pulsars_toas(tmp_path, capsys):
         ns.append(np.load(os.path.join(ln, "zchain.npy")).shape[-1])
     assert ns == [30, 28, 26]
     assert "# ensemble: 3 pulsars" in err
+
+
+def test_run_sims_ensemble_mesh_is_the_one_device_run(tmp_path, capsys,
+                                                      monkeypatch):
+    """``--ensemble`` always samples over a mesh, 1 x 1 under ``--device
+    cpu``, and prints it; its trees are bit for bit those of the same run
+    with ``mesh=None`` on the device (the ensemble before the mesh)."""
+    import gibbs_student_t_tpu_torch.parallel as par
+
+    args = dict(models=("beta",), nchains=2, niter=12, burn=2, components=4)
+    _run(tmp_path / "mesh", "--ensemble", "3", "--seed", "9", **args)
+    out, err = capsys.readouterr()
+    assert "mesh {'pulsar': 1, 'chain': 1}" in err
+    meshed = [ln for ln in out.splitlines() if ln.strip()]
+
+    class Unmeshed(par.EnsembleGibbs):
+        def __init__(self, *a, mesh=None, **kw):
+            assert mesh is not None and mesh.shape == {"pulsar": 1,
+                                                       "chain": 1}
+            super().__init__(*a, device="cpu", **kw)
+
+    monkeypatch.setattr(par, "EnsembleGibbs", Unmeshed)
+    _run(tmp_path / "flat", "--ensemble", "3", "--seed", "9", **args)
+    flat = [ln for ln in capsys.readouterr()[0].splitlines() if ln.strip()]
+    assert len(meshed) == len(flat) == 3
+    for a, b in zip(meshed, flat):
+        for c in CHAINS:
+            assert _same(np.load(os.path.join(a, c + ".npy")),
+                         np.load(os.path.join(b, c + ".npy"))), c
 
 
 def test_run_sims_until_rhat_stops_on_a_check_boundary(tmp_path, capsys):

@@ -170,7 +170,9 @@ def test_port_imports_no_jax():
             "gibbs_student_t_tpu_torch/obs/flight.py",
             "gibbs_student_t_tpu_torch/obs/watchdog.py",
             "gibbs_student_t_tpu_torch/obs/aggregate.py",
-            "gibbs_student_t_tpu_torch/serve/router.py"} <= scanned
+            "gibbs_student_t_tpu_torch/serve/router.py",
+            "gibbs_student_t_tpu_torch/parallel/mesh.py",
+            "gibbs_student_t_tpu_torch/parallel/multihost.py"} <= scanned
     bad = []
     for path in files:
         with open(path) as fh:
