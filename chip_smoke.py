@@ -520,6 +520,43 @@ exits 1 through ``fail`` before it, and so does an uncaught exception.
    The processes of c-e run together after b; their launches are not
    counted. One card cannot show blocks on different cards overlapping,
    NCCL between ranks, or the launch guard on cuda:1.
+24. the north-star posterior gate on the card (drivers/posterior_gate.py,
+   backends/numpy_backend.py), each number beside the card's name and
+   power limit:
+   o. seven float64 ``NumpyGibbs`` runs start first, in a pool of
+      min(7, cores - 1) spawned processes (one BLAS thread each), and work
+      while the card's arms run: the five models of
+      ``run_sims.model_configs()`` and mixture/beta on the ensemble's
+      pulsars 0 and 1 (tools/tpu_gate.py's 10,000 sweeps, burn 1,000,
+      thin 20; on a host with too few cores for one round the six
+      non-flagship runs are shortened, to no fewer than 4,000 sweeps; the
+      lengths used are printed);
+   a-d. the arms, at 1024 chains (1,000 sweeps, burn 500, thin 20,
+      ``record="compact"`` every 10th sweep; tpu_gate.py's 500 / 150 is
+      short of mixture/beta's burn-in of df and alpha on the flagship's
+      pulsar, in the JAX package's kernel as in the port's): a. the five
+      models at their defaults on the flagship's pulsar (vvh17 from
+      ``z_init="zeros"``), but uniform on the ensemble's pulsar 0 (same n,
+      m and Schur split; on the flagship's pulsar its posterior has two
+      modes that no 10,000-sweep oracle weighs: its own seeds disagree);
+      b. the flagship as the bench runs it (100 adapting sweeps with
+      population-covariance proposals); c. full MTM (K = 4 on both
+      blocks: B6 and the MTM hyper path); d. an 8-pulsar heterogeneous
+      ``EnsembleGibbs`` (mixture/beta, ens32's pulsars 0-7, 128 chains
+      each: the grouped kernels), its pulsars 0 and 1 gated against their
+      own oracle runs. Each arm's launches are checked as its path's
+      (flagship, flagship, full_mtm, ens32), and no wrapper may take its
+      plain version;
+   g. per arm and quantity (the parameters, theta, pout_mean, z_frac, df,
+      alpha_log10_mean as the model updates them) the oracle and kernel
+      means, the gap in posterior sd and the KS p (the kernel's draws
+      subsampled to 4,000): every quantity must hold gap <= 0.33 and
+      p >= 0.001; each arm's wall, launches a sweep and the chains the
+      telemetry's ``diverged`` flag marks are printed;
+   n. the north star, with nothing else running: the adapted flagship's
+      chain-sweeps/s over 100 sweeps on the card over the oracle's
+      sweeps/s (300 sweeps, one process) on the host; reported, not gated.
+   The runs of phase 24 are one path of the kernels line, ``gate``.
 
 Launch counts are read per path: every count is set to 0 just before a
 run and read just after it; a count is launches per sweep x sweeps plus
@@ -672,7 +709,11 @@ SAME_AS = {"sample": "flagship", "spool": "flagship", "spool_ens": "ens32",
            "pool_capacity": "pool", "pool_wire": "pool",
            "pool_tiers": "pool", "timers_off": "flagship",
            "timers_on": "flagship", "pool_prof": "pool",
-           "mesh_none": "ens32", "mesh_1x1": "ens32", "mesh_2x2": "ens32"}
+           "mesh_none": "ens32", "mesh_1x1": "ens32", "mesh_2x2": "ens32",
+           "gate_a": "flagship", "gate_b": "flagship",
+           "gate_c": "full_mtm", "gate_d": "ens32", "gate_ns": "flagship"}
+# phase 24's runs, merged into one path of the kernels line after checking
+GATE_PATHS = ("gate_a", "gate_b", "gate_c", "gate_d", "gate_ns")
 # a grouped kernel's entry: the wrapper it shares with the single-model
 # launch; it counts on the wrapper's launches_grouped
 GROUPED = {"white_mh_grouped": "white_mh", "hyper_mh_grouped": "hyper_mh",
@@ -874,6 +915,30 @@ dist.destroy_process_group()
 out["seconds"] = time.time() - t0
 print(json.dumps(out), flush=True)
 """
+# phase 24 (the north-star posterior gate on the card): the seed and the
+# oracle's lengths of tools/tpu_gate.py (10,000 sweeps, burn 1,000, thin
+# 20); the kernel's 1,000 sweeps, burn 500, thin 20, recorded every 10th
+# sweep (its rows are then the gate's sweeps): from the reference's start
+# (z = 1, alpha = 1, df = 4) mixture/beta's df and alpha reach their
+# posterior on the flagship's pulsar only after ~500 sweeps, in the JAX
+# package's kernel as in the port's (PERF.md §6, PR 25), where
+# tpu_gate.py's 500 / 150 fails them; arm b (the flagship as the bench
+# runs it) adapts for its first 100; arm d's ensemble (pulsars, chains a
+# pulsar) and the pulsars gated against their own oracle; the pulsar of
+# the ensemble's set on which arm a gates the uniform model (on the
+# flagship's pulsar its posterior has two modes that the oracle stays
+# in for ~800-2,000 sweeps at a time, so no 10,000-sweep oracle
+# decides it: four oracle seeds put 36-83 % of their sweeps in the second
+# mode; pulsar 0 has the flagship's n, m and Schur split); the oracle
+# pool's size, the shortest a non-flagship oracle is cut to on a host with
+# too few cores for one round, the longest the phase waits for the pool;
+# the north-star timing's sweeps on each side
+GATE_SEED, GATE_NP, GATE_J, GATE_THIN = 123, (10000, 1000, 20), (1000, 500,
+                                                                20), 10
+GATE_CHUNK, GATE_B_ADAPT, GATE_UNIFORM_PULSAR = 100, 100, 0
+GATE_ENS_PULSARS, GATE_ENS_CHAINS, GATE_ENS_GATED = 8, 128, 2
+GATE_POOL, GATE_NP_MIN, GATE_WAIT_S = 7, 4000, 600
+NS_KERNEL_SWEEPS, NS_ORACLE_SWEEPS = 100, 300
 # times of the first design of chol_fused (one 128-thread block per matrix),
 # hyper_mh (one per chain) and tri_solve_T (one 32-thread block per
 # system), ms per launch by (kernel, batch, size); of tnt_batched (16 x 16
@@ -7437,6 +7502,210 @@ def main() -> None:
     del r_none, s_none, cov_none, rows_none, rows_22
     mrep["seconds"] = time.perf_counter() - t23
     print(f"# phase 23: {mrep['seconds']:.1f} s | {card}", flush=True)
+
+    # --- 24. the north-star posterior gate on the card ---------------------
+    t24 = time.perf_counter()
+    from gibbs_student_t_tpu_torch.drivers import posterior_gate as pgate
+    from gibbs_student_t_tpu_torch.drivers.run_sims import model_configs
+
+    grep = report["gate"] = {"card": card}
+    gate_cfgs = {k: pgate.gate_config(c) for k, c in model_configs().items()}
+    beta = gate_cfgs["beta"]
+    ma_g = make_demo_model_arrays()
+    gate_mas = ens_pulsars(GATE_ENS_PULSARS)
+    niter_np, burn_np, thin_np = GATE_NP
+    niter_j, burn_j, thin_j = GATE_J
+    # each oracle's (model arrays, config): arm a's five models (uniform on
+    # the ensemble's pulsar GATE_UNIFORM_PULSAR), and mixture/beta on the
+    # ensemble's gated pulsars (arm d)
+    gate_models = {k: (gate_mas[GATE_UNIFORM_PULSAR] if k == "uniform"
+                       else ma_g, c) for k, c in gate_cfgs.items()}
+    gate_models.update({f"ens{p}": (gate_mas[p], beta)
+                        for p in range(GATE_ENS_GATED)})
+    # 24o. the oracles first, one process each, the flagship's first; a
+    # host with too few cores for one round shortens the other runs,
+    # never the flagship's
+    workers = max(1, min(GATE_POOL, (os.cpu_count() or 2) - 1))
+    rounds = -(-len(gate_models) // workers)
+    niter_other = (niter_np if rounds == 1
+                   else max(GATE_NP_MIN, niter_np // rounds))
+    tasks = {k: (*gate_models[k], niter_np if k == "beta" else niter_other,
+                 burn_np, thin_np, GATE_SEED)
+             for k in ["beta"] + [k for k in gate_models if k != "beta"]}
+    grep["lengths"] = {
+        "oracle_workers": workers, "cores": os.cpu_count(),
+        "oracle": {k: [t[2], burn_np, thin_np] for k, t in tasks.items()},
+        "kernel": [niter_j, burn_j, thin_j], "record_thin": GATE_THIN,
+        "chains": NCHAINS, "ensemble": [GATE_ENS_PULSARS, GATE_ENS_CHAINS],
+        "uniform_pulsar": GATE_UNIFORM_PULSAR}
+    print(f"# gate: {workers} oracle processes on {os.cpu_count()} cores; "
+          f"oracle sweeps/burn/thin {niter_np}/{burn_np}/{thin_np} "
+          f"(beta), {niter_other} (the other six runs); kernel "
+          f"{niter_j}/{burn_j}/{thin_j} at {NCHAINS} chains, arm d "
+          f"{GATE_ENS_PULSARS} pulsars x {GATE_ENS_CHAINS}; uniform on the "
+          f"ensemble's pulsar {GATE_UNIFORM_PULSAR}", flush=True)
+    ex24, futs24 = pgate.start_oracles(tasks, workers)
+    # every wrapper decides kernel or plain version through use_kernel:
+    # while the arms run, a plain decision is counted (none may happen)
+    plain_calls = {}
+    real_use_kernel = _cuda.use_kernel
+
+    def counted_use_kernel(t, what):
+        on = real_use_kernel(t, what)
+        if not on:
+            plain_calls[what] = plain_calls.get(what, 0) + 1
+        return on
+
+    def gate_arm(path, runs, sweeps, chunks):
+        """Run ``runs`` (each a callable returning a result) on the card:
+        ``(results, wall s, launches by kernel)``, the launches checked as
+        ``sweeps`` sweeps and ``chunks`` chunks of ``path``."""
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = [run() for run in runs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return out, wall, check_launches(path, sweeps, chunks)
+
+    def solo_run(ma_k, c):
+        smp = tb.TorchGibbs(ma_k, c, nchains=NCHAINS, device=dev,
+                            chunk_size=GATE_CHUNK, record="compact",
+                            record_thin=GATE_THIN)
+        return lambda: smp.sample(niter=niter_j, seed=GATE_SEED + 1)
+
+    chunks_j = -(-niter_j // GATE_CHUNK)
+    arms = {}
+    try:
+        _cuda.use_kernel = counted_use_kernel
+        # 24a. the five models at their defaults
+        res, wall, counts = gate_arm(
+            "gate_a", [solo_run(*gate_models[k]) for k in gate_cfgs],
+            len(gate_cfgs) * niter_j, len(gate_cfgs) * chunks_j)
+        arms["a"] = dict(results=dict(zip(gate_cfgs, res)), wall=wall,
+                         counts=counts, sweeps=len(gate_cfgs) * niter_j)
+        # 24b. the flagship as the bench runs it: covariance adaptation
+        res, wall, counts = gate_arm(
+            "gate_b", [solo_run(ma_g, beta.with_adapt(GATE_B_ADAPT,
+                                                      adapt_cov=True))],
+            niter_j, chunks_j)
+        arms["b"] = dict(results={"beta": res[0]}, wall=wall,
+                         counts=counts, sweeps=niter_j)
+        # 24c. full MTM: B6 and the MTM hyper path
+        res, wall, counts = gate_arm(
+            "gate_c", [solo_run(ma_g, beta.with_mtm(
+                MTM_TRIES, blocks=("white", "hyper")))],
+            niter_j, chunks_j)
+        arms["c"] = dict(results={"beta": res[0]}, wall=wall,
+                         counts=counts, sweeps=niter_j)
+        # 24d. the heterogeneous ensemble: the grouped kernels
+        ens_g = EnsembleGibbs(gate_mas, beta, nchains=GATE_ENS_CHAINS,
+                              device=dev, chunk_size=GATE_CHUNK,
+                              record="compact", record_thin=GATE_THIN)
+        res, wall, counts = gate_arm(
+            "gate_d", [lambda: ens_g.sample(niter_j, seed=GATE_SEED + 1)],
+            niter_j, chunks_j)
+        arms["d"] = dict(results={f"ens{p}": res[0].select_pulsar(p)
+                                  for p in range(GATE_ENS_GATED)},
+                         wall=wall, counts=counts, sweeps=niter_j)
+        del ens_g, res
+        if plain_calls:
+            fail(f"phase 24: plain versions ran on the card: {plain_calls}")
+        # the oracles, as they finish
+        t_wait = time.perf_counter()
+        oracles = {}
+        for k, f in futs24.items():
+            left = GATE_WAIT_S - (time.perf_counter() - t_wait)
+            try:
+                oracles[k] = f.result(timeout=max(1.0, left))
+            except Exception as exc:  # noqa: BLE001
+                fail(f"phase 24: oracle {k} did not finish: {exc!r}")
+        grep["oracle_wait_s"] = time.perf_counter() - t_wait
+    finally:
+        _cuda.use_kernel = real_use_kernel
+        pgate.stop_oracles(ex24)
+    grep["oracle_s"] = {k: o[1] for k, o in oracles.items()}
+    for k, (_, secs) in oracles.items():
+        print(f"# gate oracle {k}: {tasks[k][2]} sweeps in {secs:.1f} s "
+              f"({tasks[k][2] / secs:.1f} sweeps/s, one of {workers} "
+              f"processes)", flush=True)
+
+    # 24g. the gate, arm by arm: every chain pooled, each quantity held to
+    # a gap of at most 0.33 posterior sd and a KS p of at least 0.001
+    sub = np.random.default_rng(0)
+    failed = []
+    grep["arms"] = {}
+    for arm, a in arms.items():
+        rows_arm = {}
+        for k, r in a["results"].items():
+            ma_k, cfg_k = gate_models[k]
+            kept = pgate.keep_rows(r, burn_j, thin_j)
+            rows = pgate.gate_rows(oracles[k][0], kept, cfg_k,
+                                   ma_k.param_names, sub=sub)
+            for row in rows:
+                print(pgate.format_row(f"# gate {arm} {k}", row))
+                if not row["ok"]:
+                    failed.append((arm, k, row["quantity"]))
+            rows_arm[k] = {"rows": rows, "oracle_s": oracles[k][1],
+                           "diverged_chains": pgate.diverged_chains(r)}
+        per_sweep = {n: c / a["sweeps"] for n, c in a["counts"].items()
+                     if c}
+        grep["arms"][arm] = {"models": rows_arm, "wall_s": a["wall"],
+                             "sweeps": a["sweeps"],
+                             "launches_per_sweep": per_sweep}
+        print(f"# gate arm {arm}: {a['wall']:.1f} s for {a['sweeps']} "
+              f"sweeps, launches a sweep "
+              f"{json.dumps({n: round(v, 3) for n, v in per_sweep.items()})}"
+              f", diverged chains "
+              f"{ {k: m['diverged_chains'] for k, m in rows_arm.items()} }"
+              f" | {card}", flush=True)
+    del arms
+    if failed:
+        fail(f"phase 24: the posterior gate failed on the card: {failed}")
+
+    # 24n. the north star, with nothing else running: the flagship's
+    # chain-sweeps/s on the card (past its adaptation) over the oracle's
+    # sweeps/s on the host (one process, one BLAS thread)
+    smp_ns = tb.TorchGibbs(ma_g, beta.with_adapt(GATE_B_ADAPT,
+                                                 adapt_cov=True),
+                           nchains=NCHAINS, device=dev, chunk_size=GATE_CHUNK)
+    reset_counts()
+    smp_ns.sample(niter=GATE_B_ADAPT, seed=GATE_SEED + 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    smp_ns.sample(niter=NS_KERNEL_SWEEPS, seed=GATE_SEED + 2,
+                  state=smp_ns.last_state, start_sweep=GATE_B_ADAPT)
+    torch.cuda.synchronize()
+    ns_wall = time.perf_counter() - t0
+    check_launches("gate_ns", GATE_B_ADAPT + NS_KERNEL_SWEEPS,
+                   chunks_of(smp_ns, GATE_B_ADAPT, NS_KERNEL_SWEEPS))
+    del smp_ns
+    ex_ns, fut_ns = pgate.start_oracles(
+        {"ns": (ma_g, beta, NS_ORACLE_SWEEPS, 0, 1, GATE_SEED)}, 1)
+    try:
+        ns_oracle_s = fut_ns["ns"].result(timeout=GATE_WAIT_S)[1]
+    except Exception as exc:  # noqa: BLE001
+        fail(f"phase 24: the north-star oracle did not finish: {exc!r}")
+    finally:
+        pgate.stop_oracles(ex_ns)
+    card_rate = NCHAINS * NS_KERNEL_SWEEPS / ns_wall
+    oracle_rate = NS_ORACLE_SWEEPS / ns_oracle_s
+    grep["north_star"] = {
+        "card_chain_sweeps_per_s": card_rate, "card_wall_s": ns_wall,
+        "oracle_sweeps_per_s": oracle_rate, "oracle_s": ns_oracle_s,
+        "ratio": card_rate / oracle_rate}
+    print(f"# north star: the flagship ({NCHAINS} chains, adapted) "
+          f"{card_rate:.0f} chain-sweeps/s on the card, the oracle "
+          f"{oracle_rate:.1f} sweeps/s on the host: "
+          f"{card_rate / oracle_rate:.0f}x | {card}", flush=True)
+    # phase 24's runs as one path of the kernels line
+    launches_by_path["gate"] = {
+        n: sum(launches_by_path[p][n] for p in GATE_PATHS)
+        for n in wrappers}
+    for p in GATE_PATHS:
+        del launches_by_path[p]
+    grep["seconds"] = time.perf_counter() - t24
+    print(f"# phase 24: {grep['seconds']:.1f} s | {card}", flush=True)
 
     # the redesigned kernels beside the first design and the library call
     # (reported, not gated)

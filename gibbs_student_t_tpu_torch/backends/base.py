@@ -144,3 +144,16 @@ class SamplerBackend:
     def sample(self, x0: np.ndarray, niter: int,
                seed: int = 0) -> ChainResult:
         raise NotImplementedError
+
+
+def get_backend(name: str):
+    """Resolve a backend by flag value (``run_sims --backend``): ``cpu`` or
+    ``numpy`` the float64 NumPy oracle, ``torch`` the many-chain sampler
+    (the JAX package's ``jax``/``tpu``)."""
+    from gibbs_student_t_tpu_torch.backends.numpy_backend import NumpyGibbs
+    from gibbs_student_t_tpu_torch.backends.torch_backend import TorchGibbs
+
+    table = {"cpu": NumpyGibbs, "numpy": NumpyGibbs, "torch": TorchGibbs}
+    if name not in table:
+        raise ValueError(f"unknown backend {name!r}; options: {sorted(table)}")
+    return table[name]

@@ -17,14 +17,18 @@ the GPUs (as the JAX driver builds it: the largest grid that divides both
 populations; 1 x 1 on one GPU, or under ``--device cpu``) and each
 pulsar's tree lands under ``{outdir}/ensemble/{model}/{theta}/{i:02d}_{name}``.
 
-It runs on the GPU (``--device cuda``, the default) and exits non-zero,
-naming CUDA, where CUDA is absent; ``--device cpu`` runs the kernels'
-plain versions on the CPU. Flags of the JAX package's run_sims.py that
-this driver does not take:
+``--backend`` selects the sampler through ``backends.get_backend``:
+``torch`` (the default) runs ``TorchGibbs`` as above; ``cpu`` runs the
+float64 NumPy oracle (backends/numpy_backend.py), one chain a config on
+the host, as the JAX package's ``run_sims.py --backend cpu`` runs it (the
+same arrays for the same arguments), and refuses the flags that need the
+chain axis (``--adapt``, ``--mtm``, ``--until-rhat``, ``--ensemble``,
+``--telemetry-dir``). The torch backend runs on the GPU (``--device
+cuda``, the default) and exits non-zero, naming CUDA, where CUDA is
+absent; ``--device cpu`` runs the kernels' plain versions on the CPU.
+The JAX script's default backend is ``cpu``; this driver's is ``torch``.
+A flag of the JAX package's run_sims.py that this driver does not take:
 
-  --backend     replaced by --device; the NumPy oracle behind
-                --backend cpu (backends/numpy_backend.py) is not part of
-                this package
   --unroll      the ensemble's unrolled form bakes each pulsar's
                 constants into its own XLA trace; eager PyTorch has no
                 trace, so only the grouped form exists
@@ -80,15 +84,21 @@ def model_configs(pspin: float = 0.00457):
 def run_one(ma, cfg, device: str, niter: int, nchains: int, seed: int,
             record: str = "compact8", record_thin: int = 1,
             until_rhat: float = 0.0, check_every: int = 500,
-            min_ess: float = 0.0, telemetry: bool = True, metrics=None):
-    """One configuration's run through ``TorchGibbs``: ``niter`` sweeps,
-    or, with ``until_rhat``, until split-R-hat clears it (``niter`` is
-    then the cap)."""
-    from gibbs_student_t_tpu_torch.backends.torch_backend import TorchGibbs
+            min_ess: float = 0.0, telemetry: bool = True, metrics=None,
+            backend: str = "torch"):
+    """One configuration's run through ``backend`` (``get_backend``):
+    ``TorchGibbs``'s ``niter`` sweeps, or, with ``until_rhat``, until
+    split-R-hat clears it (``niter`` is then the cap); the NumPy oracle's
+    single chain of ``niter`` sweeps from a prior draw of ``seed``, as the
+    JAX script runs it."""
+    from gibbs_student_t_tpu_torch.backends import get_backend
 
-    gb = TorchGibbs(ma, cfg, nchains=nchains, device=device, record=record,
-                    record_thin=record_thin, telemetry=telemetry,
-                    metrics=metrics)
+    cls = get_backend(backend)
+    if not cls.supports_chains:
+        return cls(ma, cfg).sample(ma.x_init(np.random.default_rng(seed)),
+                                   niter, seed=seed)
+    gb = cls(ma, cfg, nchains=nchains, device=device, record=record,
+             record_thin=record_thin, telemetry=telemetry, metrics=metrics)
     if until_rhat:
         return gb.sample_until(rhat_target=until_rhat, max_sweeps=niter,
                                check_every=check_every, seed=seed,
@@ -284,7 +294,8 @@ def run_sequential(args, configs, rng, parfile, timfile):
                                   check_every=args.check_every,
                                   min_ess=args.min_ess,
                                   telemetry=args.telemetry,
-                                  metrics=args.registry)
+                                  metrics=args.registry,
+                                  backend=args.backend)
                     _synced(args.device)
                 dt = time.perf_counter() - t0
                 out = os.path.join(outdir, key, str(theta), str(idx))
@@ -337,10 +348,14 @@ def parse_args(argv=None):
                     default=[0.05, 0.1, 0.15])
     ap.add_argument("--niter", type=int, default=10000)
     ap.add_argument("--burn", type=int, default=100)
+    ap.add_argument("--backend", choices=["cpu", "torch"], default="torch",
+                    help="torch: TorchGibbs, many chains (default); cpu: "
+                         "the float64 NumPy oracle, one chain a config on "
+                         "the host (--device does not apply)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                    help="where the sampler runs: the GPU (default; exits "
-                         "if CUDA is absent) or the CPU (the kernels' "
-                         "plain versions)")
+                    help="where the torch backend runs: the GPU (default; "
+                         "exits if CUDA is absent) or the CPU (the "
+                         "kernels' plain versions)")
     ap.add_argument("--nchains", type=int, default=64,
                     help="chains per config")
     ap.add_argument("--ensemble", type=int, default=0, metavar="N",
@@ -420,11 +435,16 @@ def parse_args(argv=None):
     ap.add_argument("--pspin", type=float, default=0.00457)
     args = ap.parse_args(argv)
 
+    oracle = args.backend == "cpu"
+    if oracle:
+        args.device = "cpu"         # the oracle runs on the host
     check_device(ap, args.device)
     if args.adapt is None:
         # capped by the burn window (rows x thin = sweeps), so the kept
-        # rows are always post-freeze
-        args.adapt = min(100, args.burn * max(args.record_thin, 1))
+        # rows are always post-freeze; the oracle keeps the reference's
+        # fixed scales
+        args.adapt = (0 if oracle
+                      else min(100, args.burn * max(args.record_thin, 1)))
     if args.adapt_cov is None:
         args.adapt_cov = args.adapt > 0
     if args.adapt_cov and not args.adapt:
@@ -434,6 +454,15 @@ def parse_args(argv=None):
                  "stopping criterion, not a standalone mode)")
     if set(args.mtm_blocks) != {"white", "hyper"} and not args.mtm:
         ap.error("--mtm-blocks requires --mtm K")
+    if oracle:
+        for flag, given in (("--mtm", args.mtm), ("--adapt", args.adapt),
+                            ("--until-rhat", args.until_rhat),
+                            ("--ensemble", args.ensemble),
+                            ("--telemetry-dir", args.telemetry_dir)):
+            if given:
+                ap.error(f"{flag} needs the torch backend; the NumPy "
+                         "oracle runs the reference's single-chain "
+                         "kernel with fixed jump scales")
     if args.until_rhat:
         thin = max(args.record_thin, 1)
         if (args.check_every < 1 or args.check_every % thin

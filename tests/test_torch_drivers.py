@@ -398,4 +398,7 @@ def test_run_sims_help_says_which_flags_are_not_ported():
     assert r.returncode == 0, r.stderr
     for flag in ("--backend", "--unroll", "--introspect", "--device"):
         assert flag in r.stdout
+    assert "--backend {cpu,torch}" in r.stdout
     assert "numpy_backend" in r.stdout and "XLA" in r.stdout
+    # --unroll is the one flag of the JAX script the driver does not take
+    assert "does not take:\n\n  --unroll" in r.stdout
