@@ -557,6 +557,26 @@ exits 1 through ``fail`` before it, and so does an uncaught exception.
       chain-sweeps/s over 100 sweeps on the card over the oracle's
       sweeps/s (300 sweeps, one process) on the host; reported, not gated.
    The runs of phase 24 are one path of the kernels line, ``gate``.
+25. the pool's constructor surface at pool1024, each number beside the
+   card's name and power limit:
+   a. phase 11's tenant set (compact8, pipelined) at full rate and at
+      ``record_thin=5``, in turns (1, 5, 5, 1): each tenant's thinned rows
+      must be its full-rate rows ``[::5]`` bit for bit, and each run's
+      launches a sweep equal (the runs are the ``pool_thin`` path); the
+      wire MB a quantum, the drain's host ms and ms a quantum of each run
+      are printed;
+   b. the admission arms, ``GST_SERVE_SCATTER`` 1 against 0 in turns
+      (1, 0, 0, 1), each a fresh pipelined server, on the JAX package's
+      scatter-vs-bounce schedule at 1024 lanes (two tenants of 512 chains,
+      a ``lane_nan`` fault re-drawn on one and quarantined on the other, a
+      spooled third admitted mid-flight): every tenant bit for bit across
+      the runs, both faults applied, fewer bytes moved by the scatter;
+      each run's bytes an admission and admission apply ms percentiles;
+   c. a 20-chain tenant of a ``group=32`` pool beside a 256-chain
+      neighbour against the same two in a ``group=16`` pool (the same
+      lanes): bit for bit, each on the lanes it should hold; against
+      ``TorchGibbs.sample`` its start row bit for bit and the later rows
+      reported (the lanes kernels are not the solo sampler's, phase 11c).
 
 Launch counts are read per path: every count is set to 0 just before a
 run and read just after it; a count is launches per sweep x sweeps plus
@@ -707,7 +727,8 @@ SAME_AS = {"sample": "flagship", "spool": "flagship", "spool_ens": "ens32",
            "drivers": "flagship", "drivers_ens": "ens32",
            "pool_sched": "pool", "pool_faults": "pool", "pool_obs": "pool",
            "pool_capacity": "pool", "pool_wire": "pool",
-           "pool_tiers": "pool", "timers_off": "flagship",
+           "pool_tiers": "pool", "pool_thin": "pool",
+           "timers_off": "flagship",
            "timers_on": "flagship", "pool_prof": "pool",
            "mesh_none": "ens32", "mesh_1x1": "ens32", "mesh_2x2": "ens32",
            "gate_a": "flagship", "gate_b": "flagship",
@@ -759,6 +780,8 @@ POOL_CPU_LANES, POOL_CPU_CHAINS = 64, 32
 # 100 are run_sims.py's ensemble rule of 130 - (i mod 3) 10)
 HET_NS = (130, 120, 100)
 POOL_PROFILE_QUANTA = 4
+# phase 25: the thinned arm's record_thin
+THIN25 = 5
 # phase 22 (the profiling plane): sweeps of each flagship and ens32 window;
 # sweeps of empty brackets timed for their host cost, and for their
 # stream cost behind a hold (few enough to be queued before it ends)
@@ -7706,6 +7729,205 @@ def main() -> None:
         del launches_by_path[p]
     grep["seconds"] = time.perf_counter() - t24
     print(f"# phase 24: {grep['seconds']:.1f} s | {card}", flush=True)
+
+    # --- 25. the pool's constructor surface: thinning, the admission arms,
+    # groups (pool1024) ---------------------------------------------------
+    t25 = time.perf_counter()
+    urep = report["constructor"] = {"card": card}
+    tmp25 = tempfile.mkdtemp(prefix="gst_chip_smoke_ctor_")
+    print(f"# constructor surface | {card}", flush=True)
+
+    def thinned_of(a, b, t):
+        """Result ``a``'s rows bitwise result ``b``'s rows ``[::t]``."""
+        return all(eq(getattr(a, f), np.asarray(getattr(b, f))[::t])
+                   for f in chains) and all(
+            eq(a.stats[k], np.asarray(b.stats[k])[::t])
+            for k in ("acc_white", "acc_hyper"))
+
+    # 25a. the tenant set (compact8, pipelined) at full rate and at
+    # record_thin=5, in turns (1, 5, 5, 1): each tenant's thinned rows its
+    # full-rate rows [::5] bit for bit, launches a sweep equal; each run's
+    # wire MB, drain host ms and ms a quantum
+    thin_turns = {1: [], THIN25: []}
+    first25 = {}
+    reset_counts()
+    served0 = list(served)
+    for thin in (1, THIN25, THIN25, 1):
+        s = ChainServer(template, cfg_p, nlanes=POOL_LANES,
+                        quantum=POOL_QUANTUM, device=dev, record_thin=thin)
+        c0 = {n: count(n) for n in wrappers}
+        sw0 = served[0]
+        hs = [s.submit(r) for r in tenant_set()]
+        wall = drive(s)
+        res = [h.result(timeout=WAIT_S) for h in hs]
+        sweeps = served[0] - sw0
+        if thin not in first25:
+            first25[thin] = res
+        elif not all(same_rows(a, b) for a, b in zip(first25[thin], res)):
+            fail(f"two record_thin={thin} runs of the tenant set differ")
+        summ = s.summary()
+        thin_turns[thin].append({
+            "quanta": s.quanta, "sweeps": sweeps, "wall_s": wall,
+            "ms_per_quantum": 1e3 * wall / s.quanta,
+            "wire_bytes_per_quantum": s.pool.wire_bytes,
+            "drain_host_ms_per_quantum": summ["host_ms"]["drain"]["mean"],
+            "launches_per_sweep": {n: (count(n) - c0[n]) / sweeps
+                                   for n in wrappers if count(n) - c0[n]}})
+        del s, hs, res
+    counts25 = check_launches("pool_thin", served[0] - served0[0],
+                              served[1] - served0[1])
+    thin_ok = all(
+        thinned_of(a, b, THIN25)
+        and int(a.stats["record_thin"]) == THIN25
+        and "record_thin" not in b.stats
+        for a, b in zip(first25[THIN25], first25[1]))
+    lps = [r["launches_per_sweep"] for t in (1, THIN25)
+           for r in thin_turns[t]]
+    lps_ok = all(d == lps[0] for d in lps)
+    urep["thinning"] = {"turns": thin_turns, "rows_bitwise": bool(thin_ok),
+                        "launches_per_sweep_equal": bool(lps_ok),
+                        "launches": counts25}
+    for t in (1, THIN25):
+        t_ = thin_turns[t]
+        print(f"# constructor 25a pool1024 compact8 record_thin={t}: "
+              f"{t_[0]['wire_bytes_per_quantum'] / 1e6:.3f} MB a quantum, "
+              "drain host " + " / ".join(
+                  f"{r['drain_host_ms_per_quantum']:.3f}" for r in t_)
+              + " ms a quantum, " + " / ".join(
+                  f"{r['ms_per_quantum']:.2f}" for r in t_)
+              + f" ms a quantum | {card}", flush=True)
+    print(f"# constructor 25a: thinned rows bitwise the full-rate rows "
+          f"[::{THIN25}] {thin_ok}, launches a sweep equal {lps_ok}: "
+          f"{json.dumps({n: round(v, 4) for n, v in lps[0].items()})}"
+          f" | {card}", flush=True)
+    if not (thin_ok and lps_ok):
+        fail("phase 25a: a thinned tenant is not its full-rate rows "
+             f"[::{THIN25}], or thinning changed the launches a sweep")
+    del first25
+
+    # 25b. the admission arms: GST_SERVE_SCATTER 1 against 0 in turns
+    # (1, 0, 0, 1), each a fresh pipelined server, on the JAX package's
+    # tests/test_serve.py schedule at 1024 lanes: two tenants of 512 chains
+    # admitted at the first boundary, a lane_nan fault re-drawn on one and
+    # quarantined on the other, and a spooled third admitted mid-flight
+    half = POOL_LANES // 2
+
+    def admission_run(flag, k):
+        with env_set("GST_SERVE_SCATTER", flag):
+            s = ChainServer(template, cfg_p, nlanes=POOL_LANES,
+                            quantum=POOL_QUANTUM, device=dev)
+        if s.pool.scatter is not (flag == "1"):
+            fail(f"GST_SERVE_SCATTER={flag} resolved to scatter="
+                 f"{s.pool.scatter}")
+        with faults.inject(
+                faults.FaultSpec("lane_nan", tenant="R", after=1),
+                faults.FaultSpec("lane_nan", tenant="Q", after=1)):
+            hs = [s.submit(TenantRequest(
+                      ma=tenant_mas[0], niter=3 * Q, nchains=half, seed=801,
+                      name="R", on_divergence="reinit")),
+                  s.submit(TenantRequest(
+                      ma=tenant_mas[1], niter=4 * Q, nchains=half, seed=802,
+                      name="Q", on_divergence="quarantine")),
+                  s.submit(TenantRequest(
+                      ma=tenant_mas[2], niter=2 * Q, nchains=half, seed=803,
+                      name="L", spool_dir=os.path.join(tmp25, f"L{k}")))]
+            wall = drive(s)
+        res = [h.result(timeout=WAIT_S) for h in hs]
+        summ = s.summary()
+        return {"results": res, "wall_s": wall,
+                "health": [hs[0].health["n_reinits"],
+                           hs[1].health["n_quarantined"]],
+                "admission": summ["admission"], "backend": summ["backend"]}
+
+    arms25 = {"1": [], "0": []}
+    for k, flag in enumerate(("1", "0", "0", "1")):
+        arms25[flag].append(admission_run(flag, k))
+    ref25 = arms25["1"][0]["results"]
+    arms_bitwise = all(
+        all(same_rows(a, b) for a, b in zip(run["results"], ref25))
+        for flag in arms25 for run in arms25[flag])
+    faults_ok = all(run["health"][0] >= 1 and run["health"][1] >= 1
+                    for flag in arms25 for run in arms25[flag])
+    adm = {flag: [run["admission"] for run in arms25[flag]]
+           for flag in arms25}
+    bytes_ok = (all(a["admits"] == 3 for f_ in adm for a in adm[f_])
+                and max(a["bytes_total"] for a in adm["1"])
+                < min(a["bytes_total"] for a in adm["0"]))
+    urep["admission"] = {
+        "arms": {flag: [{k: v for k, v in run.items() if k != "results"}
+                        for run in arms25[flag]] for flag in arms25},
+        "bitwise": bool(arms_bitwise), "faults_applied": bool(faults_ok),
+        "scatter_moves_less": bool(bytes_ok)}
+    for flag in ("1", "0"):
+        for run in arms25[flag]:
+            a = run["admission"]
+            ap = a["apply_ms"]
+            print(f"# constructor 25b GST_SERVE_SCATTER={flag}: "
+                  f"{a['admits']} admits, {a['bytes_per_admit'] / 1e6:.4f}"
+                  f" MB an admission ({a['bytes_total'] / 1e6:.4f} MB), "
+                  f"admission apply ms p50 {ap['p50']:.3f} p90 "
+                  f"{ap['p90']:.3f} p99 {ap['p99']:.3f} max "
+                  f"{ap['max']:.3f}, run {run['wall_s']:.2f} s, backend "
+                  f"{json.dumps(run['backend'])} | {card}", flush=True)
+    print(f"# constructor 25b: arms bitwise {arms_bitwise}, faults applied "
+          f"{faults_ok}, the scatter moves less {bytes_ok} | {card}",
+          flush=True)
+    if not (arms_bitwise and faults_ok and bytes_ok):
+        fail("phase 25b: the admission arms differ, a fault was not "
+             "applied, or the scatter did not move fewer bytes")
+    del arms25, ref25
+
+    # 25c. a tenant of 20 chains in a group=32 pool (32 lanes) beside a
+    # 256-chain neighbour, and the same two in a group=16 pool (the same
+    # lanes): bitwise. Against TorchGibbs.sample the start row is held bit
+    # for bit; the later rows are reported (the pool's lanes kernels and
+    # the solo sampler's are other kernels, phase 11c)
+    def group_run(group):
+        s = ChainServer(template, cfg_p, nlanes=POOL_LANES,
+                        quantum=POOL_QUANTUM, device=dev, record="full",
+                        group=group)
+        seen = []
+
+        def grab(srv_):
+            if not seen and srv_.quanta:
+                seen.append({t["name"]: (t["lane0"], t["lane_groups"])
+                             for t in srv_.status()["tenants"]})
+        hs = [s.submit(TenantRequest(ma=tenant_mas[3], niter=2 * Q,
+                                     nchains=20, seed=811, name="g")),
+              s.submit(TenantRequest(ma=tenant_mas[4], niter=2 * Q,
+                                     nchains=POOL_CHAINS, seed=812,
+                                     name="n"))]
+        drive(s, on_quantum=grab)
+        return [h.result(timeout=WAIT_S) for h in hs], seen[0]
+
+    (g32, n32), lanes32 = group_run(32)
+    (g16, n16), lanes16 = group_run(16)
+    solo_g = tb.TorchGibbs(tenant_mas[3], cfg_p, nchains=20, device=dev,
+                           chunk_size=Q, tnt_block_size=None, record="full")
+    rs_g = solo_g.sample(niter=2 * Q, seed=811)
+    groups_ok = (same_rows(g32, g16) and same_rows(n32, n16)
+                 and lanes32 == {"g": (0, 1), "n": (32, POOL_CHAINS // 32)}
+                 and lanes16 == {"g": (0, 2),
+                                 "n": (32, POOL_CHAINS // 16)})
+    start_ok = all(eq(getattr(g32, f)[0], getattr(rs_g, f)[0])
+                   for f in chains)
+    urep["groups"] = {
+        "lanes": {"group32": lanes32, "group16": lanes16},
+        "bitwise_group16": bool(groups_ok), "start_row_bitwise_solo":
+            bool(start_ok),
+        "solo_rows_bitwise": {f: int(sum(eq(a, b) for a, b in zip(
+            getattr(g32, f), getattr(rs_g, f)))) for f in chains},
+        "solo_x_max_rel_err": rel_err(torch.as_tensor(g32.chain),
+                                      torch.as_tensor(rs_g.chain))[:2]}
+    print(f"# constructor 25c group=32: {json.dumps(urep['groups'])} | "
+          f"{card}", flush=True)
+    if not (groups_ok and start_ok):
+        fail("phase 25c: a group=32 tenant differs from the same tenant of "
+             "a group=16 pool, or its start from the solo sampler's")
+    del g32, n32, g16, n16, solo_g, rs_g
+    shutil.rmtree(tmp25, ignore_errors=True)
+    urep["seconds"] = time.perf_counter() - t25
+    print(f"# phase 25: {urep['seconds']:.1f} s | {card}", flush=True)
 
     # the redesigned kernels beside the first design and the library call
     # (reported, not gated)

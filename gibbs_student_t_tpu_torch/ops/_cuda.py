@@ -99,6 +99,17 @@ last_build = None
 build_seconds = 0.0
 #: of those, the seconds of compiling and linking (0.0 when only loaded)
 compile_seconds = 0.0
+#: the sources' hash of the library this process last built or loaded
+built_hash = None
+
+
+def library_record() -> str:
+    """The kernels' library as one line for a status record: its name,
+    how this process got it (:data:`last_build`) and the sources' hash
+    its stamp holds, or that this process has not loaded it yet."""
+    if last_build is None:
+        return f"{LIB_NAME} not loaded"
+    return f"{LIB_NAME} {last_build} {built_hash}"
 
 
 def _sources():
@@ -145,7 +156,7 @@ def build(force: bool = False) -> str:
 
 
 def _build(force: bool) -> str:
-    global ptxas_report, last_build, compile_seconds
+    global ptxas_report, last_build, compile_seconds, built_hash
     os.makedirs(BUILD, exist_ok=True)
     lib_path = os.path.join(BUILD, LIB_NAME)
     stamp = os.path.join(BUILD, LIB_NAME + ".hash")
@@ -154,7 +165,7 @@ def _build(force: bool) -> str:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if not force and _stamp_matches(lib_path, stamp, want):
-                last_build = "loaded"
+                last_build, built_hash = "loaded", want
                 return lib_path
             t0 = time.perf_counter()
             report = _compile_and_link(lib_path, stamp, want)
@@ -164,7 +175,7 @@ def _build(force: bool) -> str:
     ptxas_report = report
     with open(os.path.join(BUILD, "ptxas.txt"), "w") as fh:
         fh.write(ptxas_report)
-    last_build = "built"
+    last_build, built_hash = "built", want
     return lib_path
 
 

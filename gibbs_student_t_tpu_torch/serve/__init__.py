@@ -33,6 +33,9 @@ its chains from a fit to a short pilot run instead of the prior (a
 the partial-scan states every sweep computes as recycled rows
 (``parallel/recycle.py``). ``GST_WARM_START``, ``GST_WARM_FLOW``,
 ``GST_ADAPT_SCAN`` and ``GST_RECYCLE`` gate them, strictly ``auto|1|0``.
+``GST_SERVE_SCATTER`` (the same) picks the pool's admission writes: on the
+device, or (``0``) the JAX pool's reference host bounce; the two give
+bitwise the same chains.
 
 The wire for one pool: ``rpc.py`` holds the frame codec, the
 :class:`RpcServer` mounted beside a server and the client

@@ -87,15 +87,44 @@ suffix rows of T and y). A homogeneous pool keeps the count a number and
 a tenant's chains bitwise ``TorchGibbs.sample``'s; a heterogeneous pool's
 agree with it in law (the JAX pool's rule).
 
-Not ported from the JAX pool: buffer donation and the device scatter of
-admissions (``GST_SERVE_SCATTER``), and ``record_thin``. Like the JAX
-pool it refuses population-covariance adaptation; it also refuses
-multiple-try Metropolis, which the lanes entries do not cover.
+Thinning (``record_thin=t``, the JAX pool's and ``TorchGibbs``'s; the
+quantum must be a multiple of it): a quantum records the state before
+every t-th sweep, ``quantum // t`` rows, while the draws, the
+Robbins-Monro steps and the telemetry stay per sweep. A tenant's row k is
+bitwise row k·t of the same tenant at full rate, and a tenant alone in
+the pool is ``TorchGibbs(record_thin=t).sample``.
+
+Admission writes (``GST_SERVE_SCATTER``, strictly ``auto|1|0``, resolved
+once at construction into :attr:`SlotPool.scatter`, the JAX pool's
+gate): on (``auto`` and ``1``), :meth:`SlotPool.write_tenant`,
+:meth:`SlotPool.reinit_lanes` and :meth:`SlotPool.poison_lanes` write
+their lanes' rows into the state on the device (``index_copy_``) and
+:meth:`SlotPool.tenant_state` gathers one tenant's
+rows there. ``0`` is the JAX pool's reference arm, the host bounce: the
+first write or read after a quantum pulls the whole lane state to the
+host, the writes go into that copy, and the next dispatch uploads it
+whole. Both arms write the same values, so chains, spools and recovery
+are bitwise the same; :meth:`SlotPool.admission_stats` counts what each
+admission moved (the delta and its lane index, or the delta and the
+whole state down and up), :meth:`SlotPool.backend_info` says which arm
+runs where.
+
+Spans (``spans``, the server's ``obs/spans.SpanRecorder``): each dispatch
+records ``operand_upload`` around the upload of the lane flags, gates and
+(bounce arm) state when it copies anything, and ``chunk_call`` around the
+quantum's launches, both on the dispatch role; host clocks, no device
+synchronisation.
+
+Not ported from the JAX pool: buffer donation (the eager pool writes the
+state in place; there is no program to donate to). Like the JAX pool it
+refuses population-covariance adaptation; it also refuses multiple-try
+Metropolis, which the lanes entries do not cover.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from types import SimpleNamespace
 from typing import Dict, Optional
 
@@ -116,11 +145,12 @@ from gibbs_student_t_tpu_torch.obs.introspect import (
     program_begin,
     program_end,
 )
+from gibbs_student_t_tpu_torch.obs.spans import ROLE_DISPATCH
 from gibbs_student_t_tpu_torch.obs.telemetry import (
     telemetry_init,
     telemetry_update,
 )
-from gibbs_student_t_tpu_torch.ops import rng
+from gibbs_student_t_tpu_torch.ops import _cuda, rng
 from gibbs_student_t_tpu_torch.ops.hyper_mh import hyper_mh_lanes
 from gibbs_student_t_tpu_torch.ops.lanes import LANES_GROUP
 from gibbs_student_t_tpu_torch.ops.tnt import tnt_lanes
@@ -131,9 +161,18 @@ from gibbs_student_t_tpu_torch.parallel.ensemble import (
     pad_model_arrays,
 )
 from gibbs_student_t_tpu_torch.serve.adapt import adapt_scan_enabled
+from gibbs_student_t_tpu_torch.utils.env import env_choice
 
 #: gid of lanes no tenant owns (whole free groups)
 FREE_GID = -1
+
+
+def serve_scatter_enabled() -> bool:
+    """The validated ``GST_SERVE_SCATTER`` (strictly ``auto|1|0``, unset
+    is ``auto``): True for the admission writes on the device (``auto``,
+    ``1``), False for the host bounce (``0``, the reference arm). A pool
+    reads it once, at construction."""
+    return env_choice("GST_SERVE_SCATTER") != "0"
 
 
 class TenantSlot:
@@ -247,13 +286,19 @@ class SlotPool:
     ``"compact"``, ``"full"`` or ``"light"``, as in ``TorchGibbs``.
     ``device`` as in ``TorchGibbs``: CUDA unless the caller asks for the
     CPU. ``telemetry`` carries every lane's ``Telemetry`` through each
-    quantum (the lane-health policies read its ``diverged`` flags)."""
+    quantum (the lane-health policies read its ``diverged`` flags).
+    ``group`` is the admission granularity in lanes, a multiple of 16;
+    ``record_thin`` records every that many sweeps (the quantum must be a
+    multiple of it); ``metrics`` takes the first quantum's program record
+    and ``spans`` the pool's dispatch spans (see the module
+    docstring)."""
 
     def __init__(self, template_ma: ModelArrays, config: GibbsConfig,
                  nlanes: int = 1024, quantum: int = 25,
                  group: int = LANES_GROUP, device=None,
                  record: str = "compact8", telemetry: bool = True,
-                 heterogeneous: bool = False):
+                 heterogeneous: bool = False, record_thin: int = 1,
+                 metrics=None, spans=None):
         device = resolve_device(device)
         if group % LANES_GROUP:
             raise ValueError(
@@ -265,6 +310,11 @@ class SlotPool:
                              f"multiple of the admission group ({group})")
         if quantum < 1:
             raise ValueError(f"quantum must be >= 1, got {quantum}")
+        if record_thin < 1:
+            raise ValueError(f"record_thin must be >= 1, got {record_thin}")
+        if quantum % record_thin:
+            raise ValueError(f"quantum ({quantum}) must be a multiple "
+                             f"of record_thin ({record_thin})")
         if config.mh.adapt_cov:
             raise ValueError(
                 "the serve slot pool does not support population-"
@@ -295,9 +345,11 @@ class SlotPool:
         # Robbins-Monro steps and the lanes' first state: the template's
         # (its record checks and tier: the wire fields and casts)
         self.drawer = TorchGibbs(tmpl, config, nchains=nlanes,
-                                 device=device, tnt_block_size=None,
-                                 record=record)
+                                 device=device, chunk_size=quantum,
+                                 tnt_block_size=None, record=record,
+                                 record_thin=record_thin)
         self.record = self.drawer.record_mode
+        self.record_thin = self.drawer.record_thin
         self.fields = self.drawer._record_fields
         self.casts = self.drawer._record_casts
         # the bytes of the last quantum's records in wire dtypes
@@ -306,7 +358,15 @@ class SlotPool:
         # from its dispatch to its records' arrival on the host
         # (wire_host), and the registry its compile event goes to
         self._program = None
-        self.metrics = None
+        self.metrics = metrics
+        self.spans = spans
+        # the admission writes' arm, resolved once; the bounce arm's host
+        # copy of the lane state (canonical while set: from the first
+        # boundary write or read after a quantum to the next dispatch);
+        # the bytes each admission moved
+        self.scatter = serve_scatter_enabled()
+        self._host: Optional[ChainState] = None
+        self._admit_bytes: list = []
         if self.heterogeneous:
             self._lane_theta_shapes()
         flat = self.drawer.init_state(seed=0)
@@ -365,13 +425,13 @@ class SlotPool:
             self.sampler.write_pulsar(int(g), backend)
         if self.heterogeneous:
             self._lane_theta_shapes()
-        idx = torch.as_tensor(lanes, dtype=torch.long, device=self.device)
+        delta = {}
         for f, val in zip(ChainState._fields, state):
-            val = val.to(self.device)
             if len(lanes) > k:
                 val = torch.cat([val, val[:1].expand(len(lanes) - k,
                                                      *val.shape[1:])])
-            _flat(getattr(self.state, f)).index_copy_(0, idx, val)
+            delta[f] = val
+        self._admit_bytes.append(self._write_rows(lanes, delta))
         self._active_np[lanes[:k]] = True
         self._active_np[lanes[k:]] = False
         self._gid_np[lanes] = slot.tenant_id
@@ -397,6 +457,41 @@ class SlotPool:
 
         self.drawer._nstat = lanes(smp._nstat)
         self.drawer._theta_prior = tuple(lanes(t) for t in smp._theta_prior)
+
+    def _pull_state(self) -> bool:
+        """The bounce arm's pull: make the host copy of the lane state
+        canonical (a blocking copy, which waits for the quanta issued).
+        Returns whether it copied (False: the copy was current)."""
+        if self._host is not None:
+            return False
+        self._host = ChainState(*(t.to("cpu", copy=True)
+                                  for t in self.state))
+        return True
+
+    def _write_rows(self, lanes, rows: Dict[str, torch.Tensor]) -> int:
+        """Write ``rows[f]`` (one row a lane) into the lanes' rows of
+        state field ``f``: on the device under the scatter arm, into the
+        host copy (pulled first if it is not current) under the bounce.
+        Returns the bytes moved as :meth:`admission_stats` counts them:
+        the rows and the lane index, or the rows and, when it pulled, the
+        whole state down and back up."""
+        if self.scatter:
+            idx = torch.as_tensor(np.asarray(lanes, np.int64),
+                                  device=self.device)
+            moved = idx.numel() * idx.element_size()
+            for f, val in rows.items():
+                _flat(getattr(self.state, f)).index_copy_(
+                    0, idx, val.to(self.device))
+                moved += val.numel() * val.element_size()
+            return moved
+        pulled = self._pull_state()
+        idx = torch.as_tensor(np.asarray(lanes, np.int64))
+        moved = (2 * sum(t.numel() * t.element_size() for t in self._host)
+                 if pulled else 0)
+        for f, val in rows.items():
+            _flat(getattr(self._host, f)).index_copy_(0, idx, val.cpu())
+            moved += val.numel() * val.element_size()
+        return moved
 
     def evict(self, slot: TenantSlot) -> None:
         """Free a tenant's lanes: inactive, their groups free. Their model
@@ -445,8 +540,10 @@ class SlotPool:
         """Write NaN into the lanes' parameters (the ``lane_nan`` fault
         of serve/faults.py): the next quantum's sticky ``diverged`` flag
         picks it up as it would a real divergence."""
-        idx = torch.as_tensor(np.asarray(lanes, np.int64), device=self.device)
-        _flat(self.state.x).index_fill_(0, idx, float("nan"))
+        x = self.state.x
+        self._write_rows(lanes, {"x": torch.full(
+            (len(lanes),) + x.shape[2:], float("nan"), dtype=x.dtype,
+            device=x.device)})
 
     def reinit_lanes(self, lanes: np.ndarray, fresh: ChainState,
                      fresh_idx: np.ndarray) -> None:
@@ -455,22 +552,24 @@ class SlotPool:
         tenant's sampler). The lanes keep their adapted jump scales and
         covariance factors, as ``TorchGibbs``'s ``reinit_diverged`` does,
         and their key and sweep index; every other lane is untouched."""
-        idx = torch.as_tensor(np.asarray(lanes, np.int64), device=self.device)
-        sel = torch.as_tensor(np.asarray(fresh_idx, np.int64),
-                              device=self.device)
-        for f, val in zip(ChainState._fields, fresh):
-            if f in ("mh_log_scale", "mh_cov_chol"):
-                continue
-            _flat(getattr(self.state, f)).index_copy_(
-                0, idx, val.to(self.device).index_select(0, sel))
+        sel = np.asarray(fresh_idx, np.int64)
+        self._write_rows(lanes, {
+            f: val.index_select(0, torch.as_tensor(sel, device=val.device))
+            for f, val in zip(ChainState._fields, fresh)
+            if f not in ("mh_log_scale", "mh_cov_chol")})
         self._active_np[np.asarray(lanes, int)] = True
         self._dirty = True
 
     def tenant_state(self, slot: TenantSlot) -> ChainState:
-        """The tenant's current chain state: ``(nchains, ...)`` tensors on
-        the pool's device (copies), e.g. to resume it in ``TorchGibbs``
-        or in another pool at ``start_sweep``."""
-        return self.tenant_state_from(self.state, slot)
+        """The tenant's current chain state: ``(nchains, ...)`` tensors
+        (copies), e.g. to resume it in ``TorchGibbs`` or in another pool
+        at ``start_sweep``. The scatter arm gathers the tenant's rows on
+        the pool's device; the bounce arm pulls the whole state and
+        slices it on the host."""
+        if self.scatter:
+            return self.tenant_state_from(self.state, slot)
+        self._pull_state()
+        return self.tenant_state_from(self._host, slot)
 
     @staticmethod
     def tenant_state_from(snap: ChainState, slot: TenantSlot) -> ChainState:
@@ -486,15 +585,19 @@ class SlotPool:
     # the quantum
     # ------------------------------------------------------------------
 
-    def _upload(self) -> None:
+    def _upload(self) -> bool:
+        """Upload what changed on the host since the last dispatch: the
+        lane flags, keys and sweep indices, the block gates, and (bounce
+        arm) the whole lane state. Returns whether it copied anything."""
+        copied = False
         if self._dirty:
-            G = self.nlanes // LANES_GROUP
             for dst, src in ((self._active, self._active_np),
                              (self.sampler.gid, self._gid_np),
                              (self._lane_keys, self._keys_np),
                              (self._lane_sweep, self._sweep_np)):
                 dst.copy_(torch.from_numpy(src).reshape(dst.shape))
             self._dirty = False
+            copied = True
         if self._bg_dirty:
             with self._bg_lock:
                 gates = self._bg_np.copy()
@@ -503,6 +606,13 @@ class SlotPool:
             if not self._bg_ones:
                 self._bg.copy_(torch.from_numpy(gates).reshape(
                     self._bg.shape))
+                copied = True
+        if self._host is not None:
+            self.state = ChainState(*(t.to(self.device)
+                                      for t in self._host))
+            self._host = None
+            copied = True
+        return copied
 
     def block_gates(self):
         """The lanes' gates as the sweep's ``(G, 16, NBLOCKS)`` operand,
@@ -536,8 +646,8 @@ class SlotPool:
         """Advance every lane by ``quantum`` sweeps without waiting for the
         device: returns ``(records, telemetry, snap)``. ``records`` is
         ``{field: (quantum, G, 16, ...)}`` device tensors in the tier's wire
-        dtypes, the state before each sweep (as ``TorchGibbs.sample``
-        records it); ``telemetry`` the
+        dtypes, the state before every ``record_thin``-th sweep (as
+        ``TorchGibbs.sample`` records it); ``telemetry`` the
         quantum's ``Telemetry`` of ``(G, 16)`` tensors (None with
         ``telemetry`` off); ``snap``, with
         ``snapshot=True``, a copy of the post-quantum state made on the
@@ -554,7 +664,11 @@ class SlotPool:
                                 self.quantum, str(self.device))
         if program is not None:
             self._program = program
-        self._upload()
+        t_up = time.monotonic()
+        if self._upload() and self.spans is not None:
+            self.spans.record("operand_upload", ROLE_DISPATCH, t_up,
+                               time.monotonic() - t_up)
+        t_call = time.monotonic()
         smp = self.sampler
         if self.config.mh.adapt_until > 0:
             smp.eta = self._eta_table()
@@ -567,8 +681,9 @@ class SlotPool:
         sweeps = self._lane_sweep + self._steps
         gates = self.block_gates()
         for j in range(self.quantum):
-            for f in self.fields:
-                recs[f].append(getattr(st, f))
+            if j % self.record_thin == 0:
+                for f in self.fields:
+                    recs[f].append(getattr(st, f))
             st = smp._sweep(st, self._lane_draws(st, sweeps[j]), sweep=j,
                             block_gates=gates)
             if tl is not None:
@@ -591,6 +706,9 @@ class SlotPool:
         wire = record_tuple(SimpleNamespace(**{
             f: torch.stack(v) for f, v in recs.items()}), self.fields,
             self.casts)
+        if self.spans is not None:
+            self.spans.record("chunk_call", ROLE_DISPATCH, t_call,
+                               time.monotonic() - t_call)
         self.wire_bytes = sum(t.numel() * t.element_size() for t in wire)
         return dict(zip(self.fields, wire)), tl, snap
 
@@ -697,3 +815,32 @@ class SlotPool:
         res.stats["n_toa"] = np.asarray([self.n_pool if n_real is None
                                          else n_real])
         return res
+
+    # ------------------------------------------------------------------
+    # the status surface (the server's status() and summary())
+    # ------------------------------------------------------------------
+
+    def admission_stats(self) -> dict:
+        """The admission writes: the arm (``scatter``), the admissions
+        made, and the bytes they moved (a mean, and the total): the delta
+        and its lane index under the scatter arm, the delta and the whole
+        state down and back up under the bounce (the JAX pool's
+        count)."""
+        n = len(self._admit_bytes)
+        return {"scatter": bool(self.scatter), "admits": n,
+                "bytes_per_admit": (float(np.mean(self._admit_bytes))
+                                    if n else None),
+                "bytes_total": int(np.sum(self._admit_bytes)) if n else 0}
+
+    def backend_info(self) -> dict:
+        """Where the pool runs: ``platform`` (``"gpu"`` on CUDA, else
+        ``"cpu"``), ``native`` (the kernels' library as
+        ``ops/_cuda.library_record`` gives it on CUDA; on the CPU, that
+        the plain versions run: a string either way, as the JAX pool's
+        probe verdict and the status schema have it) and the admission
+        arm (``scatter``)."""
+        cuda = self.device.type == "cuda"
+        return {"platform": "gpu" if cuda else "cpu",
+                "native": (_cuda.library_record() if cuda
+                           else "none: plain versions on the CPU"),
+                "scatter": bool(self.scatter)}

@@ -152,6 +152,11 @@ process carry the block through ``status()``; the fleet's merged snapshot
 (obs/aggregate.py) keeps the JAX one's placement subset, which has no
 ``stages``.
 
+The pool's admission arm (``GST_SERVE_SCATTER``, serve/pool.py) and where
+it runs are ``status()["backend"]`` and ``summary()["backend"]``; the
+admissions' bytes and the apply ms percentiles are
+``summary()["admission"]``, as in the JAX server.
+
 Not ported from the JAX server: the persistent compile cache of
 ``recover``.
 """
@@ -204,6 +209,7 @@ from gibbs_student_t_tpu_torch.obs.watchdog import (
     serve_watchdog_env,
 )
 from gibbs_student_t_tpu_torch.ops import timers as _timers
+from gibbs_student_t_tpu_torch.ops.lanes import LANES_GROUP
 from gibbs_student_t_tpu_torch.ops.rng import check_counter
 from gibbs_student_t_tpu_torch.parallel.ensemble import (
     _localize_names,
@@ -329,7 +335,14 @@ class ChainServer:
 
     ``nlanes``, ``quantum``, ``record`` (the tier, ``"compact8"`` by
     default), ``heterogeneous`` and ``device`` configure the pool
-    (serve/pool.py);
+    (serve/pool.py), as do ``group``, the admission granularity in lanes (a
+    multiple of 16: a tenant holds whole groups, a 20-chain tenant of a
+    ``group=32`` pool 32 lanes), and ``record_thin``, which records every
+    that many sweeps (the quantum must be a multiple of it; a tenant's
+    rows, spool and monitor are thinned, its result carries
+    ``stats["record_thin"]``, and ``progress()``, ``cost()`` and the SLO
+    series still count sweeps); both are journaled in the manifest and
+    restored by :meth:`recover`;
     ``max_queue`` bounds the admission queue, and ``backpressure`` says
     what :meth:`submit` does when it is full: ``"reject"`` sheds at once,
     ``"block"`` waits for room (with no other thread driving the server,
@@ -398,7 +411,8 @@ class ChainServer:
                  flight: bool = True, flight_dir: Optional[str] = None,
                  flight_capacity: int = 64, flight_sync_every: int = 4,
                  kernel_timers="auto", recycle="auto",
-                 heterogeneous: bool = False):
+                 heterogeneous: bool = False, group: int = LANES_GROUP,
+                 record_thin: int = 1):
         if pipeline not in (True, False):
             raise ValueError(f"pipeline must be True or False, got "
                              f"{pipeline!r}")
@@ -445,7 +459,8 @@ class ChainServer:
                    (lambda h: schedule_score(h,
                                              age_boost_s=self.age_boost_s))))
         self.pool = SlotPool(template_ma, config, nlanes=nlanes,
-                             quantum=quantum, device=device, record=record,
+                             quantum=quantum, group=group, device=device,
+                             record=record, record_thin=record_thin,
                              telemetry=telemetry, heterogeneous=heterogeneous)
         # the dispatch thread's state; reentrant, so a callback on the
         # serial path may read status()
@@ -503,7 +518,8 @@ class ChainServer:
         if manifest_dir is not None:
             self._manifest = ServerManifest(manifest_dir)
             self._manifest.record_server(template_ma, config, {
-                "nlanes": nlanes, "quantum": quantum, "record": record,
+                "nlanes": nlanes, "quantum": quantum, "group": group,
+                "record": record, "record_thin": self.pool.record_thin,
                 "heterogeneous": self.pool.heterogeneous,
                 "max_queue": max_queue, "backpressure": backpressure,
                 "telemetry": bool(telemetry), "scheduler": scheduler})
@@ -561,11 +577,13 @@ class ChainServer:
         if obs_dir is not None and metrics is None:
             metrics = MetricsRegistry()    # the exposition needs one
         self.metrics = metrics
-        # the pool's first-quantum record goes to the same registry
+        # the pool's first-quantum record goes to the same registry, and
+        # its dispatch spans to the same recorder
         self.pool.metrics = metrics
         self.spans = (SpanRecorder(capacity=span_capacity,
                                    jsonl_path=trace_jsonl, metrics=metrics)
                       if spans else None)
+        self.pool.spans = self.spans
         self.obs_dir = obs_dir
         if obs_dir is not None:
             os.makedirs(obs_dir, exist_ok=True)
@@ -900,6 +918,7 @@ class ChainServer:
                 monitor = TenantMonitor(
                     req.monitor, req.nchains, pidx,
                     param_names=t.param_names,
+                    record_thin=pool.record_thin,
                     blocks=_adapt.param_blocks(pidx, t.white_indices,
                                                t.hyper_indices),
                     block_names=_adapt.BLOCK_NAMES)
@@ -1167,6 +1186,7 @@ class ChainServer:
                 req.spool_dir, req.seed, resume=req.start_sweep > 0,
                 resume_at=req.start_sweep or None,
                 record_mode=pool.drawer.record_mode,
+                record_thin=pool.record_thin,
                 recycle=True if self.recycle else None,
                 extra_meta={"tenant": handle.tenant_id,
                             "n_toa": [slot.n_real]},
@@ -1386,7 +1406,7 @@ class ChainServer:
         recycling off."""
         if not self.recycle:
             return 0, records
-        rows_q = self.pool.quantum
+        rows_q = self.pool.quantum // self.pool.record_thin
         continuing = not first or handle.request.start_sweep > 0
         rec_rows = rows_q if continuing else rows_q - 1
         if not rec_rows:
@@ -2660,6 +2680,7 @@ class ChainServer:
             "staged": staged,
             "pipeline": self.pipeline,
             "supervise": self.supervise,
+            "backend": self.pool.backend_info(),
             "faults": dict(self._fault_counts),
             "stages": self._stages_block(),
             "watchdog": self._watchdog_block(),
@@ -2753,6 +2774,9 @@ class ChainServer:
                             "dispatch_gap": _percentiles(self._gap_ms),
                             "monitor": _percentiles(self._monitor_ms),
                             "obs_refresh": _percentiles(self._refresh_ms)},
+                "admission": {**self.pool.admission_stats(),
+                              "apply_ms": _percentiles(self._admit_apply_ms)},
+                "backend": self.pool.backend_info(),
                 "faults": dict(self._fault_counts),
                 "converged_evictions": self._converged_evictions,
                 "recycle": {"enabled": bool(self.recycle),

@@ -14,7 +14,9 @@ The gates read here, each where its layer is built: ``GST_KERNEL_TIMERS``
 sweep's stage timers, ops/timers.py), ``GST_INTROSPECT`` (off switch: the run's kernel and
 program records, obs/introspect.py), ``GST_SERVE_WATCHDOG``,
 ``GST_RECYCLE``, ``GST_WARM_START``, ``GST_WARM_FLOW``,
-``GST_ADAPT_SCAN`` and ``GST_RPC_MAX_FRAME``.
+``GST_ADAPT_SCAN``, ``GST_SERVE_SCATTER`` (strict ``auto|1|0``, auto ->
+on: the slot pool's admission writes on the device, ``0`` the host
+bounce, serve/pool.py) and ``GST_RPC_MAX_FRAME``.
 """
 
 from __future__ import annotations

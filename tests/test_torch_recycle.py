@@ -603,10 +603,10 @@ def test_warm_tenant_recovered_from_manifest_bitwise(demo, tmp_path,
 
 # --- the same script on both servers ----------------------------------------------
 
-#: keys only one server reports: the JAX server's wire, native backend and
-#: scatter-admission block; the port's host ms of its launch loop and plane
-JAX_ONLY = {"http", "backend"}
-JAX_ONLY_PATHS = {("admission",)}
+#: keys only one server reports: the JAX server's wire; the port's host ms
+#: of its launch loop and plane
+JAX_ONLY = {"http"}
+JAX_ONLY_PATHS = set()
 PORT_ONLY = {("host_ms", "dispatch"), ("host_ms", "monitor"),
              ("host_ms", "obs_refresh")}
 

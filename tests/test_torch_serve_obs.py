@@ -666,10 +666,9 @@ def test_cost_reconciles_with_dispatch_wall(plane_run):
         assert res.stats["cost"] == c == h.progress()["cost"]
 
 
-#: keys only the JAX server reports: the wire and its native backend;
-#: and, by path, the summary's block of its scatter admission
-JAX_ONLY = {"http", "backend"}
-JAX_ONLY_PATHS = {("admission",)}
+#: keys only the JAX server reports: its wire; by path, none
+JAX_ONLY = {"http"}
+JAX_ONLY_PATHS = set()
 #: keys only the port reports: host ms of the launch loop and the plane
 PORT_ONLY = {("host_ms", "dispatch"), ("host_ms", "monitor"),
              ("host_ms", "obs_refresh")}
