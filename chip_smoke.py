@@ -577,14 +577,50 @@ exits 1 through ``fail`` before it, and so does an uncaught exception.
       lanes): bit for bit, each on the lanes it should hold; against
       ``TorchGibbs.sample`` its start row bit for bit and the later rows
       reported (the lanes kernels are not the solo sampler's, phase 11c).
+26. ``dtype=torch.float64`` on the card, the flagship (1024 chains) and
+   ens32 (32 x 256), each number beside the card's name and power limit:
+   e. on CUDA a float64 path with a kernel that has no float64 form yet
+      raises ``NotImplementedError`` at construction: the TOA-blocked
+      reduction (B5), a 2,000-TOA pulsar (B3's cluster form), MTM on the
+      white block (B6) and a ``SlotPool``;
+   a. each float64 kernel (B1, B2, B3's warp form, B4, D1, single-model
+      and grouped) against its float64 plain version on the card, on
+      inputs captured from a float64 flagship sweep (and its chunk-end
+      log-posterior and ``lnlikelihood``) and a float64 ens32 sweep: the
+      factor and back-solve to 1e-9 relative, the MH blocks' accept
+      counts equal on every chain and x to 1e-12, D1's uniforms bit for
+      bit and its other values to 1e-12; D1's float64 draws rounded to
+      float32 bit for bit its float32 draws on the same operands;
+   c. each float64 kernel's time at those shapes beside the float32
+      kernel's on the same operands rounded (in turns: 32, 64, 64, 32),
+      its bound (bytes at 3.35 TB/s, FP64 operations at 33.5 TFLOP/s),
+      its plain version's and, where one PyTorch call computes the same
+      function, that call's in float64; the ptxas registers and spills of
+      the float64 entries;
+   then the main paths, counts reset before each: the float64 flagship
+   (adapt 20 with covariance proposals, then 20; path ``flagship_f64``)
+   and the float64 ens32 (20 + 20; path ``ens32_f64``): every chain finite
+   and float64, and each path's wall ms a sweep (20 sweeps, in turns:
+   32, 64, 64, 32) and device ms a sweep, launches a sweep and idle share
+   (10 profiled sweeps) beside the float32 sampler's;
+   b. 4 float64 flagship sweeps at 64 chains, the card against the CPU
+      (plain versions), each side drawing its own numbers from the same
+      seed and state: the first sweep's x, z, theta and df decisions equal
+      as integer counts (accepts a chain, z and df per chain) on every
+      chain, and the sweeps the trajectories stay equal reported;
+   d. the float64 flagship's arm of phase 24 (mixture/beta, 1,000 sweeps,
+      burn 500, thin 20) in law against phase 24's mixture/beta oracle
+      run, under phase 24's thresholds (no new oracle run; path
+      ``gate_f64``).
 
 Launch counts are read per path: every count is set to 0 just before a
 run and read just after it; a count is launches per sweep x sweeps plus
 launches per chunk x chunks; a grouped launch counts on its wrapper's
 ``launches_grouped``, a lanes launch of the white or hyper block on its
-``launches_lanes``. The last stdout lines are the ``kernels`` JSON line
-(the six kernels, the three grouped forms, the five lanes entries and the
-draw kernel),
+``launches_lanes``, a float64 launch on its wrapper's ``launches_f64``
+or ``launches_grouped_f64``. The last stdout lines are the ``kernels``
+JSON line (the six kernels, the three grouped forms, the five lanes
+entries, the draw kernel and the seven float64 forms),
 the card line, and
 ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json.
@@ -718,6 +754,39 @@ KERNELS = {
                  "gibbs_student_t_tpu/backends/jax_backend.py:1907"),
 }
 DRAWS = "sweep_draws"
+# the float64 forms (phase 26): the same wrappers, counted on their
+# launches_f64 / launches_grouped_f64, on the float64 flagship and ens32
+# paths only
+F64_PATHS = ("flagship_f64", "ens32_f64")
+for _meta in KERNELS.values():
+    for _p in F64_PATHS:
+        _meta["per_sweep"][_p] = 0
+_PATHS = tuple(KERNELS[DRAWS]["per_sweep"])
+_F64 = "gibbs_student_t_tpu_torch/csrc/"
+F64_KERNELS = {
+    # name: (base kernel, source, launches a sweep on flagship_f64 and
+    # ens32_f64, launches a chunk)
+    "chol_fused_f64": ("chol_fused", _F64 + "chol.cu", (2, 2), (1, 1)),
+    "tri_solve_T_f64": ("tri_solve_T", _F64 + "chol.cu", (2, 2), (0, 0)),
+    "white_mh_f64": ("white_mh", _F64 + "white_mh.cu", (1, 0), (0, 0)),
+    "white_mh_grouped_f64": ("white_mh_grouped", _F64 + "white_mh.cu",
+                             (0, 1), (0, 0)),
+    "hyper_mh_f64": ("hyper_mh", _F64 + "hyper_mh.cu", (1, 0), (0, 0)),
+    "hyper_mh_grouped_f64": ("hyper_mh_grouped", _F64 + "hyper_mh.cu",
+                             (0, 1), (0, 0)),
+    "sweep_draws_f64": ("sweep_draws", _F64 + "draws.cu", (1, 1), (0, 0)),
+}
+for _name, (_base, _src, _ps, _pc) in F64_KERNELS.items():
+    KERNELS[_name] = dict(
+        per_sweep={**{p: 0 for p in _PATHS}, **dict(zip(F64_PATHS, _ps))},
+        per_chunk=dict(zip(F64_PATHS, _pc)), source=_src,
+        replaces=KERNELS[_base]["replaces"])
+FP64_FLOPS = 33.5e12           # H100 SXM float64 rate outside tensor cores
+# phase 26: the float64 main paths' adapting and further sweeps and their
+# chunk (also the sweeps of each timed run in turns, after 5 to warm); the
+# profiled sweeps; the card-vs-CPU sweeps and chains
+F64_ADAPT, F64_MORE, F64_CHUNK = 20, 20, 20
+F64_PROFILE_SWEEPS, F64_CPU_SWEEPS, F64_CPU_CHAINS = 10, 4, 64
 # phase 12's runs (the "sample" column of launches_by_path) sweep the
 # flagship's model and config: they launch the flagship's kernels; so do
 # phase 13's solo spool runs ("spool") and the driver's five models
@@ -732,7 +801,8 @@ SAME_AS = {"sample": "flagship", "spool": "flagship", "spool_ens": "ens32",
            "timers_on": "flagship", "pool_prof": "pool",
            "mesh_none": "ens32", "mesh_1x1": "ens32", "mesh_2x2": "ens32",
            "gate_a": "flagship", "gate_b": "flagship",
-           "gate_c": "full_mtm", "gate_d": "ens32", "gate_ns": "flagship"}
+           "gate_c": "full_mtm", "gate_d": "ens32", "gate_ns": "flagship",
+           "gate_f64": "flagship_f64"}
 # phase 24's runs, merged into one path of the kernels line after checking
 GATE_PATHS = ("gate_a", "gate_b", "gate_c", "gate_d", "gate_ns")
 # a grouped kernel's entry: the wrapper it shares with the single-model
@@ -1327,9 +1397,18 @@ def main() -> None:
         L, r)
     wrappers[DRAWS] = (tb, DRAWS, rng.sweep_draws)
     plains[DRAWS] = rng.sweep_draws_plain
+    # the float64 forms: the same wrappers and plain versions
+    for name, (base, *_) in F64_KERNELS.items():
+        wrappers[name] = wrappers[base]
+        plains[name] = plains[base]
 
     def counter(name):
         """(object, attribute) of kernel ``name``'s launch count."""
+        if name in F64_KERNELS:
+            base = F64_KERNELS[name][0]
+            return (wrappers[name][2], ("launches_grouped_f64"
+                                        if base in GROUPED
+                                        else "launches_f64"))
         if name in GROUPED:
             return wrappers[name][2], "launches_grouped"
         if name in LANES:
@@ -7928,6 +8007,345 @@ def main() -> None:
     shutil.rmtree(tmp25, ignore_errors=True)
     urep["seconds"] = time.perf_counter() - t25
     print(f"# phase 25: {urep['seconds']:.1f} s | {card}", flush=True)
+
+    # --- 26. dtype=float64 on the card (the flagship, ens32) ---------------
+    t26 = time.perf_counter()
+    f64 = torch.float64
+    frep = report["float64"] = {"card": card}
+    cfg64 = GibbsConfig(model="mixture", vary_df=True,
+                        theta_prior="beta").with_adapt(F64_ADAPT,
+                                                       adapt_cov=True)
+
+    # 26e. the refusal rule: on CUDA a float64 path with a kernel that has
+    # no float64 form yet raises at construction
+    refused = frep["refusals"] = {}
+    for what, build in (
+            ("TOA-blocked reduction (B5)", lambda: tb.TorchGibbs(
+                ma, cfg64, nchains=64, device=dev, tnt_block_size=64,
+                dtype=f64)),
+            ("2,000 TOAs (B3's cluster form)", lambda: tb.TorchGibbs(
+                make_demo_model_arrays(n=2000, components=5), cfg64,
+                nchains=64, device=dev, dtype=f64)),
+            ("white MTM (B6)", lambda: tb.TorchGibbs(
+                ma, cfg64.with_mtm(MTM_TRIES, blocks=("white",)),
+                nchains=64, device=dev, dtype=f64)),
+            ("SlotPool (the lanes entries)", lambda: serve_pool.SlotPool(
+                ma, GibbsConfig(model="mixture"), nlanes=64, device=dev,
+                dtype=f64))):
+        try:
+            build()
+            refused[what] = None
+        except NotImplementedError as exc:
+            refused[what] = str(exc)
+    print(f"# float64 26e refusals: {json.dumps(refused)}", flush=True)
+    if None in refused.values():
+        fail("phase 26: a float64 path without its kernels ran on CUDA")
+
+    # 26a. each float64 kernel against its float64 plain version on the
+    # card, on inputs captured from the float64 flagship and ens32
+    smp64 = tb.TorchGibbs(ma, cfg64, nchains=NCHAINS, device=dev,
+                          chunk_size=F64_CHUNK, record="full", dtype=f64)
+    ens64 = EnsembleGibbs(ens_pulsars(ENS_PULSARS), cfg64,
+                          nchains=ENS_CHAINS, device=dev, record="light",
+                          chunk_size=F64_CHUNK, dtype=f64)
+    base_names = ["chol_fused", "tri_solve_T", "white_mh", "hyper_mh",
+                  "white_mh_grouped", "hyper_mh_grouped", DRAWS]
+
+    def run64(smp, seed):
+        """Two float64 sweeps of ``smp``; the flagship's then its
+        chunk-end log-posterior and ``lnlikelihood`` at a chain's x."""
+        sweeps = run_capture(smp, seed, 2)
+
+        def run():
+            sweeps()
+            if smp is smp64:
+                st = smp.init_state(seed=seed)
+                smp._logpost_chain(st)
+                smp.lnlikelihood(st.x[0].cpu().numpy())
+        return run
+
+    cap64 = {"flagship_f64": split_draws(capture(base_names, run64(smp64, 7)),
+                                         "flagship_f64"),
+             "ens32_f64": split_draws(capture(base_names, run64(ens64, 7)),
+                                      "ens32_f64")}
+    for path, capt in cap64.items():
+        want = sorted(n[:-4] for n, (_, _, ps, _) in F64_KERNELS.items()
+                      if ps[F64_PATHS.index(path)] and n != DRAWS + "_f64")
+        if sorted({k[0] for k in capt}) != want:
+            fail(f"phase 26: the {path} sweep reached {sorted(capt)}")
+        if any(a[0].dtype != f64 for k, a in capt.items()
+               if k[0] != DRAWS):
+            fail(f"phase 26: the {path} sweep's operands are not float64")
+    print(f"# float64 captured: "
+          f"{ {p: sorted(c) for p, c in cap64.items()} }", flush=True)
+    for path, capt in cap64.items():
+        for (name, shape), args in sorted(capt.items()):
+            out_k = wrappers[name][2](*args)
+            out_p = plains[name](*args)
+            torch.cuda.synchronize()
+            errs = [rel_err(a, b) for a, b in zip(out_k, out_p)]
+            rec = {"path": path, "shape": list(shape),
+                   "max_abs_err": max(e[0] for e in errs),
+                   "max_rel_err": max(e[1] for e in errs),
+                   "nonfinite_mismatch": sum(e[2] for e in errs)}
+            if name.startswith(("white_mh", "hyper_mh")):
+                # the decisions as integer counts, every chain
+                steps = mh_steps(name, args)
+                n_k, n_p = (torch.round(o[1].double() * steps).long()
+                            for o in (out_k, out_p))
+                rec["accepts"] = int(n_k.sum())
+                rec["chains_acc_mismatch"] = int((n_k != n_p).sum())
+                # tolerance: every chain's accept count equal and x to
+                # 1e-12 (identical decisions give x bit for bit; float64
+                # ties are ulps of rsqrt, log and exp away)
+                ok = (rec["chains_acc_mismatch"] == 0
+                      and rec["max_rel_err"] <= 1e-12)
+            else:
+                # tolerance: 1e-9 relative on every output (rsqrt of a
+                # double is not correctly rounded on the card)
+                ok = rec["max_rel_err"] <= 1e-9
+            rec["ok"] = bool(ok and rec["nonfinite_mismatch"] == 0)
+            parity.setdefault(name + "_f64", []).append(rec)
+            print(f"# parity {name}_f64 {list(shape)}: {json.dumps(rec)}",
+                  flush=True)
+            if not rec["ok"]:
+                fail(f"phase 26: {name}'s float64 kernel disagrees with its "
+                     f"plain version at {shape}")
+        # D1: the float64 kernel against its float64 plain version on the
+        # card (uniforms bit for bit, the rest to 1e-12), and rounded to
+        # float32, its float32 draws bit for bit
+        keys_d, sw_d, sh_d, tab_d = args_d = draw_args[path]
+        out_k = tab_d.views(rng.sweep_draws(*args_d), keys_d.shape[:-1])
+        out_p = tab_d.views(rng.sweep_draws_plain(*args_d),
+                            keys_d.shape[:-1])
+        d32 = rng.sweep_draws(keys_d, sw_d, sh_d.float(), tab_d)
+        d64 = rng.sweep_draws(keys_d, sw_d, sh_d.float().double(), tab_d)
+        torch.cuda.synchronize()
+        unif = [f.name for f in tab_d.fields if f.kind == rng.UNIFORM]
+        errs = {k: rel_err(out_k[k], out_p[k]) for k in out_k}
+        n32 = torch.isnan(d32)
+        rec = {"path": path, "shape": [*keys_d.shape[:-1], tab_d.width],
+               "uniforms_bitwise": all(torch.equal(out_k[k], out_p[k])
+                                       for k in unif),
+               "max_abs_err": max(e[0] for e in errs.values()),
+               "max_rel_err": max(e[1] for e in errs.values()),
+               "nonfinite_mismatch": sum(e[2] for e in errs.values()),
+               "rounded_bitwise_f32": bool(
+                   torch.equal(n32, torch.isnan(d64))
+                   and torch.equal(d64.float()[~n32], d32[~n32]))}
+        rec["ok"] = bool(rec["uniforms_bitwise"] and rec["max_rel_err"]
+                         <= 1e-12 and rec["nonfinite_mismatch"] == 0
+                         and rec["rounded_bitwise_f32"])
+        parity.setdefault(DRAWS + "_f64", []).append(rec)
+        print(f"# parity {DRAWS}_f64 {rec['shape']}: {json.dumps(rec)}",
+              flush=True)
+        if not rec["ok"]:
+            fail(f"phase 26: D1's float64 form disagrees on {path}")
+        del out_k, out_p, d32, d64
+
+    # 26c. the float64 kernels' times beside the float32 kernels' on the
+    # same operands rounded, in turns (32, 64, 64, 32), their bounds (8
+    # bytes an element, FP64 operations), plain versions and library calls
+    def as32(args):
+        return tuple(a.float() if torch.is_tensor(a) and a.is_floating_point()
+                     else a for a in args)
+
+    for path, capt in cap64.items():
+        for (name, shape), args in sorted(capt.items()):
+            fn, a32 = wrappers[name][2], as32(args)
+            t32a, t64a, t64b, t32b = (timed(fn, a, 50)
+                                      for a in (a32, args, args, a32))
+            byts, ops = work(name, args)
+            byts *= 2                     # work() counts 4 bytes an element
+            lib = library(name, args)
+            row = dict(
+                path=path, shape=list(shape), ms=(t64a + t64b) / 2,
+                f32_ms=(t32a + t32b) / 2,
+                plain_ms=timed(plains[name], args, 3, queue_ahead=False),
+                library_ms=timed(lib[0], lib[1], 50) if lib else None,
+                bound_ms=max(byts / HBM_BYTES_PER_S, ops / FP64_FLOPS) * 1e3,
+                bound_by="bytes" if byts / HBM_BYTES_PER_S
+                >= ops / FP64_FLOPS else "operations", bytes=byts, flops=ops)
+            if name in ("chol_fused", "hyper_mh", "hyper_mh_grouped"):
+                B_, m_ = batch_size(name.replace("_grouped", ""), args)
+                row["form"] = list(
+                    chol.launch_form(B_, m_, f64) if name == "chol_fused"
+                    else hyper_mh.launch_form(B_, m_, f64, args[0].shape[-1],
+                                              len(args[10])))
+            timing.setdefault(name + "_f64", []).append(row)
+            print(f"# time {name}_f64 {list(shape)} ({path}): "
+                  f"{json.dumps(row)}", flush=True)
+        args_d = draw_args[path]
+        row = draw_row(path, args_d, {"library_ms": None})
+        keys_d, sw_d, sh_d, tab_d = args_d
+        B_ = keys_d.numel() // 2
+        row["bytes"] = byts = 8 * (keys_d.numel() + sw_d.numel()
+                                   + sh_d.numel() + B_ * tab_d.width)
+        row["byte_bound_ms"] = byts / HBM_BYTES_PER_S * 1e3
+        fp64_ms = row["floor_ms_by_class"]["fp64"]
+        row["bound_ms"] = max(row["byte_bound_ms"], fp64_ms)
+        row["bound_by"] = ("bytes" if row["byte_bound_ms"] >= fp64_ms
+                           else "operations")
+        row["first_design_ms"] = None
+        row["f32_ms"] = timed(rng.sweep_draws, as32(args_d), 50)
+        timing.setdefault(DRAWS + "_f64", []).append(row)
+        print(f"# time {DRAWS}_f64 {row['shape']} ({path}): "
+              f"{json.dumps(row)}", flush=True)
+    frep["ptxas"] = [
+        {k: r[k] for k in ("function", "registers", "spill_stores",
+                           "spill_loads", "stack_bytes", "symbol")}
+        for r in _cuda.parse_ptxas(_cuda.ptxas_report)
+        if re.search(r"I(?:L[a-z]+\d+E)*dE", r["symbol"])]
+    for r in frep["ptxas"]:
+        print(f"# ptxas float64 {r['function']} {r['symbol'][-40:]}: "
+              f"{r['registers']} registers, {r['spill_stores']} B spill "
+              f"stores, {r['spill_loads']} B spill loads", flush=True)
+    del cap64
+
+    # the main paths, every count reset just before each; a plain
+    # decision on the card is counted (none may happen)
+    plain64 = {}
+    real_use = _cuda.use_kernel
+
+    def counted_use(t, what):
+        on = real_use(t, what)
+        if not on:
+            plain64[what] = plain64.get(what, 0) + 1
+        return on
+
+    def main64(path, smp):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        smp.sample(niter=F64_ADAPT, seed=1)
+        res = smp.sample(niter=F64_MORE, seed=1, state=smp.last_state,
+                         start_sweep=F64_ADAPT)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = check_launches(path, F64_ADAPT + F64_MORE,
+                                chunks_of(smp, F64_ADAPT, F64_MORE))
+        st = smp.last_state
+        ok = (all(getattr(st, f).dtype == f64 and bool(
+                  torch.isfinite(getattr(st, f)).all())
+                  for f in ("x", "b", "alpha", "theta", "df"))
+              and res.chain.dtype == np.float64
+              and bool(np.isfinite(res.chain).all()))
+        return {"wall_s": wall, "finite_float64": bool(ok),
+                "launches": {n: c for n, c in counts.items() if c}}
+
+    def wall_ms(smp):
+        """ms a sweep of ``F64_MORE`` sweeps after 5 to warm."""
+        smp.sample(niter=5, seed=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        smp.sample(niter=F64_MORE, seed=2, state=smp.last_state,
+                   start_sweep=5)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / F64_MORE
+
+    ens32_32 = EnsembleGibbs(ens_pulsars(ENS_PULSARS), cfg64,
+                             nchains=ENS_CHAINS, device=dev, record="light",
+                             chunk_size=F64_CHUNK)
+    smp32 = tb.TorchGibbs(ma, cfg64, nchains=NCHAINS, device=dev,
+                          chunk_size=F64_CHUNK, record="full")
+    paths64 = frep["paths"] = {}
+    try:
+        _cuda.use_kernel = counted_use
+        for path, s64, s32 in (("flagship_f64", smp64, smp32),
+                               ("ens32_f64", ens64, ens32_32)):
+            rec = paths64[path] = main64(path, s64)
+            if not rec["finite_float64"]:
+                fail(f"phase 26: the {path} run is not finite float64")
+            walls = [wall_ms(s) for s in (s32, s64, s64, s32)]
+            rec["wall_ms_per_sweep"] = {"float64": (walls[1] + walls[2]) / 2,
+                                        "float32": (walls[0] + walls[3]) / 2}
+            for label, s, w in (("float64", s64, rec["wall_ms_per_sweep"][
+                    "float64"]), ("float32", s32, rec["wall_ms_per_sweep"][
+                        "float32"])):
+                prof = profile(f"{path[:-4]} {label}", s,
+                               F64_PROFILE_SWEEPS, w)
+                rec[label] = {k: prof[k] for k in (
+                    "device_ms_per_sweep", "launches_per_sweep",
+                    "idle_share", "wall_ms_per_sweep")}
+            print(f"# float64 path {path}: {json.dumps(rec)} | {card}",
+                  flush=True)
+        if plain64:
+            fail(f"phase 26: plain versions ran on the card: {plain64}")
+    finally:
+        _cuda.use_kernel = real_use
+    del ens32_32, smp32, ens64
+
+    # 26b. float64 flagship sweeps, the card against the CPU, each side
+    # drawing its own numbers from the same seed and state
+    g64 = tb.TorchGibbs(ma, cfg64, nchains=F64_CPU_CHAINS, device=dev,
+                        dtype=f64)
+    c64 = tb.TorchGibbs(ma, cfg64, nchains=F64_CPU_CHAINS, device="cpu",
+                        dtype=f64)
+    keys_g, sw_g = keyed(g64, 11, F64_CPU_SWEEPS)
+    keys_c, sw_c = keys_g.cpu(), sw_g.cpu()
+    st_g = g64._prop_cov_update(g64.init_state(seed=11))
+    st_c = type(st_g)(*map(to_cpu, st_g))
+    nw, nh = cfg64.mh.n_white_steps, cfg64.mh.n_hyper_steps
+    sweeps64, equal_through = [], 0
+    for i in range(F64_CPU_SWEEPS):
+        st_g = g64._sweep(st_g, g64._draw(keys_g, sw_g[i], st_g), sweep=i)
+        st_c = c64._sweep(st_c, c64._draw(keys_c, sw_c[i], st_c), sweep=i)
+        g = type(st_g)(*map(to_cpu, st_g))
+        rec = {"sweep": i,
+               "chains_acc_white": int((torch.round(g.acc_white * nw)
+                                        != torch.round(st_c.acc_white * nw))
+                                       .sum()),
+               "chains_acc_hyper": int((torch.round(g.acc_hyper * nh)
+                                        != torch.round(st_c.acc_hyper * nh))
+                                       .sum()),
+               "chains_z": int((g.z != st_c.z).any(-1).sum()),
+               "chains_df": int((g.df != st_c.df).sum()),
+               **{f + "_rel": rel_err(getattr(g, f), getattr(st_c, f))[1]
+                  for f in ("x", "theta", "b", "alpha")}}
+        rec["equal"] = not any(rec[k] for k in (
+            "chains_acc_white", "chains_acc_hyper", "chains_z", "chains_df"))
+        equal_through += rec["equal"] and equal_through == i
+        sweeps64.append(rec)
+    frep["card_vs_cpu"] = {"chains": F64_CPU_CHAINS, "sweeps": sweeps64,
+                           "decisions_equal_through": equal_through}
+    print(f"# float64 26b card-vs-cpu ({F64_CPU_CHAINS} chains): decisions "
+          f"equal through sweep {equal_through} of {F64_CPU_SWEEPS}; "
+          f"{json.dumps(sweeps64[0])}", flush=True)
+    # tolerance: the first sweep's decisions equal on every chain (x, z,
+    # df as integer counts), x and theta to 1e-10
+    if (not sweeps64[0]["equal"] or sweeps64[0]["x_rel"] > 1e-10
+            or sweeps64[0]["theta_rel"] > 1e-10):
+        fail("phase 26: a float64 sweep on the card disagrees with the CPU")
+    del g64, c64, st_g, st_c
+
+    # 26d. the float64 flagship's arm of phase 24 against its mixture/beta
+    # oracle run, under its thresholds
+    smp_g64 = tb.TorchGibbs(ma_g, beta, nchains=NCHAINS, device=dev,
+                            chunk_size=GATE_CHUNK, record="compact",
+                            record_thin=GATE_THIN, dtype=f64)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_g = smp_g64.sample(niter=niter_j, seed=GATE_SEED + 1)
+    torch.cuda.synchronize()
+    gwall = time.perf_counter() - t0
+    check_launches("gate_f64", niter_j, chunks_j)
+    rows = pgate.gate_rows(oracles["beta"][0],
+                           pgate.keep_rows(res_g, burn_j, thin_j), beta,
+                           ma_g.param_names, sub=np.random.default_rng(0))
+    for row in rows:
+        print(pgate.format_row("# gate float64 beta", row))
+    frep["gate"] = {"rows": rows, "wall_s": gwall, "sweeps": niter_j,
+                    "float64": bool(res_g.chain.dtype == np.float64),
+                    "diverged_chains": pgate.diverged_chains(res_g)}
+    print(f"# float64 26d gate: {gwall:.1f} s for {niter_j} sweeps, "
+          f"diverged chains {frep['gate']['diverged_chains']} | {card}",
+          flush=True)
+    if not frep["gate"]["float64"] or not all(r["ok"] for r in rows):
+        fail("phase 26: the float64 flagship fails the posterior gate")
+    del smp_g64, res_g, smp64
+    frep["seconds"] = time.perf_counter() - t26
+    print(f"# phase 26: {frep['seconds']:.1f} s | {card}", flush=True)
 
     # the redesigned kernels beside the first design and the library call
     # (reported, not gated)

@@ -60,6 +60,13 @@ numerically dead chains can be re-drawn at chunk boundaries
 Entry points run on the GPU: ``device=None`` means ``"cuda"`` and raises
 when CUDA is absent; pass ``device="cpu"`` to run the kernels' plain
 versions (the tests do).
+
+``dtype=torch.float64`` (the JAX backend's ``dtype=jnp.float64``) runs the
+whole sweep in float64: on the CPU through the plain versions, on CUDA
+through the kernels' float64 forms (the factor, the back-solve, the white
+MH block's warp form, the hyper block and the draws). A float64 run whose
+path needs a kernel with no float64 form yet (:func:`float64_refusals`)
+raises ``NotImplementedError`` at construction on CUDA.
 """
 
 from __future__ import annotations
@@ -103,11 +110,11 @@ from gibbs_student_t_tpu_torch.obs.tracing import block_span, host_span
 from gibbs_student_t_tpu_torch.ops import rng
 from gibbs_student_t_tpu_torch.ops.chol import chol_fused
 from gibbs_student_t_tpu_torch.ops.hyper_mh import (
-    MAX_HYPER_V,
     build_hyper_consts,
     hyper_ll_lp,
     hyper_mh,
     hyper_mh_loop,
+    max_hyper_v,
 )
 from gibbs_student_t_tpu_torch.ops.linalg import (
     backward_solve,
@@ -125,6 +132,7 @@ from gibbs_student_t_tpu_torch.ops.tnt import (
     tnt_products,
 )
 from gibbs_student_t_tpu_torch.ops.white_mh import (
+    WHITE_CROSSOVER,
     build_white_consts,
     group_axes,
     lnprior_sum,
@@ -454,6 +462,43 @@ def merge_reinit(state, bad, fresh, batch_ndim: int):
         for cur, fr in zip(state, fresh)))
 
 
+def float64_refusals(config: GibbsConfig, n: int, tnt_block_size=None,
+                     white: bool = True) -> list:
+    """The kernels a float64 run on CUDA would launch that have no float64
+    form yet (ROADMAP A-11b), one line each, or none: the Gram kernel B5
+    under a TOA-blocked reduction (``tnt_block_size`` not None), the white
+    MH block's cluster form B3 at ``n > WHITE_CROSSOVER`` TOAs (``white``:
+    the model has a white block), the white MTM kernel B6 when the config
+    runs MTM on the white block. Every path runs float64 on the CPU
+    through the plain versions (the serving pool, whose lanes entries have
+    no float64 form either, refuses float64 itself)."""
+    out = []
+    if tnt_block_size is not None:
+        out.append(f"B5 tnt_batched (tnt_block_size={tnt_block_size})")
+    if white and n > WHITE_CROSSOVER:
+        out.append(f"B3 white_mh's cluster form ({n} TOAs > "
+                   f"{WHITE_CROSSOVER})")
+    mh = config.mh
+    if white and mh.mtm_tries >= 2 and "white" in mh.mtm_blocks:
+        out.append("B6 white_mtm (multiple-try Metropolis on the white "
+                   "block)")
+    return out
+
+
+def check_dtype(dtype, device: torch.device, refusals=()) -> None:
+    """Raise unless ``dtype`` is float32 or float64, and, for float64 on
+    CUDA, unless ``refusals`` (:func:`float64_refusals`) is empty: no
+    quiet fallback to a plain version on the card."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype must be torch.float32 or torch.float64, "
+                         f"got {dtype}")
+    if dtype == torch.float64 and device.type == "cuda" and refusals:
+        raise NotImplementedError(
+            "dtype=float64 on CUDA needs kernels that have no float64 form "
+            "yet (ROADMAP A-11b): " + "; ".join(refusals)
+            + ". Run it with device='cpu', or in float32.")
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` -> ``cuda``; a CUDA device without CUDA raises (the port
     never falls back to the CPU on its own)."""
@@ -519,7 +564,7 @@ class SweepDraws(NamedTuple):
 
 class TorchGibbs(SamplerBackend):
     """Many-chain Gibbs sampler; ``sample`` returns ``(niter, nchains, ...)``
-    chains in float32.
+    chains in float32 (float64 under ``dtype=torch.float64``).
 
     The path is the JAX backend's float32 one with its fused MH blocks:
     the Schur split of the phi-static columns when at least 8 exist,
@@ -555,7 +600,15 @@ class TorchGibbs(SamplerBackend):
     bitwise the same either way. ``metrics`` (an
     ``obs.metrics.MetricsRegistry``) receives one ``chunk`` event per
     flushed chunk of a telemetry-on run
-    (``TelemetryAccumulator.emit_chunk``)."""
+    (``TelemetryAccumulator.emit_chunk``).
+
+    ``dtype`` (``torch.float32`` or ``torch.float64``) is the JAX backend's:
+    the state, the model's tensors and every stage in that type. Under
+    float64 no record is cast (``record`` tiers return float64 chains bit
+    for bit, as the JAX backend's float64 runs do), the hyper block's
+    kernel takes blocks up to ``MAX_HYPER_V_F64`` (above, the closure
+    path), and on CUDA a path with no float64 kernel yet raises
+    (:func:`float64_refusals`)."""
 
     supports_chains = True
 
@@ -563,7 +616,8 @@ class TorchGibbs(SamplerBackend):
                  nchains: int = 64, device=None, chunk_size: int = 100,
                  tnt_block_size: int | str | None = "auto",
                  record: str = "compact8", record_thin: int = 1,
-                 telemetry: bool = True, metrics=None):
+                 telemetry: bool = True, metrics=None,
+                 dtype=torch.float32):
         super().__init__(ma, config)
         if record not in ("full", "compact", "compact8", "light"):
             raise ValueError("record must be 'full', 'compact', "
@@ -584,19 +638,24 @@ class TorchGibbs(SamplerBackend):
         self.metrics = metrics
         self._record_fields = (_LIGHT_FIELDS if record == "light"
                                else _RECORD_FIELDS)
-        # the port runs float32 only, so the wire casts are always active
-        self._record_casts = {"compact": _COMPACT_CASTS,
-                              "compact8": _COMPACT8_CASTS}.get(record, {})
+        # the wire casts narrow float32 records only: a float64 run asked
+        # for full precision and gets its chains back bit for bit (the JAX
+        # backend's rule)
+        self._record_casts = ({"compact": _COMPACT_CASTS,
+                               "compact8": _COMPACT8_CASTS}.get(record, {})
+                              if dtype == torch.float32 else {})
         self._pull_stream = None
         mh = config.mh
         self._mtm = {blk: mh.mtm_tries >= 2 and blk in mh.mtm_blocks
                      for blk in ("white", "hyper")}
         self.device = resolve_device(device)
         self.nchains = int(nchains)
-        self.dtype = torch.float32
-        dev, f32 = self.device, torch.float32
+        check_dtype(dtype, self.device)
+        self.dtype = dtype
+        dev, fdt = self.device, dtype
+        npdt = self._np_dtype()
 
-        def t(a, dtype=f32):
+        def t(a, dtype=fdt):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
         if tnt_block_size == "auto":
@@ -622,14 +681,17 @@ class TorchGibbs(SamplerBackend):
                 equad_masks = np.concatenate(
                     [equad_masks, np.zeros((equad_masks.shape[0], n_pad))], 1)
         self._ma = dataclasses.replace(
-            ma, y=np.asarray(y, np.float32), T=np.asarray(T, np.float32),
-            sigma2=np.asarray(sigma2, np.float32),
-            efac_masks=np.asarray(efac_masks, np.float32),
-            efac_const=np.asarray(ma.efac_const, np.float32),
-            equad_masks=np.asarray(equad_masks, np.float32),
-            equad_const=np.asarray(ma.equad_const, np.float32),
+            ma, y=np.asarray(y, npdt), T=np.asarray(T, npdt),
+            sigma2=np.asarray(sigma2, npdt),
+            efac_masks=np.asarray(efac_masks, npdt),
+            efac_const=np.asarray(ma.efac_const, npdt),
+            equad_masks=np.asarray(equad_masks, npdt),
+            equad_const=np.asarray(ma.equad_const, npdt),
             row_mask=None)
         self._n = self._ma.n
+        check_dtype(dtype, dev, float64_refusals(
+            config, self._n, tnt_block_size,
+            white=len(self._ma.white_indices) > 0))
         if base_mask is None and not n_pad:
             row_mask = None
         else:
@@ -657,19 +719,19 @@ class TorchGibbs(SamplerBackend):
 
         self._white = None
         if len(mm.white_indices):
-            wc = build_white_consts(mm, row_mask)
+            wc = build_white_consts(mm, row_mask, dtype=npdt)
             self._white = (t(wc.rows), t(wc.specs), wc.var)
         self._hyper = None
         if len(mm.hyper_indices):
             cols = (self._schur[1] if self._schur is not None
                     else np.arange(mm.m))
-            hc = build_hyper_consts(mm, cols)
+            hc = build_hyper_consts(mm, cols, dtype=npdt)
             self._hyper = dict(K=t(hc.K), sel=t(hc.phi_sel),
                                specs=t(hc.specs),
                                phiinv_static=t(hc.phiinv_static),
                                logdet_static=float(hc.logdet_phi_static),
                                hyp_idx=hc.hyp_idx,
-                               fused=len(cols) <= MAX_HYPER_V)
+                               fused=len(cols) <= max_hyper_v(dtype))
         # per phi block, its model constants: a const block's phi, a
         # powerlaw block's log frequencies, log df and pinned values, an
         # ecorr block's column groups and pinned values (numbers here;
@@ -712,7 +774,7 @@ class TorchGibbs(SamplerBackend):
                             np.sum(mh.scale_probs))
         self._white_idx = t(mm.white_indices, torch.long)
         self._hyper_idx = t(mm.hyper_indices, torch.long)
-        self._df_grid = torch.arange(1, config.df_max + 1, dtype=f32,
+        self._df_grid = torch.arange(1, config.df_max + 1, dtype=fdt,
                                      device=dev)
         self._table = self._draw_table()
         self.last_state: Optional[ChainState] = None
@@ -818,22 +880,27 @@ class TorchGibbs(SamplerBackend):
         defaults to zeros and alpha to ones over the real TOAs, both
         padded with (0, 1) over the padding rows; -inf where the value is
         not finite."""
-        dev, f32 = self.device, self.dtype
+        dev, fdt = self.device, self.dtype
+        npdt = self._np_dtype()
 
         def vec(a, fill):
-            a = (torch.full((self._n_real,), fill, dtype=f32, device=dev)
-                 if a is None else torch.as_tensor(np.asarray(a, np.float32),
+            a = (torch.full((self._n_real,), fill, dtype=fdt, device=dev)
+                 if a is None else torch.as_tensor(np.asarray(a, npdt),
                                                    device=dev))
             pad = self._n - self._n_real
             if pad:
-                a = torch.cat([a, torch.full((pad,), fill, dtype=f32,
+                a = torch.cat([a, torch.full((pad,), fill, dtype=fdt,
                                              device=dev)])
             return a
 
-        x = torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        x = torch.as_tensor(np.asarray(x, npdt), device=dev)
         z, alpha = vec(z, 0.0), vec(alpha, 1.0)
         ll = float(self._marginal_ll(x[None], (alpha ** z)[None])[0])
         return ll if math.isfinite(ll) else -math.inf
+
+    def _np_dtype(self):
+        """The numpy type of the sampler's ``dtype``."""
+        return np.float64 if self.dtype == torch.float64 else np.float32
 
     # ------------------------------------------------------------------
     # state and draws
@@ -846,14 +913,14 @@ class TorchGibbs(SamplerBackend):
         mm, cfg = self._ma, self.config
         if x0 is None:
             x0 = self._x0_draws(seed, self.nchains)
-        x0 = np.asarray(x0, dtype=np.float32)
+        x0 = np.asarray(x0, dtype=self._np_dtype())
         if x0.ndim == 1:
             x0 = np.broadcast_to(x0, (self.nchains, len(x0))).copy()
         n, m, c, p = self._n, mm.m, self.nchains, mm.nparam
-        dev, f32 = self.device, self.dtype
+        dev, fdt = self.device, self.dtype
 
         def full(shape, v):
-            return torch.full(shape, float(v), dtype=f32, device=dev)
+            return torch.full(shape, float(v), dtype=fdt, device=dev)
 
         z0 = full((c, n), 1.0 if cfg.z_init_ones else 0.0)
         alpha0 = full((c, n), 1.0 if cfg.vary_alpha else cfg.alpha)
@@ -861,12 +928,12 @@ class TorchGibbs(SamplerBackend):
             z0 = torch.where(self._mask, z0, 0.0)
             alpha0 = torch.where(self._mask, alpha0, 1.0)
         if cfg.mh.adapt_cov:
-            L0 = np.zeros((2, p, p), np.float32)
+            L0 = np.zeros((2, p, p), self._np_dtype())
             for k, ind in enumerate((mm.white_indices, mm.hyper_indices)):
                 L0[k, ind, ind] = 1.0
             cov0 = torch.as_tensor(L0, device=dev).expand(c, 2, p, p).clone()
         else:
-            cov0 = torch.zeros((c, 0), dtype=f32, device=dev)
+            cov0 = torch.zeros((c, 0), dtype=fdt, device=dev)
         return ChainState(
             x=torch.as_tensor(x0, device=dev), b=full((c, m), 0.0),
             z=z0, alpha=alpha0, theta=full((c,), cfg.outlier_mean),
@@ -1267,8 +1334,9 @@ class TorchGibbs(SamplerBackend):
 
     def _hyper_block(self, x, Sh, rh, base, draws):
         """The hyper MH block on the matrix block ``Sh``: one kernel launch
-        when ``v <= MAX_HYPER_V``, else the closure path (the plain loop
-        with the chol kernel as its factorization). Under multiple-try
+        when ``v <=`` :func:`max_hyper_v` of the dtype, else the closure
+        path (the plain loop with the chol kernel as its factorization).
+        Under multiple-try
         Metropolis, the MTM loop whose each step factors the K candidates
         and the K-1 references as one stacked batch through the chol
         kernel (the JAX backend's closure ``_mtm_block``)."""
@@ -1305,8 +1373,8 @@ class TorchGibbs(SamplerBackend):
                reinit_diverged: bool = False) -> ChainResult:
         """Run ``niter`` sweeps for all chains and return the recorded
         rows (the state BEFORE sweeps ``start_sweep, start_sweep + t, ...``
-        for ``record_thin=t``, as the JAX backend records) as float32 host
-        arrays, in the tier ``record`` names.
+        for ``record_thin=t``, as the JAX backend records) as host arrays
+        of the sampler's dtype, in the tier ``record`` names.
 
         Records stay on the device for a chunk of ``chunk_size`` sweeps,
         are cast to their wire dtypes there and then copied to the host;

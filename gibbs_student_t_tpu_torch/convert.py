@@ -87,7 +87,9 @@ def chain_state_from_arrays(arrays: Mapping, device=None,
     with a leading chain axis, or ``(P, C)`` axes for an ensemble (a JAX
     ``ChainState._asdict()`` after ``jax.device_get``). Missing adaptation
     fields get their defaults: zero log-scales and an empty covariance
-    factor. ``device=None`` means ``"cuda"`` and raises when CUDA is
+    factor. ``dtype`` is the state's (pass ``torch.float64`` for a
+    ``dtype=torch.float64`` sampler, as for a JAX ``dtype=jnp.float64``
+    run's state). ``device=None`` means ``"cuda"`` and raises when CUDA is
     absent, as ``TorchGibbs`` does."""
     from gibbs_student_t_tpu_torch.backends.torch_backend import (
         ChainState,

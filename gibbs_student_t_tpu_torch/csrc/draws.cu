@@ -63,6 +63,14 @@
 // (ops/_cuda.py SOURCE_FLAGS): nvcc would otherwise contract 1 + cc * x,
 // 0.5 * x * x + d and d * v into FMAs, which the CPU's separate PyTorch
 // operations round twice. No other kernel shares the flag.
+//
+// Float64 form (gst_sweep_draws_f64, the sampler's dtype=float64): the same
+// kernel writing double values from double shapes. The Philox words,
+// counters and attempts are the float32 form's and every value is the same
+// float64 number, only not rounded to float32: a float64 draw rounded to
+// float32 is the float32 draw bit for bit (for float32-representable
+// shapes). Uniforms keep the float32 form's 2^-23 grid. What bounds it:
+// the same float64 work; the values written take 8 bytes.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -113,11 +121,13 @@ __device__ __forceinline__ uint32_t gst_div(uint32_t p, uint32_t magic,
   return (uint32_t)(((unsigned long long)p * magic) >> shift);
 }
 
+// T: the output's and the shapes' type, float or double.
+template <typename T>
 __global__ void __launch_bounds__(GST_DRAW_THREADS, GST_DRAW_MIN_BLOCKS)
 sweep_draws_kernel(const long long* __restrict__ keys,
                    const long long* __restrict__ sweep, int sweep_stride,
-                   const float* __restrict__ shapes, int nshape,
-                   float* __restrict__ out, const int4* __restrict__ tiles,
+                   const T* __restrict__ shapes, int nshape,
+                   T* __restrict__ out, const int4* __restrict__ tiles,
                    DrawSegments S) {
   __shared__ DrawChain s_chain[GST_DRAW_MAX_CHAINS];
   __shared__ uint2 s_queue[GST_DRAW_THREADS];
@@ -150,7 +160,7 @@ sweep_draws_kernel(const long long* __restrict__ keys,
     s_chain[c] = ch;
   }
   __syncthreads();
-  float* o = out + S.base[sg] + b0 * stride;
+  T* o = out + S.base[sg] + b0 * stride;
 
   if (kind != GST_GAMMA) {
     const int rounds = (len + GST_DRAW_THREADS - 1) / GST_DRAW_THREADS;
@@ -162,7 +172,7 @@ sweep_draws_kernel(const long long* __restrict__ keys,
       const uint32_t e = p - lc * n;
       const uint4 key = s_chain[lc].key;
       o[lc * stride + e] =
-          (float)gst_plain_value(kind, key.x, key.y, e, tag, key.z);
+          (T)gst_plain_value(kind, key.x, key.y, e, tag, key.z);
     }
     return;
   }
@@ -197,22 +207,22 @@ sweep_draws_kernel(const long long* __restrict__ keys,
       const uint4 key = s_chain[lc].key;
       const double2 ad = s_chain[lc].ad;
       const double a = ad.x;
-      float* const dst = o + (lc * stride + e);
+      T* const dst = o + (lc * stride + e);
       if (a > 0.0 && !isinf(a)) {
         double g;
         uint32_t w;
         if (gst_mt_attempt(key.x, key.y, e, attempt, tag, key.z, ad.y,
                            s_chain[lc].cc, g, w)) {
           if (a < 1.0) g = gst_mt_boost(g, attempt ? w3 : w, a);
-          *dst = (float)g;
+          *dst = (T)g;
         } else if (attempt + 1u < GST_MT_MAX_ATTEMPTS) {
           pend = true;
           if (attempt == 0u) w3 = w;
         } else {
-          *dst = nanf_;
+          *dst = (T)nanf_;
         }
       } else {
-        *dst = nanf_;
+        *dst = (T)nanf_;
       }
     }
     const unsigned int m = __ballot_sync(0xffffffffu, pend);
@@ -223,6 +233,42 @@ sweep_draws_kernel(const long long* __restrict__ keys,
     __syncwarp();
   }
 }
+
+namespace {
+
+// The entry's checks, its segment table and its launch in T.
+template <typename T>
+int sweep_draws_entry(const long long* keys, const long long* sweep,
+                      int sweep_stride, const T* shapes, int nshape, T* out,
+                      const int* segs, int nseg, const int* tiles,
+                      int ntiles, long long B, cudaStream_t stream) {
+  if (nseg < 0 || nseg > GST_DRAW_MAX_SEGMENTS || B < 0 || ntiles < 0
+      || (sweep_stride != 0 && sweep_stride != 1))
+    return (int)cudaErrorInvalidValue;
+  DrawSegments S;
+  S.nseg = nseg;
+  for (int s = 0; s < nseg; ++s) {
+    const int* row = segs + 9 * s;
+    if (row[0] < GST_UNIFORM || row[0] > GST_GAMMA || row[2] < 1
+        || row[3] < row[2] || row[8] < 31 || row[8] > 62)
+      return (int)cudaErrorInvalidValue;
+    S.kind[s] = row[0];
+    S.tag[s] = (unsigned int)row[1];
+    S.n[s] = row[2];
+    S.stride[s] = row[3];
+    S.base[s] = B * (long long)row[4] + row[5];
+    S.col[s] = row[6];
+    S.magic[s] = (unsigned int)row[7];
+    S.shift[s] = row[8];
+  }
+  if (ntiles == 0) return (int)cudaSuccess;
+  sweep_draws_kernel<T><<<(unsigned int)ntiles, GST_DRAW_THREADS, 0,
+                          stream>>>(keys, sweep, sweep_stride, shapes, nshape,
+                                    out, (const int4*)tiles, S);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -246,31 +292,20 @@ int gst_sweep_draws(const long long* keys, const long long* sweep,
                     int sweep_stride, const float* shapes, int nshape,
                     float* out, const int* segs, int nseg, const int* tiles,
                     int ntiles, long long B, void* stream) {
-  if (nseg < 0 || nseg > GST_DRAW_MAX_SEGMENTS || B < 0 || ntiles < 0
-      || (sweep_stride != 0 && sweep_stride != 1))
-    return (int)cudaErrorInvalidValue;
-  DrawSegments S;
-  S.nseg = nseg;
-  for (int s = 0; s < nseg; ++s) {
-    const int* row = segs + 9 * s;
-    if (row[0] < GST_UNIFORM || row[0] > GST_GAMMA || row[2] < 1
-        || row[3] < row[2] || row[8] < 31 || row[8] > 62)
-      return (int)cudaErrorInvalidValue;
-    S.kind[s] = row[0];
-    S.tag[s] = (unsigned int)row[1];
-    S.n[s] = row[2];
-    S.stride[s] = row[3];
-    S.base[s] = B * (long long)row[4] + row[5];
-    S.col[s] = row[6];
-    S.magic[s] = (unsigned int)row[7];
-    S.shift[s] = row[8];
-  }
-  if (ntiles == 0) return (int)cudaSuccess;
-  sweep_draws_kernel<<<(unsigned int)ntiles, GST_DRAW_THREADS, 0,
-                       (cudaStream_t)stream>>>(
-      keys, sweep, sweep_stride, shapes, nshape, out,
-      (const int4*)tiles, S);
-  return (int)cudaGetLastError();
+  return sweep_draws_entry(keys, sweep, sweep_stride, shapes, nshape, out,
+                           segs, nseg, tiles, ntiles, B,
+                           (cudaStream_t)stream);
+}
+
+// The float64 form of gst_sweep_draws: double shapes and values.
+int gst_sweep_draws_f64(const long long* keys, const long long* sweep,
+                        int sweep_stride, const double* shapes, int nshape,
+                        double* out, const int* segs, int nseg,
+                        const int* tiles, int ntiles, long long B,
+                        void* stream) {
+  return sweep_draws_entry(keys, sweep, sweep_stride, shapes, nshape, out,
+                           segs, nseg, tiles, ntiles, B,
+                           (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,10 @@
-// The whole hyper-parameter Metropolis-Hastings block in one launch.
+// The whole hyper-parameter Metropolis-Hastings block in one launch, in
+// float32 (entry gst_hyper_mh) and float64 (the sampler's dtype=float64:
+// gst_hyper_mh_f64, the same kernels instantiated on T = double).
 //
 // Replaces gibbs_student_t_tpu/ops/pallas_hyper.py::_hyper_kernel (entry
-// hyper_mh_fused). Per chain, on the sweep's Schur block S0 (v x v), for
+// hyper_mh_fused), whose JAX float64 path runs the 10-step loop through
+// XLA instead. Per chain, on the sweep's Schur block S0 (v x v), for
 // the current point and each of S proposals q = x + dx[j]:
 //   log phi  = K[0] + sum_k K[1+k] * q[hyp_idx[k]]      (affine, per column)
 //   phiinv   = sel * exp(-log phi);  d = dS0 + phiinv;  isd = rsqrt(d)
@@ -33,8 +36,8 @@
 // the factor. The per-column log phi / exp / rsqrt / log work is two
 // columns a lane, the three sums are warp shuffles, lane 0 decides the
 // accept and a shuffle broadcasts it. Each warp stages its chain's K, sel
-// and prior table beside its own buffers ((1 + nk) v + v + 3p floats, under
-// 1 KB at v = 60), so the kernel has no block barrier at all.
+// and prior table beside its own buffers ((1 + nk) v + v + 3p elements,
+// under 1 KB at v = 60 in float32), so the kernel has no block barrier at all.
 // For 64 < v <= 160 a block still owns a chain, with gst_chol_fwd_block
 // (a warp per row of the update, one barrier per column) and a row-wise
 // build of A. Two v x v buffers bound v: MAX_HYPER_V = 160 (~213 KB of the
@@ -50,6 +53,19 @@
 // be a multiple of the chains per block), which is why each warp stages its
 // own chain's constants. What bounds the grouped form is what bounds the
 // single one: one warp's latency through S + 1 factorizations.
+//
+// Float64 (T = double), what changes with 8-byte elements:
+// - shared memory: a chain of the warp form takes 33 KB at v = 60, so a
+//   block holds at most 6 within 227 KB and 1,024 chains take two waves
+//   over the card (ops/hyper_mh.py launch_form caps the count; the
+//   launch refuses more); the block form's two v x v buffers bound v at
+//   112 (MAX_HYPER_V_F64, for up to 16 hyper indices and 64 parameters),
+//   above which the sampler takes the closure path through the float64
+//   chol_fused;
+// - registers: a lane's rows of the recurrence take twice the registers;
+// - rsqrt, exp and log of a double are not those of the CPU's libm, so
+//   the kernel and the plain version part by ulps.
+// What bounds it: operations, on the FP64 pipe at half the FP32 rate.
 #include "gst_common.cuh"
 
 #define GST_HYPER_MAXK 16
@@ -63,19 +79,20 @@ namespace {
 
 // ---- v <= 64: a warp per chain -------------------------------------------
 
-// Floats of shared memory one chain of the warp form takes: S0 packed, the
+// Elements of shared memory one chain of the warp form takes: S0 packed, the
 // factor packed with the right-hand-side row, dS0, rt, isd (v + 1: the
 // right-hand-side row's slot is never read), x and q.
 __host__ __device__ inline int hyper_warp_floats(int v, int p) {
   return (gst_tri(v) + gst_warp_floats(v) + 3 * v + 1 + 2 * p + 3) & ~3;
 }
 
+template <typename T>
 struct HyperWarp {
-  const float *K, *sel, *sp;     // the chain's group's constants
-  float *S0p, *Lp, *dS0, *rt, *isd, *sx, *sq;
+  const T *K, *sel, *sp;         // the chain's group's constants
+  T *S0p, *Lp, *dS0, *rt, *isd, *sx, *sq;
 };
 
-// Floats of shared memory a warp's copy of its group's constants takes: K,
+// Elements of shared memory a warp's copy of its group's constants takes: K,
 // sel and the prior table, rounded to keep the next buffer 16-byte aligned.
 __host__ __device__ inline int hyper_const_floats(int v, int p, int nk) {
   return ((2 + nk) * v + 3 * p + 3) & ~3;
@@ -86,75 +103,71 @@ __host__ __device__ inline int hyper_const_floats(int v, int p, int nk) {
 // memory for any 0 <= i, j <= v (the recurrence also asks for entries it
 // then drops): S0p runs on into the factor, rt into isd, isd has v + 1
 // slots.
+template <typename T>
 struct HyperInit {
-  const float *S0p, *isd, *rt;
-  float diag;
+  const T *S0p, *isd, *rt;
+  T diag;
   int v;
-  __device__ __forceinline__ float operator()(int i, int base, int j) const {
-    const float sj = isd[j];
-    const float a = S0p[base + j] * isd[i] * sj;
-    const float rj = rt[j] * sj;
+  __device__ __forceinline__ T operator()(int i, int base, int j) const {
+    const T sj = isd[j];
+    const T a = S0p[base + j] * isd[i] * sj;
+    const T rj = rt[j] * sj;
     return i == v ? rj : (i == j ? diag : a);
   }
 };
 
 // ll of proposal q, the same bits on every lane.
-template <int NR>
-__device__ __forceinline__ float hyper_ll_warp(const float* q,
-                                               const HyperWarp& w,
-                                               const GstHypIdx& hi, int v,
-                                               float base, float jitter) {
+template <int NR, typename T>
+__device__ __forceinline__ T hyper_ll_warp(const T* q, const HyperWarp<T>& w,
+                                           const GstHypIdx& hi, int v, T base,
+                                           T jitter) {
   const int lane = threadIdx.x & 31;
-  float plph = 0.f, plogd = 0.f;
+  T plph = T(0), plogd = T(0);
   for (int c = lane; c < v; c += 32) {
-    float lph = w.K[c];
+    T lph = w.K[c];
     for (int k = 0; k < hi.n; ++k) lph = lph + w.K[(1 + k) * v + c] * q[hi.idx[k]];
-    const float phiinv = w.sel[c] * expf(-lph);
-    const float d = w.dS0[c] + phiinv;
-    w.isd[c] = rsqrtf(d);
+    const T phiinv = w.sel[c] * gst_exp(-lph);
+    const T d = w.dS0[c] + phiinv;
+    w.isd[c] = gst_rsqrt(d);
     plph += w.sel[c] * lph;
-    plogd += logf(d);
+    plogd += gst_log(d);
   }
-  const float sum_lph = gst_warp_sum(plph);
-  const float sum_logd = gst_warp_sum(plogd);
+  const T sum_lph = gst_warp_sum(plph);
+  const T sum_logd = gst_warp_sum(plogd);
   __syncwarp();
-  float ld, quad;
-  gst_chol_fwd_warp<NR>(w.Lp, v, HyperInit{w.S0p, w.isd, w.rt, 1.f + jitter, v},
+  T ld, quad;
+  gst_chol_fwd_warp<NR>(w.Lp, v,
+                        HyperInit<T>{w.S0p, w.isd, w.rt, T(1) + jitter, v},
                         ld, quad);
-  float ll = base + 0.5f * (quad - (ld + sum_logd) - sum_lph);
+  T ll = base + T(0.5) * (quad - (ld + sum_logd) - sum_lph);
   if (!isfinite(ll)) ll = -INFINITY;
   return ll;
 }
 
-template <int NR, int VW>
+template <int NR, int VW, typename T>
 __global__ void __launch_bounds__(256)
-hyper_mh_warp_kernel(const float* __restrict__ x,
-                     const float* __restrict__ S0,
-                     const float* __restrict__ dS0,
-                     const float* __restrict__ rt,
-                     const float* __restrict__ base,
-                     const float* __restrict__ dx,
-                     const float* __restrict__ logu,
-                     const float* __restrict__ K,
-                     const float* __restrict__ sel,
-                     const float* __restrict__ specs, GstHypIdx hi,
-                     float* __restrict__ xo, float* __restrict__ acc, int C,
-                     int Cg, int v, int p, int S, float jitter) {
-  extern __shared__ float sm[];
+hyper_mh_warp_kernel(const T* __restrict__ x, const T* __restrict__ S0,
+                     const T* __restrict__ dS0, const T* __restrict__ rt,
+                     const T* __restrict__ base, const T* __restrict__ dx,
+                     const T* __restrict__ logu, const T* __restrict__ K,
+                     const T* __restrict__ sel, const T* __restrict__ specs,
+                     GstHypIdx hi, T* __restrict__ xo, T* __restrict__ acc,
+                     int C, int Cg, int v, int p, int S, T jitter) {
+  GST_DYN_SMEM(T, sm);
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
   const size_t c = (size_t)blockIdx.x * (nt >> 5) + warp;
   if (c >= (size_t)C) return;
   const size_t g = c / Cg;
   const int nconst = hyper_const_floats(v, p, hi.n);
-  float* Ks = sm + warp * (nconst + hyper_warp_floats(v, p));  // (1 + nk) v
-  float* sels = Ks + (1 + hi.n) * v;                           // v
-  float* sps = sels + v;                                       // 3 * p
+  T* Ks = sm + warp * (nconst + hyper_warp_floats(v, p));  // (1 + nk) v
+  T* sels = Ks + (1 + hi.n) * v;                           // v
+  T* sps = sels + v;                                       // 3 * p
   for (int i = lane; i < (1 + hi.n) * v; i += 32)
     Ks[i] = K[g * (1 + hi.n) * v + i];
   for (int i = lane; i < v; i += 32) sels[i] = sel[g * v + i];
   for (int i = lane; i < 3 * p; i += 32) sps[i] = specs[g * 3 * p + i];
-  HyperWarp w;
+  HyperWarp<T> w;
   w.K = Ks;
   w.sel = sels;
   w.sp = sps;
@@ -172,94 +185,90 @@ hyper_mh_warp_kernel(const float* __restrict__ x,
   }
   for (int k = lane; k < p; k += 32) w.sx[k] = x[c * p + k];
   __syncwarp();
-  const float bc = base[c];
-  float ll0 = hyper_ll_warp<NR>(w.sx, w, hi, v, bc, jitter);
-  float lp0 = gst_lnprior_sum(w.sx, w.sp, p);
-  float nacc = 0.f;
+  const T bc = base[c];
+  T ll0 = hyper_ll_warp<NR>(w.sx, w, hi, v, bc, jitter);
+  T lp0 = gst_lnprior_sum(w.sx, w.sp, p);
+  T nacc = T(0);
   for (int j = 0; j < S; ++j) {
     for (int k = lane; k < p; k += 32)
       w.sq[k] = w.sx[k] + dx[(c * S + j) * p + k];
     __syncwarp();
-    const float ll1 = hyper_ll_warp<NR>(w.sq, w, hi, v, bc, jitter);
-    const float lp1 = gst_lnprior_sum(w.sq, w.sp, p);
+    const T ll1 = hyper_ll_warp<NR>(w.sq, w, hi, v, bc, jitter);
+    const T lp1 = gst_lnprior_sum(w.sq, w.sp, p);
     int am = (ll1 + lp1) - (ll0 + lp0) > logu[c * S + j];
     am = __shfl_sync(GST_FULL_MASK, am, 0);      // lane 0 decides
     if (am) {
       ll0 = ll1;
       lp0 = lp1;
-      nacc += 1.f;
+      nacc += T(1);
       for (int k = lane; k < p; k += 32) w.sx[k] = w.sq[k];
     }
     __syncwarp();
   }
   for (int k = lane; k < p; k += 32) xo[c * p + k] = w.sx[k];
-  if (lane == 0) acc[c] = nacc / (float)S;
+  if (lane == 0) acc[c] = nacc / (T)S;
 }
 
 // ---- 64 < v <= 160: a block per chain ----------------------------------------
 
+template <typename T>
 struct HyperSmem {
-  float *S0, *A, *dS0, *rt, *K, *sel, *isd, *rp, *u, *racc, *dinv, *sx, *sq,
-      *sp;
+  T *S0, *A, *dS0, *rt, *K, *sel, *isd, *rp, *u, *racc, *dinv, *sx, *sq, *sp;
 };
 
 // (ll, on thread 0) of proposal q.
-__device__ float hyper_ll_block(const float* q, const HyperSmem& s,
-                                const GstHypIdx& hi, int v, int lda,
-                                float base, float jitter, float* red) {
+template <typename T>
+__device__ T hyper_ll_block(const T* q, const HyperSmem<T>& s,
+                            const GstHypIdx& hi, int v, int lda, T base,
+                            T jitter, T* red) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
-  float plph = 0.f, plogd = 0.f;
+  T plph = T(0), plogd = T(0);
   for (int c = tid; c < v; c += nt) {
-    float lph = s.K[c];
+    T lph = s.K[c];
     for (int k = 0; k < hi.n; ++k) lph = lph + s.K[(1 + k) * v + c] * q[hi.idx[k]];
-    const float phiinv = s.sel[c] * expf(-lph);
-    const float d = s.dS0[c] + phiinv;
-    const float isd = rsqrtf(d);
+    const T phiinv = s.sel[c] * gst_exp(-lph);
+    const T d = s.dS0[c] + phiinv;
+    const T isd = gst_rsqrt(d);
     s.isd[c] = isd;
     s.rp[c] = s.rt[c] * isd;
     plph += s.sel[c] * lph;
-    plogd += logf(d);
+    plogd += gst_log(d);
   }
-  const float sum_lph = gst_block_sum(plph, red);
-  const float sum_logd = gst_block_sum(plogd, red);
+  const T sum_lph = gst_block_sum(plph, red);
+  const T sum_logd = gst_block_sum(plogd, red);
   for (int i = warp; i < v; i += nw) {
-    const float* src = s.S0 + i * v;
-    float* dst = s.A + i * lda;
-    const float si = s.isd[i];
+    const T* src = s.S0 + i * v;
+    T* dst = s.A + i * lda;
+    const T si = s.isd[i];
     for (int k = lane; k <= i; k += 32)
-      dst[k] = (i == k) ? 1.f + jitter : src[k] * si * s.isd[k];
+      dst[k] = (i == k) ? T(1) + jitter : src[k] * si * s.isd[k];
   }
-  float ld, quad;
+  T ld, quad;
   gst_chol_fwd_block(s.A, v, lda, s.rp, s.u, s.racc, s.dinv, ld, quad);
-  float ll = 0.f;
+  T ll = T(0);
   if (tid == 0) {
-    ll = base + 0.5f * (quad - (ld + sum_logd) - sum_lph);
+    ll = base + T(0.5) * (quad - (ld + sum_logd) - sum_lph);
     if (!isfinite(ll)) ll = -INFINITY;
   }
   return ll;
 }
 
-template <int VW>
+template <int VW, typename T>
 __global__ void __launch_bounds__(256)
-hyper_mh_block_kernel(const float* __restrict__ x,
-                      const float* __restrict__ S0,
-                      const float* __restrict__ dS0,
-                      const float* __restrict__ rt,
-                      const float* __restrict__ base,
-                      const float* __restrict__ dx,
-                      const float* __restrict__ logu,
-                      const float* __restrict__ K,
-                      const float* __restrict__ sel,
-                      const float* __restrict__ specs, GstHypIdx hi,
-                      float* __restrict__ xo, float* __restrict__ acc, int Cg,
-                      int v, int lda, int p, int S, float jitter) {
-  extern __shared__ float sm[];
+hyper_mh_block_kernel(const T* __restrict__ x, const T* __restrict__ S0,
+                      const T* __restrict__ dS0, const T* __restrict__ rt,
+                      const T* __restrict__ base, const T* __restrict__ dx,
+                      const T* __restrict__ logu, const T* __restrict__ K,
+                      const T* __restrict__ sel, const T* __restrict__ specs,
+                      GstHypIdx hi, T* __restrict__ xo, T* __restrict__ acc,
+                      int Cg, int v, int lda, int p, int S, T jitter) {
+  GST_DYN_SMEM(T, sm);
   const size_t g = (size_t)blockIdx.x / Cg;
   K += g * (1 + hi.n) * v;
   sel += g * v;
   specs += g * 3 * p;
-  HyperSmem s;
+  HyperSmem<T> s;
   s.S0 = sm;                     // v * v (lower triangle used)
   s.A = s.S0 + v * v;            // v * lda
   s.dS0 = s.A + v * lda;
@@ -274,19 +283,23 @@ hyper_mh_block_kernel(const float* __restrict__ x,
   s.sx = s.dinv + v;             // p
   s.sq = s.sx + p;               // p
   s.sp = s.sq + p;               // 3 * p
-  __shared__ float red[32];
+  __shared__ T red[32];
   __shared__ int accept;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
   const size_t c = blockIdx.x;
-  const float* S0c = S0 + c * v * v;
+  const T* S0c = S0 + c * v * v;
   for (int i = warp; i < v; i += nw) {
-    const float* src = S0c + i * v;
-    float* dst = s.S0 + i * v;
-    if (VW == 4) {
+    const T* src = S0c + i * v;
+    T* dst = s.S0 + i * v;
+    if constexpr (VW == 4) {       // four floats a 16-byte copy
       for (int k = 4 * lane; k <= i; k += 128)
         *reinterpret_cast<float4*>(dst + k) =
             *reinterpret_cast<const float4*>(src + k);
+    } else if constexpr (VW == 2) {  // two doubles
+      for (int k = 2 * lane; k <= i; k += 64)
+        *reinterpret_cast<double2*>(dst + k) =
+            *reinterpret_cast<const double2*>(src + k);
     } else {
       for (int k = lane; k <= i; k += 32) dst[k] = src[k];
     }
@@ -300,22 +313,22 @@ hyper_mh_block_kernel(const float* __restrict__ x,
   for (int k = tid; k < p; k += nt) s.sx[k] = x[c * p + k];
   for (int k = tid; k < 3 * p; k += nt) s.sp[k] = specs[k];
   __syncthreads();
-  const float bc = base[c];
-  float ll0 = hyper_ll_block(s.sx, s, hi, v, lda, bc, jitter, red);
-  float lp0 = tid == 0 ? gst_lnprior_sum(s.sx, s.sp, p) : 0.f;
-  float nacc = 0.f;
+  const T bc = base[c];
+  T ll0 = hyper_ll_block(s.sx, s, hi, v, lda, bc, jitter, red);
+  T lp0 = tid == 0 ? gst_lnprior_sum(s.sx, s.sp, p) : T(0);
+  T nacc = T(0);
   for (int j = 0; j < S; ++j) {
     for (int k = tid; k < p; k += nt) s.sq[k] = s.sx[k] + dx[(c * S + j) * p + k];
     __syncthreads();
-    const float ll1 = hyper_ll_block(s.sq, s, hi, v, lda, bc, jitter, red);
+    const T ll1 = hyper_ll_block(s.sq, s, hi, v, lda, bc, jitter, red);
     if (tid == 0) {
-      const float lp1 = gst_lnprior_sum(s.sq, s.sp, p);
+      const T lp1 = gst_lnprior_sum(s.sq, s.sp, p);
       const bool am = (ll1 + lp1) - (ll0 + lp0) > logu[c * S + j];
       accept = am;
       if (am) {
         ll0 = ll1;
         lp0 = lp1;
-        nacc += 1.f;
+        nacc += T(1);
       }
     }
     __syncthreads();
@@ -324,90 +337,114 @@ hyper_mh_block_kernel(const float* __restrict__ x,
     __syncthreads();
   }
   for (int k = tid; k < p; k += nt) xo[c * p + k] = s.sx[k];
-  if (tid == 0) acc[c] = nacc / (float)S;
+  if (tid == 0) acc[c] = nacc / (T)S;
 }
 
 #define GST_HYPER_ARGS                                                        \
   x, S0, dS0, rt, base, dx, logu, K, sel, specs, hi, xo, acc
 
-template <int NR, int VW>
-cudaError_t launch_warp(const float* x, const float* S0, const float* dS0,
-                        const float* rt, const float* base, const float* dx,
-                        const float* logu, const float* K, const float* sel,
-                        const float* specs, const GstHypIdx& hi, float* xo,
-                        float* acc, int C, int Cg, int v, int p, int S,
-                        float jitter, int per_block, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)per_block *
+template <int NR, int VW, typename T>
+cudaError_t launch_warp(const T* x, const T* S0, const T* dS0, const T* rt,
+                        const T* base, const T* dx, const T* logu, const T* K,
+                        const T* sel, const T* specs, const GstHypIdx& hi,
+                        T* xo, T* acc, int C, int Cg, int v, int p, int S,
+                        T jitter, int per_block, cudaStream_t stream) {
+  const size_t smem = sizeof(T) * (size_t)per_block *
                       (hyper_const_floats(v, p, hi.n) + hyper_warp_floats(v, p));
-  cudaError_t e = gst_smem_optin(hyper_mh_warp_kernel<NR, VW>, smem);
+  if (smem > GST_SMEM_OPTIN) return cudaErrorInvalidValue;
+  cudaError_t e = gst_smem_optin(hyper_mh_warp_kernel<NR, VW, T>, smem);
   if (e != cudaSuccess) return e;
   const int blocks = (C + per_block - 1) / per_block;
-  hyper_mh_warp_kernel<NR, VW><<<blocks, 32 * per_block, smem, stream>>>(
+  hyper_mh_warp_kernel<NR, VW, T><<<blocks, 32 * per_block, smem, stream>>>(
       GST_HYPER_ARGS, C, Cg, v, p, S, jitter);
   return cudaGetLastError();
 }
 
-template <int VW>
-cudaError_t launch_block(const float* x, const float* S0, const float* dS0,
-                         const float* rt, const float* base, const float* dx,
-                         const float* logu, const float* K, const float* sel,
-                         const float* specs, const GstHypIdx& hi, float* xo,
-                         float* acc, int C, int Cg, int v, int p, int S,
-                         float jitter, cudaStream_t stream) {
+template <int VW, typename T>
+cudaError_t launch_block(const T* x, const T* S0, const T* dS0, const T* rt,
+                         const T* base, const T* dx, const T* logu,
+                         const T* K, const T* sel, const T* specs,
+                         const GstHypIdx& hi, T* xo, T* acc, int C, int Cg,
+                         int v, int p, int S, T jitter, cudaStream_t stream) {
   const int lda = v | 1;
-  const size_t smem = sizeof(float) * ((size_t)v * v + (size_t)v * lda +
-                                       (size_t)(10 + hi.n) * v + 5 * p);
-  cudaError_t e = gst_smem_optin(hyper_mh_block_kernel<VW>, smem);
+  const size_t smem = sizeof(T) * ((size_t)v * v + (size_t)v * lda +
+                                   (size_t)(10 + hi.n) * v + 5 * p);
+  if (smem > GST_SMEM_OPTIN) return cudaErrorInvalidValue;
+  cudaError_t e = gst_smem_optin(hyper_mh_block_kernel<VW, T>, smem);
   if (e != cudaSuccess) return e;
-  hyper_mh_block_kernel<VW><<<C, 256, smem, stream>>>(GST_HYPER_ARGS, Cg, v,
-                                                      lda, p, S, jitter);
+  hyper_mh_block_kernel<VW, T><<<C, 256, smem, stream>>>(GST_HYPER_ARGS, Cg,
+                                                         v, lda, p, S,
+                                                         jitter);
   return cudaGetLastError();
 }
-
-}  // namespace
-
-extern "C" {
 
 // hyp_host: nk ints in host memory, the x-indices the K rows multiply.
 // C chains in groups of Cg (C a multiple of Cg): K (C / Cg, 1 + nk, v),
 // sel (C / Cg, v), specs (C / Cg, 3, p).
 // per_block > 0: the warp form with that many chains (warps) per block,
-// 1 <= per_block <= 8, v <= 64. per_block == 0: the block form, one
-// 256-thread block per chain, v <= 160.
-int gst_hyper_mh(const float* x, const float* S0, const float* dS0,
-                 const float* rt, const float* base, const float* dx,
-                 const float* logu, const float* K, const float* sel,
-                 const float* specs, const int* hyp_host, int nk, float* xo,
-                 float* acc, int C, int Cg, int v, int p, int S, float jitter,
-                 int per_block, void* stream) {
+// 1 <= per_block <= 8, v <= 64, the chains within 227 KB of shared memory
+// (6 doubles at v = 60). per_block == 0: the block form, one 256-thread
+// block per chain, v <= 160 (float) or as far as 227 KB holds (double).
+template <typename T>
+int hyper_mh_entry(const T* x, const T* S0, const T* dS0, const T* rt,
+                   const T* base, const T* dx, const T* logu, const T* K,
+                   const T* sel, const T* specs, const int* hyp_host, int nk,
+                   T* xo, T* acc, int C, int Cg, int v, int p, int S,
+                   T jitter, int per_block, cudaStream_t st) {
+  constexpr int V = GstVec<T>::N;
   if (nk > GST_HYPER_MAXK || v < 1 || per_block < 0 || per_block > 8 ||
       Cg < 1 || C % Cg)
     return (int)cudaErrorInvalidValue;
   GstHypIdx hi;
   hi.n = nk;
   for (int k = 0; k < nk; ++k) hi.idx[k] = hyp_host[k];
-  cudaStream_t st = (cudaStream_t)stream;
   if (per_block > 0) {
     if (v > GST_WARP_MAX_M) return (int)cudaErrorInvalidValue;
-    const bool vec = ((v * v) & 3) == 0 && gst_aligned16(S0);
+    const bool vec = ((v * v) % V) == 0 && gst_aligned16(S0);
 #define GST_HYPER_WARP(NR, VW)                                                \
   launch_warp<NR, VW>(GST_HYPER_ARGS, C, Cg, v, p, S, jitter, per_block, st)
     cudaError_t e;
     if (v < 32)
-      e = vec ? GST_HYPER_WARP(1, 4) : GST_HYPER_WARP(1, 1);
+      e = vec ? GST_HYPER_WARP(1, V) : GST_HYPER_WARP(1, 1);
     else if (v < 64)
-      e = vec ? GST_HYPER_WARP(2, 4) : GST_HYPER_WARP(2, 1);
+      e = vec ? GST_HYPER_WARP(2, V) : GST_HYPER_WARP(2, 1);
     else
-      e = vec ? GST_HYPER_WARP(3, 4) : GST_HYPER_WARP(3, 1);
+      e = vec ? GST_HYPER_WARP(3, V) : GST_HYPER_WARP(3, 1);
 #undef GST_HYPER_WARP
     return (int)e;
   }
   if (v > GST_BLOCK_MAX_M) return (int)cudaErrorInvalidValue;
-  const bool vec = (v & 3) == 0 && gst_aligned16(S0);
-  return (int)(vec ? launch_block<4>(GST_HYPER_ARGS, C, Cg, v, p, S, jitter,
+  const bool vec = (v % V) == 0 && gst_aligned16(S0);
+  return (int)(vec ? launch_block<V>(GST_HYPER_ARGS, C, Cg, v, p, S, jitter,
                                      st)
                    : launch_block<1>(GST_HYPER_ARGS, C, Cg, v, p, S, jitter,
                                      st));
+}
+
+}  // namespace
+
+extern "C" {
+
+int gst_hyper_mh(const float* x, const float* S0, const float* dS0,
+                 const float* rt, const float* base, const float* dx,
+                 const float* logu, const float* K, const float* sel,
+                 const float* specs, const int* hyp_host, int nk, float* xo,
+                 float* acc, int C, int Cg, int v, int p, int S, float jitter,
+                 int per_block, void* stream) {
+  return hyper_mh_entry(x, S0, dS0, rt, base, dx, logu, K, sel, specs,
+                        hyp_host, nk, xo, acc, C, Cg, v, p, S, jitter,
+                        per_block, (cudaStream_t)stream);
+}
+
+int gst_hyper_mh_f64(const double* x, const double* S0, const double* dS0,
+                     const double* rt, const double* base, const double* dx,
+                     const double* logu, const double* K, const double* sel,
+                     const double* specs, const int* hyp_host, int nk,
+                     double* xo, double* acc, int C, int Cg, int v, int p,
+                     int S, double jitter, int per_block, void* stream) {
+  return hyper_mh_entry(x, S0, dS0, rt, base, dx, logu, K, sel, specs,
+                        hyp_host, nk, xo, acc, C, Cg, v, p, S, jitter,
+                        per_block, (cudaStream_t)stream);
 }
 
 }  // extern "C"

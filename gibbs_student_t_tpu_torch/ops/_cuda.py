@@ -23,6 +23,13 @@ prior is -inf) rest on IEEE ``logf``/``expf``/``rsqrtf`` behaviour.
 ``-fmad=false``, so that its float64 arithmetic rounds each operation as
 the plain PyTorch version on the CPU does.
 
+An entry's float64 form is the same name with ``_f64``, the same kernels
+instantiated on double in the same source (``chol.cu``, ``hyper_mh.cu``,
+``white_mh.cu``, ``draws.cu``; :func:`entry_of` picks it by the operands'
+dtype); the wrappers check their operands'
+one dtype with :func:`check_float_dtype` and raise through
+:func:`refuse_float64` for a kernel with no float64 form yet.
+
 The run's introspection (obs/introspect.py) reads :data:`last_build`,
 :data:`build_seconds`, :data:`compile_seconds` and the ptxas report
 (:data:`ptxas_report` when this process compiled, else
@@ -65,14 +72,23 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _Z = ctypes.c_size_t
 _L = ctypes.c_longlong
-# name -> (argtypes, restype)
+_D = ctypes.c_double
+# name -> (argtypes, restype); an entry's float64 form is the same name
+# with ``_f64`` (double pointers, and a double where the float entry takes
+# a float)
+_HYPER_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I,
+               _I, _I, _I, _I]
 _SIGNATURES = {
     "gst_chol_fused": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "gst_chol_fused_f64": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "gst_tri_solve_T": ([_P, _P, _P, _I, _I, _P], _I),
+    "gst_tri_solve_T_f64": ([_P, _P, _P, _I, _I, _P], _I),
     "gst_white_mh": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                       _I, _I, _I, _I, _I, _I, _P], _I),
-    "gst_hyper_mh": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                      _P, _P, _I, _I, _I, _I, _I, _F, _I, _P], _I),
+    "gst_white_mh_f64": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _P], _I),
+    "gst_hyper_mh": (_HYPER_ARGS + [_F, _I, _P], _I),
+    "gst_hyper_mh_f64": (_HYPER_ARGS + [_D, _I, _P], _I),
     "gst_white_mtm": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "gst_white_form": ([_I, _I, _P], _I),
@@ -84,6 +100,8 @@ _SIGNATURES = {
                        _I, _P], _I),
     "gst_sweep_draws": ([_P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _L, _P],
                         _I),
+    "gst_sweep_draws_f64": ([_P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _L,
+                             _P], _I),
     "gst_draw_geometry": ([_P], _I),
 }
 
@@ -339,6 +357,54 @@ def launch(entry: str, device, *args, what: str = "") -> None:
 def ptr(t) -> int:
     """Device pointer of a tensor, as ctypes wants it."""
     return t.data_ptr()
+
+
+def header_int(name: str) -> int:
+    """The integer ``#define name value`` of ``csrc/gst_common.cuh``: the
+    one place a constant that the kernels and the wrappers share is
+    written (the header is read, nothing is built)."""
+    with open(os.path.join(CSRC, "gst_common.cuh")) as f:
+        m = re.search(rf"^#define {name} (\d+)$", f.read(), re.M)
+    if m is None:
+        raise KeyError(f"gst_common.cuh defines no integer {name}")
+    return int(m.group(1))
+
+
+def entry_of(entry: str, dtype) -> str:
+    """The C entry of ``entry`` for operands of ``dtype``: the float32
+    entry itself, ``<entry>_f64`` for float64 (the kernels' float64
+    forms)."""
+    import torch
+
+    if dtype == torch.float32:
+        return entry
+    if dtype == torch.float64:
+        return entry + "_f64"
+    raise ValueError(f"{entry}: float32 or float64 operands, got {dtype}")
+
+
+def check_float_dtype(name: str, tensors) -> "object":
+    """The one dtype of a wrapper's floating operands, float32 or float64;
+    raises on any other dtype and on a mix."""
+    import torch
+
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1:
+        raise ValueError(f"{name}: operands of mixed dtypes "
+                         f"{sorted(map(str, dtypes))}")
+    (dtype,) = dtypes
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{name}: float32 or float64 only, got {dtype}")
+    return dtype
+
+
+def refuse_float64(name: str, what: str) -> None:
+    """The raise of a wrapper handed float64 CUDA tensors for a kernel
+    that has no float64 form yet (ROADMAP A-11b); its plain version
+    runs float64 on the CPU."""
+    raise NotImplementedError(
+        f"{name}: {what} has no float64 kernel yet (ROADMAP A-11b); "
+        "float64 runs it on the CPU only")
 
 
 def stream(device) -> int:

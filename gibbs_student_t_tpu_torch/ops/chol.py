@@ -34,9 +34,15 @@ lane.
 Each wrapper runs its plain PyTorch version (the same recurrence, batched)
 when the tensors lie on the CPU, launches its kernel when they lie on a
 CUDA device, and raises otherwise; it counts its launches in
-``<wrapper>.launches``. A non-PD pivot gives NaN on every path (rsqrt of
-a negative) for its own matrix only, which callers turn into a rejection
-or a jitter escalation. Each call notes its kernel, implementation, launch
+``<wrapper>.launches``. Both kernels take float32 or float64 operands (one
+dtype a call): float64 launches the kernels' float64 forms
+(``gst_chol_fused_f64``, ``gst_tri_solve_T_f64``: the sampler's
+``dtype=float64``), counted in ``<wrapper>.launches_f64``; a matrix then
+takes twice the shared memory, which caps the warp form's matrices a
+block (:func:`launch_form`, :func:`check_per_block`). The lanes entries
+have no float64 form yet and raise for float64 CUDA tensors. A non-PD
+pivot gives NaN on every path (rsqrt of a negative) for its own matrix
+only, which callers turn into a rejection or a jitter escalation. Each call notes its kernel, implementation, launch
 form and shape for the run's records (obs/introspect.py ``note_kernel``;
 one set lookup after the first call of a shape).
 """
@@ -48,6 +54,7 @@ import math
 import torch
 
 from gibbs_student_t_tpu_torch.obs.introspect import note_kernel
+from gibbs_student_t_tpu_torch.ops import _cuda
 from gibbs_student_t_tpu_torch.ops.lanes import check_lanes_gid
 
 #: largest m the factor kernel takes: its shared memory (4 m^2 bytes plus
@@ -62,13 +69,29 @@ WARP_MAX_DIM = 95
 MAX_PER_BLOCK = 8
 #: SMs of an H100, the card the launch forms are sized for
 SM_COUNT = 132
+#: shared memory a Hopper block may use (227 KB; csrc GST_SMEM_OPTIN)
+SMEM_OPTIN = _cuda.header_int("GST_SMEM_OPTIN")
 
 
-def check_per_block(name, per_block, size, warp_max=WARP_MAX_DIM):
+def tri(i):
+    """Offset of row ``i`` in a packed lower triangle (``gst_tri``)."""
+    return i * (i + 1) // 2
+
+
+def warp_bytes(m, dtype=torch.float32):
+    """Shared memory one matrix of the factor's warp form takes: rows
+    0..m of its packed triangle (``gst_warp_floats``) in ``dtype``."""
+    return ((tri(m + 1) + 3) & ~3) * torch.finfo(dtype).bits // 8
+
+
+def check_per_block(name, per_block, size, warp_max=WARP_MAX_DIM,
+                    warp_bytes_each=0):
     """Raise unless ``per_block`` is a launch the kernels take for
     matrices of ``size``: None (the wrapper decides), 0 (the block form)
     or 1..MAX_PER_BLOCK warps of the warp form (size <= ``warp_max``, the
-    kernel's own bound: the factor's WARP_MAX_DIM by default)."""
+    kernel's own bound: the factor's WARP_MAX_DIM by default) whose
+    ``warp_bytes_each`` of shared memory a warp fit a block's
+    SMEM_OPTIN (in float64 a warp takes twice a float32 warp's)."""
     if per_block is None or per_block == 0:
         return
     if not 1 <= per_block <= MAX_PER_BLOCK:
@@ -77,9 +100,13 @@ def check_per_block(name, per_block, size, warp_max=WARP_MAX_DIM):
     if size > warp_max:
         raise ValueError(f"{name}: size {size} exceeds the warp form's "
                          f"{warp_max}; use per_block = 0")
+    if per_block * warp_bytes_each > SMEM_OPTIN:
+        raise ValueError(f"{name}: {per_block} warps of {warp_bytes_each} "
+                         f"bytes exceed a block's {SMEM_OPTIN} bytes of "
+                         "shared memory")
 
 
-def launch_form(B, m):
+def launch_form(B, m, dtype=torch.float32):
     """``(form, per_block)`` of the factor kernel's launch for ``B``
     matrices of size ``m``: ``("warp", n)`` puts one matrix on each of
     ``n`` warps of a block (m <= WARP_MAX_DIM), ``("block", 1)`` gives a
@@ -91,13 +118,17 @@ def launch_form(B, m):
     700 W (chip_smoke.py phase 12a) 1, 2, 4 and 8 matrices a block took
     0.04970, 0.04965, 0.04943 and 0.04986 ms, the block form 0.2303 ms:
     every count holds the batch in one wave of at most 8 warps an SM,
-    and none is 1 % faster than 2."""
+    and none is 1 % faster than 2. A float64 matrix takes twice the shared
+    memory (:func:`warp_bytes`); a count that would pass a block's
+    SMEM_OPTIN is not taken (at m <= 95 four float64 matrices still
+    fit)."""
     if not 1 <= m <= MAX_CHOL_DIM:
         raise ValueError(f"chol_fused: m = {m} outside 1..{MAX_CHOL_DIM}")
     if m > WARP_MAX_DIM:
         return "block", 1
     for per_block in (4, 2):
-        if B >= 2 * SM_COUNT * per_block:
+        if (B >= 2 * SM_COUNT * per_block
+                and per_block * warp_bytes(m, dtype) <= SMEM_OPTIN):
             return "warp", per_block
     return "warp", 1
 
@@ -114,9 +145,7 @@ def form_meta(m, per_block):
 
 
 def _check(name, mats, vecs, m):
-    for t in (mats, vecs):
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: float32 only, got {t.dtype}")
+    _cuda.check_float_dtype(name, (mats, vecs))
     if mats.shape[-1] != m or mats.shape[-2] != m:
         raise ValueError(f"{name}: need (..., m, m) matrices, got "
                          f"{tuple(mats.shape)}")
@@ -155,29 +184,37 @@ def chol_fused_plain(S, rhs):
 
 
 def chol_fused(S, rhs, per_block=None):
-    """``(L, logdet, u)`` for ``S (..., m, m)``, ``rhs (..., m)``, float32;
-    leading dims are flattened onto the kernel's batch (one launch).
-    ``per_block`` overrides :func:`launch_form`'s matrices per block (0:
-    the block form), for measurements."""
+    """``(L, logdet, u)`` for ``S (..., m, m)``, ``rhs (..., m)``, float32
+    or float64 (the float64 form, counted in ``launches_f64``); leading
+    dims are flattened onto the kernel's batch (one launch). ``per_block``
+    overrides :func:`launch_form`'s matrices per block (0: the block
+    form), for measurements."""
     out, launched = _chol_fused("chol_fused", S, rhs, per_block)
-    chol_fused.launches += launched
+    if S.dtype == torch.float64:
+        chol_fused.launches_f64 += launched
+    else:
+        chol_fused.launches += launched
     return out
 
 
 chol_fused.launches = 0
+chol_fused.launches_f64 = 0
 
 
 def _chol_fused(name, S, rhs, per_block=None):
     """``((L, logdet, u), launches)`` of one factor call: the plain version
-    on the CPU, one launch of the factor kernel on a CUDA device."""
+    on the CPU, one launch of the factor kernel on a CUDA device (its
+    float64 form for float64 operands)."""
     m = S.shape[-1]
     _check(name, S, rhs, m)
-    check_per_block(name, per_block, m)
-    from gibbs_student_t_tpu_torch.ops import _cuda
-
+    check_per_block(name, per_block, m,
+                    warp_bytes_each=warp_bytes(min(m, WARP_MAX_DIM),
+                                               S.dtype))
     if not _cuda.use_kernel(S, name):
         note_kernel(name, "plain", (math.prod(S.shape[:-2]), m))
         return chol_fused_plain(S, rhs), 0
+    if S.dtype == torch.float64 and name != "chol_fused":
+        _cuda.refuse_float64(name, "the lanes entry")
     if m > MAX_CHOL_DIM:
         raise ValueError(f"{name}: m = {m} exceeds MAX_CHOL_DIM "
                          f"({MAX_CHOL_DIM})")
@@ -189,11 +226,12 @@ def _chol_fused(name, S, rhs, per_block=None):
     ld = torch.empty((B,), dtype=S.dtype, device=S.device)
     if B:
         if per_block is None:
-            form, per_block = launch_form(B, m)
+            form, per_block = launch_form(B, m, S.dtype)
             per_block = per_block if form == "warp" else 0
         note_kernel(name, "cuda", (B, m),
                     lambda: form_meta(m, per_block))
-        _cuda.launch("chol_fused", S.device, _cuda.ptr(Sc), _cuda.ptr(rc),
+        _cuda.launch(_cuda.entry_of("chol_fused", S.dtype), S.device,
+                     _cuda.ptr(Sc), _cuda.ptr(rc),
                      _cuda.ptr(L), _cuda.ptr(u), _cuda.ptr(ld), B, m,
                      per_block, what=name)
     return ((L.reshape(S.shape), ld.reshape(S.shape[:-2]),
@@ -232,13 +270,18 @@ def tri_solve_T_plain(L, rhs):
 def tri_solve_T(L, rhs):
     """``x`` with ``L^T x = rhs`` for lower-triangular ``L (..., m, m)``
     (as from :func:`chol_fused`; the entries above the diagonal are not
-    read), float32."""
+    read), float32 or float64 (the float64 form, counted in
+    ``launches_f64``)."""
     x, launched = _tri_solve_T("tri_solve_T", L, rhs)
-    tri_solve_T.launches += launched
+    if L.dtype == torch.float64:
+        tri_solve_T.launches_f64 += launched
+    else:
+        tri_solve_T.launches += launched
     return x
 
 
 tri_solve_T.launches = 0
+tri_solve_T.launches_f64 = 0
 
 
 def _tri_solve_T(name, L, rhs):
@@ -246,11 +289,11 @@ def _tri_solve_T(name, L, rhs):
     CPU, one launch of the back-solve kernel on a CUDA device."""
     m = L.shape[-1]
     _check(name, L, rhs, m)
-    from gibbs_student_t_tpu_torch.ops import _cuda
-
     if not _cuda.use_kernel(L, name):
         note_kernel(name, "plain", (math.prod(L.shape[:-2]), m))
         return tri_solve_T_plain(L, rhs), 0
+    if L.dtype == torch.float64 and name != "tri_solve_T":
+        _cuda.refuse_float64(name, "the lanes entry")
     if m > MAX_CHOL_DIM:
         raise ValueError(f"{name}: m = {m} exceeds MAX_CHOL_DIM "
                          f"({MAX_CHOL_DIM})")
@@ -260,8 +303,9 @@ def _tri_solve_T(name, L, rhs):
     x = torch.empty_like(rc)
     if B:
         note_kernel(name, "cuda", (B, m))
-        _cuda.launch("tri_solve_T", L.device, _cuda.ptr(Lc), _cuda.ptr(rc),
-                     _cuda.ptr(x), B, m, what=name)
+        _cuda.launch(_cuda.entry_of("tri_solve_T", L.dtype), L.device,
+                     _cuda.ptr(Lc), _cuda.ptr(rc), _cuda.ptr(x), B, m,
+                     what=name)
     return x.reshape(rhs.shape), int(B > 0)
 
 

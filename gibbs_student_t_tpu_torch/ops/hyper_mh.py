@@ -44,6 +44,14 @@ per-lane operands and constants under the lanes' ``gid`` contract
 (``ops/lanes.py``), one grouped launch with 16 lanes a group (replacing
 the Pallas core of ``linalg.py::_fused_hyper_lanes_dispatcher``), counted
 on ``hyper_mh.launches_lanes``.
+
+Float64 operands launch the kernel's float64 form (``gst_hyper_mh_f64``,
+the sampler's ``dtype=float64``), counted on ``hyper_mh.launches_f64`` and
+``launches_grouped_f64``: a chain takes twice the shared memory, so the
+warp form holds fewer chains a block (:func:`launch_form`) and the block
+form stops at ``MAX_HYPER_V_F64`` (:func:`max_hyper_v`), past which the
+sampler takes the closure path. The lanes entry has no float64 form yet
+and raises for float64 CUDA tensors.
 """
 
 from __future__ import annotations
@@ -64,8 +72,10 @@ from gibbs_student_t_tpu_torch.obs.introspect import note_kernel
 from gibbs_student_t_tpu_torch.ops.chol import (
     MAX_PER_BLOCK,
     SM_COUNT,
+    SMEM_OPTIN,
     check_per_block,
     chol_fused_plain,
+    tri,
 )
 from gibbs_student_t_tpu_torch.ops.lanes import (
     check_lanes_gid,
@@ -84,6 +94,10 @@ LN10 = float(np.log(10.0))
 #: largest Schur block the kernel takes: 2 v^2 + (11 + nk) v floats of
 #: shared memory stay within a Hopper block's 227 KB up to v ~ 165
 MAX_HYPER_V = 160
+#: the same bound of the float64 form: 2 v^2 + (10 + nk) v + 5 p doubles
+#: stay within 227 KB at v = 112 for up to 16 hyper indices and 64
+#: parameters (csrc/hyper_mh.cu checks the bytes)
+MAX_HYPER_V_F64 = 112
 #: most hyper indices the kernel's by-value table takes
 MAX_HYPER_K = 16
 #: largest v the kernel's warp form takes (csrc/hyper_mh.cu checks the
@@ -92,18 +106,37 @@ MAX_HYPER_K = 16
 HYPER_WARP_MAX_V = 64
 
 
-def launch_form(C, v):
+def max_hyper_v(dtype=torch.float32):
+    """The largest Schur block the kernel takes in ``dtype``."""
+    return MAX_HYPER_V_F64 if dtype == torch.float64 else MAX_HYPER_V
+
+
+def warp_bytes(v, p, nk, dtype=torch.float32):
+    """Shared memory one chain of the warp form takes in ``dtype``: its
+    group's constants and its buffers (``csrc/hyper_mh.cu``
+    ``hyper_const_floats`` + ``hyper_warp_floats``)."""
+    const = ((2 + nk) * v + 3 * p + 3) & ~3
+    bufs = (tri(v) + ((tri(v + 1) + 3) & ~3) + 3 * v + 1 + 2 * p + 3) & ~3
+    return (const + bufs) * torch.finfo(dtype).bits // 8
+
+
+def launch_form(C, v, dtype=torch.float32, p=0, nk=0):
     """``(form, per_block)`` of the hyper kernel's launch for ``C`` chains
     on a ``v x v`` block: ``("warp", n)`` puts one chain on each of ``n``
     warps of a block (v <= HYPER_WARP_MAX_V), with ``n`` the chains an SM
     gets when ``C`` is dealt over the card (1,024 chains: 8 a block, 128
-    blocks, one wave; 64 chains: 64 one-warp blocks, an SM each);
-    ``("block", 1)`` gives a chain a 256-thread block (v <= MAX_HYPER_V)."""
-    if not 1 <= v <= MAX_HYPER_V:
-        raise ValueError(f"hyper_mh: v = {v} outside 1..{MAX_HYPER_V}")
+    blocks, one wave; 64 chains: 64 one-warp blocks, an SM each), at most
+    as many as a block's SMEM_OPTIN holds at ``p`` parameters and ``nk``
+    hyper indices (:func:`warp_bytes`; in float64, 6 at the flagship's v =
+    60, so 1,024 chains take two waves); ``("block", 1)`` gives a chain a
+    256-thread block (v <= :func:`max_hyper_v`)."""
+    vmax = max_hyper_v(dtype)
+    if not 1 <= v <= vmax:
+        raise ValueError(f"hyper_mh: v = {v} outside 1..{vmax}")
     if v > HYPER_WARP_MAX_V:
         return "block", 1
-    return "warp", min(MAX_PER_BLOCK, max(1, -(-C // SM_COUNT)))
+    fit = max(1, SMEM_OPTIN // warp_bytes(v, p, nk, dtype))
+    return "warp", min(MAX_PER_BLOCK, fit, max(1, -(-C // SM_COUNT)))
 
 
 class HyperConsts(NamedTuple):
@@ -125,9 +158,9 @@ class HyperConsts(NamedTuple):
     specs: np.ndarray
 
 
-def build_hyper_consts(ma, cols) -> HyperConsts:
+def build_hyper_consts(ma, cols, dtype=np.float32) -> HyperConsts:
     """Decompose ``models.pta.phiinv_logdet`` into affine-in-x form (float64,
-    cast to float32 at the end)."""
+    cast to ``dtype`` at the end: float32, or float64 kept as it is)."""
     from gibbs_student_t_tpu_torch.models.signals import FYR
 
     m = ma.m
@@ -191,13 +224,13 @@ def build_hyper_consts(ma, cols) -> HyperConsts:
     static = has_phi & ~varying
     phiinv_static = np.where(static[cols], np.exp(-const_col[cols]), 0.0)
     logdet_static = float(const_col[static].sum())
-    specs = np.asarray(ma.prior_specs, np.float32)[:, :3].T.copy()
+    specs = np.asarray(ma.prior_specs, dtype)[:, :3].T.copy()
     kinds = set(np.unique(specs[0].astype(int)))
     if not kinds <= {0, 1, 2}:
         raise ValueError(f"unsupported prior kinds for fused MH: {kinds}")
-    return HyperConsts(K=K.astype(np.float32), hyp_idx=hyp_idx,
-                       phi_sel=varying[cols].astype(np.float32),
-                       phiinv_static=phiinv_static.astype(np.float32),
+    return HyperConsts(K=K.astype(dtype), hyp_idx=hyp_idx,
+                       phi_sel=varying[cols].astype(dtype),
+                       phiinv_static=phiinv_static.astype(dtype),
                        logdet_phi_static=logdet_static, specs=specs)
 
 
@@ -245,33 +278,37 @@ def hyper_mh_loop(x, S0, dS0, rt, base, dx, logu, K, sel, specs, hyp_idx,
 def hyper_mh(x, S0, dS0, rt, base, dx, logu, K, sel, specs, hyp_idx,
              jitter: float, per_block=None):
     """``(x_new, acc_rate)`` for the whole hyper MH block, one launch on a
-    CUDA device (``v <= MAX_HYPER_V``), the plain loop on the CPU. Shapes
-    as in :func:`hyper_mh_loop`; constants are float32 tensors on the
-    same device (grouped as in :func:`hyper_mh_loop`), ``hyp_idx`` the
-    static ``HyperConsts.hyp_idx``. ``per_block`` overrides
-    :func:`launch_form`'s chains per block (0: the block form), for
-    measurements."""
+    CUDA device (``v <=`` :func:`max_hyper_v`), the plain loop on the
+    CPU. Shapes as in :func:`hyper_mh_loop`; every operand float32, or
+    every one float64 (the float64 form, counted in ``launches_f64`` /
+    ``launches_grouped_f64``), the constants on the same device (grouped
+    as in :func:`hyper_mh_loop`), ``hyp_idx`` the static
+    ``HyperConsts.hyp_idx``. ``per_block`` overrides :func:`launch_form`'s
+    chains per block (0: the block form), for measurements."""
     out, launched = _hyper_mh("hyper_mh", x, S0, dS0, rt, base, dx, logu, K,
                               sel, specs, hyp_idx, jitter, per_block)
-    if K.dim() == 3:
-        hyper_mh.launches_grouped += launched
-    else:
-        hyper_mh.launches += launched
+    suffix = "_f64" if x.dtype == torch.float64 else ""
+    attr = ("launches_grouped" if K.dim() == 3 else "launches") + suffix
+    setattr(hyper_mh, attr, getattr(hyper_mh, attr) + launched)
     return out
 
 
 hyper_mh.launches = 0
 hyper_mh.launches_grouped = 0
 hyper_mh.launches_lanes = 0
+hyper_mh.launches_f64 = 0
+hyper_mh.launches_grouped_f64 = 0
 
 
 def _hyper_mh(name, x, S0, dS0, rt, base, dx, logu, K, sel, specs, hyp_idx,
               jitter, per_block=None):
     """``((x_new, acc_rate), launches)`` of one hyper block call: the plain
     loop on the CPU, one launch of the hyper kernel on a CUDA device."""
-    for t in (x, S0, dS0, rt, base, dx, logu, K, sel, specs):
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: float32 only, got {t.dtype}")
+    from gibbs_student_t_tpu_torch.ops import _cuda
+
+    ops_ = (x, S0, dS0, rt, base, dx, logu, K, sel, specs)
+    dtype = _cuda.check_float_dtype(name, ops_)
+    for t in ops_:
         if t.device != x.device:
             raise ValueError(f"{name}: operands on different devices")
     B, p = tuple(x.shape[:-1]), x.shape[-1]
@@ -285,17 +322,20 @@ def _hyper_mh(name, x, S0, dS0, rt, base, dx, logu, K, sel, specs, hyp_idx,
             or logu.shape != (*B, S) or K.shape != (*groups, 1 + nk, v)
             or sel.shape != (*groups, v) or specs.shape != (*groups, 3, p)):
         raise ValueError(f"{name}: inconsistent operand shapes")
-    check_per_block(name, per_block, v, HYPER_WARP_MAX_V)
+    check_per_block(name, per_block, v, HYPER_WARP_MAX_V,
+                    warp_bytes(min(v, HYPER_WARP_MAX_V), p, nk, dtype))
     kname = name + "_grouped" if groups and name == "hyper_mh" else name
-    from gibbs_student_t_tpu_torch.ops import _cuda
 
     if not _cuda.use_kernel(x, name):
         note_kernel(kname, "plain", (*B, v, p))
         return hyper_mh_loop(x, S0, dS0, rt, base, dx, logu, K, sel, specs,
                              hyp_idx, jitter), 0
-    if v > MAX_HYPER_V or nk > MAX_HYPER_K:
+    if dtype == torch.float64 and name != "hyper_mh":
+        _cuda.refuse_float64(name, "the lanes entry")
+    vmax = max_hyper_v(dtype)
+    if v > vmax or nk > MAX_HYPER_K:
         raise ValueError(f"{name}: v = {v} / nk = {nk} exceed the "
-                         f"kernel bounds ({MAX_HYPER_V}, {MAX_HYPER_K})")
+                         f"kernel bounds ({vmax}, {MAX_HYPER_K})")
 
     ops = [t.contiguous() for t in (x, S0, dS0, rt, base, dx, logu, K, sel,
                                     specs)]
@@ -305,12 +345,13 @@ def _hyper_mh(name, x, S0, dS0, rt, base, dx, logu, K, sel, specs, hyp_idx,
     C = math.prod(B)
     if C:
         if per_block is None:
-            form, per_block = launch_form(C, v)
+            form, per_block = launch_form(C, v, dtype, p, nk)
             per_block = per_block if form == "warp" else 0
         note_kernel(kname, "cuda", (*B, v, p), lambda: {
             "form": "warp" if per_block else "block",
             "per_block": per_block})
-        _cuda.launch("hyper_mh", x.device, *(_cuda.ptr(t) for t in ops),
+        _cuda.launch(_cuda.entry_of("hyper_mh", dtype), x.device,
+                     *(_cuda.ptr(t) for t in ops),
                      _cuda.addr(hi), nk, _cuda.ptr(xo), _cuda.ptr(acc), C,
                      B[-1], v, p, S, float(jitter), per_block, what=name)
     return (xo, acc), int(C > 0)

@@ -55,6 +55,14 @@ plain PyTorch version, built from the primitives below) on a CPU tensor.
 D1 replaces no Pallas kernel: on the TPU, XLA fuses the jnp draws into
 the sweep's program; on the card the same work was ~40 separate launches
 a sweep.
+
+The draws' dtype is the gamma shapes' dtype: float32, or float64 for the
+sampler's ``dtype=float64`` (D1's float64 form, ``gst_sweep_draws_f64``,
+counted in ``sweep_draws.launches_f64``). The float64 draws are the same
+Philox words, counters and attempts, and the same float64 numbers, not
+rounded: a float64 draw rounded to float32 is the float32 draw bit for bit
+(for float32-representable shapes), and the uniforms keep the float32
+draws' 2^-23 grid.
 """
 
 from __future__ import annotations
@@ -247,28 +255,30 @@ def _box_muller(w0, w1):
         TWO_PI * _u64(w1))
 
 
-def uniforms(keys, sweep, tag: int, n: int):
-    """``(B, n)`` float32 uniforms in (0, 1) of the chains ``keys (B, 2)``
-    at ``sweep (B,)`` in field ``tag``."""
-    return uniform_of_bits(_blocks(keys, sweep, tag, n)[0])
+def uniforms(keys, sweep, tag: int, n: int, dtype=torch.float32):
+    """``(B, n)`` uniforms in (0, 1) of the chains ``keys (B, 2)`` at
+    ``sweep (B,)`` in field ``tag``, exact in ``dtype`` (float32 or
+    float64)."""
+    return uniform_of_bits(_blocks(keys, sweep, tag, n)[0], dtype)
 
 
-def log_uniforms(keys, sweep, tag: int, n: int):
-    """``log`` of :func:`uniforms` (taken in float64)."""
-    return torch.log(_u64(_blocks(keys, sweep, tag, n)[0])).float()
+def log_uniforms(keys, sweep, tag: int, n: int, dtype=torch.float32):
+    """``log`` of :func:`uniforms` (taken in float64, rounded to
+    ``dtype``)."""
+    return torch.log(_u64(_blocks(keys, sweep, tag, n)[0])).to(dtype)
 
 
-def gumbel(keys, sweep, tag: int, n: int):
-    """Gumbel noise ``-log(-log u)`` (float64, rounded to float32)."""
+def gumbel(keys, sweep, tag: int, n: int, dtype=torch.float32):
+    """Gumbel noise ``-log(-log u)`` (float64, rounded to ``dtype``)."""
     u = _u64(_blocks(keys, sweep, tag, n)[0])
-    return (-torch.log(-torch.log(u))).float()
+    return (-torch.log(-torch.log(u))).to(dtype)
 
 
-def normals(keys, sweep, tag: int, n: int):
+def normals(keys, sweep, tag: int, n: int, dtype=torch.float32):
     """Standard normals, Box-Muller of words 0 and 1 (float64, rounded
-    to float32)."""
+    to ``dtype``)."""
     w = _blocks(keys, sweep, tag, n)
-    return _box_muller(w[0], w[1]).float()
+    return _box_muller(w[0], w[1]).to(dtype)
 
 
 def _gamma_mt(keys, sweep, tag: int, shape):
@@ -308,14 +318,15 @@ def _gamma_mt(keys, sweep, tag: int, shape):
         pend = pend[~acc]
     bi = torch.nonzero(boost & torch.isfinite(out)).reshape(-1)
     out[bi] = out[bi] * torch.exp(torch.log(ub[bi]) / a[bi])
-    return out.float().reshape(B, n), tries.reshape(B, n)
+    return out.to(shape.dtype).reshape(B, n), tries.reshape(B, n)
 
 
 def gamma_mt(keys, sweep, tag: int, shape):
     """``Gamma(shape)`` draws by Marsaglia-Tsang with the a < 1 boost:
-    ``shape (B, n)`` float32 (each element its own), element e of chain b
-    at counters ``(e, attempt, tag, sweep[b])``. Attempts run over the
-    elements not yet accepted; see the module docstring."""
+    ``shape (B, n)`` float32 or float64 (each element its own; the draws
+    in its dtype), element e of chain b at counters ``(e, attempt, tag,
+    sweep[b])``. Attempts run over the elements not yet accepted; see the
+    module docstring."""
     return _gamma_mt(keys, sweep, tag, shape)[0]
 
 
@@ -507,9 +518,11 @@ def _flat_operands(name, keys, sweep, shapes):
         raise ValueError(f"{name}: sweep must be one int64 index or one a "
                          f"chain {batch}, got {tuple(sweep.shape)} "
                          f"{sweep.dtype}")
-    if shapes.dtype != torch.float32 or tuple(shapes.shape[:-1]) != batch:
-        raise ValueError(f"{name}: shapes must be (*batch, k) float32, "
-                         f"got {tuple(shapes.shape)} {shapes.dtype}")
+    if (shapes.dtype not in (torch.float32, torch.float64)
+            or tuple(shapes.shape[:-1]) != batch):
+        raise ValueError(f"{name}: shapes must be (*batch, k) float32 or "
+                         f"float64, got {tuple(shapes.shape)} "
+                         f"{shapes.dtype}")
     if not keys.device == sweep.device == shapes.device:
         raise ValueError(f"{name}: operands on {keys.device}, "
                          f"{sweep.device} and {shapes.device}")
@@ -522,24 +535,24 @@ def sweep_draws_plain(keys, sweep, shapes, table: DrawTable, out=None):
     """D1's function in PyTorch: every field of ``table`` for the chains
     ``keys (*batch, 2)`` at ``sweep`` (one int64 index, or one a chain),
     the gamma fields' shapes read from ``shapes (*batch, k)``; returns
-    the flat float32 output (``DrawTable.views`` cuts it)."""
+    the flat output in the shapes' dtype (``DrawTable.views`` cuts it)."""
     keys, sweep, shapes, batch = _flat_operands("sweep_draws", keys, sweep,
                                                 shapes)
     B = keys.shape[0]
     sweep = sweep.expand(B)
+    dt = shapes.dtype
     if out is None:
-        out = torch.empty(B * table.width, dtype=torch.float32,
-                          device=keys.device)
+        out = torch.empty(B * table.width, dtype=dt, device=keys.device)
     for f, o in zip(table.fields, table.offsets):
         tag, n = SWEEP_TAGS[f.name], f.count
         if f.kind == UNIFORM:
-            v = uniforms(keys, sweep, tag, n)
+            v = uniforms(keys, sweep, tag, n, dt)
         elif f.kind == NORMAL:
-            v = normals(keys, sweep, tag, n)
+            v = normals(keys, sweep, tag, n, dt)
         elif f.kind == LOG_UNIFORM:
-            v = log_uniforms(keys, sweep, tag, n)
+            v = log_uniforms(keys, sweep, tag, n, dt)
         elif f.kind == GUMBEL:
-            v = gumbel(keys, sweep, tag, n)
+            v = gumbel(keys, sweep, tag, n, dt)
         else:
             v = torch.cat([gamma_mt(keys, sweep, tag + c,
                                     shapes[:, f.col + c, None].expand(
@@ -554,8 +567,9 @@ def sweep_draws(keys, sweep, shapes, table: DrawTable, out=None,
     """One sweep's raw draws for a batch of chains (see
     :func:`sweep_draws_plain`): the plain version on the CPU, one launch
     of D1 (``csrc/draws.cu``) on a CUDA device, counted in
-    ``sweep_draws.launches``. ``out``, when given, is the flat float32
-    output to write (reused from sweep to sweep by the serving pool).
+    ``sweep_draws.launches`` (its float64 form, for float64 shapes, in
+    ``launches_f64``). ``out``, when given, is the flat output to write in
+    the shapes' dtype (reused from sweep to sweep by the serving pool).
     ``elems`` (values a thread, other and gamma fields; default
     :func:`draw_elems`) sets the tiles' length, for measurements; it does
     not change the values."""
@@ -572,23 +586,28 @@ def sweep_draws(keys, sweep, shapes, table: DrawTable, out=None,
                          f"kernel takes {MAX_SEGMENTS}")
     B = kf.shape[0]
     kf, sw, sh = kf.contiguous(), sw.contiguous(), sh.contiguous()
+    dt = sh.dtype
     if out is None:
-        out = torch.empty(B * table.width, dtype=torch.float32,
-                          device=keys.device)
-    elif (out.dtype != torch.float32 or out.numel() != B * table.width
+        out = torch.empty(B * table.width, dtype=dt, device=keys.device)
+    elif (out.dtype != dt or out.numel() != B * table.width
           or not out.is_contiguous() or out.device != keys.device):
-        raise ValueError("sweep_draws: out must be a contiguous float32 "
+        raise ValueError(f"sweep_draws: out must be a contiguous {dt} "
                          f"tensor of {B * table.width} on {keys.device}")
     if B and table.width:
         note_kernel("sweep_draws", "cuda", (B, table.width))
         tiles, segs = table.launch(B, keys.device, elems)
-        _cuda.launch("sweep_draws", keys.device, _cuda.ptr(kf),
-                     _cuda.ptr(sw), int(sw.numel() > 1), _cuda.ptr(sh),
-                     sh.shape[-1], _cuda.ptr(out), _cuda.addr(segs),
-                     len(table.segments), _cuda.ptr(tiles), tiles.shape[0],
-                     B)
-        sweep_draws.launches += 1
+        _cuda.launch(_cuda.entry_of("sweep_draws", dt), keys.device,
+                     _cuda.ptr(kf), _cuda.ptr(sw), int(sw.numel() > 1),
+                     _cuda.ptr(sh), sh.shape[-1], _cuda.ptr(out),
+                     _cuda.addr(segs), len(table.segments),
+                     _cuda.ptr(tiles), tiles.shape[0], B,
+                     what="sweep_draws")
+        if dt == torch.float64:
+            sweep_draws.launches_f64 += 1
+        else:
+            sweep_draws.launches += 1
     return out
 
 
 sweep_draws.launches = 0
+sweep_draws.launches_f64 = 0

@@ -23,6 +23,12 @@ reduction, one basis per 16-lane group and one launch of a kernel of its
 own for every group (replacing ``pallas_tnt.py::tnt_lanes_pallas``): it
 cuts the Gram into the 16 x 16 tiles of :func:`lanes_tiles` and writes
 TNT, d and the constant straight from the sums.
+
+Float64 (the sampler's ``dtype=float64``): the dense product is
+``torch.matmul`` in float64, as the JAX package leaves it to XLA; the Gram
+kernels have no float64 form yet (ROADMAP A-11b), so :func:`tnt_batched`
+and :func:`tnt_lanes` run float64 through their plain versions on the CPU
+and raise ``NotImplementedError`` for float64 CUDA tensors.
 """
 
 from __future__ import annotations
@@ -187,12 +193,15 @@ def tnt_batched(T, y, nvec, block_size: int):
     """``(TNT, d, const_white)`` of the TOA-blocked reduction, shapes as in
     :func:`tnt_products`, float32: one launch of the Gram kernel covering
     every TOA block on a CUDA device (``w = 1/nvec`` on the way in, the
-    constant in PyTorch), the blocked :func:`tnt_products` on the CPU.
-    ``n`` must be a multiple of ``block_size`` (:func:`pad_rows`); padded
-    rows carry ``T = 0``, ``y = 0``, ``nvec = 1`` and add exactly zero."""
+    constant in PyTorch), the blocked :func:`tnt_products` on the CPU
+    (float32 or float64; float64 CUDA tensors raise: the kernel has no
+    float64 form yet). ``n`` must be a multiple of ``block_size``
+    (:func:`pad_rows`); padded rows carry ``T = 0``, ``y = 0``, ``nvec =
+    1`` and add exactly zero."""
+    from gibbs_student_t_tpu_torch.ops import _cuda
+
+    dtype = _cuda.check_float_dtype("tnt_batched", (T, y, nvec))
     for t in (T, y, nvec):
-        if t.dtype != torch.float32:
-            raise ValueError(f"tnt_batched: float32 only, got {t.dtype}")
         if t.device != nvec.device:
             raise ValueError("tnt_batched: operands on different devices")
     n, m = T.shape
@@ -203,11 +212,11 @@ def tnt_batched(T, y, nvec, block_size: int):
         raise ValueError(
             f"tnt_batched needs n ({n}) to be a multiple of block_size "
             f"({block_size}); use pad_rows first")
-    from gibbs_student_t_tpu_torch.ops import _cuda
-
     if not _cuda.use_kernel(nvec, "tnt_batched"):
         note_kernel("tnt_batched", "plain", (C, n, m))
         return tnt_products(T, y, nvec, block_size)
+    if dtype == torch.float64:
+        _cuda.refuse_float64("tnt_batched", "the Gram kernel (B5)")
     note_kernel("tnt_batched", "cuda", (C, n, m))
 
     w = 1.0 / nvec
@@ -235,11 +244,12 @@ tnt_batched.launches = 0
 def _tnt_lanes_operands(T, y, nvec, gid):
     """``(T_g (G, nT, m), y_g (G, nT), nvec (G, 16, n), lead)``: the basis
     of each tile's first lane and the lanes as tiles."""
+    from gibbs_student_t_tpu_torch.ops import _cuda
+
     lead = lead_dims(nvec, 1, "tnt_lanes")
     check_lanes_gid(flat_lanes(nvec, lead), gid, "tnt_lanes")
+    _cuda.check_float_dtype("tnt_lanes", (T, y, nvec))
     for t in (T, y, nvec):
-        if t.dtype != torch.float32:
-            raise ValueError(f"tnt_lanes: float32 only, got {t.dtype}")
         if t.device != nvec.device:
             raise ValueError("tnt_lanes: operands on different devices")
     nv = lane_tiles(nvec, lead)
@@ -288,6 +298,8 @@ def tnt_lanes(T, y, nvec, gid):
                     (*nvec.shape[:-1], nvec.shape[-1], T.shape[-1]))
         return tnt_lanes_plain(T, y, nvec, gid)
     Tg, yg, nv = _tnt_lanes_operands(T, y, nvec, gid)
+    if nvec.dtype == torch.float64:
+        _cuda.refuse_float64("tnt_lanes", "the lanes Gram kernel (B5-L)")
 
     G, C, n = nv.shape
     m = Tg.shape[-1]

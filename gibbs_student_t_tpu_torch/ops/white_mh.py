@@ -33,6 +33,14 @@ grouped launch with 16 lanes a group (replacing the Pallas arm of
 ``pallas_white.py::make_white_block_lanes``), counted on
 ``white_mh.launches_lanes``.
 
+Float64 operands launch the white MH kernel's float64 form
+(``gst_white_mh_f64``, the sampler's ``dtype=float64``): its warp form,
+single-model and grouped, counted on ``white_mh.launches_f64`` and
+``launches_grouped_f64``. The cluster form (``n > WHITE_CROSSOVER``), the
+MTM kernel and the lanes entry have no float64 form yet: their wrappers
+raise ``NotImplementedError`` for float64 CUDA tensors (ROADMAP A-11b);
+the plain versions run every one in float64 on the CPU.
+
 Constant folding follows the JAX package: selection groups pinned to
 constants fold into a baseline variance row ``nv0``; each varying group
 keeps its basis row and an in-kernel coefficient,
@@ -50,6 +58,7 @@ import numpy as np
 import torch
 
 from gibbs_student_t_tpu_torch.obs.introspect import note_kernel
+from gibbs_student_t_tpu_torch.ops import _cuda
 from gibbs_student_t_tpu_torch.ops.lanes import (
     check_lanes_gid,
     flat_lanes,
@@ -62,6 +71,10 @@ _LOG_2PI = float(np.log(2.0 * np.pi))
 
 #: most varying white-noise groups the kernel takes (its by-value table)
 MAX_WHITE_VAR = 8
+#: the largest n of the kernels' warp form (``GST_WHITE_CROSSOVER`` of
+#: csrc/gst_common.cuh): above it a chain spans a thread-block cluster,
+#: which has no float64 form yet
+WHITE_CROSSOVER = _cuda.header_int("GST_WHITE_CROSSOVER")
 
 
 class WhiteForm(NamedTuple):
@@ -89,8 +102,6 @@ class WhiteForm(NamedTuple):
 def white_form(n: int, p: int) -> WhiteForm:
     """The launch form of ``white_mh``/``white_mtm`` at ``n`` TOAs and
     ``p`` parameters on the current CUDA device (builds the kernels)."""
-    from gibbs_student_t_tpu_torch.ops import _cuda
-
     out = _cuda.host_ints([0] * 6)
     _cuda.check(_cuda.lib().gst_white_form(int(n), int(p), _cuda.addr(out)),
                 "white_form")
@@ -111,10 +122,11 @@ class WhiteConsts(NamedTuple):
     specs: np.ndarray
 
 
-def build_white_consts(ma, row_mask=None) -> WhiteConsts:
+def build_white_consts(ma, row_mask=None, dtype=np.float32) -> WhiteConsts:
     """Fold a ``ModelArrays``'s white-noise structure into kernel form,
     mirroring ``models.pta.ndiag`` (constant groups fold into ``nv0`` in
-    float64, then the rows are cast to float32)."""
+    float64, then the rows and the prior table are cast to ``dtype``:
+    float32, or float64 kept as it is)."""
     n = ma.y.shape[0]
     sigma2 = np.asarray(ma.sigma2, np.float64)
     nv0 = np.zeros(n, np.float64)
@@ -137,8 +149,8 @@ def build_white_consts(ma, row_mask=None) -> WhiteConsts:
             var_rows.append(B)
     rmask = (np.ones(n) if row_mask is None
              else np.asarray(row_mask, np.float64))
-    rows = np.stack([nv0, rmask] + var_rows).astype(np.float32)
-    specs = np.asarray(ma.prior_specs, np.float32)[:, :3].T.copy()
+    rows = np.stack([nv0, rmask] + var_rows).astype(dtype)
+    specs = np.asarray(ma.prior_specs, dtype)[:, :3].T.copy()
     kinds = set(np.unique(specs[0].astype(int)))
     if not kinds <= {0, 1, 2}:
         raise ValueError(f"unsupported prior kinds for fused MH: {kinds}")
@@ -259,9 +271,12 @@ def white_mh_loop(x, az, yred2, dx, logu, rows, specs, var):
 def white_mh(x, az, yred2, dx, logu, rows, specs, var):
     """``(x_new, acc_rate)`` for the whole white MH block, one launch on a
     CUDA device, the plain loop on the CPU. Shapes as in
-    :func:`white_mh_loop`; ``rows (R, n)``/``specs (3, p)`` float32 tensors
-    on the same device (``(G, R, n)``/``(G, 3, p)`` grouped), ``var`` the
-    static ``WhiteConsts.var`` triples."""
+    :func:`white_mh_loop`; ``rows (R, n)``/``specs (3, p)`` tensors on the
+    same device (``(G, R, n)``/``(G, 3, p)`` grouped), every operand
+    float32, or every one float64 (the kernel's float64 form, its warp
+    form only: ``n <= WHITE_CROSSOVER``; counted in ``launches_f64`` /
+    ``launches_grouped_f64``), ``var`` the static ``WhiteConsts.var``
+    triples."""
     B = _check_white("white_mh", x, az, yred2, (dx, logu), rows, specs)
     p, n, S = x.shape[-1], az.shape[-1], dx.shape[-2]
     if dx.shape != (*B, S, p) or logu.shape != (*B, S):
@@ -270,22 +285,28 @@ def white_mh(x, az, yred2, dx, logu, rows, specs, var):
     if not _use_kernel("white_mh", x, var):
         note_kernel(name, "plain", (*B, n, p))
         return white_mh_loop(x, az, yred2, dx, logu, rows, specs, var)
+    f64 = x.dtype == torch.float64
+    if f64 and n > WHITE_CROSSOVER:
+        _cuda.refuse_float64("white_mh", f"the cluster form (n = {n} > "
+                                         f"{WHITE_CROSSOVER})")
     note_kernel(name, "cuda", (*B, n, p), lambda: white_form(n, p)._asdict())
     xo = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     acc = torch.empty(B, dtype=x.dtype, device=x.device)
     if x.numel():
-        _launch("white_mh", (x, az, yred2, dx, logu), rows, specs, var,
-                xo, acc, B, (n, p, S))
-        if len(B) == 2:
-            white_mh.launches_grouped += 1
-        else:
-            white_mh.launches += 1
+        _launch(_cuda.entry_of("white_mh", x.dtype),
+                (x, az, yred2, dx, logu), rows, specs, var, xo, acc, B,
+                (n, p, S))
+        attr = (("launches_grouped" if len(B) == 2 else "launches")
+                + ("_f64" if f64 else ""))
+        setattr(white_mh, attr, getattr(white_mh, attr) + 1)
     return xo, acc
 
 
 white_mh.launches = 0
 white_mh.launches_grouped = 0
 white_mh.launches_lanes = 0
+white_mh.launches_f64 = 0
+white_mh.launches_grouped_f64 = 0
 
 
 def _white_lanes_operands(x, az, yred2, dx, logu, rows, specs, gid):
@@ -331,6 +352,8 @@ def white_mh_lanes(x, az, yred2, dx, logu, rows, specs, gid, var):
         note_kernel("white_mh_lanes", "plain", (*B, n, p))
         xo, acc = white_mh_loop(*ops, rows_g, specs_g, var)
         return xo.reshape(x.shape), acc.reshape(x.shape[:-1])
+    if x.dtype == torch.float64:
+        _cuda.refuse_float64("white_mh_lanes", "the lanes entry")
     note_kernel("white_mh_lanes", "cuda", (*B, n, p),
                 lambda: white_form(n, p)._asdict())
     xo = torch.empty(ops[0].shape, dtype=x.dtype, device=x.device)
@@ -373,6 +396,8 @@ def white_mtm(x, az, yred2, dx, dxr, gumb, logu, rows, specs, var):
         note_kernel(name, "plain", (*B, n, p, K))
         return white_mtm_loop(x, az, yred2, dx, dxr, gumb, logu, rows, specs,
                               var)
+    if x.dtype == torch.float64:
+        _cuda.refuse_float64("white_mtm", "the white MTM kernel (B6)")
     note_kernel(name, "cuda", (*B, n, p, K),
                 lambda: white_form(n, p)._asdict())
     xo = torch.empty(x.shape, dtype=x.dtype, device=x.device)
@@ -392,11 +417,11 @@ white_mtm.launches_grouped = 0
 
 
 def _check_white(name, x, az, yred2, draws, rows, specs):
-    """Dtypes, devices and shapes of a white block's operands; returns the
-    chains' batch shape, ``(C,)`` or, grouped, ``(G, C)``."""
+    """Dtypes (one of float32, float64), devices and shapes of a white
+    block's operands; returns the chains' batch shape, ``(C,)`` or,
+    grouped, ``(G, C)``."""
+    _cuda.check_float_dtype(name, (x, az, yred2, *draws, rows, specs))
     for t in (x, az, yred2, *draws, rows, specs):
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: float32 only, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name}: operands on different devices")
     B, p = tuple(x.shape[:-1]), x.shape[-1]
@@ -413,8 +438,6 @@ def _use_kernel(name, x, var):
     """Whether the white block launches its kernel for ``x``
     (``_cuda.use_kernel``); the kernel's bound on ``var`` is checked
     first when it does."""
-    from gibbs_student_t_tpu_torch.ops import _cuda
-
     if not _cuda.use_kernel(x, name):
         return False
     if len(var) > MAX_WHITE_VAR:
@@ -429,8 +452,6 @@ def _launch(entry, ops, rows, specs, var, xo, acc, batch, dims):
     chains and chains per group (``batch`` ``(C,)``: one group of C;
     ``(G, C)``: G groups of C, group-major, as the contiguous operands lie),
     the dimensions and R."""
-    from gibbs_student_t_tpu_torch.ops import _cuda
-
     ops = [t.contiguous() for t in (*ops, rows, specs)]
     vt = _cuda.host_ints([k for trip in var for k in trip])
     _cuda.launch(entry, xo.device, *(_cuda.ptr(t) for t in ops),

@@ -292,12 +292,17 @@ class EnsembleGibbs(TorchGibbs):
     Both populations must split evenly, and ``device`` is not given with
     it (each block's device is the mesh's). A state (``init_state``,
     ``last_state``, ``sample(state=)``) is then the ``(P, C)`` population
-    this process holds, on its first block's device."""
+    this process holds, on its first block's device.
+
+    ``dtype`` as in ``TorchGibbs`` (the JAX ensemble's ``dtype``): passed
+    to every pulsar's sampler, so the grouped kernels launch their
+    float64 forms under ``torch.float64``."""
 
     def __init__(self, mas: Sequence[ModelArrays], config: GibbsConfig,
                  nchains: int = 64, device=None, chunk_size: int = 50,
                  record: str = "compact8", record_thin: int = 1,
-                 telemetry: bool = True, metrics=None, mesh=None):
+                 telemetry: bool = True, metrics=None, mesh=None,
+                 dtype=torch.float32):
         self.mesh = mesh
         if mesh is not None:
             if device is not None:
@@ -306,7 +311,7 @@ class EnsembleGibbs(TorchGibbs):
                     "device of each of its blocks")
             self._build_blocks(mas, config, nchains, metrics, dict(
                 chunk_size=chunk_size, record=record,
-                record_thin=record_thin, telemetry=telemetry))
+                record_thin=record_thin, telemetry=telemetry, dtype=dtype))
             return
         device = resolve_device(device)
         self.npulsars = len(mas)
@@ -321,7 +326,7 @@ class EnsembleGibbs(TorchGibbs):
         solos = [TorchGibbs(ma_p, config, nchains=nchains, device=device,
                             chunk_size=chunk_size, tnt_block_size=None,
                             record=record, record_thin=record_thin,
-                            telemetry=telemetry)
+                            telemetry=telemetry, dtype=dtype)
                  for ma_p in per_pulsar]
         self._pulsar_backends = solos
         SamplerBackend.__init__(self, self.stacked, config)
@@ -577,6 +582,13 @@ class EnsembleGibbs(TorchGibbs):
                       c0:c0 + self.nchains])
                   for k, s in enumerate(self._pulsar_backends)]
         return ChainState(*(torch.stack(f) for f in zip(*states)))
+
+    def chain_keys(self, seed: int) -> torch.Tensor:
+        """``(P, C, 2)`` key words of the run ``seed``, pulsar-major (the
+        JAX ensemble's ``chain_keys``: pulsar p's chain c is key ``p * C +
+        c``). The words are the port's Philox keys
+        (``ops/rng.chain_key``), not the JAX package's threefry keys."""
+        return self._chain_keys(seed)
 
     def _chain_keys(self, seed: int) -> torch.Tensor:
         """``(P, C, 2)`` key words: pulsar p's chain c is ``p * C + c`` of

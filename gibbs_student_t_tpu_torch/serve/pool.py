@@ -291,15 +291,24 @@ class SlotPool:
     ``record_thin`` records every that many sweeps (the quantum must be a
     multiple of it); ``metrics`` takes the first quantum's program record
     and ``spans`` the pool's dispatch spans (see the module
-    docstring)."""
+    docstring). ``dtype`` is the JAX pool's; the pool runs float32 only
+    yet: any other dtype raises ``NotImplementedError`` (its lanes kernels
+    have no float64 form, ROADMAP A-11b)."""
 
     def __init__(self, template_ma: ModelArrays, config: GibbsConfig,
                  nlanes: int = 1024, quantum: int = 25,
                  group: int = LANES_GROUP, device=None,
                  record: str = "compact8", telemetry: bool = True,
                  heterogeneous: bool = False, record_thin: int = 1,
-                 metrics=None, spans=None):
+                 metrics=None, spans=None, dtype=torch.float32):
         device = resolve_device(device)
+        if dtype != torch.float32:
+            # the CPU too: the pool's buffers and lanes entries are float32
+            raise NotImplementedError(
+                f"SlotPool runs float32 only, got {dtype}: its float64 form "
+                "(the lanes entries tnt_lanes, white_mh_lanes, "
+                "hyper_mh_lanes, chol_fused_lanes, tri_solve_T_lanes) is "
+                "ROADMAP A-11b")
         if group % LANES_GROUP:
             raise ValueError(
                 f"group ({group}) must be a multiple of {LANES_GROUP}: the "

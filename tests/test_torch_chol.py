@@ -139,8 +139,11 @@ def test_leading_dims_flatten():
 
 def test_wrappers_reject_bad_operands():
     S = torch.eye(4).expand(2, 4, 4).contiguous()
+    # float32 or float64, one dtype a call
     with pytest.raises(ValueError):
-        chol.chol_fused(S.double(), torch.zeros(2, 4, dtype=torch.float64))
+        chol.chol_fused(S.double(), torch.zeros(2, 4))
+    with pytest.raises(ValueError):
+        chol.chol_fused(S.half(), torch.zeros(2, 4, dtype=torch.float16))
     with pytest.raises(ValueError):
         chol.chol_fused(S, torch.zeros(2, 3))
     with pytest.raises(RuntimeError):

@@ -213,7 +213,7 @@ def test_sweep_draws_refuses_bad_operands():
     with pytest.raises(ValueError, match="sweep"):
         rng.sweep_draws(keys, torch.zeros(3, dtype=torch.int64), sh, tab)
     with pytest.raises(ValueError, match="shapes"):
-        rng.sweep_draws(keys, torch.tensor(0), sh.double(), tab)
+        rng.sweep_draws(keys, torch.tensor(0), sh.half(), tab)
     with pytest.raises(RuntimeError, match="no kernel"):
         rng.sweep_draws(keys.to("meta"), torch.tensor(0, device="meta"),
                         sh.to("meta"), tab)
